@@ -1,0 +1,19 @@
+from repro_torch.sparse.coo import (
+    IrregularCOO,
+    SubjectCOO,
+    from_dense_slices,
+    random_irregular,
+    random_parafac2,
+)
+from repro_torch.sparse.bucketing import BucketPlan, plan_buckets, route_formats
+
+__all__ = [
+    "IrregularCOO",
+    "SubjectCOO",
+    "from_dense_slices",
+    "random_irregular",
+    "random_parafac2",
+    "BucketPlan",
+    "plan_buckets",
+    "route_formats",
+]

@@ -1,0 +1,154 @@
+"""Size-bucketing planner: ragged subjects -> a few fixed-shape buckets.
+
+Subjects vary in row count I_k, nonzero-column count c_k and nonzero count
+nnz_k; they are grouped into buckets whose padded geometry bounds padding
+waste while keeping the number of distinct shapes small. Pad targets are
+rounded up to multiples of ``row_align`` / ``col_align``.
+
+``col_align=128`` is kept as the default so that this planner builds exactly
+the plan of ``repro.sparse.bucketing`` (where 128 is the TPU lane quantum);
+whether Hopper wants another default is an open question (ROADMAP).
+
+The CC format densifies each slice over its kept columns, so a bucket costs
+``Kb * I_pad * C_pad`` cells whatever its nonzero count (``padding_waste``).
+Only the CC format is ported so far: ``route_formats`` accepts ``"cc"`` and
+raises ``NotImplementedError`` for the SCOO routes (ROADMAP Queue A item 10).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence
+
+import numpy as np
+
+__all__ = ["BucketPlan", "plan_buckets", "route_formats"]
+
+
+def _round_up(x: int, align: int) -> int:
+    return max(align, ((int(x) + align - 1) // align) * align)
+
+
+@dataclasses.dataclass(frozen=True)
+class BucketPlan:
+    """Assignment of subject indices to padded-shape buckets."""
+
+    shapes: List[tuple]          # [(I_pad, C_pad)] per bucket
+    members: List[np.ndarray]    # [int32 arrays of subject ids] per bucket
+    # padded nonzero count N_pad per bucket (SCOO layout); None when the
+    # plan was built without nnz_counts
+    nnz_pads: Optional[List[int]] = None
+
+    @property
+    def n_buckets(self) -> int:
+        return len(self.shapes)
+
+    def padding_waste(self, row_counts: Sequence[int], col_counts: Sequence[int]) -> float:
+        """Fraction of padded cells that are padding (the CC format's cost)."""
+        used = 0
+        total = 0
+        for (ip, cp), mem in zip(self.shapes, self.members):
+            for k in mem:
+                used += int(row_counts[k]) * int(col_counts[k])
+                total += ip * cp
+        return 1.0 - used / max(total, 1)
+
+    def bucket_nnz(self, nnz_counts: Sequence[int]) -> List[int]:
+        """True nonzero count per bucket."""
+        nz = np.asarray(nnz_counts, dtype=np.int64)
+        return [int(nz[mem].sum()) for mem in self.members]
+
+    def bucket_densities(self, nnz_counts: Sequence[int]) -> List[float]:
+        """Per-bucket density: true nonzeros over the densified CC cell count
+        ``n_members * I_pad * C_pad``."""
+        return [
+            nnz / max(len(mem) * ip * cp, 1)
+            for (ip, cp), mem, nnz in zip(
+                self.shapes, self.members, self.bucket_nnz(nnz_counts))
+        ]
+
+    def stats(self, row_counts: Sequence[int], col_counts: Sequence[int],
+              nnz_counts: Sequence[int],
+              formats: Optional[Sequence[str]] = None) -> List[dict]:
+        """Per-bucket records (shape, members, nnz, density, chosen format) —
+        what ``decompose --json`` reports."""
+        out = []
+        nnzs = self.bucket_nnz(nnz_counts)
+        dens = self.bucket_densities(nnz_counts)
+        for i, ((ip, cp), mem) in enumerate(zip(self.shapes, self.members)):
+            rec = {
+                "i_pad": ip, "c_pad": cp, "n_subjects": len(mem),
+                "nnz": nnzs[i], "density": dens[i],
+            }
+            if self.nnz_pads is not None:
+                rec["nnz_pad"] = self.nnz_pads[i]
+            if formats is not None:
+                rec["format"] = formats[i]
+            out.append(rec)
+        return out
+
+
+def plan_buckets(
+    row_counts: Sequence[int],
+    col_counts: Sequence[int],
+    *,
+    max_buckets: int = 4,
+    row_align: int = 8,
+    col_align: int = 128,
+    nnz_counts: Optional[Sequence[int]] = None,
+    nnz_align: int = 8,
+    sort_by: str = "area",
+) -> BucketPlan:
+    """Greedy quantile bucketing on (I_k, c_k[, nnz_k]).
+
+    Sort subjects by padded cost (``"area"`` = I_k * c_k, or ``"nnz"``) and
+    split them into ``max_buckets`` contiguous groups of roughly equal count;
+    each bucket pads to its member maximum, and buckets that end up with one
+    shape merge. With ``nnz_counts`` every bucket also gets its pad target
+    ``N_pad = round_up(max member nnz, nnz_align)`` in ``plan.nnz_pads``.
+    """
+    rc = np.asarray(row_counts, dtype=np.int64)
+    cc = np.asarray(col_counts, dtype=np.int64)
+    if rc.shape != cc.shape or rc.ndim != 1 or rc.size == 0:
+        raise ValueError("row_counts/col_counts must be equal-length 1-D, non-empty")
+    nz = None
+    if nnz_counts is not None:
+        nz = np.asarray(nnz_counts, dtype=np.int64)
+        if nz.shape != rc.shape:
+            raise ValueError("nnz_counts must match row_counts in length")
+    if sort_by == "area":
+        key = rc * cc
+    elif sort_by == "nnz":
+        if nz is None:
+            raise ValueError("sort_by='nnz' needs nnz_counts")
+        key = nz
+    else:
+        raise ValueError(f"unknown sort_by {sort_by!r}; choose 'area' or 'nnz'")
+    order = np.argsort(key, kind="stable")
+    splits = np.array_split(order, int(min(max_buckets, rc.size)))
+    merged: dict = {}
+    for grp in splits:
+        if grp.size == 0:
+            continue
+        shape = (_round_up(int(rc[grp].max()), row_align),
+                 _round_up(int(cc[grp].max()), col_align))
+        grp = grp.astype(np.int32)
+        merged[shape] = np.concatenate([merged[shape], grp]) if shape in merged else grp
+    shapes = list(merged.keys())
+    members = [merged[s] for s in shapes]
+    nnz_pads = None
+    if nz is not None:
+        nnz_pads = [_round_up(int(nz[mem].max()), nnz_align) for mem in members]
+    return BucketPlan(shapes=shapes, members=members, nnz_pads=nnz_pads)
+
+
+def route_formats(plan: BucketPlan, nnz_counts: Sequence[int], *,
+                  format: str = "cc") -> List[str]:
+    """Per-bucket device format for ``bucketize``. Only ``"cc"`` is ported;
+    the SCOO and density-routed formats are ROADMAP Queue A item 10."""
+    if format == "cc":
+        return ["cc"] * plan.n_buckets
+    if format in ("scoo", "auto"):
+        raise NotImplementedError(
+            f"format={format!r} needs the SCOO device format, not yet ported "
+            "(ROADMAP Queue A item 10); use format='cc'")
+    raise ValueError(f"unknown format {format!r}; choose from 'cc', 'scoo', 'auto'")
