@@ -9,7 +9,8 @@ Phases, any failure exits non-zero:
 1. the card (nvidia-smi name and power limit), torch/CUDA versions, and the
    kernel build from ``src/repro_torch/csrc``;
 2. each of the four kernels against its plain torch version on the card, in
-   f32 and f64, over four small geometries, an empty (K=0) bucket and padded
+   f32 and f64, over five small geometries (the reference's four and one at
+   rank 40, the reference's widest cell), an empty (K=0) bucket and padded
    subjects: f64 to 1e-12 absolute, f32 to 1e-6 relative plus 1e-6 of the
    output's largest magnitude (sums in another order differ by a rounding);
 3. the main path: ``choa_like(scale=0.25)``, rank 5, 20 iterations, f32,
@@ -23,8 +24,11 @@ Phases, any failure exits non-zero:
    its plain version's time and one PyTorch call's time (CUDA events,
    median of 20);
 5. a ``torch.profiler`` trace of one main-path ALS iteration: device time
-   by kernel, host time by op, and the device's busy share of the wall
-   time (trace in ``$SMOKE_OUT/als_step_trace.json``).
+   by kernel, host time by op, and the device's busy share of the
+   unprofiled iteration time of phase 3 and of the trace's first-to-last
+   kernel span (the profiler's own per-launch cost inflates the profiled
+   wall time, so that is not a denominator; trace in
+   ``$SMOKE_OUT/als_step_trace.json``).
 
 Files go to ``$SMOKE_OUT`` (default ``smoke_out/``).
 
@@ -53,6 +57,7 @@ GEOMETRIES = [
     dict(seed=1, K=9, J=200, R=8, col_align=128),
     dict(seed=2, K=7, J=21, R=1, col_align=8),
     dict(seed=3, K=11, J=50, R=6, col_align=4, subject_align=8),
+    dict(seed=4, K=10, J=90, R=40, col_align=8),     # the widest template (R <= 64)
 ]
 REPLACES = {
     "fused_procrustes_b": "src/repro/kernels/fused.py:132",
@@ -192,7 +197,8 @@ def phase2_kernels(dev) -> dict:
         if fused.LAUNCHES != before:
             fail("K=0 bucket launched a kernel")
     print(f"[kernels] all four match their plain versions (f32, f64; "
-          f"{len(GEOMETRIES)} geometries, padded subjects, K=0): "
+          f"{len(GEOMETRIES)} geometries, R in {sorted({g['R'] for g in GEOMETRIES})}, "
+          f"padded subjects, K=0): "
           + json.dumps({k: v[0] for k, v in errs.items()}), flush=True)
     return errs
 
@@ -258,7 +264,7 @@ def phase3_main_path(dev):
         fail(f"f64 fit histories differ by {diff64:.3e} > 1e-8")
     if any(v != len(s_auto["buckets"]) * ITERS for v in s_auto["kernel_launches"].values()):
         fail("f64 run did not launch every kernel buckets x iterations times")
-    return bt, state, launches
+    return bt, state, launches, secs / len(hist) * 1e3
 
 
 def time_ms(fn, reps: int = 20) -> float:
@@ -339,8 +345,9 @@ def phase4_times(bt, state, launches, errs):
     return rows
 
 
-def phase5_profile(bt) -> None:
-    """Where one main-path iteration's time goes."""
+def phase5_profile(bt, iter_ms: float) -> None:
+    """Where one main-path iteration's time goes; ``iter_ms`` is the
+    unprofiled auto-route time per iteration from phase 3."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import Parafac2Options, als_step, init_state
@@ -363,8 +370,15 @@ def phase5_profile(bt) -> None:
     # it launched, which would count them twice
     kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
-    print(f"[profile] one auto iteration: wall {wall_ms:.1f} ms (profiled), device "
-          f"busy {busy_ms:.2f} ms = {busy_ms / wall_ms:.1%}, idle {1 - busy_ms / wall_ms:.1%}")
+    runs = [e.time_range for e in prof.events() if str(e.device_type).endswith("CUDA")]
+    if not runs or busy_ms <= 0:
+        fail("the profiled main-path iteration ran nothing on the device")
+    span_ms = (max(r.end for r in runs) - min(r.start for r in runs)) / 1e3
+    print(f"[profile] one auto iteration: device busy {busy_ms:.3f} ms; against the "
+          f"unprofiled {iter_ms:.3f} ms/iter of phase 3: busy {busy_ms / iter_ms:.1%}, "
+          f"idle {1 - busy_ms / iter_ms:.1%}; against the trace's first-to-last "
+          f"kernel span {span_ms:.3f} ms: busy {busy_ms / span_ms:.1%}; profiled wall "
+          f"{wall_ms:.3f} ms (inflated by the profiler, not a denominator)")
     for e in sorted(kernels, key=dev_us, reverse=True)[:12]:
         print(f"[profile] device {dev_us(e) / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:90]}")
     for e in sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:12]:
@@ -388,9 +402,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase1_build()
     errs = phase2_kernels(dev)
-    bt, state, launches = phase3_main_path(dev)
+    bt, state, launches, iter_ms = phase3_main_path(dev)
     rows = phase4_times(bt, state, launches, errs)
-    phase5_profile(bt)
+    phase5_profile(bt, iter_ms)
     print(f"[done] {time.perf_counter() - t0:.1f}s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

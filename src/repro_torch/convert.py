@@ -13,17 +13,20 @@ import numpy as np
 import torch
 
 from repro_torch.core.parafac2 import Parafac2State
+from repro_torch.device import resolve_device
 
 __all__ = ["state_from_arrays", "state_to_arrays"]
 
 
-def state_from_arrays(arrays: Mapping[str, np.ndarray], device="cpu",
+def state_from_arrays(arrays: Mapping[str, np.ndarray], device="cuda",
                       dtype: torch.dtype = torch.float32) -> Parafac2State:
     """``{"H", "V", "W"[, "fit"]}`` numpy arrays -> :class:`Parafac2State`
-    (global W layout; ``fit`` defaults to -inf, the fresh-start value)."""
+    (global W layout; ``fit`` defaults to -inf, the fresh-start value) on
+    ``device``, a GPU by default (raises without one unless ``"cpu"``)."""
     missing = {"H", "V", "W"} - set(arrays)
     if missing:
         raise KeyError(f"state arrays lack {sorted(missing)}")
+    device = resolve_device(device)
 
     def t(a):
         return torch.tensor(np.array(a), dtype=dtype, device=device)

@@ -1,7 +1,8 @@
 """MTTKRP compute backends for the SPARTan ALS step (``repro.core.backend``).
 
 The ALS algebra (``core/parafac2.py``) asks an :class:`MttkrpBackend` for
-the per-bucket stages and never touches a kernel itself. Three backends:
+the per-bucket stages and never touches a kernel itself. Three backend
+names:
 
 ``torch``
     The plain torch math of :mod:`repro_torch.core.spartan`: five streaming
@@ -12,10 +13,10 @@ the per-bucket stages and never touches a kernel itself. Three backends:
     hand-written kernels, on the CPU their plain versions. The projected
     slices Y_k are never built (``project_bucket`` carries Q).
 ``auto``
-    Per bucket: CC buckets on a CUDA device go to ``fused`` at any rank up
-    to the kernels' limit and any C (the reference's R % 8 / C % 128 gate
-    is the TPU's tiling and does not apply); everything else goes to
-    ``torch``.
+    Resolved once from the data's device: ``fused`` on CUDA, at any R and
+    C (the reference's R % 8 / C % 128 gate is the TPU's tiling and does
+    not apply; operands the kernels do not take raise there), ``torch`` on
+    the CPU.
 
 The bucket-level stages (``procrustes_b_bucket`` / ``project_bucket`` /
 ``mode1_xkv_bucket`` / ``ykv_bucket`` / ``mode{1,2,3}_bucket``) are what
@@ -39,7 +40,6 @@ __all__ = [
     "MttkrpBackend",
     "TorchBackend",
     "FusedBackend",
-    "AutoBackend",
     "BACKENDS",
     "get_backend",
     "dispatch_tally",
@@ -199,59 +199,21 @@ class FusedBackend(TorchBackend):
         return self.mode3(None, None, H, b.subject_mask, YkV=YkV)
 
 
-class AutoBackend(MttkrpBackend):
-    """Per-bucket dispatch: a CC bucket on a CUDA device, in f32 or f64, at
-    R <= ``fused.MAX_R``, takes the fused kernels; everything else the torch
-    math. The predicate depends only on the bucket's device, dtype and R,
-    so every stage of an iteration makes the same choice and the projected
-    representation (Q on the fused route, Yc on the torch route) stays
-    coherent."""
-
-    name = "auto"
-
-    def __init__(self):
-        self._torch = TorchBackend()
-        self._fused = FusedBackend()
-
-    @staticmethod
-    def _fused_ok(b, R: int) -> bool:
-        return (b.vals.is_cuda and b.vals.dtype in (torch.float32, torch.float64)
-                and R <= fused.MAX_R)
-
-    def _pick(self, b, R: int) -> MttkrpBackend:
-        return self._fused if self._fused_ok(b, R) else self._torch
-
-    def procrustes_b_bucket(self, b, H, Wb, V, Vg=None):
-        return self._pick(b, H.shape[0]).procrustes_b_bucket(b, H, Wb, V, Vg)
-
-    def mode1_xkv_bucket(self, b, Q, XkV, Wb):
-        return self._pick(b, Q.shape[-1]).mode1_xkv_bucket(b, Q, XkV, Wb)
-
-    def project_bucket(self, b, Q):
-        return self._pick(b, Q.shape[-1]).project_bucket(b, Q)
-
-    def ykv_bucket(self, b, proj, V):
-        return self._pick(b, V.shape[-1]).ykv_bucket(b, proj, V)
-
-    def mode1_bucket(self, b, proj, Wb, V=None, *, YkV=None):
-        return self._pick(b, Wb.shape[-1]).mode1_bucket(b, proj, Wb, V, YkV=YkV)
-
-    def mode2_bucket(self, b, proj, H, Wb):
-        return self._pick(b, H.shape[0]).mode2_bucket(b, proj, H, Wb)
-
-    def mode3_bucket(self, b, proj, H, V=None, *, YkV=None):
-        return self._pick(b, H.shape[0]).mode3_bucket(b, proj, H, V, YkV=YkV)
+BACKENDS = {"torch": TorchBackend(), "fused": FusedBackend()}
 
 
-BACKENDS = {"torch": TorchBackend(), "fused": FusedBackend(), "auto": AutoBackend()}
-
-
-def get_backend(name) -> MttkrpBackend:
+def get_backend(name, device=None) -> MttkrpBackend:
     """Resolve a backend by name ("torch" | "fused" | "auto") or pass an
-    :class:`MttkrpBackend` instance through unchanged."""
+    :class:`MttkrpBackend` instance through unchanged. ``auto`` needs the
+    data's ``device``: ``fused`` on CUDA, ``torch`` on the CPU."""
     if isinstance(name, MttkrpBackend):
         return name
+    if name == "auto":
+        if device is None:
+            raise ValueError("backend 'auto' is resolved from the data's device; "
+                             "pass device=")
+        return BACKENDS["fused" if torch.device(device).type == "cuda" else "torch"]
     if name not in BACKENDS:
-        raise ValueError(
-            f"unknown MTTKRP backend {name!r}; choose from {sorted(BACKENDS)}")
+        raise ValueError(f"unknown MTTKRP backend {name!r}; choose from "
+                         f"{sorted(BACKENDS) + ['auto']}")
     return BACKENDS[name]

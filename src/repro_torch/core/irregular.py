@@ -18,6 +18,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.sparse.bucketing import BucketPlan, plan_buckets, route_formats
 from repro_torch.sparse.coo import IrregularCOO
 
@@ -143,11 +144,12 @@ def bucketize(
     subject_align: int = 1,
     nnz_align: int = 8,
     dtype: torch.dtype = torch.float32,
-    device="cpu",
+    device="cuda",
     plan: Optional[BucketPlan] = None,
     format: str = "cc",
 ) -> Bucketed:
-    """Host conversion IrregularCOO -> Bucketed CC tensors on ``device``.
+    """Host conversion IrregularCOO -> Bucketed CC tensors on ``device``
+    (a GPU by default: raises without one unless ``device="cpu"``).
 
     Staged in numpy and uploaded to ``device`` once per array. ``plan``
     defaults to :func:`plan_buckets` with the reference's arguments, so both
@@ -162,6 +164,7 @@ def bucketize(
                             col_align=col_align, nnz_counts=nnzc,
                             nnz_align=nnz_align, sort_by="area")
     route_formats(plan, nnzc, format=format)      # raises for the SCOO formats
+    device = resolve_device(device)
     stage = _staging_dtype(dtype)
     J = data.n_cols
     buckets: List[Bucket] = []

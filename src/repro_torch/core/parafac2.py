@@ -120,7 +120,7 @@ def als_step(data: Bucketed, state: Parafac2State,
     H, V, W = state.H, state.V, state.W
     R, J, K = opts.rank, data.n_cols, data.n_subjects
     dt, dev = opts.dtype, data.device
-    be = get_backend(opts.backend)
+    be = get_backend(opts.backend, dev)
     cons = constraints_for(opts)
     sweeps = opts.nnls_sweeps
 

@@ -8,7 +8,7 @@
 // kept columns), Vg [K, C, R] (gathered V rows), Q / XkV [K, I, R],
 // Wb [K, R] (W rows, subject mask folded in), H [R, R], col_mask [K, C].
 // T is float or double; every sum accumulates in T (accum_dtype: f32 -> f32,
-// f64 -> f64). R <= 32. All tensors are contiguous, row-major.
+// f64 -> f64). R <= 64. All tensors are contiguous, row-major.
 //
 // What bounds them on an H100 (3.35 TB/s, 67 TFLOP/s f32 outside the tensor
 // cores): at rank R each slab element takes part in about 2R operations, so
@@ -34,6 +34,7 @@ constexpr int kThreads = 128;
 constexpr int kMaxDynamicSmem = 232448;    // 227 KB, the most a block may use
 constexpr int kDefaultSmem = 48 * 1024;    // above this, opt in per kernel
 constexpr int kMode1Blocks = 2048;         // first-level blocks of F2
+constexpr int kMaxR = 64;                  // the largest rank instantiated
 
 // Row stride of an [n, R] tile in shared memory: odd, so that 32 lanes
 // reading rows c = lane .. lane+31 hit 32 distinct banks.
@@ -85,6 +86,11 @@ __device__ inline void row_times_vg(const T* __restrict__ row, const T* vg_s,
     if (r < R) acc[r] = warp_sum(acc[r]);
 }
 
+// Output entries per lane when one warp writes a row of R <= RMAX entries:
+// a compile-time count, so RMAX <= 32 keeps a single `lane < R` test.
+template <int RMAX>
+constexpr int kLaneSlots = (RMAX + kWarp - 1) / kWarp;
+
 // acc[lane] without indexing a register array by a run-time value.
 template <typename T, int RMAX>
 __device__ inline T pick(const T (&acc)[RMAX], int idx) {
@@ -125,15 +131,20 @@ procrustes_b_kernel(const T* __restrict__ vals, const T* __restrict__ vg,
   for (int i = warp; i < I; i += blockDim.x / kWarp) {
     T acc[RMAX];
     row_times_vg<T, RMAX>(vals_k + (int64_t)i * C, vg_s, C, R, RS, lane, acc);
-    if (lane < R) {
-      // B[i, l] = sum_r (XkV[i, r] * w[r]) * H[l, r], with l = lane
-      T b = T(0);
+    // B[i, l] = sum_r (XkV[i, r] * w[r]) * H[l, r]; the lane writes
+    // l = lane (and l = lane + 32 when RMAX = 64)
 #pragma unroll
-      for (int r = 0; r < RMAX; ++r)
-        if (r < R) b += (acc[r] * w_s[r]) * h_s[lane * R + r];
-      const int64_t o = (k * I + i) * R + lane;
-      xkv[o] = pick<T, RMAX>(acc, lane);
-      bout[o] = b;
+    for (int j = 0; j < kLaneSlots<RMAX>; ++j) {
+      const int l = lane + j * kWarp;
+      if (l < R) {
+        T b = T(0);
+#pragma unroll
+        for (int r = 0; r < RMAX; ++r)
+          if (r < R) b += (acc[r] * w_s[r]) * h_s[l * R + r];
+        const int64_t o = (k * I + i) * R + l;
+        xkv[o] = pick<T, RMAX>(acc, l);
+        bout[o] = b;
+      }
     }
   }
 }
@@ -266,7 +277,11 @@ ykv_kernel(const T* __restrict__ vals, const T* __restrict__ q,
   for (int i = warp; i < I; i += blockDim.x / kWarp) {
     T acc[RMAX];
     row_times_vg<T, RMAX>(vals_k + (int64_t)i * C, vg_s, C, R, RS, lane, acc);
-    if (lane < R) x_s[i * RS + lane] = pick<T, RMAX>(acc, lane);
+#pragma unroll
+    for (int j = 0; j < kLaneSlots<RMAX>; ++j) {
+      const int l = lane + j * kWarp;
+      if (l < R) x_s[i * RS + l] = pick<T, RMAX>(acc, l);
+    }
   }
   __syncthreads();
   for (int p = threadIdx.x; p < R * R; p += blockDim.x) {
@@ -354,19 +369,22 @@ cudaError_t launch_f2(const void* q, const void* xkv, const void* wb,
 
 }  // namespace
 
-// Instantiate a launcher for T in {float, double} and RMAX in {8, 16, 32}.
+// Instantiate a launcher for T in {float, double} and RMAX in
+// {8, 16, 32, 64}.
 #define SPARTAN_DISPATCH(LAUNCH, ...)                                         \
   do {                                                                        \
-    if (R < 1 || R > 32) return (int)cudaErrorInvalidValue;                   \
+    if (R < 1 || R > kMaxR) return (int)cudaErrorInvalidValue;                \
     if (dtype == 0) {                                                         \
       if (R <= 8) return (int)LAUNCH<float, 8>(__VA_ARGS__);                  \
       if (R <= 16) return (int)LAUNCH<float, 16>(__VA_ARGS__);                \
-      return (int)LAUNCH<float, 32>(__VA_ARGS__);                             \
+      if (R <= 32) return (int)LAUNCH<float, 32>(__VA_ARGS__);                \
+      return (int)LAUNCH<float, 64>(__VA_ARGS__);                             \
     }                                                                         \
     if (dtype == 1) {                                                         \
       if (R <= 8) return (int)LAUNCH<double, 8>(__VA_ARGS__);                 \
       if (R <= 16) return (int)LAUNCH<double, 16>(__VA_ARGS__);               \
-      return (int)LAUNCH<double, 32>(__VA_ARGS__);                            \
+      if (R <= 32) return (int)LAUNCH<double, 32>(__VA_ARGS__);               \
+      return (int)LAUNCH<double, 64>(__VA_ARGS__);                            \
     }                                                                         \
     return (int)cudaErrorInvalidValue;                                        \
   } while (0)
@@ -386,7 +404,7 @@ int spartan_fused_procrustes_b(int dtype, const void* vals, const void* vg,
 int spartan_fused_mode1_xkv(int dtype, const void* q, const void* xkv,
                             const void* wb, void* partials, void* out, int K,
                             int I, int R, int n_partials, void* stream) {
-  if (R < 1 || R > 32 || n_partials < 1) return (int)cudaErrorInvalidValue;
+  if (R < 1 || R > kMaxR || n_partials < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)launch_f2<float>(q, xkv, wb, partials, out, K, I, R, n_partials, s);
   if (dtype == 1) return (int)launch_f2<double>(q, xkv, wb, partials, out, K, I, R, n_partials, s);

@@ -20,7 +20,7 @@ Each wrapper takes its kernel's plain torch version only for tensors on the
 CPU (the tests); for a CUDA tensor it launches the kernel from
 ``repro_torch/csrc/fused.cu`` or raises, and adds one to ``LAUNCHES[name]``
 where it launches. Kernels accumulate per ``accum_dtype`` and take float32
-and float64 at R <= 32. The kernel library is built at first use.
+and float64 at R <= 64. The kernel library is built at first use.
 """
 from __future__ import annotations
 
@@ -50,7 +50,7 @@ KERNELS = ("fused_procrustes_b", "fused_mode1_xkv", "fused_mode2_compact",
 # kernel launches per wrapper; plain-version calls on the CPU are not counted
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
-MAX_R = 32
+MAX_R = 64                 # kMaxR in csrc/fused.cu
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -153,6 +153,11 @@ def _stream(dev: torch.device) -> ctypes.c_void_p:
 
 
 def _raise_on(err: int, name: str) -> None:
+    if err == 1:                 # cudaErrorInvalidValue: a limit of the kernel
+        raise RuntimeError(
+            f"{name}: CUDA error 1 (invalid value) at launch: the kernel does "
+            f"not take these operands; a shared-memory tile of the bucket's C "
+            f"or I rows above the 227 KB a block may use is the usual cause")
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 

@@ -25,13 +25,15 @@ from repro_torch.core import (Bucketed, Parafac2Options, Parafac2State,
                               bucketize, fit)
 from repro_torch.core.constraints import constraint_summary
 from repro_torch.data import choa_like, movielens_like
+from repro_torch.device import resolve_device
 from repro_torch.kernels import fused
 from repro_torch.launch.summary import resolved_options, run_summary
 from repro_torch.sparse import IrregularCOO, plan_buckets, random_irregular, route_formats
 
-__all__ = ["load_dataset", "resolve_device", "prepare", "decompose", "main"]
+__all__ = ["load_dataset", "prepare", "decompose", "main"]
 
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
+PRECISION = {"float32": "f32", "float64": "f64"}   # the summary's spelling
 
 
 def load_dataset(name: str, scale: float, seed: int) -> IrregularCOO:
@@ -44,23 +46,6 @@ def load_dataset(name: str, scale: float, seed: int) -> IrregularCOO:
             n_subjects=max(16, int(10_000 * scale)), n_cols=5_000,
             max_rows=100, avg_nnz_per_subject=500, seed=seed)
     raise ValueError(name)
-
-
-def resolve_device(name: str) -> torch.device:
-    """``cuda`` needs a GPU and raises without one (no quiet CPU run);
-    ``cpu`` is explicit. On CUDA, float32 products are kept in full float32
-    (TF32 off for matmuls and cuDNN)."""
-    if name == "cpu":
-        return torch.device("cpu")
-    if name != "cuda":
-        raise ValueError(f"unknown device {name!r}; choose 'cuda' or 'cpu'")
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available: the decomposition runs "
-                           "on a GPU by default; pass --device cpu to run on "
-                           "the CPU")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    return torch.device("cuda")
 
 
 def prepare(data: IrregularCOO, *, buckets: int, device: torch.device,
@@ -139,8 +124,8 @@ def main(argv=None) -> dict:
         "decompose",
         resolved_options(opts, format="cc", tol=args.tol, seed=args.seed),
         dataset=args.dataset, scale=args.scale, rank=args.rank,
-        engine="host", backend=args.backend, precision="f32", tol=args.tol,
-        check_every=10, seed=args.seed, format="cc",
+        engine="host", backend=args.backend, precision=PRECISION[args.dtype],
+        tol=args.tol, check_every=None, seed=args.seed, format="cc",
         buckets=bucket_stats, device_bytes=device_bytes,
         constraints=constraint_summary(specs), compress="none",
         v_zero_fraction=float((V_np == 0.0).mean()),

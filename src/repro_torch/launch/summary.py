@@ -19,8 +19,10 @@ SCHEMA_VERSION = 2
 
 def resolved_options(opts=None, **extra) -> Dict[str, Any]:
     """Canonical option block from a ``Parafac2Options`` (+ launcher extras).
-    The keys are the reference's; engine, check_every, w_layout and compress
-    carry the only values the port runs (host, 10, global, none)."""
+    The keys are the reference's; engine, w_layout and compress carry the
+    only values the port runs (host, global, none), and check_every the
+    reference's option default (10), which the host engine does not read:
+    the launcher's top-level ``check_every`` is None."""
     block: Dict[str, Any] = {}
     if opts is not None:
         block.update(

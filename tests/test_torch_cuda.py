@@ -26,6 +26,7 @@ GEOMETRIES = [
     dict(seed=1, K=9, J=200, R=8, col_align=128),
     dict(seed=2, K=7, J=21, R=1, col_align=8),
     dict(seed=3, K=11, J=50, R=6, col_align=4, subject_align=8),
+    dict(seed=4, K=10, J=90, R=40, col_align=8),     # the widest template (R <= 64)
 ]
 PLAIN = {
     "fused_procrustes_b": fused.procrustes_b_plain,
@@ -107,8 +108,8 @@ def test_kernels_reject_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="contiguous"):
         fused.fused_ykv(v32, torch.rand((3, 4, 8), device=dev).transpose(1, 2), Vg.float())
     with pytest.raises(ValueError, match="R <="):
-        fused.fused_ykv(v32, torch.rand((3, 8, 33), device=dev),
-                        torch.rand((3, 12, 33), device=dev))
+        fused.fused_ykv(v32, torch.rand((3, 8, fused.MAX_R + 1), device=dev),
+                        torch.rand((3, 12, fused.MAX_R + 1), device=dev))
 
 
 @pytest.mark.cuda

@@ -74,7 +74,7 @@ def test_plan_buckets_identical(kw):
 @pytest.mark.parametrize("kw", [dict(col_align=128), dict(col_align=4, subject_align=8)])
 def test_bucketize_cc_byte_identical(dtype, jdtype, kw):
     data = t_data.choa_like(scale=0.002, seed=0)
-    bt = bucketize(data, dtype=dtype, **kw)
+    bt = bucketize(data, device="cpu", dtype=dtype, **kw)
     bj = j_bucketize(j_data.choa_like(scale=0.002, seed=0), dtype=jdtype, **kw)
     assert (bt.n_subjects, bt.n_cols, bt.norm_sq) == (bj.n_subjects, bj.n_cols, bj.norm_sq)
     assert len(bt.buckets) == len(bj.buckets)
@@ -88,7 +88,7 @@ def test_bucketize_cc_byte_identical(dtype, jdtype, kw):
 
 def test_bucket_contractions_match():
     data = t_data.choa_like(scale=0.002, seed=0)
-    bt = bucketize(data, dtype=torch.float64, col_align=4)
+    bt = bucketize(data, device="cpu", dtype=torch.float64, col_align=4)
     bj = j_bucketize(j_data.choa_like(scale=0.002, seed=0), dtype=jnp.float64, col_align=4)
     rng = np.random.default_rng(0)
     V = rng.random((data.n_cols, 5))
@@ -108,9 +108,9 @@ def test_unported_formats_raise():
     data = t_data.choa_like(scale=0.001, seed=0)
     for fmt in ("scoo", "auto"):
         with pytest.raises(NotImplementedError, match="Queue A item 10"):
-            bucketize(data, format=fmt)
+            bucketize(data, device="cpu", format=fmt)
     with pytest.raises(ValueError):
-        bucketize(data, format="bcc")
+        bucketize(data, device="cpu", format="bcc")
 
 
 def test_port_imports_neither_jax_nor_the_reference():

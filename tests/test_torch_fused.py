@@ -52,7 +52,7 @@ def _setup(dtype, *, seed, K, J, R, col_align, subject_align=1, buckets=2,
     bkw = dict(max_buckets=buckets, col_align=col_align,
                subject_align=subject_align)
     bt_j = j_bucketize(j_random_irregular(**kw), dtype=JDT[dtype], **bkw)
-    bt_t = bucketize(random_irregular(**kw), dtype=dtype, **bkw)
+    bt_t = bucketize(random_irregular(**kw), device="cpu", dtype=dtype, **bkw)
     rng = np.random.default_rng(seed)
     H, V, W = (rng.standard_normal(s) for s in ((R, R), (J, R), (K, R)))
     Qs = [rng.standard_normal((b.kb, b.i_pad, R)) for b in bt_j.buckets]

@@ -38,7 +38,7 @@ def choa():
     jopts = JOptions(rank=5, dtype=jnp.float64, backend="jnp")
     s0 = j_init_state(bj, jopts, seed=0)
     _, hist = j_fit(bj, jopts, max_iters=ITERS, tol=0.0, state=s0)
-    bt = bucketize(choa_like(scale=0.002, seed=0), dtype=torch.float64)
+    bt = bucketize(choa_like(scale=0.002, seed=0), device="cpu", dtype=torch.float64)
     arrays = {k: np.asarray(getattr(s0, k)) for k in ("H", "V", "W")}
     return dict(bj=bj, bt=bt, jopts=jopts, s0=s0, arrays=arrays, hist=np.asarray(hist))
 
@@ -50,7 +50,8 @@ def _opts(backend, **kw):
 @pytest.mark.parametrize("backend", ["torch", "fused", "auto"])
 def test_als_step_matches_reference(choa, backend):
     s1_ref = j_als_step(choa["bj"], choa["s0"], choa["jopts"])
-    s1 = als_step(choa["bt"], state_from_arrays(choa["arrays"], dtype=torch.float64),
+    s1 = als_step(choa["bt"],
+                  state_from_arrays(choa["arrays"], device="cpu", dtype=torch.float64),
                   _opts(backend))
     for k in ("H", "V", "W", "fit"):
         np.testing.assert_allclose(getattr(s1, k).numpy(), np.asarray(getattr(s1_ref, k)),
@@ -59,7 +60,7 @@ def test_als_step_matches_reference(choa, backend):
 
 @pytest.mark.parametrize("backend", ["torch", "fused"])
 def test_host_fit_history_matches_reference(choa, backend):
-    state0 = state_from_arrays(choa["arrays"], dtype=torch.float64)
+    state0 = state_from_arrays(choa["arrays"], device="cpu", dtype=torch.float64)
     state, hist = fit(choa["bt"], _opts(backend), max_iters=ITERS, tol=0.0, state=state0)
     assert len(hist) == ITERS and np.all(np.isfinite(hist))
     assert np.max(np.abs(np.asarray(hist) - choa["hist"])) <= 1e-8
@@ -70,7 +71,7 @@ def test_fit_without_mode1_reuse_matches_reference(choa):
     jopts = JOptions(rank=5, dtype=jnp.float64, backend="jnp", mode1_reuse=False)
     _, want = j_fit(choa["bj"], jopts, max_iters=5, tol=0.0, state=choa["s0"])
     _, got = fit(choa["bt"], _opts("torch", mode1_reuse=False), max_iters=5, tol=0.0,
-                 state=state_from_arrays(choa["arrays"], dtype=torch.float64))
+                 state=state_from_arrays(choa["arrays"], device="cpu", dtype=torch.float64))
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-8)
 
 
@@ -78,7 +79,7 @@ def test_fit_without_mode1_reuse_matches_reference(choa):
 def test_stage_tally_per_iteration(choa, backend, per_bucket):
     """The fused route takes the torch route's five streaming stage calls
     per bucket down to four: the projection pass is gone (Q is carried)."""
-    state0 = state_from_arrays(choa["arrays"], dtype=torch.float64)
+    state0 = state_from_arrays(choa["arrays"], device="cpu", dtype=torch.float64)
     with dispatch_tally() as tally:
         als_step(choa["bt"], state0, _opts(backend))
     assert sum(tally.values()) / len(choa["bt"].buckets) == per_bucket
@@ -89,9 +90,32 @@ def test_cpu_run_launches_no_kernel(choa):
     """On the CPU the fused route runs the plain versions: no launch."""
     fused.reset_launches()
     fit(choa["bt"], _opts("auto"), max_iters=2, tol=0.0,
-        state=state_from_arrays(choa["arrays"], dtype=torch.float64))
+        state=state_from_arrays(choa["arrays"], device="cpu", dtype=torch.float64))
     assert sum(fused.LAUNCHES.values()) == 0
-    assert get_backend("auto")._pick(choa["bt"].buckets[0], 5).name == "torch"
+    assert get_backend("auto", choa["bt"].device).name == "torch"
+
+
+def test_auto_backend_resolves_from_device():
+    """``auto`` is ``fused`` on CUDA at any rank and ``torch`` on the CPU;
+    it needs the device to choose."""
+    assert get_backend("auto", "cuda").name == "fused"
+    assert get_backend("auto", torch.device("cuda", 1)).name == "fused"
+    assert get_backend("auto", "cpu").name == "torch"
+    with pytest.raises(ValueError, match="device"):
+        get_backend("auto")
+    with pytest.raises(ValueError, match="unknown"):
+        get_backend("jnp", "cpu")
+
+
+def test_library_entry_points_default_to_gpu(monkeypatch, choa):
+    """``bucketize`` and ``state_from_arrays`` place data on the GPU unless
+    asked for the CPU, and raise without one."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bucketize(choa_like(scale=0.001, seed=0))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        state_from_arrays(choa["arrays"])
+    assert state_from_arrays(choa["arrays"], device="cpu").V.device.type == "cpu"
 
 
 def test_init_state_seeded_and_injected(choa):
@@ -102,11 +126,11 @@ def test_init_state_seeded_and_injected(choa):
     assert torch.equal(a.W, torch.ones((bt.n_subjects, 5), dtype=torch.float64))
     assert float(a.fit) == -np.inf
     injected = init_state(bt, _opts("torch"), state=state_from_arrays(
-        choa["arrays"], dtype=torch.float32))
+        choa["arrays"], device="cpu", dtype=torch.float32))
     assert injected.V.dtype == torch.float64
     np.testing.assert_array_equal(injected.V.numpy(),
                                   choa["arrays"]["V"].astype(np.float32).astype(np.float64))
-    back = state_to_arrays(state_from_arrays(choa["arrays"], dtype=torch.float64))
+    back = state_to_arrays(state_from_arrays(choa["arrays"], device="cpu", dtype=torch.float64))
     for k in ("H", "V", "W"):
         assert back[k].tobytes() == choa["arrays"][k].tobytes()
 
@@ -130,6 +154,14 @@ def test_decompose_cpu_json_matches_reference_keys(tmp_path):
         [{k: v for k, v in r.items() if k != "device_bytes"} for r in want["buckets"]]
     assert got["kernel_launches"] == dict.fromkeys(fused.KERNELS, 0)
     assert got["device"] == "cpu" and got["platform"] == "cpu"
+    # the host engine reads the fit every iteration: no check interval
+    assert got["precision"] == "f32" and got["check_every"] is None
+
+
+def test_decompose_json_reports_its_precision(tmp_path):
+    got = decompose.main(["--scale", "0.001", "--iters", "1", "--dtype", "float64",
+                          "--device", "cpu", "--json", str(tmp_path / "p.json")])
+    assert got["precision"] == "f64" and got["resolved_options"]["dtype"] == "float64"
 
 
 def test_decompose_without_cuda_raises(monkeypatch):
