@@ -7,28 +7,38 @@ Imports only the port (``src/repro_torch``), never JAX or the JAX package.
 Phases, any failure exits non-zero:
 
 1. the card (nvidia-smi name and power limit), torch/CUDA versions, and the
-   kernel build from ``src/repro_torch/csrc``;
-2. each of the four kernels against its plain torch version on the card, in
-   f32 and f64, over five small geometries (the reference's four and one at
-   rank 40, the reference's widest cell), an empty (K=0) bucket and padded
-   subjects: f64 to 1e-12 absolute, f32 to 1e-6 relative plus 1e-6 of the
-   output's largest magnitude (sums in another order differ by a rounding);
+   kernel build from ``src/repro_torch/csrc`` (``fused.cu`` and
+   ``staged.cu``, one nvcc each, started together);
+2. each of the ten kernels (the four fused, the six staged) against its
+   plain torch version on the card, in f32 and f64, over eight small
+   geometries (the reference's four; R = 40, its widest cell; R = 72, past
+   the widest register tile; C_pad = 1024 at R = 40, which the fused
+   kernels' first whole-subject tiles refused in f64; R = 72 with C_pad =
+   1024 and up to 700 rows a subject, where every fused kernel's
+   shared-memory tile is chunked),
+   an empty (K=0) bucket and padded subjects: f64 to 1e-12 absolute, f32
+   to 1e-6 relative plus 1e-6 of the output's largest magnitude (sums in
+   another order differ by a rounding); every call must launch its kernel;
 3. the main path: ``choa_like(scale=0.25)``, rank 5, 20 iterations, f32,
-   ``backend="auto"``, through ``repro_torch.launch.decompose``'s functions
-   (after two warm-up iterations of each route);
-   each kernel must launch buckets x iterations times, and the fit history
-   must be finite and within 1e-4 of the same fit through ``backend="torch"``
-   on the card; then scale 0.002 in f64 through the entry point's ``main``, both
-   backends, histories within 1e-8;
+   through ``repro_torch.launch.decompose``'s functions on ``backend="auto"``
+   (the fused kernels), ``"staged"`` (the staged kernels) and ``"torch"``,
+   on the same uploaded buckets after two warm-up iterations of each route;
+   each route's kernels must launch buckets x iterations times, and the fit
+   histories must be finite and within 1e-4 of the torch route's; then
+   scale 0.002 in f64 through the entry point's ``main`` on all three
+   routes, histories within 1e-8; then the paths that reach the other two
+   staged kernels: a short ``mode1_reuse=False`` fit (``mode1``, buckets x
+   iterations) and the backend's array-level ``mode3`` over the main
+   path's buckets (once per bucket);
 4. each kernel's time at the main path's largest bucket beside its bound,
    its plain version's time and one PyTorch call's time (CUDA events,
    median of 20);
-5. a ``torch.profiler`` trace of one main-path ALS iteration: device time
-   by kernel, host time by op, and the device's busy share of the
-   unprofiled iteration time of phase 3 and of the trace's first-to-last
-   kernel span (the profiler's own per-launch cost inflates the profiled
-   wall time, so that is not a denominator; trace in
-   ``$SMOKE_OUT/als_step_trace.json``).
+5. a ``torch.profiler`` trace of one main-path ALS iteration on the auto and
+   on the staged route: device time by kernel, host time by op, and the
+   device's busy share of the unprofiled iteration time of phase 3 and of
+   the trace's first-to-last kernel span (the profiler's own per-launch
+   cost inflates the profiled wall time, so that is not a denominator;
+   traces in ``$SMOKE_OUT/als_step_trace_<route>.json``).
 
 Files go to ``$SMOKE_OUT`` (default ``smoke_out/``).
 
@@ -42,6 +52,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 SRC = Path(__file__).resolve().parent / "src"
@@ -57,13 +68,27 @@ GEOMETRIES = [
     dict(seed=1, K=9, J=200, R=8, col_align=128),
     dict(seed=2, K=7, J=21, R=1, col_align=8),
     dict(seed=3, K=11, J=50, R=6, col_align=4, subject_align=8),
-    dict(seed=4, K=10, J=90, R=40, col_align=8),     # the widest template (R <= 64)
+    dict(seed=4, K=10, J=90, R=40, col_align=8),      # the reference's widest cell
+    dict(seed=5, K=8, J=150, R=72, col_align=8),      # past the 64-wide tile
+    dict(seed=6, K=6, J=120, R=40, col_align=1024),   # C_pad = 1024
+    dict(seed=7, K=4, J=60, R=72, col_align=1024, max_rows=700),   # every tile chunked
 ]
+SOURCES = ("fused", "staged")
+FUSED = ("fused_procrustes_b", "fused_mode1_xkv", "fused_mode2_compact", "fused_ykv")
+STAGED = ("ykv", "mode1", "mode1_reuse", "mode2_compact", "mode3", "mode3_reuse")
+ON_MAIN_PATH = {"auto": FUSED, "staged": ("ykv", "mode1_reuse", "mode2_compact",
+                                          "mode3_reuse")}
 REPLACES = {
     "fused_procrustes_b": "src/repro/kernels/fused.py:132",
     "fused_mode1_xkv": "src/repro/kernels/fused.py:196",
     "fused_mode2_compact": "src/repro/kernels/fused.py:261",
     "fused_ykv": "src/repro/kernels/fused.py:338",
+    "ykv": "src/repro/kernels/ykv.py:34",
+    "mode1": "src/repro/kernels/mttkrp_mode1.py:49",
+    "mode1_reuse": "src/repro/kernels/mttkrp_mode1.py:98",
+    "mode2_compact": "src/repro/kernels/mttkrp_mode2.py:35",
+    "mode3": "src/repro/kernels/mttkrp_mode3.py:49",
+    "mode3_reuse": "src/repro/kernels/mttkrp_mode3.py:93",
 }
 
 
@@ -86,6 +111,38 @@ def within(got, want, dtype_is_f64: bool) -> tuple:
     return err, ok
 
 
+def kernels() -> dict:
+    """name -> (wrapper, plain version, source) for the ten kernels."""
+    from repro_torch.kernels import fused, mttkrp_mode1, mttkrp_mode2, mttkrp_mode3, ykv
+
+    f, s = "src/repro_torch/csrc/fused.cu", "src/repro_torch/csrc/staged.cu"
+    return {
+        "fused_procrustes_b": (fused.fused_procrustes_b, fused.procrustes_b_plain, f),
+        "fused_mode1_xkv": (fused.fused_mode1_xkv, fused.mode1_xkv_plain, f),
+        "fused_mode2_compact": (fused.fused_mode2_compact, fused.mode2_compact_plain, f),
+        "fused_ykv": (fused.fused_ykv, fused.ykv_plain, f),
+        "ykv": (ykv.ykv, ykv.ykv_plain, s),
+        "mode1": (mttkrp_mode1.mode1, mttkrp_mode1.mode1_plain, s),
+        "mode1_reuse": (mttkrp_mode1.mode1_reuse, mttkrp_mode1.mode1_reuse_plain, s),
+        "mode2_compact": (mttkrp_mode2.mode2_compact, mttkrp_mode2.mode2_compact_plain, s),
+        "mode3": (mttkrp_mode3.mode3, mttkrp_mode3.mode3_plain, s),
+        "mode3_reuse": (mttkrp_mode3.mode3_reuse, mttkrp_mode3.mode3_reuse_plain, s),
+    }
+
+
+def launches() -> dict:
+    from repro_torch.launch.decompose import kernel_launches
+
+    return dict(kernel_launches())
+
+
+def reset_launches() -> None:
+    from repro_torch.kernels import fused, staged
+
+    fused.reset_launches()
+    staged.reset_launches()
+
+
 def phase1_build():
     import torch
 
@@ -97,51 +154,59 @@ def phase1_build():
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}", flush=True)
-    from repro_torch.kernels import _build, fused
+    from repro_torch.kernels import _build, fused, staged
 
     t0 = time.perf_counter()
-    lib = _build.build("fused")
-    print(f"[build] {lib.name} in {time.perf_counter() - t0:.1f}s", flush=True)
-    log = Path(f"{lib}.log").read_text().splitlines()
-    for line in log:
-        if "Used" in line or "spill" in line:
-            print(f"[ptxas] {line.strip()}")
-    fused._lib()
+    with ThreadPoolExecutor(len(SOURCES)) as pool:     # one nvcc per source
+        libs = list(pool.map(_build.build, SOURCES))
+    print(f"[build] {', '.join(lib.name for lib in libs)} in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    for lib in libs:
+        for line in Path(f"{lib}.log").read_text().splitlines():
+            if "Used" in line or "spill" in line:
+                print(f"[ptxas] {lib.name.split('_')[0]}: {line.strip()}")
+    fused.LIB.lib()
+    staged.LIB.lib()
 
 
-def kernel_args(b, H, V, W, Q):
-    """The four kernels' operands for one bucket, as the fused backend
-    passes them."""
+def kernel_args(b, H, V, W, Q) -> dict:
+    """The ten kernels' operands for one bucket, as the backends pass them."""
+    import torch
     from repro_torch.kernels.common import fold_subject_mask
 
     Vg = b.gather_v(V)
     Wb = fold_subject_mask(W[b.subject_ids.long()], b.subject_mask)
+    Yc = b.project(Q)
+    YkV = torch.bmm(Yc, Vg)
     return {
         "fused_procrustes_b": (b.vals, Vg, Wb, H),
         "fused_mode1_xkv": (Q, b.xk_times_v(V, Vg), Wb),
         "fused_mode2_compact": (b.vals, Q, H, Wb, b.col_mask),
         "fused_ykv": (b.vals, Q, Vg),
+        "ykv": (Yc, Vg),
+        "mode1": (Yc, Vg, Wb),
+        "mode1_reuse": (YkV, Wb),
+        "mode2_compact": (Yc, H, Wb, b.col_mask),
+        "mode3": (Yc, Vg, H, b.subject_mask),
+        "mode3_reuse": (YkV, H, b.subject_mask),
     }
 
 
-PLAIN = {
-    "fused_procrustes_b": "procrustes_b_plain",
-    "fused_mode1_xkv": "mode1_xkv_plain",
-    "fused_mode2_compact": "mode2_compact_plain",
-    "fused_ykv": "ykv_plain",
-}
-
-
 def check_kernels(args_by_kernel, errs: dict) -> None:
-    """Each kernel on the card against its plain version on the same inputs."""
+    """Each kernel on the card against its plain version on the same inputs;
+    each call must launch its kernel once."""
     import torch
-    from repro_torch.kernels import fused
 
+    table = kernels()
     for name, args in args_by_kernel.items():
+        wrapper, plain, _ = table[name]
         f64 = args[0].dtype == torch.float64
-        got = getattr(fused, name)(*args)
-        want = getattr(fused, PLAIN[name])(*args)
+        before = launches()[name]
+        got = wrapper(*args)
+        want = plain(*args)
         torch.cuda.synchronize()
+        if launches()[name] != before + 1:
+            fail(f"{name} did not launch its kernel")
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         for g, w in zip(got, want):
@@ -155,17 +220,50 @@ def check_kernels(args_by_kernel, errs: dict) -> None:
             errs[name] = (max(e, err), max(s, float(w.abs().max()) if w.numel() else 0.0))
 
 
+def check_empty(dtype, dev) -> None:
+    """A K=0 bucket: zeros of the right shapes through every wrapper, and
+    no launch."""
+    import torch
+
+    z = dict(dtype=dtype, device=dev)
+    I, C, R = 8, 16, 5
+    vals, Vg, Q = (torch.zeros(s, **z) for s in ((0, I, C), (0, C, R), (0, I, R)))
+    Yc, YkV, Wb = (torch.zeros(s, **z) for s in ((0, R, C), (0, R, R), (0, R)))
+    H, cm, m = torch.eye(R, **z), torch.zeros((0, C), **z), torch.zeros((0,), **z)
+    args = {
+        "fused_procrustes_b": (vals, Vg, Wb, H), "fused_mode1_xkv": (Q, Q, Wb),
+        "fused_mode2_compact": (vals, Q, H, Wb, cm), "fused_ykv": (vals, Q, Vg),
+        "ykv": (Yc, Vg), "mode1": (Yc, Vg, Wb), "mode1_reuse": (YkV, Wb),
+        "mode2_compact": (Yc, H, Wb, cm), "mode3": (Yc, Vg, H, m),
+        "mode3_reuse": (YkV, H, m),
+    }
+    shapes = {
+        "fused_procrustes_b": [(0, I, R), (0, I, R)], "fused_mode1_xkv": [(R, R)],
+        "fused_mode2_compact": [(0, C, R)], "fused_ykv": [(0, R, R)],
+        "ykv": [(0, R, R)], "mode1": [(R, R)], "mode1_reuse": [(R, R)],
+        "mode2_compact": [(0, C, R)], "mode3": [(0, R)], "mode3_reuse": [(0, R)],
+    }
+    before = launches()
+    for name, (wrapper, _, _) in kernels().items():
+        out = wrapper(*args[name])
+        out = list(out) if isinstance(out, tuple) else [out]
+        if [tuple(o.shape) for o in out] != shapes[name] or any(o.abs().sum() for o in out):
+            fail(f"K=0 bucket: {name} gave wrong shapes or non-zero output")
+    if launches() != before:
+        fail("K=0 bucket launched a kernel")
+
+
 def phase2_kernels(dev) -> dict:
     import numpy as np
     import torch
     from repro_torch.core import bucketize
-    from repro_torch.kernels import fused
     from repro_torch.sparse import random_irregular
 
     errs: dict = {}
     for dtype in (torch.float32, torch.float64):
         for g in GEOMETRIES:
-            data = random_irregular(n_subjects=g["K"], n_cols=g["J"], max_rows=9,
+            data = random_irregular(n_subjects=g["K"], n_cols=g["J"],
+                                    max_rows=g.get("max_rows", 9),
                                     avg_nnz_per_subject=18, seed=g["seed"])
             bt = bucketize(data, max_buckets=2, dtype=dtype, device=dev,
                            col_align=g["col_align"],
@@ -178,35 +276,28 @@ def phase2_kernels(dev) -> dict:
                 Q = torch.tensor(rng.standard_normal((b.kb, b.i_pad, R)),
                                  dtype=dtype, device=dev)
                 check_kernels(kernel_args(b, H, V, W, Q), errs)
-        # an empty bucket: zeros of the right shapes and no launch
-        before = dict(fused.LAUNCHES)
-        z = dict(dtype=dtype, device=dev)
-        outs = [*fused.fused_procrustes_b(torch.zeros((0, 8, 16), **z),
-                                          torch.zeros((0, 16, 5), **z),
-                                          torch.zeros((0, 5), **z), torch.eye(5, **z)),
-                fused.fused_mode1_xkv(torch.zeros((0, 8, 5), **z),
-                                      torch.zeros((0, 8, 5), **z), torch.zeros((0, 5), **z)),
-                fused.fused_mode2_compact(torch.zeros((0, 8, 16), **z),
-                                          torch.zeros((0, 8, 5), **z), torch.eye(5, **z),
-                                          torch.zeros((0, 5), **z), torch.zeros((0, 16), **z)),
-                fused.fused_ykv(torch.zeros((0, 8, 16), **z), torch.zeros((0, 8, 5), **z),
-                                torch.zeros((0, 16, 5), **z))]
-        shapes = [(0, 8, 5), (0, 8, 5), (5, 5), (0, 16, 5), (0, 5, 5)]
-        if [tuple(o.shape) for o in outs] != shapes or any(o.abs().sum() for o in outs):
-            fail("K=0 bucket: wrong shapes or non-zero output")
-        if fused.LAUNCHES != before:
-            fail("K=0 bucket launched a kernel")
-    print(f"[kernels] all four match their plain versions (f32, f64; "
+        check_empty(dtype, dev)
+    print(f"[kernels] all ten match their plain versions (f32, f64; "
           f"{len(GEOMETRIES)} geometries, R in {sorted({g['R'] for g in GEOMETRIES})}, "
-          f"padded subjects, K=0): "
+          f"C_pad up to 1024, padded subjects, K=0): "
           + json.dumps({k: v[0] for k, v in errs.items()}), flush=True)
     return errs
+
+
+def check_launches(route: str, got: dict, want: int) -> None:
+    """The route's main-path kernels launched ``want`` times each, and no
+    other kernel launched."""
+    for name, n in got.items():
+        expect = want if name in ON_MAIN_PATH[route] else 0
+        if n != expect:
+            fail(f"{route}: {name} launched {n} times on the main path, want {expect}")
 
 
 def phase3_main_path(dev):
     import numpy as np
     import torch
-    from repro_torch.kernels import fused
+    from repro_torch.core.backend import get_backend
+    from repro_torch.core.procrustes import solve_q
     from repro_torch.launch import decompose as dec
 
     t0 = time.perf_counter()
@@ -223,48 +314,89 @@ def phase3_main_path(dev):
           f"{t_data:.1f}s, bucketize+upload {t_up:.1f}s", flush=True)
     del data
     kw = dict(rank=5, iters=ITERS, tol=0.0, seed=0, dtype=torch.float32, verbose=False)
-    # two iterations of each route first, so that neither timed run pays for
-    # the first launches (module loads, cuBLAS/cuSOLVER handles)
-    for backend in ("auto", "torch"):
+    routes = ("auto", "staged", "torch")
+    # two iterations of each route first, so that no timed run pays for the
+    # first launches (module loads, cuBLAS/cuSOLVER handles)
+    for backend in routes:
         dec.decompose(bt, backend=backend, **{**kw, "iters": 2})
 
-    fused.reset_launches()                        # counts from 0 for this run
-    torch.cuda.reset_peak_memory_stats()
-    state, hist, secs = dec.decompose(bt, backend="auto", **kw)
-    launches = dict(fused.LAUNCHES)               # read right after the run
-    peak = torch.cuda.max_memory_allocated()
-    print(f"[main] auto: {len(hist)} iters, {secs / len(hist) * 1e3:.2f} ms/iter, "
-          f"peak device memory {peak / 2**30:.2f} GiB, launches {launches}", flush=True)
-    print(f"[main] auto fit history {json.dumps(hist)}", flush=True)
     want = len(bt.buckets) * ITERS
-    for name, n in launches.items():
-        if n != want:
-            fail(f"{name} launched {n} times on the main path, want "
-                 f"buckets x iterations = {want}")
-    if len(hist) != ITERS or not np.all(np.isfinite(hist)):
-        fail("main path fit history is not finite or short")
-
-    _, hist_t, secs_t = dec.decompose(bt, backend="torch", **kw)
-    diff = float(np.max(np.abs(np.asarray(hist) - np.asarray(hist_t))))
-    print(f"[main] torch route: {secs_t / len(hist_t) * 1e3:.2f} ms/iter; "
-          f"max |fit auto - fit torch| over {ITERS} iterations = {diff:.3e}", flush=True)
-    if diff > 1e-4:
-        fail(f"main path fit history differs from the torch route by {diff:.3e} > 1e-4")
+    hist, ms, counts = {}, {}, {}
+    for backend in routes:
+        torch.cuda.reset_peak_memory_stats()
+        state, hist[backend], secs = dec.decompose(bt, backend=backend, **kw)  # counts from 0
+        counts[backend] = launches()                   # read right after the run
+        peak = torch.cuda.max_memory_allocated()
+        ms[backend] = secs / len(hist[backend]) * 1e3
+        if backend == "auto":
+            main_state = state
+        print(f"[main] {backend}: {len(hist[backend])} iters, {ms[backend]:.2f} ms/iter, "
+              f"peak device memory {peak / 2**30:.2f} GiB, launches "
+              f"{ {k: v for k, v in counts[backend].items() if v} }", flush=True)
+        print(f"[main] {backend} fit history {json.dumps(hist[backend])}", flush=True)
+        if len(hist[backend]) != ITERS or not np.all(np.isfinite(hist[backend])):
+            fail(f"{backend}: main path fit history is not finite or short")
+    check_launches("auto", counts["auto"], want)
+    check_launches("staged", counts["staged"], want)
+    if any(counts["torch"].values()):
+        fail("the torch route launched a kernel")
+    for backend in ("auto", "staged"):
+        diff = float(np.max(np.abs(np.asarray(hist[backend]) - np.asarray(hist["torch"]))))
+        print(f"[main] max |fit {backend} - fit torch| over {ITERS} iterations = "
+              f"{diff:.3e}", flush=True)
+        if diff > 1e-4:
+            fail(f"{backend} fit history differs from the torch route by {diff:.3e} > 1e-4")
 
     common = ["--dataset", "choa", "--scale", "0.002", "--rank", "5", "--iters",
               str(ITERS), "--tol", "0", "--dtype", "float64", "--device", "cuda"]
-    s_auto = dec.main(common + ["--backend", "auto", "--json",
-                                str(OUT / "decompose_f64_auto.json")])
-    s_torch = dec.main(common + ["--backend", "torch"])
-    diff64 = float(np.max(np.abs(np.asarray(s_auto["fit_history"])
-                                 - np.asarray(s_torch["fit_history"]))))
-    print(f"[main] scale 0.002 f64: max |fit auto - fit torch| = {diff64:.3e}; "
-          f"launches {s_auto['kernel_launches']}", flush=True)
-    if diff64 > 1e-8:
-        fail(f"f64 fit histories differ by {diff64:.3e} > 1e-8")
-    if any(v != len(s_auto["buckets"]) * ITERS for v in s_auto["kernel_launches"].values()):
-        fail("f64 run did not launch every kernel buckets x iterations times")
-    return bt, state, launches, secs / len(hist) * 1e3
+    s64 = {backend: dec.main(common + ["--backend", backend, "--json",
+                                       str(OUT / f"decompose_f64_{backend}.json")])
+           for backend in routes}
+    for backend in ("auto", "staged"):
+        diff64 = float(np.max(np.abs(np.asarray(s64[backend]["fit_history"])
+                                     - np.asarray(s64["torch"]["fit_history"]))))
+        print(f"[main] scale 0.002 f64: max |fit {backend} - fit torch| = {diff64:.3e}; "
+              f"launches { {k: v for k, v in s64[backend]['kernel_launches'].items() if v} }",
+              flush=True)
+        if diff64 > 1e-8:
+            fail(f"f64 {backend} fit history differs by {diff64:.3e} > 1e-8")
+        check_launches(backend, s64[backend]["kernel_launches"],
+                       len(s64[backend]["buckets"]) * ITERS)
+
+    # the two staged kernels off the main path: mode1 (mode1_reuse=False) ...
+    short = dict(kw, iters=3)
+    _, h_full, _ = dec.decompose(bt, backend="staged", mode1_reuse=False, **short)
+    counts["mode1"] = launches()
+    _, h_full_t, _ = dec.decompose(bt, backend="torch", mode1_reuse=False, **short)
+    diff = float(np.max(np.abs(np.asarray(h_full) - np.asarray(h_full_t))))
+    print(f"[main] staged, mode1_reuse=False, 3 iters: mode1 launched "
+          f"{counts['mode1']['mode1']} times; max |fit - torch| = {diff:.3e}", flush=True)
+    if counts["mode1"]["mode1"] != len(bt.buckets) * 3 or diff > 1e-4:
+        fail("the mode1_reuse=False path did not launch mode1 buckets x iterations "
+             "times or left the torch route's fit")
+    # ... and mode3, from the backend's array-level contraction
+    staged_be, torch_be = get_backend("staged"), get_backend("torch")
+    H, V, W = main_state.H, main_state.V, main_state.W
+    Ycs = []
+    for b in bt.buckets:
+        _, B = torch_be.procrustes_b_bucket(b, H, W[b.subject_ids.long()], V)
+        Ycs.append(b.project(solve_q(B) * b.subject_mask[:, None, None]))
+    reset_launches()
+    rows = [staged_be.mode3(Yc, b.gather_v(V), H, b.subject_mask)
+            for b, Yc in zip(bt.buckets, Ycs)]
+    counts["mode3"] = launches()
+    err = max(within(r, torch_be.mode3(Yc, b.gather_v(V), H, b.subject_mask), False)[0]
+              for r, b, Yc in zip(rows, bt.buckets, Ycs))
+    print(f"[main] array-level mode3 over the {len(bt.buckets)} buckets: launched "
+          f"{counts['mode3']['mode3']} times; max |kernel - torch| = {err:.3e}", flush=True)
+    if counts["mode3"]["mode3"] != len(bt.buckets):
+        fail("the array-level mode3 did not launch once per bucket")
+
+    # each kernel's launches in the run of the path that reaches it
+    path_of = {**dict.fromkeys(FUSED, "auto"), **dict.fromkeys(STAGED, "staged"),
+               "mode1": "mode1", "mode3": "mode3"}
+    per_kernel = {name: counts[path_of[name]][name] for name in (*FUSED, *STAGED)}
+    return bt, main_state, per_kernel, ms
 
 
 def time_ms(fn, reps: int = 20) -> float:
@@ -288,18 +420,28 @@ def time_ms(fn, reps: int = 20) -> float:
 
 def work(name: str, K: int, I: int, C: int, R: int, itemsize: int) -> tuple:
     """(bytes, operations) the function needs: each input read once, each
-    output written once; the slab is dense over the padded kept columns."""
-    slab, ir, cr, kr, rr = K * I * C, K * I * R, K * C * R, K * R, R * R
-    if name == "fused_procrustes_b":
-        return (slab + cr + kr + rr + 2 * ir) * itemsize, 2 * slab * R + ir * (2 * R + 1)
-    if name == "fused_mode1_xkv":
-        return (2 * ir + kr + rr) * itemsize, 2 * ir * R + 2 * K * rr
-    if name == "fused_mode2_compact":
-        return (slab + ir + rr + kr + K * C + cr) * itemsize, 2 * slab * R + cr * (2 * R + 2)
-    return (slab + ir + cr + K * rr) * itemsize, 2 * slab * R + 2 * ir * R
+    output written once; the slab and Yc are dense over the padded kept
+    columns."""
+    slab, ir, cr, kr, rr, krr = K * I * C, K * I * R, K * C * R, K * R, R * R, K * R * R
+    rc = cr                                         # Yc [K, R, C]
+    table = {
+        "fused_procrustes_b": ((slab + cr + kr + rr + 2 * ir), 2 * slab * R + ir * (2 * R + 1)),
+        "fused_mode1_xkv": ((2 * ir + kr + rr), 2 * ir * R + 2 * K * rr),
+        "fused_mode2_compact": ((slab + ir + rr + kr + K * C + cr),
+                                2 * slab * R + cr * (2 * R + 2)),
+        "fused_ykv": ((slab + ir + cr + krr), 2 * slab * R + 2 * ir * R),
+        "ykv": ((rc + cr + krr), 2 * krr * C),
+        "mode1": ((rc + cr + kr + rr), 2 * krr * C + 2 * krr),
+        "mode1_reuse": ((krr + kr + rr), 2 * krr),
+        "mode2_compact": ((rc + rr + kr + K * C + cr), 2 * cr * R + 2 * cr),
+        "mode3": ((rc + cr + rr + K + kr), 2 * krr * C + 2 * krr + kr),
+        "mode3_reuse": ((krr + rr + K + kr), 2 * krr + kr),
+    }
+    nbytes, ops = table[name]
+    return nbytes * itemsize, ops
 
 
-def phase4_times(bt, state, launches, errs):
+def phase4_times(bt, state, per_kernel, errs):
     import torch
     from repro_torch.core.procrustes import solve_q
     from repro_torch.kernels import fused
@@ -312,6 +454,7 @@ def phase4_times(bt, state, launches, errs):
     Q = solve_q(B) * b.subject_mask[:, None, None]
     args = kernel_args(b, H, V, W, Q)
     check_kernels(args, errs)                     # at the main path's shapes too
+    Yc, YkV, m = args["ykv"][0], args["mode1_reuse"][0], b.subject_mask
     library = {
         # one PyTorch call for each function; the port never calls them
         "fused_procrustes_b": lambda: torch.bmm(b.vals, Vg),     # X_k Vg_k only
@@ -319,21 +462,28 @@ def phase4_times(bt, state, launches, errs):
         "fused_mode2_compact": lambda: torch.einsum(
             "kic,kir,rl,kl,kc->kcl", b.vals, Q, H, Wb, b.col_mask),
         "fused_ykv": lambda: torch.einsum("kir,kic,kcl->krl", Q, b.vals, Vg),
+        "ykv": lambda: torch.bmm(Yc, Vg),
+        "mode1": lambda: torch.einsum("krc,kcl,kl->rl", Yc, Vg, Wb),
+        "mode1_reuse": lambda: torch.einsum("krl,kl->rl", YkV, Wb),
+        "mode2_compact": lambda: torch.einsum("krc,rl,kl,kc->kcl", Yc, H, Wb, b.col_mask),
+        "mode3": lambda: torch.einsum("krc,kcl,rl,k->kl", Yc, Vg, H, m),
+        "mode3_reuse": lambda: torch.einsum("krl,rl,k->kl", YkV, H, m),
     }
     K, I, C = b.vals.shape
     R = H.shape[0]
     rows = []
-    for name, a in args.items():
+    for name, (wrapper, plain, source) in kernels().items():
+        a = args[name]
         nbytes, ops = work(name, K, I, C, R, b.vals.element_size())
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / (F64_FLOPS if b.vals.dtype == torch.float64 else F32_FLOPS) * 1e3
         rows.append({
-            "name": name, "route": "cuda", "source": "src/repro_torch/csrc/fused.cu",
-            "replaces": REPLACES[name], "launches": launches[name],
+            "name": name, "route": "cuda", "source": source,
+            "replaces": REPLACES[name], "launches": per_kernel[name],
             "max_abs_err": errs[name][0],
             "max_abs_plain": errs[name][1],      # the scale max_abs_err reads against
-            "ms": time_ms(lambda: getattr(fused, name)(*a)),
-            "plain_ms": time_ms(lambda: getattr(fused, PLAIN[name])(*a)),
+            "ms": time_ms(lambda: wrapper(*a)),
+            "plain_ms": time_ms(lambda: plain(*a)),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": time_ms(library[name]),
@@ -345,44 +495,48 @@ def phase4_times(bt, state, launches, errs):
     return rows
 
 
-def phase5_profile(bt, iter_ms: float) -> None:
-    """Where one main-path iteration's time goes; ``iter_ms`` is the
-    unprofiled auto-route time per iteration from phase 3."""
+def phase5_profile(bt, iter_ms: dict) -> None:
+    """Where one main-path iteration's time goes on the auto and the staged
+    route; ``iter_ms`` is each route's unprofiled time per iteration from
+    phase 3."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import Parafac2Options, als_step, init_state
 
-    opts = Parafac2Options(rank=5, backend="auto")
-    state = als_step(bt, init_state(bt, opts, seed=0), opts)       # warm-up
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state = als_step(bt, state, opts)
-        float(state.fit)                       # the host loop's one sync
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    prof.export_chrome_trace(str(OUT / "als_step_trace.json"))
-    events = prof.key_averages()
-
     def dev_us(e):
         return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
 
-    # device kernels only: an aten op also reports the time of the kernels
-    # it launched, which would count them twice
-    kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
-    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
-    runs = [e.time_range for e in prof.events() if str(e.device_type).endswith("CUDA")]
-    if not runs or busy_ms <= 0:
-        fail("the profiled main-path iteration ran nothing on the device")
-    span_ms = (max(r.end for r in runs) - min(r.start for r in runs)) / 1e3
-    print(f"[profile] one auto iteration: device busy {busy_ms:.3f} ms; against the "
-          f"unprofiled {iter_ms:.3f} ms/iter of phase 3: busy {busy_ms / iter_ms:.1%}, "
-          f"idle {1 - busy_ms / iter_ms:.1%}; against the trace's first-to-last "
-          f"kernel span {span_ms:.3f} ms: busy {busy_ms / span_ms:.1%}; profiled wall "
-          f"{wall_ms:.3f} ms (inflated by the profiler, not a denominator)")
-    for e in sorted(kernels, key=dev_us, reverse=True)[:12]:
-        print(f"[profile] device {dev_us(e) / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:90]}")
-    for e in sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:12]:
-        print(f"[profile] host   {e.self_cpu_time_total / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:90]}")
+    for route in ("auto", "staged"):
+        opts = Parafac2Options(rank=5, backend=route)
+        state = als_step(bt, init_state(bt, opts, seed=0), opts)       # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state = als_step(bt, state, opts)
+            float(state.fit)                       # the host loop's one sync
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.export_chrome_trace(str(OUT / f"als_step_trace_{route}.json"))
+        events = prof.key_averages()
+        # device kernels only: an aten op also reports the time of the kernels
+        # it launched, which would count them twice
+        kernels_ = [e for e in events if str(e.device_type).endswith("CUDA")]
+        busy_ms = sum(dev_us(e) for e in kernels_) / 1e3
+        runs = [e.time_range for e in prof.events() if str(e.device_type).endswith("CUDA")]
+        if not runs or busy_ms <= 0:
+            fail(f"the profiled {route} iteration ran nothing on the device")
+        span_ms = (max(r.end for r in runs) - min(r.start for r in runs)) / 1e3
+        it = iter_ms[route]
+        print(f"[profile] one {route} iteration: device busy {busy_ms:.3f} ms; against "
+              f"the unprofiled {it:.3f} ms/iter of phase 3: busy {busy_ms / it:.1%}, "
+              f"idle {1 - busy_ms / it:.1%}; against the trace's first-to-last kernel "
+              f"span {span_ms:.3f} ms: busy {busy_ms / span_ms:.1%}; profiled wall "
+              f"{wall_ms:.3f} ms (inflated by the profiler, not a denominator)")
+        for e in sorted(kernels_, key=dev_us, reverse=True)[:12]:
+            print(f"[profile] {route} device {dev_us(e) / 1e3:9.3f} ms  x{e.count:<6d} "
+                  f"{e.key[:90]}")
+        for e in sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]:
+            print(f"[profile] {route} host   {e.self_cpu_time_total / 1e3:9.3f} ms  "
+                  f"x{e.count:<6d} {e.key[:90]}")
 
 
 def main() -> int:
@@ -402,8 +556,8 @@ def main() -> int:
     t0 = time.perf_counter()
     phase1_build()
     errs = phase2_kernels(dev)
-    bt, state, launches, iter_ms = phase3_main_path(dev)
-    rows = phase4_times(bt, state, launches, errs)
+    bt, state, per_kernel, iter_ms = phase3_main_path(dev)
+    rows = phase4_times(bt, state, per_kernel, errs)
     phase5_profile(bt, iter_ms)
     print(f"[done] {time.perf_counter() - t0:.1f}s", flush=True)
     print(json.dumps({"kernels": rows}))

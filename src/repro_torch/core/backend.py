@@ -1,7 +1,7 @@
 """MTTKRP compute backends for the SPARTan ALS step (``repro.core.backend``).
 
 The ALS algebra (``core/parafac2.py``) asks an :class:`MttkrpBackend` for
-the per-bucket stages and never touches a kernel itself. Three backend
+the per-bucket stages and never touches a kernel itself. Four backend
 names:
 
 ``torch``
@@ -12,6 +12,13 @@ names:
     The four fused stages of :mod:`repro_torch.kernels.fused`: on CUDA the
     hand-written kernels, on the CPU their plain versions. The projected
     slices Y_k are never built (``project_bucket`` carries Q).
+``staged``
+    The counterpart of the reference's ``pallas``: the torch route's
+    bucket stages, with the array-level contractions (``ykv``, ``mode1``,
+    ``mode2_compact``, ``mode3``) through the six staged kernels of
+    :mod:`repro_torch.kernels.ops` (CUDA kernels on a GPU, their plain
+    versions on the CPU). X_k V and the projection Y_k = Q_k^T X_k stay
+    ``torch.bmm``, as the reference leaves them to XLA.
 ``auto``
     Resolved once from the data's device: ``fused`` on CUDA, at any R and
     C (the reference's R % 8 / C % 128 gate is the TPU's tiling and does
@@ -33,13 +40,14 @@ from typing import Optional
 import torch
 
 from repro_torch.core import spartan
-from repro_torch.kernels import fused
+from repro_torch.kernels import fused, ops
 from repro_torch.kernels.common import fold_subject_mask
 
 __all__ = [
     "MttkrpBackend",
     "TorchBackend",
     "FusedBackend",
+    "StagedBackend",
     "BACKENDS",
     "get_backend",
     "dispatch_tally",
@@ -58,8 +66,8 @@ def dispatch_tally():
             als_step(data, state, opts)
         per_bucket = sum(t.values()) / len(data.buckets)
 
-    The torch route counts 5 per bucket per iteration (procrustes_b,
-    project, mode1, mode2, ykv); the fused route counts 4.
+    The torch and staged routes count 5 per bucket per iteration
+    (procrustes_b, project, mode1, mode2, ykv); the fused route counts 4.
     """
     global _TALLY
     prev, _TALLY = _TALLY, collections.Counter()
@@ -199,12 +207,38 @@ class FusedBackend(TorchBackend):
         return self.mode3(None, None, H, b.subject_mask, YkV=YkV)
 
 
-BACKENDS = {"torch": TorchBackend(), "fused": FusedBackend()}
+class StagedBackend(TorchBackend):
+    """The staged kernels of :mod:`repro_torch.kernels.ops` (the reference's
+    ``PallasBackend`` on CC buckets): only the array-level contractions are
+    replaced; every bucket stage is the torch route's, which hands them an
+    explicit Yc. Unlike the reference, f64 operands stay f64 (its demotion
+    to f32 is a limit of the TPU compiler, not of the card). H is made
+    contiguous here (a transposed solve result is a view)."""
+
+    name = "staged"
+
+    def ykv(self, Yc, Vg):
+        return ops.ykv(Yc, Vg)
+
+    def mode1(self, Yc, Vg, Wb, subject_mask, *, YkV=None):
+        return ops.mttkrp_mode1(Yc, Vg, Wb, subject_mask=subject_mask, YkV=YkV)
+
+    def mode2_compact(self, Yc, H, Wb, col_mask, subject_mask):
+        return ops.mttkrp_mode2_compact(Yc, H.contiguous(), Wb, col_mask=col_mask,
+                                        subject_mask=subject_mask)
+
+    def mode3(self, Yc, Vg, H, subject_mask, *, YkV=None):
+        return ops.mttkrp_mode3(Yc, Vg, H.contiguous(), subject_mask=subject_mask,
+                                YkV=YkV)
+
+
+BACKENDS = {"torch": TorchBackend(), "fused": FusedBackend(),
+            "staged": StagedBackend()}
 
 
 def get_backend(name, device=None) -> MttkrpBackend:
-    """Resolve a backend by name ("torch" | "fused" | "auto") or pass an
-    :class:`MttkrpBackend` instance through unchanged. ``auto`` needs the
+    """Resolve a backend by name ("torch" | "fused" | "staged" | "auto") or
+    pass an :class:`MttkrpBackend` instance through unchanged. ``auto`` needs the
     data's ``device``: ``fused`` on CUDA, ``torch`` on the CPU."""
     if isinstance(name, MttkrpBackend):
         return name

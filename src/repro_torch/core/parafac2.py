@@ -12,8 +12,8 @@ One ALS iteration (Algorithm 2 of the paper) on the bucketed CC format:
   4. Fit = 1 - sqrt(sum_k ||X_k - Q_k H S_k V^T||^2) / ||X||_F.
 
 ``mode1_reuse=True`` uses Y_k V = Q_k^T (X_k V) from step 1. The stages go
-through a compute backend (``opts.backend``: "torch" | "fused" | "auto",
-see :mod:`repro_torch.core.backend`). Only the host engine is ported:
+through a compute backend (``opts.backend``: "torch" | "fused" | "staged" |
+"auto", see :mod:`repro_torch.core.backend`). Only the host engine is ported:
 ``fit`` runs one ``als_step`` per iteration and reads the fit on the host.
 """
 from __future__ import annotations
@@ -52,7 +52,7 @@ class Parafac2Options:
     mode1_reuse: bool = True            # reuse X_k V from step 1 for mode 1
     nnls_sweeps: int = 5
     dtype: torch.dtype = torch.float32
-    backend: str = "auto"               # "torch" | "fused" | "auto"
+    backend: str = "auto"               # "torch" | "fused" | "staged" | "auto"
 
     def __post_init__(self):
         if self.constraints is not None:

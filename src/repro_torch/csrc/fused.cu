@@ -8,7 +8,15 @@
 // kept columns), Vg [K, C, R] (gathered V rows), Q / XkV [K, I, R],
 // Wb [K, R] (W rows, subject mask folded in), H [R, R], col_mask [K, C].
 // T is float or double; every sum accumulates in T (accum_dtype: f32 -> f32,
-// f64 -> f64). R <= 64. All tensors are contiguous, row-major.
+// f64 -> f64). All tensors are contiguous, row-major.
+//
+// Any R, I and C: the arithmetic runs on register tiles of RMAX = 8, 16, 32
+// or 64 entries of R; above 64 (WIDE) a kernel loops over R in 64-wide
+// chunks and sums the chunks' contributions to outputs that need all of R.
+// The small per-subject operands (Vg_k, Q_k, X_k Vg_k) are staged in shared
+// memory in chunks of rows that fit in a block's 227 KB; a subject whose
+// whole tile fits (the main path's buckets) is the one-chunk case and is
+// staged once.
 //
 // What bounds them on an H100 (3.35 TB/s, 67 TFLOP/s f32 outside the tensor
 // cores): at rank R each slab element takes part in about 2R operations, so
@@ -27,14 +35,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
 constexpr int kWarp = 32;
 constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / kWarp;
 constexpr int kMaxDynamicSmem = 232448;    // 227 KB, the most a block may use
 constexpr int kDefaultSmem = 48 * 1024;    // above this, opt in per kernel
 constexpr int kMode1Blocks = 2048;         // first-level blocks of F2
-constexpr int kMaxR = 64;                  // the largest rank instantiated
+constexpr int kTile = 64;                  // the widest register tile of R
 
 // Row stride of an [n, R] tile in shared memory: odd, so that 32 lanes
 // reading rows c = lane .. lane+31 hit 32 distinct banks.
@@ -54,36 +65,32 @@ __device__ inline T* smem_base() {
   return reinterpret_cast<T*>(smem_raw);
 }
 
-// Copy a contiguous [n, R] tile from global memory into shared memory with
-// row stride RS.
+// Copy the [n, w] tile at src (a row-major matrix with leading dimension
+// ld) into shared memory with row stride RS. A tile fits in shared memory,
+// so its offsets fit in 32 bits.
 template <typename T>
-__device__ inline void stage_rows(T* dst, const T* __restrict__ src, int n,
-                                  int R, int RS) {
-  for (int t = threadIdx.x; t < n * R; t += blockDim.x) {
-    const int row = t / R;
-    dst[row * RS + (t - row * R)] = src[t];
+__device__ inline void stage_tile(T* dst, const T* __restrict__ src, int n,
+                                  int w, int ld, int RS) {
+  for (int t = threadIdx.x; t < n * w; t += blockDim.x) {
+    const int row = t / w, col = t - row * w;
+    dst[row * RS + col] = src[row * ld + col];
   }
 }
 
-// One warp computes one slab row's x[r] = sum_c vals[i, c] * Vg[c, r]:
-// lanes stride over c (coalesced loads), then a butterfly sum leaves the
-// full row sum in every lane.
+// One warp adds a slab row piece's x[r] += sum_c row[c] * vg_s[c, r] over
+// c < cn, r < RW: lanes stride over c (coalesced loads). The caller sums
+// the lanes (warp_sum) once every chunk of the row is in.
 template <typename T, int RMAX>
 __device__ inline void row_times_vg(const T* __restrict__ row, const T* vg_s,
-                                    int C, int R, int RS, int lane,
+                                    int cn, int RW, int RS, int lane,
                                     T (&acc)[RMAX]) {
-#pragma unroll
-  for (int r = 0; r < RMAX; ++r) acc[r] = T(0);
-  for (int c = lane; c < C; c += kWarp) {
+  for (int c = lane; c < cn; c += kWarp) {
     const T v = row[c];
     const T* vrow = vg_s + c * RS;
 #pragma unroll
     for (int r = 0; r < RMAX; ++r)
-      if (r < R) acc[r] += v * vrow[r];
+      if (r < RW) acc[r] += v * vrow[r];
   }
-#pragma unroll
-  for (int r = 0; r < RMAX; ++r)
-    if (r < R) acc[r] = warp_sum(acc[r]);
 }
 
 // Output entries per lane when one warp writes a row of R <= RMAX entries:
@@ -105,45 +112,100 @@ __device__ inline T pick(const T (&acc)[RMAX], int idx) {
 // F1 fused_procrustes_b. Replaces src/repro/kernels/fused.py
 // fused_procrustes_b (pallas_call at :153): XkV_k = X_k Vg_k and
 // B_k = (XkV_k * w_k) H^T in one pass over the slab. Bound: the slab bytes.
-// One block per subject: Vg_k and H in shared memory, one warp per slab row,
-// B formed from the row sums in registers, so XkV is written but never read
-// back. The TPU kernel's block_c chunking (a VMEM budget) has no
-// counterpart: a block reads its rows straight from device memory.
+// One block per subject: Vg_k (in CC-row chunks), H and w_k in shared
+// memory, one warp per slab row, B formed from the row sums in registers, so
+// XkV is written but never read back. WIDE (R > 64): H and w_k are read
+// from global memory and B sums the R chunks in place (each entry has one
+// owning lane, so the sum is in a fixed order). The TPU kernel's block_c
+// chunking (a VMEM budget) has no counterpart: a block reads its rows
+// straight from device memory.
 // ---------------------------------------------------------------------------
-template <typename T, int RMAX>
+template <typename T, int RMAX, bool WIDE, bool CHUNKED>
 __global__ void __launch_bounds__(kThreads)
 procrustes_b_kernel(const T* __restrict__ vals, const T* __restrict__ vg,
                     const T* __restrict__ wb, const T* __restrict__ h,
                     T* __restrict__ xkv, T* __restrict__ bout,
-                    int I, int C, int R) {
-  const int RS = row_stride(R);
-  T* vg_s = smem_base<T>();                 // [C, RS]
-  T* h_s = vg_s + (size_t)C * RS;           // [R, R]
-  T* w_s = h_s + R * R;                     // [R]
+                    int I, int C, int R, int CC) {
+  const int RS = row_stride(WIDE ? RMAX : R);
+  T* vg_s = smem_base<T>();                 // [CC, RS]
+  T* h_s = vg_s + (size_t)CC * RS;          // [R, R]  (not WIDE)
+  T* w_s = h_s + R * R;                     // [R]     (not WIDE)
   const int64_t k = blockIdx.x;
-  stage_rows(vg_s, vg + k * C * R, C, R, RS);
-  for (int t = threadIdx.x; t < R * R; t += blockDim.x) h_s[t] = h[t];
-  for (int t = threadIdx.x; t < R; t += blockDim.x) w_s[t] = wb[k * R + t];
-  __syncthreads();
-
+  const T* vg_k = vg + k * C * R;
+  if (!WIDE) {
+    for (int t = threadIdx.x; t < R * R; t += blockDim.x) h_s[t] = h[t];
+    for (int t = threadIdx.x; t < R; t += blockDim.x) w_s[t] = wb[k * R + t];
+  }
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   const T* vals_k = vals + k * I * C;
-  for (int i = warp; i < I; i += blockDim.x / kWarp) {
-    T acc[RMAX];
-    row_times_vg<T, RMAX>(vals_k + (int64_t)i * C, vg_s, C, R, RS, lane, acc);
-    // B[i, l] = sum_r (XkV[i, r] * w[r]) * H[l, r]; the lane writes
-    // l = lane (and l = lane + 32 when RMAX = 64)
+
+  // Row i's XkV[i, r0:r0+RW] is in acc (every lane): write it, and B.
+  auto finish_row = [&](int i, T (&acc)[RMAX], int r0, int RW) {
 #pragma unroll
-    for (int j = 0; j < kLaneSlots<RMAX>; ++j) {
-      const int l = lane + j * kWarp;
-      if (l < R) {
+    for (int r = 0; r < RMAX; ++r)
+      if (r < RW) acc[r] = warp_sum(acc[r]);
+    const int64_t o = (k * I + i) * R;
+    if constexpr (!WIDE) {
+      // B[i, l] = sum_r (XkV[i, r] * w[r]) * H[l, r]; the lane writes
+      // l = lane (and l = lane + 32 when RMAX = 64)
+#pragma unroll
+      for (int j = 0; j < kLaneSlots<RMAX>; ++j) {
+        const int l = lane + j * kWarp;
+        if (l < R) {
+          T b = T(0);
+#pragma unroll
+          for (int r = 0; r < RMAX; ++r)
+            if (r < R) b += (acc[r] * w_s[r]) * h_s[l * R + r];
+          xkv[o + l] = pick<T, RMAX>(acc, l);
+          bout[o + l] = b;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kLaneSlots<RMAX>; ++j) {
+        const int l = lane + j * kWarp;
+        if (l < RW) xkv[o + r0 + l] = pick<T, RMAX>(acc, l);
+      }
+      for (int l = lane; l < R; l += kWarp) {
         T b = T(0);
 #pragma unroll
         for (int r = 0; r < RMAX; ++r)
-          if (r < R) b += (acc[r] * w_s[r]) * h_s[l * R + r];
-        const int64_t o = (k * I + i) * R + l;
-        xkv[o] = pick<T, RMAX>(acc, l);
-        bout[o] = b;
+          if (r < RW) b += (acc[r] * wb[k * R + r0 + r]) * h[(int64_t)l * R + r0 + r];
+        bout[o + l] = (r0 == 0) ? b : bout[o + l] + b;
+      }
+    }
+  };
+
+  for (int r0 = 0; r0 < (WIDE ? R : 1); r0 += RMAX) {   // one pass unless WIDE
+    const int RW = WIDE ? min(RMAX, R - r0) : R;
+    if constexpr (!CHUNKED) {               // all of Vg_k at once: a warp per row
+      if (r0 > 0) __syncthreads();          // the previous R chunk is done
+      stage_tile(vg_s, vg_k + r0, C, RW, R, RS);
+      __syncthreads();
+      for (int i = warp; i < I; i += kWarps) {
+        T acc[RMAX];
+#pragma unroll
+        for (int r = 0; r < RMAX; ++r) acc[r] = T(0);
+        row_times_vg<T, RMAX>(vals_k + (int64_t)i * C, vg_s, C, RW, RS, lane, acc);
+        finish_row(i, acc, r0, RW);
+      }
+    } else {
+      // Vg_k in chunks of CC rows: each tile of kWarps rows takes every chunk
+      for (int i0 = 0; i0 < I; i0 += kWarps) {
+        const int i = i0 + warp;
+        T acc[RMAX];
+#pragma unroll
+        for (int r = 0; r < RMAX; ++r) acc[r] = T(0);
+        for (int c0 = 0; c0 < C; c0 += CC) {
+          const int cn = min(CC, C - c0);
+          __syncthreads();
+          stage_tile(vg_s, vg_k + (int64_t)c0 * R + r0, cn, RW, R, RS);
+          __syncthreads();
+          if (i < I)
+            row_times_vg<T, RMAX>(vals_k + (int64_t)i * C + c0, vg_s, cn, RW, RS,
+                                  lane, acc);
+        }
+        if (i < I) finish_row(i, acc, r0, RW);   // warp-uniform
       }
     }
   }
@@ -157,38 +219,47 @@ procrustes_b_kernel(const T* __restrict__ vals, const T* __restrict__ vg,
 // order, so the reduction is two-level and deterministic: each first-level
 // block sums a fixed run of subjects into its own [R, R] partial (one thread
 // owns each (r, l) entry), and a second launch sums the partials in block
-// order. No atomics: two runs give the same bits.
+// order. No atomics: two runs give the same bits. Q_k and XkV_k are staged
+// in IT-row tiles and the entries in E-entry chunks, each the whole of it
+// when it fits.
 // ---------------------------------------------------------------------------
-template <typename T>
+template <typename T, bool CHUNKED>
 __global__ void __launch_bounds__(kThreads)
 mode1_partial_kernel(const T* __restrict__ q, const T* __restrict__ xkv,
                      const T* __restrict__ wb, T* __restrict__ partials,
-                     int K, int I, int R, int per_block) {
-  T* q_s = smem_base<T>();                  // [I, R]
-  T* x_s = q_s + I * R;                     // [I, R]
-  T* w_s = x_s + I * R;                     // [R]
-  T* acc_s = w_s + R;                       // [R, R], entry p owned by one thread
+                     int K, int I, int R, int per_block, int IT, int E) {
+  T* q_s = smem_base<T>();                  // [IT, R]
+  T* x_s = q_s + IT * R;                    // [IT, R]
+  T* w_s = x_s + IT * R;                    // [R]
+  T* acc_s = w_s + R;                       // [E], entry p owned by one thread
   const int RR = R * R;
-  for (int p = threadIdx.x; p < RR; p += blockDim.x) acc_s[p] = T(0);
   const int k0 = blockIdx.x * per_block;
   const int k1 = min(K, k0 + per_block);
-  for (int k = k0; k < k1; ++k) {
-    __syncthreads();                        // the previous subject is done
-    for (int t = threadIdx.x; t < I * R; t += blockDim.x) {
-      q_s[t] = q[(int64_t)k * I * R + t];
-      x_s[t] = xkv[(int64_t)k * I * R + t];
+  for (int e0 = 0; e0 < (CHUNKED ? RR : 1); e0 += (CHUNKED ? E : 1)) {   // one pass unless CHUNKED
+    const int en = CHUNKED ? min(E, RR - e0) : RR;
+    for (int p = threadIdx.x; p < en; p += blockDim.x) acc_s[p] = T(0);
+    for (int k = k0; k < k1; ++k) {
+      for (int t0 = 0; t0 < (CHUNKED ? I : 1); t0 += (CHUNKED ? IT : 1)) {
+        const int in = CHUNKED ? min(IT, I - t0) : I;
+        __syncthreads();                    // the previous tile is done
+        const int64_t base = ((int64_t)k * I + t0) * R;
+        for (int t = threadIdx.x; t < in * R; t += blockDim.x) {
+          q_s[t] = q[base + t];
+          x_s[t] = xkv[base + t];
+        }
+        for (int t = threadIdx.x; t < R; t += blockDim.x) w_s[t] = wb[(int64_t)k * R + t];
+        __syncthreads();
+        for (int p = threadIdx.x; p < en; p += blockDim.x) {
+          const int r = (e0 + p) / R, l = (e0 + p) - r * R;
+          T s = T(0);
+          for (int i = 0; i < in; ++i) s += q_s[i * R + r] * x_s[i * R + l];
+          acc_s[p] += s * w_s[l];
+        }
+      }
     }
-    for (int t = threadIdx.x; t < R; t += blockDim.x) w_s[t] = wb[(int64_t)k * R + t];
-    __syncthreads();
-    for (int p = threadIdx.x; p < RR; p += blockDim.x) {
-      const int r = p / R, l = p - r * R;
-      T s = T(0);
-      for (int i = 0; i < I; ++i) s += q_s[i * R + r] * x_s[i * R + l];
-      acc_s[p] += s * w_s[l];
-    }
+    for (int p = threadIdx.x; p < en; p += blockDim.x)
+      partials[(int64_t)blockIdx.x * RR + e0 + p] = acc_s[p];
   }
-  for (int p = threadIdx.x; p < RR; p += blockDim.x)
-    partials[(int64_t)blockIdx.x * RR + p] = acc_s[p];
 }
 
 template <typename T>
@@ -208,45 +279,92 @@ mode1_reduce_kernel(const T* __restrict__ partials, T* __restrict__ out,
 // ((X_k[:, c]^T Q_k) H) * w_k * col_mask[k, c], the second pass over the
 // slab; Y_k is never written. Bound: the slab bytes. One block per subject,
 // one thread per kept column (loads along C are coalesced across the warp),
-// Q_k, H and w_k in shared memory, the R-wide column of Y_k in registers.
-// Padded columns and masked subjects write zeros.
+// Q_k (in IC-row chunks), H and w_k in shared memory, the R-wide column of
+// Y_k in registers. WIDE (R > 64): H and w_k from global memory, and each
+// output row sums the R chunks in place (one owning thread). Padded columns
+// and masked subjects write zeros.
 // ---------------------------------------------------------------------------
-template <typename T, int RMAX>
+template <typename T, int RMAX, bool WIDE, bool CHUNKED>
 __global__ void __launch_bounds__(kThreads)
 mode2_compact_kernel(const T* __restrict__ vals, const T* __restrict__ q,
                      const T* __restrict__ h, const T* __restrict__ wb,
                      const T* __restrict__ col_mask, T* __restrict__ out,
-                     int I, int C, int R) {
-  const int RS = row_stride(R);
-  T* q_s = smem_base<T>();                  // [I, RS]
-  T* h_s = q_s + I * RS;                    // [R, R]
-  T* w_s = h_s + R * R;                     // [R]
+                     int I, int C, int R, int IC) {
+  const int RS = row_stride(WIDE ? RMAX : R);
+  T* q_s = smem_base<T>();                  // [IC, RS]
+  T* h_s = q_s + (size_t)IC * RS;           // [R, R]  (not WIDE)
+  T* w_s = h_s + R * R;                     // [R]     (not WIDE)
   const int64_t k = blockIdx.x;
-  stage_rows(q_s, q + k * I * R, I, R, RS);
-  for (int t = threadIdx.x; t < R * R; t += blockDim.x) h_s[t] = h[t];
-  for (int t = threadIdx.x; t < R; t += blockDim.x) w_s[t] = wb[k * R + t];
-  __syncthreads();
-
+  const T* q_k = q + k * I * R;
+  if (!WIDE) {
+    for (int t = threadIdx.x; t < R * R; t += blockDim.x) h_s[t] = h[t];
+    for (int t = threadIdx.x; t < R; t += blockDim.x) w_s[t] = wb[k * R + t];
+  }
   const T* vals_k = vals + k * I * C;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    T y[RMAX];                              // Y_k[:, c] = Q_k^T X_k[:, c]
-#pragma unroll
-    for (int r = 0; r < RMAX; ++r) y[r] = T(0);
-    for (int i = 0; i < I; ++i) {
-      const T v = vals_k[(int64_t)i * C + c];
+
+  // y[r] += sum_i X_k[i0 + i, c] * Q_k[i0 + i, r0 + r] over the staged rows
+  auto column_times_q = [&](int c, int i0, int in, int RW, T (&y)[RMAX]) {
+    for (int i = 0; i < in; ++i) {
+      const T v = vals_k[(int64_t)(i0 + i) * C + c];
       const T* qrow = q_s + i * RS;
 #pragma unroll
       for (int r = 0; r < RMAX; ++r)
-        if (r < R) y[r] += v * qrow[r];
+        if (r < RW) y[r] += v * qrow[r];
     }
+  };
+  // Column c's Y_k[r0:r0+RW, c] is in y: write (or add) its output row.
+  auto finish_column = [&](int c, const T (&y)[RMAX], int r0, int RW) {
     const T cm = col_mask[k * C + c];
     T* orow = out + (k * C + c) * R;
-    for (int l = 0; l < R; ++l) {
-      T a = T(0);
+    if constexpr (!WIDE) {
+      for (int l = 0; l < R; ++l) {
+        T a = T(0);
 #pragma unroll
-      for (int r = 0; r < RMAX; ++r)
-        if (r < R) a += y[r] * h_s[r * R + l];
-      orow[l] = a * w_s[l] * cm;
+        for (int r = 0; r < RMAX; ++r)
+          if (r < R) a += y[r] * h_s[r * R + l];
+        orow[l] = a * w_s[l] * cm;
+      }
+    } else {
+      for (int l = 0; l < R; ++l) {
+        T a = T(0);
+#pragma unroll
+        for (int r = 0; r < RMAX; ++r)
+          if (r < RW) a += y[r] * h[(int64_t)(r0 + r) * R + l];
+        a = a * wb[k * R + l] * cm;
+        orow[l] = (r0 == 0) ? a : orow[l] + a;
+      }
+    }
+  };
+
+  for (int r0 = 0; r0 < (WIDE ? R : 1); r0 += RMAX) {   // one pass unless WIDE
+    const int RW = WIDE ? min(RMAX, R - r0) : R;
+    if constexpr (!CHUNKED) {               // all of Q_k at once: a thread per column
+      if (r0 > 0) __syncthreads();          // the previous R chunk is done
+      stage_tile(q_s, q_k + r0, I, RW, R, RS);
+      __syncthreads();
+      for (int c = threadIdx.x; c < C; c += blockDim.x) {
+        T y[RMAX];
+#pragma unroll
+        for (int r = 0; r < RMAX; ++r) y[r] = T(0);
+        column_times_q(c, 0, I, RW, y);
+        finish_column(c, y, r0, RW);
+      }
+    } else {
+      // Q_k in chunks of IC rows: each tile of blockDim columns takes every chunk
+      for (int c0 = 0; c0 < C; c0 += blockDim.x) {
+        const int c = c0 + threadIdx.x;
+        T y[RMAX];
+#pragma unroll
+        for (int r = 0; r < RMAX; ++r) y[r] = T(0);
+        for (int i0 = 0; i0 < I; i0 += IC) {
+          const int in = min(IC, I - i0);
+          __syncthreads();
+          stage_tile(q_s, q_k + (int64_t)i0 * R + r0, in, RW, R, RS);
+          __syncthreads();
+          if (c < C) column_times_q(c, i0, in, RW, y);
+        }
+        if (c < C) finish_column(c, y, r0, RW);
+      }
     }
   }
 }
@@ -256,44 +374,91 @@ mode2_compact_kernel(const T* __restrict__ vals, const T* __restrict__ q,
 // at :357): G_k = Q_k^T X_k Vg_k [R, R], the third pass over the slab; it
 // feeds the mode-3 coldot and the fit. Bound: the slab bytes. One block per
 // subject: the slab rows go through X_k Vg_k exactly as in F1 (one warp per
-// row), the [I, R] product stays in shared memory, and one thread per
-// (r, l) entry reduces Q_k^T (X_k Vg_k) over the rows in a fixed order.
+// row, Vg_k in CC-row chunks), the [IT, R] products of a tile of rows stay
+// in shared memory beside that tile of Q_k, and one thread per (r, l) entry
+// reduces Q_k^T (X_k Vg_k) over the tile's rows in a fixed order, adding the
+// tiles and the 64-wide chunks of l in place (one owning thread per entry).
 // ---------------------------------------------------------------------------
-template <typename T, int RMAX>
+template <typename T, int RMAX, bool WIDE, bool CHUNKED>
 __global__ void __launch_bounds__(kThreads)
 ykv_kernel(const T* __restrict__ vals, const T* __restrict__ q,
-           const T* __restrict__ vg, T* __restrict__ out, int I, int C, int R) {
-  const int RS = row_stride(R);
-  T* vg_s = smem_base<T>();                 // [C, RS]
-  T* q_s = vg_s + (size_t)C * RS;           // [I, RS]
-  T* x_s = q_s + I * RS;                    // [I, RS]  X_k Vg_k
+           const T* __restrict__ vg, T* __restrict__ out, int I, int C, int R,
+           int CC, int IT) {
+  const int RS = row_stride(WIDE ? RMAX : R);   // Vg_k and X_k Vg_k tiles
+  const int RQ = WIDE ? row_stride(R) : RS;     // Q_k tile: all of R
+  T* vg_s = smem_base<T>();                     // [CC, RS]
+  T* q_s = vg_s + (size_t)CC * RS;              // [IT, RQ]
+  T* x_s = q_s + (size_t)IT * RQ;               // [IT, RS]  X_k Vg_k
   const int64_t k = blockIdx.x;
-  stage_rows(vg_s, vg + k * C * R, C, R, RS);
-  stage_rows(q_s, q + k * I * R, I, R, RS);
-  __syncthreads();
-
+  const T* vg_k = vg + k * C * R;
+  const T* q_k = q + k * I * R;
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   const T* vals_k = vals + k * I * C;
-  for (int i = warp; i < I; i += blockDim.x / kWarp) {
-    T acc[RMAX];
-    row_times_vg<T, RMAX>(vals_k + (int64_t)i * C, vg_s, C, R, RS, lane, acc);
+
+  // Tile row i's X_k Vg_k piece is in acc (every lane): keep it in x_s.
+  auto finish_row = [&](int i, T (&acc)[RMAX], int RW) {
+#pragma unroll
+    for (int r = 0; r < RMAX; ++r)
+      if (r < RW) acc[r] = warp_sum(acc[r]);
 #pragma unroll
     for (int j = 0; j < kLaneSlots<RMAX>; ++j) {
       const int l = lane + j * kWarp;
-      if (l < R) x_s[i * RS + l] = pick<T, RMAX>(acc, l);
+      if (l < RW) x_s[i * RS + l] = pick<T, RMAX>(acc, l);
     }
-  }
-  __syncthreads();
-  for (int p = threadIdx.x; p < R * R; p += blockDim.x) {
-    const int r = p / R, l = p - r * R;
-    T g = T(0);
-    for (int i = 0; i < I; ++i) g += q_s[i * RS + r] * x_s[i * RS + l];
-    out[k * R * R + p] = g;
+  };
+
+  for (int r0 = 0; r0 < (WIDE ? R : 1); r0 += RMAX) {   // one pass unless WIDE
+    const int RW = WIDE ? min(RMAX, R - r0) : R;
+    for (int t0 = 0; t0 < (CHUNKED ? I : 1); t0 += (CHUNKED ? IT : 1)) {   // one tile unless CHUNKED
+      const int in = CHUNKED ? min(IT, I - t0) : I;
+      if (r0 > 0 || t0 > 0) __syncthreads();   // the previous tile is done
+      if (!CHUNKED || (CC >= C && t0 == 0)) stage_tile(vg_s, vg_k + r0, C, RW, R, RS);
+      if (!CHUNKED || r0 == 0 || IT < I)
+        stage_tile(q_s, q_k + (int64_t)t0 * R, in, R, R, RQ);
+      __syncthreads();
+      if (!CHUNKED || CC >= C) {                // all of Vg_k at once: a warp per row
+        for (int i = warp; i < in; i += kWarps) {
+          T acc[RMAX];
+#pragma unroll
+          for (int r = 0; r < RMAX; ++r) acc[r] = T(0);
+          row_times_vg<T, RMAX>(vals_k + (int64_t)(t0 + i) * C, vg_s, C, RW, RS,
+                                lane, acc);
+          finish_row(i, acc, RW);
+        }
+      } else {                                  // Vg_k in chunks of CC rows
+        for (int i0 = 0; i0 < in; i0 += kWarps) {
+          const int i = i0 + warp;
+          T acc[RMAX];
+#pragma unroll
+          for (int r = 0; r < RMAX; ++r) acc[r] = T(0);
+          for (int c0 = 0; c0 < C; c0 += CC) {
+            const int cn = min(CC, C - c0);
+            __syncthreads();
+            stage_tile(vg_s, vg_k + (int64_t)c0 * R + r0, cn, RW, R, RS);
+            __syncthreads();
+            if (i < in)
+              row_times_vg<T, RMAX>(vals_k + (int64_t)(t0 + i) * C + c0, vg_s, cn,
+                                    RW, RS, lane, acc);
+          }
+          if (i < in) finish_row(i, acc, RW);
+        }
+      }
+      __syncthreads();
+      // G[r, r0 + l] (+)= sum over the tile's rows of Q[i, r] * XkV[i, r0 + l]
+      for (int p = threadIdx.x; p < R * RW; p += blockDim.x) {
+        const int r = p / RW, l = p - r * RW;
+        T g = T(0);
+        for (int i = 0; i < in; ++i) g += q_s[i * RQ + r] * x_s[i * RS + l];
+        T* o = out + k * R * R + r * R + r0 + l;
+        *o = (CHUNKED && t0 > 0) ? *o + g : g;
+      }
+    }
   }
 }
 
 // ---------------------------------------------------------------------------
-// Host-side launchers
+// Host-side launchers. Each sizes its shared-memory chunks: the whole
+// subject when it fits in kMaxDynamicSmem, else as many rows as fit.
 // ---------------------------------------------------------------------------
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
@@ -304,47 +469,73 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
   return cudaSuccess;
 }
 
-template <typename T, int RMAX>
+// Rows of `stride` elements that fit beside `fixed` elements of T.
+template <typename T>
+int rows_that_fit(size_t fixed, size_t stride) {
+  const size_t cap = kMaxDynamicSmem / sizeof(T);
+  return fixed + stride <= cap ? (int)((cap - fixed) / stride) : 0;
+}
+
+template <typename T, int RMAX, bool WIDE>
 cudaError_t launch_f1(const void* vals, const void* vg, const void* wb,
                       const void* h, void* xkv, void* b, int K, int I, int C,
                       int R, cudaStream_t stream) {
-  const size_t smem = ((size_t)C * row_stride(R) + R * R + R) * sizeof(T);
-  auto kernel = procrustes_b_kernel<T, RMAX>;
+  const int RS = row_stride(WIDE ? RMAX : R);
+  const size_t fixed = WIDE ? 0 : (size_t)R * R + R;
+  const int CC = std::min(C, rows_that_fit<T>(fixed, RS));
+  if (CC < 1) return cudaErrorInvalidValue;
+  const size_t smem = ((size_t)CC * RS + fixed) * sizeof(T);
+  auto kernel = CC < C ? procrustes_b_kernel<T, RMAX, WIDE, true>
+                       : procrustes_b_kernel<T, RMAX, WIDE, false>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   kernel<<<K, kThreads, smem, stream>>>(
       static_cast<const T*>(vals), static_cast<const T*>(vg),
       static_cast<const T*>(wb), static_cast<const T*>(h),
-      static_cast<T*>(xkv), static_cast<T*>(b), I, C, R);
+      static_cast<T*>(xkv), static_cast<T*>(b), I, C, R, CC);
   return cudaGetLastError();
 }
 
-template <typename T, int RMAX>
+template <typename T, int RMAX, bool WIDE>
 cudaError_t launch_f3(const void* vals, const void* q, const void* h,
                       const void* wb, const void* cm, void* out, int K, int I,
                       int C, int R, cudaStream_t stream) {
-  const size_t smem = ((size_t)I * row_stride(R) + R * R + R) * sizeof(T);
-  auto kernel = mode2_compact_kernel<T, RMAX>;
+  const int RS = row_stride(WIDE ? RMAX : R);
+  const size_t fixed = WIDE ? 0 : (size_t)R * R + R;
+  const int IC = std::min(I, rows_that_fit<T>(fixed, RS));
+  if (IC < 1) return cudaErrorInvalidValue;
+  const size_t smem = ((size_t)IC * RS + fixed) * sizeof(T);
+  auto kernel = IC < I ? mode2_compact_kernel<T, RMAX, WIDE, true>
+                       : mode2_compact_kernel<T, RMAX, WIDE, false>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   kernel<<<K, kThreads, smem, stream>>>(
       static_cast<const T*>(vals), static_cast<const T*>(q),
       static_cast<const T*>(h), static_cast<const T*>(wb),
-      static_cast<const T*>(cm), static_cast<T*>(out), I, C, R);
+      static_cast<const T*>(cm), static_cast<T*>(out), I, C, R, IC);
   return cudaGetLastError();
 }
 
-template <typename T, int RMAX>
+template <typename T, int RMAX, bool WIDE>
 cudaError_t launch_f4(const void* vals, const void* q, const void* vg,
                       void* out, int K, int I, int C, int R,
                       cudaStream_t stream) {
-  const size_t smem = ((size_t)C * row_stride(R) + 2 * (size_t)I * row_stride(R)) * sizeof(T);
-  auto kernel = ykv_kernel<T, RMAX>;
+  const int RS = row_stride(WIDE ? RMAX : R), RQ = row_stride(R);
+  int CC = C, IT = I;
+  if (((size_t)C * RS + (size_t)I * (RQ + RS)) * sizeof(T) > (size_t)kMaxDynamicSmem) {
+    // half of the budget to tiles of rows (Q_k and X_k Vg_k), the rest to Vg_k
+    IT = std::min(I, std::max(1, rows_that_fit<T>(0, 2 * (size_t)(RQ + RS))));
+    CC = std::min(C, rows_that_fit<T>((size_t)IT * (RQ + RS), RS));
+  }
+  if (CC < 1) return cudaErrorInvalidValue;
+  const size_t smem = ((size_t)CC * RS + (size_t)IT * (RQ + RS)) * sizeof(T);
+  auto kernel = CC < C || IT < I ? ykv_kernel<T, RMAX, WIDE, true>
+                                 : ykv_kernel<T, RMAX, WIDE, false>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   kernel<<<K, kThreads, smem, stream>>>(
       static_cast<const T*>(vals), static_cast<const T*>(q),
-      static_cast<const T*>(vg), static_cast<T*>(out), I, C, R);
+      static_cast<const T*>(vg), static_cast<T*>(out), I, C, R, CC, IT);
   return cudaGetLastError();
 }
 
@@ -353,13 +544,23 @@ cudaError_t launch_f2(const void* q, const void* xkv, const void* wb,
                       void* partials, void* out, int K, int I, int R,
                       int n_partials, cudaStream_t stream) {
   const int per_block = (K + n_partials - 1) / n_partials;
-  const size_t smem = (2 * (size_t)I * R + R + R * R) * sizeof(T);
-  auto kernel = mode1_partial_kernel<T>;
+  const size_t RR = (size_t)R * R;
+  int IT = I, E = (int)RR;
+  if ((2 * (size_t)I * R + R + RR) * sizeof(T) > (size_t)kMaxDynamicSmem) {
+    // half of the budget to the entries, the rest to tiles of rows
+    E = (int)std::min(RR, (size_t)rows_that_fit<T>(0, 2));
+    IT = std::min(I, rows_that_fit<T>((size_t)E + R, 2 * (size_t)R));
+  }
+  if (IT < 1 || E < 1) return cudaErrorInvalidValue;
+  const size_t smem = (2 * (size_t)IT * R + R + E) * sizeof(T);
+  auto kernel = IT < I || E < (int)RR ? mode1_partial_kernel<T, true>
+                                      : mode1_partial_kernel<T, false>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   kernel<<<n_partials, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(xkv),
-      static_cast<const T*>(wb), static_cast<T*>(partials), K, I, R, per_block);
+      static_cast<const T*>(wb), static_cast<T*>(partials), K, I, R, per_block,
+      IT, E);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   mode1_reduce_kernel<T><<<1, kThreads, 0, stream>>>(
@@ -369,22 +570,24 @@ cudaError_t launch_f2(const void* q, const void* xkv, const void* wb,
 
 }  // namespace
 
-// Instantiate a launcher for T in {float, double} and RMAX in
-// {8, 16, 32, 64}.
+// Instantiate a launcher for T in {float, double}: register tiles of 8, 16,
+// 32 or 64 entries of R, and the 64-wide tile looped over R above 64.
 #define SPARTAN_DISPATCH(LAUNCH, ...)                                         \
   do {                                                                        \
-    if (R < 1 || R > kMaxR) return (int)cudaErrorInvalidValue;                \
+    if (R < 1) return (int)cudaErrorInvalidValue;                             \
     if (dtype == 0) {                                                         \
-      if (R <= 8) return (int)LAUNCH<float, 8>(__VA_ARGS__);                  \
-      if (R <= 16) return (int)LAUNCH<float, 16>(__VA_ARGS__);                \
-      if (R <= 32) return (int)LAUNCH<float, 32>(__VA_ARGS__);                \
-      return (int)LAUNCH<float, 64>(__VA_ARGS__);                             \
+      if (R <= 8) return (int)LAUNCH<float, 8, false>(__VA_ARGS__);           \
+      if (R <= 16) return (int)LAUNCH<float, 16, false>(__VA_ARGS__);         \
+      if (R <= 32) return (int)LAUNCH<float, 32, false>(__VA_ARGS__);         \
+      if (R <= kTile) return (int)LAUNCH<float, kTile, false>(__VA_ARGS__);   \
+      return (int)LAUNCH<float, kTile, true>(__VA_ARGS__);                    \
     }                                                                         \
     if (dtype == 1) {                                                         \
-      if (R <= 8) return (int)LAUNCH<double, 8>(__VA_ARGS__);                 \
-      if (R <= 16) return (int)LAUNCH<double, 16>(__VA_ARGS__);               \
-      if (R <= 32) return (int)LAUNCH<double, 32>(__VA_ARGS__);               \
-      return (int)LAUNCH<double, 64>(__VA_ARGS__);                            \
+      if (R <= 8) return (int)LAUNCH<double, 8, false>(__VA_ARGS__);          \
+      if (R <= 16) return (int)LAUNCH<double, 16, false>(__VA_ARGS__);        \
+      if (R <= 32) return (int)LAUNCH<double, 32, false>(__VA_ARGS__);        \
+      if (R <= kTile) return (int)LAUNCH<double, kTile, false>(__VA_ARGS__);  \
+      return (int)LAUNCH<double, kTile, true>(__VA_ARGS__);                   \
     }                                                                         \
     return (int)cudaErrorInvalidValue;                                        \
   } while (0)
@@ -404,7 +607,7 @@ int spartan_fused_procrustes_b(int dtype, const void* vals, const void* vg,
 int spartan_fused_mode1_xkv(int dtype, const void* q, const void* xkv,
                             const void* wb, void* partials, void* out, int K,
                             int I, int R, int n_partials, void* stream) {
-  if (R < 1 || R > kMaxR || n_partials < 1) return (int)cudaErrorInvalidValue;
+  if (R < 1 || n_partials < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)launch_f2<float>(q, xkv, wb, partials, out, K, I, R, n_partials, s);
   if (dtype == 1) return (int)launch_f2<double>(q, xkv, wb, partials, out, K, I, R, n_partials, s);

@@ -1,0 +1,93 @@
+"""What every kernel wrapper of the port shares: the library of one CUDA
+source (built and loaded at first use, with its C signatures and the launch
+counts of its wrappers) and the operand checks.
+
+A wrapper takes its kernel's plain torch version only for tensors on the
+CPU; for CUDA tensors it checks the operands, calls the C entry point on the
+current stream through :meth:`KernelLib.launch`, which raises on a CUDA
+error, and counts one launch. Nothing here builds or loads anything at
+import time.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional, Sequence
+
+import torch
+
+__all__ = ["KernelLib", "P", "I", "check_shapes", "on_cpu", "dtype_code"]
+
+P = ctypes.c_void_p     # a pointer or the stream
+I = ctypes.c_int        # an int (shape or dtype code)
+_DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
+
+
+class KernelLib:
+    """``csrc/<source>.cu`` as a ctypes library, with ``launches[name]``
+    counting each wrapper's kernel launches (plain-version calls on the CPU
+    are not counted)."""
+
+    def __init__(self, source: str, kernels: Sequence[str],
+                 signatures: Dict[str, list]):
+        self.source = source
+        self.kernels = tuple(kernels)
+        self.launches: Dict[str, int] = dict.fromkeys(self.kernels, 0)
+        self._signatures = signatures
+        self._lib: Optional[ctypes.CDLL] = None
+
+    def reset_launches(self) -> None:
+        for k in self.launches:
+            self.launches[k] = 0
+
+    def lib(self) -> ctypes.CDLL:
+        """Build (if needed) and load the library, once per process."""
+        if self._lib is None:
+            from repro_torch.kernels import _build
+
+            lib = _build.load(self.source)
+            for fn, argtypes in self._signatures.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            self._lib = lib
+        return self._lib
+
+    def launch(self, name: str, fn: str, dev: torch.device, *args) -> None:
+        """Call the C entry point ``fn`` with ``args`` and the current stream
+        of ``dev``; raise on a CUDA error, else count one launch of ``name``."""
+        with torch.cuda.device(dev):
+            stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+            err = getattr(self.lib(), fn)(*args, stream)
+        if err != 0:
+            raise RuntimeError(f"{name}: CUDA error {err} at launch")
+        self.launches[name] += 1
+
+
+def check_shapes(**shapes_and_want) -> None:
+    for name, (t, want) in shapes_and_want.items():
+        if tuple(t.shape) != tuple(want):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, want {tuple(want)}")
+
+
+def on_cpu(*ts: torch.Tensor) -> bool:
+    """True when every operand lies on the CPU; raise if they lie on
+    several devices."""
+    devs = {t.device for t in ts}
+    if len(devs) != 1:
+        raise ValueError(f"operands on several devices: {sorted(map(str, devs))}")
+    return next(iter(devs)).type == "cpu"
+
+
+def dtype_code(*ts: torch.Tensor) -> int:
+    """Raise on what the kernels do not take (a non-CUDA tensor, a dtype
+    other than one of float32/float64 for all operands, a non-contiguous
+    operand); return the dtype code the C entry points take."""
+    dev = ts[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"the kernels run on CUDA tensors, got {dev}")
+    dtypes = {t.dtype for t in ts}
+    if len(dtypes) != 1 or ts[0].dtype not in _DTYPE_CODE:
+        raise TypeError(f"the kernels take one dtype of float32/float64, "
+                        f"got {sorted(map(str, dtypes))}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("the kernels take contiguous tensors")
+    return _DTYPE_CODE[ts[0].dtype]

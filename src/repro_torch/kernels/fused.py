@@ -20,20 +20,23 @@ Each wrapper takes its kernel's plain torch version only for tensors on the
 CPU (the tests); for a CUDA tensor it launches the kernel from
 ``repro_torch/csrc/fused.cu`` or raises, and adds one to ``LAUNCHES[name]``
 where it launches. Kernels accumulate per ``accum_dtype`` and take float32
-and float64 at R <= 64. The kernel library is built at first use.
+and float64 at any R, I and C (operands too large for a block's shared
+memory are staged in chunks). The kernel library is built at first use.
 """
 from __future__ import annotations
 
-import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Tuple
 
 import torch
 
+from repro_torch.kernels._launch import I as _I, P as _P
+from repro_torch.kernels._launch import KernelLib, check_shapes, dtype_code, on_cpu
 from repro_torch.kernels.common import accum_dtype
 
 __all__ = [
     "LAUNCHES",
     "KERNELS",
+    "LIB",
     "fused_procrustes_b",
     "fused_mode1_xkv",
     "fused_mode2_compact",
@@ -47,42 +50,16 @@ __all__ = [
 
 KERNELS = ("fused_procrustes_b", "fused_mode1_xkv", "fused_mode2_compact",
            "fused_ykv")
-# kernel launches per wrapper; plain-version calls on the CPU are not counted
-LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
-
-MAX_R = 64                 # kMaxR in csrc/fused.cu
-_DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_SIGNATURES = {
+LIB = KernelLib("fused", KERNELS, {
     "spartan_fused_procrustes_b": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "spartan_fused_mode1_xkv": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "spartan_fused_mode2_compact": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "spartan_fused_ykv": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "spartan_mode1_partials": [_I],
-}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-_LIB: Optional[ctypes.CDLL] = None
-
-
-def _lib() -> ctypes.CDLL:
-    """The kernel library, built at first use, with its C signatures."""
-    global _LIB
-    if _LIB is None:
-        from repro_torch.kernels import _build
-
-        lib = _build.load("fused")
-        for fn, argtypes in _SIGNATURES.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+})
+# kernel launches per wrapper; plain-version calls on the CPU are not counted
+LAUNCHES = LIB.launches
+reset_launches = LIB.reset_launches
 
 
 # ---------------------------------------------------------------------------
@@ -116,53 +93,6 @@ def ykv_plain(vals, Q, Vg) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# wrapper checks
-# ---------------------------------------------------------------------------
-
-def _check_shapes(**shapes_and_want) -> None:
-    for name, (t, want) in shapes_and_want.items():
-        if tuple(t.shape) != tuple(want):
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, want {tuple(want)}")
-
-
-def _on_cpu(*ts: torch.Tensor) -> bool:
-    devs = {t.device for t in ts}
-    if len(devs) != 1:
-        raise ValueError(f"operands on several devices: {sorted(map(str, devs))}")
-    return next(iter(devs)).type == "cpu"
-
-
-def _check_kernel_operands(R: int, *ts: torch.Tensor) -> int:
-    """Raise on what the kernels do not take; return the dtype code."""
-    dev = ts[0].device
-    if dev.type != "cuda":
-        raise ValueError(f"the fused kernels run on CUDA tensors, got {dev}")
-    dtypes = {t.dtype for t in ts}
-    if len(dtypes) != 1 or ts[0].dtype not in _DTYPE_CODE:
-        raise TypeError(f"the fused kernels take one dtype of float32/float64, "
-                        f"got {sorted(map(str, dtypes))}")
-    if not all(t.is_contiguous() for t in ts):
-        raise ValueError("the fused kernels take contiguous tensors")
-    if not 1 <= R <= MAX_R:
-        raise ValueError(f"the fused kernels take 1 <= R <= {MAX_R}, got R={R}")
-    return _DTYPE_CODE[ts[0].dtype]
-
-
-def _stream(dev: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-
-
-def _raise_on(err: int, name: str) -> None:
-    if err == 1:                 # cudaErrorInvalidValue: a limit of the kernel
-        raise RuntimeError(
-            f"{name}: CUDA error 1 (invalid value) at launch: the kernel does "
-            f"not take these operands; a shared-memory tile of the bucket's C "
-            f"or I rows above the 227 KB a block may use is the usual cause")
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err} at launch")
-
-
-# ---------------------------------------------------------------------------
 # the four stages
 # ---------------------------------------------------------------------------
 
@@ -171,21 +101,18 @@ def fused_procrustes_b(vals, Vg, Wb, H) -> Tuple[torch.Tensor, torch.Tensor]:
     B [K,I,R]) with B_k = (X_k V * w_k) H^T."""
     K, I, C = vals.shape
     R = Vg.shape[-1]
-    _check_shapes(Vg=(Vg, (K, C, R)), Wb=(Wb, (K, R)), H=(H, (R, R)))
+    check_shapes(Vg=(Vg, (K, C, R)), Wb=(Wb, (K, R)), H=(H, (R, R)))
     if K == 0:
         z = vals.new_zeros((0, I, R), dtype=accum_dtype(vals))
         return z, z.clone()
-    if _on_cpu(vals, Vg, Wb, H):
+    if on_cpu(vals, Vg, Wb, H):
         return procrustes_b_plain(vals, Vg, Wb, H)
-    code = _check_kernel_operands(R, vals, Vg, Wb, H)
+    code = dtype_code(vals, Vg, Wb, H)
     XkV = torch.empty((K, I, R), dtype=vals.dtype, device=vals.device)
     B = torch.empty_like(XkV)
-    with torch.cuda.device(vals.device):
-        err = _lib().spartan_fused_procrustes_b(
-            code, vals.data_ptr(), Vg.data_ptr(), Wb.data_ptr(), H.data_ptr(),
-            XkV.data_ptr(), B.data_ptr(), K, I, C, R, _stream(vals.device))
-    _raise_on(err, "fused_procrustes_b")
-    LAUNCHES["fused_procrustes_b"] += 1
+    LIB.launch("fused_procrustes_b", "spartan_fused_procrustes_b", vals.device,
+                code, vals.data_ptr(), Vg.data_ptr(), Wb.data_ptr(), H.data_ptr(),
+                XkV.data_ptr(), B.data_ptr(), K, I, C, R)
     return XkV, B
 
 
@@ -194,23 +121,18 @@ def fused_mode1_xkv(Q, XkV, Wb) -> torch.Tensor:
     M1 [R,R] = sum_k (Q_k^T X_k V) * w_k, the mode-1 reuse identity
     Y_k V = Q_k^T (X_k V) reduced in the same launch."""
     K, I, R = Q.shape
-    _check_shapes(XkV=(XkV, (K, I, R)), Wb=(Wb, (K, R)))
+    check_shapes(XkV=(XkV, (K, I, R)), Wb=(Wb, (K, R)))
     if K == 0:
         return Q.new_zeros((R, R), dtype=accum_dtype(Q))
-    if _on_cpu(Q, XkV, Wb):
+    if on_cpu(Q, XkV, Wb):
         return mode1_xkv_plain(Q, XkV, Wb)
-    code = _check_kernel_operands(R, Q, XkV, Wb)
-    lib = _lib()
-    n_partials = lib.spartan_mode1_partials(K)
+    code = dtype_code(Q, XkV, Wb)
+    n_partials = LIB.lib().spartan_mode1_partials(K)
     partials = torch.empty((n_partials, R, R), dtype=Q.dtype, device=Q.device)
     out = torch.empty((R, R), dtype=Q.dtype, device=Q.device)
-    with torch.cuda.device(Q.device):
-        err = lib.spartan_fused_mode1_xkv(
-            code, Q.data_ptr(), XkV.data_ptr(), Wb.data_ptr(),
-            partials.data_ptr(), out.data_ptr(), K, I, R, n_partials,
-            _stream(Q.device))
-    _raise_on(err, "fused_mode1_xkv")
-    LAUNCHES["fused_mode1_xkv"] += 1
+    LIB.launch("fused_mode1_xkv", "spartan_fused_mode1_xkv", Q.device,
+                code, Q.data_ptr(), XkV.data_ptr(), Wb.data_ptr(),
+                partials.data_ptr(), out.data_ptr(), K, I, R, n_partials)
     return out
 
 
@@ -220,21 +142,17 @@ def fused_mode2_compact(vals, Q, H, Wb, col_mask) -> torch.Tensor:
     Y_k = Q_k^T X_k formed column by column and never stored."""
     K, I, C = vals.shape
     R = Q.shape[-1]
-    _check_shapes(Q=(Q, (K, I, R)), H=(H, (R, R)), Wb=(Wb, (K, R)),
-                  col_mask=(col_mask, (K, C)))
+    check_shapes(Q=(Q, (K, I, R)), H=(H, (R, R)), Wb=(Wb, (K, R)),
+                 col_mask=(col_mask, (K, C)))
     if K == 0:
         return vals.new_zeros((0, C, R), dtype=accum_dtype(vals))
-    if _on_cpu(vals, Q, H, Wb, col_mask):
+    if on_cpu(vals, Q, H, Wb, col_mask):
         return mode2_compact_plain(vals, Q, H, Wb, col_mask)
-    code = _check_kernel_operands(R, vals, Q, H, Wb, col_mask)
+    code = dtype_code(vals, Q, H, Wb, col_mask)
     out = torch.empty((K, C, R), dtype=vals.dtype, device=vals.device)
-    with torch.cuda.device(vals.device):
-        err = _lib().spartan_fused_mode2_compact(
-            code, vals.data_ptr(), Q.data_ptr(), H.data_ptr(), Wb.data_ptr(),
-            col_mask.data_ptr(), out.data_ptr(), K, I, C, R,
-            _stream(vals.device))
-    _raise_on(err, "fused_mode2_compact")
-    LAUNCHES["fused_mode2_compact"] += 1
+    LIB.launch("fused_mode2_compact", "spartan_fused_mode2_compact", vals.device,
+                code, vals.data_ptr(), Q.data_ptr(), H.data_ptr(), Wb.data_ptr(),
+                col_mask.data_ptr(), out.data_ptr(), K, I, C, R)
     return out
 
 
@@ -243,17 +161,14 @@ def fused_ykv(vals, Q, Vg) -> torch.Tensor:
     shared mode-3 / fit product."""
     K, I, C = vals.shape
     R = Q.shape[-1]
-    _check_shapes(Q=(Q, (K, I, R)), Vg=(Vg, (K, C, R)))
+    check_shapes(Q=(Q, (K, I, R)), Vg=(Vg, (K, C, R)))
     if K == 0:
         return vals.new_zeros((0, R, R), dtype=accum_dtype(vals))
-    if _on_cpu(vals, Q, Vg):
+    if on_cpu(vals, Q, Vg):
         return ykv_plain(vals, Q, Vg)
-    code = _check_kernel_operands(R, vals, Q, Vg)
+    code = dtype_code(vals, Q, Vg)
     out = torch.empty((K, R, R), dtype=vals.dtype, device=vals.device)
-    with torch.cuda.device(vals.device):
-        err = _lib().spartan_fused_ykv(
-            code, vals.data_ptr(), Q.data_ptr(), Vg.data_ptr(), out.data_ptr(),
-            K, I, C, R, _stream(vals.device))
-    _raise_on(err, "fused_ykv")
-    LAUNCHES["fused_ykv"] += 1
+    LIB.launch("fused_ykv", "spartan_fused_ykv", vals.device,
+                code, vals.data_ptr(), Q.data_ptr(), Vg.data_ptr(), out.data_ptr(),
+                K, I, C, R)
     return out

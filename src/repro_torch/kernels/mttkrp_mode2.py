@@ -1,0 +1,52 @@
+"""SPARTan mode-2 MTTKRP, compact compute stage (``repro.kernels.
+mttkrp_mode2``), a CUDA kernel.
+
+``A[k] = (Y_k^T H) * W(k,:)`` [K, C, R] for the kept columns only; the
+J-space scatter is :func:`repro_torch.core.spartan.mode2_scatter`.
+``col_mask`` [K,C] zeroes padded columns and ``subject_mask`` [K] (folded
+into W(k,:)) padded subjects, exactly: the sorted-segment scatter relies on
+those zeros. On CUDA tensors :func:`mode2_compact` launches
+``spartan_mode2_compact`` of ``csrc/staged.cu`` (or raises); on the CPU it
+runs :func:`mode2_compact_plain`.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels._launch import check_shapes, dtype_code, on_cpu
+from repro_torch.kernels.common import accum_dtype, fold_subject_mask
+from repro_torch.kernels.staged import LIB
+
+__all__ = ["mode2_compact", "mode2_compact_plain"]
+
+
+def mode2_compact_plain(Yc, H, Wb, col_mask=None, subject_mask=None) -> torch.Tensor:
+    A = ref.mode2_compact_ref(Yc, H, fold_subject_mask(Wb, subject_mask))
+    return A if col_mask is None else A * col_mask[..., None].to(A.dtype)
+
+
+def mode2_compact(Yc: torch.Tensor, H: torch.Tensor, Wb: torch.Tensor,
+                  col_mask: Optional[torch.Tensor] = None,
+                  subject_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Yc [K,R,C], H [R,R], Wb [K,R] -> A [K,C,R]; rows of masked columns
+    and subjects are 0."""
+    K, R, C = Yc.shape
+    check_shapes(H=(H, (R, R)), Wb=(Wb, (K, R)))
+    if col_mask is not None:
+        check_shapes(col_mask=(col_mask, (K, C)))
+    if K == 0 or C == 0:
+        return Yc.new_zeros((K, C, R), dtype=accum_dtype(Yc))
+    if on_cpu(Yc, H, Wb):
+        return mode2_compact_plain(Yc, H, Wb, col_mask, subject_mask)
+    Wb = fold_subject_mask(Wb, subject_mask)
+    cm = (torch.ones((K, C), dtype=Yc.dtype, device=Yc.device) if col_mask is None
+          else col_mask.to(Yc.dtype))
+    code = dtype_code(Yc, H, Wb, cm)
+    out = torch.empty((K, C, R), dtype=Yc.dtype, device=Yc.device)
+    LIB.launch("mode2_compact", "spartan_mode2_compact", Yc.device, code,
+               Yc.data_ptr(), H.data_ptr(), Wb.data_ptr(), cm.data_ptr(),
+               out.data_ptr(), K, R, C)
+    return out

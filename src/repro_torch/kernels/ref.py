@@ -1,7 +1,9 @@
 """Plain torch oracles for the staged kernels (``repro.kernels.ref``).
 
-Each function mirrors one reference kernel's interface; the staged Hopper
-kernels of ROADMAP Queue B 5-8 and 11 are to be held against them.
+Each function mirrors one reference kernel's interface. They are the plain
+versions of the staged kernels (``ykv.py``, ``mttkrp_mode{1,2,3}.py``: the
+CPU route, and what the CUDA kernels are held against); ``gather_matmul_ref``
+waits for the BCC kernel (ROADMAP Queue B 11).
 Accumulation follows :func:`repro_torch.kernels.common.accum_dtype`.
 """
 from __future__ import annotations

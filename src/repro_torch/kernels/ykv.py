@@ -1,0 +1,34 @@
+"""The shared Y_k V product (``repro.kernels.ykv``), a CUDA kernel.
+
+``YkV[k] = Yc_k Vg_k`` [K, R, R] from the compressed slices and the gathered
+V rows: the product that the mode-1 and mode-3 reuse paths and the fit
+share. On CUDA tensors :func:`ykv` launches ``spartan_ykv`` of
+``csrc/staged.cu`` (or raises); on the CPU it runs :func:`ykv_plain`.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels._launch import check_shapes, dtype_code, on_cpu
+from repro_torch.kernels.common import accum_dtype
+from repro_torch.kernels.staged import LIB
+
+__all__ = ["ykv", "ykv_plain"]
+
+ykv_plain = ref.ykv_ref
+
+
+def ykv(Yc: torch.Tensor, Vg: torch.Tensor) -> torch.Tensor:
+    """Yc [K,R,C], Vg [K,C,R] -> YkV [K,R,R] (accum_dtype accumulation)."""
+    K, R, C = Yc.shape
+    check_shapes(Vg=(Vg, (K, C, R)))
+    if K == 0 or C == 0:
+        return Yc.new_zeros((K, R, R), dtype=accum_dtype(Yc))
+    if on_cpu(Yc, Vg):
+        return ykv_plain(Yc, Vg)
+    code = dtype_code(Yc, Vg)
+    out = torch.empty((K, R, R), dtype=Yc.dtype, device=Yc.device)
+    LIB.launch("ykv", "spartan_ykv", Yc.device, code, Yc.data_ptr(),
+               Vg.data_ptr(), out.data_ptr(), K, R, C)
+    return out

@@ -7,9 +7,11 @@ decompose``), on a GPU by default:
 The CC format, the host engine, the paper's constraints (H unconstrained,
 V and W nonneg by HALS) and no compression: the reference's defaults.
 ``--backend auto`` sends every CC bucket on the GPU through the four fused
-CUDA kernels (``repro_torch.kernels.fused``). Without a GPU it
-raises unless ``--device cpu`` is given. The ``--json`` summary has the
-reference's keys, plus the device and each kernel's launch count.
+CUDA kernels (``repro_torch.kernels.fused``); ``--backend staged`` through
+the staged kernels (``repro_torch.kernels.ops``, the reference's
+``pallas``). Without a GPU it raises unless ``--device cpu`` is given. The
+``--json`` summary has the reference's keys, plus the device and each
+kernel's launch count.
 """
 from __future__ import annotations
 
@@ -26,11 +28,11 @@ from repro_torch.core import (Bucketed, Parafac2Options, Parafac2State,
 from repro_torch.core.constraints import constraint_summary
 from repro_torch.data import choa_like, movielens_like
 from repro_torch.device import resolve_device
-from repro_torch.kernels import fused
+from repro_torch.kernels import fused, staged
 from repro_torch.launch.summary import resolved_options, run_summary
 from repro_torch.sparse import IrregularCOO, plan_buckets, random_irregular, route_formats
 
-__all__ = ["load_dataset", "prepare", "decompose", "main"]
+__all__ = ["load_dataset", "prepare", "decompose", "kernel_launches", "main"]
 
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
 PRECISION = {"float32": "f32", "float64": "f64"}   # the summary's spelling
@@ -62,16 +64,23 @@ def prepare(data: IrregularCOO, *, buckets: int, device: torch.device,
     return bt, stats
 
 
+def kernel_launches() -> dict:
+    """Every kernel's launch count since the last reset: the fused and the
+    staged kernels."""
+    return {**fused.LAUNCHES, **staged.LAUNCHES}
+
+
 def decompose(bt: Bucketed, *, rank: int, iters: int, tol: float, seed: int,
               backend: str, dtype: torch.dtype, verbose: bool = True,
-              state: Optional[Parafac2State] = None
+              state: Optional[Parafac2State] = None, mode1_reuse: bool = True
               ) -> Tuple[Parafac2State, List[float], float]:
     """Fit, with the kernel launch counts zeroed first; returns the state,
     the fit history and the seconds the fit took (ending in a device sync,
     since the host loop reads every iteration's fit)."""
     opts = Parafac2Options(rank=rank, constraints={"v": "nonneg", "w": "nonneg"},
-                           backend=backend, dtype=dtype)
+                           backend=backend, dtype=dtype, mode1_reuse=mode1_reuse)
     fused.reset_launches()
+    staged.reset_launches()
     t0 = time.perf_counter()
     state, hist = fit(bt, opts, max_iters=iters, tol=tol, seed=seed,
                       verbose=verbose, state=state)
@@ -88,9 +97,11 @@ def main(argv=None) -> dict:
                     help="fit-change convergence tolerance")
     ap.add_argument("--buckets", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--backend", default="auto", choices=["torch", "fused", "auto"],
+    ap.add_argument("--backend", default="auto",
+                    choices=["torch", "fused", "staged", "auto"],
                     help="MTTKRP backend: 'fused' runs the four fused stages "
-                         "(CUDA kernels on a GPU), 'auto' picks them for CC "
+                         "(CUDA kernels on a GPU), 'staged' the staged kernels "
+                         "on the projected slices, 'auto' picks 'fused' for CC "
                          "buckets on a GPU")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--dtype", default="float32", choices=sorted(DTYPES))
@@ -116,7 +127,8 @@ def main(argv=None) -> dict:
                                 seed=args.seed, backend=args.backend, dtype=dtype)
     print(f"[fit] {len(hist)} iters in {dt:.2f}s "
           f"({dt / max(len(hist), 1):.3f}s/iter), fit={hist[-1]:.4f}")
-    print(f"[kernels] launches {dict(fused.LAUNCHES)}")
+    launches = kernel_launches()
+    print(f"[kernels] launches {launches}")
     opts = Parafac2Options(rank=args.rank, constraints=specs,
                            backend=args.backend, dtype=dtype)
     V_np = state.V.cpu().numpy()
@@ -138,7 +150,7 @@ def main(argv=None) -> dict:
         device=str(device),
         device_name=(torch.cuda.get_device_name(device)
                      if device.type == "cuda" else "cpu"),
-        kernel_launches=dict(fused.LAUNCHES),
+        kernel_launches=launches,
     )
     if args.json:
         with open(args.json, "w") as f:

@@ -1,0 +1,79 @@
+"""Paired end-to-end comparison of two checkouts of the port on one GPU.
+
+    PYTHONPATH=src python -m repro_torch.launch.paired PARENT_DIR CHANGE_DIR \
+        [--pairs 3] [--scale 0.25]
+
+Each run is a fresh process that imports ``repro_torch`` from one checkout
+(``<dir>/src``, whatever package this module was imported from), builds its kernels, makes ``choa_like(scale)`` with seed 0,
+uploads the CC buckets, warms each route up for two iterations and then
+times 20-iteration fits of the ``auto`` and ``torch`` routes three times
+each (host clock around ``fit``, which ends each iteration in a device
+sync). Runs alternate parent, change, change, parent, ... so that slow
+drifts of a shared host fall on both sides. Prints the card's name and
+power limit, one line per run and the medians per side; imports no JAX.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+
+ROUTES = ("auto", "torch")
+
+_CHILD = r"""
+import json, sys, torch
+sys.path.insert(0, sys.argv[1] + "/src")
+from repro_torch.launch import decompose as dec
+bt, _ = dec.prepare(dec.load_dataset("choa", float(sys.argv[2]), 0), buckets=4,
+                    device=torch.device("cuda"), dtype=torch.float32)
+kw = dict(rank=5, tol=0.0, seed=0, dtype=torch.float32, verbose=False)
+for be in %r:
+    dec.decompose(bt, backend=be, iters=2, **kw)
+out = {be: [] for be in %r}
+for _ in range(3):
+    for be in out:
+        _, hist, secs = dec.decompose(bt, backend=be, iters=20, **kw)
+        out[be].append(secs / len(hist) * 1e3)
+print(json.dumps(out))
+""" % (ROUTES, ROUTES)
+
+
+def run(tree: str, scale: float) -> dict:
+    proc = subprocess.run([sys.executable, "-c", _CHILD, tree, str(scale)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise SystemExit(f"run in {tree} failed:\n{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("parent")
+    ap.add_argument("change")
+    ap.add_argument("--pairs", type=int, default=3)
+    ap.add_argument("--scale", type=float, default=0.25)
+    args = ap.parse_args(argv)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    print(f"[paired] card: {smi.stdout.strip() or smi.stderr.strip()}", flush=True)
+    order = []
+    for i in range(args.pairs):
+        order += [("parent", args.parent), ("change", args.change)][:: 1 if i % 2 == 0 else -1]
+    runs = {"parent": {be: [] for be in ROUTES}, "change": {be: [] for be in ROUTES}}
+    for side, tree in order:
+        res = run(tree, args.scale)
+        for be in ROUTES:
+            runs[side][be] += res[be]
+        print(f"[paired] {side}: " + ", ".join(
+            f"{be} {[round(x, 2) for x in res[be]]} ms/iter" for be in ROUTES), flush=True)
+    for be in ROUTES:
+        print(f"[paired] {be}: median ms/iter parent "
+              f"{statistics.median(runs['parent'][be]):.2f}, change "
+              f"{statistics.median(runs['change'][be]):.2f} "
+              f"({len(runs['parent'][be])} fits each)", flush=True)
+
+
+if __name__ == "__main__":
+    main()
