@@ -7,36 +7,50 @@ Imports only the port (``src/repro_torch``), never JAX or the JAX package.
 Phases, any failure exits non-zero:
 
 1. the card (nvidia-smi name and power limit), torch/CUDA versions, and the
-   kernel build from ``src/repro_torch/csrc`` (``fused.cu`` and
-   ``staged.cu``, one nvcc each, started together);
-2. each of the ten kernels (the four fused, the six staged) against its
-   plain torch version on the card, in f32 and f64, over eight small
-   geometries (the reference's four; R = 40, its widest cell; R = 72, past
-   the widest register tile; C_pad = 1024 at R = 40, which the fused
-   kernels' first whole-subject tiles refused in f64; R = 72 with C_pad =
-   1024 and up to 700 rows a subject, where every fused kernel's
-   shared-memory tile is chunked),
-   an empty (K=0) bucket and padded subjects: f64 to 1e-12 absolute, f32
-   to 1e-6 relative plus 1e-6 of the output's largest magnitude (sums in
-   another order differ by a rounding); every call must launch its kernel;
+   kernel build from ``src/repro_torch/csrc`` (``fused.cu``, ``staged.cu``,
+   ``scoo.cu`` and ``gather_matmul.cu``, one nvcc each, started together);
+2. each of the thirteen kernels against its plain torch version on the
+   card, in f32 and f64: the four fused and the six staged over eight small
+   CC geometries (the reference's four; R = 40, its widest cell; R = 72,
+   past the widest register tile; C_pad = 1024 at R = 40; R = 72 with
+   C_pad = 1024 and up to 700 rows a subject, where every fused kernel's
+   shared-memory tile is chunked); the two SCOO kernels over the
+   reference's three SCOO datasets (an empty, a single-nnz and a 200-row
+   ultra-sparse subject among them) at R = 1, 5 and 72 with padded subjects,
+   and over explicit zero-valued triplets; the BCC gather-matmul over the
+   reference's BCC geometries and R = 72; an empty (K=0) bucket through
+   every wrapper. f64 to 1e-12 absolute, f32 to 1e-6 relative plus 1e-6 of
+   the output's largest magnitude (sums in another order differ by a
+   rounding); for the two SCOO kernels the scale is the largest running
+   sum of |contribution| instead, since their plain versions difference
+   running sums, which round in proportion to the prefix; every call must
+   launch its kernel;
 3. the main path: ``choa_like(scale=0.25)``, rank 5, 20 iterations, f32,
-   through ``repro_torch.launch.decompose``'s functions on ``backend="auto"``
-   (the fused kernels), ``"staged"`` (the staged kernels) and ``"torch"``,
-   on the same uploaded buckets after two warm-up iterations of each route;
-   each route's kernels must launch buckets x iterations times, and the fit
-   histories must be finite and within 1e-4 of the torch route's; then
-   scale 0.002 in f64 through the entry point's ``main`` on all three
-   routes, histories within 1e-8; then the paths that reach the other two
-   staged kernels: a short ``mode1_reuse=False`` fit (``mode1``, buckets x
-   iterations) and the backend's array-level ``mode3`` over the main
-   path's buckets (once per bucket);
-4. each kernel's time at the main path's largest bucket beside its bound,
-   its plain version's time and one PyTorch call's time (CUDA events,
-   median of 20);
+   through ``repro_torch.launch.decompose``'s functions, from one
+   generation bucketized twice: CC on ``backend="auto"`` (the fused
+   kernels), ``"staged"`` (the staged kernels) and ``"torch"``, then SCOO
+   (``format="scoo"``, planned by nnz) on ``"staged"`` (the two SCOO
+   kernels, then the staged ones), ``"scoo"`` (plain torch, no kernel) and
+   ``"auto"`` (F2 alone), each after two warm-up iterations; each route's
+   kernels must launch buckets x iterations times and no other kernel, and
+   every fit history must be finite and within 1e-4 of the CC torch
+   route's; then scale 0.002 in f64 through the entry point's ``main``:
+   CC on the three CC routes, and ``--format scoo`` and ``--format auto`` on
+   the three SCOO routes, histories within 1e-8 of the CC torch route's;
+   then the paths that reach the other two staged kernels: a short
+   ``mode1_reuse=False`` fit (``mode1``, buckets x iterations) and the
+   backend's array-level ``mode3`` over the main path's buckets (once per
+   bucket); last, the BCC cut: the largest CC bucket's first subjects (at
+   most 2 GiB of BCC values), ``xk_times_v_bcc`` against ``xk_times_v``;
+4. each kernel's time beside its bound, its plain version's time and one
+   PyTorch call's time (CUDA events, median of 20): the CC kernels at the
+   main path's largest CC bucket, the SCOO kernels at its largest SCOO
+   bucket, the gather-matmul on the BCC cut;
 5. a ``torch.profiler`` trace of one main-path ALS iteration on the auto and
-   on the staged route: device time by kernel, host time by op, and the
-   device's busy share of the unprofiled iteration time of phase 3 and of
-   the trace's first-to-last kernel span (the profiler's own per-launch
+   the staged route over the CC buckets and on the staged and the scoo
+   route over the SCOO buckets: device time by kernel, host time by op, and
+   the device's busy share of the unprofiled iteration time of phase 3 and
+   of the trace's first-to-last kernel span (the profiler's own per-launch
    cost inflates the profiled wall time, so that is not a denominator;
    traces in ``$SMOKE_OUT/als_step_trace_<route>.json``).
 
@@ -73,11 +87,20 @@ GEOMETRIES = [
     dict(seed=6, K=6, J=120, R=40, col_align=1024),   # C_pad = 1024
     dict(seed=7, K=4, J=60, R=72, col_align=1024, max_rows=700),   # every tile chunked
 ]
-SOURCES = ("fused", "staged")
+# the reference's SCOO datasets (tests/test_scoo.py) and BCC geometries
+# (tests/test_bcc_integration.py), plus R = 72
+SCOO_DATA = ("edge", "random-odd", "random-padded")
+BCC_GEOMETRIES = [(0, 300, 8), (1, 500, 16), (2, 130, 4), (3, 260, 72)]
+BCC_CUT_BYTES = 2 * 2**30       # the BCC cut's values at most
+SOURCES = ("fused", "staged", "scoo", "gather_matmul")
 FUSED = ("fused_procrustes_b", "fused_mode1_xkv", "fused_mode2_compact", "fused_ykv")
 STAGED = ("ykv", "mode1", "mode1_reuse", "mode2_compact", "mode3", "mode3_reuse")
-ON_MAIN_PATH = {"auto": FUSED, "staged": ("ykv", "mode1_reuse", "mode2_compact",
-                                          "mode3_reuse")}
+SCOO = ("scoo_xk_times_v", "scoo_project")
+ALL = FUSED + STAGED + SCOO + ("gather_matmul",)
+STAGED_PATH = ("ykv", "mode1_reuse", "mode2_compact", "mode3_reuse")
+ON_MAIN_PATH = {"auto": FUSED, "staged": STAGED_PATH,
+                "staged-scoo": SCOO + STAGED_PATH, "auto-scoo": ("fused_mode1_xkv",),
+                "scoo-scoo": ()}
 REPLACES = {
     "fused_procrustes_b": "src/repro/kernels/fused.py:132",
     "fused_mode1_xkv": "src/repro/kernels/fused.py:196",
@@ -89,6 +112,9 @@ REPLACES = {
     "mode2_compact": "src/repro/kernels/mttkrp_mode2.py:35",
     "mode3": "src/repro/kernels/mttkrp_mode3.py:49",
     "mode3_reuse": "src/repro/kernels/mttkrp_mode3.py:93",
+    "scoo_xk_times_v": "src/repro/kernels/scoo.py:249",
+    "scoo_project": "src/repro/kernels/scoo.py:313",
+    "gather_matmul": "src/repro/kernels/gather_matmul.py:42",
 }
 
 
@@ -97,25 +123,63 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def within(got, want, dtype_is_f64: bool) -> tuple:
-    """(max |got - want|, ok) under the stated tolerance."""
+def within(got, want, dtype_is_f64: bool, scale=None) -> tuple:
+    """(max |got - want|, ok) under the stated tolerance. ``scale`` (the
+    SCOO kernels: the largest running sum of |contribution|) replaces the
+    output's largest magnitude and applies in f64 too."""
     import torch
 
     got, want = got.double(), want.double()
     err = float((got - want).abs().max()) if got.numel() else 0.0
-    if dtype_is_f64:
-        ok = bool(torch.all((got - want).abs() <= 1e-12 + 1e-12 * want.abs()))
-    else:
-        scale = max(1.0, float(want.abs().max())) if want.numel() else 1.0
-        ok = bool(torch.all((got - want).abs() <= 1e-6 * scale + 1e-6 * want.abs()))
+    if scale is None:
+        scale = 1.0 if dtype_is_f64 else (
+            max(1.0, float(want.abs().max())) if want.numel() else 1.0)
+    tol = 1e-12 if dtype_is_f64 else 1e-6
+    ok = bool(torch.all((got - want).abs() <= tol * scale + tol * want.abs()))
     return err, ok
 
 
+def prefix_scale(vals, idx, M) -> float:
+    """The largest running sum of |vals[k,n] * M[k, idx[k,n], :]| along a
+    subject's triplets: what a prefix-sum difference rounds against."""
+    import torch
+
+    g = torch.gather(M.double(), 1, idx.long()[..., None].expand(-1, -1, M.shape[-1]))
+    run = torch.cumsum((g * vals.double()[..., None]).abs(), 1)
+    return max(1.0, float(run.max())) if run.numel() else 1.0
+
+
+def scoo_xkv(vals, rows, lcols, Vg, i_pad, row_ends):
+    from repro_torch.kernels import scoo
+
+    return scoo.scoo_xk_times_v(vals, rows, lcols, Vg, i_pad, row_ends=row_ends)
+
+
+def scoo_xkv_plain(vals, rows, lcols, Vg, i_pad, row_ends):
+    from repro_torch.kernels import scoo
+
+    return scoo.xk_times_v(vals, rows, lcols, Vg, i_pad, row_ends=row_ends)
+
+
+def scoo_proj(vals, rows, lcols, Q, c_pad, cperm, col_ends):
+    from repro_torch.kernels import scoo
+
+    return scoo.scoo_project(vals, rows, lcols, Q, c_pad, cperm=cperm, col_ends=col_ends)
+
+
+def scoo_proj_plain(vals, rows, lcols, Q, c_pad, cperm, col_ends):
+    from repro_torch.kernels import scoo
+
+    return scoo.project(vals, rows, lcols, Q, c_pad, cperm=cperm, col_ends=col_ends)
+
+
 def kernels() -> dict:
-    """name -> (wrapper, plain version, source) for the ten kernels."""
-    from repro_torch.kernels import fused, mttkrp_mode1, mttkrp_mode2, mttkrp_mode3, ykv
+    """name -> (wrapper, plain version, source) for the thirteen kernels."""
+    from repro_torch.kernels import (fused, gather_matmul, mttkrp_mode1, mttkrp_mode2,
+                                     mttkrp_mode3, ykv)
 
     f, s = "src/repro_torch/csrc/fused.cu", "src/repro_torch/csrc/staged.cu"
+    sc, g = "src/repro_torch/csrc/scoo.cu", "src/repro_torch/csrc/gather_matmul.cu"
     return {
         "fused_procrustes_b": (fused.fused_procrustes_b, fused.procrustes_b_plain, f),
         "fused_mode1_xkv": (fused.fused_mode1_xkv, fused.mode1_xkv_plain, f),
@@ -127,6 +191,9 @@ def kernels() -> dict:
         "mode2_compact": (mttkrp_mode2.mode2_compact, mttkrp_mode2.mode2_compact_plain, s),
         "mode3": (mttkrp_mode3.mode3, mttkrp_mode3.mode3_plain, s),
         "mode3_reuse": (mttkrp_mode3.mode3_reuse, mttkrp_mode3.mode3_reuse_plain, s),
+        "scoo_xk_times_v": (scoo_xkv, scoo_xkv_plain, sc),
+        "scoo_project": (scoo_proj, scoo_proj_plain, sc),
+        "gather_matmul": (gather_matmul.gather_matmul, gather_matmul.gather_matmul_plain, g),
     }
 
 
@@ -137,10 +204,9 @@ def launches() -> dict:
 
 
 def reset_launches() -> None:
-    from repro_torch.kernels import fused, staged
+    from repro_torch.launch.decompose import reset_launches as reset
 
-    fused.reset_launches()
-    staged.reset_launches()
+    reset()
 
 
 def phase1_build():
@@ -154,19 +220,20 @@ def phase1_build():
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}", flush=True)
-    from repro_torch.kernels import _build, fused, staged
+    from repro_torch.kernels import _build
+    from repro_torch.launch.decompose import LIBRARIES
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(SOURCES)) as pool:     # one nvcc per source
         libs = list(pool.map(_build.build, SOURCES))
     print(f"[build] {', '.join(lib.name for lib in libs)} in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
-    for lib in libs:
+    for src, lib in zip(SOURCES, libs):
         for line in Path(f"{lib}.log").read_text().splitlines():
             if "Used" in line or "spill" in line:
-                print(f"[ptxas] {lib.name.split('_')[0]}: {line.strip()}")
-    fused.LIB.lib()
-    staged.LIB.lib()
+                print(f"[ptxas] {src}: {line.strip()}")
+    for module in LIBRARIES:
+        module.LIB.lib()
 
 
 def kernel_args(b, H, V, W, Q) -> dict:
@@ -192,12 +259,34 @@ def kernel_args(b, H, V, W, Q) -> dict:
     }
 
 
-def check_kernels(args_by_kernel, errs: dict) -> None:
+def scoo_args(b, V, Q) -> tuple:
+    """Rows 11 and 12's operands for one SCOO bucket, as the staged route
+    passes them, and the running-sum scale of each."""
+    Vg = b.gather_v(V)
+    args = {"scoo_xk_times_v": (b.vals, b.rows, b.lcols, Vg, b.i_pad, b.row_ends),
+            "scoo_project": (b.vals, b.rows, b.lcols, Q, b.c_pad, b.cperm, b.col_ends)}
+    scales = {"scoo_xk_times_v": prefix_scale(b.vals, b.lcols, Vg),
+              "scoo_project": prefix_scale(b.vals, b.rows, Q)}
+    return args, scales
+
+
+def bcc_args(bcc, V) -> dict:
+    """Row 13's operands: the BCC bucket and V zero-padded to whole blocks."""
+    import torch
+
+    J, R = V.shape
+    J_pad = -(-J // 128) * 128
+    return {"gather_matmul": (bcc.vals, bcc.blk_ids,
+                              torch.cat([V, V.new_zeros((J_pad - J, R))]))}
+
+
+def check_kernels(args_by_kernel, errs: dict, scales=None) -> None:
     """Each kernel on the card against its plain version on the same inputs;
     each call must launch its kernel once."""
     import torch
 
     table = kernels()
+    scales = scales or {}
     for name, args in args_by_kernel.items():
         wrapper, plain, _ = table[name]
         f64 = args[0].dtype == torch.float64
@@ -212,7 +301,7 @@ def check_kernels(args_by_kernel, errs: dict) -> None:
         for g, w in zip(got, want):
             if g.shape != w.shape:
                 fail(f"{name}: shape {tuple(g.shape)} != plain {tuple(w.shape)}")
-            err, ok = within(g, w, f64)
+            err, ok = within(g, w, f64, scales.get(name))
             if not ok:
                 fail(f"{name} ({'f64' if f64 else 'f32'}, shape "
                      f"{tuple(args[0].shape)}): max |kernel - plain| = {err:.3e}")
@@ -243,6 +332,16 @@ def check_empty(dtype, dev) -> None:
         "ykv": [(0, R, R)], "mode1": [(R, R)], "mode1_reuse": [(R, R)],
         "mode2_compact": [(0, C, R)], "mode3": [(0, R)], "mode3_reuse": [(0, R)],
     }
+    N, ix = 8, dict(dtype=torch.int32, device=dev)
+    v0, i0 = torch.zeros((0, N), **z), torch.zeros((0, N), **ix)
+    args.update({
+        "scoo_xk_times_v": (v0, i0, i0, Vg, I, torch.zeros((0, I), **ix)),
+        "scoo_project": (v0, i0, i0, Q, C, i0, torch.zeros((0, C), **ix)),
+        "gather_matmul": (torch.zeros((0, I, 2, 128), **z), torch.zeros((0, 2), **ix),
+                          torch.zeros((256, R), **z)),
+    })
+    shapes.update({"scoo_xk_times_v": [(0, I, R)], "scoo_project": [(0, R, C)],
+                   "gather_matmul": [(0, I, R)]})
     before = launches()
     for name, (wrapper, _, _) in kernels().items():
         out = wrapper(*args[name])
@@ -253,6 +352,69 @@ def check_empty(dtype, dev) -> None:
         fail("K=0 bucket launched a kernel")
 
 
+def scoo_dataset(name: str):
+    """The reference's three SCOO test datasets (``tests/test_scoo.py``)."""
+    import numpy as np
+    from repro_torch.sparse import IrregularCOO, SubjectCOO, random_irregular
+
+    if name == "random-odd":
+        return random_irregular(n_subjects=13, n_cols=37, max_rows=9,
+                                avg_nnz_per_subject=18, seed=0, nonneg=False)
+    if name == "random-padded":
+        return random_irregular(n_subjects=11, n_cols=50, max_rows=12,
+                                avg_nnz_per_subject=25, seed=3)
+    rng, n_cols = np.random.default_rng(7), 29
+
+    def sub(n_rows, nnz):
+        cells = rng.choice(n_rows * n_cols, size=nnz, replace=False)
+        return SubjectCOO(rows=(cells // n_cols).astype(np.int32),
+                          cols=(cells % n_cols).astype(np.int32),
+                          vals=rng.standard_normal(nnz), n_rows=n_rows, n_cols=n_cols)
+
+    empty = SubjectCOO(rows=np.zeros(0, np.int32), cols=np.zeros(0, np.int32),
+                       vals=np.zeros(0), n_rows=3, n_cols=n_cols)
+    return IrregularCOO([sub(9, 25), empty, sub(1, 1), sub(200, 5), sub(13, 40),
+                         sub(6, 11)], n_cols)
+
+
+def check_sparse_kernels(dtype, dev, errs: dict) -> None:
+    """Rows 11 and 12 over the three SCOO datasets at R = 1, 5, 72 with
+    padded subjects and over explicit zero-valued triplets; row 13 over
+    the BCC geometries."""
+    import numpy as np
+    import torch
+    from repro_torch.core import bucketize, to_block_bucket
+    from repro_torch.sparse import random_irregular
+
+    for name in SCOO_DATA:
+        data = scoo_dataset(name)
+        bt = bucketize(data, format="scoo", dtype=dtype, device=dev, col_align=4,
+                       max_buckets=3, subject_align=4)
+        for R in (1, 5, 72):
+            rng = np.random.default_rng(R)
+            V = torch.tensor(rng.standard_normal((data.n_cols, R)), dtype=dtype, device=dev)
+            for b in bt.buckets:
+                Q = torch.tensor(rng.standard_normal((b.kb, b.i_pad, R)), dtype=dtype,
+                                 device=dev)
+                args, scales = scoo_args(b, V, Q)
+                check_kernels(args, errs, scales)
+    # stored zeros inside the true nnz: what follows them must still count
+    z, ix = dict(dtype=dtype, device=dev), dict(dtype=torch.int32, device=dev)
+    vals = torch.tensor([[0.0, 0.0, 2.0, 3.0]], **z)
+    rows, lcols = torch.tensor([[0, 0, 1, 2]], **ix), torch.tensor([[0, 1, 2, 3]], **ix)
+    ones = torch.ones((1, 4, 2), **z)
+    check_kernels({"scoo_xk_times_v": (vals, rows, lcols, ones, 4,
+                                       torch.tensor([[2, 3, 4, 4]], **ix)),
+                   "scoo_project": (vals, rows, lcols, ones, 4, lcols,
+                                    torch.tensor([[1, 2, 3, 4]], **ix))}, errs)
+    for seed, J, R in BCC_GEOMETRIES:
+        data = random_irregular(n_subjects=9, n_cols=J, max_rows=12,
+                                avg_nnz_per_subject=40, seed=seed)
+        V = torch.tensor(np.random.default_rng(seed).standard_normal((J, R)), **z)
+        for b in bucketize(data, max_buckets=2, dtype=dtype, device=dev).buckets:
+            check_kernels(bcc_args(to_block_bucket(b, J), V), errs)
+
+
 def phase2_kernels(dev) -> dict:
     import numpy as np
     import torch
@@ -261,6 +423,7 @@ def phase2_kernels(dev) -> dict:
 
     errs: dict = {}
     for dtype in (torch.float32, torch.float64):
+        check_sparse_kernels(dtype, dev, errs)
         for g in GEOMETRIES:
             data = random_irregular(n_subjects=g["K"], n_cols=g["J"],
                                     max_rows=g.get("max_rows", 9),
@@ -277,9 +440,12 @@ def phase2_kernels(dev) -> dict:
                                  dtype=dtype, device=dev)
                 check_kernels(kernel_args(b, H, V, W, Q), errs)
         check_empty(dtype, dev)
-    print(f"[kernels] all ten match their plain versions (f32, f64; "
-          f"{len(GEOMETRIES)} geometries, R in {sorted({g['R'] for g in GEOMETRIES})}, "
-          f"C_pad up to 1024, padded subjects, K=0): "
+    if set(errs) != set(ALL):
+        fail(f"phase 2 did not check {sorted(set(ALL) - set(errs))}")
+    print(f"[kernels] all thirteen match their plain versions (f32, f64; "
+          f"{len(GEOMETRIES)} CC geometries, R in {sorted({g['R'] for g in GEOMETRIES})}, "
+          f"C_pad up to 1024; SCOO {', '.join(SCOO_DATA)} at R 1/5/72 and explicit "
+          f"zero-valued triplets; BCC {BCC_GEOMETRIES}; padded subjects, K=0): "
           + json.dumps({k: v[0] for k, v in errs.items()}), flush=True)
     return errs
 
@@ -303,65 +469,89 @@ def phase3_main_path(dev):
     t0 = time.perf_counter()
     data = dec.load_dataset("choa", MAIN_SCALE, 0)
     t_data = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    bt, stats = dec.prepare(data, buckets=4, device=dev, dtype=torch.float32)
-    torch.cuda.synchronize()
-    t_up = time.perf_counter() - t0
-    dev_bytes = sum(r["device_bytes"] for r in stats)
-    print(f"[main] choa scale {MAIN_SCALE}: K={data.n_subjects} nnz={data.nnz} "
-          f"buckets={[(r['i_pad'], r['c_pad'], r['n_subjects']) for r in stats]} "
-          f"device bytes {dev_bytes} ({dev_bytes / 2**30:.2f} GiB); generation "
-          f"{t_data:.1f}s, bucketize+upload {t_up:.1f}s", flush=True)
+    bts, dev_bytes = {}, {}
+    for fmt in ("cc", "scoo"):          # one generation, bucketized twice
+        t0 = time.perf_counter()
+        bts[fmt], stats = dec.prepare(data, buckets=4, device=dev, dtype=torch.float32,
+                                      format=fmt)
+        torch.cuda.synchronize()
+        dev_bytes[fmt] = sum(r["device_bytes"] for r in stats)
+        shapes = [(r["i_pad"], r["c_pad"], r["n_subjects"], r.get("nnz_pad"), r["format"],
+                   round(r["density"], 4)) for r in stats]
+        print(f"[main] choa scale {MAIN_SCALE} {fmt}: K={data.n_subjects} nnz={data.nnz} "
+              f"buckets (I_pad, C_pad, subjects, N_pad, format, density)={shapes} "
+              f"device bytes {dev_bytes[fmt]} ({dev_bytes[fmt] / 2**30:.3f} GiB); "
+              f"generation {t_data:.1f}s, bucketize+upload {time.perf_counter() - t0:.1f}s",
+              flush=True)
     del data
+    bt, bt_sc = bts["cc"], bts["scoo"]
     kw = dict(rank=5, iters=ITERS, tol=0.0, seed=0, dtype=torch.float32, verbose=False)
-    routes = ("auto", "staged", "torch")
+    # (label, buckets, backend): the CC routes, then the SCOO ones
+    runs = [("auto", bt, "auto"), ("staged", bt, "staged"), ("torch", bt, "torch"),
+            ("staged-scoo", bt_sc, "staged"), ("scoo-scoo", bt_sc, "scoo"),
+            ("auto-scoo", bt_sc, "auto")]
     # two iterations of each route first, so that no timed run pays for the
     # first launches (module loads, cuBLAS/cuSOLVER handles)
-    for backend in routes:
-        dec.decompose(bt, backend=backend, **{**kw, "iters": 2})
+    for _, b_, backend in runs:
+        dec.decompose(b_, backend=backend, **{**kw, "iters": 2})
 
-    want = len(bt.buckets) * ITERS
     hist, ms, counts = {}, {}, {}
-    for backend in routes:
+    for label, b_, backend in runs:
+        resident = torch.cuda.memory_allocated()       # both formats' buckets
         torch.cuda.reset_peak_memory_stats()
-        state, hist[backend], secs = dec.decompose(bt, backend=backend, **kw)  # counts from 0
-        counts[backend] = launches()                   # read right after the run
+        state, hist[label], secs = dec.decompose(b_, backend=backend, **kw)  # counts from 0
+        counts[label] = launches()                     # read right after the run
         peak = torch.cuda.max_memory_allocated()
-        ms[backend] = secs / len(hist[backend]) * 1e3
-        if backend == "auto":
+        ms[label] = secs / len(hist[label]) * 1e3
+        if label == "auto":
             main_state = state
-        print(f"[main] {backend}: {len(hist[backend])} iters, {ms[backend]:.2f} ms/iter, "
-              f"peak device memory {peak / 2**30:.2f} GiB, launches "
-              f"{ {k: v for k, v in counts[backend].items() if v} }", flush=True)
-        print(f"[main] {backend} fit history {json.dumps(hist[backend])}", flush=True)
-        if len(hist[backend]) != ITERS or not np.all(np.isfinite(hist[backend])):
-            fail(f"{backend}: main path fit history is not finite or short")
-    check_launches("auto", counts["auto"], want)
-    check_launches("staged", counts["staged"], want)
+        fmt = "scoo" if label.endswith("-scoo") else "cc"
+        print(f"[main] {label}: {len(hist[label])} iters, {ms[label]:.2f} ms/iter, "
+              f"peak device memory {peak / 2**30:.3f} GiB ({(peak - resident) / 2**30:.3f} "
+              f"GiB above the resident buckets; {fmt} buckets alone "
+              f"{(peak - resident + dev_bytes[fmt]) / 2**30:.3f} GiB), launches "
+              f"{ {k: v for k, v in counts[label].items() if v} }", flush=True)
+        print(f"[main] {label} fit history {json.dumps(hist[label])}", flush=True)
+        if len(hist[label]) != ITERS or not np.all(np.isfinite(hist[label])):
+            fail(f"{label}: main path fit history is not finite or short")
+    print(f"[main] device bytes: CC {dev_bytes['cc']}, SCOO {dev_bytes['scoo']} "
+          f"({dev_bytes['scoo'] / dev_bytes['cc']:.3f} of CC)", flush=True)
+    for label in ("auto", "staged", "staged-scoo", "scoo-scoo", "auto-scoo"):
+        n_buckets = len((bt_sc if label.endswith("-scoo") else bt).buckets)
+        check_launches(label, counts[label], n_buckets * ITERS)
     if any(counts["torch"].values()):
         fail("the torch route launched a kernel")
-    for backend in ("auto", "staged"):
-        diff = float(np.max(np.abs(np.asarray(hist[backend]) - np.asarray(hist["torch"]))))
-        print(f"[main] max |fit {backend} - fit torch| over {ITERS} iterations = "
+    for label in ("auto", "staged", "staged-scoo", "scoo-scoo", "auto-scoo"):
+        diff = float(np.max(np.abs(np.asarray(hist[label]) - np.asarray(hist["torch"]))))
+        print(f"[main] max |fit {label} - fit torch (CC)| over {ITERS} iterations = "
               f"{diff:.3e}", flush=True)
         if diff > 1e-4:
-            fail(f"{backend} fit history differs from the torch route by {diff:.3e} > 1e-4")
+            fail(f"{label} fit history differs from the torch route by {diff:.3e} > 1e-4")
 
     common = ["--dataset", "choa", "--scale", "0.002", "--rank", "5", "--iters",
               str(ITERS), "--tol", "0", "--dtype", "float64", "--device", "cuda"]
     s64 = {backend: dec.main(common + ["--backend", backend, "--json",
                                        str(OUT / f"decompose_f64_{backend}.json")])
-           for backend in routes}
-    for backend in ("auto", "staged"):
-        diff64 = float(np.max(np.abs(np.asarray(s64[backend]["fit_history"])
+           for backend in ("auto", "staged", "torch")}
+    for fmt in ("scoo", "auto"):
+        for backend in ("staged", "scoo", "auto"):
+            s64[f"{backend}-{fmt}"] = dec.main(common + [
+                "--backend", backend, "--format", fmt,
+                "--json", str(OUT / f"decompose_f64_{backend}_{fmt}.json")])
+    for label, summary in s64.items():
+        if label == "torch":
+            continue
+        diff64 = float(np.max(np.abs(np.asarray(summary["fit_history"])
                                      - np.asarray(s64["torch"]["fit_history"]))))
-        print(f"[main] scale 0.002 f64: max |fit {backend} - fit torch| = {diff64:.3e}; "
-              f"launches { {k: v for k, v in s64[backend]['kernel_launches'].items() if v} }",
+        print(f"[main] scale 0.002 f64: max |fit {label} - fit torch (CC)| = {diff64:.3e}; "
+              f"launches { {k: v for k, v in summary['kernel_launches'].items() if v} }",
               flush=True)
         if diff64 > 1e-8:
-            fail(f"f64 {backend} fit history differs by {diff64:.3e} > 1e-8")
-        check_launches(backend, s64[backend]["kernel_launches"],
-                       len(s64[backend]["buckets"]) * ITERS)
+            fail(f"f64 {label} fit history differs by {diff64:.3e} > 1e-8")
+        if label.endswith("-auto") and {r["format"] for r in summary["buckets"]} != {"scoo"}:
+            fail(f"{label}: format auto kept a CC bucket at CHOA's density")
+        route = label if label in ON_MAIN_PATH else label.rsplit("-", 1)[0] + "-scoo"
+        check_launches(route, summary["kernel_launches"], len(summary["buckets"]) * ITERS)
 
     # the two staged kernels off the main path: mode1 (mode1_reuse=False) ...
     short = dict(kw, iters=3)
@@ -392,11 +582,52 @@ def phase3_main_path(dev):
     if counts["mode3"]["mode3"] != len(bt.buckets):
         fail("the array-level mode3 did not launch once per bucket")
 
+    cut, bcc, counts["bcc"] = bcc_cut(bt, main_state.V)
+
     # each kernel's launches in the run of the path that reaches it
     path_of = {**dict.fromkeys(FUSED, "auto"), **dict.fromkeys(STAGED, "staged"),
-               "mode1": "mode1", "mode3": "mode3"}
-    per_kernel = {name: counts[path_of[name]][name] for name in (*FUSED, *STAGED)}
-    return bt, main_state, per_kernel, ms
+               "mode1": "mode1", "mode3": "mode3", **dict.fromkeys(SCOO, "staged-scoo"),
+               "gather_matmul": "bcc"}
+    per_kernel = {name: counts[path_of[name]][name] for name in ALL}
+    return bt, bt_sc, (cut, bcc), main_state, per_kernel, ms
+
+
+def bcc_cut(bt, V):
+    """The largest CC bucket's first subjects, as many as keep the BCC
+    values within ``BCC_CUT_BYTES`` (width unchanged, depth cut), converted
+    to BCC; ``xk_times_v_bcc`` on them against ``xk_times_v``. Returns the
+    cut, its BCC bucket and the launch counts of that one call."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core import to_block_bucket
+    from repro_torch.core.irregular import scatter_order
+
+    big = max(bt.buckets, key=lambda b: b.kb)
+    blk = torch.where(big.col_mask > 0, big.cols.long() // 128, -1).sort(1).values
+    first = torch.cat([blk[:, :1] >= 0, (blk[:, 1:] != blk[:, :-1]) & (blk[:, 1:] >= 0)], 1)
+    nb = int(first.sum(1).max())
+    n = min(big.kb, BCC_CUT_BYTES // (big.i_pad * nb * 128 * big.vals.element_size()))
+    sl = {f: getattr(big, f)[:n] for f in ("vals", "cols", "col_mask", "subject_ids",
+                                           "subject_mask", "row_counts")}
+    perm, ends = scatter_order(sl["cols"], V.shape[0], sl["col_mask"])
+    cut = dataclasses.replace(big, **sl, n_real=min(n, big.n_real), scatter_perm=perm,
+                              scatter_ends=ends)
+    t0 = time.perf_counter()
+    bcc = to_block_bucket(cut, V.shape[0])
+    t_conv = time.perf_counter() - t0
+    reset_launches()
+    got = cut.xk_times_v_bcc(bcc, V)
+    counts = launches()
+    err, ok = within(got, cut.xk_times_v(V), False)
+    print(f"[bcc] cut of the largest CC bucket: {n} of {big.kb} subjects, I_pad "
+          f"{big.i_pad}, NB {bcc.n_blocks}, BCC values {bcc.vals.numel() * 4} B "
+          f"({bcc.vals.numel() * 4 / 2**30:.3f} GiB), conversion {t_conv:.1f}s; "
+          f"xk_times_v_bcc launched gather_matmul {counts['gather_matmul']} time(s); "
+          f"max |bcc - cc| = {err:.3e}", flush=True)
+    if counts["gather_matmul"] != 1 or not ok:
+        fail("the BCC cut did not launch gather_matmul once or left xk_times_v")
+    return cut, bcc, counts
 
 
 def time_ms(fn, reps: int = 20) -> float:
@@ -441,8 +672,62 @@ def work(name: str, K: int, I: int, C: int, R: int, itemsize: int) -> tuple:
     return nbytes * itemsize, ops
 
 
-def phase4_times(bt, state, per_kernel, errs):
+def sparse_work(name: str, b, R: int) -> tuple:
+    """(bytes, operations) of rows 11-13 on this run's data: each input read
+    once, each output written once. Rows 11/12 read the true nonzeros (the
+    pads lie past every segment), the segment ends, the factor rows the
+    triplets touch (kept columns of Vg; rows of Q with a nonzero) and write
+    the dense output; row 13 reads the BCC values (dense over the kept
+    blocks), the block ids and the V blocks they name."""
     import torch
+
+    isz = b.vals.element_size()
+    if name == "gather_matmul":
+        K, I, NB, L = b.vals.shape
+        blocks = int(b.blk_ids[b.blk_mask > 0].unique().numel())
+        return (isz * (K * I * NB * L + blocks * L * R + K * I * R) + 4 * K * NB,
+                2 * K * I * NB * L * R)
+    nnz = int(b.nnz_counts.sum())
+    if name == "scoo_xk_times_v":
+        kept = int(b.col_mask.sum())
+        return (isz * (nnz + kept * R + b.kb * b.i_pad * R) + 4 * (nnz + b.kb * b.i_pad),
+                2 * nnz * R)
+    ends = b.row_ends
+    starts = torch.cat([torch.zeros_like(ends[:, :1]), ends[:, :-1]], 1)
+    touched = int((ends > starts).sum())
+    return (isz * (nnz + touched * R + b.kb * R * b.c_pad) + 4 * (2 * nnz + b.kb * b.c_pad),
+            2 * nnz * R)
+
+
+def block_csr(b, transpose: bool = False):
+    """A SCOO bucket's X_k stacked block-diagonally as one CSR matrix
+    [Kb*I, Kb*C] (or its transpose), for the library yardstick."""
+    import torch
+
+    kb, N = b.vals.shape
+    real = torch.arange(N, device=b.vals.device)[None, :] < b.nnz_counts[:, None]
+    k = torch.arange(kb, device=b.vals.device)[:, None].expand(kb, N)[real]
+    r = k * b.i_pad + b.rows[real].long()
+    c = k * b.c_pad + b.lcols[real].long()
+    shape = (kb * b.i_pad, kb * b.c_pad)
+    idx = torch.stack([c, r] if transpose else [r, c])
+    return torch.sparse_coo_tensor(idx, b.vals[real], shape[::-1] if transpose else shape
+                                   ).coalesce().to_sparse_csr()
+
+
+def cc_csr(b, J: int):
+    """A CC bucket's X_k stacked over the global columns, [Kb*I, J] CSR."""
+    import torch
+
+    k, i, c = b.vals.nonzero(as_tuple=True)
+    idx = torch.stack([k * b.i_pad + i, b.cols[k, c].long()])
+    return torch.sparse_coo_tensor(idx, b.vals[k, i, c], (b.kb * b.i_pad, J)
+                                   ).coalesce().to_sparse_csr()
+
+
+def phase4_times(bt, bt_sc, bcc_pair, state, per_kernel, errs):
+    import torch
+    from repro_torch.core.backend import get_backend
     from repro_torch.core.procrustes import solve_q
     from repro_torch.kernels import fused
 
@@ -471,10 +756,38 @@ def phase4_times(bt, state, per_kernel, errs):
     }
     K, I, C = b.vals.shape
     R = H.shape[0]
+    where = dict.fromkeys(args, f"K={K} I={I} C={C}")
+    need = {name: work(name, K, I, C, R, b.vals.element_size()) for name in args}
+
+    # rows 11 and 12 at the largest SCOO bucket, on the Q the staged route forms
+    bs = max(bt_sc.buckets, key=lambda x: x.kb)
+    Wbs = W[bs.subject_ids.long()] * bs.subject_mask[:, None]
+    _, Bs = get_backend("staged").procrustes_b_bucket(bs, H, Wbs, V)
+    sargs, scales = scoo_args(bs, V, solve_q(Bs) * bs.subject_mask[:, None, None])
+    check_kernels(sargs, errs, scales)
+    A, At = block_csr(bs), block_csr(bs, transpose=True)
+    Vgs, Qs = sargs["scoo_xk_times_v"][3], sargs["scoo_project"][3]
+    library["scoo_xk_times_v"] = lambda: torch.sparse.mm(A, Vgs.reshape(-1, R))
+    library["scoo_project"] = lambda: torch.sparse.mm(At, Qs.reshape(-1, R))   # (Q^T X)^T
+    # row 13 on the BCC cut
+    cut, bcc = bcc_pair
+    bargs = bcc_args(bcc, V)
+    check_kernels(bargs, errs)
+    Ac = cc_csr(cut, V.shape[0])
+    library["gather_matmul"] = lambda: torch.sparse.mm(Ac, V)
+    for name in SCOO:
+        where[name] = (f"Kb={bs.kb} I={bs.i_pad} C={bs.c_pad} N={bs.n_pad} "
+                       f"nnz={int(bs.nnz_counts.sum())}")
+        need[name] = sparse_work(name, bs, R)
+    where["gather_matmul"] = f"K={bcc.kb} I={bcc.i_pad} NB={bcc.n_blocks} L=128"
+    need["gather_matmul"] = sparse_work("gather_matmul", bcc, R)
+    args.update(sargs)
+    args.update(bargs)
+
     rows = []
     for name, (wrapper, plain, source) in kernels().items():
         a = args[name]
-        nbytes, ops = work(name, K, I, C, R, b.vals.element_size())
+        nbytes, ops = need[name]
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / (F64_FLOPS if b.vals.dtype == torch.float64 else F32_FLOPS) * 1e3
         rows.append({
@@ -489,16 +802,17 @@ def phase4_times(bt, state, per_kernel, errs):
             "library_ms": time_ms(library[name]),
         })
         r = rows[-1]
-        print(f"[time] {name} at K={K} I={I} C={C} R={R} f32: kernel {r['ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, {nbytes} B), plain "
-              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms", flush=True)
+        print(f"[time] {name} at {where[name]} R={R} f32: kernel {r['ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, {nbytes} B, {ops} ops), "
+              f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms", flush=True)
     return rows
 
 
-def phase5_profile(bt, iter_ms: dict) -> None:
+def phase5_profile(bt, bt_sc, iter_ms: dict) -> None:
     """Where one main-path iteration's time goes on the auto and the staged
-    route; ``iter_ms`` is each route's unprofiled time per iteration from
-    phase 3."""
+    route over the CC buckets and on the staged and the scoo route over the
+    SCOO buckets; ``iter_ms`` is each run's unprofiled time per iteration
+    from phase 3."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import Parafac2Options, als_step, init_state
@@ -506,13 +820,14 @@ def phase5_profile(bt, iter_ms: dict) -> None:
     def dev_us(e):
         return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
 
-    for route in ("auto", "staged"):
-        opts = Parafac2Options(rank=5, backend=route)
-        state = als_step(bt, init_state(bt, opts, seed=0), opts)       # warm-up
+    for route, data in (("auto", bt), ("staged", bt), ("staged-scoo", bt_sc),
+                        ("scoo-scoo", bt_sc)):
+        opts = Parafac2Options(rank=5, backend=route.split("-")[0])
+        state = als_step(data, init_state(data, opts, seed=0), opts)   # warm-up
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            state = als_step(bt, state, opts)
+            state = als_step(data, state, opts)
             float(state.fit)                       # the host loop's one sync
             wall_ms = (time.perf_counter() - t0) * 1e3
         prof.export_chrome_trace(str(OUT / f"als_step_trace_{route}.json"))
@@ -556,9 +871,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase1_build()
     errs = phase2_kernels(dev)
-    bt, state, per_kernel, iter_ms = phase3_main_path(dev)
-    rows = phase4_times(bt, state, per_kernel, errs)
-    phase5_profile(bt, iter_ms)
+    bt, bt_sc, bcc_pair, state, per_kernel, iter_ms = phase3_main_path(dev)
+    rows = phase4_times(bt, bt_sc, bcc_pair, state, per_kernel, errs)
+    phase5_profile(bt, bt_sc, iter_ms)
     print(f"[done] {time.perf_counter() - t0:.1f}s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

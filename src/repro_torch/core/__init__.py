@@ -1,4 +1,14 @@
-from repro_torch.core.irregular import Bucket, Bucketed, bucketize
+from repro_torch.core.irregular import (
+    FORMATS,
+    LANE,
+    BlockBucket,
+    Bucket,
+    Bucketed,
+    SparseBucket,
+    bucket_format,
+    bucketize,
+    to_block_bucket,
+)
 from repro_torch.core.parafac2 import (
     Parafac2Options,
     Parafac2State,
@@ -11,7 +21,13 @@ from repro_torch.core.parafac2 import (
 __all__ = [
     "Bucket",
     "Bucketed",
+    "BlockBucket",
+    "SparseBucket",
     "bucketize",
+    "bucket_format",
+    "to_block_bucket",
+    "FORMATS",
+    "LANE",
     "Parafac2Options",
     "Parafac2State",
     "als_step",

@@ -1,24 +1,35 @@
 """MTTKRP compute backends for the SPARTan ALS step (``repro.core.backend``).
 
 The ALS algebra (``core/parafac2.py``) asks an :class:`MttkrpBackend` for
-the per-bucket stages and never touches a kernel itself. Four backend
+the per-bucket stages and never touches a kernel itself. Five backend
 names:
 
 ``torch``
     The plain torch math of :mod:`repro_torch.core.spartan`: five streaming
-    stage launches per CC bucket per iteration (procrustes_b, project,
-    mode1, mode2, ykv). The counterpart of the reference's ``jnp``.
+    stage launches per bucket per iteration (procrustes_b, project, mode1,
+    mode2, ykv). SCOO buckets form X_k V and the compact Yc by the plain
+    segment sums of :mod:`repro_torch.kernels.scoo`. The counterpart of the
+    reference's ``jnp``.
+``scoo``
+    The O(nnz) route (:class:`SparseBackend`): on SCOO buckets every stage
+    contracts the triplets directly (the plain torch versions of
+    :mod:`repro_torch.kernels.scoo`; the reference has no kernel for them)
+    and Yc is never built (``project_bucket`` carries Q). CC buckets go to
+    ``torch``.
 ``fused``
-    The four fused stages of :mod:`repro_torch.kernels.fused`: on CUDA the
-    hand-written kernels, on the CPU their plain versions. The projected
-    slices Y_k are never built (``project_bucket`` carries Q).
+    The four fused stages of :mod:`repro_torch.kernels.fused` on CC
+    buckets: on CUDA the hand-written kernels, on the CPU their plain
+    versions; Yc is never built. SCOO buckets take the ``scoo`` route in
+    every stage but ``mode1_xkv_bucket``, whose dense Q and X_k V go to F2
+    as in the reference.
 ``staged``
-    The counterpart of the reference's ``pallas``: the torch route's
-    bucket stages, with the array-level contractions (``ykv``, ``mode1``,
+    The counterpart of the reference's ``pallas``: the torch route's bucket
+    stages, with the array-level contractions (``ykv``, ``mode1``,
     ``mode2_compact``, ``mode3``) through the six staged kernels of
-    :mod:`repro_torch.kernels.ops` (CUDA kernels on a GPU, their plain
-    versions on the CPU). X_k V and the projection Y_k = Q_k^T X_k stay
-    ``torch.bmm``, as the reference leaves them to XLA.
+    :mod:`repro_torch.kernels.ops`. On CC buckets X_k V and the projection
+    stay ``torch.bmm``, as the reference leaves them to XLA; on SCOO buckets
+    they are the two SCOO kernels (``scoo_xk_times_v``, ``scoo_project``),
+    whose Yc the staged kernels then take unchanged.
 ``auto``
     Resolved once from the data's device: ``fused`` on CUDA, at any R and
     C (the reference's R % 8 / C % 128 gate is the TPU's tiling and does
@@ -28,8 +39,7 @@ names:
 The bucket-level stages (``procrustes_b_bucket`` / ``project_bucket`` /
 ``mode1_xkv_bucket`` / ``ykv_bucket`` / ``mode{1,2,3}_bucket``) are what
 ``als_step`` calls. :func:`dispatch_tally` counts the streaming stage calls
-per bucket, which shows the fused route's four against the torch route's
-five.
+per bucket, with the reference's stage names on every route.
 """
 from __future__ import annotations
 
@@ -40,12 +50,14 @@ from typing import Optional
 import torch
 
 from repro_torch.core import spartan
-from repro_torch.kernels import fused, ops
+from repro_torch.core.irregular import SparseBucket
+from repro_torch.kernels import fused, ops, scoo
 from repro_torch.kernels.common import fold_subject_mask
 
 __all__ = [
     "MttkrpBackend",
     "TorchBackend",
+    "SparseBackend",
     "FusedBackend",
     "StagedBackend",
     "BACKENDS",
@@ -67,7 +79,8 @@ def dispatch_tally():
         per_bucket = sum(t.values()) / len(data.buckets)
 
     The torch and staged routes count 5 per bucket per iteration
-    (procrustes_b, project, mode1, mode2, ykv); the fused route counts 4.
+    (procrustes_b, project, mode1, mode2, ykv); the fused route counts 4,
+    and so does the scoo route on SCOO buckets (neither projects).
     """
     global _TALLY
     prev, _TALLY = _TALLY, collections.Counter()
@@ -101,11 +114,15 @@ class MttkrpBackend:
     mode2_scatter = staticmethod(spartan.mode2_scatter)
 
     # -- bucket-level stages (the als_step contract) ------------------------
+    def xkv_bucket(self, b, V, Vg=None) -> torch.Tensor:
+        """X_k V [Kb, I_pad, R], the Procrustes-step input."""
+        return b.xk_times_v(V, Vg)
+
     def procrustes_b_bucket(self, b, H, Wb, V, Vg=None):
         """(XkV [Kb,I,R], B [Kb,I,R]) with B_k = (X_k V * w_k) H^T, the
         Procrustes input."""
         _tick("procrustes_b")
-        XkV = b.xk_times_v(V, Vg)
+        XkV = self.xkv_bucket(b, V, Vg)
         B = torch.matmul(XkV * Wb[:, None, :], H.T)
         return XkV, B
 
@@ -118,7 +135,8 @@ class MttkrpBackend:
 
     def project_bucket(self, b, Q):
         """The projected representation the later stages consume: the
-        compact Yc [Kb, R, C] on the torch route."""
+        compact Yc [Kb, R, C] on the torch route (a segment sum on SCOO
+        buckets)."""
         _tick("project")
         return b.project(Q)
 
@@ -163,18 +181,75 @@ class TorchBackend(MttkrpBackend):
     name = "torch"
 
 
-class FusedBackend(TorchBackend):
+class SparseBackend(TorchBackend):
+    """The O(nnz) SCOO route (the reference's ``SparseBackend``).
+
+    On SCOO buckets Yc is never built: ``project_bucket`` carries Q and the
+    ykv / mode-1 / mode-2 / mode-3 stages contract the triplets directly
+    (the plain torch versions of :mod:`repro_torch.kernels.scoo`, on any
+    device; X_k V is the bucket's own segment sum). CC buckets, and the
+    array-level contractions, take the torch route.
+    """
+
+    name = "scoo"
+
+    @staticmethod
+    def _ykv_native(b, Q, V):
+        return scoo.ykv_scoo(b.vals, b.rows, b.lcols, Q, b.gather_v(V))
+
+    def project_bucket(self, b, Q):
+        if not isinstance(b, SparseBucket):
+            return super().project_bucket(b, Q)
+        return Q
+
+    def ykv_bucket(self, b, proj, V):
+        if not isinstance(b, SparseBucket):
+            return super().ykv_bucket(b, proj, V)
+        _tick("ykv")
+        return self._ykv_native(b, proj, V)
+
+    def mode1_bucket(self, b, proj, Wb, V=None, *, YkV=None):
+        if not isinstance(b, SparseBucket):
+            return super().mode1_bucket(b, proj, Wb, V, YkV=YkV)
+        if YkV is None:
+            _tick("mode1")
+            YkV = self._ykv_native(b, proj, V)
+        return self.mode1(None, None, Wb, b.subject_mask, YkV=YkV)
+
+    def mode2_bucket(self, b, proj, H, Wb):
+        if not isinstance(b, SparseBucket):
+            return super().mode2_bucket(b, proj, H, Wb)
+        _tick("mode2")
+        return scoo.mode2_compact_scoo(b.vals, b.rows, b.lcols, proj, H, Wb,
+                                       b.col_mask, b.subject_mask,
+                                       cperm=b.cperm, col_ends=b.col_ends)
+
+    def mode3_bucket(self, b, proj, H, V=None, *, YkV=None):
+        if not isinstance(b, SparseBucket):
+            return super().mode3_bucket(b, proj, H, V, YkV=YkV)
+        if YkV is None:
+            _tick("mode3")
+            YkV = self._ykv_native(b, proj, V)
+        return self.mode3(None, None, H, b.subject_mask, YkV=YkV)
+
+
+class FusedBackend(SparseBackend):
     """The four fused stages of :mod:`repro_torch.kernels.fused`.
 
     ``project_bucket`` carries Q itself, so Y_k is never built; the
     array-level contractions (an explicit Yc in hand) are the torch math.
     The kernel wrappers take [R,R] operands contiguous, so H is made so
-    here (a transposed solve result is a view).
+    here (a transposed solve result is a view). SCOO buckets take the
+    ``scoo`` route (the parent class) in every stage where the reference's
+    ``FusedBackend`` sends them there; ``mode1_xkv_bucket`` takes dense Q
+    and X_k V of either format and stays F2.
     """
 
     name = "fused"
 
     def procrustes_b_bucket(self, b, H, Wb, V, Vg=None):
+        if isinstance(b, SparseBucket):
+            return super().procrustes_b_bucket(b, H, Wb, V, Vg)
         _tick("procrustes_b")
         Vg = b.gather_v(V) if Vg is None else Vg
         return fused.fused_procrustes_b(b.vals, Vg, Wb, H.contiguous())
@@ -187,21 +262,29 @@ class FusedBackend(TorchBackend):
         return fused.fused_mode1_xkv(Q, XkV, fold_subject_mask(Wb, b.subject_mask))
 
     def ykv_bucket(self, b, proj, V):
+        if isinstance(b, SparseBucket):
+            return super().ykv_bucket(b, proj, V)
         _tick("ykv")
         return fused.fused_ykv(b.vals, proj, b.gather_v(V))
 
     def mode1_bucket(self, b, proj, Wb, V=None, *, YkV=None):
+        if isinstance(b, SparseBucket):
+            return super().mode1_bucket(b, proj, Wb, V, YkV=YkV)
         if YkV is None:
             YkV = self.ykv_bucket(b, proj, V)
         return self.mode1(None, None, Wb, b.subject_mask, YkV=YkV)
 
     def mode2_bucket(self, b, proj, H, Wb):
+        if isinstance(b, SparseBucket):
+            return super().mode2_bucket(b, proj, H, Wb)
         _tick("mode2")
         return fused.fused_mode2_compact(
             b.vals, proj, H.contiguous(), fold_subject_mask(Wb, b.subject_mask),
             b.col_mask)
 
     def mode3_bucket(self, b, proj, H, V=None, *, YkV=None):
+        if isinstance(b, SparseBucket):
+            return super().mode3_bucket(b, proj, H, V, YkV=YkV)
         if YkV is None:
             YkV = self.ykv_bucket(b, proj, V)
         return self.mode3(None, None, H, b.subject_mask, YkV=YkV)
@@ -209,13 +292,29 @@ class FusedBackend(TorchBackend):
 
 class StagedBackend(TorchBackend):
     """The staged kernels of :mod:`repro_torch.kernels.ops` (the reference's
-    ``PallasBackend`` on CC buckets): only the array-level contractions are
-    replaced; every bucket stage is the torch route's, which hands them an
-    explicit Yc. Unlike the reference, f64 operands stay f64 (its demotion
-    to f32 is a limit of the TPU compiler, not of the card). H is made
-    contiguous here (a transposed solve result is a view)."""
+    ``PallasBackend``): the array-level contractions are replaced, and every
+    bucket stage is the torch route's, which hands them an explicit Yc. On
+    SCOO buckets X_k V and Yc come from the two SCOO kernels
+    (``xkv_bucket``, ``project_bucket``). Unlike the reference, f64
+    operands stay f64 (its demotion to f32 is a limit of the TPU compiler,
+    not of the card). H is made contiguous here (a transposed solve result
+    is a view)."""
 
     name = "staged"
+
+    def xkv_bucket(self, b, V, Vg=None):
+        if not isinstance(b, SparseBucket):
+            return super().xkv_bucket(b, V, Vg)
+        Vg = b.gather_v(V) if Vg is None else Vg
+        return scoo.scoo_xk_times_v(b.vals, b.rows, b.lcols, Vg, b.i_pad,
+                                    row_ends=b.row_ends)
+
+    def project_bucket(self, b, Q):
+        if not isinstance(b, SparseBucket):
+            return super().project_bucket(b, Q)
+        _tick("project")
+        return scoo.scoo_project(b.vals, b.rows, b.lcols, Q, b.c_pad,
+                                 cperm=b.cperm, col_ends=b.col_ends)
 
     def ykv(self, Yc, Vg):
         return ops.ykv(Yc, Vg)
@@ -232,14 +331,15 @@ class StagedBackend(TorchBackend):
                                 YkV=YkV)
 
 
-BACKENDS = {"torch": TorchBackend(), "fused": FusedBackend(),
-            "staged": StagedBackend()}
+BACKENDS = {"torch": TorchBackend(), "scoo": SparseBackend(),
+            "fused": FusedBackend(), "staged": StagedBackend()}
 
 
 def get_backend(name, device=None) -> MttkrpBackend:
-    """Resolve a backend by name ("torch" | "fused" | "staged" | "auto") or
-    pass an :class:`MttkrpBackend` instance through unchanged. ``auto`` needs the
-    data's ``device``: ``fused`` on CUDA, ``torch`` on the CPU."""
+    """Resolve a backend by name ("torch" | "scoo" | "fused" | "staged" |
+    "auto") or pass an :class:`MttkrpBackend` instance through unchanged.
+    ``auto`` needs the data's ``device``: ``fused`` on CUDA, ``torch`` on
+    the CPU."""
     if isinstance(name, MttkrpBackend):
         return name
     if name == "auto":

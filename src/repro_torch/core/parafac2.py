@@ -1,10 +1,11 @@
 """PARAFAC2-ALS with the SPARTan MTTKRP (``repro.core.parafac2``).
 
-One ALS iteration (Algorithm 2 of the paper) on the bucketed CC format:
+One ALS iteration (Algorithm 2 of the paper) on the bucketed CC and SCOO
+formats:
 
   1. Procrustes step, batched over subjects: B_k = X_k V S_k H^T,
      Q_k = polar(B_k) (Gram-eigh by default, see procrustes.py).
-  2. Project: Y_k = Q_k^T X_k (the fused route never forms it).
+  2. Project: Y_k = Q_k^T X_k (the fused and scoo routes never form it).
   3. One CP-ALS iteration on {Y_k} through the mode-1/2/3 MTTKRPs; each
      factor update (H from M1, V from M2, W from M3) goes through the
      per-mode constraint (H unconstrained, V and W nonneg by HALS by
@@ -12,9 +13,10 @@ One ALS iteration (Algorithm 2 of the paper) on the bucketed CC format:
   4. Fit = 1 - sqrt(sum_k ||X_k - Q_k H S_k V^T||^2) / ||X||_F.
 
 ``mode1_reuse=True`` uses Y_k V = Q_k^T (X_k V) from step 1. The stages go
-through a compute backend (``opts.backend``: "torch" | "fused" | "staged" |
-"auto", see :mod:`repro_torch.core.backend`). Only the host engine is ported:
-``fit`` runs one ``als_step`` per iteration and reads the fit on the host.
+through a compute backend (``opts.backend``: "torch" | "scoo" | "fused" |
+"staged" | "auto", see :mod:`repro_torch.core.backend`). Only the host
+engine is ported: ``fit`` runs one ``als_step`` per iteration and reads the
+fit on the host.
 """
 from __future__ import annotations
 
@@ -52,7 +54,7 @@ class Parafac2Options:
     mode1_reuse: bool = True            # reuse X_k V from step 1 for mode 1
     nnls_sweeps: int = 5
     dtype: torch.dtype = torch.float32
-    backend: str = "auto"               # "torch" | "fused" | "staged" | "auto"
+    backend: str = "auto"       # "torch" | "scoo" | "fused" | "staged" | "auto"
 
     def __post_init__(self):
         if self.constraints is not None:
@@ -145,7 +147,7 @@ def als_step(data: Bucketed, state: Parafac2State,
     for b, (proj, _, _) in zip(data.buckets, per_bucket):
         A = be.mode2_bucket(b, proj, H_new, _w_rows(W, b))
         M2 = M2 + be.mode2_scatter(A, b.cols, J,
-                                   order=(b.col_perm, b.col_ends)).to(dt)
+                                   order=(b.scatter_perm, b.scatter_ends)).to(dt)
     V_new = cons["v"].update(M2, (W.T @ W) * (H_new.T @ H_new), V, nnls_sweeps=sweeps)
     V_new, v_norms = normalize_columns(V_new)
     W = W * v_norms[None, :]

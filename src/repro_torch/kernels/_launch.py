@@ -15,7 +15,7 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
-__all__ = ["KernelLib", "P", "I", "check_shapes", "on_cpu", "dtype_code"]
+__all__ = ["KernelLib", "P", "I", "check_shapes", "check_index", "on_cpu", "dtype_code"]
 
 P = ctypes.c_void_p     # a pointer or the stream
 I = ctypes.c_int        # an int (shape or dtype code)
@@ -66,6 +66,16 @@ def check_shapes(**shapes_and_want) -> None:
     for name, (t, want) in shapes_and_want.items():
         if tuple(t.shape) != tuple(want):
             raise ValueError(f"{name} has shape {tuple(t.shape)}, want {tuple(want)}")
+
+
+def check_index(**index_arrays) -> None:
+    """Raise unless every index operand is int32 and contiguous, as the C
+    entry points read them."""
+    for name, t in index_arrays.items():
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"the kernels take contiguous tensors ({name} is not)")
 
 
 def on_cpu(*ts: torch.Tensor) -> bool:

@@ -5,8 +5,9 @@ that :class:`repro_torch.core.backend.StagedBackend` can treat them as
 drop-in equals of the ``core/spartan.py`` math.
 
 The device decides the route: on CUDA tensors the kernels of
-``csrc/staged.cu``, on the CPU their plain versions (the reference's
-``use_pallas`` switch has no counterpart).
+``csrc/staged.cu`` (and ``gather_matmul``'s of ``csrc/gather_matmul.cu``),
+on the CPU their plain versions (the reference's ``use_pallas`` switch has
+no counterpart).
 """
 from __future__ import annotations
 
@@ -14,12 +15,14 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.gather_matmul import gather_matmul
 from repro_torch.kernels.mttkrp_mode1 import mode1, mode1_reuse
 from repro_torch.kernels.mttkrp_mode2 import mode2_compact
 from repro_torch.kernels.mttkrp_mode3 import mode3, mode3_reuse
 from repro_torch.kernels.ykv import ykv
 
-__all__ = ["ykv", "mttkrp_mode1", "mttkrp_mode2_compact", "mttkrp_mode3"]
+__all__ = ["ykv", "mttkrp_mode1", "mttkrp_mode2_compact", "mttkrp_mode3",
+           "gather_matmul"]
 
 
 def mttkrp_mode1(Yc: Optional[torch.Tensor], Vg: Optional[torch.Tensor],

@@ -3,7 +3,7 @@
 Each function mirrors one reference kernel's interface. They are the plain
 versions of the staged kernels (``ykv.py``, ``mttkrp_mode{1,2,3}.py``: the
 CPU route, and what the CUDA kernels are held against); ``gather_matmul_ref``
-waits for the BCC kernel (ROADMAP Queue B 11).
+is the plain version of the BCC kernel (``gather_matmul.py``).
 Accumulation follows :func:`repro_torch.kernels.common.accum_dtype`.
 """
 from __future__ import annotations

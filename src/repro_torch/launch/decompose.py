@@ -2,16 +2,20 @@
 decompose``), on a GPU by default:
 
   PYTHONPATH=src python -m repro_torch.launch.decompose --dataset choa \
-      --scale 0.002 --rank 5 --iters 20 [--device cpu] [--json out.json]
+      --scale 0.002 --rank 5 --iters 20 [--format cc|scoo|auto] \
+      [--backend auto|staged|scoo|fused|torch] [--device cpu] [--json out.json]
 
-The CC format, the host engine, the paper's constraints (H unconstrained,
-V and W nonneg by HALS) and no compression: the reference's defaults.
-``--backend auto`` sends every CC bucket on the GPU through the four fused
-CUDA kernels (``repro_torch.kernels.fused``); ``--backend staged`` through
-the staged kernels (``repro_torch.kernels.ops``, the reference's
-``pallas``). Without a GPU it raises unless ``--device cpu`` is given. The
-``--json`` summary has the reference's keys, plus the device and each
-kernel's launch count.
+The host engine, the paper's constraints (H unconstrained, V and W nonneg by
+HALS) and no compression: the reference's defaults. ``--format`` picks the
+device layout: CC (the default), SCOO (sorted flat COO, planned by nnz) or
+``auto`` (each bucket by its density). ``--backend auto`` sends every CC
+bucket on the GPU through the four fused CUDA kernels
+(``repro_torch.kernels.fused``) and SCOO buckets through the ``scoo``
+route; ``--backend staged`` runs the staged kernels (``repro_torch.kernels.
+ops``, the reference's ``pallas``), on SCOO buckets after the two SCOO
+kernels; ``--backend scoo`` contracts SCOO buckets in plain torch. Without a
+GPU it raises unless ``--device cpu`` is given. The ``--json`` summary has
+the reference's keys, plus the device and each kernel's launch count.
 """
 from __future__ import annotations
 
@@ -28,11 +32,12 @@ from repro_torch.core import (Bucketed, Parafac2Options, Parafac2State,
 from repro_torch.core.constraints import constraint_summary
 from repro_torch.data import choa_like, movielens_like
 from repro_torch.device import resolve_device
-from repro_torch.kernels import fused, staged
+from repro_torch.kernels import fused, gather_matmul, scoo, staged
 from repro_torch.launch.summary import resolved_options, run_summary
 from repro_torch.sparse import IrregularCOO, plan_buckets, random_irregular, route_formats
 
-__all__ = ["load_dataset", "prepare", "decompose", "kernel_launches", "main"]
+__all__ = ["load_dataset", "prepare", "decompose", "kernel_launches",
+           "reset_launches", "main"]
 
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
 PRECISION = {"float32": "f32", "float64": "f64"}   # the summary's spelling
@@ -51,23 +56,34 @@ def load_dataset(name: str, scale: float, seed: int) -> IrregularCOO:
 
 
 def prepare(data: IrregularCOO, *, buckets: int, device: torch.device,
-            dtype: torch.dtype) -> Tuple[Bucketed, List[dict]]:
-    """Plan and upload the CC buckets; returns them with the per-bucket
-    records of the summary (shape, members, nnz, density, device bytes)."""
+            dtype: torch.dtype, format: str = "cc") -> Tuple[Bucketed, List[dict]]:
+    """Plan and upload the buckets in ``format`` ("cc" | "scoo" | "auto";
+    the plan sorts subjects by nnz for "scoo" only, as the reference's);
+    returns them with the per-bucket records of the summary (shape,
+    members, nnz, density, format, device bytes)."""
     rc, ccnt, nnzc = data.row_counts(), data.col_counts(), data.nnz_counts()
-    plan = plan_buckets(rc, ccnt, max_buckets=buckets, nnz_counts=nnzc)
-    fmts = route_formats(plan, nnzc, format="cc")
-    bt = bucketize(data, dtype=dtype, device=device, plan=plan)
+    plan = plan_buckets(rc, ccnt, max_buckets=buckets, nnz_counts=nnzc,
+                        sort_by="nnz" if format == "scoo" else "area")
+    fmts = route_formats(plan, nnzc, format=format)
+    bt = bucketize(data, dtype=dtype, device=device, plan=plan, formats=fmts)
     stats = plan.stats(rc, ccnt, nnzc, formats=fmts)
     for rec, b in zip(stats, bt.buckets):
         rec["device_bytes"] = b.nbytes()
     return bt, stats
 
 
+LIBRARIES = (fused, staged, scoo, gather_matmul)   # every kernel library
+
+
 def kernel_launches() -> dict:
-    """Every kernel's launch count since the last reset: the fused and the
-    staged kernels."""
-    return {**fused.LAUNCHES, **staged.LAUNCHES}
+    """Every kernel's launch count since the last reset, over the fused,
+    staged, SCOO and gather-matmul libraries."""
+    return {k: n for lib in LIBRARIES for k, n in lib.LAUNCHES.items()}
+
+
+def reset_launches() -> None:
+    for lib in LIBRARIES:
+        lib.reset_launches()
 
 
 def decompose(bt: Bucketed, *, rank: int, iters: int, tol: float, seed: int,
@@ -79,8 +95,7 @@ def decompose(bt: Bucketed, *, rank: int, iters: int, tol: float, seed: int,
     since the host loop reads every iteration's fit)."""
     opts = Parafac2Options(rank=rank, constraints={"v": "nonneg", "w": "nonneg"},
                            backend=backend, dtype=dtype, mode1_reuse=mode1_reuse)
-    fused.reset_launches()
-    staged.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     state, hist = fit(bt, opts, max_iters=iters, tol=tol, seed=seed,
                       verbose=verbose, state=state)
@@ -98,11 +113,16 @@ def main(argv=None) -> dict:
     ap.add_argument("--buckets", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--backend", default="auto",
-                    choices=["torch", "fused", "staged", "auto"],
+                    choices=["torch", "scoo", "fused", "staged", "auto"],
                     help="MTTKRP backend: 'fused' runs the four fused stages "
                          "(CUDA kernels on a GPU), 'staged' the staged kernels "
-                         "on the projected slices, 'auto' picks 'fused' for CC "
-                         "buckets on a GPU")
+                         "on the projected slices (formed by the SCOO kernels "
+                         "on SCOO buckets), 'scoo' the O(nnz) plain route on "
+                         "SCOO buckets, 'auto' picks 'fused' on a GPU")
+    ap.add_argument("--format", default="cc", choices=["cc", "scoo", "auto"],
+                    help="device format: cc (dense over kept columns), scoo "
+                         "(sorted flat COO, O(nnz)), or auto (per-bucket by "
+                         "density)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--dtype", default="float32", choices=sorted(DTYPES))
     ap.add_argument("--json", default="", metavar="PATH",
@@ -117,11 +137,15 @@ def main(argv=None) -> dict:
     data = load_dataset(args.dataset, args.scale, args.seed)
     print(f"[data] K={data.n_subjects} J={data.n_cols} nnz={data.nnz} "
           f"({time.perf_counter() - t0:.1f}s)")
-    bt, bucket_stats = prepare(data, buckets=args.buckets, device=device, dtype=dtype)
+    t0 = time.perf_counter()
+    bt, bucket_stats = prepare(data, buckets=args.buckets, device=device, dtype=dtype,
+                               format=args.format)
     device_bytes = sum(rec["device_bytes"] for rec in bucket_stats)
-    print(f"[bucketize] {len(bt.buckets)} buckets (cc): "
-          + ", ".join(f"{r['i_pad']}x{r['c_pad']}x{r['n_subjects']}" for r in bucket_stats)
-          + f"; device bytes {device_bytes / 2**20:.1f} MiB on {device}")
+    print(f"[bucketize] {len(bt.buckets)} buckets ({args.format}): "
+          + ", ".join(f"{r['format']}@{r['density'] * 100:.1f}% "
+                      f"{r['i_pad']}x{r['c_pad']}x{r['n_subjects']}" for r in bucket_stats)
+          + f"; device bytes {device_bytes / 2**20:.1f} MiB on {device} "
+          f"({time.perf_counter() - t0:.1f}s)")
 
     state, hist, dt = decompose(bt, rank=args.rank, iters=args.iters, tol=args.tol,
                                 seed=args.seed, backend=args.backend, dtype=dtype)
@@ -134,10 +158,10 @@ def main(argv=None) -> dict:
     V_np = state.V.cpu().numpy()
     summary = run_summary(
         "decompose",
-        resolved_options(opts, format="cc", tol=args.tol, seed=args.seed),
+        resolved_options(opts, format=args.format, tol=args.tol, seed=args.seed),
         dataset=args.dataset, scale=args.scale, rank=args.rank,
         engine="host", backend=args.backend, precision=PRECISION[args.dtype],
-        tol=args.tol, check_every=None, seed=args.seed, format="cc",
+        tol=args.tol, check_every=None, seed=args.seed, format=args.format,
         buckets=bucket_stats, device_bytes=device_bytes,
         constraints=constraint_summary(specs), compress="none",
         v_zero_fraction=float((V_np == 0.0).mean()),

@@ -5,7 +5,13 @@ from repro_torch.sparse.coo import (
     random_irregular,
     random_parafac2,
 )
-from repro_torch.sparse.bucketing import BucketPlan, plan_buckets, route_formats
+from repro_torch.sparse.bucketing import (
+    SCOO_DENSITY_THRESHOLD,
+    BucketPlan,
+    fixed_plan,
+    plan_buckets,
+    route_formats,
+)
 
 __all__ = [
     "IrregularCOO",
@@ -14,6 +20,8 @@ __all__ = [
     "random_irregular",
     "random_parafac2",
     "BucketPlan",
+    "fixed_plan",
     "plan_buckets",
     "route_formats",
+    "SCOO_DENSITY_THRESHOLD",
 ]

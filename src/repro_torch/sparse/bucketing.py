@@ -9,10 +9,13 @@ rounded up to multiples of ``row_align`` / ``col_align``.
 the plan of ``repro.sparse.bucketing`` (where 128 is the TPU lane quantum);
 whether Hopper wants another default is an open question (ROADMAP).
 
-The CC format densifies each slice over its kept columns, so a bucket costs
-``Kb * I_pad * C_pad`` cells whatever its nonzero count (``padding_waste``).
-Only the CC format is ported so far: ``route_formats`` accepts ``"cc"`` and
-raises ``NotImplementedError`` for the SCOO routes (ROADMAP Queue A item 10).
+Two padding currencies, one per device format (``repro_torch.core.
+irregular``): the CC format densifies each slice over its kept columns, so a
+bucket costs ``Kb * I_pad * C_pad`` cells whatever its nonzero count
+(``padding_waste``); the SCOO format stores flat per-subject triplets padded
+to the bucket's ``N_pad`` (``nnz_pads``; plan with ``sort_by="nnz"``).
+:func:`route_formats` turns each bucket's density (true nonzeros over the
+densified CC cell count) into its "cc"/"scoo" decision.
 """
 from __future__ import annotations
 
@@ -21,7 +24,13 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-__all__ = ["BucketPlan", "plan_buckets", "route_formats"]
+__all__ = ["BucketPlan", "fixed_plan", "plan_buckets", "route_formats",
+           "SCOO_DENSITY_THRESHOLD"]
+
+# Density below which the SCOO format takes a bucket under format="auto"
+# (the reference's threshold: one SCOO nonzero costs about three stored
+# entries and two gathers per contraction against one dense CC cell).
+SCOO_DENSITY_THRESHOLD = 0.25
 
 
 def _round_up(x: int, align: int) -> int:
@@ -141,14 +150,30 @@ def plan_buckets(
     return BucketPlan(shapes=shapes, members=members, nnz_pads=nnz_pads)
 
 
+def fixed_plan(n_subjects: int, i_pad: int, c_pad: int, *,
+               nnz_pad: Optional[int] = None) -> BucketPlan:
+    """A one-bucket plan with an explicit padded geometry: members
+    ``0..n_subjects-1`` in one ``(I_pad, C_pad[, N_pad])`` rectangle.
+    ``bucketize`` raises if a subject has more nonzeros than ``nnz_pad``;
+    row and column overflow are the caller's to check."""
+    if n_subjects < 1 or i_pad < 1 or c_pad < 1:
+        raise ValueError("fixed_plan needs n_subjects, i_pad, c_pad >= 1")
+    return BucketPlan(
+        shapes=[(int(i_pad), int(c_pad))],
+        members=[np.arange(n_subjects, dtype=np.int32)],
+        nnz_pads=None if nnz_pad is None else [int(nnz_pad)],
+    )
+
+
 def route_formats(plan: BucketPlan, nnz_counts: Sequence[int], *,
-                  format: str = "cc") -> List[str]:
-    """Per-bucket device format for ``bucketize``. Only ``"cc"`` is ported;
-    the SCOO and density-routed formats are ROADMAP Queue A item 10."""
-    if format == "cc":
-        return ["cc"] * plan.n_buckets
-    if format in ("scoo", "auto"):
-        raise NotImplementedError(
-            f"format={format!r} needs the SCOO device format, not yet ported "
-            "(ROADMAP Queue A item 10); use format='cc'")
-    raise ValueError(f"unknown format {format!r}; choose from 'cc', 'scoo', 'auto'")
+                  format: str = "auto",
+                  density_threshold: float = SCOO_DENSITY_THRESHOLD) -> List[str]:
+    """Per-bucket device format for ``bucketize``: ``"cc"`` and ``"scoo"``
+    force every bucket; ``"auto"`` sends a bucket whose density is below
+    ``density_threshold`` to SCOO and the others to CC."""
+    if format in ("cc", "scoo"):
+        return [format] * plan.n_buckets
+    if format != "auto":
+        raise ValueError(f"unknown format {format!r}; choose from 'cc', 'scoo', 'auto'")
+    return ["scoo" if d < density_threshold else "cc"
+            for d in plan.bucket_densities(nnz_counts)]

@@ -3,28 +3,30 @@ a CUDA device, since the kernels have no CPU mode).
 
 This file imports neither JAX nor the JAX package, so it also runs on a GPU
 machine that has only torch: ``python -m pytest -q --noconftest -m cuda
-tests/test_torch_cuda.py``. Each kernel (the four fused, the six staged) is
-held against its plain version on the same inputs (f64 to 1e-12; f32 to
-1e-6 relative plus 1e-6 of the output's largest magnitude, since the sums
-run in another order), the fused and staged routes' fits against the torch
-route's, and the kernels and the mode-2 scatter must give the same bits
-twice.
+tests/test_torch_cuda.py``. Each kernel (the four fused, the six staged,
+the two SCOO and the BCC gather-matmul) is held against its plain version on
+the same inputs (f64 to 1e-12; f32 to 1e-6 relative plus 1e-6 of the
+output's largest magnitude, since the sums run in another order; for the
+two SCOO kernels, whose plain versions difference running sums, the scale is
+the largest running sum of |contribution| instead), the fused and staged
+routes' fits against the torch route's, and the kernels and the mode-2
+scatter must give the same bits twice.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import Parafac2Options, bucketize, fit  # noqa: E402
+from repro_torch.core import Parafac2Options, bucketize, fit, to_block_bucket  # noqa: E402
 from repro_torch.core import spartan  # noqa: E402
 from repro_torch.data import choa_like  # noqa: E402
-from repro_torch.kernels import fused, staged  # noqa: E402
+from repro_torch.kernels import fused, gather_matmul, scoo, staged  # noqa: E402
 from repro_torch.kernels import mttkrp_mode1 as m1  # noqa: E402
 from repro_torch.kernels import mttkrp_mode2 as m2  # noqa: E402
 from repro_torch.kernels import mttkrp_mode3 as m3  # noqa: E402
 from repro_torch.kernels import ykv as yk  # noqa: E402
 from repro_torch.kernels.common import fold_subject_mask  # noqa: E402
-from repro_torch.sparse import random_irregular  # noqa: E402
+from repro_torch.sparse import IrregularCOO, SubjectCOO, random_irregular  # noqa: E402
 
 GEOMETRIES = [
     dict(seed=0, K=13, J=37, R=5, col_align=4),
@@ -189,3 +191,158 @@ def test_staged_fit_matches_torch_route_on_gpu(dev, mode1_reuse):
         assert {k for k, n in staged.LAUNCHES.items() if n} == on_path
         assert all(staged.LAUNCHES[k] == len(bt.buckets) * 20 for k in on_path)
     assert np.max(np.abs(np.asarray(hists["staged"]) - np.asarray(hists["torch"]))) <= 1e-8
+
+
+# ---------------------------------------------------------------------------
+# the SCOO kernels (rows 11, 12) and the BCC gather-matmul (row 13)
+# ---------------------------------------------------------------------------
+
+def _edge_data(n_cols=29):
+    """An empty subject, a single-nnz one and a 200-row ultra-sparse one
+    among ordinary subjects (the reference's ``tests/test_scoo.py`` edge set)."""
+    rng = np.random.default_rng(7)
+
+    def sub(n_rows, nnz):
+        cells = rng.choice(n_rows * n_cols, size=nnz, replace=False)
+        return SubjectCOO(rows=(cells // n_cols).astype(np.int32),
+                          cols=(cells % n_cols).astype(np.int32),
+                          vals=rng.standard_normal(nnz), n_rows=n_rows, n_cols=n_cols)
+
+    empty = SubjectCOO(rows=np.zeros(0, np.int32), cols=np.zeros(0, np.int32),
+                       vals=np.zeros(0), n_rows=3, n_cols=n_cols)
+    return IrregularCOO([sub(9, 25), empty, sub(1, 1), sub(200, 5), sub(13, 40),
+                         sub(6, 11)], n_cols)
+
+
+SCOO_DATA = {
+    "edge": _edge_data,
+    "random-odd": lambda: random_irregular(n_subjects=13, n_cols=37, max_rows=9,
+                                           avg_nnz_per_subject=18, seed=0, nonneg=False),
+    "random-padded": lambda: random_irregular(n_subjects=11, n_cols=50, max_rows=12,
+                                              avg_nnz_per_subject=25, seed=3),
+}
+
+
+def _prefix_scale(vals, idx, M) -> float:
+    g = torch.gather(M.double(), 1, idx.long()[..., None].expand(-1, -1, M.shape[-1]))
+    run = torch.cumsum((g * vals.double()[..., None]).abs(), 1)
+    return max(1.0, float(run.max())) if run.numel() else 1.0
+
+
+def _scoo_calls(name, dtype, dev, R):
+    """(name, wrapper call, plain call, scale) for rows 11 and 12 on every
+    SCOO bucket of one dataset, subject padding included."""
+    bt = bucketize(SCOO_DATA[name](), format="scoo", dtype=dtype, device=dev,
+                   col_align=4, max_buckets=3, subject_align=4)
+    rng = np.random.default_rng(R)
+    V = torch.tensor(rng.standard_normal((bt.n_cols, R)), dtype=dtype, device=dev)
+    for b in bt.buckets:
+        Vg = b.gather_v(V)
+        Q = torch.tensor(rng.standard_normal((b.kb, b.i_pad, R)), dtype=dtype, device=dev)
+        xa = (b.vals, b.rows, b.lcols, Vg, b.i_pad)
+        pa = (b.vals, b.rows, b.lcols, Q, b.c_pad)
+        xk, pk = dict(row_ends=b.row_ends), dict(cperm=b.cperm, col_ends=b.col_ends)
+        yield ("scoo_xk_times_v", lambda: scoo.scoo_xk_times_v(*xa, **xk),
+               lambda: scoo.xk_times_v(*xa, **xk), _prefix_scale(b.vals, b.lcols, Vg))
+        yield ("scoo_project", lambda: scoo.scoo_project(*pa, **pk),
+               lambda: scoo.project(*pa, **pk), _prefix_scale(b.vals, b.rows, Q))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SCOO_DATA))
+@pytest.mark.parametrize("R", [1, 5, 72])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_scoo_kernels_match_plain(dev, name, R, dtype):
+    tol = 1e-12 if dtype == torch.float64 else 1e-6
+    for kernel, call, plain, scale in _scoo_calls(name, dtype, dev, R):
+        before = scoo.LAUNCHES[kernel]
+        got = call()
+        torch.cuda.synchronize()
+        assert scoo.LAUNCHES[kernel] == before + 1, kernel
+        want = plain()
+        assert got.shape == want.shape and got.dtype == want.dtype
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=tol, atol=tol * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,J,R", [(0, 300, 8), (1, 500, 16), (2, 130, 4), (3, 260, 40)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gather_matmul_matches_plain(dev, seed, J, R, dtype):
+    """Row 13 over the reference's BCC geometries (and R = 40, where R is
+    staged in two chunks), against its plain version and the CC product."""
+    data = random_irregular(n_subjects=9, n_cols=J, max_rows=12, avg_nnz_per_subject=40,
+                            seed=seed)
+    bt = bucketize(data, max_buckets=2, dtype=dtype, device=dev)
+    V = torch.tensor(np.random.default_rng(seed).standard_normal((J, R)), dtype=dtype,
+                     device=dev)
+    for b in bt.buckets:
+        bcc = to_block_bucket(b, J)
+        before = gather_matmul.LAUNCHES["gather_matmul"]
+        got = b.xk_times_v_bcc(bcc, V)
+        torch.cuda.synchronize()
+        assert gather_matmul.LAUNCHES["gather_matmul"] == before + 1
+        J_pad = -(-J // 128) * 128
+        V_pad = torch.cat([V, V.new_zeros((J_pad - J, R))])
+        _assert_matches(got, gather_matmul.gather_matmul_plain(bcc.vals, bcc.blk_ids, V_pad),
+                        dtype)
+        _assert_matches(got, b.xk_times_v(V), dtype)
+
+
+@pytest.mark.cuda
+def test_new_kernels_are_deterministic_and_reject_what_they_do_not_take(dev):
+    """Two runs give the same bits; a CUDA call without the segment ends,
+    an f16 operand or a non-contiguous operand raises."""
+    for _, call, _, _ in _scoo_calls("random-odd", torch.float32, dev, 5):
+        assert torch.equal(call(), call())
+    bt = bucketize(random_irregular(n_subjects=9, n_cols=300, max_rows=12,
+                                    avg_nnz_per_subject=40, seed=0), dtype=torch.float32,
+                   device=dev, max_buckets=1)
+    b = bt.buckets[0]
+    bcc, V = to_block_bucket(b, 300), torch.rand((384, 8), device=dev)
+    assert torch.equal(gather_matmul.gather_matmul(bcc.vals, bcc.blk_ids, V),
+                       gather_matmul.gather_matmul(bcc.vals, bcc.blk_ids, V))
+    sb = bucketize(SCOO_DATA["random-odd"](), format="scoo", dtype=torch.float32,
+                   device=dev, col_align=4).buckets[0]
+    Vg = torch.rand((sb.kb, sb.c_pad, 5), device=dev)
+    Q = torch.rand((sb.kb, sb.i_pad, 5), device=dev)
+    with pytest.raises(ValueError, match="row_ends"):
+        scoo.scoo_xk_times_v(sb.vals, sb.rows, sb.lcols, Vg, sb.i_pad)
+    with pytest.raises(ValueError, match="col_ends"):
+        scoo.scoo_project(sb.vals, sb.rows, sb.lcols, Q, sb.c_pad)
+    with pytest.raises(TypeError):
+        scoo.scoo_xk_times_v(sb.vals.half(), sb.rows, sb.lcols, Vg.half(), sb.i_pad,
+                             row_ends=sb.row_ends)
+    with pytest.raises(ValueError, match="contiguous"):
+        scoo.scoo_project(sb.vals, sb.rows, sb.lcols,
+                          torch.rand((sb.kb, 5, sb.i_pad), device=dev).transpose(1, 2),
+                          sb.c_pad, cperm=sb.cperm, col_ends=sb.col_ends)
+    with pytest.raises(TypeError):
+        gather_matmul.gather_matmul(bcc.vals, bcc.blk_ids.long(), V)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("format", ["scoo", "auto"])
+def test_scoo_fits_match_torch_route_on_gpu(dev, format):
+    """choa 0.002, rank 5, 20 iterations, f64, SCOO buckets: the staged,
+    scoo and auto routes keep the CC torch route's fit history to 1e-8;
+    staged launches rows 11, 12, 5, 7, 8 and 10 buckets x iterations times,
+    auto F2 alone, scoo nothing."""
+    data = choa_like(scale=0.002, seed=0)
+    cc = bucketize(data, dtype=torch.float64, device=dev)
+    sc = bucketize(data, dtype=torch.float64, device=dev, format=format)
+    opts = dict(rank=5, dtype=torch.float64)
+    _, want = fit(cc, Parafac2Options(backend="torch", **opts), max_iters=20, tol=0.0, seed=0)
+    n = len(sc.buckets) * 20
+    on_path = {"staged": {"scoo_xk_times_v", "scoo_project", "ykv", "mode1_reuse",
+                          "mode2_compact", "mode3_reuse"},
+               "auto": {"fused_mode1_xkv"}, "scoo": set()}
+    for backend, kernels in on_path.items():
+        libs = (fused, staged, scoo, gather_matmul)
+        for lib in libs:
+            lib.reset_launches()
+        _, hist = fit(sc, Parafac2Options(backend=backend, **opts), max_iters=20, tol=0.0,
+                      seed=0)
+        counts = {k: v for lib in libs for k, v in lib.LAUNCHES.items()}
+        assert {k: v for k, v in counts.items() if v} == dict.fromkeys(kernels, n), backend
+        assert np.max(np.abs(np.asarray(hist) - np.asarray(want))) <= 1e-8, backend

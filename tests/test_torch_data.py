@@ -105,12 +105,16 @@ def test_bucket_contractions_match():
 
 
 def test_unported_formats_raise():
+    """Every format ``bucketize`` takes is ported ("scoo" and "auto" build
+    SCOO buckets at CHOA's density); any other name, "bcc" included (a
+    kernel-side conversion, never a Bucketed format), raises."""
     data = t_data.choa_like(scale=0.001, seed=0)
     for fmt in ("scoo", "auto"):
-        with pytest.raises(NotImplementedError, match="Queue A item 10"):
+        bt = bucketize(data, device="cpu", format=fmt)
+        assert {b.format for b in bt.buckets} == {"scoo"}
+    for fmt in ("bcc", "coo"):
+        with pytest.raises(ValueError, match="unknown format"):
             bucketize(data, device="cpu", format=fmt)
-    with pytest.raises(ValueError):
-        bucketize(data, device="cpu", format="bcc")
 
 
 def test_port_imports_neither_jax_nor_the_reference():
