@@ -10,11 +10,12 @@ Phases, any failure exits non-zero:
    kernel build from ``src/repro_torch/csrc`` (``fused.cu``, ``staged.cu``,
    ``scoo.cu`` and ``gather_matmul.cu``, one nvcc each, started together);
 2. each of the thirteen kernels against its plain torch version on the
-   card, in f32 and f64: the four fused and the six staged over eight small
+   card, in f32 and f64: the four fused and the six staged over eleven small
    CC geometries (the reference's four; R = 40, its widest cell; R = 72,
    past the widest register tile; C_pad = 1024 at R = 40; R = 72 with
    C_pad = 1024 and up to 700 rows a subject, where every fused kernel's
-   shared-memory tile is chunked); the two SCOO kernels over the
+   shared-memory tile is chunked; one subject; C_pad = 17, whose slab rows
+   are not whole 16-byte runs; R = 64); the two SCOO kernels over the
    reference's three SCOO datasets (an empty, a single-nnz and a 200-row
    ultra-sparse subject among them) at R = 1, 5 and 72 with padded subjects,
    and over explicit zero-valued triplets; the BCC gather-matmul over the
@@ -44,8 +45,10 @@ Phases, any failure exits non-zero:
    most 2 GiB of BCC values), ``xk_times_v_bcc`` against ``xk_times_v``;
 4. each kernel's time beside its bound, its plain version's time and one
    PyTorch call's time (CUDA events, median of 20): the CC kernels at the
-   main path's largest CC bucket, the SCOO kernels at its largest SCOO
-   bucket, the gather-matmul on the BCC cut;
+   main path's largest CC bucket (with the variant F1 takes there), the
+   SCOO kernels at its largest SCOO bucket, the gather-matmul on the BCC
+   cut (beside the CSR product over the cut's nonzeros, also one PyTorch
+   call on the kernel's own operands, ``library_same_input_ms``);
 5. a ``torch.profiler`` trace of one main-path ALS iteration on the auto and
    the staged route over the CC buckets and on the staged and the scoo
    route over the SCOO buckets: device time by kernel, host time by op, and
@@ -86,6 +89,9 @@ GEOMETRIES = [
     dict(seed=5, K=8, J=150, R=72, col_align=8),      # past the 64-wide tile
     dict(seed=6, K=6, J=120, R=40, col_align=1024),   # C_pad = 1024
     dict(seed=7, K=4, J=60, R=72, col_align=1024, max_rows=700),   # every tile chunked
+    dict(seed=8, K=1, J=30, R=5, col_align=4),        # one subject
+    dict(seed=9, K=9, J=40, R=5, col_align=1),        # C_pad 17: rows not whole 16-byte runs
+    dict(seed=10, K=6, J=80, R=64, col_align=8),      # the widest register tile
 ]
 # the reference's SCOO datasets (tests/test_scoo.py) and BCC geometries
 # (tests/test_bcc_integration.py), plus R = 72
@@ -519,6 +525,10 @@ def phase3_main_path(dev):
     for label in ("auto", "staged", "staged-scoo", "scoo-scoo", "auto-scoo"):
         n_buckets = len((bt_sc if label.endswith("-scoo") else bt).buckets)
         check_launches(label, counts[label], n_buckets * ITERS)
+    from repro_torch.kernels import fused
+    print(f"[main] auto: F1 variant per CC bucket (I_pad, C_pad, subjects): "
+          f"{[(b.i_pad, b.c_pad, b.kb, fused.procrustes_b_variant(b.vals, 5)) for b in bt.buckets]}",
+          flush=True)
     if any(counts["torch"].values()):
         fail("the torch route launched a kernel")
     for label in ("auto", "staged", "staged-scoo", "scoo-scoo", "auto-scoo"):
@@ -775,6 +785,11 @@ def phase4_times(bt, bt_sc, bcc_pair, state, per_kernel, errs):
     check_kernels(bargs, errs)
     Ac = cc_csr(cut, V.shape[0])
     library["gather_matmul"] = lambda: torch.sparse.mm(Ac, V)
+    # the same function in one PyTorch call on the kernel's own operands
+    # (the gather of V's blocks inside the timed call)
+    bvals, bids, Vp = bargs["gather_matmul"]
+    same_input = {"gather_matmul": lambda: torch.einsum(
+        "kibl,kblr->kir", bvals, Vp.view(-1, 128, R)[bids.long()])}
     for name in SCOO:
         where[name] = (f"Kb={bs.kb} I={bs.i_pad} C={bs.c_pad} N={bs.n_pad} "
                        f"nnz={int(bs.nnz_counts.sum())}")
@@ -802,9 +817,17 @@ def phase4_times(bt, bt_sc, bcc_pair, state, per_kernel, errs):
             "library_ms": time_ms(library[name]),
         })
         r = rows[-1]
+        extra = ""
+        if name == "fused_procrustes_b":
+            r["variant"] = fused.procrustes_b_variant(b.vals, R)
+            extra = f", variant {r['variant']}"
+        if name in same_input:
+            r["library_same_input_ms"] = time_ms(same_input[name])
+            extra = f", library on the same input {r['library_same_input_ms']:.4f} ms"
         print(f"[time] {name} at {where[name]} R={R} f32: kernel {r['ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, {nbytes} B, {ops} ops), "
-              f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms", flush=True)
+              f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms{extra}",
+              flush=True)
     return rows
 
 

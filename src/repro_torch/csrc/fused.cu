@@ -25,8 +25,10 @@
 // bound by the slab bytes (K*I*C*itemsize / 3.35 TB/s); F2 reads only the
 // [K, I, R] operands and is bound by those bytes. So the design reads every
 // slab element once, coalesced along C, keeps the small operands (Vg_k, Q_k,
-// H, w_k) in shared memory, and does the R-wide arithmetic in FMA units; it
-// uses no tensor cores, no TMA and no multi-stage pipeline (later work).
+// H, w_k) in shared memory, and does the R-wide arithmetic in FMA units, no
+// tensor cores. F1 streams the slab through a multi-stage cp.async ring in
+// persistent blocks (its note below); F2-F4 read it straight from device
+// memory, one block per subject.
 //
 // Plain C interface, loaded with ctypes (repro_torch/kernels/_build.py):
 // every entry point launches on the given stream, does not synchronise,
@@ -110,16 +112,246 @@ __device__ inline T pick(const T (&acc)[RMAX], int idx) {
 
 // ---------------------------------------------------------------------------
 // F1 fused_procrustes_b. Replaces src/repro/kernels/fused.py
-// fused_procrustes_b (pallas_call at :153): XkV_k = X_k Vg_k and
-// B_k = (XkV_k * w_k) H^T in one pass over the slab. Bound: the slab bytes.
-// One block per subject: Vg_k (in CC-row chunks), H and w_k in shared
-// memory, one warp per slab row, B formed from the row sums in registers, so
-// XkV is written but never read back. WIDE (R > 64): H and w_k are read
-// from global memory and B sums the R chunks in place (each entry has one
-// owning lane, so the sum is in a fixed order). The TPU kernel's block_c
-// chunking (a VMEM budget) has no counterpart: a block reads its rows
-// straight from device memory.
+// fused_procrustes_b (pallas_call at :153, body _procrustes_b_kernel at
+// :100): XkV_k = X_k Vg_k and B_k = (XkV_k * w_k) H^T in one pass over the
+// slab. Bound: the slab bytes (R = 5, f32: 10 operations per 4-byte load).
+// Two variants, picked by shape (f1_variant):
+//
+// RING, the main path (R <= 64 and two subjects' operands fit in shared
+// memory). What held the row-warp design below at 46% of the bound: a serial
+// prologue per subject before its first slab load, 4-byte lane loads, and a
+// chain of R warp reductions after every row before the next row's loads, so
+// few bytes were in flight per SM. Here persistent blocks (a few per SM)
+// walk over subjects through a ring of kStages shared-memory stages: while a
+// block computes subject n, cp.async copies (16 bytes a thread when the
+// slab's rows are whole 16-byte runs, else one element a thread) fill the
+// stage of subject n+1 with its slab, Vg_k and w_k, so the slab stream
+// never waits for compute; the copies' index arithmetic is a few adds a
+// copy (Walk). Eight lanes split a row's C into 16-byte packs (VEC =
+// 16 / sizeof(T) values); each lane owns RPT rows (32 apart) and all R sums
+// of them, one 16-byte Vg read per (pack, r) feeds its RPT rows, and the
+// eight lanes of a row reduce once per row (three shuffles per r), in a
+// fixed order. Eight warps a block and two stages (66 KB at I = 56, C = 128,
+// R = 5, f32), so three blocks share an SM: in paired timings on the H100
+// the warps to hide each subject's short compute mattered more than bytes
+// in flight (two blocks of three stages were 4% slower, one block of four
+// stages 73% slower). The slab is
+// staged with a row stride of 2 mod 8 packs and Vg_k as [C/VEC][R|1][VEC]
+// packs, so that the reads are free of bank conflicts. B is formed from the
+// row sums in registers (H in shared memory), so XkV is written but never
+// read back. The arithmetic is FMA in full f32 / f64: at 10 operations per
+// 4 bytes the card is far from its FMA limit, and TF32 tensor cores would
+// break the 1e-6 relative f32 parity.
+//
+// ROW-WARP (R > 64, or a subject too large for two stages): one block per
+// subject: Vg_k (in CC-row chunks), H and w_k in shared memory, one warp per
+// slab row, B formed from the row sums in registers. WIDE (R > 64): H and
+// w_k are read from global memory and B sums the R chunks in place (each
+// entry has one owning lane, so the sum is in a fixed order). The TPU
+// kernel's block_c chunking (a VMEM budget) has no counterpart: a block
+// reads its rows straight from device memory.
 // ---------------------------------------------------------------------------
+constexpr int kStages = 2;                 // ring depth (subjects a block holds)
+constexpr int kRingThreads = 256;
+constexpr int kRingWarps = kRingThreads / kWarp;
+constexpr int kGroups = 8;                 // lanes that split one row's C
+constexpr int kSlots = kWarp / kGroups;    // rows a warp takes per row tile
+
+// cp.async of BYTES (4, 8 or 16) into shared memory, completed by
+// cp_async_wait; cp_async_commit closes the thread's current group.
+template <int BYTES>
+__device__ inline void cp_async(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src), "n"(BYTES));
+}
+__device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ inline void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+
+// 16 bytes of T from shared memory.
+template <typename T>
+struct Pack {
+  static constexpr int kN = 16 / sizeof(T);
+  T v[kN];
+};
+template <typename T>
+__device__ inline Pack<T> load_pack(const T* p) {
+  Pack<T> f;
+  if constexpr (sizeof(T) == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    f.v[0] = q.x; f.v[1] = q.y; f.v[2] = q.z; f.v[3] = q.w;
+  } else {
+    const double2 q = *reinterpret_cast<const double2*>(p);
+    f.v[0] = q.x; f.v[1] = q.y;
+  }
+  return f;
+}
+
+// A thread's walk over the flat index u = tid, tid + n, ... of an array of
+// rows of `width`, keeping (row, col) = divmod(u, width) without a division
+// per step.
+struct Walk {
+  int row, col, drow, dcol, width;
+  __device__ Walk(int tid, int n, int w)
+      : row(tid / w), col(tid % w), drow(n / w), dcol(n % w), width(w) {}
+  __device__ void step() {
+    row += drow;
+    col += dcol;
+    if (col >= width) { col -= width; ++row; }
+  }
+};
+
+// The ring's shared-memory layout, in elements of T (every part a whole
+// number of 16-byte packs): per stage the slab [I, SP packs], Vg_k
+// [NP packs of c][RS][VEC] and w_k; after the stages, H [R, R].
+struct RingLayout {
+  int vec, np, sp, rs;
+  size_t slab, vg, w, stage, smem_bytes;
+};
+
+template <typename T>
+__host__ __device__ inline RingLayout ring_layout(int I, int C, int R) {
+  RingLayout s;
+  s.vec = 16 / (int)sizeof(T);
+  s.np = (C + s.vec - 1) / s.vec;          // 16-byte packs of a row
+  // SP = 2 mod 8: the 4 rows x 2 packs that 8 lanes read at once hit
+  // distinct banks; RS odd: the two groups' Vg packs do too
+  s.sp = s.np + ((2 - s.np % 8) + 8) % 8;
+  s.rs = R | 1;
+  s.slab = (size_t)I * s.sp * s.vec;
+  s.vg = (size_t)s.np * s.rs * s.vec;
+  s.w = (size_t)(R + s.vec - 1) / s.vec * s.vec;
+  s.stage = s.slab + s.vg + s.w;
+  s.smem_bytes = (kStages * s.stage + (size_t)R * R) * sizeof(T);
+  return s;
+}
+
+template <typename T, int RMAX, bool ALIGNED>
+__global__ void __launch_bounds__(kRingThreads)
+procrustes_b_ring_kernel(const T* __restrict__ vals, const T* __restrict__ vg,
+                         const T* __restrict__ wb, const T* __restrict__ h,
+                         T* __restrict__ xkv, T* __restrict__ bout, int K, int I,
+                         int C, int R) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int RPT = RMAX <= 16 ? 2 : 1;      // rows a lane owns per row tile
+  constexpr int kTileRows = RPT * kRingWarps * kSlots;
+  const RingLayout lay = ring_layout<T>(I, C, R);
+  const int NP = lay.np, SP = lay.sp, RS = lay.rs;
+  T* ring = smem_base<T>();
+  T* h_s = ring + kStages * lay.stage;
+  const int tid = threadIdx.x, nthr = blockDim.x, warp = tid / kWarp, lane = tid % kWarp;
+  const int q = lane / kSlots, slot = lane % kSlots;   // C group, row slot
+  const int n_mine = K > (int)blockIdx.x ? (K - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
+
+  // pads that no copy writes: slab columns and Vg rows C .. NP*VEC - 1
+  const int cpad = NP * VEC - C;
+  for (int s = 0; s < kStages; ++s) {
+    T* st = ring + s * lay.stage;
+    for (int t = tid; t < I * cpad; t += nthr)
+      st[(t / cpad) * SP * VEC + C + t % cpad] = T(0);
+    for (int t = tid; t < cpad * R; t += nthr) {
+      const int c = C + t / R, r = t % R;
+      st[lay.slab + ((c / VEC) * RS + r) * VEC + c % VEC] = T(0);
+    }
+  }
+  for (int t = tid; t < R * R; t += nthr) h_s[t] = h[t];
+
+  // copy subject k's slab, Vg_k and w_k into stage `st`
+  const Walk slab0(tid, nthr, ALIGNED ? NP : C), vg0(tid, nthr, R);
+  auto fetch = [&](T* st, int64_t k) {
+    const T* src = vals + k * I * C;
+    Walk w = slab0;
+    if constexpr (ALIGNED) {                  // rows are whole 16-byte runs
+      for (int u = tid; u < I * NP; u += nthr, w.step())
+        cp_async<16>(st + (w.row * SP + w.col) * VEC, src + (int64_t)u * VEC);
+    } else {
+      for (int u = tid; u < I * C; u += nthr, w.step())
+        cp_async<sizeof(T)>(st + w.row * SP * VEC + w.col, src + u);
+    }
+    const T* vsrc = vg + k * C * R;
+    T* vdst = st + lay.slab;
+    w = vg0;                                  // (c, r) of Vg_k
+    for (int u = tid; u < C * R; u += nthr, w.step())
+      cp_async<sizeof(T)>(vdst + ((w.row / VEC) * RS + w.col) * VEC + w.row % VEC, vsrc + u);
+    for (int u = tid; u < R; u += nthr)
+      cp_async<sizeof(T)>(st + lay.slab + lay.vg + u, wb + k * R + u);
+  };
+  auto subject = [&](int n) { return (int64_t)blockIdx.x + (int64_t)n * gridDim.x; };
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_mine) fetch(ring + s * lay.stage, subject(s));
+    cp_async_commit();
+  }
+  for (int n = 0; n < n_mine; ++n) {         // block-uniform
+    cp_async_wait<kStages - 2>();           // subject n's copies are in
+    __syncthreads();                         // everyone's; stage n-1 is read
+    const int nn = n + kStages - 1;
+    if (nn < n_mine) fetch(ring + (nn % kStages) * lay.stage, subject(nn));
+    cp_async_commit();
+
+    const T* st = ring + (n % kStages) * lay.stage;
+    const T* x_s = st;
+    const T* vg_s = st + lay.slab;
+    const T* w_s = vg_s + lay.vg;
+    const int64_t k = subject(n);
+    for (int i0 = 0; i0 < I; i0 += kTileRows) {
+      int rows[RPT];
+      T acc[RPT][RMAX];
+#pragma unroll
+      for (int t = 0; t < RPT; ++t) {
+        rows[t] = i0 + t * kRingWarps * kSlots + warp * kSlots + slot;
+#pragma unroll
+        for (int r = 0; r < RMAX; ++r) acc[t][r] = T(0);
+      }
+      if (i0 + warp * kSlots >= I) break;    // warp-uniform: no row of this warp is left
+      for (int p = q; p < NP; p += kGroups) {
+        Pack<T> xp[RPT];
+#pragma unroll
+        for (int t = 0; t < RPT; ++t)
+          xp[t] = load_pack(x_s + ((rows[t] < I ? rows[t] : 0) * SP + p) * VEC);
+#pragma unroll
+        for (int r = 0; r < RMAX; ++r) {
+          if (r < R) {
+            const Pack<T> vp = load_pack(vg_s + (p * RS + r) * VEC);
+#pragma unroll
+            for (int t = 0; t < RPT; ++t)
+#pragma unroll
+              for (int j = 0; j < VEC; ++j) acc[t][r] += xp[t].v[j] * vp.v[j];
+          }
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < RPT; ++t) {
+        // the kGroups C groups of a row: lanes slot + kSlots * g, in a fixed order
+#pragma unroll
+        for (int r = 0; r < RMAX; ++r) {
+          if (r < R) {
+#pragma unroll
+            for (int off = kSlots; off < kWarp; off <<= 1)
+              acc[t][r] += __shfl_xor_sync(0xffffffffu, acc[t][r], off);
+          }
+        }
+        if (rows[t] < I) {
+          const int64_t o = (k * I + rows[t]) * R;
+          for (int l = q; l < R; l += kGroups) {   // B[i, l] = sum_r (XkV w)[r] H[l, r]
+            T b = T(0);
+#pragma unroll
+            for (int r = 0; r < RMAX; ++r)
+              if (r < R) b += (acc[t][r] * w_s[r]) * h_s[l * R + r];
+            xkv[o + l] = pick<T, RMAX>(acc[t], l);
+            bout[o + l] = b;
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();                        // leave no copy in flight
+}
+
 template <typename T, int RMAX, bool WIDE, bool CHUNKED>
 __global__ void __launch_bounds__(kThreads)
 procrustes_b_kernel(const T* __restrict__ vals, const T* __restrict__ vg,
@@ -476,13 +708,80 @@ int rows_that_fit(size_t fixed, size_t stride) {
   return fixed + stride <= cap ? (int)((cap - fixed) / stride) : 0;
 }
 
+// A persistent grid: the blocks of `kernel` an SM holds at `smem` bytes of
+// dynamic shared memory, times the SMs, at most `items`. The occupancy query
+// costs host time comparable to a short kernel, so its answer is kept per
+// (kernel, smem, device).
+template <typename Kernel>
+cudaError_t persistent_grid(Kernel kernel, int threads, size_t smem, int64_t items,
+                            int* grid) {
+  struct Entry { const void* fn; size_t smem; int dev, blocks; };
+  static Entry cache[32];
+  static int used = 0;
+  int dev = 0, blocks = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  for (int i = 0; i < used; ++i)
+    if (cache[i].fn == fn && cache[i].smem == smem && cache[i].dev == dev) blocks = cache[i].blocks;
+  if (blocks == 0) {
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+    if (e != cudaSuccess) return e;
+    blocks = std::max(1, per_sm) * std::max(1, sms);
+    cache[used < 32 ? used++ : (int)(smem % 32)] = {fn, smem, dev, blocks};
+  }
+  *grid = (int)std::min<int64_t>(items, blocks);
+  return cudaSuccess;
+}
+
+// F1's variants, as spartan_fused_procrustes_b_variant reports them.
+enum F1Variant { kRing = 0, kRingElementCopies = 1, kRowWarp = 2, kRowWarpChunked = 3,
+                 kRowWarpWide = 4, kRowWarpWideChunked = 5 };
+
+// The Vg_k rows the row-warp variant stages at a time.
+template <typename T>
+int f1_rows_per_chunk(int C, int R, bool wide, int rmax) {
+  const size_t fixed = wide ? 0 : (size_t)R * R + R;
+  return std::min(C, rows_that_fit<T>(fixed, row_stride(wide ? rmax : R)));
+}
+
+// RING where its stages fit and R <= 64 (16-byte copies when every slab
+// row starts on a 16-byte boundary), else ROW-WARP.
+template <typename T>
+int f1_variant(int I, int C, int R, bool aligned) {
+  if (R <= kTile && ring_layout<T>(I, C, R).smem_bytes <= (size_t)kMaxDynamicSmem)
+    return aligned && C % (16 / (int)sizeof(T)) == 0 ? kRing : kRingElementCopies;
+  const bool wide = R > kTile;
+  const bool chunked = f1_rows_per_chunk<T>(C, R, wide, kTile) < C;
+  return wide ? (chunked ? kRowWarpWideChunked : kRowWarpWide)
+              : (chunked ? kRowWarpChunked : kRowWarp);
+}
+
 template <typename T, int RMAX, bool WIDE>
 cudaError_t launch_f1(const void* vals, const void* vg, const void* wb,
                       const void* h, void* xkv, void* b, int K, int I, int C,
                       int R, cudaStream_t stream) {
+  const int variant = f1_variant<T>(I, C, R, reinterpret_cast<uintptr_t>(vals) % 16 == 0);
+  if (variant == kRing || variant == kRingElementCopies) {
+    const size_t smem = ring_layout<T>(I, C, R).smem_bytes;
+    auto kernel = variant == kRing ? procrustes_b_ring_kernel<T, RMAX, true>
+                                   : procrustes_b_ring_kernel<T, RMAX, false>;
+    cudaError_t e = allow_smem(kernel, smem);
+    int grid = 0;
+    if (e == cudaSuccess) e = persistent_grid(kernel, kRingThreads, smem, K, &grid);
+    if (e != cudaSuccess) return e;
+    kernel<<<grid, kRingThreads, smem, stream>>>(
+        static_cast<const T*>(vals), static_cast<const T*>(vg),
+        static_cast<const T*>(wb), static_cast<const T*>(h),
+        static_cast<T*>(xkv), static_cast<T*>(b), K, I, C, R);
+    return cudaGetLastError();
+  }
   const int RS = row_stride(WIDE ? RMAX : R);
   const size_t fixed = WIDE ? 0 : (size_t)R * R + R;
-  const int CC = std::min(C, rows_that_fit<T>(fixed, RS));
+  const int CC = f1_rows_per_chunk<T>(C, R, WIDE, RMAX);
   if (CC < 1) return cudaErrorInvalidValue;
   const size_t smem = ((size_t)CC * RS + fixed) * sizeof(T);
   auto kernel = CC < C ? procrustes_b_kernel<T, RMAX, WIDE, true>
@@ -602,6 +901,16 @@ int spartan_fused_procrustes_b(int dtype, const void* vals, const void* vg,
                                void* stream) {
   SPARTAN_DISPATCH(launch_f1, vals, vg, wb, h, xkv, b, K, I, C, R,
                    static_cast<cudaStream_t>(stream));
+}
+
+// The variant a spartan_fused_procrustes_b launch takes (F1Variant: 0 ring,
+// 1 ring with element copies, 2-5 row-warp, chunked, wide, wide chunked);
+// aligned: the slab starts on a 16-byte boundary. -1 for an unknown dtype.
+int spartan_fused_procrustes_b_variant(int dtype, int I, int C, int R, int aligned) {
+  if (R < 1 || I < 1 || C < 1) return -1;
+  if (dtype == 0) return f1_variant<float>(I, C, R, aligned != 0);
+  if (dtype == 1) return f1_variant<double>(I, C, R, aligned != 0);
+  return -1;
 }
 
 int spartan_fused_mode1_xkv(int dtype, const void* q, const void* xkv,

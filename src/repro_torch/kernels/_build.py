@@ -41,11 +41,12 @@ def nvcc_path() -> str:
                        "machine with the CUDA toolkit (set CUDA_HOME)")
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless a library for this exact source and
-    these flags exists; return the library's path. ``ptxas``'s register and
-    shared-memory report is kept beside it as ``<lib>.log``."""
-    src = CSRC / f"{name}.cu"
+def build(name: str, csrc: Path = CSRC) -> Path:
+    """Compile ``<csrc>/<name>.cu`` (by default this package's ``csrc``)
+    unless a library for this exact source and these flags exists; return
+    the library's path. ``ptxas``'s register and shared-memory report is
+    kept beside it as ``<lib>.log``."""
+    src = Path(csrc) / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}_{digest}.so"
     if out.exists():

@@ -45,6 +45,8 @@ __all__ = [
     "mode1_xkv_plain",
     "mode2_compact_plain",
     "ykv_plain",
+    "procrustes_b_variant",
+    "F1_VARIANTS",
     "reset_launches",
 ]
 
@@ -56,7 +58,11 @@ LIB = KernelLib("fused", KERNELS, {
     "spartan_fused_mode2_compact": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "spartan_fused_ykv": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "spartan_mode1_partials": [_I],
+    "spartan_fused_procrustes_b_variant": [_I, _I, _I, _I, _I],
 })
+# spartan_fused_procrustes_b_variant's codes
+F1_VARIANTS = ("ring", "ring-element-copies", "row-warp", "row-warp-chunked",
+               "row-warp-wide", "row-warp-wide-chunked")
 # kernel launches per wrapper; plain-version calls on the CPU are not counted
 LAUNCHES = LIB.launches
 reset_launches = LIB.reset_launches
@@ -114,6 +120,20 @@ def fused_procrustes_b(vals, Vg, Wb, H) -> Tuple[torch.Tensor, torch.Tensor]:
                 code, vals.data_ptr(), Vg.data_ptr(), Wb.data_ptr(), H.data_ptr(),
                 XkV.data_ptr(), B.data_ptr(), K, I, C, R)
     return XkV, B
+
+
+def procrustes_b_variant(vals: torch.Tensor, R: int) -> str:
+    """Which variant of F1's kernel :func:`fused_procrustes_b` launches for a
+    CUDA slab ``vals`` [K,I,C] at rank R: ``ring`` (the main path's), or
+    ``ring-element-copies`` for a slab whose rows are not whole 16-byte
+    runs, or ``row-warp*`` for R > 64 or a subject too large for the ring."""
+    K, I, C = vals.shape
+    dtype = dtype_code(vals)           # raises for a tensor off the card
+    code = LIB.lib().spartan_fused_procrustes_b_variant(
+        dtype, I, C, R, int(vals.data_ptr() % 16 == 0))
+    if code < 0:
+        raise ValueError(f"no F1 variant for I={I}, C={C}, R={R}")
+    return F1_VARIANTS[code]
 
 
 def fused_mode1_xkv(Q, XkV, Wb) -> torch.Tensor:

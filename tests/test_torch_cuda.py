@@ -37,6 +37,9 @@ GEOMETRIES = [
     dict(seed=5, K=8, J=150, R=72, col_align=8),      # past the 64-wide register tile
     dict(seed=6, K=6, J=120, R=40, col_align=1024),   # C_pad = 1024 (chunked Vg in f64)
     dict(seed=7, K=4, J=60, R=72, col_align=1024, max_rows=700),   # every tile chunked
+    dict(seed=8, K=1, J=30, R=5, col_align=4),        # one subject
+    dict(seed=9, K=9, J=40, R=5, col_align=1),        # C_pad 17: rows not whole 16-byte runs
+    dict(seed=10, K=6, J=80, R=64, col_align=8),      # the widest register tile
 ]
 KERNELS = {   # name -> (wrapper, plain version)
     "fused_procrustes_b": (fused.fused_procrustes_b, fused.procrustes_b_plain),
@@ -131,6 +134,50 @@ def test_kernels_and_scatter_are_deterministic(dev):
     A = torch.randn((300, 40, 5), device=dev)
     cols = torch.randint(0, 97, (300, 40), device=dev, dtype=torch.int32)
     assert torch.equal(spartan.mode2_scatter(A, cols, 97), spartan.mode2_scatter(A, cols, 97))
+
+
+def _offset_tensor(shape, dtype, dev, rng, offset):
+    """A contiguous tensor whose data starts ``offset`` elements past an
+    allocation's (16-byte aligned) start."""
+    n = int(np.prod(shape))
+    t = torch.empty(n + offset, dtype=dtype, device=dev)[offset:].view(shape)
+    t.copy_(torch.tensor(rng.standard_normal(shape), dtype=dtype))
+    return t
+
+
+# (K, I, C, R, offset of the slab's start in elements) -> F1 variant in f32
+F1_EDGES = {
+    (1, 1, 5, 1, 0): "ring-element-copies",      # K = 1, I = 1, C % 4 != 0
+    (1000, 3, 16, 5, 0): "ring",                 # K past the persistent grid
+    (7, 57, 130, 5, 0): "ring-element-copies",   # I past a row tile, C % 4 != 0
+    (5, 9, 36, 8, 1): "ring-element-copies",     # slab start not 16-byte aligned
+    (6, 70, 64, 1, 0): "ring",
+    (4, 70, 64, 64, 0): "ring",                  # the widest tile, one row a lane
+    (3, 9, 20, 72, 0): "row-warp-wide",          # R past the widest tile
+    (2, 700, 1024, 40, 0): "row-warp",           # a subject too large for the ring
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(F1_EDGES), ids=lambda s: "K{}-I{}-C{}-R{}-off{}".format(*s))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_procrustes_b_edges(dev, shape, dtype):
+    """F1 at the edges of its variants: the variant the launcher picks (in
+    f32), the plain version's result and the same bits twice."""
+    K, I, C, R, offset = shape
+    rng = np.random.default_rng(K + I + C + R)
+    vals = _offset_tensor((K, I, C), dtype, dev, rng, offset)
+    Vg, Wb, H = (torch.tensor(rng.standard_normal(s), dtype=dtype, device=dev)
+                 for s in ((K, C, R), (K, R), (R, R)))
+    if dtype == torch.float32:
+        assert fused.procrustes_b_variant(vals, R) == F1_EDGES[shape]
+    before = fused.LAUNCHES["fused_procrustes_b"]
+    got = fused.fused_procrustes_b(vals, Vg, Wb, H)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["fused_procrustes_b"] == before + 1
+    _assert_matches(got, fused.procrustes_b_plain(vals, Vg, Wb, H), dtype)
+    again = fused.fused_procrustes_b(vals, Vg, Wb, H)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
 
 
 @pytest.mark.cuda
@@ -266,11 +313,13 @@ def test_scoo_kernels_match_plain(dev, name, R, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("seed,J,R", [(0, 300, 8), (1, 500, 16), (2, 130, 4), (3, 260, 40)])
+@pytest.mark.parametrize("seed,J,R", [(0, 300, 8), (1, 500, 16), (2, 130, 4), (3, 260, 40),
+                                      (4, 100, 5), (5, 260, 72)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_gather_matmul_matches_plain(dev, seed, J, R, dtype):
-    """Row 13 over the reference's BCC geometries (and R = 40, where R is
-    staged in two chunks), against its plain version and the CC product."""
+    """Row 13 over the reference's BCC geometries, NB = 1 (J = 100) and
+    R = 5, 40 and 72 (R past the 16-wide register tile runs in R chunks),
+    against its plain version and the CC product."""
     data = random_irregular(n_subjects=9, n_cols=J, max_rows=12, avg_nnz_per_subject=40,
                             seed=seed)
     bt = bucketize(data, max_buckets=2, dtype=dtype, device=dev)
@@ -287,6 +336,43 @@ def test_gather_matmul_matches_plain(dev, seed, J, R, dtype):
         _assert_matches(got, gather_matmul.gather_matmul_plain(bcc.vals, bcc.blk_ids, V_pad),
                         dtype)
         _assert_matches(got, b.xk_times_v(V), dtype)
+
+
+# (K, I, NB, L, R, offset of vals' start in elements)
+GATHER_EDGES = [
+    (5, 7, 1, 128, 5, 0),       # NB = 1
+    (6, 4, 3, 128, 1, 0),
+    (4, 3, 2, 128, 72, 0),      # R chunks
+    (3, 5, 60, 128, 16, 0),     # a row longer than the V stage: E chunks
+    (6, 4, 3, 33, 5, 0),        # rows not whole 16-byte runs
+    (5, 17, 9, 128, 5, 1),      # vals' start not 16-byte aligned
+    (1500, 3, 2, 128, 5, 0),    # K past the persistent grid
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", GATHER_EDGES, ids=lambda s: "K{}-I{}-NB{}-L{}-R{}-off{}".format(*s))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gather_matmul_edges(dev, shape, dtype):
+    """Row 13 at the edges of its design, with the first subjects' blocks
+    all padding (zero values, id 0): the plain version's result and the same
+    bits twice. The values are 10% dense, as BCC blocks are mostly zeros:
+    f32 sums of thousands of dense terms taken in two orders differ by more
+    than 1e-6 of the largest output."""
+    K, I, NB, L, R, offset = shape
+    rng = np.random.default_rng(K + I + NB + L + R)
+    vals = _offset_tensor((K, I, NB, L), dtype, dev, rng, offset)
+    vals.mul_(torch.tensor(rng.random((K, I, NB, L)) < 0.1, dtype=dtype, device=dev))
+    ids = torch.tensor(rng.integers(0, NB + 3, (K, NB)), dtype=torch.int32, device=dev)
+    vals[:2] = 0
+    ids[:2] = 0
+    V = torch.tensor(rng.standard_normal((L * (NB + 3), R)), dtype=dtype, device=dev)
+    before = gather_matmul.LAUNCHES["gather_matmul"]
+    got = gather_matmul.gather_matmul(vals, ids, V)
+    torch.cuda.synchronize()
+    assert gather_matmul.LAUNCHES["gather_matmul"] == before + 1
+    _assert_matches(got, gather_matmul.gather_matmul_plain(vals, ids, V), dtype)
+    assert torch.equal(got, gather_matmul.gather_matmul(vals, ids, V))
 
 
 @pytest.mark.cuda

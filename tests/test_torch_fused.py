@@ -171,3 +171,11 @@ def test_wrappers_reject_bad_operands():
     fused.reset_launches()
     fused.fused_ykv(vals, torch.rand((3, 8, 4), dtype=torch.float64), Vg)
     assert sum(fused.LAUNCHES.values()) == 0
+
+
+def test_procrustes_b_variant_is_a_question_for_the_card():
+    """F1's variant is the CUDA launcher's choice: asking it for a CPU slab
+    raises before any kernel library is built or loaded."""
+    with pytest.raises(ValueError, match="CUDA"):
+        fused.procrustes_b_variant(torch.rand((3, 8, 12)), 5)
+    assert fused.LIB._lib is None
