@@ -19,8 +19,12 @@ Phases, any failure exits non-zero:
    reference's three SCOO datasets (an empty, a single-nnz and a 200-row
    ultra-sparse subject among them) at R = 1, 5 and 72 with padded subjects,
    and over explicit zero-valued triplets; the BCC gather-matmul over the
-   reference's BCC geometries and R = 72; an empty (K=0) bucket through
-   every wrapper. f64 to 1e-12 absolute, f32 to 1e-6 relative plus 1e-6 of
+   reference's BCC geometries and R = 72; rows 8 and 12 at the edges of
+   their variants (unaligned and odd C, C past the tile, R = 72 at C_pad =
+   1024, empty subjects and columns, a segment of length N, N and I past
+   the shared-memory stages, unaligned starts, more subjects than the
+   persistent grid), where each must take the variant stated and every
+   variant must be reached; an empty (K=0) bucket through every wrapper. f64 to 1e-12 absolute, f32 to 1e-6 relative plus 1e-6 of
    the output's largest magnitude (sums in another order differ by a
    rounding); for the two SCOO kernels the scale is the largest running
    sum of |contribution| instead, since their plain versions difference
@@ -45,8 +49,9 @@ Phases, any failure exits non-zero:
    most 2 GiB of BCC values), ``xk_times_v_bcc`` against ``xk_times_v``;
 4. each kernel's time beside its bound, its plain version's time and one
    PyTorch call's time (CUDA events, median of 20): the CC kernels at the
-   main path's largest CC bucket (with the variant F1 takes there), the
-   SCOO kernels at its largest SCOO bucket, the gather-matmul on the BCC
+   main path's largest CC bucket (with the variant F1 and row 8 take
+   there), the SCOO kernels at its largest SCOO bucket (with row 12's
+   variant), the gather-matmul on the BCC
    cut (beside the CSR product over the cut's nonzeros, also one PyTorch
    call on the kernel's own operands, ``library_same_input_ms``);
 5. a ``torch.profiler`` trace of one main-path ALS iteration on the auto and
@@ -98,6 +103,29 @@ GEOMETRIES = [
 SCOO_DATA = ("edge", "random-odd", "random-padded")
 BCC_GEOMETRIES = [(0, 300, 8), (1, 500, 16), (2, 130, 4), (3, 260, 72)]
 BCC_CUT_BYTES = 2 * 2**30       # the BCC cut's values at most
+# rows 8 and 12 at the edges of their variants, and the variant each takes
+# in f32: (K, R, C, offset of Yc's start in elements) and (I, C, N, nnz per
+# subject, R, one column, offset of vals' start in elements)
+MODE2_EDGES = {
+    (7, 5, 128, 0): "ring",                      # the main path's C
+    (5, 5, 17, 0): "ring-element-copies",        # rows not whole 16-byte runs
+    (4, 5, 1000, 0): "ring",                     # C not a multiple of the tile
+    (3, 72, 1024, 0): "ring",                    # R = 72 at C_pad = 1024
+    (6, 8, 130, 0): "ring-element-copies",       # odd width, the register tile's R
+    (5, 9, 64, 0): "ring",                       # R past the register tile
+    (5, 5, 128, 1): "ring-element-copies",       # Yc's start not 16-byte aligned
+    (3, 200, 40, 0): "thread-per-entry",         # R too wide for the ring's tile
+    (1500, 5, 128, 0): "ring",                   # items past the persistent grid
+}
+PROJECT_EDGES = {
+    (8, 16, 64, (64, 0, 10), 5, True, 0): "ring",         # a segment of length N, an empty subject
+    (5, 9, 13, (13, 2, 0, 7, 5), 5, False, 0): "ring-element-copies",   # runs not whole packs
+    (8, 16, 24, (24, 3, 0, 9), 5, False, 1): "ring-element-copies",    # vals' start unaligned
+    (40, 128, 3000, (3000, 17, 0), 5, False, 0): "thread-per-entry",  # N past the stages
+    (1000, 32, 40, (40, 0, 33), 8, False, 0): "thread-per-entry",     # I past the stages
+    (24, 32, 96, (96, 50, 0, 1), 72, False, 0): "ring",  # R = 72, in chunks of 32
+    (8, 16, 24, tuple(range(24)) * 60, 5, False, 0): "ring",   # subjects past the persistent grid
+}
 SOURCES = ("fused", "staged", "scoo", "gather_matmul")
 FUSED = ("fused_procrustes_b", "fused_mode1_xkv", "fused_mode2_compact", "fused_ykv")
 STAGED = ("ykv", "mode1", "mode1_reuse", "mode2_compact", "mode3", "mode3_reuse")
@@ -421,6 +449,77 @@ def check_sparse_kernels(dtype, dev, errs: dict) -> None:
             check_kernels(bcc_args(to_block_bucket(b, J), V), errs)
 
 
+def scoo_arrays(n_rows, C, N, nnz, seed, one_col=False) -> dict:
+    """SCOO arrays of one bucket, laid out as ``bucketize`` lays them out:
+    subject k's nnz[k] triplets sorted by (row, column), pads past them,
+    ``cperm`` the stable column order and ``col_ends`` its segment ends."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    Kb = len(nnz)
+    out = dict(vals=np.zeros((Kb, N)), rows=np.zeros((Kb, N), np.int32),
+               lcols=np.zeros((Kb, N), np.int32),
+               cperm=np.tile(np.arange(N, dtype=np.int32), (Kb, 1)),
+               col_ends=np.zeros((Kb, C), np.int32))
+    for k, n in enumerate(nnz):
+        r = rng.integers(0, n_rows, n)
+        c = np.zeros(n, np.int64) if one_col else rng.integers(0, C, n)
+        o = np.lexsort((c, r))
+        out["vals"][k, :n] = rng.standard_normal(n)
+        out["rows"][k, :n], out["lcols"][k, :n] = r[o], c[o]
+        out["cperm"][k, :n] = np.argsort(c[o], kind="stable")
+        out["col_ends"][k] = np.cumsum(np.bincount(c, minlength=C))
+    return out
+
+
+def offset_copy(a, dtype, dev, offset: int):
+    """``a`` on the card, starting ``offset`` elements past an allocation's
+    (16-byte aligned) start."""
+    import torch
+
+    t = torch.empty(a.size + offset, dtype=dtype, device=dev)[offset:].view(a.shape)
+    return t.copy_(torch.as_tensor(a, dtype=dtype))
+
+
+def check_variant_edges(dtype, dev, errs: dict) -> set:
+    """Rows 8 and 12 at the edges of their variants against their plain
+    versions; in f32 each shape must take the variant stated. Returns the
+    (kernel, variant) pairs reached."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import mttkrp_mode2, scoo
+
+    f32, seen = dtype == torch.float32, set()
+    for (K, R, C, offset), want in MODE2_EDGES.items():
+        rng = np.random.default_rng(K + R + C + offset)
+        Yc = offset_copy(rng.standard_normal((K, R, C)), dtype, dev, offset)
+        H, Wb = (torch.tensor(rng.standard_normal(s), dtype=dtype, device=dev)
+                 for s in ((R, R), (K, R)))
+        cm = torch.tensor(rng.random((K, C)) < 0.7, dtype=dtype, device=dev)
+        sm = torch.ones(K, dtype=dtype, device=dev)
+        sm[0] = 0
+        got = mttkrp_mode2.mode2_compact_variant(Yc, cm)
+        if f32 and got != want:
+            fail(f"mode2_compact at K={K} R={R} C={C} offset {offset} took {got}, want {want}")
+        seen.add(("mode2_compact", got))
+        check_kernels({"mode2_compact": (Yc, H, Wb, cm, sm)}, errs)
+    for (n_rows, C, N, nnz, R, one_col, offset), want in PROJECT_EDGES.items():
+        a = scoo_arrays(n_rows, C, N, nnz, seed=N + R, one_col=one_col)
+        vals = offset_copy(a["vals"], dtype, dev, offset)
+        rows, lcols, cperm, ends = (torch.tensor(a[k], device=dev)
+                                    for k in ("rows", "lcols", "cperm", "col_ends"))
+        Q = torch.tensor(np.random.default_rng(R).standard_normal((len(nnz), n_rows, R)),
+                         dtype=dtype, device=dev)
+        got = scoo.scoo_project_variant(vals, rows, lcols, Q, C, cperm=cperm, col_ends=ends)
+        if f32 and got != want:
+            fail(f"scoo_project at I={n_rows} C={C} N={N} R={R} offset {offset} took {got}, "
+                 f"want {want}")
+        seen.add(("scoo_project", got))
+        check_kernels({"scoo_project": (vals, rows, lcols, Q, C, cperm, ends)}, errs,
+                      {"scoo_project": prefix_scale(vals, rows, Q)})
+    return seen
+
+
 def phase2_kernels(dev) -> dict:
     import numpy as np
     import torch
@@ -428,8 +527,10 @@ def phase2_kernels(dev) -> dict:
     from repro_torch.sparse import random_irregular
 
     errs: dict = {}
+    variants = set()
     for dtype in (torch.float32, torch.float64):
         check_sparse_kernels(dtype, dev, errs)
+        variants |= check_variant_edges(dtype, dev, errs)
         for g in GEOMETRIES:
             data = random_irregular(n_subjects=g["K"], n_cols=g["J"],
                                     max_rows=g.get("max_rows", 9),
@@ -448,10 +549,17 @@ def phase2_kernels(dev) -> dict:
         check_empty(dtype, dev)
     if set(errs) != set(ALL):
         fail(f"phase 2 did not check {sorted(set(ALL) - set(errs))}")
+    from repro_torch.kernels import mttkrp_mode2, scoo
+    want = ({("mode2_compact", v) for v in mttkrp_mode2.MODE2_VARIANTS}
+            | {("scoo_project", v) for v in scoo.PROJECT_VARIANTS})
+    if variants != want:
+        fail(f"phase 2 did not reach the variants {sorted(want - variants)}")
     print(f"[kernels] all thirteen match their plain versions (f32, f64; "
           f"{len(GEOMETRIES)} CC geometries, R in {sorted({g['R'] for g in GEOMETRIES})}, "
           f"C_pad up to 1024; SCOO {', '.join(SCOO_DATA)} at R 1/5/72 and explicit "
-          f"zero-valued triplets; BCC {BCC_GEOMETRIES}; padded subjects, K=0): "
+          f"zero-valued triplets; BCC {BCC_GEOMETRIES}; rows 8 and 12 at "
+          f"{len(MODE2_EDGES)} and {len(PROJECT_EDGES)} edge shapes, variants "
+          f"{sorted(variants)}; padded subjects, K=0): "
           + json.dumps({k: v[0] for k, v in errs.items()}), flush=True)
     return errs
 
@@ -525,10 +633,26 @@ def phase3_main_path(dev):
     for label in ("auto", "staged", "staged-scoo", "scoo-scoo", "auto-scoo"):
         n_buckets = len((bt_sc if label.endswith("-scoo") else bt).buckets)
         check_launches(label, counts[label], n_buckets * ITERS)
-    from repro_torch.kernels import fused
+    from repro_torch.kernels import fused, mttkrp_mode2, scoo
     print(f"[main] auto: F1 variant per CC bucket (I_pad, C_pad, subjects): "
           f"{[(b.i_pad, b.c_pad, b.kb, fused.procrustes_b_variant(b.vals, 5)) for b in bt.buckets]}",
           flush=True)
+
+    def yc_like(b):     # the staged route's Yc: a fresh contiguous [Kb, R, C_pad]
+        return torch.empty((b.kb, 5, b.c_pad), device=dev)
+
+    def project_variant(b):
+        Q = torch.empty((b.kb, b.i_pad, 5), device=dev)   # as solve_q returns it
+        return scoo.scoo_project_variant(b.vals, b.rows, b.lcols, Q, b.c_pad, cperm=b.cperm,
+                                         col_ends=b.col_ends)
+
+    cc_v = [(b.c_pad, b.kb, mttkrp_mode2.mode2_compact_variant(yc_like(b), b.col_mask))
+            for b in bt.buckets]
+    sc_v = [(b.i_pad, b.c_pad, b.n_pad, b.kb, project_variant(b),
+             mttkrp_mode2.mode2_compact_variant(yc_like(b), b.col_mask)) for b in bt_sc.buckets]
+    print(f"[main] staged: row 8 variant per CC bucket (C_pad, subjects): {cc_v}; "
+          f"staged-scoo: rows 12 and 8 per SCOO bucket (I_pad, C_pad, N_pad, subjects): "
+          f"{sc_v}", flush=True)
     if any(counts["torch"].values()):
         fail("the torch route launched a kernel")
     for label in ("auto", "staged", "staged-scoo", "scoo-scoo", "auto-scoo"):
@@ -739,7 +863,7 @@ def phase4_times(bt, bt_sc, bcc_pair, state, per_kernel, errs):
     import torch
     from repro_torch.core.backend import get_backend
     from repro_torch.core.procrustes import solve_q
-    from repro_torch.kernels import fused
+    from repro_torch.kernels import fused, mttkrp_mode2, scoo
 
     b = max(bt.buckets, key=lambda x: x.vals.numel())
     H, V, W = state.H.contiguous(), state.V, state.W
@@ -820,6 +944,12 @@ def phase4_times(bt, bt_sc, bcc_pair, state, per_kernel, errs):
         extra = ""
         if name == "fused_procrustes_b":
             r["variant"] = fused.procrustes_b_variant(b.vals, R)
+        if name == "mode2_compact":
+            r["variant"] = mttkrp_mode2.mode2_compact_variant(Yc, b.col_mask)
+        if name == "scoo_project":
+            r["variant"] = scoo.scoo_project_variant(
+                *a[:5], cperm=a[5], col_ends=a[6])
+        if "variant" in r:
             extra = f", variant {r['variant']}"
         if name in same_input:
             r["library_same_input_ms"] = time_ms(same_input[name])

@@ -1,0 +1,86 @@
+// What the port's CUDA sources share (sm_90a): the shared-memory limits,
+// the cp.async primitives, a division-free index walk, the opt-in to more
+// than 48 KB of dynamic shared memory and the size of a persistent grid.
+// fused.cu, staged.cu, scoo.cu and gather_matmul.cu include it, each into
+// its own library; kernels/_build.py hashes it into every build.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <algorithm>
+
+namespace {
+
+constexpr int kMaxDynamicSmem = 232448;    // 227 KB, the most a block may use
+constexpr int kDefaultSmem = 48 * 1024;    // above this, opt in per kernel
+
+// cp.async of BYTES (4, 8 or 16) into shared memory, completed by
+// cp_async_wait; cp_async_commit closes the thread's current group.
+template <int BYTES>
+__device__ inline void cp_async(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src), "n"(BYTES));
+}
+__device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ inline void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+
+// A thread's walk over the flat index u = start, start + n, ... of an array
+// of rows of `width`, keeping (row, col) = divmod(u, width) without a
+// division per step.
+struct Walk {
+  int row, col, drow, dcol, width;
+  __device__ Walk(int start, int n, int w)
+      : row(start / w), col(start % w), drow(n / w), dcol(n % w), width(w) {}
+  __device__ void step() {
+    row += drow;
+    col += dcol;
+    if (col >= width) { col -= width; ++row; }
+  }
+};
+
+// Let `kernel` take `smem` bytes of dynamic shared memory (an opt-in above
+// 48 KB); more than a block may use is refused.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem > (size_t)kMaxDynamicSmem) return cudaErrorInvalidValue;
+  if (smem > (size_t)kDefaultSmem)
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)smem);
+  return cudaSuccess;
+}
+
+// A persistent grid: the blocks of `kernel` an SM holds at `smem` bytes of
+// dynamic shared memory, times the SMs, at most `items`. The occupancy query
+// costs host time comparable to a short kernel, so its answer is kept per
+// (kernel, smem, device).
+template <typename Kernel>
+cudaError_t persistent_grid(Kernel kernel, int threads, size_t smem, int64_t items,
+                            int* grid) {
+  struct Entry { const void* fn; size_t smem; int dev, blocks; };
+  static Entry cache[32];
+  static int used = 0;
+  int dev = 0, blocks = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  for (int i = 0; i < used; ++i)
+    if (cache[i].fn == fn && cache[i].smem == smem && cache[i].dev == dev) blocks = cache[i].blocks;
+  if (blocks == 0) {
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+    if (e != cudaSuccess) return e;
+    blocks = std::max(1, per_sm) * std::max(1, sms);
+    cache[used < 32 ? used++ : (int)(smem % 32)] = {fn, smem, dev, blocks};
+  }
+  *grid = (int)std::min<int64_t>(items, blocks);
+  return cudaSuccess;
+}
+
+}  // namespace

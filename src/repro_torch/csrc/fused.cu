@@ -39,13 +39,13 @@
 
 #include <algorithm>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kWarp = 32;
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / kWarp;
-constexpr int kMaxDynamicSmem = 232448;    // 227 KB, the most a block may use
-constexpr int kDefaultSmem = 48 * 1024;    // above this, opt in per kernel
 constexpr int kMode1Blocks = 2048;         // first-level blocks of F2
 constexpr int kTile = 64;                  // the widest register tile of R
 
@@ -157,20 +157,6 @@ constexpr int kRingWarps = kRingThreads / kWarp;
 constexpr int kGroups = 8;                 // lanes that split one row's C
 constexpr int kSlots = kWarp / kGroups;    // rows a warp takes per row tile
 
-// cp.async of BYTES (4, 8 or 16) into shared memory, completed by
-// cp_async_wait; cp_async_commit closes the thread's current group.
-template <int BYTES>
-__device__ inline void cp_async(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  if constexpr (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src), "n"(BYTES));
-}
-__device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ inline void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
 // 16 bytes of T from shared memory.
 template <typename T>
 struct Pack {
@@ -189,20 +175,6 @@ __device__ inline Pack<T> load_pack(const T* p) {
   }
   return f;
 }
-
-// A thread's walk over the flat index u = tid, tid + n, ... of an array of
-// rows of `width`, keeping (row, col) = divmod(u, width) without a division
-// per step.
-struct Walk {
-  int row, col, drow, dcol, width;
-  __device__ Walk(int tid, int n, int w)
-      : row(tid / w), col(tid % w), drow(n / w), dcol(n % w), width(w) {}
-  __device__ void step() {
-    row += drow;
-    col += dcol;
-    if (col >= width) { col -= width; ++row; }
-  }
-};
 
 // The ring's shared-memory layout, in elements of T (every part a whole
 // number of 16-byte packs): per stage the slab [I, SP packs], Vg_k
@@ -692,49 +664,11 @@ ykv_kernel(const T* __restrict__ vals, const T* __restrict__ q,
 // Host-side launchers. Each sizes its shared-memory chunks: the whole
 // subject when it fits in kMaxDynamicSmem, else as many rows as fit.
 // ---------------------------------------------------------------------------
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  if (smem > (size_t)kMaxDynamicSmem) return cudaErrorInvalidValue;
-  if (smem > (size_t)kDefaultSmem)
-    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)smem);
-  return cudaSuccess;
-}
-
 // Rows of `stride` elements that fit beside `fixed` elements of T.
 template <typename T>
 int rows_that_fit(size_t fixed, size_t stride) {
   const size_t cap = kMaxDynamicSmem / sizeof(T);
   return fixed + stride <= cap ? (int)((cap - fixed) / stride) : 0;
-}
-
-// A persistent grid: the blocks of `kernel` an SM holds at `smem` bytes of
-// dynamic shared memory, times the SMs, at most `items`. The occupancy query
-// costs host time comparable to a short kernel, so its answer is kept per
-// (kernel, smem, device).
-template <typename Kernel>
-cudaError_t persistent_grid(Kernel kernel, int threads, size_t smem, int64_t items,
-                            int* grid) {
-  struct Entry { const void* fn; size_t smem; int dev, blocks; };
-  static Entry cache[32];
-  static int used = 0;
-  int dev = 0, blocks = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  const void* fn = reinterpret_cast<const void*>(kernel);
-  for (int i = 0; i < used; ++i)
-    if (cache[i].fn == fn && cache[i].smem == smem && cache[i].dev == dev) blocks = cache[i].blocks;
-  if (blocks == 0) {
-    int sms = 0, per_sm = 0;
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
-    if (e != cudaSuccess) return e;
-    blocks = std::max(1, per_sm) * std::max(1, sms);
-    cache[used < 32 ? used++ : (int)(smem % 32)] = {fn, smem, dev, blocks};
-  }
-  *grid = (int)std::min<int64_t>(items, blocks);
-  return cudaSuccess;
 }
 
 // F1's variants, as spartan_fused_procrustes_b_variant reports them.

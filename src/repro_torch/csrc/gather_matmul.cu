@@ -48,6 +48,8 @@
 
 #include <algorithm>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kWarp = 32;
@@ -56,7 +58,6 @@ constexpr int kWarps = kThreads / kWarp;
 constexpr int kRows = 2;                   // rows a warp streams at once
 constexpr int kUnroll = 4;                 // 16-byte loads in flight per row and lane
 constexpr int kSmemBudget = 96 * 1024;     // the two V stages, at most
-constexpr int kDefaultSmem = 48 * 1024;    // above this, opt in per kernel
 
 // Blocks an SM should hold: three for the main path's f32 8-wide tile (80
 // registers a thread; the bytes in flight grow with the blocks), else what
@@ -100,17 +101,6 @@ __device__ inline Frag<T, VEC> load_shared(const T* p) {
   return f;
 }
 
-// cp.async of one element of T (4 or 8 bytes) into shared memory, completed
-// by cp_async_wait; cp_async_commit closes the thread's current group.
-template <typename T>
-__device__ inline void cp_async_elem(T* dst, const T* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src), "n"(sizeof(T)));
-}
-__device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ inline void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
 template <typename T>
 __device__ inline T warp_sum(T v) {
 #pragma unroll
@@ -142,7 +132,7 @@ __device__ inline void stage_v(T* buf, const T* __restrict__ v,
   int e = threadIdx.x / rw, r = threadIdx.x % rw;
   int b = (e0 + e) / L, l = (e0 + e) % L;
   while (e < en) {
-    cp_async_elem(buf + r * ES + e, v + ((int64_t)ids[b] * L + l) * R + r0 + r);
+    cp_async<sizeof(T)>(buf + r * ES + e, v + ((int64_t)ids[b] * L + l) * R + r0 + r);
     int step = de;
     r += dr;
     if (r >= rw) { r -= rw; ++step; }
@@ -248,42 +238,6 @@ gather_matmul_kernel(const T* __restrict__ vals, const int* __restrict__ blk_ids
     item = next;
     ec = next_ec;
   }
-}
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  if (smem > (size_t)kDefaultSmem)
-    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  return cudaSuccess;
-}
-
-// A persistent grid: the blocks of `kernel` an SM holds at `smem` bytes of
-// dynamic shared memory, times the SMs, at most `items`. The occupancy query
-// costs host time comparable to a short kernel, so its answer is kept per
-// (kernel, smem, device).
-template <typename Kernel>
-cudaError_t persistent_grid(Kernel kernel, int threads, size_t smem, int64_t items,
-                            int* grid) {
-  struct Entry { const void* fn; size_t smem; int dev, blocks; };
-  static Entry cache[32];
-  static int used = 0;
-  int dev = 0, blocks = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  const void* fn = reinterpret_cast<const void*>(kernel);
-  for (int i = 0; i < used; ++i)
-    if (cache[i].fn == fn && cache[i].smem == smem && cache[i].dev == dev) blocks = cache[i].blocks;
-  if (blocks == 0) {
-    int sms = 0, per_sm = 0;
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
-    if (e != cudaSuccess) return e;
-    blocks = std::max(1, per_sm) * std::max(1, sms);
-    cache[used < 32 ? used++ : (int)(smem % 32)] = {fn, smem, dev, blocks};
-  }
-  *grid = (int)std::min<int64_t>(items, blocks);
-  return cudaSuccess;
 }
 
 template <typename T, int RMAX, int VEC>

@@ -21,16 +21,18 @@
 // multiply-adds against 12-24 bytes of triplet and index, far below the ~20
 // operations per byte before arithmetic is the limit, so both are bound by
 // bytes: the triplets, the segment ends, the factor rows they touch and the
-// output (for row 12 at C_pad = 128 the dense Yc dominates). Design, simple
-// first: one thread per output entry sums its own segment in order, reading
-// straight from device memory; no atomics, so two runs give the same bits,
-// and an empty segment (a padded column or subject) writes an exact zero.
-// The TPU kernels turned each gather into a one-hot matmul on the MXU and
-// skipped all-padding blocks by a scalar-prefetched nnz count; none of that
-// is carried over: the segment ends say where each sum starts and stops, so
+// output (for row 12 at C_pad = 128 the dense Yc dominates). Each output
+// entry has one owner that sums its segment in order, m = m0 .. m1 - 1, one
+// running sum: no atomics, so two runs give the same bits, and an empty
+// segment (a padded column or subject) writes an exact zero. The TPU kernels
+// turned each gather into a one-hot matmul on the MXU and skipped
+// all-padding blocks by a scalar-prefetched nnz count; none of that is
+// carried over: the segment ends say where each sum starts and stops, so
 // explicit zero-valued triplets inside the true nnz count like any other.
-// Threads of one (k, i) (row 11, r fastest) or one (k, r) (row 12, c
-// fastest) are neighbours in a warp, so the stores are contiguous.
+// Row 11 runs one thread per output entry, reading straight from device
+// memory (threads of one (k, i) are neighbours in a warp, r fastest, so the
+// stores are contiguous); row 12 stages each subject in shared memory (its
+// note below).
 //
 // Plain C interface, loaded with ctypes (repro_torch/kernels/_launch.py):
 // every entry point launches on the given stream, does not synchronise,
@@ -40,6 +42,9 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <initializer_list>
+
+#include "common.cuh"
 
 namespace {
 
@@ -78,11 +83,156 @@ xkv_kernel(const T* __restrict__ vals, const int* __restrict__ lcols,
 }
 
 // ---------------------------------------------------------------------------
-// Row 12, project. Replaces src/repro/kernels/scoo.py project_pallas
-// (:313, pallas_call at :341, body _project_kernel at :284): one thread per entry
-// (k, r, c) of Yc, walking column c's run of the column-sorted view. Bound:
-// vals, rows, cperm, col_ends, the Q rows read and the dense Yc output.
+// Row 12, project. Replaces src/repro/kernels/scoo.py project_pallas (:313,
+// pallas_call at :341, body _project_kernel at :284). Bound: vals, rows and
+// cperm up to the true nnz, col_ends, the Q rows read and the dense Yc
+// output (149 of ~292 MB at the main path's largest SCOO bucket). Two
+// variants, picked by shape (project_variant):
+//
+// RING, the main path (a subject's operands, two stages of them and its
+// output tile fit in kRingBudget). What held the thread-per-entry design
+// below at 14% of the bound: each thread walked its segment through four
+// dependent loads from device memory per triplet (cperm, then vals and
+// rows, then a Q row); the R threads of one column sat in different warps
+// and each repeated that chain; every thread did two 64-bit divisions.
+// Here persistent blocks walk over subjects. While a block sums subject n,
+// cp.async copies subject n+1's vals, rows and cperm (up to its true nnz,
+// col_ends[k, C-1], read one subject earlier so that no copy waits for it),
+// its col_ends and Q_k [I, R] into the other of two shared-memory stages
+// (16 bytes a copy when every run is whole 16-byte packs, else one element):
+// about 3.1 KB a stage at I 48, C 128, N 136, R 5, f32, so many blocks share
+// an SM and their copies overlap each other's sums. A lane owns a column
+// (c = tid, tid + blockDim, ...) and all R sums of it in registers (R in
+// chunks of RMAX), walks the column's segment in shared memory in the same
+// order as the fallback, so the bits are the same, and puts the sums in an
+// output tile [R, C]; the block then writes Yc[k], one contiguous run of
+// R*C values, with 16-byte stores. No division in any loop: a block's n-th
+// subject is blockIdx.x + n * gridDim.x.
+//
+// THREAD-PER-ENTRY (a subject too large for the ring): one thread per entry
+// (k, r, c) of Yc, walking column c's run of the column-sorted view
+// straight from device memory; threads of one (k, r) are neighbours in a
+// warp (c fastest), so the stores are contiguous.
+//
+// Both read the triplets a segment names: the ring stages them up to the
+// true nnz, so it takes cperm[k, :nnz_k] to be a permutation of
+// [0, nnz_k), nnz_k = col_ends[k, C-1], which is the bucket's layout.
 // ---------------------------------------------------------------------------
+constexpr int kRingThreads = 128;         // 64 was 13% slower in paired H100 timings
+constexpr int kRingBudget = 64 * 1024;     // two stages and the tile, at most
+
+// Copy n elements of E from src into shared memory at dst: 16-byte packs
+// (reading up to the next whole pack, which the caller keeps in bounds)
+// when ALIGNED, else one element a copy.
+template <typename E, bool ALIGNED>
+__device__ inline void copy_run(E* dst, const E* __restrict__ src, int n) {
+  if constexpr (ALIGNED) {
+    constexpr int V = 16 / sizeof(E);
+    for (int p = threadIdx.x; p * V < n; p += blockDim.x) cp_async<16>(dst + p * V, src + p * V);
+  } else {
+    for (int u = threadIdx.x; u < n; u += blockDim.x) cp_async<sizeof(E)>(dst + u, src + u);
+  }
+}
+
+// Write n elements of T from shared memory to dst, 16 bytes a store when
+// ALIGNED (n is then whole packs), else one element a store.
+template <typename T, bool ALIGNED>
+__device__ inline void store_run(T* __restrict__ dst, const T* src, int n) {
+  if constexpr (ALIGNED) {
+    for (int p = threadIdx.x; p * (16 / (int)sizeof(T)) < n; p += blockDim.x)
+      reinterpret_cast<int4*>(dst)[p] = reinterpret_cast<const int4*>(src)[p];
+  } else {
+    for (int u = threadIdx.x; u < n; u += blockDim.x) dst[u] = src[u];
+  }
+}
+
+// The ring's shared memory, in bytes from its start: per stage vals [N],
+// Q_k [I, R], rows [N], cperm [N] and col_ends [C], each part a whole
+// number of 16-byte packs; after the two stages the output tile [R, C].
+struct ProjectLayout {
+  size_t q, rows, cperm, ends, stage, tile, smem_bytes;
+};
+
+__host__ __device__ inline size_t whole_packs(size_t bytes) { return (bytes + 15) / 16 * 16; }
+
+template <typename T>
+__host__ __device__ inline ProjectLayout project_layout(int N, int I, int C, int R) {
+  ProjectLayout s;
+  s.q = whole_packs((size_t)N * sizeof(T));
+  s.rows = s.q + whole_packs((size_t)I * R * sizeof(T));
+  s.cperm = s.rows + whole_packs((size_t)N * sizeof(int));
+  s.ends = s.cperm + whole_packs((size_t)N * sizeof(int));
+  s.stage = s.ends + whole_packs((size_t)C * sizeof(int));
+  s.tile = 2 * s.stage;
+  s.smem_bytes = s.tile + whole_packs((size_t)R * C * sizeof(T));
+  return s;
+}
+
+template <typename T, int RMAX, bool ALIGNED>
+__global__ void __launch_bounds__(kRingThreads)
+project_ring_kernel(const T* __restrict__ vals, const int* __restrict__ rows,
+                    const int* __restrict__ cperm, const T* __restrict__ q,
+                    const int* __restrict__ col_ends, T* __restrict__ out, int Kb,
+                    int N, int I, int C, int R) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const ProjectLayout lay = project_layout<T>(N, I, C, R);
+  T* tile = reinterpret_cast<T*>(smem_raw + lay.tile);
+  const int n_mine = Kb > (int)blockIdx.x ? (Kb - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
+  auto subject = [&](int n) { return (int64_t)blockIdx.x + (int64_t)n * gridDim.x; };
+  // the true nnz of the block's n-th subject (0 past its last)
+  auto count = [&](int n) {
+    return n < n_mine ? min(N, max(0, __ldg(col_ends + subject(n) * C + C - 1))) : 0;
+  };
+  auto fetch = [&](unsigned char* st, int64_t k, int cnt) {
+    copy_run<T, ALIGNED>(reinterpret_cast<T*>(st), vals + k * N, cnt);
+    copy_run<T, ALIGNED>(reinterpret_cast<T*>(st + lay.q), q + k * I * R, I * R);
+    copy_run<int, ALIGNED>(reinterpret_cast<int*>(st + lay.rows), rows + k * N, cnt);
+    copy_run<int, ALIGNED>(reinterpret_cast<int*>(st + lay.cperm), cperm + k * N, cnt);
+    copy_run<int, ALIGNED>(reinterpret_cast<int*>(st + lay.ends), col_ends + k * C, C);
+  };
+
+  int cnt_next = count(1);                   // used by iteration 0's copies
+  if (n_mine > 0) fetch(smem_raw, subject(0), count(0));
+  cp_async_commit();
+  for (int n = 0; n < n_mine; ++n) {         // block-uniform
+    const int cnt_after = count(n + 2);      // used by the next iteration's copies
+    cp_async_wait<0>();                      // subject n's copies are in
+    __syncthreads();                         // everyone's; stage n-1 is read
+    if (n + 1 < n_mine) fetch(smem_raw + ((n + 1) & 1) * lay.stage, subject(n + 1), cnt_next);
+    cp_async_commit();
+    cnt_next = cnt_after;
+
+    const unsigned char* st = smem_raw + (n & 1) * lay.stage;
+    const T* v_s = reinterpret_cast<const T*>(st);
+    const T* q_s = reinterpret_cast<const T*>(st + lay.q);
+    const int* rw_s = reinterpret_cast<const int*>(st + lay.rows);
+    const int* perm_s = reinterpret_cast<const int*>(st + lay.cperm);
+    const int* ends_s = reinterpret_cast<const int*>(st + lay.ends);
+    for (int c = threadIdx.x; c < C; c += blockDim.x) {
+      const int m0 = c ? ends_s[c - 1] : 0, m1 = ends_s[c];
+      for (int r0 = 0; r0 < R; r0 += RMAX) {
+        T acc[RMAX];
+#pragma unroll
+        for (int r = 0; r < RMAX; ++r) acc[r] = T(0);
+        for (int m = m0; m < m1; ++m) {
+          const int t = perm_s[m];
+          const T v = v_s[t];
+          const T* qrow = q_s + rw_s[t] * R + r0;
+#pragma unroll
+          for (int r = 0; r < RMAX; ++r)
+            if (r0 + r < R) acc[r] += v * qrow[r];
+        }
+#pragma unroll
+        for (int r = 0; r < RMAX; ++r)
+          if (r0 + r < R) tile[(r0 + r) * C + c] = acc[r];
+      }
+    }
+    __syncthreads();                         // the tile is whole
+    store_run<T, ALIGNED>(out + subject(n) * R * C, tile, R * C);
+  }
+  cp_async_wait<0>();                        // leave no copy in flight
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 project_kernel(const T* __restrict__ vals, const int* __restrict__ rows,
@@ -107,6 +257,52 @@ project_kernel(const T* __restrict__ vals, const int* __restrict__ rows,
     }
     out[t] = acc;
   }
+}
+
+// Row 12's variants, as spartan_scoo_project_variant reports them.
+enum ProjectVariant { kRing = 0, kRingElementCopies = 1, kThreadPerEntry = 2 };
+
+// RING where two stages and the tile fit kRingBudget (16-byte copies and
+// stores when every run a copy or store takes is whole 16-byte packs and
+// every operand starts on a 16-byte boundary), else THREAD-PER-ENTRY.
+template <typename T>
+int project_variant(int N, int I, int C, int R, bool aligned) {
+  if (project_layout<T>(N, I, C, R).smem_bytes > (size_t)kRingBudget) return kThreadPerEntry;
+  const bool packs = N % 4 == 0 && C % 4 == 0 && (int64_t)I * R % (16 / (int)sizeof(T)) == 0;
+  return aligned && packs ? kRing : kRingElementCopies;
+}
+
+bool aligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+  return true;
+}
+
+template <typename T, int RMAX>
+cudaError_t launch_project(const void* vals, const void* rows, const void* cperm,
+                           const void* q, const void* col_ends, void* out, int Kb,
+                           int N, int I, int C, int R, cudaStream_t stream) {
+  const int variant = project_variant<T>(N, I, C, R,
+                                         aligned16({vals, rows, cperm, q, col_ends, out}));
+  if (variant == kThreadPerEntry) {
+    project_kernel<T><<<grid_for((int64_t)Kb * R * C), kThreads, 0, stream>>>(
+        static_cast<const T*>(vals), static_cast<const int*>(rows),
+        static_cast<const int*>(cperm), static_cast<const T*>(q),
+        static_cast<const int*>(col_ends), static_cast<T*>(out), Kb, N, I, C, R);
+    return cudaGetLastError();
+  }
+  const size_t smem = project_layout<T>(N, I, C, R).smem_bytes;
+  auto kernel = variant == kRing ? project_ring_kernel<T, RMAX, true>
+                                 : project_ring_kernel<T, RMAX, false>;
+  cudaError_t e = allow_smem(kernel, smem);
+  int grid = 0;
+  if (e == cudaSuccess) e = persistent_grid(kernel, kRingThreads, smem, Kb, &grid);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, kRingThreads, smem, stream>>>(
+      static_cast<const T*>(vals), static_cast<const int*>(rows),
+      static_cast<const int*>(cperm), static_cast<const T*>(q),
+      static_cast<const int*>(col_ends), static_cast<T*>(out), Kb, N, I, C, R);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -139,19 +335,26 @@ int spartan_scoo_xk_times_v(int dtype, const void* vals, const void* lcols,
   });
 }
 
+// Register tiles of 8 entries of R, or 32 with R in chunks of 32 above 8.
 int spartan_scoo_project(int dtype, const void* vals, const void* rows,
                          const void* cperm, const void* q, const void* col_ends,
                          void* out, int Kb, int N, int I, int C, int R,
                          void* stream) {
   if (Kb < 1 || N < 1 || I < 1 || C < 1 || R < 1) return (int)cudaErrorInvalidValue;
-  const int grid = grid_for((int64_t)Kb * R * C);
-  SPARTAN_BY_DTYPE({
-    project_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(vals), static_cast<const int*>(rows),
-        static_cast<const int*>(cperm), static_cast<const T*>(q),
-        static_cast<const int*>(col_ends), static_cast<T*>(out), Kb, N, I, C, R);
-    return (int)cudaGetLastError();
-  });
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  SPARTAN_BY_DTYPE(return (int)(R <= 8
+      ? launch_project<T, 8>(vals, rows, cperm, q, col_ends, out, Kb, N, I, C, R, s)
+      : launch_project<T, 32>(vals, rows, cperm, q, col_ends, out, Kb, N, I, C, R, s)));
+}
+
+// The variant a spartan_scoo_project launch takes (ProjectVariant: 0 ring,
+// 1 ring with element copies, 2 thread-per-entry); aligned: every operand
+// and the output start on a 16-byte boundary. -1 for an unknown dtype.
+int spartan_scoo_project_variant(int dtype, int N, int I, int C, int R, int aligned) {
+  if (N < 1 || I < 1 || C < 1 || R < 1) return -1;
+  if (dtype == 0) return project_variant<float>(N, I, C, R, aligned != 0);
+  if (dtype == 1) return project_variant<double>(N, I, C, R, aligned != 0);
+  return -1;
 }
 
 }  // extern "C"

@@ -23,13 +23,15 @@
 // What bounds them on an H100 (3.35 TB/s): at rank R every Yc and Vg element
 // takes part in R multiply-adds, below the ~20 operations per byte before
 // arithmetic is the limit, so all six are bound by bytes; rows 7 and 10 read
-// only [K, R, R] and are bound by their launch. Design, simple first: one
-// thread per output entry, reading its operands straight from device memory.
-// A warp's lanes cover neighbouring entries, so the Yc row a lane reads is
-// the one its neighbours read (one load serves them all) and the L1 cache
-// holds each 32-byte sector across the next iterations; no shared-memory
-// tile, so no shape limit. The TPU kernels' padding of C to block_c is not
-// carried over: a thread loops over the C it is given. The two reductions
+// only [K, R, R] and are bound by their launch. Design, simple first (rows
+// 5-7, 9 and 10; row 8 streams C tiles through shared memory, its note
+// below): one thread per output entry, reading its operands straight from
+// device memory. A warp's lanes cover neighbouring entries, so the Yc row a
+// lane reads is the one its neighbours read (one load serves them all) and
+// the L1 cache holds each 32-byte sector across the next iterations; no
+// shared-memory tile, so no shape limit. The TPU kernels' padding of C to
+// block_c is not carried over: a thread loops over the C it is given (row 8
+// masks its last tile's ragged edge). The two reductions
 // across subjects (rows 6, 7) are two-level and deterministic, as F2 of
 // fused.cu: fixed runs of subjects per block, then a second launch sums the
 // partials in a fixed order; no atomics, so two runs give the same bits.
@@ -42,6 +44,8 @@
 #include <stdint.h>
 
 #include <algorithm>
+
+#include "common.cuh"
 
 namespace {
 
@@ -153,10 +157,32 @@ reduce_partials_kernel(const T* __restrict__ partials, T* __restrict__ out,
 
 // ---------------------------------------------------------------------------
 // Row 8, mode2_compact. Replaces src/repro/kernels/mttkrp_mode2.py
-// mode2_compact_pallas (pallas_call at :61): one thread per output entry
-// (k, c, l), so a warp's stores are contiguous. Masked columns (col_mask 0)
-// and masked subjects (w_k folded to 0) write exact zeros, which the
-// sorted-segment mode-2 scatter relies on. Bound: the bytes of Yc and A.
+// mode2_compact_pallas (pallas_call at :61): A[k, c, l] = (sum_r Yc[k, r, c]
+// * H[r, l]) * Wb[k, l] * col_mask[k, c]. Masked columns (col_mask 0) and
+// masked subjects (w_k folded to 0) write exact zeros, which the
+// sorted-segment mode-2 scatter relies on. Bound: the bytes of Yc, col_mask
+// and A (R = 5, f32: 2R operations per 8 bytes of Yc and A). Two variants,
+// picked by shape (mode2_variant):
+//
+// RING, the main path (two stages of a C tile and the output tile fit in
+// shared memory at a tile width TC of 128, 64 or 32 columns). What held the
+// thread-per-entry design below at 28% of the bound: each of the R threads
+// of a column read the column Yc[k, :, c] again with stride C, every thread
+// did two 64-bit divisions, and every store was 4 bytes a lane. Here
+// persistent blocks walk over (subject, C tile) work items. While a block
+// computes item n, cp.async copies item n+1's Yc[k, :, c0:c0+TC] (R rows of
+// TC), col_mask[k, c0:c0+TC] and Wb[k] into the other of two shared-memory
+// stages (16 bytes a copy when the rows are whole 16-byte runs, else one
+// element); H is staged once per block. A thread owns a column, reads its R
+// values of Yc once into registers (R <= 8; wider R reads them from shared
+// memory) and computes its R outputs in the fallback's order, so the bits
+// are the same, into an output tile that is A[k, c0:c0+TC, :], one
+// contiguous run of TC*R values, which the block writes with 16-byte stores.
+// Items advance by additions, not a division per element. At R = 5, C = 128,
+// f32 a block holds about 9 KB, so many blocks share an SM.
+//
+// THREAD-PER-ENTRY (R too wide for even a 32-column tile): one thread per
+// output entry (k, c, l), so a warp's stores are contiguous.
 // ---------------------------------------------------------------------------
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -175,6 +201,138 @@ mode2_compact_kernel(const T* __restrict__ yc, const T* __restrict__ h,
     for (int r = 0; r < R; ++r) a += ycol[(int64_t)r * C] * h[r * R + l];
     out[t] = a * wb[k * R + l] * cm[kc];
   }
+}
+
+constexpr int kRingThreads = 128;          // the widest C tile: a column a thread
+                                           // (64 was 13% slower in paired H100 timings)
+constexpr int kRingBudget = 64 * 1024;     // the widest tile that fits this is taken
+// The ring's shared memory, in elements of T from its start (every part a
+// whole number of 16-byte packs): per stage the Yc tile [R, TC], col_mask
+// [TC] and w_k [R]; after the two stages the output tile [TC, R] and H [R, R].
+struct Mode2Layout {
+  size_t cm, w, stage, tile, h, smem_bytes;
+};
+
+template <typename T>
+__host__ __device__ inline Mode2Layout mode2_layout(int R, int tc) {
+  auto packs = [](size_t n) {
+    constexpr size_t V = 16 / sizeof(T);
+    return (n + V - 1) / V * V;
+  };
+  Mode2Layout s;
+  s.cm = packs((size_t)R * tc);
+  s.w = s.cm + packs(tc);
+  s.stage = s.w + packs(R);
+  s.tile = 2 * s.stage;
+  s.h = s.tile + packs((size_t)tc * R);
+  s.smem_bytes = (s.h + packs((size_t)R * R)) * sizeof(T);
+  return s;
+}
+
+// The tile width: the widest of 128, 64, 32 within kRingBudget, else 32
+// within the most a block may use; 0 if not even that fits.
+template <typename T>
+int mode2_tile(int R) {
+  for (int tc = kRingThreads; tc >= 32; tc /= 2)
+    if (mode2_layout<T>(R, tc).smem_bytes <= (size_t)kRingBudget) return tc;
+  return mode2_layout<T>(R, 32).smem_bytes <= (size_t)kMaxDynamicSmem ? 32 : 0;
+}
+
+template <typename T, int RMAX, bool ALIGNED>
+__global__ void __launch_bounds__(kRingThreads)
+mode2_ring_kernel(const T* __restrict__ yc, const T* __restrict__ h,
+                  const T* __restrict__ wb, const T* __restrict__ cm,
+                  T* __restrict__ out, int K, int R, int C, int TC) {
+  constexpr int VEC = 16 / sizeof(T);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const Mode2Layout lay = mode2_layout<T>(R, TC);
+  T* tile = smem + lay.tile;
+  T* h_s = smem + lay.h;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int n_ct = (C + TC - 1) / TC;
+  const int64_t n_items = (int64_t)K * n_ct;
+  const int n_mine = n_items > blockIdx.x
+      ? (int)((n_items - 1 - blockIdx.x) / gridDim.x + 1) : 0;
+  for (int t = tid; t < R * R; t += nthr) h_s[t] = h[t];
+
+  // copy item (k, ct)'s Yc tile, col_mask and w_k into stage `st`
+  auto fetch = [&](T* st, int k, int ct) {
+    const int c0 = ct * TC, tc = min(TC, C - c0);
+    const T* src = yc + (int64_t)k * R * C + c0;
+    if constexpr (ALIGNED) {                 // rows are whole 16-byte runs
+      const int np = tc / VEC;
+      Walk w(tid, nthr, np);
+      for (int u = tid; u < R * np; u += nthr, w.step())
+        cp_async<16>(st + w.row * TC + w.col * VEC, src + (int64_t)w.row * C + w.col * VEC);
+      for (int p = tid; p < np; p += nthr)
+        cp_async<16>(st + lay.cm + p * VEC, cm + (int64_t)k * C + c0 + p * VEC);
+    } else {
+      Walk w(tid, nthr, tc);
+      for (int u = tid; u < R * tc; u += nthr, w.step())
+        cp_async<sizeof(T)>(st + w.row * TC + w.col, src + (int64_t)w.row * C + w.col);
+      for (int u = tid; u < tc; u += nthr)
+        cp_async<sizeof(T)>(st + lay.cm + u, cm + (int64_t)k * C + c0 + u);
+    }
+    for (int u = tid; u < R; u += nthr)
+      cp_async<sizeof(T)>(st + lay.w + u, wb + (int64_t)k * R + u);
+  };
+  // the block's items, (k, ct) = divmod(blockIdx.x + n * gridDim.x, n_ct)
+  int fk = blockIdx.x / n_ct, fct = blockIdx.x % n_ct;          // next to fetch
+  const int dk = gridDim.x / n_ct, dct = gridDim.x % n_ct;
+  auto advance = [&](int& k, int& ct) {
+    k += dk;
+    ct += dct;
+    if (ct >= n_ct) { ct -= n_ct; ++k; }
+  };
+  int k = fk, ct = fct;                                        // being computed
+
+  if (n_mine > 0) fetch(smem, fk, fct);
+  cp_async_commit();
+  advance(fk, fct);
+  for (int n = 0; n < n_mine; ++n) {         // block-uniform
+    cp_async_wait<0>();                      // item n's copies are in
+    __syncthreads();                         // everyone's; stage n-1 is read
+    if (n + 1 < n_mine) fetch(smem + ((n + 1) & 1) * lay.stage, fk, fct);
+    cp_async_commit();
+    advance(fk, fct);
+
+    const T* st = smem + (n & 1) * lay.stage;
+    const T* y_s = st;
+    const T* cm_s = st + lay.cm;
+    const T* w_s = st + lay.w;
+    const int c0 = ct * TC, tc = min(TC, C - c0);
+    for (int c = tid; c < tc; c += nthr) {
+      if constexpr (RMAX > 0) {
+        T y[RMAX];
+#pragma unroll
+        for (int r = 0; r < RMAX; ++r) y[r] = r < R ? y_s[r * TC + c] : T(0);
+        for (int l = 0; l < R; ++l) {
+          T a = T(0);
+#pragma unroll
+          for (int r = 0; r < RMAX; ++r)
+            if (r < R) a += y[r] * h_s[r * R + l];
+          tile[c * R + l] = a * w_s[l] * cm_s[c];
+        }
+      } else {
+        for (int l = 0; l < R; ++l) {
+          T a = T(0);
+          for (int r = 0; r < R; ++r) a += y_s[r * TC + c] * h_s[r * R + l];
+          tile[c * R + l] = a * w_s[l] * cm_s[c];
+        }
+      }
+    }
+    __syncthreads();                         // the tile is whole
+    T* dst = out + ((int64_t)k * C + c0) * R;   // A[k, c0:c0+tc, :], contiguous
+    if constexpr (ALIGNED) {                 // tc * R is whole packs
+      for (int p = tid; p * VEC < tc * R; p += nthr)
+        reinterpret_cast<int4*>(dst)[p] = reinterpret_cast<const int4*>(tile)[p];
+    } else {
+      for (int u = tid; u < tc * R; u += nthr) dst[u] = tile[u];
+    }
+    advance(k, ct);
+  }
+  cp_async_wait<0>();                        // leave no copy in flight
 }
 
 // ---------------------------------------------------------------------------
@@ -229,6 +387,47 @@ cudaError_t launch_mode1(const void* yc, const void* vg, const void* ykv,
   return cudaGetLastError();
 }
 
+// Row 8's variants, as spartan_mode2_compact_variant reports them.
+enum Mode2Variant { kRing = 0, kRingElementCopies = 1, kThreadPerEntry = 2 };
+
+// RING where a 32-column tile fits (16-byte copies and stores when the rows
+// of Yc and col_mask are whole 16-byte runs and Yc, col_mask and A start on
+// 16-byte boundaries), else THREAD-PER-ENTRY.
+template <typename T>
+int mode2_variant(int C, int R, bool aligned) {
+  if (mode2_tile<T>(R) == 0) return kThreadPerEntry;
+  return aligned && C % (16 / (int)sizeof(T)) == 0 ? kRing : kRingElementCopies;
+}
+
+template <typename T>
+cudaError_t launch_mode2(const void* yc, const void* h, const void* wb, const void* cm,
+                         void* out, int K, int R, int C, cudaStream_t stream) {
+  const bool aligned = (reinterpret_cast<uintptr_t>(yc) | reinterpret_cast<uintptr_t>(cm) |
+                        reinterpret_cast<uintptr_t>(out)) % 16 == 0;
+  const int variant = mode2_variant<T>(C, R, aligned);
+  if (variant == kThreadPerEntry) {
+    mode2_compact_kernel<T><<<grid_for((int64_t)K * C * R), kThreads, 0, stream>>>(
+        static_cast<const T*>(yc), static_cast<const T*>(h), static_cast<const T*>(wb),
+        static_cast<const T*>(cm), static_cast<T*>(out), K, R, C);
+    return cudaGetLastError();
+  }
+  const int TC = mode2_tile<T>(R);
+  const size_t smem = mode2_layout<T>(R, TC).smem_bytes;
+  auto kernel = R <= 8 ? (variant == kRing ? mode2_ring_kernel<T, 8, true>
+                                           : mode2_ring_kernel<T, 8, false>)
+                       : (variant == kRing ? mode2_ring_kernel<T, 0, true>
+                                           : mode2_ring_kernel<T, 0, false>);
+  cudaError_t e = allow_smem(kernel, smem);
+  int grid = 0;
+  if (e == cudaSuccess)
+    e = persistent_grid(kernel, kRingThreads, smem, (int64_t)K * ((C + TC - 1) / TC), &grid);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, kRingThreads, smem, stream>>>(
+      static_cast<const T*>(yc), static_cast<const T*>(h), static_cast<const T*>(wb),
+      static_cast<const T*>(cm), static_cast<T*>(out), K, R, C, TC);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Run the statement(s) with T = float (dtype 0) or double (dtype 1).
@@ -279,14 +478,18 @@ int spartan_mode2_compact(int dtype, const void* yc, const void* h,
                           const void* wb, const void* cm, void* out, int K,
                           int R, int C, void* stream) {
   if (K < 1 || R < 1 || C < 1) return (int)cudaErrorInvalidValue;
-  const int grid = grid_for((int64_t)K * C * R);
-  SPARTAN_BY_DTYPE({
-    mode2_compact_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(yc), static_cast<const T*>(h),
-        static_cast<const T*>(wb), static_cast<const T*>(cm),
-        static_cast<T*>(out), K, R, C);
-    return (int)cudaGetLastError();
-  });
+  SPARTAN_BY_DTYPE(return (int)(launch_mode2<T>(yc, h, wb, cm, out, K, R, C,
+                                                static_cast<cudaStream_t>(stream))));
+}
+
+// The variant a spartan_mode2_compact launch takes (Mode2Variant: 0 ring,
+// 1 ring with element copies, 2 thread-per-entry); aligned: Yc, col_mask
+// and A start on a 16-byte boundary. -1 for an unknown dtype.
+int spartan_mode2_compact_variant(int dtype, int C, int R, int aligned) {
+  if (C < 1 || R < 1) return -1;
+  if (dtype == 0) return mode2_variant<float>(C, R, aligned != 0);
+  if (dtype == 1) return mode2_variant<double>(C, R, aligned != 0);
+  return -1;
 }
 
 int spartan_mode3(int dtype, const void* yc, const void* vg, const void* h,

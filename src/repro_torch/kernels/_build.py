@@ -3,8 +3,9 @@
 Each source compiles with ``nvcc`` into a shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds). The library lands
 in ``repro_torch/_build/`` (listed in ``.gitignore``) under a name that
-hashes the source and the flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is. Nothing here runs at import time.
+hashes the source, the headers beside it (``*.cuh``) and the flags, so an
+edited source or header is rebuilt and an unchanged one is loaded as it
+is. Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -47,7 +48,9 @@ def build(name: str, csrc: Path = CSRC) -> Path:
     the library's path. ``ptxas``'s register and shared-memory report is
     kept beside it as ``<lib>.log``."""
     src = Path(csrc) / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(Path(csrc).glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}_{digest}.so"
     if out.exists():
         return out

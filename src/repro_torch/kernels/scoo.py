@@ -29,8 +29,9 @@ end, allocated and dropped per call.
 Two of them are CUDA kernels on a GPU (``csrc/scoo.cu``), the counterparts
 of the reference's Pallas ``xk_times_v_pallas`` and ``project_pallas``:
 :func:`scoo_xk_times_v` and :func:`scoo_project`. Each sums its segments
-directly (one thread per output entry), so it needs the ends, and a CUDA
-call without them raises. On CPU tensors they run the plain versions.
+directly (one owner per output entry), so it needs the ends, and a CUDA
+call without them raises; :func:`scoo_project_variant` names the variant
+of the second that a launch takes. On CPU tensors they run the plain versions.
 Accumulation follows ``accum_dtype``.
 """
 from __future__ import annotations
@@ -48,13 +49,17 @@ __all__ = [
     "KERNELS", "LAUNCHES", "LIB", "reset_launches",
     "segment_sum_sorted", "xk_times_v", "project", "ykv_scoo", "mode1_scoo",
     "mode2_compact_scoo", "mode3_scoo", "scoo_xk_times_v", "scoo_project",
+    "scoo_project_variant", "PROJECT_VARIANTS",
 ]
 
 KERNELS = ("scoo_xk_times_v", "scoo_project")
 LIB = KernelLib("scoo", KERNELS, {
     "spartan_scoo_xk_times_v": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "spartan_scoo_project": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "spartan_scoo_project_variant": [_I, _I, _I, _I, _I, _I],
 })
+# spartan_scoo_project_variant's codes
+PROJECT_VARIANTS = ("ring", "ring-element-copies", "thread-per-entry")
 # kernel launches per wrapper; plain-version calls on the CPU are not counted
 LAUNCHES = LIB.launches
 reset_launches = LIB.reset_launches
@@ -233,3 +238,21 @@ def scoo_project(vals: torch.Tensor, rows: torch.Tensor, lcols: torch.Tensor,
                vals.data_ptr(), rows.data_ptr(), cperm.data_ptr(), Q.data_ptr(),
                col_ends.data_ptr(), out.data_ptr(), Kb, N, I, c_pad, R)
     return out
+
+
+def scoo_project_variant(vals: torch.Tensor, rows: torch.Tensor, lcols: torch.Tensor,
+                         Q: torch.Tensor, c_pad: int, *, cperm: torch.Tensor,
+                         col_ends: torch.Tensor) -> str:
+    """Which variant of row 12's kernel :func:`scoo_project` launches for
+    these CUDA operands: ``ring`` (the main path's), ``ring-element-copies``
+    for operands whose runs are not whole 16-byte packs or do not start on a
+    16-byte boundary, or ``thread-per-entry`` for subjects too large for the
+    ring's two shared-memory stages."""
+    Kb, N = vals.shape
+    _, I, R = Q.shape
+    dtype = dtype_code(vals, Q)           # raises for a tensor off the card
+    aligned = all(t.data_ptr() % 16 == 0 for t in (vals, rows, cperm, Q, col_ends))
+    code = LIB.lib().spartan_scoo_project_variant(dtype, N, I, c_pad, R, int(aligned))
+    if code < 0:
+        raise ValueError(f"no scoo_project variant for N={N}, I={I}, C={c_pad}, R={R}")
+    return PROJECT_VARIANTS[code]

@@ -407,6 +407,113 @@ def test_new_kernels_are_deterministic_and_reject_what_they_do_not_take(dev):
         gather_matmul.gather_matmul(bcc.vals, bcc.blk_ids.long(), V)
 
 
+# (K, R, C, offset of Yc's start in elements) -> row 8's variant in f32
+MODE2_EDGES = {
+    (7, 5, 128, 0): "ring",                      # the main path's C
+    (5, 5, 17, 0): "ring-element-copies",        # rows not whole 16-byte runs
+    (4, 5, 1000, 0): "ring",                     # C not a multiple of the tile
+    (3, 72, 1024, 0): "ring",                    # R = 72 at C_pad = 1024
+    (6, 8, 130, 0): "ring-element-copies",       # odd width, the register tile's R
+    (5, 9, 64, 0): "ring",                       # R past the register tile
+    (4, 1, 33, 0): "ring-element-copies",
+    (5, 5, 128, 1): "ring-element-copies",       # Yc's start not 16-byte aligned
+    (3, 200, 40, 0): "thread-per-entry",         # R too wide for the ring's tile
+    (1500, 5, 128, 0): "ring",                   # items past the persistent grid
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(MODE2_EDGES), ids=lambda s: "K{}-R{}-C{}-off{}".format(*s))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_mode2_compact_edges(dev, shape, dtype):
+    """Row 8 at the edges of its variants, with a masked subject and masked
+    columns: the variant the launcher picks (in f32), the plain version's
+    result, exact zeros where masked and the same bits twice."""
+    K, R, C, offset = shape
+    rng = np.random.default_rng(K + R + C + offset)
+    Yc = _offset_tensor((K, R, C), dtype, dev, rng, offset)
+    H, Wb = (torch.tensor(rng.standard_normal(s), dtype=dtype, device=dev) for s in ((R, R), (K, R)))
+    cm = torch.tensor(rng.random((K, C)) < 0.7, dtype=dtype, device=dev)
+    sm = torch.ones(K, dtype=dtype, device=dev)
+    sm[0] = 0
+    if dtype == torch.float32:
+        assert m2.mode2_compact_variant(Yc, cm) == MODE2_EDGES[shape]
+    before = staged.LAUNCHES["mode2_compact"]
+    got = m2.mode2_compact(Yc, H, Wb, cm, sm)
+    torch.cuda.synchronize()
+    assert staged.LAUNCHES["mode2_compact"] == before + 1
+    _assert_matches(got, m2.mode2_compact_plain(Yc, H, Wb, cm, sm), dtype)
+    assert torch.all(got[(cm == 0) | (sm[:, None] == 0)] == 0)
+    assert torch.equal(got, m2.mode2_compact(Yc, H, Wb, cm, sm))
+
+
+def _scoo_arrays(n_rows, C, N, nnz, seed, one_col=False):
+    """SCOO arrays of one bucket, laid out as ``bucketize`` lays them out:
+    subject k's nnz[k] triplets sorted by (row, column), pads past them,
+    ``cperm`` the stable column order and ``col_ends`` its segment ends."""
+    rng = np.random.default_rng(seed)
+    Kb = len(nnz)
+    out = dict(vals=np.zeros((Kb, N)), rows=np.zeros((Kb, N), np.int32),
+               lcols=np.zeros((Kb, N), np.int32),
+               cperm=np.tile(np.arange(N, dtype=np.int32), (Kb, 1)),
+               col_ends=np.zeros((Kb, C), np.int32))
+    for k, n in enumerate(nnz):
+        r = rng.integers(0, n_rows, n)
+        c = np.zeros(n, np.int64) if one_col else rng.integers(0, C, n)
+        o = np.lexsort((c, r))
+        out["vals"][k, :n] = rng.standard_normal(n)
+        out["rows"][k, :n], out["lcols"][k, :n] = r[o], c[o]
+        out["cperm"][k, :n] = np.argsort(c[o], kind="stable")
+        out["col_ends"][k] = np.cumsum(np.bincount(c, minlength=C))
+    return out
+
+
+# (I, C, N, nnz per subject, R, one column, offset of vals' start in
+# elements) -> row 12's variant in f32
+PROJECT_EDGES = {
+    (8, 16, 64, (64, 0, 10), 5, True, 0): "ring",         # a segment of length N, an empty subject
+    (48, 128, 136, (115,) * 30 + (0,), 5, False, 0): "ring",   # the main path's geometry
+    (5, 9, 13, (13, 2, 0, 7, 5), 5, False, 0): "ring-element-copies",   # runs not whole packs
+    (8, 16, 24, (24, 3, 0, 9), 5, False, 1): "ring-element-copies",    # vals' start unaligned
+    (40, 128, 3000, (3000, 17, 0), 5, False, 0): "thread-per-entry",  # N past the stages
+    (1000, 32, 40, (40, 0, 33), 8, False, 0): "thread-per-entry",     # I past the stages
+    (24, 32, 96, (96, 50, 0, 1), 72, False, 0): "ring",  # R = 72, in chunks of 32
+    (8, 16, 24, tuple(range(24)) * 60, 5, False, 0): "ring",   # subjects past the persistent grid
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge", list(PROJECT_EDGES), ids=lambda e: "I{}-C{}-N{}-Kb{}-R{}-off{}".format(
+    e[0], e[1], e[2], len(e[3]), e[4], e[6]))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_scoo_project_edges(dev, edge, dtype):
+    """Row 12 at the edges of its variants: the variant the launcher picks
+    (in f32), the plain version's result (atol of the largest running sum),
+    exact zeros for empty segments and the same bits twice."""
+    n_rows, C, N, nnz, R, one_col, offset = edge
+    a = _scoo_arrays(n_rows, C, N, nnz, seed=N + R, one_col=one_col)
+    vals = torch.empty(a["vals"].size + offset, dtype=dtype, device=dev)[offset:]
+    vals = vals.view(a["vals"].shape).copy_(torch.tensor(a["vals"], dtype=dtype))
+    rows, lcols, cperm, ends = (torch.tensor(a[k], device=dev)
+                                for k in ("rows", "lcols", "cperm", "col_ends"))
+    Q = torch.tensor(np.random.default_rng(R).standard_normal((len(nnz), n_rows, R)),
+                     dtype=dtype, device=dev)
+    args, kw = (vals, rows, lcols, Q, C), dict(cperm=cperm, col_ends=ends)
+    if dtype == torch.float32:
+        assert scoo.scoo_project_variant(*args, **kw) == PROJECT_EDGES[edge]
+    before = scoo.LAUNCHES["scoo_project"]
+    got = scoo.scoo_project(*args, **kw)
+    torch.cuda.synchronize()
+    assert scoo.LAUNCHES["scoo_project"] == before + 1
+    want = scoo.project(*args, **kw)
+    tol = 1e-12 if dtype == torch.float64 else 1e-6
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=tol,
+                               atol=tol * _prefix_scale(vals, rows, Q))
+    starts = torch.cat([torch.zeros_like(ends[:, :1]), ends[:, :-1]], 1)
+    assert torch.all(got[(ends == starts)[:, None, :].expand(-1, R, -1)] == 0)
+    assert torch.equal(got, scoo.scoo_project(*args, **kw))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("format", ["scoo", "auto"])
 def test_scoo_fits_match_torch_route_on_gpu(dev, format):

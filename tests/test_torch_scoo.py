@@ -617,3 +617,71 @@ def test_scoo_backend_registered():
     assert get_backend("scoo", "cuda").name == "scoo"
     assert get_backend("auto", "cuda").name == "fused"
     assert get_backend("auto", "cpu").name == "torch"
+
+
+def _scoo_arrays(n_rows, C, N, nnz, seed, one_col=False):
+    """SCOO arrays of one bucket, laid out as ``bucketize`` lays them out:
+    subject k's nnz[k] triplets sorted by (row, column), pads past them,
+    ``cperm`` the stable column order and ``col_ends`` its segment ends."""
+    rng = np.random.default_rng(seed)
+    Kb = len(nnz)
+    out = dict(vals=np.zeros((Kb, N), np.float64), rows=np.zeros((Kb, N), np.int32),
+               lcols=np.zeros((Kb, N), np.int32),
+               cperm=np.tile(np.arange(N, dtype=np.int32), (Kb, 1)),
+               col_ends=np.zeros((Kb, C), np.int32), nnz_counts=np.asarray(nnz, np.int32))
+    for k, n in enumerate(nnz):
+        r = rng.integers(0, n_rows, n)
+        c = np.zeros(n, np.int64) if one_col else rng.integers(0, C, n)
+        o = np.lexsort((c, r))
+        out["vals"][k, :n] = rng.standard_normal(n)
+        out["rows"][k, :n], out["lcols"][k, :n] = r[o], c[o]
+        out["cperm"][k, :n] = np.argsort(c[o], kind="stable")
+        out["col_ends"][k] = np.cumsum(np.bincount(c, minlength=C))
+    return out
+
+
+# (I, C, N, nnz per subject, R, one column): the shapes at the edges of row
+# 12's CUDA variants (an empty subject; a column segment of length N; N and I
+# past the ring's shared-memory stages; R = 72), held here through the plain
+# version
+PROJECT_EDGES = [(8, 16, 64, (64, 0, 10), 5, True), (40, 128, 3000, (3000, 17, 0), 5, False),
+                 (1000, 32, 40, (40, 0, 33), 8, False), (24, 32, 96, (96, 50, 0, 1), 72, False)]
+
+
+@pytest.mark.parametrize("edge", PROJECT_EDGES, ids=lambda e: "I{}-C{}-N{}-R{}".format(
+    e[0], e[1], e[2], e[4]))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_project_edges_match_reference(edge, dtype):
+    """scoo_project (its plain version on the CPU) at the edge shapes against
+    the reference's ``project_pallas`` in interpret mode (f32, atol 1e-6 of
+    the largest running sum) or its sorted jnp ``project`` (f64, 1e-12);
+    empty segments are exact zeros."""
+    n_rows, C, N, nnz, R, one_col = edge
+    a = _scoo_arrays(n_rows, C, N, nnz, seed=N + R, one_col=one_col)
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    a["vals"] = a["vals"].astype(npdt)
+    a["Q"] = np.random.default_rng(R).standard_normal((len(nnz), n_rows, R)).astype(npdt)
+    t = {k: torch.from_numpy(v) for k, v in a.items()}
+    j = {k: jnp.asarray(v) for k, v in a.items()}
+    got = scoo.scoo_project(t["vals"], t["rows"], t["lcols"], t["Q"], C, cperm=t["cperm"],
+                            col_ends=t["col_ends"])
+    if dtype == torch.float32:
+        want = j_scoo.project_pallas(j["vals"], j["rows"], j["lcols"], j["Q"], C,
+                                     nnz_counts=j["nnz_counts"], interpret=True)
+        _close(got, want, dict(rtol=1e-6, atol=1e-6), _prefix_scale(a["vals"], a["rows"], a["Q"]))
+    else:
+        _close(got, j_scoo.project(j["vals"], j["rows"], j["lcols"], j["Q"], C,
+                                   cperm=j["cperm"], col_ends=j["col_ends"]))
+    starts = np.concatenate([np.zeros((len(nnz), 1), np.int32), a["col_ends"][:, :-1]], 1)
+    empty = torch.from_numpy(a["col_ends"] == starts)[:, None, :].expand(-1, R, -1)
+    assert torch.all(got[empty] == 0)
+
+
+def test_project_variant_is_a_question_for_the_card():
+    """Row 12's variant is the CUDA launcher's choice: asking it for CPU
+    operands raises before any kernel library is built or loaded."""
+    idx = torch.zeros((3, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        scoo.scoo_project_variant(torch.rand((3, 8)), idx, idx, torch.rand((3, 4, 5)), 6,
+                                  cperm=idx, col_ends=torch.zeros((3, 6), dtype=torch.int32))
+    assert scoo.LIB._lib is None

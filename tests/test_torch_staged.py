@@ -356,3 +356,44 @@ def test_staged_backend_registered():
     assert get_backend("staged", "cuda").name == "staged"
     assert get_backend("auto", "cuda").name == "fused"
     assert dataclasses.replace(Parafac2Options(rank=2), backend="staged").backend == "staged"
+
+
+# (K, R, C): the shapes at the edges of row 8's CUDA variants (C not whole
+# 16-byte runs, C not a multiple of the 128-wide tile, R = 72 at C = 1024,
+# R too wide for the ring's tile), held here through the plain version
+MODE2_EDGES = [(5, 5, 17), (4, 5, 1000), (3, 72, 1024), (3, 200, 40)]
+
+
+@pytest.mark.parametrize("shape", MODE2_EDGES, ids=lambda s: "K{}-R{}-C{}".format(*s))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_mode2_compact_edges_match_reference(shape, dtype):
+    """mode2_compact at the edge shapes, a masked subject and masked columns
+    included, against the reference's Pallas kernel in interpret mode (f32)
+    or its ref (f64); masked entries are exact zeros."""
+    K, R, C = shape
+    rng = np.random.default_rng(K + R + C)
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    op = {k: a.astype(npdt) for k, a in dict(
+        Yc=rng.standard_normal((K, R, C)), H=rng.standard_normal((R, R)),
+        Wb=rng.standard_normal((K, R)), cm=(rng.random((K, C)) < 0.7) * 1.0,
+        sm=np.asarray([0.0] + [1.0] * (K - 1))).items()}
+    t, j = _both(op)
+    if dtype == torch.float32:
+        want = mode2_compact_pallas(j["Yc"], j["H"], j["Wb"], j["cm"], j["sm"], interpret=True)
+    else:
+        want = j_ref.mode2_compact_ref(j["Yc"], j["H"], j["Wb"] * j["sm"][:, None])
+        want = want * j["cm"][..., None]
+    got = mode2_compact(t["Yc"], t["H"], t["Wb"], t["cm"], t["sm"])
+    _close(got, want, TOLS[dtype])
+    pad = (t["cm"] == 0) | (t["sm"][:, None] == 0)
+    assert torch.all(got[pad] == 0)
+
+
+def test_mode2_compact_variant_is_a_question_for_the_card():
+    """Row 8's variant is the CUDA launcher's choice: asking it for a CPU Yc
+    raises before any kernel library is built or loaded."""
+    from repro_torch.kernels import mttkrp_mode2
+
+    with pytest.raises(ValueError, match="CUDA"):
+        mttkrp_mode2.mode2_compact_variant(torch.rand((3, 5, 16)), torch.ones((3, 16)))
+    assert staged.LIB._lib is None
