@@ -19,10 +19,10 @@ Phases, any failure exits non-zero:
    reference's three SCOO datasets (an empty, a single-nnz and a 200-row
    ultra-sparse subject among them) at R = 1, 5 and 72 with padded subjects,
    and over explicit zero-valued triplets; the BCC gather-matmul over the
-   reference's BCC geometries and R = 72; rows 8 and 12 at the edges of
-   their variants (unaligned and odd C, C past the tile, R = 72 at C_pad =
-   1024, empty subjects and columns, a segment of length N, N and I past
-   the shared-memory stages, unaligned starts, more subjects than the
+   reference's BCC geometries and R = 72; rows 5, 8, 11 and 12 at the edges
+   of their variants (unaligned and odd C, C past the tile, R = 72 at C_pad
+   = 1024, empty subjects, rows and columns, a segment of length N, N and I
+   past the shared-memory stages, unaligned starts, more subjects than the
    persistent grid), where each must take the variant stated and every
    variant must be reached; an empty (K=0) bucket through every wrapper. f64 to 1e-12 absolute, f32 to 1e-6 relative plus 1e-6 of
    the output's largest magnitude (sums in another order differ by a
@@ -47,16 +47,19 @@ Phases, any failure exits non-zero:
    backend's array-level ``mode3`` over the main path's buckets (once per
    bucket); last, the BCC cut: the largest CC bucket's first subjects (at
    most 2 GiB of BCC values), ``xk_times_v_bcc`` against ``xk_times_v``;
-4. each kernel's time beside its bound, its plain version's time and one
-   PyTorch call's time (CUDA events, median of 20): the CC kernels at the
-   main path's largest CC bucket (with the variant F1 and row 8 take
-   there), the SCOO kernels at its largest SCOO bucket (with row 12's
-   variant), the gather-matmul on the BCC
+4. each kernel's time beside its bound, its plain version's time, one
+   PyTorch call's time (CUDA events, median of 20) and the wrapper call's
+   host time (what an event time of a short kernel includes before the
+   launch): the CC kernels at the
+   main path's largest CC bucket (with the variant F1, row 5 and row 8 take
+   there), the SCOO kernels at its largest SCOO bucket (with the variants of
+   rows 11 and 12), the gather-matmul on the BCC
    cut (beside the CSR product over the cut's nonzeros, also one PyTorch
    call on the kernel's own operands, ``library_same_input_ms``);
 5. a ``torch.profiler`` trace of one main-path ALS iteration on the auto and
    the staged route over the CC buckets and on the staged and the scoo
-   route over the SCOO buckets: device time by kernel, host time by op, and
+   route over the SCOO buckets: device time by kernel (and of each of the
+   port's own kernels), host time by op, and
    the device's busy share of the unprofiled iteration time of phase 3 and
    of the trace's first-to-last kernel span (the profiler's own per-launch
    cost inflates the profiled wall time, so that is not a denominator;
@@ -103,9 +106,19 @@ GEOMETRIES = [
 SCOO_DATA = ("edge", "random-odd", "random-padded")
 BCC_GEOMETRIES = [(0, 300, 8), (1, 500, 16), (2, 130, 4), (3, 260, 72)]
 BCC_CUT_BYTES = 2 * 2**30       # the BCC cut's values at most
-# rows 8 and 12 at the edges of their variants, and the variant each takes
-# in f32: (K, R, C, offset of Yc's start in elements) and (I, C, N, nnz per
-# subject, R, one column, offset of vals' start in elements)
+# rows 5, 8, 11 and 12 at the edges of their variants, and the variant each
+# takes in f32: rows 5 and 8 (K, R, C, offset of Yc's start in elements),
+# rows 11 and 12 (I, C, N, nnz per subject, R, one row (11) or one column
+# (12), offset of vals' start in elements)
+YKV_EDGES = {
+    (7, 5, 128, 0): "ring",                      # the main path's shape
+    (5, 5, 17, 0): "ring-element-copies",        # rows not whole 16-byte runs
+    (3, 72, 1024, 0): "thread-per-entry",        # R = 72 at C_pad = 1024: past the stages
+    (5, 5, 128, 1): "ring-element-copies",       # Yc's start not 16-byte aligned
+    (3000, 5, 128, 0): "ring",                   # groups past the persistent grid
+    (1, 5, 128, 0): "ring",                      # one subject
+    (4, 40, 128, 0): "ring",                     # R = 40, one subject a group
+}
 MODE2_EDGES = {
     (7, 5, 128, 0): "ring",                      # the main path's C
     (5, 5, 17, 0): "ring-element-copies",        # rows not whole 16-byte runs
@@ -125,6 +138,17 @@ PROJECT_EDGES = {
     (1000, 32, 40, (40, 0, 33), 8, False, 0): "thread-per-entry",     # I past the stages
     (24, 32, 96, (96, 50, 0, 1), 72, False, 0): "ring",  # R = 72, in chunks of 32
     (8, 16, 24, tuple(range(24)) * 60, 5, False, 0): "ring",   # subjects past the persistent grid
+}
+XKV_EDGES = {
+    (48, 128, 136, (115,) * 30 + (0,), 5, False, 0): "ring",   # the main path's geometry
+    (8, 16, 64, (64, 0, 10), 5, True, 0): "ring",   # a row segment of length N, empty rows, an
+                                                     # empty subject
+    (5, 9, 13, (13, 2, 0, 7, 5), 5, False, 0): "ring-element-copies",   # runs not whole packs
+    (8, 16, 24, (24, 3, 0, 9), 5, False, 1): "ring-element-copies",    # vals' start unaligned
+    (40, 128, 3000, (3000, 17, 0), 5, False, 0): "thread-per-entry",  # N past the stages
+    (1000, 32, 40, (40, 0, 33), 8, False, 0): "thread-per-entry",     # I past the stages
+    (8, 8, 24, (24, 3, 0, 9), 72, False, 0): "ring",  # R = 72, in chunks of 32
+    (8, 16, 24, tuple(range(24)) * 420, 5, False, 0): "ring",   # subjects past the walkers
 }
 SOURCES = ("fused", "staged", "scoo", "gather_matmul")
 FUSED = ("fused_procrustes_b", "fused_mode1_xkv", "fused_mode2_compact", "fused_ykv")
@@ -449,24 +473,29 @@ def check_sparse_kernels(dtype, dev, errs: dict) -> None:
             check_kernels(bcc_args(to_block_bucket(b, J), V), errs)
 
 
-def scoo_arrays(n_rows, C, N, nnz, seed, one_col=False) -> dict:
+def scoo_arrays(n_rows, C, N, nnz, seed, one_col=False, one_row=False) -> dict:
     """SCOO arrays of one bucket, laid out as ``bucketize`` lays them out:
     subject k's nnz[k] triplets sorted by (row, column), pads past them,
-    ``cperm`` the stable column order and ``col_ends`` its segment ends."""
+    ``row_ends`` the row segments' ends, ``cperm`` the stable column order
+    and ``col_ends`` its segment ends. ``one_col``/``one_row`` put every
+    triplet of a subject in column 0 / row 0."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     Kb = len(nnz)
     out = dict(vals=np.zeros((Kb, N)), rows=np.zeros((Kb, N), np.int32),
-               lcols=np.zeros((Kb, N), np.int32),
+               lcols=np.zeros((Kb, N), np.int32), row_ends=np.zeros((Kb, n_rows), np.int32),
                cperm=np.tile(np.arange(N, dtype=np.int32), (Kb, 1)),
                col_ends=np.zeros((Kb, C), np.int32))
     for k, n in enumerate(nnz):
         r = rng.integers(0, n_rows, n)
         c = np.zeros(n, np.int64) if one_col else rng.integers(0, C, n)
+        if one_row:
+            r[:] = 0
         o = np.lexsort((c, r))
         out["vals"][k, :n] = rng.standard_normal(n)
         out["rows"][k, :n], out["lcols"][k, :n] = r[o], c[o]
+        out["row_ends"][k] = np.cumsum(np.bincount(r, minlength=n_rows))
         out["cperm"][k, :n] = np.argsort(c[o], kind="stable")
         out["col_ends"][k] = np.cumsum(np.bincount(c, minlength=C))
     return out
@@ -482,14 +511,23 @@ def offset_copy(a, dtype, dev, offset: int):
 
 
 def check_variant_edges(dtype, dev, errs: dict) -> set:
-    """Rows 8 and 12 at the edges of their variants against their plain
-    versions; in f32 each shape must take the variant stated. Returns the
-    (kernel, variant) pairs reached."""
+    """Rows 5, 8, 11 and 12 at the edges of their variants against their
+    plain versions; in f32 each shape must take the variant stated. Returns
+    the (kernel, variant) pairs reached."""
     import numpy as np
     import torch
-    from repro_torch.kernels import mttkrp_mode2, scoo
+    from repro_torch.kernels import mttkrp_mode2, scoo, ykv
 
     f32, seen = dtype == torch.float32, set()
+    for (K, R, C, offset), want in YKV_EDGES.items():
+        rng = np.random.default_rng(K + R + C + offset)
+        Yc = offset_copy(rng.standard_normal((K, R, C)), dtype, dev, offset)
+        Vg = torch.tensor(rng.standard_normal((K, C, R)), dtype=dtype, device=dev)
+        got = ykv.ykv_variant(Yc, Vg)
+        if f32 and got != want:
+            fail(f"ykv at K={K} R={R} C={C} offset {offset} took {got}, want {want}")
+        seen.add(("ykv", got))
+        check_kernels({"ykv": (Yc, Vg)}, errs)
     for (K, R, C, offset), want in MODE2_EDGES.items():
         rng = np.random.default_rng(K + R + C + offset)
         Yc = offset_copy(rng.standard_normal((K, R, C)), dtype, dev, offset)
@@ -517,6 +555,19 @@ def check_variant_edges(dtype, dev, errs: dict) -> set:
         seen.add(("scoo_project", got))
         check_kernels({"scoo_project": (vals, rows, lcols, Q, C, cperm, ends)}, errs,
                       {"scoo_project": prefix_scale(vals, rows, Q)})
+    for (n_rows, C, N, nnz, R, one_row, offset), want in XKV_EDGES.items():
+        a = scoo_arrays(n_rows, C, N, nnz, seed=N + R, one_row=one_row)
+        vals = offset_copy(a["vals"], dtype, dev, offset)
+        rows, lcols, ends = (torch.tensor(a[k], device=dev) for k in ("rows", "lcols", "row_ends"))
+        Vg = torch.tensor(np.random.default_rng(R).standard_normal((len(nnz), C, R)),
+                          dtype=dtype, device=dev)
+        got = scoo.scoo_xk_times_v_variant(vals, rows, lcols, Vg, n_rows, row_ends=ends)
+        if f32 and got != want:
+            fail(f"scoo_xk_times_v at I={n_rows} C={C} N={N} R={R} offset {offset} took {got}, "
+                 f"want {want}")
+        seen.add(("scoo_xk_times_v", got))
+        check_kernels({"scoo_xk_times_v": (vals, rows, lcols, Vg, n_rows, ends)}, errs,
+                      {"scoo_xk_times_v": prefix_scale(vals, lcols, Vg)})
     return seen
 
 
@@ -549,16 +600,17 @@ def phase2_kernels(dev) -> dict:
         check_empty(dtype, dev)
     if set(errs) != set(ALL):
         fail(f"phase 2 did not check {sorted(set(ALL) - set(errs))}")
-    from repro_torch.kernels import mttkrp_mode2, scoo
-    want = ({("mode2_compact", v) for v in mttkrp_mode2.MODE2_VARIANTS}
-            | {("scoo_project", v) for v in scoo.PROJECT_VARIANTS})
+    from repro_torch.kernels._launch import RING_VARIANTS
+    want = {(name, v) for name in ("ykv", "mode2_compact", "scoo_xk_times_v", "scoo_project")
+            for v in RING_VARIANTS}
     if variants != want:
         fail(f"phase 2 did not reach the variants {sorted(want - variants)}")
     print(f"[kernels] all thirteen match their plain versions (f32, f64; "
           f"{len(GEOMETRIES)} CC geometries, R in {sorted({g['R'] for g in GEOMETRIES})}, "
           f"C_pad up to 1024; SCOO {', '.join(SCOO_DATA)} at R 1/5/72 and explicit "
-          f"zero-valued triplets; BCC {BCC_GEOMETRIES}; rows 8 and 12 at "
-          f"{len(MODE2_EDGES)} and {len(PROJECT_EDGES)} edge shapes, variants "
+          f"zero-valued triplets; BCC {BCC_GEOMETRIES}; rows 5, 8, 11 and 12 at "
+          f"{len(YKV_EDGES)}, {len(MODE2_EDGES)}, {len(XKV_EDGES)} and "
+          f"{len(PROJECT_EDGES)} edge shapes, variants "
           f"{sorted(variants)}; padded subjects, K=0): "
           + json.dumps({k: v[0] for k, v in errs.items()}), flush=True)
     return errs
@@ -633,7 +685,7 @@ def phase3_main_path(dev):
     for label in ("auto", "staged", "staged-scoo", "scoo-scoo", "auto-scoo"):
         n_buckets = len((bt_sc if label.endswith("-scoo") else bt).buckets)
         check_launches(label, counts[label], n_buckets * ITERS)
-    from repro_torch.kernels import fused, mttkrp_mode2, scoo
+    from repro_torch.kernels import fused, mttkrp_mode2, scoo, ykv
     print(f"[main] auto: F1 variant per CC bucket (I_pad, C_pad, subjects): "
           f"{[(b.i_pad, b.c_pad, b.kb, fused.procrustes_b_variant(b.vals, 5)) for b in bt.buckets]}",
           flush=True)
@@ -641,18 +693,26 @@ def phase3_main_path(dev):
     def yc_like(b):     # the staged route's Yc: a fresh contiguous [Kb, R, C_pad]
         return torch.empty((b.kb, 5, b.c_pad), device=dev)
 
+    def vg_like(b):     # b.gather_v(V): a fresh contiguous [Kb, C_pad, R]
+        return torch.empty((b.kb, b.c_pad, 5), device=dev)
+
     def project_variant(b):
         Q = torch.empty((b.kb, b.i_pad, 5), device=dev)   # as solve_q returns it
         return scoo.scoo_project_variant(b.vals, b.rows, b.lcols, Q, b.c_pad, cperm=b.cperm,
                                          col_ends=b.col_ends)
 
-    cc_v = [(b.c_pad, b.kb, mttkrp_mode2.mode2_compact_variant(yc_like(b), b.col_mask))
-            for b in bt.buckets]
-    sc_v = [(b.i_pad, b.c_pad, b.n_pad, b.kb, project_variant(b),
-             mttkrp_mode2.mode2_compact_variant(yc_like(b), b.col_mask)) for b in bt_sc.buckets]
-    print(f"[main] staged: row 8 variant per CC bucket (C_pad, subjects): {cc_v}; "
-          f"staged-scoo: rows 12 and 8 per SCOO bucket (I_pad, C_pad, N_pad, subjects): "
-          f"{sc_v}", flush=True)
+    def staged_variants(b):     # rows 5 and 8
+        return (ykv.ykv_variant(yc_like(b), vg_like(b)),
+                mttkrp_mode2.mode2_compact_variant(yc_like(b), b.col_mask))
+
+    cc_v = [(b.c_pad, b.kb, *staged_variants(b)) for b in bt.buckets]
+    sc_v = [(b.i_pad, b.c_pad, b.n_pad, b.kb,
+             scoo.scoo_xk_times_v_variant(b.vals, b.rows, b.lcols, vg_like(b), b.i_pad,
+                                          row_ends=b.row_ends),
+             project_variant(b), *staged_variants(b)) for b in bt_sc.buckets]
+    print(f"[main] staged: rows 5 and 8 variants per CC bucket (C_pad, subjects): {cc_v}; "
+          f"staged-scoo: rows 11, 12, 5 and 8 per SCOO bucket (I_pad, C_pad, N_pad, "
+          f"subjects): {sc_v}", flush=True)
     if any(counts["torch"].values()):
         fail("the torch route launched a kernel")
     for label in ("auto", "staged", "staged-scoo", "scoo-scoo", "auto-scoo"):
@@ -783,6 +843,23 @@ def time_ms(fn, reps: int = 20) -> float:
     return float(np.median(out))
 
 
+def host_ms(fn, reps: int = 20) -> float:
+    """Median host time of one call of ``fn`` (the wrapper's checks and the
+    launch, with the device idle before it): what a CUDA-event time of a
+    short kernel adds to the kernel."""
+    import numpy as np
+    import torch
+
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return float(np.median(out))
+
+
 def work(name: str, K: int, I: int, C: int, R: int, itemsize: int) -> tuple:
     """(bytes, operations) the function needs: each input read once, each
     output written once; the slab and Yc are dense over the padded kept
@@ -863,7 +940,7 @@ def phase4_times(bt, bt_sc, bcc_pair, state, per_kernel, errs):
     import torch
     from repro_torch.core.backend import get_backend
     from repro_torch.core.procrustes import solve_q
-    from repro_torch.kernels import fused, mttkrp_mode2, scoo
+    from repro_torch.kernels import fused, mttkrp_mode2, scoo, ykv
 
     b = max(bt.buckets, key=lambda x: x.vals.numel())
     H, V, W = state.H.contiguous(), state.V, state.W
@@ -939,11 +1016,16 @@ def phase4_times(bt, bt_sc, bcc_pair, state, per_kernel, errs):
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": time_ms(library[name]),
+            "host_ms": host_ms(lambda: wrapper(*a)),
         })
         r = rows[-1]
         extra = ""
         if name == "fused_procrustes_b":
             r["variant"] = fused.procrustes_b_variant(b.vals, R)
+        if name == "ykv":
+            r["variant"] = ykv.ykv_variant(*a)
+        if name == "scoo_xk_times_v":
+            r["variant"] = scoo.scoo_xk_times_v_variant(*a[:5], row_ends=a[5])
         if name == "mode2_compact":
             r["variant"] = mttkrp_mode2.mode2_compact_variant(Yc, b.col_mask)
         if name == "scoo_project":
@@ -956,8 +1038,8 @@ def phase4_times(bt, bt_sc, bcc_pair, state, per_kernel, errs):
             extra = f", library on the same input {r['library_same_input_ms']:.4f} ms"
         print(f"[time] {name} at {where[name]} R={R} f32: kernel {r['ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, {nbytes} B, {ops} ops), "
-              f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms{extra}",
-              flush=True)
+              f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, wrapper "
+              f"host time {r['host_ms']:.4f} ms{extra}", flush=True)
     return rows
 
 
@@ -1002,6 +1084,14 @@ def phase5_profile(bt, bt_sc, iter_ms: dict) -> None:
         for e in sorted(kernels_, key=dev_us, reverse=True)[:12]:
             print(f"[profile] {route} device {dev_us(e) / 1e3:9.3f} ms  x{e.count:<6d} "
                   f"{e.key[:90]}")
+        own, mark = {}, "void (anonymous namespace)::"   # the port's kernels (csrc/*.cu)
+        for e in kernels_:
+            if e.key.startswith(mark):
+                body = e.key[len(mark):].split("(")[0]
+                ms_, n_ = own.get(body, (0.0, 0))
+                own[body] = (ms_ + dev_us(e) / 1e3, n_ + e.count)
+        print(f"[profile] {route} port kernels (device ms, launches): "
+              + json.dumps({k: [round(v[0], 4), v[1]] for k, v in sorted(own.items())}))
         for e in sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]:
             print(f"[profile] {route} host   {e.self_cpu_time_total / 1e3:9.3f} ms  "
                   f"x{e.count:<6d} {e.key[:90]}")

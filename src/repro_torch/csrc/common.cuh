@@ -1,6 +1,7 @@
 // What the port's CUDA sources share (sm_90a): the shared-memory limits,
-// the cp.async primitives, a division-free index walk, the opt-in to more
-// than 48 KB of dynamic shared memory and the size of a persistent grid.
+// the cp.async primitives, a division-free index walk, the 16-byte alignment
+// test, the opt-in to more than 48 KB of dynamic shared memory and the size
+// of a persistent grid.
 // fused.cu, staged.cu, scoo.cu and gather_matmul.cu include it, each into
 // its own library; kernels/_build.py hashes it into every build.
 #pragma once
@@ -9,6 +10,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <initializer_list>
 
 namespace {
 
@@ -43,6 +45,13 @@ struct Walk {
   }
 };
 
+// True when every pointer starts on a 16-byte boundary.
+inline bool aligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+  return true;
+}
+
 // Let `kernel` take `smem` bytes of dynamic shared memory (an opt-in above
 // 48 KB); more than a block may use is refused.
 template <typename Kernel>
@@ -57,13 +66,13 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 // A persistent grid: the blocks of `kernel` an SM holds at `smem` bytes of
 // dynamic shared memory, times the SMs, at most `items`. The occupancy query
 // costs host time comparable to a short kernel, so its answer is kept per
-// (kernel, smem, device).
+// (kernel, smem, device), the newest 32 answers of each kernel signature.
 template <typename Kernel>
 cudaError_t persistent_grid(Kernel kernel, int threads, size_t smem, int64_t items,
                             int* grid) {
   struct Entry { const void* fn; size_t smem; int dev, blocks; };
   static Entry cache[32];
-  static int used = 0;
+  static int used = 0, next = 0;
   int dev = 0, blocks = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -77,7 +86,9 @@ cudaError_t persistent_grid(Kernel kernel, int threads, size_t smem, int64_t ite
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
     if (e != cudaSuccess) return e;
     blocks = std::max(1, per_sm) * std::max(1, sms);
-    cache[used < 32 ? used++ : (int)(smem % 32)] = {fn, smem, dev, blocks};
+    cache[next] = {fn, smem, dev, blocks};   // the oldest answer goes
+    next = (next + 1) % 32;
+    used = std::min(used + 1, 32);
   }
   *grid = (int)std::min<int64_t>(items, blocks);
   return cudaSuccess;

@@ -29,10 +29,8 @@
 // all-padding blocks by a scalar-prefetched nnz count; none of that is
 // carried over: the segment ends say where each sum starts and stops, so
 // explicit zero-valued triplets inside the true nnz count like any other.
-// Row 11 runs one thread per output entry, reading straight from device
-// memory (threads of one (k, i) are neighbours in a warp, r fastest, so the
-// stores are contiguous); row 12 stages each subject in shared memory (its
-// note below).
+// Both stage their subjects in shared memory, with the simple first design
+// kept as the fallback for subjects too large for that (their notes below).
 //
 // Plain C interface, loaded with ctypes (repro_torch/kernels/_launch.py):
 // every entry point launches on the given stream, does not synchronise,
@@ -42,7 +40,6 @@
 #include <stdint.h>
 
 #include <algorithm>
-#include <initializer_list>
 
 #include "common.cuh"
 
@@ -55,11 +52,73 @@ int grid_for(int64_t n) {
   return (int)std::min<int64_t>(kMaxBlocks, (n + kThreads - 1) / kThreads);
 }
 
+constexpr int kRingThreads = 128;         // 64 was 13% slower for row 12 in paired H100 timings
+constexpr int kRingBudget = 64 * 1024;     // a ring block's shared memory, at most
+
+// Copy n elements of E from src into shared memory at dst, thread t of nt:
+// 16-byte packs (reading up to the next whole pack, which the caller keeps
+// in bounds) when ALIGNED, else one element a copy.
+template <typename E, bool ALIGNED>
+__device__ inline void copy_run(int t, int nt, E* dst, const E* __restrict__ src, int n) {
+  if constexpr (ALIGNED) {
+    constexpr int V = 16 / sizeof(E);
+    for (int p = t; p * V < n; p += nt) cp_async<16>(dst + p * V, src + p * V);
+  } else {
+    for (int u = t; u < n; u += nt) cp_async<sizeof(E)>(dst + u, src + u);
+  }
+}
+
+// Write n elements of T from shared memory to dst, thread t of nt, 16 bytes
+// a store when ALIGNED (n is then whole packs), else one element a store.
+template <typename T, bool ALIGNED>
+__device__ inline void store_run(int t, int nt, T* __restrict__ dst, const T* src, int n) {
+  if constexpr (ALIGNED) {
+    for (int p = t; p * (16 / (int)sizeof(T)) < n; p += nt)
+      reinterpret_cast<int4*>(dst)[p] = reinterpret_cast<const int4*>(src)[p];
+  } else {
+    for (int u = t; u < n; u += nt) dst[u] = src[u];
+  }
+}
+
+__host__ __device__ inline size_t whole_packs(size_t bytes) { return (bytes + 15) / 16 * 16; }
+
 // ---------------------------------------------------------------------------
 // Row 11, xk_times_v. Replaces src/repro/kernels/scoo.py xk_times_v_pallas
-// (:249, pallas_call at :276, body _xkv_kernel at :221): one thread per entry
-// (k, i, r) of X_k V. Bound: the triplets' vals and lcols, row_ends, the Vg
-// rows read and the output.
+// (:249, pallas_call at :276, body _xkv_kernel at :221). Bound: vals and
+// lcols up to the true nnz, row_ends, the kept rows of Vg and the dense
+// output (134 MB at the main path's largest SCOO bucket). Two variants,
+// picked by shape (xkv_variant):
+//
+// RING, the main path (a warp's stages and output tile fit in a quarter of
+// kRingBudget). What held the thread-per-entry design below at 19% of the
+// bound: each thread walked its segment through a chain of dependent loads
+// from device memory (row_ends, then vals and lcols, then a Vg row), the R
+// threads of a row repeated that chain, and every thread did two 64-bit
+// divisions. Here each warp of a persistent block walks over its own
+// subjects (at I = 48 a warp's lanes all own rows, where a block's would be
+// 48 of 128), three subjects deep. While the warp sums subject n, cp.async
+// copies subject n+2's vals and lcols (up to its true nnz, row_ends[k, I-1],
+// read a subject earlier so that no copy waits for it) and its row_ends
+// into one of three triplet stages, and subject n+1's Vg rows 0 .. its
+// largest lcol, found from its staged lcols, into the other of two Vg
+// stages: in bucketize's layout the kept slots are a prefix, so this is the
+// 10-20 kept rows of C_pad 128 at CHOA's density (all 128 rows would be
+// more bytes than the whole bound), and any lcols in [0, C) stay right.
+// 16 bytes a copy when every run is whole 16-byte packs, else one element.
+// A lane owns a row (i = lane, lane + 32, ...) and all R sums of it in
+// registers (R in chunks of RMAX), walks the row's segment in shared memory
+// in the fallback's order, so the bits are the same, and puts the sums in
+// an output tile [I, R]; the warp then writes X_k V [I, R], one contiguous
+// run, with 16-byte stores. About 9.9 KB a warp at I 48, C 128, N 136, R 5,
+// f32.
+//
+// THREAD-PER-ENTRY (a subject too large for the ring): one thread per entry
+// (k, i, r) of X_k V, reading straight from device memory (threads of one
+// (k, i) are neighbours in a warp, r fastest, so the stores are contiguous).
+//
+// The ring stages the triplets up to the true nnz, so it takes every
+// segment to lie in [0, nnz_k), nnz_k = row_ends[k, I-1], which is the
+// bucket's layout.
 // ---------------------------------------------------------------------------
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -80,6 +139,115 @@ xkv_kernel(const T* __restrict__ vals, const int* __restrict__ lcols,
     for (int n = n0; n < n1; ++n) acc += v[n] * g[(int64_t)lc[n] * R];
     out[t] = acc;
   }
+}
+
+
+// Row 11's ring per warp, in bytes from the warp's start: three triplet
+// stages (vals [N], lcols [N], row_ends [I]), two Vg stages [C, R] and the
+// output tile [I, R], each part a whole number of 16-byte packs.
+struct XkvLayout {
+  size_t lcols, ends, trip, vg, vg_stage, tile, warp_bytes;
+};
+
+template <typename T>
+__host__ __device__ inline XkvLayout xkv_layout(int N, int I, int C, int R) {
+  XkvLayout s;
+  s.lcols = whole_packs((size_t)N * sizeof(T));
+  s.ends = s.lcols + whole_packs((size_t)N * sizeof(int));
+  s.trip = s.ends + whole_packs((size_t)I * sizeof(int));
+  s.vg = 3 * s.trip;
+  s.vg_stage = whole_packs((size_t)C * R * sizeof(T));
+  s.tile = s.vg + 2 * s.vg_stage;
+  s.warp_bytes = s.tile + whole_packs((size_t)I * R * sizeof(T));
+  return s;
+}
+
+constexpr int kXkvWarps = kRingThreads / 32;    // walkers a block
+
+template <typename T, int RMAX, bool ALIGNED>
+__global__ void __launch_bounds__(kRingThreads)
+xkv_ring_kernel(const T* __restrict__ vals, const int* __restrict__ lcols,
+                const T* __restrict__ vg, const int* __restrict__ row_ends,
+                T* __restrict__ out, int Kb, int N, int I, int C, int R) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const XkvLayout lay = xkv_layout<T>(N, I, C, R);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, warps = blockDim.x / 32;
+  unsigned char* mine = smem_raw + warp * lay.warp_bytes;
+  T* tile = reinterpret_cast<T*>(mine + lay.tile);
+  const int64_t walker = (int64_t)blockIdx.x * warps + warp;
+  const int64_t walkers = (int64_t)gridDim.x * warps;
+  const int n_mine = Kb > walker ? (int)((Kb - 1 - walker) / walkers + 1) : 0;
+  auto subject = [&](int n) { return walker + n * walkers; };
+  // the true nnz of the warp's n-th subject (0 past its last)
+  auto count = [&](int n) {
+    return n < n_mine ? min(N, max(0, __ldg(row_ends + subject(n) * I + I - 1))) : 0;
+  };
+  auto trip = [&](int n) { return mine + n % 3 * lay.trip; };
+  auto vg_stage = [&](int n) { return mine + lay.vg + (n & 1) * lay.vg_stage; };
+  auto fetch_triplets = [&](int n, int cnt) {
+    const int64_t k = subject(n);
+    unsigned char* st = trip(n);
+    copy_run<T, ALIGNED>(lane, 32, reinterpret_cast<T*>(st), vals + k * N, cnt);
+    copy_run<int, ALIGNED>(lane, 32, reinterpret_cast<int*>(st + lay.lcols), lcols + k * N, cnt);
+    copy_run<int, ALIGNED>(lane, 32, reinterpret_cast<int*>(st + lay.ends), row_ends + k * I, I);
+  };
+  // subject n's Vg rows 0 .. its largest lcol (its triplets are in)
+  auto fetch_vg = [&](int n) {
+    const unsigned char* st = trip(n);
+    const int* lc = reinterpret_cast<const int*>(st + lay.lcols);
+    const int cnt = min(N, max(0, reinterpret_cast<const int*>(st + lay.ends)[I - 1]));
+    int top = -1;
+    for (int u = lane; u < cnt; u += 32) top = max(top, lc[u]);
+    top = __reduce_max_sync(0xffffffffu, top);
+    copy_run<T, ALIGNED>(lane, 32, reinterpret_cast<T*>(vg_stage(n)), vg + subject(n) * C * R,
+                         (top + 1) * R);
+  };
+
+  if (n_mine > 0) fetch_triplets(0, count(0));
+  cp_async_commit();
+  int cnt_next = count(1);                   // used by the prologue's copies
+  cp_async_wait<0>();
+  __syncwarp();
+  if (n_mine > 0) fetch_vg(0);
+  if (n_mine > 1) fetch_triplets(1, cnt_next);
+  cp_async_commit();
+  cnt_next = count(2);                       // used by iteration 0's copies
+  for (int n = 0; n < n_mine; ++n) {         // warp-uniform
+    const int cnt_after = count(n + 3);      // used by the next iteration's copies
+    cp_async_wait<0>();                      // subject n's Vg rows, n+1's triplets are in
+    __syncwarp();                            // the warp's; n-1's stages and the tile are read
+    if (n + 1 < n_mine) fetch_vg(n + 1);
+    if (n + 2 < n_mine) fetch_triplets(n + 2, cnt_next);
+    cp_async_commit();
+    cnt_next = cnt_after;
+
+    const unsigned char* st = trip(n);
+    const T* v_s = reinterpret_cast<const T*>(st);
+    const int* lc_s = reinterpret_cast<const int*>(st + lay.lcols);
+    const int* ends_s = reinterpret_cast<const int*>(st + lay.ends);
+    const T* g_s = reinterpret_cast<const T*>(vg_stage(n));
+    for (int i = lane; i < I; i += 32) {
+      const int n0 = i ? ends_s[i - 1] : 0, n1 = ends_s[i];
+      for (int r0 = 0; r0 < R; r0 += RMAX) {
+        T acc[RMAX];
+#pragma unroll
+        for (int r = 0; r < RMAX; ++r) acc[r] = T(0);
+        for (int m = n0; m < n1; ++m) {
+          const T v = v_s[m];
+          const T* grow = g_s + lc_s[m] * R + r0;
+#pragma unroll
+          for (int r = 0; r < RMAX; ++r)
+            if (r0 + r < R) acc[r] += v * grow[r];
+        }
+#pragma unroll
+        for (int r = 0; r < RMAX; ++r)
+          if (r0 + r < R) tile[i * R + r0 + r] = acc[r];
+      }
+    }
+    __syncwarp();                            // the tile is whole
+    store_run<T, ALIGNED>(lane, 32, out + subject(n) * I * R, tile, I * R);
+  }
+  cp_async_wait<0>();                        // leave no copy in flight
 }
 
 // ---------------------------------------------------------------------------
@@ -118,42 +286,12 @@ xkv_kernel(const T* __restrict__ vals, const int* __restrict__ lcols,
 // true nnz, so it takes cperm[k, :nnz_k] to be a permutation of
 // [0, nnz_k), nnz_k = col_ends[k, C-1], which is the bucket's layout.
 // ---------------------------------------------------------------------------
-constexpr int kRingThreads = 128;         // 64 was 13% slower in paired H100 timings
-constexpr int kRingBudget = 64 * 1024;     // two stages and the tile, at most
-
-// Copy n elements of E from src into shared memory at dst: 16-byte packs
-// (reading up to the next whole pack, which the caller keeps in bounds)
-// when ALIGNED, else one element a copy.
-template <typename E, bool ALIGNED>
-__device__ inline void copy_run(E* dst, const E* __restrict__ src, int n) {
-  if constexpr (ALIGNED) {
-    constexpr int V = 16 / sizeof(E);
-    for (int p = threadIdx.x; p * V < n; p += blockDim.x) cp_async<16>(dst + p * V, src + p * V);
-  } else {
-    for (int u = threadIdx.x; u < n; u += blockDim.x) cp_async<sizeof(E)>(dst + u, src + u);
-  }
-}
-
-// Write n elements of T from shared memory to dst, 16 bytes a store when
-// ALIGNED (n is then whole packs), else one element a store.
-template <typename T, bool ALIGNED>
-__device__ inline void store_run(T* __restrict__ dst, const T* src, int n) {
-  if constexpr (ALIGNED) {
-    for (int p = threadIdx.x; p * (16 / (int)sizeof(T)) < n; p += blockDim.x)
-      reinterpret_cast<int4*>(dst)[p] = reinterpret_cast<const int4*>(src)[p];
-  } else {
-    for (int u = threadIdx.x; u < n; u += blockDim.x) dst[u] = src[u];
-  }
-}
-
 // The ring's shared memory, in bytes from its start: per stage vals [N],
 // Q_k [I, R], rows [N], cperm [N] and col_ends [C], each part a whole
 // number of 16-byte packs; after the two stages the output tile [R, C].
 struct ProjectLayout {
   size_t q, rows, cperm, ends, stage, tile, smem_bytes;
 };
-
-__host__ __device__ inline size_t whole_packs(size_t bytes) { return (bytes + 15) / 16 * 16; }
 
 template <typename T>
 __host__ __device__ inline ProjectLayout project_layout(int N, int I, int C, int R) {
@@ -177,6 +315,7 @@ project_ring_kernel(const T* __restrict__ vals, const int* __restrict__ rows,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const ProjectLayout lay = project_layout<T>(N, I, C, R);
   T* tile = reinterpret_cast<T*>(smem_raw + lay.tile);
+  const int tid = threadIdx.x, nthr = blockDim.x;
   const int n_mine = Kb > (int)blockIdx.x ? (Kb - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
   auto subject = [&](int n) { return (int64_t)blockIdx.x + (int64_t)n * gridDim.x; };
   // the true nnz of the block's n-th subject (0 past its last)
@@ -184,11 +323,11 @@ project_ring_kernel(const T* __restrict__ vals, const int* __restrict__ rows,
     return n < n_mine ? min(N, max(0, __ldg(col_ends + subject(n) * C + C - 1))) : 0;
   };
   auto fetch = [&](unsigned char* st, int64_t k, int cnt) {
-    copy_run<T, ALIGNED>(reinterpret_cast<T*>(st), vals + k * N, cnt);
-    copy_run<T, ALIGNED>(reinterpret_cast<T*>(st + lay.q), q + k * I * R, I * R);
-    copy_run<int, ALIGNED>(reinterpret_cast<int*>(st + lay.rows), rows + k * N, cnt);
-    copy_run<int, ALIGNED>(reinterpret_cast<int*>(st + lay.cperm), cperm + k * N, cnt);
-    copy_run<int, ALIGNED>(reinterpret_cast<int*>(st + lay.ends), col_ends + k * C, C);
+    copy_run<T, ALIGNED>(tid, nthr, reinterpret_cast<T*>(st), vals + k * N, cnt);
+    copy_run<T, ALIGNED>(tid, nthr, reinterpret_cast<T*>(st + lay.q), q + k * I * R, I * R);
+    copy_run<int, ALIGNED>(tid, nthr, reinterpret_cast<int*>(st + lay.rows), rows + k * N, cnt);
+    copy_run<int, ALIGNED>(tid, nthr, reinterpret_cast<int*>(st + lay.cperm), cperm + k * N, cnt);
+    copy_run<int, ALIGNED>(tid, nthr, reinterpret_cast<int*>(st + lay.ends), col_ends + k * C, C);
   };
 
   int cnt_next = count(1);                   // used by iteration 0's copies
@@ -228,7 +367,7 @@ project_ring_kernel(const T* __restrict__ vals, const int* __restrict__ rows,
       }
     }
     __syncthreads();                         // the tile is whole
-    store_run<T, ALIGNED>(out + subject(n) * R * C, tile, R * C);
+    store_run<T, ALIGNED>(tid, nthr, out + subject(n) * R * C, tile, R * C);
   }
   cp_async_wait<0>();                        // leave no copy in flight
 }
@@ -259,23 +398,57 @@ project_kernel(const T* __restrict__ vals, const int* __restrict__ rows,
   }
 }
 
-// Row 12's variants, as spartan_scoo_project_variant reports them.
-enum ProjectVariant { kRing = 0, kRingElementCopies = 1, kThreadPerEntry = 2 };
+// The variants of rows 11 and 12, as spartan_scoo_xk_times_v_variant and
+// spartan_scoo_project_variant report them.
+enum Variant { kRing = 0, kRingElementCopies = 1, kThreadPerEntry = 2 };
 
-// RING where two stages and the tile fit kRingBudget (16-byte copies and
-// stores when every run a copy or store takes is whole 16-byte packs and
+// Row 11: RING where a block of kXkvWarps warps' rings fits kRingBudget
+// (16-byte copies and stores when every run a copy or store takes is whole
+// 16-byte packs and every operand starts on a 16-byte boundary), else
+// THREAD-PER-ENTRY.
+template <typename T>
+int xkv_variant(int N, int I, int C, int R, bool aligned) {
+  if (xkv_layout<T>(N, I, C, R).warp_bytes * kXkvWarps > (size_t)kRingBudget)
+    return kThreadPerEntry;
+  const int64_t V = 16 / (int)sizeof(T);
+  const bool packs = N % 4 == 0 && I % 4 == 0 && (int64_t)I * R % V == 0 &&
+                     (int64_t)C * R % V == 0;
+  return aligned && packs ? kRing : kRingElementCopies;
+}
+
+template <typename T, int RMAX>
+cudaError_t launch_xkv(const void* vals, const void* lcols, const void* vg,
+                       const void* row_ends, void* out, int Kb, int N, int I, int C,
+                       int R, cudaStream_t stream) {
+  const int variant = xkv_variant<T>(N, I, C, R, aligned16({vals, lcols, vg, row_ends, out}));
+  if (variant == kThreadPerEntry) {
+    xkv_kernel<T><<<grid_for((int64_t)Kb * I * R), kThreads, 0, stream>>>(
+        static_cast<const T*>(vals), static_cast<const int*>(lcols), static_cast<const T*>(vg),
+        static_cast<const int*>(row_ends), static_cast<T*>(out), Kb, N, I, C, R);
+    return cudaGetLastError();
+  }
+  const size_t smem = xkv_layout<T>(N, I, C, R).warp_bytes * kXkvWarps;
+  auto kernel = variant == kRing ? xkv_ring_kernel<T, RMAX, true>
+                                 : xkv_ring_kernel<T, RMAX, false>;
+  cudaError_t e = allow_smem(kernel, smem);
+  int grid = 0;
+  if (e == cudaSuccess)
+    e = persistent_grid(kernel, kRingThreads, smem, (Kb - 1) / kXkvWarps + 1, &grid);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, kRingThreads, smem, stream>>>(
+      static_cast<const T*>(vals), static_cast<const int*>(lcols), static_cast<const T*>(vg),
+      static_cast<const int*>(row_ends), static_cast<T*>(out), Kb, N, I, C, R);
+  return cudaGetLastError();
+}
+
+// Row 12: RING where two stages and the tile fit kRingBudget (16-byte copies
+// and stores when every run a copy or store takes is whole 16-byte packs and
 // every operand starts on a 16-byte boundary), else THREAD-PER-ENTRY.
 template <typename T>
 int project_variant(int N, int I, int C, int R, bool aligned) {
   if (project_layout<T>(N, I, C, R).smem_bytes > (size_t)kRingBudget) return kThreadPerEntry;
   const bool packs = N % 4 == 0 && C % 4 == 0 && (int64_t)I * R % (16 / (int)sizeof(T)) == 0;
   return aligned && packs ? kRing : kRingElementCopies;
-}
-
-bool aligned16(std::initializer_list<const void*> ptrs) {
-  for (const void* p : ptrs)
-    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
-  return true;
 }
 
 template <typename T, int RMAX>
@@ -321,21 +494,28 @@ extern "C" {
 // Both entry points need Kb, N, I, C, R >= 1 (the wrappers return zeros for
 // an empty bucket without a launch).
 
+// Both take register tiles of 8 entries of R, or 32 with R in chunks of 32
+// above 8.
 int spartan_scoo_xk_times_v(int dtype, const void* vals, const void* lcols,
                             const void* vg, const void* row_ends, void* out,
                             int Kb, int N, int I, int C, int R, void* stream) {
   if (Kb < 1 || N < 1 || I < 1 || C < 1 || R < 1) return (int)cudaErrorInvalidValue;
-  const int grid = grid_for((int64_t)Kb * I * R);
-  SPARTAN_BY_DTYPE({
-    xkv_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(vals), static_cast<const int*>(lcols),
-        static_cast<const T*>(vg), static_cast<const int*>(row_ends),
-        static_cast<T*>(out), Kb, N, I, C, R);
-    return (int)cudaGetLastError();
-  });
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  SPARTAN_BY_DTYPE(return (int)(R <= 8
+      ? launch_xkv<T, 8>(vals, lcols, vg, row_ends, out, Kb, N, I, C, R, s)
+      : launch_xkv<T, 32>(vals, lcols, vg, row_ends, out, Kb, N, I, C, R, s)));
 }
 
-// Register tiles of 8 entries of R, or 32 with R in chunks of 32 above 8.
+// The variant a spartan_scoo_xk_times_v launch takes (Variant: 0 ring, 1
+// ring with element copies, 2 thread-per-entry); aligned: every operand and
+// the output start on a 16-byte boundary. -1 for an unknown dtype.
+int spartan_scoo_xk_times_v_variant(int dtype, int N, int I, int C, int R, int aligned) {
+  if (N < 1 || I < 1 || C < 1 || R < 1) return -1;
+  if (dtype == 0) return xkv_variant<float>(N, I, C, R, aligned != 0);
+  if (dtype == 1) return xkv_variant<double>(N, I, C, R, aligned != 0);
+  return -1;
+}
+
 int spartan_scoo_project(int dtype, const void* vals, const void* rows,
                          const void* cperm, const void* q, const void* col_ends,
                          void* out, int Kb, int N, int I, int C, int R,
@@ -347,7 +527,7 @@ int spartan_scoo_project(int dtype, const void* vals, const void* rows,
       : launch_project<T, 32>(vals, rows, cperm, q, col_ends, out, Kb, N, I, C, R, s)));
 }
 
-// The variant a spartan_scoo_project launch takes (ProjectVariant: 0 ring,
+// The variant a spartan_scoo_project launch takes (Variant: 0 ring,
 // 1 ring with element copies, 2 thread-per-entry); aligned: every operand
 // and the output start on a 16-byte boundary. -1 for an unknown dtype.
 int spartan_scoo_project_variant(int dtype, int N, int I, int C, int R, int aligned) {

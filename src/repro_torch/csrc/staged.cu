@@ -24,10 +24,11 @@
 // takes part in R multiply-adds, below the ~20 operations per byte before
 // arithmetic is the limit, so all six are bound by bytes; rows 7 and 10 read
 // only [K, R, R] and are bound by their launch. Design, simple first (rows
-// 5-7, 9 and 10; row 8 streams C tiles through shared memory, its note
-// below): one thread per output entry, reading its operands straight from
-// device memory. A warp's lanes cover neighbouring entries, so the Yc row a
-// lane reads is the one its neighbours read (one load serves them all) and
+// 6, 7, 9 and 10; rows 5 and 8 stream their operands through shared memory,
+// their notes below): one thread per output entry, reading its operands
+// straight from device memory. A warp's lanes cover neighbouring entries,
+// so the Yc row a lane reads is the one its neighbours read (one load
+// serves them all) and
 // the L1 cache holds each 32-byte sector across the next iterations; no
 // shared-memory tile, so no shape limit. The TPU kernels' padding of C to
 // block_c is not carried over: a thread loops over the C it is given (row 8
@@ -78,7 +79,34 @@ __device__ inline T yv_entry(const T* __restrict__ yc_row,
 
 // ---------------------------------------------------------------------------
 // Row 5, ykv. Replaces src/repro/kernels/ykv.py ykv_pallas (pallas_call at
-// :53): one thread per entry (k, r, l) of YkV. Bound: the bytes of Yc and Vg.
+// :53): YkV[k] = Yc_k Vg_k. Bound: the bytes of Yc, Vg and YkV (R = 5, f32:
+// 2R operations per 8 bytes of Yc and Vg). Two variants, picked by shape
+// (ykv_variant):
+//
+// RING, the main path (two stages of one subject's Yc_k and Vg_k fit in the
+// shared memory a block may use). What held the thread-per-entry design
+// below at 35% of the bound: the R*R threads of a subject each read a whole
+// Yc row and a whole Vg column from device memory, Vg at stride R, by 4-byte
+// loads, and every thread divided in 64 bits. Here persistent blocks walk
+// over groups of S subjects (S = 128 / (R*R) at most, 5 at R = 5). While a
+// block computes one group, cp.async copies the next group's Yc and Vg (one
+// contiguous run each) into the other of two shared-memory stages (16 bytes
+// a copy when the rows of Yc are whole 16-byte runs, else one element). A
+// thread owns an entry (s, r, l) of the group and sums it from shared memory
+// in yv_entry's order (four running sums over c mod 4, the tail into the
+// first, (s0 + s1) + (s2 + s3)), reading four Yc values at a time with one
+// 16-byte load, so the bits are the thread-per-entry kernel's. Bank
+// conflicts: Yc rows are padded to a stride of 16 mod 128 bytes, so the R
+// rows that the threads of one column read lie in different banks, and each
+// subject's Vg to 64 mod 128 bytes, so two subjects in one warp read
+// different banks. YkV of a group is one contiguous run of S*R*R values:
+// the block writes it from an output tile with 16-byte stores between an
+// element-wise head and tail (at R = 5 a group's run does not start on a
+// 16-byte boundary). At R = 5, C = 128, f32 a block holds about 53 KB.
+//
+// THREAD-PER-ENTRY (one subject's two stages exceed the 227 KB a block may
+// use, e.g. R = 72 at C_pad = 1024): one thread per entry (k, r, l), its
+// operands straight from device memory.
 // ---------------------------------------------------------------------------
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -91,6 +119,134 @@ ykv_kernel(const T* __restrict__ yc, const T* __restrict__ vg,
     const int p = (int)(t - k * RR), r = p / R, l = p - r * R;
     out[t] = yv_entry(yc + (k * R + r) * C, vg + k * C * R + l, C, R);
   }
+}
+
+constexpr int kRingThreads = 128;          // row 5: a group's entries; row 8: the
+                                           // widest C tile (64 was 13% slower in
+                                           // paired H100 timings)
+constexpr int kRingBudget = 64 * 1024;     // rows 5 and 8 take the most that fits
+
+// yv_entry on a staged subject: yc_row 16-byte aligned, four values a load.
+template <typename T>
+__device__ inline T yv_entry_staged(const T* yc_row, const T* vg_col, int C, int R) {
+  T s0 = T(0), s1 = T(0), s2 = T(0), s3 = T(0);
+  int c = 0;
+  for (; c + 3 < C; c += 4) {
+    T y[4];
+    if constexpr (sizeof(T) == 4) {
+      const float4 q = *reinterpret_cast<const float4*>(yc_row + c);
+      y[0] = q.x, y[1] = q.y, y[2] = q.z, y[3] = q.w;
+    } else {
+      const double2 a = *reinterpret_cast<const double2*>(yc_row + c);
+      const double2 b = *reinterpret_cast<const double2*>(yc_row + c + 2);
+      y[0] = a.x, y[1] = a.y, y[2] = b.x, y[3] = b.y;
+    }
+    s0 += y[0] * vg_col[c * R];
+    s1 += y[1] * vg_col[(c + 1) * R];
+    s2 += y[2] * vg_col[(c + 2) * R];
+    s3 += y[3] * vg_col[(c + 3) * R];
+  }
+  for (; c < C; ++c) s0 += yc_row[c] * vg_col[c * R];
+  return (s0 + s1) + (s2 + s3);
+}
+
+// Row 5's ring in shared memory, in bytes from its start: per stage the
+// group's Yc rows [S*R] at row_bytes, then its Vg_k [C*R] at vg_bytes each;
+// after the two stages the output tile [S*R*R], one 16-byte pack longer (a
+// group's run starts up to a pack past a 16-byte boundary).
+struct YkvLayout {
+  size_t row_bytes, vg, vg_bytes, stage, tile, smem_bytes;
+};
+
+template <typename T>
+__host__ __device__ inline YkvLayout ykv_layout(int R, int C, int S) {
+  auto packs = [](size_t bytes) { return (bytes + 15) / 16 * 16; };
+  YkvLayout s;
+  s.row_bytes = packs((size_t)C * sizeof(T));
+  s.row_bytes += (144 - s.row_bytes % 128) % 128;      // 16 mod 128
+  s.vg_bytes = packs((size_t)C * R * sizeof(T));
+  s.vg_bytes += (192 - s.vg_bytes % 128) % 128;        // 64 mod 128
+  s.vg = (size_t)S * R * s.row_bytes;
+  s.stage = s.vg + (size_t)S * s.vg_bytes;
+  s.tile = 2 * s.stage;
+  s.smem_bytes = s.tile + packs(((size_t)S * R * R + 16 / sizeof(T)) * sizeof(T));
+  return s;
+}
+
+// Subjects a group: the most whose entries fill one pass of the block,
+// fewer while the ring exceeds kRingBudget; 0 if not even one subject fits
+// the most a block may use.
+template <typename T>
+int ykv_group(int R, int C) {
+  int S = std::max(1, kRingThreads / (R * R));
+  while (S > 1 && ykv_layout<T>(R, C, S).smem_bytes > (size_t)kRingBudget) --S;
+  return ykv_layout<T>(R, C, S).smem_bytes <= (size_t)kMaxDynamicSmem ? S : 0;
+}
+
+template <typename T, bool ALIGNED>
+__global__ void __launch_bounds__(kRingThreads)
+ykv_ring_kernel(const T* __restrict__ yc, const T* __restrict__ vg,
+                T* __restrict__ out, int K, int R, int C, int S) {
+  constexpr int VEC = 16 / sizeof(T);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const YkvLayout lay = ykv_layout<T>(R, C, S);
+  T* tile = reinterpret_cast<T*>(smem_raw + lay.tile);
+  const int tid = threadIdx.x, nthr = blockDim.x, RR = R * R;
+  const int n_groups = (K - 1) / S + 1;
+  const int n_mine = n_groups > (int)blockIdx.x
+      ? (n_groups - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
+  auto group = [&](int n) { return (int)blockIdx.x + n * (int)gridDim.x; };
+
+  // copy group g's Yc rows and Vg_k into stage `st`
+  auto fetch = [&](unsigned char* st, int g) {
+    const int64_t k0 = (int64_t)g * S;
+    const int sn = (int)(K - k0 < S ? K - k0 : S);
+    const T* ysrc = yc + k0 * R * C;
+    const T* vsrc = vg + k0 * C * R;
+    constexpr int E = ALIGNED ? VEC : 1;     // elements a copy
+    const int yw = C / E, vw = C * R / E;    // copies a Yc row, a Vg_k
+    Walk w(tid, nthr, yw);
+    for (int u = tid; u < sn * R * yw; u += nthr, w.step())
+      cp_async<E * sizeof(T)>(st + w.row * lay.row_bytes + w.col * E * sizeof(T),
+                              ysrc + (int64_t)w.row * C + w.col * E);
+    Walk v(tid, nthr, vw);
+    for (int u = tid; u < sn * vw; u += nthr, v.step())
+      cp_async<E * sizeof(T)>(st + lay.vg + v.row * lay.vg_bytes + v.col * E * sizeof(T),
+                              vsrc + (int64_t)v.row * C * R + v.col * E);
+  };
+
+  if (n_mine > 0) fetch(smem_raw, group(0));
+  cp_async_commit();
+  for (int n = 0; n < n_mine; ++n) {         // block-uniform
+    cp_async_wait<0>();                      // group n's copies are in
+    __syncthreads();                         // everyone's; stage n-1 and the tile are read
+    if (n + 1 < n_mine) fetch(smem_raw + ((n + 1) & 1) * lay.stage, group(n + 1));
+    cp_async_commit();
+
+    const unsigned char* st = smem_raw + (n & 1) * lay.stage;
+    const int64_t k0 = (int64_t)group(n) * S, base = k0 * RR;
+    const int ne = (int)(K - k0 < S ? K - k0 : S) * RR;
+    const int m = ALIGNED ? (int)(base % VEC) : 0;   // the run's place in its first pack
+    for (int e = tid; e < ne; e += nthr) {
+      const int s = e / RR, p = e - s * RR, r = p / R, l = p - r * R;
+      tile[m + e] = yv_entry_staged(
+          reinterpret_cast<const T*>(st + (s * R + r) * lay.row_bytes),
+          reinterpret_cast<const T*>(st + lay.vg + s * lay.vg_bytes) + l, C, R);
+    }
+    __syncthreads();                         // the tile is whole
+    T* dst = out + base - m;                 // 16-byte aligned when ALIGNED
+    if constexpr (ALIGNED) {                 // element head, 16-byte body, element tail
+      const int end = m + ne, p0 = (m + VEC - 1) / VEC, p1 = end / VEC;
+      const int h = min(end, p0 * VEC);
+      for (int j = m + tid; j < h; j += nthr) dst[j] = tile[j];
+      for (int p = p0 + tid; p < p1; p += nthr)
+        reinterpret_cast<int4*>(dst)[p] = reinterpret_cast<const int4*>(tile)[p];
+      for (int j = max(h, p1 * VEC) + tid; j < end; j += nthr) dst[j] = tile[j];
+    } else {
+      for (int j = tid; j < ne; j += nthr) dst[j] = tile[j];
+    }
+  }
+  cp_async_wait<0>();                        // leave no copy in flight
 }
 
 // ---------------------------------------------------------------------------
@@ -203,9 +359,6 @@ mode2_compact_kernel(const T* __restrict__ yc, const T* __restrict__ h,
   }
 }
 
-constexpr int kRingThreads = 128;          // the widest C tile: a column a thread
-                                           // (64 was 13% slower in paired H100 timings)
-constexpr int kRingBudget = 64 * 1024;     // the widest tile that fits this is taken
 // The ring's shared memory, in elements of T from its start (every part a
 // whole number of 16-byte packs): per stage the Yc tile [R, TC], col_mask
 // [TC] and w_k [R]; after the two stages the output tile [TC, R] and H [R, R].
@@ -387,12 +540,43 @@ cudaError_t launch_mode1(const void* yc, const void* vg, const void* ykv,
   return cudaGetLastError();
 }
 
-// Row 8's variants, as spartan_mode2_compact_variant reports them.
-enum Mode2Variant { kRing = 0, kRingElementCopies = 1, kThreadPerEntry = 2 };
+// The variants of rows 5 and 8, as spartan_ykv_variant and
+// spartan_mode2_compact_variant report them.
+enum Variant { kRing = 0, kRingElementCopies = 1, kThreadPerEntry = 2 };
 
-// RING where a 32-column tile fits (16-byte copies and stores when the rows
-// of Yc and col_mask are whole 16-byte runs and Yc, col_mask and A start on
+// Row 5: RING where one subject's two stages fit (16-byte copies and stores
+// when the rows of Yc are whole 16-byte runs and Yc, Vg and YkV start on
 // 16-byte boundaries), else THREAD-PER-ENTRY.
+template <typename T>
+int ykv_variant(int C, int R, bool aligned) {
+  if (ykv_group<T>(R, C) == 0) return kThreadPerEntry;
+  return aligned && C % (16 / (int)sizeof(T)) == 0 ? kRing : kRingElementCopies;
+}
+
+template <typename T>
+cudaError_t launch_ykv(const void* yc, const void* vg, void* out, int K, int R, int C,
+                       cudaStream_t stream) {
+  const int variant = ykv_variant<T>(C, R, aligned16({yc, vg, out}));
+  if (variant == kThreadPerEntry) {
+    ykv_kernel<T><<<grid_for((int64_t)K * R * R), kThreads, 0, stream>>>(
+        static_cast<const T*>(yc), static_cast<const T*>(vg), static_cast<T*>(out), K, R, C);
+    return cudaGetLastError();
+  }
+  const int S = ykv_group<T>(R, C);
+  const size_t smem = ykv_layout<T>(R, C, S).smem_bytes;
+  auto kernel = variant == kRing ? ykv_ring_kernel<T, true> : ykv_ring_kernel<T, false>;
+  cudaError_t e = allow_smem(kernel, smem);
+  int grid = 0;
+  if (e == cudaSuccess) e = persistent_grid(kernel, kRingThreads, smem, (K - 1) / S + 1, &grid);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, kRingThreads, smem, stream>>>(
+      static_cast<const T*>(yc), static_cast<const T*>(vg), static_cast<T*>(out), K, R, C, S);
+  return cudaGetLastError();
+}
+
+// Row 8: RING where a 32-column tile fits (16-byte copies and stores when
+// the rows of Yc and col_mask are whole 16-byte runs and Yc, col_mask and A
+// start on 16-byte boundaries), else THREAD-PER-ENTRY.
 template <typename T>
 int mode2_variant(int C, int R, bool aligned) {
   if (mode2_tile<T>(R) == 0) return kThreadPerEntry;
@@ -402,9 +586,7 @@ int mode2_variant(int C, int R, bool aligned) {
 template <typename T>
 cudaError_t launch_mode2(const void* yc, const void* h, const void* wb, const void* cm,
                          void* out, int K, int R, int C, cudaStream_t stream) {
-  const bool aligned = (reinterpret_cast<uintptr_t>(yc) | reinterpret_cast<uintptr_t>(cm) |
-                        reinterpret_cast<uintptr_t>(out)) % 16 == 0;
-  const int variant = mode2_variant<T>(C, R, aligned);
+  const int variant = mode2_variant<T>(C, R, aligned16({yc, cm, out}));
   if (variant == kThreadPerEntry) {
     mode2_compact_kernel<T><<<grid_for((int64_t)K * C * R), kThreads, 0, stream>>>(
         static_cast<const T*>(yc), static_cast<const T*>(h), static_cast<const T*>(wb),
@@ -447,13 +629,18 @@ extern "C" {
 int spartan_ykv(int dtype, const void* yc, const void* vg, void* out, int K,
                 int R, int C, void* stream) {
   if (K < 1 || R < 1 || C < 1) return (int)cudaErrorInvalidValue;
-  const int grid = grid_for((int64_t)K * R * R);
-  SPARTAN_BY_DTYPE({
-    ykv_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(yc), static_cast<const T*>(vg),
-        static_cast<T*>(out), K, R, C);
-    return (int)cudaGetLastError();
-  });
+  SPARTAN_BY_DTYPE(return (int)(launch_ykv<T>(yc, vg, out, K, R, C,
+                                               static_cast<cudaStream_t>(stream))));
+}
+
+// The variant a spartan_ykv launch takes (Variant: 0 ring, 1 ring with
+// element copies, 2 thread-per-entry); aligned: Yc, Vg and YkV start on a
+// 16-byte boundary. -1 for an unknown dtype.
+int spartan_ykv_variant(int dtype, int C, int R, int aligned) {
+  if (C < 1 || R < 1) return -1;
+  if (dtype == 0) return ykv_variant<float>(C, R, aligned != 0);
+  if (dtype == 1) return ykv_variant<double>(C, R, aligned != 0);
+  return -1;
 }
 
 int spartan_mode1(int dtype, const void* yc, const void* vg, const void* wb,
@@ -482,7 +669,7 @@ int spartan_mode2_compact(int dtype, const void* yc, const void* h,
                                                 static_cast<cudaStream_t>(stream))));
 }
 
-// The variant a spartan_mode2_compact launch takes (Mode2Variant: 0 ring,
+// The variant a spartan_mode2_compact launch takes (Variant: 0 ring,
 // 1 ring with element copies, 2 thread-per-entry); aligned: Yc, col_mask
 // and A start on a 16-byte boundary. -1 for an unknown dtype.
 int spartan_mode2_compact_variant(int dtype, int C, int R, int aligned) {

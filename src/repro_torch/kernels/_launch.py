@@ -15,11 +15,15 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
-__all__ = ["KernelLib", "P", "I", "check_shapes", "check_index", "on_cpu", "dtype_code"]
+__all__ = ["KernelLib", "P", "I", "RING_VARIANTS", "check_shapes", "check_index",
+           "on_cpu", "dtype_code"]
 
 P = ctypes.c_void_p     # a pointer or the stream
 I = ctypes.c_int        # an int (shape or dtype code)
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
+# what the variant queries of rows 5, 8, 11 and 12 return, by their C
+# entry point's code (spartan_ykv_variant, spartan_mode2_compact_variant, ...)
+RING_VARIANTS = ("ring", "ring-element-copies", "thread-per-entry")
 
 
 class KernelLib:

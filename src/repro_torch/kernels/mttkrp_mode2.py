@@ -17,14 +17,11 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels._launch import check_shapes, dtype_code, on_cpu
+from repro_torch.kernels._launch import RING_VARIANTS, check_shapes, dtype_code, on_cpu
 from repro_torch.kernels.common import accum_dtype, fold_subject_mask
 from repro_torch.kernels.staged import LIB
 
-__all__ = ["mode2_compact", "mode2_compact_plain", "mode2_compact_variant", "MODE2_VARIANTS"]
-
-# spartan_mode2_compact_variant's codes
-MODE2_VARIANTS = ("ring", "ring-element-copies", "thread-per-entry")
+__all__ = ["mode2_compact", "mode2_compact_plain", "mode2_compact_variant"]
 
 
 def mode2_compact_plain(Yc, H, Wb, col_mask=None, subject_mask=None) -> torch.Tensor:
@@ -76,4 +73,4 @@ def mode2_compact_variant(Yc: torch.Tensor, col_mask: Optional[torch.Tensor] = N
     code = LIB.lib().spartan_mode2_compact_variant(dtype, C, R, int(aligned))
     if code < 0:
         raise ValueError(f"no mode2_compact variant for C={C}, R={R}")
-    return MODE2_VARIANTS[code]
+    return RING_VARIANTS[code]

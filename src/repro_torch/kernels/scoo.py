@@ -30,8 +30,9 @@ Two of them are CUDA kernels on a GPU (``csrc/scoo.cu``), the counterparts
 of the reference's Pallas ``xk_times_v_pallas`` and ``project_pallas``:
 :func:`scoo_xk_times_v` and :func:`scoo_project`. Each sums its segments
 directly (one owner per output entry), so it needs the ends, and a CUDA
-call without them raises; :func:`scoo_project_variant` names the variant
-of the second that a launch takes. On CPU tensors they run the plain versions.
+call without them raises; :func:`scoo_xk_times_v_variant` and
+:func:`scoo_project_variant` name the variant a launch takes. On CPU
+tensors they run the plain versions.
 Accumulation follows ``accum_dtype``.
 """
 from __future__ import annotations
@@ -41,25 +42,24 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels._launch import I as _I, P as _P
-from repro_torch.kernels._launch import (KernelLib, check_index, check_shapes,
-                                         dtype_code, on_cpu)
+from repro_torch.kernels._launch import (RING_VARIANTS, KernelLib, check_index,
+                                         check_shapes, dtype_code, on_cpu)
 from repro_torch.kernels.common import accum_dtype
 
 __all__ = [
     "KERNELS", "LAUNCHES", "LIB", "reset_launches",
     "segment_sum_sorted", "xk_times_v", "project", "ykv_scoo", "mode1_scoo",
     "mode2_compact_scoo", "mode3_scoo", "scoo_xk_times_v", "scoo_project",
-    "scoo_project_variant", "PROJECT_VARIANTS",
+    "scoo_xk_times_v_variant", "scoo_project_variant",
 ]
 
 KERNELS = ("scoo_xk_times_v", "scoo_project")
 LIB = KernelLib("scoo", KERNELS, {
     "spartan_scoo_xk_times_v": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "spartan_scoo_xk_times_v_variant": [_I, _I, _I, _I, _I, _I],
     "spartan_scoo_project": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "spartan_scoo_project_variant": [_I, _I, _I, _I, _I, _I],
 })
-# spartan_scoo_project_variant's codes
-PROJECT_VARIANTS = ("ring", "ring-element-copies", "thread-per-entry")
 # kernel launches per wrapper; plain-version calls on the CPU are not counted
 LAUNCHES = LIB.launches
 reset_launches = LIB.reset_launches
@@ -206,6 +206,23 @@ def scoo_xk_times_v(vals: torch.Tensor, rows: torch.Tensor, lcols: torch.Tensor,
     return out
 
 
+def scoo_xk_times_v_variant(vals: torch.Tensor, rows: torch.Tensor, lcols: torch.Tensor,
+                            Vg: torch.Tensor, i_pad: int, *, row_ends: torch.Tensor) -> str:
+    """Which variant of row 11's kernel :func:`scoo_xk_times_v` launches for
+    these CUDA operands: ``ring`` (the main path's), ``ring-element-copies``
+    for operands whose runs are not whole 16-byte packs or do not start on a
+    16-byte boundary, or ``thread-per-entry`` for subjects too large for the
+    ring's shared-memory stages."""
+    Kb, N = vals.shape
+    _, C, R = Vg.shape
+    dtype = dtype_code(vals, Vg)          # raises for a tensor off the card
+    aligned = all(t.data_ptr() % 16 == 0 for t in (vals, lcols, Vg, row_ends))
+    code = LIB.lib().spartan_scoo_xk_times_v_variant(dtype, N, i_pad, C, R, int(aligned))
+    if code < 0:
+        raise ValueError(f"no scoo_xk_times_v variant for N={N}, I={i_pad}, C={C}, R={R}")
+    return RING_VARIANTS[code]
+
+
 def scoo_project(vals: torch.Tensor, rows: torch.Tensor, lcols: torch.Tensor,
                  Q: torch.Tensor, c_pad: int, *,
                  cperm: Optional[torch.Tensor] = None,
@@ -255,4 +272,4 @@ def scoo_project_variant(vals: torch.Tensor, rows: torch.Tensor, lcols: torch.Te
     code = LIB.lib().spartan_scoo_project_variant(dtype, N, I, c_pad, R, int(aligned))
     if code < 0:
         raise ValueError(f"no scoo_project variant for N={N}, I={I}, C={c_pad}, R={R}")
-    return PROJECT_VARIANTS[code]
+    return RING_VARIANTS[code]

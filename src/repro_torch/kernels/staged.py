@@ -18,6 +18,7 @@ __all__ = ["KERNELS", "LAUNCHES", "LIB", "reset_launches"]
 KERNELS = ("ykv", "mode1", "mode1_reuse", "mode2_compact", "mode3", "mode3_reuse")
 LIB = KernelLib("staged", KERNELS, {
     "spartan_ykv": [_I, _P, _P, _P, _I, _I, _I, _P],
+    "spartan_ykv_variant": [_I, _I, _I, _I],
     "spartan_mode1": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "spartan_mode1_reuse": [_I, _P, _P, _P, _P, _I, _I, _I, _P],
     "spartan_mode2_compact": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P],

@@ -3,18 +3,19 @@
 ``YkV[k] = Yc_k Vg_k`` [K, R, R] from the compressed slices and the gathered
 V rows: the product that the mode-1 and mode-3 reuse paths and the fit
 share. On CUDA tensors :func:`ykv` launches ``spartan_ykv`` of
-``csrc/staged.cu`` (or raises); on the CPU it runs :func:`ykv_plain`.
+``csrc/staged.cu`` (or raises), whose variant :func:`ykv_variant` names; on
+the CPU it runs :func:`ykv_plain`.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels._launch import check_shapes, dtype_code, on_cpu
+from repro_torch.kernels._launch import RING_VARIANTS, check_shapes, dtype_code, on_cpu
 from repro_torch.kernels.common import accum_dtype
 from repro_torch.kernels.staged import LIB
 
-__all__ = ["ykv", "ykv_plain"]
+__all__ = ["ykv", "ykv_plain", "ykv_variant"]
 
 ykv_plain = ref.ykv_ref
 
@@ -32,3 +33,19 @@ def ykv(Yc: torch.Tensor, Vg: torch.Tensor) -> torch.Tensor:
     LIB.launch("ykv", "spartan_ykv", Yc.device, code, Yc.data_ptr(),
                Vg.data_ptr(), out.data_ptr(), K, R, C)
     return out
+
+
+def ykv_variant(Yc: torch.Tensor, Vg: torch.Tensor) -> str:
+    """Which variant of row 5's kernel :func:`ykv` launches for a CUDA Yc
+    [K,R,C] and Vg [K,C,R]: ``ring`` (the main path's),
+    ``ring-element-copies`` for rows of Yc that are not whole 16-byte runs
+    or operands that do not start on a 16-byte boundary, or
+    ``thread-per-entry`` for a subject too large for the ring's two
+    shared-memory stages."""
+    K, R, C = Yc.shape
+    dtype = dtype_code(Yc, Vg)            # raises for a tensor off the card
+    aligned = Yc.data_ptr() % 16 == 0 and Vg.data_ptr() % 16 == 0
+    code = LIB.lib().spartan_ykv_variant(dtype, C, R, int(aligned))
+    if code < 0:
+        raise ValueError(f"no ykv variant for C={C}, R={R}")
+    return RING_VARIANTS[code]

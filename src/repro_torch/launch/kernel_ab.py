@@ -7,19 +7,21 @@ Builds ``csrc/fused.cu``, ``csrc/gather_matmul.cu``, ``csrc/staged.cu`` and
 ``csrc/scoo.cu`` of each checkout (``<dir>/src/repro_torch/csrc``) with nvcc
 and this package's flags, loads both builds into one process and times the
 same kernels of both on the same operands in turns (parent, change, change,
-parent, ...; CUDA events, median of 20 launches a turn): F1-F4 and row 8
-(``spartan_mode2_compact``) at the main path's largest CC bucket shape
-(K = 58,112, I = 56, C = 128, R = 5, f32, random operands), the BCC
-gather-matmul at the BCC cut's shape (K = 6,808, I = 56, NB = 9, L = 128,
-R = 5, f32), and row 12 (``spartan_scoo_project``) on the main path's
-largest SCOO bucket itself: ``choa_like(scale=0.25, seed=0)`` bucketized as
-SCOO on the card as the main path plans it (Kb = 58,112, I = 48, C = 128,
-N = 136), with a random Q, since row 12's time depends on the
-segment lengths. The dense kernels' times do not depend on the values
-(every value is read). Prints the card's name and power limit, each turn,
-per kernel the median of each side's turns with their range, and for rows
-8 and 12 the largest absolute difference between the two builds' outputs on
-the same operands; the last line is one JSON object. Imports no JAX. The
+parent, ...; CUDA events, median of 20 launches a turn): F1-F4, row 5
+(``spartan_ykv``) and row 8 (``spartan_mode2_compact``) at the main path's
+largest CC bucket shape (K = 58,112, I = 56, C = 128, R = 5, f32, random
+operands), the BCC gather-matmul at the BCC cut's shape (K = 6,808, I = 56,
+NB = 9, L = 128, R = 5, f32), and rows 11 (``spartan_scoo_xk_times_v``) and
+12 (``spartan_scoo_project``) on the main path's largest SCOO bucket itself:
+``choa_like(scale=0.25, seed=0)`` bucketized as SCOO on the card as the main
+path plans it (Kb = 58,112, I = 48, C = 128, N = 136), with that bucket's
+Vg gathered from a random V (row 11) and a random Q (row 12), since their
+times depend on the segment lengths and the kept columns. The dense
+kernels' times do not depend on the values (every value is read). Prints
+the card's name and power limit, each turn, per kernel the median of each
+side's turns with their range, and for rows 5, 8, 11 and 12 the largest
+absolute difference between the two builds' outputs on the same operands;
+the last line is one JSON object. Imports no JAX. The
 two machines a comparison could otherwise land on differ by more than the
 effects, so compare versions only this way.
 """
@@ -44,14 +46,17 @@ SIGNATURES = {
     "spartan_fused_ykv": [I, P, P, P, P, I, I, I, I, P],
     "spartan_mode1_partials": [I],
     "spartan_gather_matmul": [I, P, P, P, P, I, I, I, I, I, P],
+    "spartan_ykv": [I, P, P, P, I, I, I, P],
     "spartan_mode2_compact": [I, P, P, P, P, P, I, I, I, P],
+    "spartan_scoo_xk_times_v": [I, P, P, P, P, P, I, I, I, I, I, P],
     "spartan_scoo_project": [I, P, P, P, P, P, P, I, I, I, I, I, P],
 }
 SOURCES = ("fused", "gather_matmul", "staged", "scoo")
 CC = dict(K=58112, I=56, C=128, R=5)
 BCC = dict(K=6808, I=56, NB=9, L=128, J_pad=1408)
 SCOO_SCALE = 0.25       # the choa_like scale of the main path
-COMPARED = {"mode2_compact": "a8", "scoo_project": "yc12"}   # kernel -> its output
+COMPARED = {"ykv": "ykv5", "mode2_compact": "a8", "scoo_xk_times_v": "xkv11",
+            "scoo_project": "yc12"}   # kernel -> its output
 
 
 def load(tree: str) -> dict:
@@ -68,8 +73,8 @@ def load(tree: str) -> dict:
 
 
 def calls(libs: dict, ops: dict, outs: dict) -> dict:
-    """name -> a function that launches that kernel of ``libs`` once; rows 8
-    and 12 write into this side's own ``outs``."""
+    """name -> a function that launches that kernel of ``libs`` once; rows 5,
+    8, 11 and 12 write into this side's own ``outs``."""
     f, g = libs["fused"], libs["gather_matmul"]
     st, sc = libs["staged"], libs["scoo"]
     K, Ii, C, R = CC["K"], CC["I"], CC["C"], CC["R"]
@@ -98,8 +103,12 @@ def calls(libs: dict, ops: dict, outs: dict) -> dict:
         "gather_matmul": lambda: check(g.spartan_gather_matmul(
             0, o["bvals"], o["ids"], o["V"], o["gout"], BCC["K"], BCC["I"], BCC["NB"],
             BCC["L"], R, stream)),
+        "ykv": lambda: check(st.spartan_ykv(0, o["yc"], o["Vg"], o["ykv5"], K, R, C, stream)),
         "mode2_compact": lambda: check(st.spartan_mode2_compact(
             0, o["yc"], o["H"], o["Wb"], o["cm"], o["a8"], K, R, C, stream)),
+        "scoo_xk_times_v": lambda: check(sc.spartan_scoo_xk_times_v(
+            0, o["svals"], o["slcols"], o["sVg"], o["srow_ends"], o["xkv11"], Kb, N, Is, Cs, R,
+            stream)),
         "scoo_project": lambda: check(sc.spartan_scoo_project(
             0, o["svals"], o["srows"], o["scperm"], o["sQ"], o["sends"], o["yc12"], Kb, N, Is,
             Cs, R, stream)),
@@ -149,14 +158,17 @@ def operands(seed: int = 0) -> dict:
                           generator=gen),
         gout=rand(Kb, Ii, R), yc=rand(K, R, C),
         svals=sb.vals, srows=sb.rows, scperm=sb.cperm, sends=sb.col_ends,
-        sQ=rand(sb.kb, sb.i_pad, R))
+        sQ=rand(sb.kb, sb.i_pad, R), slcols=sb.lcols, srow_ends=sb.row_ends,
+        sVg=sb.gather_v(rand(int(sb.cols.max()) + 1, R)))
 
 
 def outputs(ops: dict) -> dict:
-    """One side's outputs of rows 8 and 12."""
+    """One side's outputs of rows 5, 8, 11 and 12."""
     K, C, R = CC["K"], CC["C"], CC["R"]
     Kb, Cs = ops["sends"].shape
-    return {"a8": torch.empty((K, C, R), device="cuda"),
+    return {"ykv5": torch.empty((K, R, R), device="cuda"),
+            "a8": torch.empty((K, C, R), device="cuda"),
+            "xkv11": torch.empty((Kb, ops["sQ"].shape[1], R), device="cuda"),
             "yc12": torch.empty((Kb, R, Cs), device="cuda")}
 
 
@@ -172,7 +184,7 @@ def main(argv=None) -> None:
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(f"[kernel_ab] card: {smi.stdout.strip() or smi.stderr.strip()}", flush=True)
     ops = operands()
-    print(f"[kernel_ab] row 12 on the largest SCOO bucket of choa scale {SCOO_SCALE}: "
+    print(f"[kernel_ab] rows 11 and 12 on the largest SCOO bucket of choa scale {SCOO_SCALE}: "
           f"Kb={ops['svals'].shape[0]} I={ops['sQ'].shape[1]} C={ops['sends'].shape[1]} "
           f"N={ops['svals'].shape[1]} nnz={int(ops['sends'][:, -1].sum())}", flush=True)
     outs = {side: outputs(ops) for side in ("parent", "change")}

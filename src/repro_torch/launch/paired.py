@@ -4,12 +4,14 @@
         [--pairs 3] [--scale 0.25]
 
 Each run is a fresh process that imports ``repro_torch`` from one checkout
-(``<dir>/src``, whatever package this module was imported from), builds its kernels, makes ``choa_like(scale)`` with seed 0,
-uploads the CC buckets, warms each route up for two iterations and then
-times 20-iteration fits of the ``auto`` and ``torch`` routes three times
-each (host clock around ``fit``, which ends each iteration in a device
-sync). Runs alternate parent, change, change, parent, ... so that slow
-drifts of a shared host fall on both sides. Prints the card's name and
+(``<dir>/src``, whatever package this module was imported from), builds
+its kernels, makes ``choa_like(scale)`` with seed 0, uploads it as CC and
+as SCOO buckets, warms each route up for two iterations and then times
+20-iteration fits of the ``auto``, ``staged`` and ``torch`` routes on CC
+and the ``staged`` route on SCOO three times each (host clock around
+``fit``, which ends each iteration in a device sync). Runs alternate
+parent, change, change, parent, ... so that slow drifts of a shared host
+fall on both sides. Prints the card's name and
 power limit, one line per run and the medians per side; imports no JAX.
 """
 from __future__ import annotations
@@ -20,24 +22,29 @@ import statistics
 import subprocess
 import sys
 
-ROUTES = ("auto", "torch")
+# (label, format, backend)
+RUNS = (("auto", "cc", "auto"), ("staged", "cc", "staged"), ("torch", "cc", "torch"),
+        ("staged-scoo", "scoo", "staged"))
+ROUTES = tuple(label for label, _, _ in RUNS)
 
 _CHILD = r"""
 import json, sys, torch
 sys.path.insert(0, sys.argv[1] + "/src")
 from repro_torch.launch import decompose as dec
-bt, _ = dec.prepare(dec.load_dataset("choa", float(sys.argv[2]), 0), buckets=4,
-                    device=torch.device("cuda"), dtype=torch.float32)
+data = dec.load_dataset("choa", float(sys.argv[2]), 0)
+bts = {fmt: dec.prepare(data, buckets=4, device=torch.device("cuda"), dtype=torch.float32,
+                        format=fmt)[0] for fmt in ("cc", "scoo")}
 kw = dict(rank=5, tol=0.0, seed=0, dtype=torch.float32, verbose=False)
-for be in %r:
-    dec.decompose(bt, backend=be, iters=2, **kw)
-out = {be: [] for be in %r}
+runs = %r
+for _, fmt, be in runs:
+    dec.decompose(bts[fmt], backend=be, iters=2, **kw)
+out = {label: [] for label, _, _ in runs}
 for _ in range(3):
-    for be in out:
-        _, hist, secs = dec.decompose(bt, backend=be, iters=20, **kw)
-        out[be].append(secs / len(hist) * 1e3)
+    for label, fmt, be in runs:
+        _, hist, secs = dec.decompose(bts[fmt], backend=be, iters=20, **kw)
+        out[label].append(secs / len(hist) * 1e3)
 print(json.dumps(out))
-""" % (ROUTES, ROUTES)
+""" % (RUNS,)
 
 
 def run(tree: str, scale: float) -> dict:

@@ -447,22 +447,27 @@ def test_mode2_compact_edges(dev, shape, dtype):
     assert torch.equal(got, m2.mode2_compact(Yc, H, Wb, cm, sm))
 
 
-def _scoo_arrays(n_rows, C, N, nnz, seed, one_col=False):
+def _scoo_arrays(n_rows, C, N, nnz, seed, one_col=False, one_row=False):
     """SCOO arrays of one bucket, laid out as ``bucketize`` lays them out:
     subject k's nnz[k] triplets sorted by (row, column), pads past them,
-    ``cperm`` the stable column order and ``col_ends`` its segment ends."""
+    ``row_ends`` the row segments' ends, ``cperm`` the stable column order
+    and ``col_ends`` its segment ends. ``one_col``/``one_row`` put every
+    triplet of a subject in column 0 / row 0."""
     rng = np.random.default_rng(seed)
     Kb = len(nnz)
     out = dict(vals=np.zeros((Kb, N)), rows=np.zeros((Kb, N), np.int32),
-               lcols=np.zeros((Kb, N), np.int32),
+               lcols=np.zeros((Kb, N), np.int32), row_ends=np.zeros((Kb, n_rows), np.int32),
                cperm=np.tile(np.arange(N, dtype=np.int32), (Kb, 1)),
                col_ends=np.zeros((Kb, C), np.int32))
     for k, n in enumerate(nnz):
         r = rng.integers(0, n_rows, n)
         c = np.zeros(n, np.int64) if one_col else rng.integers(0, C, n)
+        if one_row:
+            r[:] = 0
         o = np.lexsort((c, r))
         out["vals"][k, :n] = rng.standard_normal(n)
         out["rows"][k, :n], out["lcols"][k, :n] = r[o], c[o]
+        out["row_ends"][k] = np.cumsum(np.bincount(r, minlength=n_rows))
         out["cperm"][k, :n] = np.argsort(c[o], kind="stable")
         out["col_ends"][k] = np.cumsum(np.bincount(c, minlength=C))
     return out
@@ -512,6 +517,87 @@ def test_scoo_project_edges(dev, edge, dtype):
     starts = torch.cat([torch.zeros_like(ends[:, :1]), ends[:, :-1]], 1)
     assert torch.all(got[(ends == starts)[:, None, :].expand(-1, R, -1)] == 0)
     assert torch.equal(got, scoo.scoo_project(*args, **kw))
+
+
+# (K, R, C, offset of Yc's start in elements) -> row 5's variant in f32
+YKV_EDGES = {
+    (7, 5, 128, 0): "ring",                      # the main path's shape
+    (5, 5, 17, 0): "ring-element-copies",        # rows not whole 16-byte runs
+    (3, 72, 1024, 0): "thread-per-entry",        # R = 72 at C_pad = 1024: past the stages
+    (5, 5, 128, 1): "ring-element-copies",       # Yc's start not 16-byte aligned
+    (3000, 5, 128, 0): "ring",                   # groups past the persistent grid
+    (1, 5, 128, 0): "ring",                      # one subject
+    (4, 12, 20, 0): "ring",                      # R*R past one pass of the block
+    (4, 40, 128, 0): "ring",                     # the reference's widest R, one subject a group
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(YKV_EDGES), ids=lambda s: "K{}-R{}-C{}-off{}".format(*s))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ykv_edges(dev, shape, dtype):
+    """Row 5 at the edges of its variants: the variant the launcher picks (in
+    f32), one launch a call, the plain version's result and the same bits
+    twice."""
+    K, R, C, offset = shape
+    rng = np.random.default_rng(K + R + C + offset)
+    Yc = _offset_tensor((K, R, C), dtype, dev, rng, offset)
+    Vg = torch.tensor(rng.standard_normal((K, C, R)), dtype=dtype, device=dev)
+    if dtype == torch.float32:
+        assert yk.ykv_variant(Yc, Vg) == YKV_EDGES[shape]
+    before = staged.LAUNCHES["ykv"]
+    got = yk.ykv(Yc, Vg)
+    torch.cuda.synchronize()
+    assert staged.LAUNCHES["ykv"] == before + 1
+    _assert_matches(got, yk.ykv_plain(Yc, Vg), dtype)
+    assert torch.equal(got, yk.ykv(Yc, Vg))
+
+
+# (I, C, N, nnz per subject, R, one row, offset of vals' start in elements)
+# -> row 11's variant in f32
+XKV_EDGES = {
+    (48, 128, 136, (115,) * 30 + (0,), 5, False, 0): "ring",   # the main path's geometry
+    (8, 16, 64, (64, 0, 10), 5, True, 0): "ring",     # a row segment of length N, empty rows
+                                                       # and an empty subject
+    (5, 9, 13, (13, 2, 0, 7, 5), 5, False, 0): "ring-element-copies",   # runs not whole packs
+    (8, 16, 24, (24, 3, 0, 9), 5, False, 1): "ring-element-copies",    # vals' start unaligned
+    (40, 128, 3000, (3000, 17, 0), 5, False, 0): "thread-per-entry",  # N past the stages
+    (1000, 32, 40, (40, 0, 33), 8, False, 0): "thread-per-entry",     # I past the stages
+    (8, 8, 24, (24, 3, 0, 9), 72, False, 0): "ring",   # R = 72, in chunks of 32
+    (8, 16, 24, tuple(range(24)) * 420, 5, False, 0): "ring",   # subjects past the walkers
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge", list(XKV_EDGES), ids=lambda e: "I{}-C{}-N{}-Kb{}-R{}-off{}".format(
+    e[0], e[1], e[2], len(e[3]), e[4], e[6]))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_scoo_xk_times_v_edges(dev, edge, dtype):
+    """Row 11 at the edges of its variants: the variant the launcher picks
+    (in f32), one launch a call, the plain version's result (atol of the
+    largest running sum), exact zeros for empty rows and subjects and the
+    same bits twice."""
+    n_rows, C, N, nnz, R, one_row, offset = edge
+    a = _scoo_arrays(n_rows, C, N, nnz, seed=N + R, one_row=one_row)
+    vals = torch.empty(a["vals"].size + offset, dtype=dtype, device=dev)[offset:]
+    vals = vals.view(a["vals"].shape).copy_(torch.tensor(a["vals"], dtype=dtype))
+    rows, lcols, ends = (torch.tensor(a[k], device=dev) for k in ("rows", "lcols", "row_ends"))
+    Vg = torch.tensor(np.random.default_rng(R).standard_normal((len(nnz), C, R)),
+                      dtype=dtype, device=dev)
+    args, kw = (vals, rows, lcols, Vg, n_rows), dict(row_ends=ends)
+    if dtype == torch.float32:
+        assert scoo.scoo_xk_times_v_variant(*args, **kw) == XKV_EDGES[edge]
+    before = scoo.LAUNCHES["scoo_xk_times_v"]
+    got = scoo.scoo_xk_times_v(*args, **kw)
+    torch.cuda.synchronize()
+    assert scoo.LAUNCHES["scoo_xk_times_v"] == before + 1
+    want = scoo.xk_times_v(*args, **kw)
+    tol = 1e-12 if dtype == torch.float64 else 1e-6
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=tol,
+                               atol=tol * _prefix_scale(vals, lcols, Vg))
+    starts = torch.cat([torch.zeros_like(ends[:, :1]), ends[:, :-1]], 1)
+    assert torch.all(got[(ends == starts)[..., None].expand(-1, -1, R)] == 0)
+    assert torch.equal(got, scoo.scoo_xk_times_v(*args, **kw))
 
 
 @pytest.mark.cuda

@@ -619,22 +619,27 @@ def test_scoo_backend_registered():
     assert get_backend("auto", "cpu").name == "torch"
 
 
-def _scoo_arrays(n_rows, C, N, nnz, seed, one_col=False):
+def _scoo_arrays(n_rows, C, N, nnz, seed, one_col=False, one_row=False):
     """SCOO arrays of one bucket, laid out as ``bucketize`` lays them out:
     subject k's nnz[k] triplets sorted by (row, column), pads past them,
-    ``cperm`` the stable column order and ``col_ends`` its segment ends."""
+    ``row_ends`` the row segments' ends, ``cperm`` the stable column order
+    and ``col_ends`` its segment ends. ``one_col``/``one_row`` put every
+    triplet of a subject in column 0 / row 0."""
     rng = np.random.default_rng(seed)
     Kb = len(nnz)
     out = dict(vals=np.zeros((Kb, N), np.float64), rows=np.zeros((Kb, N), np.int32),
-               lcols=np.zeros((Kb, N), np.int32),
+               lcols=np.zeros((Kb, N), np.int32), row_ends=np.zeros((Kb, n_rows), np.int32),
                cperm=np.tile(np.arange(N, dtype=np.int32), (Kb, 1)),
                col_ends=np.zeros((Kb, C), np.int32), nnz_counts=np.asarray(nnz, np.int32))
     for k, n in enumerate(nnz):
         r = rng.integers(0, n_rows, n)
         c = np.zeros(n, np.int64) if one_col else rng.integers(0, C, n)
+        if one_row:
+            r[:] = 0
         o = np.lexsort((c, r))
         out["vals"][k, :n] = rng.standard_normal(n)
         out["rows"][k, :n], out["lcols"][k, :n] = r[o], c[o]
+        out["row_ends"][k] = np.cumsum(np.bincount(r, minlength=n_rows))
         out["cperm"][k, :n] = np.argsort(c[o], kind="stable")
         out["col_ends"][k] = np.cumsum(np.bincount(c, minlength=C))
     return out
@@ -684,4 +689,58 @@ def test_project_variant_is_a_question_for_the_card():
     with pytest.raises(ValueError, match="CUDA"):
         scoo.scoo_project_variant(torch.rand((3, 8)), idx, idx, torch.rand((3, 4, 5)), 6,
                                   cperm=idx, col_ends=torch.zeros((3, 6), dtype=torch.int32))
+    assert scoo.LIB._lib is None
+
+
+# (I, C, N, nnz per subject, R, one row, offset of vals' start in elements):
+# the shapes at the edges of row 11's CUDA variants (the main path's
+# geometry; a row segment of length N, empty rows and an empty subject; runs
+# not whole 16-byte packs; an unaligned start; N and I past the ring's
+# stages; R = 72; more subjects than the persistent grid's walkers), held
+# here through the plain version
+XKV_EDGES = [(48, 128, 136, (115,) * 30 + (0,), 5, False, 0), (8, 16, 64, (64, 0, 10), 5, True, 0),
+             (5, 9, 13, (13, 2, 0, 7, 5), 5, False, 0), (8, 16, 24, (24, 3, 0, 9), 5, False, 1),
+             (40, 128, 3000, (3000, 17, 0), 5, False, 0), (1000, 32, 40, (40, 0, 33), 8, False, 0),
+             (8, 8, 24, (24, 3, 0, 9), 72, False, 0),
+             (8, 16, 24, tuple(range(24)) * 420, 5, False, 0)]
+
+
+@pytest.mark.parametrize("edge", XKV_EDGES, ids=lambda e: "I{}-C{}-N{}-Kb{}-R{}-off{}".format(
+    e[0], e[1], e[2], len(e[3]), e[4], e[6]))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_xk_times_v_edges_match_reference(edge, dtype):
+    """scoo_xk_times_v (its plain version on the CPU) at the edge shapes
+    against the reference's ``xk_times_v_pallas`` in interpret mode (f32,
+    atol 1e-6 of the largest running sum) or its sorted jnp ``xk_times_v``
+    (f64, 1e-12); empty rows and subjects are exact zeros."""
+    n_rows, C, N, nnz, R, one_row, offset = edge
+    a = _scoo_arrays(n_rows, C, N, nnz, seed=N + R, one_row=one_row)
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    a["vals"] = a["vals"].astype(npdt)
+    a["Vg"] = np.random.default_rng(R).standard_normal((len(nnz), C, R)).astype(npdt)
+    t = {k: torch.from_numpy(v) for k, v in a.items()}
+    j = {k: jnp.asarray(v) for k, v in a.items()}
+    vals = torch.empty(a["vals"].size + offset, dtype=dtype)[offset:].view(a["vals"].shape)
+    got = scoo.scoo_xk_times_v(vals.copy_(t["vals"]), t["rows"], t["lcols"], t["Vg"], n_rows,
+                               row_ends=t["row_ends"])
+    if dtype == torch.float32:
+        want = j_scoo.xk_times_v_pallas(j["vals"], j["rows"], j["lcols"], j["Vg"], n_rows,
+                                        nnz_counts=j["nnz_counts"], interpret=True)
+        _close(got, want, dict(rtol=1e-6, atol=1e-6),
+               _prefix_scale(a["vals"], a["lcols"], a["Vg"]))
+    else:
+        _close(got, j_scoo.xk_times_v(j["vals"], j["rows"], j["lcols"], j["Vg"], n_rows,
+                                      row_ends=j["row_ends"]))
+    starts = np.concatenate([np.zeros((len(nnz), 1), np.int32), a["row_ends"][:, :-1]], 1)
+    empty = torch.from_numpy(a["row_ends"] == starts)[..., None].expand(-1, -1, R)
+    assert torch.all(got[empty] == 0)
+
+
+def test_xk_times_v_variant_is_a_question_for_the_card():
+    """Row 11's variant is the CUDA launcher's choice: asking it for CPU
+    operands raises before any kernel library is built or loaded."""
+    idx = torch.zeros((3, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        scoo.scoo_xk_times_v_variant(torch.rand((3, 8)), idx, idx, torch.rand((3, 6, 5)), 4,
+                                     row_ends=torch.zeros((3, 4), dtype=torch.int32))
     assert scoo.LIB._lib is None

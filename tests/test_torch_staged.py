@@ -397,3 +397,40 @@ def test_mode2_compact_variant_is_a_question_for_the_card():
     with pytest.raises(ValueError, match="CUDA"):
         mttkrp_mode2.mode2_compact_variant(torch.rand((3, 5, 16)), torch.ones((3, 16)))
     assert staged.LIB._lib is None
+
+
+# (K, R, C, offset of Yc's start in elements): the shapes at the edges of
+# row 5's CUDA variants (the main path's C; C not whole 16-byte runs; R = 72
+# at C = 1024, too wide for the ring; an unaligned start; more groups than
+# the persistent grid; one subject), held here through the plain version
+YKV_EDGES = [(7, 5, 128, 0), (5, 5, 17, 0), (3, 72, 1024, 0), (5, 5, 128, 1),
+             (3000, 5, 128, 0), (1, 5, 128, 0)]
+
+
+@pytest.mark.parametrize("shape", YKV_EDGES, ids=lambda s: "K{}-R{}-C{}-off{}".format(*s))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ykv_edges_match_reference(shape, dtype):
+    """ykv at the edge shapes against the reference's Pallas kernel in
+    interpret mode (f32) or its ref (f64)."""
+    K, R, C, offset = shape
+    rng = np.random.default_rng(K + R + C + offset)
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    op = {k: a.astype(npdt) for k, a in dict(
+        Yc=rng.standard_normal((K, R, C)), Vg=rng.standard_normal((K, C, R))).items()}
+    t, j = _both(op)
+    Yc = torch.empty(K * R * C + offset, dtype=dtype)[offset:].view(K, R, C).copy_(t["Yc"])
+    if dtype == torch.float32:
+        want = ykv_pallas(j["Yc"], j["Vg"], interpret=True)
+    else:
+        want = j_ref.ykv_ref(j["Yc"], j["Vg"])
+    _close(ykv(Yc, t["Vg"]), want, TOLS[dtype])
+
+
+def test_ykv_variant_is_a_question_for_the_card():
+    """Row 5's variant is the CUDA launcher's choice: asking it for CPU
+    operands raises before any kernel library is built or loaded."""
+    from repro_torch.kernels import ykv as ykv_module
+
+    with pytest.raises(ValueError, match="CUDA"):
+        ykv_module.ykv_variant(torch.rand((3, 5, 16)), torch.rand((3, 16, 5)))
+    assert staged.LIB._lib is None
