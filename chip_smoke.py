@@ -23,8 +23,13 @@ Phases, any failure exits non-zero:
    of their variants (unaligned and odd C, C past the tile, R = 72 at C_pad
    = 1024, empty subjects, rows and columns, a segment of length N, N and I
    past the shared-memory stages, unaligned starts, more subjects than the
-   persistent grid), where each must take the variant stated and every
-   variant must be reached; an empty (K=0) bucket through every wrapper. f64 to 1e-12 absolute, f32 to 1e-6 relative plus 1e-6 of
+   persistent grid), and F2 and row 7, the one-launch reductions across
+   subjects, at theirs (K from 1 to the main path's 58,112, runs past the
+   last subject, R = 1, 11 and 72, I past F2's ring, unaligned starts and
+   tiles, no, some and every subject masked), where each must take the
+   variant stated and every variant must be reached, and F2 and row 7 must
+   give the same bits twice more on the same input and on their largest
+   bucket after the smaller ones; an empty (K=0) bucket through every wrapper. f64 to 1e-12 absolute, f32 to 1e-6 relative plus 1e-6 of
    the output's largest magnitude (sums in another order differ by a
    rounding); for the two SCOO kernels the scale is the largest running
    sum of |contribution| instead, since their plain versions difference
@@ -50,7 +55,9 @@ Phases, any failure exits non-zero:
 4. each kernel's time beside its bound, its plain version's time, one
    PyTorch call's time (CUDA events, median of 20) and the wrapper call's
    host time (what an event time of a short kernel includes before the
-   launch): the CC kernels at the
+   launch), and for F2 and row 7 the device kernels one call launches
+   (torch.profiler) and the allocations a repeated call makes
+   (torch.cuda.memory_stats; the [R, R] result only): the CC kernels at the
    main path's largest CC bucket (with the variant F1, row 5 and row 8 take
    there), the SCOO kernels at its largest SCOO bucket (with the variants of
    rows 11 and 12), the gather-matmul on the BCC
@@ -139,6 +146,35 @@ PROJECT_EDGES = {
     (24, 32, 96, (96, 50, 0, 1), 72, False, 0): "ring",  # R = 72, in chunks of 32
     (8, 16, 24, tuple(range(24)) * 60, 5, False, 0): "ring",   # subjects past the persistent grid
 }
+# F2 and row 7, the one-launch reductions across subjects, at their edges:
+# F2 (K, I, R, offset of Q's start in elements, subject mask) and the
+# variant it takes in f32; row 7 (K, R, subject mask). Masks: None, "some"
+# (every third subject and the first masked) or "all".
+F2_EDGES = {
+    (58112, 56, 5, 0, "some"): "ring",          # the main path's largest CC bucket
+    (7, 56, 5, 0, "some"): "ring",              # fewer subjects than runs
+    (1, 56, 5, 0, None): "ring",                # one subject
+    (2049, 56, 5, 0, "some"): "ring",           # runs past the last subject
+    (9, 56, 1, 0, "some"): "ring",              # R = 1: 128 groups a block
+    (9, 20, 11, 0, None): "ring",               # R = 11: one group a block
+    (11, 56, 5, 1, None): "ring-element-copies",   # Q's start not 16-byte aligned
+    (13, 3, 5, 0, "some"): "ring-element-copies",  # [I, R] tiles not whole packs
+    (9, 1, 11, 0, "some"): "ring-element-copies",  # partials read directly
+    (9, 30, 72, 0, "some"): "chunked",          # R = 72: R*R past the block
+    (5, 4000, 8, 0, None): "chunked",           # I past the ring's stages, rows in tiles
+    (3, 1452, 5, 0, "some"): "ring",            # one group's stages take all 227 KB
+    (3, 29055, 1, 0, None): "chunked",          # one tile takes all 227 KB (f64: in tiles)
+    (3, 29056, 1, 0, "some"): "chunked",        # row tiles that take all 227 KB
+    (9, 56, 5, 0, "all"): "ring",               # every subject masked
+}
+# The three F2 launches that take all 232,448 bytes of shared memory. At
+# R = 1 that needs I near 29,000: a sum whose f32 rounding in the kernel's
+# order (the parent's) and in cuBLAS's differ by more than the tolerance.
+# Their operands are small integers, exact in f32 and f64 in any order, and
+# the kernel must equal its plain version exactly.
+F2_FULL_SMEM = {(3, 1452, 5, 0, "some"), (3, 29055, 1, 0, None), (3, 29056, 1, 0, "some")}
+MODE1_REUSE_EDGES = [(58112, 5, "some"), (7, 5, "some"), (1, 5, None), (2049, 5, "some"),
+                     (9, 1, None), (9, 72, "some"), (9, 5, "all")]
 XKV_EDGES = {
     (48, 128, 136, (115,) * 30 + (0,), 5, False, 0): "ring",   # the main path's geometry
     (8, 16, 64, (64, 0, 10), 5, True, 0): "ring",   # a row segment of length N, empty rows, an
@@ -300,17 +336,18 @@ def kernel_args(b, H, V, W, Q) -> dict:
     from repro_torch.kernels.common import fold_subject_mask
 
     Vg = b.gather_v(V)
-    Wb = fold_subject_mask(W[b.subject_ids.long()], b.subject_mask)
+    Wr = W[b.subject_ids.long()]
+    Wb = fold_subject_mask(Wr, b.subject_mask)
     Yc = b.project(Q)
     YkV = torch.bmm(Yc, Vg)
-    return {
+    return {   # the reductions take the mask, as the backends pass it
         "fused_procrustes_b": (b.vals, Vg, Wb, H),
-        "fused_mode1_xkv": (Q, b.xk_times_v(V, Vg), Wb),
+        "fused_mode1_xkv": (Q, b.xk_times_v(V, Vg), Wr, b.subject_mask),
         "fused_mode2_compact": (b.vals, Q, H, Wb, b.col_mask),
         "fused_ykv": (b.vals, Q, Vg),
         "ykv": (Yc, Vg),
-        "mode1": (Yc, Vg, Wb),
-        "mode1_reuse": (YkV, Wb),
+        "mode1": (Yc, Vg, Wr, b.subject_mask),
+        "mode1_reuse": (YkV, Wr, b.subject_mask),
         "mode2_compact": (Yc, H, Wb, b.col_mask),
         "mode3": (Yc, Vg, H, b.subject_mask),
         "mode3_reuse": (YkV, H, b.subject_mask),
@@ -571,6 +608,74 @@ def check_variant_edges(dtype, dev, errs: dict) -> set:
     return seen
 
 
+def reduction_mask(K: int, kind, dtype, dev):
+    """A subject mask of F2_EDGES / MODE1_REUSE_EDGES: None, "some" (the
+    first and every third subject masked) or "all"."""
+    import torch
+
+    if kind is None:
+        return None
+    m = torch.ones(K, dtype=dtype, device=dev)
+    m[:: 1 if kind == "all" else 3] = 0
+    return m
+
+
+def bits(t):
+    """A float tensor's bits, for comparisons that must be exact."""
+    import torch
+
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int64)
+
+
+def check_reduction_edges(dtype, dev, errs: dict) -> set:
+    """F2 and row 7 at their edges against their plain versions. Two more
+    calls on the same input must give the first call's bits, and so must a
+    call on the largest bucket after the smaller ones (each launch leaves its
+    ticket counter at 0 for the next, whatever its K). In f32 each F2 shape
+    must take the variant stated. Returns the (kernel, variant) pairs
+    reached."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import fused
+
+    f32, seen, largest = dtype == torch.float32, set(), {}
+    table = kernels()
+
+    def check(name, args, K):
+        check_kernels({name: args}, errs)
+        first = table[name][0](*args)
+        for _ in range(2):
+            if not torch.equal(bits(table[name][0](*args)), bits(first)):
+                fail(f"{name} at K={K} gave other bits on the same input")
+        if K >= largest.get(name, (0,))[0]:
+            largest[name] = (K, args, first)
+
+    for (K, I, R, offset, mk), want in F2_EDGES.items():
+        rng = np.random.default_rng(K + I + R + offset)
+        exact = (K, I, R, offset, mk) in F2_FULL_SMEM
+        draw = (lambda sh: rng.integers(-2, 3, sh)) if exact else rng.standard_normal
+        Q = offset_copy(draw((K, I, R)), dtype, dev, offset)
+        XkV, Wb = (torch.tensor(draw(sh), dtype=dtype, device=dev) for sh in ((K, I, R), (K, R)))
+        got = fused.mode1_xkv_variant(Q, XkV)
+        if f32 and got != want:
+            fail(f"fused_mode1_xkv at K={K} I={I} R={R} offset {offset} took {got}, want {want}")
+        seen.add(("fused_mode1_xkv", got))
+        args = (Q, XkV, Wb, reduction_mask(K, mk, dtype, dev))
+        check("fused_mode1_xkv", args, K)
+        if exact and not torch.equal(fused.fused_mode1_xkv(*args), fused.mode1_xkv_plain(*args)):
+            fail(f"fused_mode1_xkv at K={K} I={I} R={R}: not exactly its plain version on "
+                 f"integer operands")
+    for K, R, mk in MODE1_REUSE_EDGES:
+        rng = np.random.default_rng(K + R)
+        YkV, Wb = (torch.tensor(rng.standard_normal(sh), dtype=dtype, device=dev)
+                   for sh in ((K, R, R), (K, R)))
+        check("mode1_reuse", (YkV, Wb, reduction_mask(K, mk, dtype, dev)), K)
+    for name, (K, args, first) in largest.items():
+        if not torch.equal(bits(table[name][0](*args)), bits(first)):
+            fail(f"{name} at K={K} gave other bits after the smaller buckets")
+    return seen
+
+
 def phase2_kernels(dev) -> dict:
     import numpy as np
     import torch
@@ -582,6 +687,7 @@ def phase2_kernels(dev) -> dict:
     for dtype in (torch.float32, torch.float64):
         check_sparse_kernels(dtype, dev, errs)
         variants |= check_variant_edges(dtype, dev, errs)
+        variants |= check_reduction_edges(dtype, dev, errs)
         for g in GEOMETRIES:
             data = random_irregular(n_subjects=g["K"], n_cols=g["J"],
                                     max_rows=g.get("max_rows", 9),
@@ -601,8 +707,9 @@ def phase2_kernels(dev) -> dict:
     if set(errs) != set(ALL):
         fail(f"phase 2 did not check {sorted(set(ALL) - set(errs))}")
     from repro_torch.kernels._launch import RING_VARIANTS
+    from repro_torch.kernels.fused import F2_VARIANTS
     want = {(name, v) for name in ("ykv", "mode2_compact", "scoo_xk_times_v", "scoo_project")
-            for v in RING_VARIANTS}
+            for v in RING_VARIANTS} | {("fused_mode1_xkv", v) for v in F2_VARIANTS}
     if variants != want:
         fail(f"phase 2 did not reach the variants {sorted(want - variants)}")
     print(f"[kernels] all thirteen match their plain versions (f32, f64; "
@@ -610,7 +717,8 @@ def phase2_kernels(dev) -> dict:
           f"C_pad up to 1024; SCOO {', '.join(SCOO_DATA)} at R 1/5/72 and explicit "
           f"zero-valued triplets; BCC {BCC_GEOMETRIES}; rows 5, 8, 11 and 12 at "
           f"{len(YKV_EDGES)}, {len(MODE2_EDGES)}, {len(XKV_EDGES)} and "
-          f"{len(PROJECT_EDGES)} edge shapes, variants "
+          f"{len(PROJECT_EDGES)} edge shapes, F2 and row 7 at {len(F2_EDGES)} and "
+          f"{len(MODE1_REUSE_EDGES)}, each twice with the same bits, variants "
           f"{sorted(variants)}; padded subjects, K=0): "
           + json.dumps({k: v[0] for k, v in errs.items()}), flush=True)
     return errs
@@ -860,6 +968,27 @@ def host_ms(fn, reps: int = 20) -> float:
     return float(np.median(out))
 
 
+def one_call(fn) -> tuple:
+    """(device kernels, caching-allocator allocations, new device segments)
+    of one call of ``fn`` after a warm-up call: the kernels from a
+    torch.profiler trace of a second call, the allocations and the segments
+    (cudaMalloc calls) from torch.cuda.memory_stats around a third."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n_kernels = sum(1 for e in prof.events() if str(e.device_type).endswith("CUDA"))
+    keys = ("allocation.all.allocated", "segment.all.allocated")
+    before = [torch.cuda.memory_stats()[k] for k in keys]
+    fn()
+    after = [torch.cuda.memory_stats()[k] for k in keys]
+    return n_kernels, after[0] - before[0], after[1] - before[1]
+
+
 def work(name: str, K: int, I: int, C: int, R: int, itemsize: int) -> tuple:
     """(bytes, operations) the function needs: each input read once, each
     output written once; the slab and Yc are dense over the padded kept
@@ -940,7 +1069,7 @@ def phase4_times(bt, bt_sc, bcc_pair, state, per_kernel, errs):
     import torch
     from repro_torch.core.backend import get_backend
     from repro_torch.core.procrustes import solve_q
-    from repro_torch.kernels import fused, mttkrp_mode2, scoo, ykv
+    from repro_torch.kernels import fused, mttkrp_mode1, mttkrp_mode2, scoo, ykv
 
     b = max(bt.buckets, key=lambda x: x.vals.numel())
     H, V, W = state.H.contiguous(), state.V, state.W
@@ -1022,6 +1151,8 @@ def phase4_times(bt, bt_sc, bcc_pair, state, per_kernel, errs):
         extra = ""
         if name == "fused_procrustes_b":
             r["variant"] = fused.procrustes_b_variant(b.vals, R)
+        if name == "fused_mode1_xkv":
+            r["variant"] = fused.mode1_xkv_variant(*a[:2])
         if name == "ykv":
             r["variant"] = ykv.ykv_variant(*a)
         if name == "scoo_xk_times_v":
@@ -1040,6 +1171,27 @@ def phase4_times(bt, bt_sc, bcc_pair, state, per_kernel, errs):
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, {nbytes} B, {ops} ops), "
               f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, wrapper "
               f"host time {r['host_ms']:.4f} ms{extra}", flush=True)
+    # the two reductions across subjects: one device kernel a call, and on a
+    # repeated call one allocation (the result), no new device memory and
+    # the same workspace
+    for r in rows:
+        if r["name"] not in ("fused_mode1_xkv", "mode1_reuse"):
+            continue
+        wrapper, a = kernels()[r["name"]][0], args[r["name"]]
+        ws = (fused if r["name"] == "fused_mode1_xkv" else mttkrp_mode1).WORKSPACES
+        n_k, n_alloc, n_seg = one_call(lambda: wrapper(*a))
+        held = dict(ws._ws)
+        wrapper(*a)
+        same_ws = ws._ws.keys() == held.keys() and all(ws._ws[k] is t for k, t in held.items())
+        r["device_kernels_per_call"] = n_k
+        r["allocations_per_call"] = {"caching_allocator": n_alloc, "device_segments": n_seg}
+        print(f"[time] {r['name']}: {n_k} device kernel(s) a call, {n_alloc} allocation(s) "
+              f"a repeated call (the result), {n_seg} new device segment(s), workspace "
+              f"{'kept' if same_ws else 'replaced'}", flush=True)
+        if n_k != 1 or n_alloc != 1 or n_seg != 0 or not same_ws:
+            fail(f"{r['name']}: {n_k} device kernels, {n_alloc} allocations and {n_seg} new "
+                 f"segments a call, workspace {'kept' if same_ws else 'replaced'}; want 1, "
+                 f"1 (the result), 0 and kept")
     return rows
 
 

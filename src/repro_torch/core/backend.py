@@ -259,7 +259,7 @@ class FusedBackend(SparseBackend):
 
     def mode1_xkv_bucket(self, b, Q, XkV, Wb):
         _tick("mode1")
-        return fused.fused_mode1_xkv(Q, XkV, fold_subject_mask(Wb, b.subject_mask))
+        return fused.fused_mode1_xkv(Q, XkV, Wb, b.subject_mask)
 
     def ykv_bucket(self, b, proj, V):
         if isinstance(b, SparseBucket):

@@ -1,7 +1,8 @@
 // What the port's CUDA sources share (sm_90a): the shared-memory limits,
 // the cp.async primitives, a division-free index walk, the 16-byte alignment
-// test, the opt-in to more than 48 KB of dynamic shared memory and the size
-// of a persistent grid.
+// test, the opt-in to more than 48 KB of dynamic shared memory, the size
+// of a persistent grid and the ticket of the one-launch reductions across
+// subjects.
 // fused.cu, staged.cu, scoo.cu and gather_matmul.cu include it, each into
 // its own library; kernels/_build.py hashes it into every build.
 #pragma once
@@ -92,6 +93,62 @@ cudaError_t persistent_grid(Kernel kernel, int threads, size_t smem, int64_t ite
   }
   *grid = (int)std::min<int64_t>(items, blocks);
   return cudaSuccess;
+}
+
+// The reductions across subjects (F2 of fused.cu, rows 6 and 7 of
+// staged.cu) are one launch, two levels, with a fixed order. The first level
+// sums kRuns fixed runs of contiguous subjects (fewer for fewer subjects),
+// one [R, R] partial each; the block that finishes last, the one that takes
+// the last ticket of a counter, sums the partials (the second level) in the
+// same launch. The partials lie entry-major, [R*R, ld], so that the second
+// level reads each entry's run of partials contiguously; ld rounds the run
+// count up to whole 16-byte packs, so every row starts on a 16-byte
+// boundary. The caller's workspace (reduction_workspace elements of T,
+// zeroed once when allocated) holds the 32-bit ticket counter first, at the
+// same place whatever K (a workspace serves buckets of every K), then the
+// partials; the counter is 0 before a launch and 0 after it.
+constexpr int kRuns = 2048;
+
+inline int reduction_runs(int K) { return std::min(K, kRuns); }
+
+template <typename T>
+__host__ __device__ inline int partials_ld(int runs) {
+  constexpr int P = 16 / sizeof(T);
+  return (runs + P - 1) / P * P;
+}
+
+// The elements of T the counter takes at a workspace's start: one 16-byte
+// pack, so that the partials after it start on a 16-byte boundary.
+template <typename T>
+constexpr int counter_elems() { return 16 / (int)sizeof(T); }
+
+// The elements of T of a reduction's workspace for K >= 1 subjects at rank
+// R >= 1: the counter, then the partials [R*R, ld]; -1 past what an int
+// counts.
+template <typename T>
+int reduction_workspace(int K, int R) {
+  const int64_t n = counter_elems<T>() + (int64_t)R * R * partials_ld<T>(reduction_runs(K));
+  return n > INT32_MAX ? -1 : (int)n;
+}
+
+// Called by every thread of a block once the block has stored its partials:
+// true in the block that finishes last, which then reads the other blocks'
+// partials (through L2: __ldcg or cp.async.cg, never the L1 cache, which is
+// not coherent across SMs) and owns the counter, set back to 0 here.
+// Thread 0's answer reaches the block through __syncthreads_or, not a
+// static __shared__ flag, so that a kernel may take every byte of
+// kMaxDynamicSmem as dynamic shared memory.
+__device__ inline bool last_block_to_finish(unsigned* counter) {
+  __threadfence();            // this thread's partials, visible device-wide
+  __syncthreads();            // ... for every thread of the block
+  bool mine = false;
+  if (threadIdx.x == 0) {
+    mine = atomicAdd(counter, 1u) == gridDim.x - 1;
+    if (mine) *counter = 0;   // every block has taken its ticket
+  }
+  const bool last = __syncthreads_or(mine) != 0;
+  if (last) __threadfence();  // the partials that the tickets announced
+  return last;
 }
 
 }  // namespace

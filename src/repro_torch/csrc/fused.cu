@@ -27,12 +27,13 @@
 // slab element once, coalesced along C, keeps the small operands (Vg_k, Q_k,
 // H, w_k) in shared memory, and does the R-wide arithmetic in FMA units, no
 // tensor cores. F1 streams the slab through a multi-stage cp.async ring in
-// persistent blocks (its note below); F2-F4 read it straight from device
-// memory, one block per subject.
+// persistent blocks, and F2 its [I, R] operands (their notes below); F3 and
+// F4 read the slab straight from device memory, one block per subject.
 //
 // Plain C interface, loaded with ctypes (repro_torch/kernels/_build.py):
 // every entry point launches on the given stream, does not synchronise,
-// allocates nothing and returns cudaGetLastError() (0 on success).
+// allocates nothing and returns cudaGetLastError() (0 on success); F2 takes
+// the caller's workspace (spartan_fused_mode1_workspace).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -46,7 +47,6 @@ namespace {
 constexpr int kWarp = 32;
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / kWarp;
-constexpr int kMode1Blocks = 2048;         // first-level blocks of F2
 constexpr int kTile = 64;                  // the widest register tile of R
 
 // Row stride of an [n, R] tile in shared memory: odd, so that 32 lanes
@@ -420,18 +420,211 @@ procrustes_b_kernel(const T* __restrict__ vals, const T* __restrict__ vg,
 // (pallas_call at :211): M1 = sum_k (Q_k^T XkV_k) * w_k, a reduction across
 // subjects. Bound: the bytes of Q and XkV ([K, I, R] each). The TPU kernel
 // carries the sum from one grid step to the next; blocks here run in no
-// order, so the reduction is two-level and deterministic: each first-level
-// block sums a fixed run of subjects into its own [R, R] partial (one thread
-// owns each (r, l) entry), and a second launch sums the partials in block
-// order. No atomics: two runs give the same bits. Q_k and XkV_k are staged
-// in IT-row tiles and the entries in E-entry chunks, each the whole of it
-// when it fits.
+// order, so the reduction is two-level and deterministic, in one launch
+// (common.cuh: kRuns, last_block_to_finish). The first level splits the
+// subjects into kRuns fixed runs of contiguous subjects; one thread owns
+// each (r, l) entry of a run and sums, subject by subject in order, s =
+// sum_i Q[k, i, r] * XkV[k, i, l] (i in order), then acc += s * w_k[l], into
+// the run's [R, R] partial. w_k is Wb[k] times mask[k] (mask null: no
+// subject mask), the product torch forms when it folds the mask into Wb. The
+// block that finishes last sums each entry's partials in run order, one
+// chain per entry. No atomic touches a sum: two runs give the same bits.
+// Three variants, picked by shape (f2_variant), in one order:
+//
+// RING, the main path (R*R <= 128 and one group's stages fit in shared
+// memory). What held the block-per-run kernel below (CHUNKED) at a quarter
+// of its bound: each block summed one subject at a time, copying it into
+// shared memory with scalar loads between two barriers with no copy in
+// flight while 25 of 128 threads summed, so every subject cost a full
+// device-memory latency (~4 us a subject, 29 in a row, with 4.6 MB in
+// flight across the card: ~1.1 TB/s); and the second level was a second
+// launch of one block. Here persistent blocks of 128 threads give G =
+// 128 / R^2 thread groups (5 at R = 5) a run each, in step: while the
+// groups sum subject s of their runs, cp.async copies subjects s + 1 ..
+// s + kF2Stages - 1 (Q_k, XkV_k in 16-byte packs, w_k) into the other
+// stages, so each run keeps three subjects in flight (two or six stages
+// were slower). The last block streams the partials through the same
+// shared memory while thread p adds row p. What still bounds it (PERF.md):
+// alone, the copies move ~2 TB/s in these 1120-byte pieces and the
+// sums take two shared-memory loads a multiply-add; the in-order second
+// level, a 2048-long chain of adds an entry, takes ~15 us.
+// RING-ELEMENT-COPIES: the same, copying element by element, where the
+// subjects' [I, R] tiles are not whole 16-byte runs or Q, XkV are not
+// 16-byte aligned.
+// CHUNKED (R*R > 128, or one group's stages too large): one block per run,
+// Q_k and XkV_k staged in IT-row tiles and the entries in E-entry chunks
+// (each the whole of it when it fits), as the first kernel of this port.
 // ---------------------------------------------------------------------------
+constexpr int kF2Stages = 4;
+constexpr int kF2Budget = kMaxDynamicSmem / 4;   // a ring block's stages: four blocks an SM
+
+// F2's variants, as spartan_fused_mode1_xkv_variant reports them.
+enum F2Variant { kF2Ring = 0, kF2RingElementCopies = 1, kF2Chunked = 2 };
+
+// One group's slot in a stage of F2's ring, in elements of T: Q_k [I*R] at
+// 0, XkV_k [I*R] at x, w_k [R] and mask[k] at w, each padded to whole
+// 16-byte packs.
+struct F2Slot { int x, w, size; };
+
+template <typename T>
+__host__ __device__ inline F2Slot f2_slot(int I, int R) {
+  constexpr int P = 16 / sizeof(T);
+  const int ir = (I * R + P - 1) / P * P;
+  return {ir, 2 * ir, 2 * ir + (R + 1 + P - 1) / P * P};
+}
+
+// The groups of a ring block: 128 / R^2, fewer where the stages would pass
+// kF2Budget, 0 where the ring does not apply.
+template <typename T>
+int f2_groups(int I, int R) {
+  if (R * R > kThreads) return 0;
+  const size_t group = (size_t)kF2Stages * f2_slot<T>(I, R).size * sizeof(T);
+  if (group > (size_t)kMaxDynamicSmem) return 0;
+  return (int)std::max<size_t>(1, std::min<size_t>(kThreads / (R * R), kF2Budget / group));
+}
+
+// The last block's second level of F2: out[p] = sum over runs b in order of
+// partials[p * ld + b], for every p < RR, one chain per entry. Chunks of NB
+// runs of up to blockDim.x entries stream through the two halves of `buf`
+// (cap elements) with 16-byte cp.async.cg copies, one chunk in flight while
+// thread p adds its row (four parts, three in flight, were slower: smaller
+// chunks). A row takes an odd number of packs in shared memory, so the
+// 16-byte reads of a quarter-warp hit distinct banks. Where not one pack a
+// row fits, the owners read the partials directly.
+constexpr int kChunkStages = 2;
+
+template <typename T>
+__device__ void sum_partials_in_order(const T* partials, T* __restrict__ out,
+                                      int runs, int ld, int RR, T* buf, int cap) {
+  constexpr int P = 16 / sizeof(T);
+  const int tid = threadIdx.x;
+  for (int p0 = 0; p0 < RR; p0 += blockDim.x) {
+    const int rows = min((int)blockDim.x, RR - p0);
+    const int NB = min(((cap / kChunkStages) / rows - P) / P * P, ld);
+    T s = T(0);
+    if (NB < P) {
+      if (tid < rows)
+        for (int b = 0; b < runs; ++b) s += __ldcg(partials + (int64_t)(p0 + tid) * ld + b);
+    } else {
+      const int NS = (NB / P) % 2 ? NB : NB + P;       // a row's stride in buf
+      const int chunks = (runs + NB - 1) / NB;
+      auto issue = [&](int c) {                         // chunk c into part c % kChunkStages
+        if (c < chunks) {
+          T* dst = buf + (c % kChunkStages) * rows * NS;
+          const int b0 = c * NB, packs = min(NB, ld - b0) / P;
+          for (int j = tid; j < rows * packs; j += blockDim.x) {
+            const int row = j / packs, pk = j - row * packs;
+            cp_async<16>(dst + row * NS + pk * P,
+                         partials + (int64_t)(p0 + row) * ld + b0 + pk * P);
+          }
+        }
+        cp_async_commit();
+      };
+      for (int c = 0; c < kChunkStages - 1; ++c) issue(c);
+      for (int c = 0; c < chunks; ++c) {
+        issue(c + kChunkStages - 1);
+        cp_async_wait<kChunkStages - 1>();
+        __syncthreads();
+        if (tid < rows) {
+          const T* src = buf + (c % kChunkStages) * rows * NS + tid * NS;
+          const int nb = min(NB, runs - c * NB);
+          int j = 0;
+#pragma unroll 4
+          for (; j + P <= nb; j += P) {
+            const Pack<T> v = load_pack(src + j);
+#pragma unroll
+            for (int u = 0; u < P; ++u) s += v.v[u];
+          }
+          for (; j < nb; ++j) s += src[j];
+        }
+        __syncthreads();                                // part c % kChunkStages is free
+      }
+      cp_async_wait<0>();
+    }
+    if (tid < rows) out[p0 + tid] = s;
+  }
+}
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+mode1_ring_kernel(const T* __restrict__ q, const T* __restrict__ xkv,
+                  const T* __restrict__ wb, const T* __restrict__ mask,
+                  unsigned* counter, T* partials, T* __restrict__ out, int K, int I,
+                  int R, int G, int runs, int per_run, int ld) {
+  constexpr int P = 16 / sizeof(T);
+  T* ring = smem_base<T>();                 // [kF2Stages][G] slots
+  const F2Slot sl = f2_slot<T>(I, R);
+  const int RR = R * R, IR = I * R, tid = threadIdx.x;
+  const int g = tid / RR, p = tid - g * RR, r = p / R, l = p - r * R;
+  const int nw = R + (mask ? 1 : 0);        // w_k and mask[k]
+  const int n_items = (runs + G - 1) / G;   // items: G runs each
+  const int steps = (n_items - 1 - (int)blockIdx.x) / (int)gridDim.x * per_run + per_run;
+  // step t: subject s = t % per_run of each run of item blockIdx.x +
+  // (t / per_run) * gridDim.x; its copies go to stage t % kF2Stages
+  auto issue = [&](int t) {
+    if (t < steps) {
+      const int item = blockIdx.x + (t / per_run) * gridDim.x, s = t % per_run;
+      T* stage = ring + (t % kF2Stages) * G * sl.size;
+      const int per_group = VEC ? 2 * (IR / P) : 2 * IR;
+      for (int j = tid; j < G * (per_group + nw); j += blockDim.x) {
+        const int gg = j / (per_group + nw), e = j - gg * (per_group + nw);
+        const int run = item * G + gg;
+        const int64_t k = (int64_t)run * per_run + s;
+        if (run >= runs || k >= K) continue;
+        T* slot = stage + gg * sl.size;
+        if (e >= per_group) {
+          const int c = e - per_group;
+          cp_async<sizeof(T)>(slot + sl.w + c, c < R ? wb + k * R + c : mask + k);
+        } else if (VEC) {
+          const int half = IR / P, x = e >= half, pk = e - x * half;
+          cp_async<16>(slot + x * sl.x + pk * P, (x ? xkv : q) + k * IR + pk * P);
+        } else {
+          const int x = e >= IR, c = e - x * IR;
+          cp_async<sizeof(T)>(slot + x * sl.x + c, (x ? xkv : q) + k * IR + c);
+        }
+      }
+    }
+    cp_async_commit();    // empty past the end: the groups in flight stay fixed
+  };
+  for (int t = 0; t < kF2Stages - 1; ++t) issue(t);
+  T acc = T(0);
+  for (int t = 0; t < steps; ++t) {
+    issue(t + kF2Stages - 1);
+    cp_async_wait<kF2Stages - 1>();
+    __syncthreads();                        // step t's subjects are in
+    if (g < G) {
+      const int item = blockIdx.x + (t / per_run) * gridDim.x, s = t % per_run;
+      const int run = item * G + g;
+      if (run < runs && (int64_t)run * per_run + s < K) {
+        const T* slot = ring + ((t % kF2Stages) * G + g) * sl.size;
+        const T* qa = slot + r;
+        const T* xa = slot + sl.x + l;
+        T sum = T(0);
+#pragma unroll 8
+        for (int i = 0; i < I; ++i) sum += qa[i * R] * xa[i * R];   // loads ahead of the chain
+        T w = slot[sl.w + l];
+        if (mask) w = w * slot[sl.w + R];
+        acc += sum * w;
+      }
+      if (s == per_run - 1) {               // the run's last subject: its partial
+        if (run < runs) partials[(int64_t)p * ld + run] = acc;
+        acc = T(0);
+      }
+    }
+    __syncthreads();                        // stage t % kF2Stages is free
+  }
+  cp_async_wait<0>();
+  if (last_block_to_finish(counter))
+    sum_partials_in_order(partials, out, runs, ld, RR, ring,
+                          kF2Stages * G * sl.size);
+}
+
 template <typename T, bool CHUNKED>
 __global__ void __launch_bounds__(kThreads)
-mode1_partial_kernel(const T* __restrict__ q, const T* __restrict__ xkv,
-                     const T* __restrict__ wb, T* __restrict__ partials,
-                     int K, int I, int R, int per_block, int IT, int E) {
+mode1_chunked_kernel(const T* __restrict__ q, const T* __restrict__ xkv,
+                     const T* __restrict__ wb, const T* __restrict__ mask,
+                     unsigned* counter, T* partials, T* __restrict__ out, int K, int I,
+                     int R, int per_block, int IT, int E, int ld) {
   T* q_s = smem_base<T>();                  // [IT, R]
   T* x_s = q_s + IT * R;                    // [IT, R]
   T* w_s = x_s + IT * R;                    // [R]
@@ -451,7 +644,11 @@ mode1_partial_kernel(const T* __restrict__ q, const T* __restrict__ xkv,
           q_s[t] = q[base + t];
           x_s[t] = xkv[base + t];
         }
-        for (int t = threadIdx.x; t < R; t += blockDim.x) w_s[t] = wb[(int64_t)k * R + t];
+        for (int t = threadIdx.x; t < R; t += blockDim.x) {
+          T w = wb[(int64_t)k * R + t];
+          if (mask) w = w * mask[k];
+          w_s[t] = w;
+        }
         __syncthreads();
         for (int p = threadIdx.x; p < en; p += blockDim.x) {
           const int r = (e0 + p) / R, l = (e0 + p) - r * R;
@@ -462,19 +659,10 @@ mode1_partial_kernel(const T* __restrict__ q, const T* __restrict__ xkv,
       }
     }
     for (int p = threadIdx.x; p < en; p += blockDim.x)
-      partials[(int64_t)blockIdx.x * RR + e0 + p] = acc_s[p];
+      partials[(int64_t)(e0 + p) * ld + blockIdx.x] = acc_s[p];
   }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-mode1_reduce_kernel(const T* __restrict__ partials, T* __restrict__ out,
-                    int n_partials, int RR) {
-  for (int p = threadIdx.x; p < RR; p += blockDim.x) {
-    T s = T(0);
-    for (int b = 0; b < n_partials; ++b) s += partials[(int64_t)b * RR + p];
-    out[p] = s;
-  }
+  if (last_block_to_finish(counter))
+    sum_partials_in_order(partials, out, gridDim.x, ld, RR, q_s, 2 * IT * R + R + E);
 }
 
 // ---------------------------------------------------------------------------
@@ -772,11 +960,36 @@ cudaError_t launch_f4(const void* vals, const void* q, const void* vg,
   return cudaGetLastError();
 }
 
+// F2: RING where R*R <= 128 and a group's stages fit (16-byte copies when
+// every subject's [I, R] tile is a whole number of packs and Q, XkV start
+// on 16-byte boundaries), else CHUNKED.
 template <typename T>
-cudaError_t launch_f2(const void* q, const void* xkv, const void* wb,
-                      void* partials, void* out, int K, int I, int R,
-                      int n_partials, cudaStream_t stream) {
-  const int per_block = (K + n_partials - 1) / n_partials;
+int f2_variant(int I, int R, bool aligned) {
+  if (f2_groups<T>(I, R) == 0) return kF2Chunked;
+  return aligned && (I * R) % (16 / (int)sizeof(T)) == 0 ? kF2Ring : kF2RingElementCopies;
+}
+
+template <typename T>
+cudaError_t launch_f2(const void* q, const void* xkv, const void* wb, const void* mask,
+                      void* ws, void* out, int K, int I, int R, cudaStream_t stream) {
+  const int runs = reduction_runs(K), per_run = (K + runs - 1) / runs;
+  const int ld = partials_ld<T>(runs);
+  const int variant = f2_variant<T>(I, R, aligned16({q, xkv}));
+  if (variant != kF2Chunked) {
+    const int G = f2_groups<T>(I, R);
+    const size_t smem = (size_t)kF2Stages * G * f2_slot<T>(I, R).size * sizeof(T);
+    auto kernel = variant == kF2Ring ? mode1_ring_kernel<T, true> : mode1_ring_kernel<T, false>;
+    cudaError_t e = allow_smem(kernel, smem);
+    int grid = 0;
+    if (e == cudaSuccess) e = persistent_grid(kernel, kThreads, smem, (runs + G - 1) / G, &grid);
+    if (e != cudaSuccess) return e;
+    kernel<<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(xkv), static_cast<const T*>(wb),
+        static_cast<const T*>(mask), static_cast<unsigned*>(ws),
+        static_cast<T*>(ws) + counter_elems<T>(), static_cast<T*>(out), K, I, R, G, runs,
+        per_run, ld);
+    return cudaGetLastError();
+  }
   const size_t RR = (size_t)R * R;
   int IT = I, E = (int)RR;
   if ((2 * (size_t)I * R + R + RR) * sizeof(T) > (size_t)kMaxDynamicSmem) {
@@ -786,18 +999,15 @@ cudaError_t launch_f2(const void* q, const void* xkv, const void* wb,
   }
   if (IT < 1 || E < 1) return cudaErrorInvalidValue;
   const size_t smem = (2 * (size_t)IT * R + R + E) * sizeof(T);
-  auto kernel = IT < I || E < (int)RR ? mode1_partial_kernel<T, true>
-                                      : mode1_partial_kernel<T, false>;
+  auto kernel = IT < I || E < (int)RR ? mode1_chunked_kernel<T, true>
+                                      : mode1_chunked_kernel<T, false>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  kernel<<<n_partials, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(xkv),
-      static_cast<const T*>(wb), static_cast<T*>(partials), K, I, R, per_block,
-      IT, E);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  mode1_reduce_kernel<T><<<1, kThreads, 0, stream>>>(
-      static_cast<const T*>(partials), static_cast<T*>(out), n_partials, R * R);
+  kernel<<<runs, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(xkv), static_cast<const T*>(wb),
+      static_cast<const T*>(mask), static_cast<unsigned*>(ws),
+      static_cast<T*>(ws) + counter_elems<T>(), static_cast<T*>(out), K, I, R, per_run, IT,
+      E, ld);
   return cudaGetLastError();
 }
 
@@ -847,14 +1057,27 @@ int spartan_fused_procrustes_b_variant(int dtype, int I, int C, int R, int align
   return -1;
 }
 
-int spartan_fused_mode1_xkv(int dtype, const void* q, const void* xkv,
-                            const void* wb, void* partials, void* out, int K,
-                            int I, int R, int n_partials, void* stream) {
-  if (R < 1 || n_partials < 1) return (int)cudaErrorInvalidValue;
+// F2, one launch. mask: [K] or null (no subject mask); ws:
+// spartan_fused_mode1_workspace(dtype, K, R) elements of T, zeroed before
+// its first launch (a launch leaves its counter 0).
+int spartan_fused_mode1_xkv_one_launch(int dtype, const void* q, const void* xkv,
+                                       const void* wb, const void* mask, void* ws, void* out,
+                                       int K, int I, int R, void* stream) {
+  if (K < 1 || I < 1 || R < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_f2<float>(q, xkv, wb, partials, out, K, I, R, n_partials, s);
-  if (dtype == 1) return (int)launch_f2<double>(q, xkv, wb, partials, out, K, I, R, n_partials, s);
+  if (dtype == 0) return (int)launch_f2<float>(q, xkv, wb, mask, ws, out, K, I, R, s);
+  if (dtype == 1) return (int)launch_f2<double>(q, xkv, wb, mask, ws, out, K, I, R, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The variant a spartan_fused_mode1_xkv_one_launch launch takes (F2Variant:
+// 0 ring, 1 ring with element copies, 2 chunked); aligned: Q and XkV start
+// on a 16-byte boundary. -1 for an unknown dtype.
+int spartan_fused_mode1_xkv_variant(int dtype, int I, int R, int aligned) {
+  if (I < 1 || R < 1) return -1;
+  if (dtype == 0) return f2_variant<float>(I, R, aligned != 0);
+  if (dtype == 1) return f2_variant<double>(I, R, aligned != 0);
+  return -1;
 }
 
 int spartan_fused_mode2_compact(int dtype, const void* vals, const void* q,
@@ -872,8 +1095,14 @@ int spartan_fused_ykv(int dtype, const void* vals, const void* q,
                    static_cast<cudaStream_t>(stream));
 }
 
-// The number of first-level blocks F2 uses for K subjects (the wrapper
-// allocates one [R, R] partial per block).
-int spartan_mode1_partials(int K) { return K < kMode1Blocks ? K : kMode1Blocks; }
+// The elements of T of the workspace F2 takes for K subjects at rank R: one
+// counter and the partials [R*R, ld] (one column per run); -1 for an
+// unknown dtype, K < 1, R < 1 or a count past an int.
+int spartan_fused_mode1_workspace(int dtype, int K, int R) {
+  if (K < 1 || R < 1) return -1;
+  if (dtype == 0) return reduction_workspace<float>(K, R);
+  if (dtype == 1) return reduction_workspace<double>(K, R);
+  return -1;
+}
 
 }  // extern "C"

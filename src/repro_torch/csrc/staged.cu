@@ -33,13 +33,15 @@
 // shared-memory tile, so no shape limit. The TPU kernels' padding of C to
 // block_c is not carried over: a thread loops over the C it is given (row 8
 // masks its last tile's ragged edge). The two reductions
-// across subjects (rows 6, 7) are two-level and deterministic, as F2 of
-// fused.cu: fixed runs of subjects per block, then a second launch sums the
-// partials in a fixed order; no atomics, so two runs give the same bits.
+// across subjects (rows 6, 7) are one launch each, two-level and
+// deterministic, as F2 of fused.cu: fixed runs of subjects per block, then
+// the block that finishes last sums the partials in a fixed order; no
+// atomic touches a sum, so two runs give the same bits.
 //
 // Plain C interface, loaded with ctypes (repro_torch/kernels/_launch.py):
 // every entry point launches on the given stream, does not synchronise,
-// allocates nothing and returns cudaGetLastError() (0 on success).
+// allocates nothing and returns cudaGetLastError() (0 on success); rows 6
+// and 7 take the caller's workspace (spartan_mode1_workspace).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -53,7 +55,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarp = 32;
 constexpr int64_t kMaxBlocks = 1 << 20;    // grid-stride loops beyond this
-constexpr int kReduceBlocks = 2048;        // first-level blocks of rows 6, 7
 
 int grid_for(int64_t n) {
   return (int)std::min<int64_t>(kMaxBlocks, (n + kThreads - 1) / kThreads);
@@ -252,63 +253,87 @@ ykv_ring_kernel(const T* __restrict__ yc, const T* __restrict__ vg,
 // ---------------------------------------------------------------------------
 // Rows 6 and 7, mode1 / mode1_reuse. Replace src/repro/kernels/
 // mttkrp_mode1.py mode1_pallas (pallas_call at :72) and mode1_reuse_pallas
-// (:112), which carry the [R, R] sum across sequential grid steps. Here the
-// first level gives each block a fixed run of subjects and each of its
-// threads one entry (r, l); when R*R leaves threads over, G groups of R*R
-// threads take every G-th subject of the run and the block adds the groups
-// in order at the end. Bound: Yc and Vg bytes (row 6), YkV bytes (row 7, so
-// its launch).
+// (:112), which carry the [R, R] sum across sequential grid steps. One
+// launch (common.cuh: kRuns, last_block_to_finish). The first level gives
+// each 256-thread sub-block a fixed run of subjects and each of its threads
+// one entry (r, l); when R*R leaves threads over, G groups of R*R threads
+// take every G-th subject of the run and the sub-block adds the groups in
+// order at the end. A block holds kRunsPerBlock sub-blocks: four times fewer
+// tickets than a block a run, and a last block of 32 warps for the second
+// level (1.15-1.2x faster than a block a run, paired on the card).
+// w_k is Wb[k] times mask[k] (mask null: no subject mask), the product
+// torch forms when it folds the mask into Wb, so the bits are those of the
+// folded call. The block that finishes last sums the partials: one warp per
+// entry, lane L summing runs L, L + 32, ... in order (16 loads in flight a
+// lane), then a fixed butterfly over the lanes, so the order is fixed and
+// the chain of dependent adds is kRuns / 32 = 64 long. Bound: Yc and Vg
+// bytes (row 6), YkV bytes (row 7, so its launch, each block's fence and
+// ticket, and the last block's read of the partials).
 // ---------------------------------------------------------------------------
+constexpr int kRunsPerBlock = 4;   // runs a block sums, one a 256-thread sub-block
+
+template <typename T>
+__device__ void sum_partials_by_lanes(const T* partials, T* __restrict__ out,
+                                      int runs, int ld, int RR) {
+  constexpr int U = 16;                        // loads in flight a lane
+  const int lane = threadIdx.x % kWarp, warps = blockDim.x / kWarp;
+  for (int p = threadIdx.x / kWarp; p < RR; p += warps) {
+    const T* row = partials + (int64_t)p * ld;
+    T s = T(0);
+    int b = lane;
+    for (; b + (U - 1) * kWarp < runs; b += U * kWarp) {
+      T v[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) v[u] = __ldcg(row + b + u * kWarp);
+#pragma unroll
+      for (int u = 0; u < U; ++u) s += v[u];
+    }
+    for (; b < runs; b += kWarp) s += __ldcg(row + b);
+#pragma unroll
+    for (int off = kWarp / 2; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (lane == 0) out[p] = s;
+  }
+}
+
 template <typename T, bool REUSE>
-__global__ void __launch_bounds__(kThreads)
-mode1_partial_kernel(const T* __restrict__ yc, const T* __restrict__ vg,
-                     const T* __restrict__ ykv, const T* __restrict__ wb,
-                     T* __restrict__ partials, int K, int R, int C,
-                     int per_block) {
+__global__ void __launch_bounds__(kThreads * kRunsPerBlock)
+mode1_kernel(const T* __restrict__ yc, const T* __restrict__ vg,
+             const T* __restrict__ ykv, const T* __restrict__ wb,
+             const T* __restrict__ mask, unsigned* counter, T* partials,
+             T* __restrict__ out, int K, int R, int C, int runs, int per_block, int ld) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* red_s = reinterpret_cast<T*>(smem_raw);   // [G, R*R] when G > 1
   const int RR = R * R;
-  const int G = max(1, (int)blockDim.x / RR);
-  const int k0 = blockIdx.x * per_block;
+  const int G = max(1, kThreads / RR);
+  const int sub = threadIdx.x / kThreads, tid = threadIdx.x % kThreads;
+  const int run = blockIdx.x * kRunsPerBlock + sub;      // this sub-block's run
+  T* red_s = reinterpret_cast<T*>(smem_raw) + sub * G * RR;   // [G, R*R] when G > 1
+  const int k0 = run * per_block;
   const int k1 = min(K, k0 + per_block);
-  T* part = partials + (int64_t)blockIdx.x * RR;
-  for (int v = threadIdx.x; v < G * RR; v += blockDim.x) {
+  T* part = partials + run;                    // entry p at part[p * ld]
+  for (int v = tid; run < runs && v < G * RR; v += kThreads) {
     const int g = v / RR, p = v - g * RR, r = p / R, l = p - r * R;
     T acc = T(0);
     for (int k = k0 + g; k < k1; k += G) {
       const T y = REUSE ? ykv[(int64_t)k * RR + p]
                         : yv_entry(yc + ((int64_t)k * R + r) * C,
                                    vg + (int64_t)k * C * R + l, C, R);
-      acc += y * wb[(int64_t)k * R + l];
+      T w = wb[(int64_t)k * R + l];
+      if (mask) w = w * mask[k];
+      acc += y * w;
     }
-    if (G == 1) part[p] = acc;
+    if (G == 1) part[(int64_t)p * ld] = acc;
     else red_s[v] = acc;
   }
   if (G > 1) {                                 // block-uniform
     __syncthreads();
-    for (int p = threadIdx.x; p < RR; p += blockDim.x) {
+    for (int p = tid; run < runs && p < RR; p += kThreads) {
       T s = T(0);
       for (int g = 0; g < G; ++g) s += red_s[g * RR + p];
-      part[p] = s;
+      part[(int64_t)p * ld] = s;
     }
   }
-}
-
-// The second level: one warp per entry, its lanes striding over the
-// partials and then summed by a fixed butterfly, so the order is fixed and
-// the 2048-long chain of dependent adds is 64 long.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-reduce_partials_kernel(const T* __restrict__ partials, T* __restrict__ out,
-                       int n_partials, int RR) {
-  const int lane = threadIdx.x % kWarp, warps = blockDim.x / kWarp;
-  for (int p = blockIdx.x * warps + threadIdx.x / kWarp; p < RR; p += gridDim.x * warps) {
-    T s = T(0);
-    for (int b = lane; b < n_partials; b += kWarp) s += partials[(int64_t)b * RR + p];
-#pragma unroll
-    for (int off = kWarp / 2; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (lane == 0) out[p] = s;
-  }
+  if (last_block_to_finish(counter))
+    sum_partials_by_lanes(partials, out, runs, ld, RR);
 }
 
 // ---------------------------------------------------------------------------
@@ -522,21 +547,23 @@ mode3_kernel(const T* __restrict__ yc, const T* __restrict__ vg,
 // ---------------------------------------------------------------------------
 template <typename T, bool REUSE>
 cudaError_t launch_mode1(const void* yc, const void* vg, const void* ykv,
-                         const void* wb, void* partials, void* out, int K,
-                         int R, int C, int n_partials, cudaStream_t stream) {
+                         const void* wb, const void* mask, void* ws, void* out,
+                         int K, int R, int C, cudaStream_t stream) {
   const int RR = R * R;
   const int G = std::max(1, kThreads / RR);
-  const size_t smem = G > 1 ? (size_t)G * RR * sizeof(T) : 0;
-  const int per_block = (K + n_partials - 1) / n_partials;
-  mode1_partial_kernel<T, REUSE><<<n_partials, kThreads, smem, stream>>>(
+  const size_t smem = G > 1 ? (size_t)kRunsPerBlock * G * RR * sizeof(T) : 0;
+  const int runs = reduction_runs(K);
+  const int per_block = (K + runs - 1) / runs;
+  auto kernel = mode1_kernel<T, REUSE>;
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<(runs + kRunsPerBlock - 1) / kRunsPerBlock, kThreads * kRunsPerBlock, smem,
+           stream>>>(
       static_cast<const T*>(yc), static_cast<const T*>(vg),
       static_cast<const T*>(ykv), static_cast<const T*>(wb),
-      static_cast<T*>(partials), K, R, C, per_block);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  const int warps = kThreads / kWarp;
-  reduce_partials_kernel<T><<<std::min(1024, (RR + warps - 1) / warps), kThreads, 0, stream>>>(
-      static_cast<const T*>(partials), static_cast<T*>(out), n_partials, RR);
+      static_cast<const T*>(mask), static_cast<unsigned*>(ws),
+      static_cast<T*>(ws) + counter_elems<T>(), static_cast<T*>(out), K, R, C, runs,
+      per_block, partials_ld<T>(runs));
   return cudaGetLastError();
 }
 
@@ -643,22 +670,23 @@ int spartan_ykv_variant(int dtype, int C, int R, int aligned) {
   return -1;
 }
 
-int spartan_mode1(int dtype, const void* yc, const void* vg, const void* wb,
-                  void* partials, void* out, int K, int R, int C,
-                  int n_partials, void* stream) {
-  if (K < 1 || R < 1 || C < 1 || n_partials < 1) return (int)cudaErrorInvalidValue;
+// Rows 6 and 7, one launch each. mask: [K] or null (no subject mask); ws:
+// spartan_mode1_workspace(dtype, K, R) elements of T, zeroed before its
+// first launch (a launch leaves its counter 0).
+int spartan_mode1_one_launch(int dtype, const void* yc, const void* vg, const void* wb,
+                             const void* mask, void* ws, void* out, int K, int R, int C,
+                             void* stream) {
+  if (K < 1 || R < 1 || C < 1) return (int)cudaErrorInvalidValue;
   SPARTAN_BY_DTYPE(return (int)(launch_mode1<T, false>(
-      yc, vg, nullptr, wb, partials, out, K, R, C, n_partials,
-      static_cast<cudaStream_t>(stream))));
+      yc, vg, nullptr, wb, mask, ws, out, K, R, C, static_cast<cudaStream_t>(stream))));
 }
 
-int spartan_mode1_reuse(int dtype, const void* ykv, const void* wb,
-                        void* partials, void* out, int K, int R,
-                        int n_partials, void* stream) {
-  if (K < 1 || R < 1 || n_partials < 1) return (int)cudaErrorInvalidValue;
+int spartan_mode1_reuse_one_launch(int dtype, const void* ykv, const void* wb,
+                                   const void* mask, void* ws, void* out, int K, int R,
+                                   void* stream) {
+  if (K < 1 || R < 1) return (int)cudaErrorInvalidValue;
   SPARTAN_BY_DTYPE(return (int)(launch_mode1<T, true>(
-      nullptr, nullptr, ykv, wb, partials, out, K, R, 0, n_partials,
-      static_cast<cudaStream_t>(stream))));
+      nullptr, nullptr, ykv, wb, mask, ws, out, K, R, 0, static_cast<cudaStream_t>(stream))));
 }
 
 int spartan_mode2_compact(int dtype, const void* yc, const void* h,
@@ -707,8 +735,15 @@ int spartan_mode3_reuse(int dtype, const void* ykv, const void* h,
   });
 }
 
-// The number of first-level blocks rows 6 and 7 use for K subjects (the
-// wrapper allocates one [R, R] partial per block).
-int spartan_staged_partials(int K) { return K < kReduceBlocks ? K : kReduceBlocks; }
+// The elements of T of the workspace rows 6 and 7 take for K subjects at
+// rank R: one counter and the partials [R*R, ld] (one column per
+// first-level block); -1 for an unknown dtype, K < 1, R < 1 or a count past
+// an int.
+int spartan_mode1_workspace(int dtype, int K, int R) {
+  if (K < 1 || R < 1) return -1;
+  if (dtype == 0) return reduction_workspace<float>(K, R);
+  if (dtype == 1) return reduction_workspace<double>(K, R);
+  return -1;
+}
 
 }  // extern "C"

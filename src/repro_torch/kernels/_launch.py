@@ -5,18 +5,20 @@ counts of its wrappers) and the operand checks.
 A wrapper takes its kernel's plain torch version only for tensors on the
 CPU; for CUDA tensors it checks the operands, calls the C entry point on the
 current stream through :meth:`KernelLib.launch`, which raises on a CUDA
-error, and counts one launch. Nothing here builds or loads anything at
-import time.
+error, and counts one launch. The one-launch reductions across subjects (F2,
+rows 6 and 7) also take a workspace from :class:`Workspaces`. Nothing here
+builds or loads anything at import time.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["KernelLib", "P", "I", "RING_VARIANTS", "check_shapes", "check_index",
-           "on_cpu", "dtype_code"]
+__all__ = ["KernelLib", "Workspaces", "P", "I", "RING_VARIANTS", "check_shapes",
+           "check_index", "on_cpu", "dtype_code", "mask_operand"]
 
 P = ctypes.c_void_p     # a pointer or the stream
 I = ctypes.c_int        # an int (shape or dtype code)
@@ -55,15 +57,62 @@ class KernelLib:
             self._lib = lib
         return self._lib
 
-    def launch(self, name: str, fn: str, dev: torch.device, *args) -> None:
-        """Call the C entry point ``fn`` with ``args`` and the current stream
-        of ``dev``; raise on a CUDA error, else count one launch of ``name``."""
-        with torch.cuda.device(dev):
-            stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-            err = getattr(self.lib(), fn)(*args, stream)
+    def launch(self, name: str, fn: str, dev: torch.device, *args,
+               stream: Optional[int] = None) -> None:
+        """Call the C entry point ``fn`` with ``args`` and ``stream`` (by
+        default the current stream of ``dev``); raise on a CUDA error, else
+        count one launch of ``name``."""
+        switch = dev.index not in (None, torch.cuda.current_device())
+        with torch.cuda.device(dev) if switch else contextlib.nullcontext():
+            if stream is None:
+                stream = torch.cuda.current_stream(dev).cuda_stream
+            err = getattr(self.lib(), fn)(*args, ctypes.c_void_p(stream))
         if err != 0:
             raise RuntimeError(f"{name}: CUDA error {err} at launch")
         self.launches[name] += 1
+
+
+class Workspaces:
+    """The workspaces of one library's reductions across subjects, one per
+    (device, stream, dtype, R): the 32-bit ticket counter that each launch
+    leaves at 0 and the first level's partials, in one tensor zeroed once
+    when it is allocated. It grows when a larger bucket needs more partials.
+    Its size comes from the C query ``query(dtype, K, R)``, asked once per
+    (dtype, K, R), so a repeated call on the same shape allocates nothing
+    and asks nothing.
+
+    A launch that raises may have left its counter mid-way: :meth:`launch`
+    then drops that workspace, and the next call allocates a fresh one."""
+
+    def __init__(self, lib: KernelLib, query: str):
+        self._lib = lib
+        self._query = query
+        self._elems: Dict[Tuple[int, int, int], int] = {}
+        self._ws: Dict[tuple, torch.Tensor] = {}
+
+    def launch(self, name: str, fn: str, like: torch.Tensor, code: int, K: int,
+               R: int, before: tuple, after: tuple) -> None:
+        """``fn(code, *before, workspace, *after, stream)`` through
+        :meth:`KernelLib.launch`, on the current stream of ``like``'s device
+        and the workspace of that device, that stream, ``like``'s dtype and
+        R, for K subjects."""
+        dev = like.device
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        key = (dev.index, stream, code, R)
+        need = self._elems.get((code, K, R))
+        if need is None:
+            need = self._elems[(code, K, R)] = getattr(self._lib.lib(), self._query)(code, K, R)
+            if need < 0:
+                raise ValueError(f"{name}: no workspace for K={K}, R={R}")
+        ws = self._ws.get(key)
+        if ws is None or ws.numel() < need:
+            ws = self._ws[key] = torch.zeros(need, dtype=like.dtype, device=dev)
+        try:
+            self._lib.launch(name, fn, dev, code, *before, ws.data_ptr(), *after,
+                             stream=stream)
+        except RuntimeError:
+            del self._ws[key]
+            raise
 
 
 def check_shapes(**shapes_and_want) -> None:
@@ -105,3 +154,12 @@ def dtype_code(*ts: torch.Tensor) -> int:
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("the kernels take contiguous tensors")
     return _DTYPE_CODE[ts[0].dtype]
+
+
+def mask_operand(subject_mask: Optional[torch.Tensor], Wb: torch.Tensor) -> tuple:
+    """The reductions' nullable mask operand: () without a subject mask, else
+    (the mask [K] in Wb's dtype,), checked against Wb's K."""
+    if subject_mask is None:
+        return ()
+    check_shapes(subject_mask=(subject_mask, Wb.shape[:1]))
+    return (subject_mask if subject_mask.dtype == Wb.dtype else subject_mask.to(Wb.dtype),)

@@ -25,13 +25,14 @@ memory are staged in chunks). The kernel library is built at first use.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels._launch import I as _I, P as _P
-from repro_torch.kernels._launch import KernelLib, check_shapes, dtype_code, on_cpu
-from repro_torch.kernels.common import accum_dtype
+from repro_torch.kernels._launch import (KernelLib, Workspaces, check_shapes, dtype_code,
+                                        mask_operand, on_cpu)
+from repro_torch.kernels.common import accum_dtype, fold_subject_mask
 
 __all__ = [
     "LAUNCHES",
@@ -46,7 +47,10 @@ __all__ = [
     "mode2_compact_plain",
     "ykv_plain",
     "procrustes_b_variant",
+    "mode1_xkv_variant",
     "F1_VARIANTS",
+    "F2_VARIANTS",
+    "WORKSPACES",
     "reset_launches",
 ]
 
@@ -54,15 +58,19 @@ KERNELS = ("fused_procrustes_b", "fused_mode1_xkv", "fused_mode2_compact",
            "fused_ykv")
 LIB = KernelLib("fused", KERNELS, {
     "spartan_fused_procrustes_b": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "spartan_fused_mode1_xkv": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "spartan_fused_mode1_xkv_one_launch": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "spartan_fused_mode2_compact": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "spartan_fused_ykv": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "spartan_mode1_partials": [_I],
+    "spartan_fused_mode1_workspace": [_I, _I, _I],
     "spartan_fused_procrustes_b_variant": [_I, _I, _I, _I, _I],
+    "spartan_fused_mode1_xkv_variant": [_I, _I, _I, _I],
 })
-# spartan_fused_procrustes_b_variant's codes
+# spartan_fused_procrustes_b_variant's and spartan_fused_mode1_xkv_variant's codes
 F1_VARIANTS = ("ring", "ring-element-copies", "row-warp", "row-warp-chunked",
                "row-warp-wide", "row-warp-wide-chunked")
+F2_VARIANTS = ("ring", "ring-element-copies", "chunked")
+# F2's workspace (partials and ticket counter), per device, stream, dtype and R
+WORKSPACES = Workspaces(LIB, "spartan_fused_mode1_workspace")
 # kernel launches per wrapper; plain-version calls on the CPU are not counted
 LAUNCHES = LIB.launches
 reset_launches = LIB.reset_launches
@@ -79,8 +87,9 @@ def procrustes_b_plain(vals, Vg, Wb, H) -> Tuple[torch.Tensor, torch.Tensor]:
     return XkV, B
 
 
-def mode1_xkv_plain(Q, XkV, Wb) -> torch.Tensor:
+def mode1_xkv_plain(Q, XkV, Wb, subject_mask=None) -> torch.Tensor:
     acc = accum_dtype(Q)
+    Wb = fold_subject_mask(Wb, subject_mask)
     YkV = torch.bmm(Q.to(acc).transpose(1, 2), XkV.to(acc))
     return (YkV * Wb.to(acc)[:, None, :]).sum(dim=0)
 
@@ -136,24 +145,41 @@ def procrustes_b_variant(vals: torch.Tensor, R: int) -> str:
     return F1_VARIANTS[code]
 
 
-def fused_mode1_xkv(Q, XkV, Wb) -> torch.Tensor:
-    """Q [K,I,R], XkV [K,I,R], Wb [K,R] (subject mask folded in) -> partial
-    M1 [R,R] = sum_k (Q_k^T X_k V) * w_k, the mode-1 reuse identity
-    Y_k V = Q_k^T (X_k V) reduced in the same launch."""
+def fused_mode1_xkv(Q, XkV, Wb, subject_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Q [K,I,R], XkV [K,I,R], Wb [K,R] -> partial M1 [R,R] = sum_k
+    (Q_k^T X_k V) * w_k, the mode-1 reuse identity Y_k V = Q_k^T (X_k V)
+    reduced in the same launch. ``subject_mask`` [K] scales W(k,:) (in the
+    kernel, the product torch forms when it folds the mask into Wb). A
+    repeated call allocates only its [R,R] result."""
     K, I, R = Q.shape
     check_shapes(XkV=(XkV, (K, I, R)), Wb=(Wb, (K, R)))
     if K == 0:
         return Q.new_zeros((R, R), dtype=accum_dtype(Q))
-    if on_cpu(Q, XkV, Wb):
-        return mode1_xkv_plain(Q, XkV, Wb)
-    code = dtype_code(Q, XkV, Wb)
-    n_partials = LIB.lib().spartan_mode1_partials(K)
-    partials = torch.empty((n_partials, R, R), dtype=Q.dtype, device=Q.device)
+    mask = mask_operand(subject_mask, Wb)
+    if on_cpu(Q, XkV, Wb, *mask):
+        return mode1_xkv_plain(Q, XkV, Wb, subject_mask)
+    code = dtype_code(Q, XkV, Wb, *mask)
     out = torch.empty((R, R), dtype=Q.dtype, device=Q.device)
-    LIB.launch("fused_mode1_xkv", "spartan_fused_mode1_xkv", Q.device,
-                code, Q.data_ptr(), XkV.data_ptr(), Wb.data_ptr(),
-                partials.data_ptr(), out.data_ptr(), K, I, R, n_partials)
+    WORKSPACES.launch("fused_mode1_xkv", "spartan_fused_mode1_xkv_one_launch", Q, code, K, R,
+                      (Q.data_ptr(), XkV.data_ptr(), Wb.data_ptr(),
+                       mask[0].data_ptr() if mask else None),
+                      (out.data_ptr(), K, I, R))
     return out
+
+
+def mode1_xkv_variant(Q: torch.Tensor, XkV: torch.Tensor) -> str:
+    """Which variant of F2's kernel :func:`fused_mode1_xkv` launches for CUDA
+    operands Q, XkV [K,I,R]: ``ring`` (the main path's), ``ring-element-copies``
+    where a subject's [I,R] tile is not whole 16-byte runs or an operand does
+    not start on a 16-byte boundary, or ``chunked`` for R*R > 128 or a
+    subject too large for the ring."""
+    K, I, R = Q.shape
+    dtype = dtype_code(Q, XkV)         # raises for a tensor off the card
+    aligned = Q.data_ptr() % 16 == 0 and XkV.data_ptr() % 16 == 0
+    code = LIB.lib().spartan_fused_mode1_xkv_variant(dtype, I, R, int(aligned))
+    if code < 0:
+        raise ValueError(f"no F2 variant for I={I}, R={R}")
+    return F2_VARIANTS[code]
 
 
 def fused_mode2_compact(vals, Q, H, Wb, col_mask) -> torch.Tensor:

@@ -19,13 +19,13 @@ KERNELS = ("ykv", "mode1", "mode1_reuse", "mode2_compact", "mode3", "mode3_reuse
 LIB = KernelLib("staged", KERNELS, {
     "spartan_ykv": [_I, _P, _P, _P, _I, _I, _I, _P],
     "spartan_ykv_variant": [_I, _I, _I, _I],
-    "spartan_mode1": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "spartan_mode1_reuse": [_I, _P, _P, _P, _P, _I, _I, _I, _P],
+    "spartan_mode1_one_launch": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "spartan_mode1_reuse_one_launch": [_I, _P, _P, _P, _P, _P, _I, _I, _P],
     "spartan_mode2_compact": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "spartan_mode2_compact_variant": [_I, _I, _I, _I],
     "spartan_mode3": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "spartan_mode3_reuse": [_I, _P, _P, _P, _P, _I, _I, _P],
-    "spartan_staged_partials": [_I],
+    "spartan_mode1_workspace": [_I, _I, _I],
 })
 LAUNCHES = LIB.launches
 reset_launches = LIB.reset_launches

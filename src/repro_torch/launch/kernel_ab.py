@@ -1,29 +1,40 @@
 """Paired kernel times of two checkouts of the port on one GPU.
 
     PYTHONPATH=src python -m repro_torch.launch.kernel_ab PARENT_DIR CHANGE_DIR \
-        [--rounds 4]
+        [--rounds 4] [--kernels fused_mode1_xkv,mode1_reuse]
 
 Builds ``csrc/fused.cu``, ``csrc/gather_matmul.cu``, ``csrc/staged.cu`` and
 ``csrc/scoo.cu`` of each checkout (``<dir>/src/repro_torch/csrc``) with nvcc
 and this package's flags, loads both builds into one process and times the
 same kernels of both on the same operands in turns (parent, change, change,
 parent, ...; CUDA events, median of 20 launches a turn): F1-F4, row 5
-(``spartan_ykv``) and row 8 (``spartan_mode2_compact``) at the main path's
-largest CC bucket shape (K = 58,112, I = 56, C = 128, R = 5, f32, random
-operands), the BCC gather-matmul at the BCC cut's shape (K = 6,808, I = 56,
+(``spartan_ykv``), rows 6 and 7 (``mode1``, ``mode1_reuse``) and row 8
+(``spartan_mode2_compact``) at the main path's largest CC bucket shape (K =
+58,112, I = 56, C = 128, R = 5, f32, random operands, a subject mask with
+2% zeros), the BCC gather-matmul at the BCC cut's shape (K = 6,808, I = 56,
 NB = 9, L = 128, R = 5, f32), and rows 11 (``spartan_scoo_xk_times_v``) and
 12 (``spartan_scoo_project``) on the main path's largest SCOO bucket itself:
 ``choa_like(scale=0.25, seed=0)`` bucketized as SCOO on the card as the main
 path plans it (Kb = 58,112, I = 48, C = 128, N = 136), with that bucket's
 Vg gathered from a random V (row 11) and a random Q (row 12), since their
 times depend on the segment lengths and the kept columns. The dense
-kernels' times do not depend on the values (every value is read). Prints
-the card's name and power limit, each turn, per kernel the median of each
-side's turns with their range, and for rows 5, 8, 11 and 12 the largest
-absolute difference between the two builds' outputs on the same operands;
-the last line is one JSON object. Imports no JAX. The
+kernels' times do not depend on the values (every value is read). F2 and
+rows 6 and 7 are the reductions across subjects; a build that has their
+one-launch entry points (``..._one_launch``, with the mask and a workspace)
+is called through them, an earlier build through its two-launch entries
+with the mask folded into Wb beforehand. In each round, one PyTorch call of
+each of the three is timed too (``torch.einsum("krc,kcl,kl->rl", Yc, Vg,
+Wb)`` for row 6, ``torch.einsum("krl,kl->rl", YkV, Wb)`` for row 7,
+``(torch.bmm(Q^T, XkV) * Wb[:, None]).sum(0)`` for F2, on the folded Wb).
+Prints the card's name and power limit, each turn, per kernel the median
+of each side's turns with their range, the library calls' medians, and
+for F2 and rows 5, 6, 7, 8, 11 and 12 the largest absolute difference
+between the two builds' outputs on the same operands; the last line is one
+JSON object. Imports no JAX. The
 two machines a comparison could otherwise land on differ by more than the
-effects, so compare versions only this way.
+effects, so compare versions only this way. ``--kernels`` times only the
+kernels named (and skips the SCOO generation unless row 11 or 12 is among
+them).
 """
 from __future__ import annotations
 
@@ -41,10 +52,19 @@ from repro_torch.kernels import _build
 P, I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "spartan_fused_procrustes_b": [I, P, P, P, P, P, P, I, I, I, I, P],
-    "spartan_fused_mode1_xkv": [I, P, P, P, P, P, I, I, I, I, P],
+    "spartan_fused_mode1_xkv_one_launch": [I, P, P, P, P, P, P, I, I, I, P],
+    "spartan_fused_mode1_workspace": [I, I, I],
     "spartan_fused_mode2_compact": [I, P, P, P, P, P, P, I, I, I, I, P],
     "spartan_fused_ykv": [I, P, P, P, P, I, I, I, I, P],
+    "spartan_mode1_one_launch": [I, P, P, P, P, P, P, I, I, I, P],
+    "spartan_mode1_reuse_one_launch": [I, P, P, P, P, P, I, I, P],
+    "spartan_mode1_workspace": [I, I, I],
+    # the two-launch entries of earlier builds (mask folded into Wb)
+    "spartan_fused_mode1_xkv": [I, P, P, P, P, P, I, I, I, I, P],
     "spartan_mode1_partials": [I],
+    "spartan_mode1": [I, P, P, P, P, P, I, I, I, I, P],
+    "spartan_mode1_reuse": [I, P, P, P, P, I, I, I, P],
+    "spartan_staged_partials": [I],
     "spartan_gather_matmul": [I, P, P, P, P, I, I, I, I, I, P],
     "spartan_ykv": [I, P, P, P, I, I, I, P],
     "spartan_mode2_compact": [I, P, P, P, P, P, I, I, I, P],
@@ -55,7 +75,8 @@ SOURCES = ("fused", "gather_matmul", "staged", "scoo")
 CC = dict(K=58112, I=56, C=128, R=5)
 BCC = dict(K=6808, I=56, NB=9, L=128, J_pad=1408)
 SCOO_SCALE = 0.25       # the choa_like scale of the main path
-COMPARED = {"ykv": "ykv5", "mode2_compact": "a8", "scoo_xk_times_v": "xkv11",
+COMPARED = {"fused_mode1_xkv": "m2", "ykv": "ykv5", "mode1": "m6", "mode1_reuse": "m7",
+            "mode2_compact": "a8", "scoo_xk_times_v": "xkv11",
             "scoo_project": "yc12"}   # kernel -> its output
 
 
@@ -72,30 +93,65 @@ def load(tree: str) -> dict:
     return libs
 
 
+def reductions(f, st, o: dict, K: int, Ii: int, C: int, R: int, stream: int) -> dict:
+    """F2 and rows 6 and 7 of one side: through the one-launch entries (mask and a
+    workspace of this side's own) where the build has them, else through
+    the two-launch entries on the folded Wb. Both write this side's outputs."""
+    def workspace(lib, query):
+        return torch.zeros(getattr(lib, query)(0, K, R), device="cuda")
+
+    def partials(lib, query):
+        return torch.empty((getattr(lib, query)(K), R, R), device="cuda")
+
+    keep = []          # the workspaces live as long as the calls
+    if hasattr(f, "spartan_fused_mode1_xkv_one_launch"):
+        keep.append(workspace(f, "spartan_fused_mode1_workspace"))
+        ws = keep[-1].data_ptr()
+        f2 = lambda: f.spartan_fused_mode1_xkv_one_launch(   # noqa: E731
+            0, o["q2"], o["x2"], o["Wb"], o["sm"], ws, o["m2"], K, Ii, R, stream)
+    else:
+        keep.append(partials(f, "spartan_mode1_partials"))
+        n, part = keep[-1].shape[0], keep[-1].data_ptr()
+        f2 = lambda: f.spartan_fused_mode1_xkv(   # noqa: E731
+            0, o["q2"], o["x2"], o["Wbm"], part, o["m2"], K, Ii, R, n, stream)
+    if hasattr(st, "spartan_mode1_reuse_one_launch"):
+        keep += [workspace(st, "spartan_mode1_workspace") for _ in range(2)]
+        ws6, ws7 = keep[-2].data_ptr(), keep[-1].data_ptr()
+        r6 = lambda: st.spartan_mode1_one_launch(   # noqa: E731
+            0, o["yc"], o["Vg"], o["Wb"], o["sm"], ws6, o["m6"], K, R, C, stream)
+        r7 = lambda: st.spartan_mode1_reuse_one_launch(   # noqa: E731
+            0, o["ykv7"], o["Wb"], o["sm"], ws7, o["m7"], K, R, stream)
+    else:
+        keep += [partials(st, "spartan_staged_partials") for _ in range(2)]
+        n7, part6, part7 = keep[-1].shape[0], keep[-2].data_ptr(), keep[-1].data_ptr()
+        r6 = lambda: st.spartan_mode1(   # noqa: E731
+            0, o["yc"], o["Vg"], o["Wbm"], part6, o["m6"], K, R, C, n7, stream)
+        r7 = lambda: st.spartan_mode1_reuse(   # noqa: E731
+            0, o["ykv7"], o["Wbm"], part7, o["m7"], K, R, n7, stream)
+    return {"fused_mode1_xkv": f2, "mode1": r6, "mode1_reuse": r7, "keep": keep}
+
+
 def calls(libs: dict, ops: dict, outs: dict) -> dict:
-    """name -> a function that launches that kernel of ``libs`` once; rows 5,
-    8, 11 and 12 write into this side's own ``outs``."""
+    """name -> a function that launches that kernel of ``libs`` once; F2 and
+    rows 5, 6, 7, 8, 11 and 12 write into this side's own ``outs``."""
     f, g = libs["fused"], libs["gather_matmul"]
     st, sc = libs["staged"], libs["scoo"]
     K, Ii, C, R = CC["K"], CC["I"], CC["C"], CC["R"]
-    n_part = f.spartan_mode1_partials(K)
-    part = torch.empty((n_part, R, R), device="cuda")
     o = {k: v.data_ptr() for k, v in {**ops, **outs}.items()}
-    part_p = part.data_ptr()
-    Kb, N = ops["svals"].shape
-    _, Is, _ = ops["sQ"].shape
-    Cs = ops["sends"].shape[1]
+    Kb, N = ops["svals"].shape if "svals" in ops else (0, 0)
+    Is = ops["sQ"].shape[1] if "sQ" in ops else 0
+    Cs = ops["sends"].shape[1] if "sends" in ops else 0
     stream = torch.cuda.current_stream().cuda_stream
 
     def check(err: int) -> None:
         if err:
             raise RuntimeError(f"CUDA error {err} at launch")
 
+    red = reductions(f, st, o, K, Ii, C, R, stream)     # its closures keep the workspaces
     return {
         "fused_procrustes_b": lambda: check(f.spartan_fused_procrustes_b(
             0, o["vals"], o["Vg"], o["Wb"], o["H"], o["xkv"], o["b"], K, Ii, C, R, stream)),
-        "fused_mode1_xkv": lambda: check(f.spartan_fused_mode1_xkv(
-            0, o["Q"], o["xkv"], o["Wb"], part_p, o["m1"], K, Ii, R, n_part, stream)),
+        "fused_mode1_xkv": lambda: check(red["fused_mode1_xkv"]()),
         "fused_mode2_compact": lambda: check(f.spartan_fused_mode2_compact(
             0, o["vals"], o["Q"], o["H"], o["Wb"], o["cm"], o["a"], K, Ii, C, R, stream)),
         "fused_ykv": lambda: check(f.spartan_fused_ykv(
@@ -104,6 +160,8 @@ def calls(libs: dict, ops: dict, outs: dict) -> dict:
             0, o["bvals"], o["ids"], o["V"], o["gout"], BCC["K"], BCC["I"], BCC["NB"],
             BCC["L"], R, stream)),
         "ykv": lambda: check(st.spartan_ykv(0, o["yc"], o["Vg"], o["ykv5"], K, R, C, stream)),
+        "mode1": lambda: check(red["mode1"]()),
+        "mode1_reuse": lambda: check(red["mode1_reuse"]()),
         "mode2_compact": lambda: check(st.spartan_mode2_compact(
             0, o["yc"], o["H"], o["Wb"], o["cm"], o["a8"], K, R, C, stream)),
         "scoo_xk_times_v": lambda: check(sc.spartan_scoo_xk_times_v(
@@ -141,7 +199,7 @@ def scoo_bucket():
     return max(bt.buckets, key=lambda b: b.kb)
 
 
-def operands(seed: int = 0) -> dict:
+def operands(seed: int = 0, scoo: bool = True) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(seed)
     K, Ii, C, R = CC["K"], CC["I"], CC["C"], CC["R"]
 
@@ -149,27 +207,36 @@ def operands(seed: int = 0) -> dict:
         return torch.rand(shape, device="cuda", generator=gen)
 
     Kb, NB, L = BCC["K"], BCC["NB"], BCC["L"]
-    sb = scoo_bucket()
-    return dict(
-        vals=rand(K, Ii, C), Vg=rand(K, C, R), Wb=rand(K, R), H=rand(R, R), Q=rand(K, Ii, R),
-        cm=rand(K, C), xkv=rand(K, Ii, R), b=rand(K, Ii, R), m1=rand(R, R), a=rand(K, C, R),
+    Wb = rand(K, R)
+    sm = (rand(K) >= 0.02).float()           # 2% of the subjects masked
+    dense = dict(
+        vals=rand(K, Ii, C), Vg=rand(K, C, R), Wb=Wb, H=rand(R, R), Q=rand(K, Ii, R),
+        sm=sm, Wbm=Wb * sm[:, None], q2=rand(K, Ii, R), x2=rand(K, Ii, R), ykv7=rand(K, R, R),
+        cm=rand(K, C), xkv=rand(K, Ii, R), b=rand(K, Ii, R), a=rand(K, C, R),
         g=rand(K, R, R), bvals=rand(Kb, Ii, NB, L), V=rand(BCC["J_pad"], R),
         ids=torch.randint(0, BCC["J_pad"] // L, (Kb, NB), device="cuda", dtype=torch.int32,
                           generator=gen),
-        gout=rand(Kb, Ii, R), yc=rand(K, R, C),
-        svals=sb.vals, srows=sb.rows, scperm=sb.cperm, sends=sb.col_ends,
-        sQ=rand(sb.kb, sb.i_pad, R), slcols=sb.lcols, srow_ends=sb.row_ends,
-        sVg=sb.gather_v(rand(int(sb.cols.max()) + 1, R)))
+        gout=rand(Kb, Ii, R), yc=rand(K, R, C))
+    if not scoo:
+        return dense
+    sb = scoo_bucket()
+    return dict(dense, svals=sb.vals, srows=sb.rows, scperm=sb.cperm, sends=sb.col_ends,
+                sQ=rand(sb.kb, sb.i_pad, R), slcols=sb.lcols, srow_ends=sb.row_ends,
+                sVg=sb.gather_v(rand(int(sb.cols.max()) + 1, R)))
 
 
 def outputs(ops: dict) -> dict:
-    """One side's outputs of rows 5, 8, 11 and 12."""
+    """One side's outputs of F2 and rows 5, 6, 7, 8, 11 and 12."""
     K, C, R = CC["K"], CC["C"], CC["R"]
-    Kb, Cs = ops["sends"].shape
-    return {"ykv5": torch.empty((K, R, R), device="cuda"),
-            "a8": torch.empty((K, C, R), device="cuda"),
-            "xkv11": torch.empty((Kb, ops["sQ"].shape[1], R), device="cuda"),
-            "yc12": torch.empty((Kb, R, Cs), device="cuda")}
+    outs = {"m2": torch.empty((R, R), device="cuda"), "m6": torch.empty((R, R), device="cuda"),
+            "m7": torch.empty((R, R), device="cuda"),
+            "ykv5": torch.empty((K, R, R), device="cuda"),
+            "a8": torch.empty((K, C, R), device="cuda")}
+    if "sends" in ops:
+        Kb, Cs = ops["sends"].shape
+        outs.update(xkv11=torch.empty((Kb, ops["sQ"].shape[1], R), device="cuda"),
+                    yc12=torch.empty((Kb, R, Cs), device="cuda"))
+    return outs
 
 
 def main(argv=None) -> None:
@@ -177,26 +244,42 @@ def main(argv=None) -> None:
     ap.add_argument("parent")
     ap.add_argument("change")
     ap.add_argument("--rounds", type=int, default=4)
+    ap.add_argument("--kernels", default="", help="comma-separated kernel names (default: all)")
     args = ap.parse_args(argv)
+    wanted = set(filter(None, args.kernels.split(",")))
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab times kernels on a CUDA device; none is present")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(f"[kernel_ab] card: {smi.stdout.strip() or smi.stderr.strip()}", flush=True)
-    ops = operands()
-    print(f"[kernel_ab] rows 11 and 12 on the largest SCOO bucket of choa scale {SCOO_SCALE}: "
-          f"Kb={ops['svals'].shape[0]} I={ops['sQ'].shape[1]} C={ops['sends'].shape[1]} "
-          f"N={ops['svals'].shape[1]} nnz={int(ops['sends'][:, -1].sum())}", flush=True)
+    ops = operands(scoo=not wanted or bool(wanted & {"scoo_xk_times_v", "scoo_project"}))
+    if "svals" in ops:
+        print(f"[kernel_ab] rows 11 and 12 on the largest SCOO bucket of choa scale "
+              f"{SCOO_SCALE}: Kb={ops['svals'].shape[0]} I={ops['sQ'].shape[1]} "
+              f"C={ops['sends'].shape[1]} N={ops['svals'].shape[1]} "
+              f"nnz={int(ops['sends'][:, -1].sum())}", flush=True)
     outs = {side: outputs(ops) for side in ("parent", "change")}
-    sides = {side: calls(load(getattr(args, side)), ops, outs[side])
+    sides = {side: {name: fn for name, fn in calls(load(getattr(args, side)), ops,
+                                                     outs[side]).items()
+                    if not wanted or name in wanted}
              for side in ("parent", "change")}
+    Qt = ops["q2"].transpose(1, 2)
+    library = {   # one PyTorch call of each reduction, timed only
+        "fused_mode1_xkv": lambda: (torch.bmm(Qt, ops["x2"]) * ops["Wbm"][:, None]).sum(0),
+        "mode1": lambda: torch.einsum("krc,kcl,kl->rl", ops["yc"], ops["Vg"], ops["Wbm"]),
+        "mode1_reuse": lambda: torch.einsum("krl,kl->rl", ops["ykv7"], ops["Wbm"]),
+    }
+    library = {name: fn for name, fn in library.items() if not wanted or name in wanted}
     times = {side: {name: [] for name in sides[side]} for side in sides}
+    lib_times = {name: [] for name in library}
     for rnd in range(args.rounds):
         for side in ("parent", "change")[:: 1 if rnd % 2 == 0 else -1]:
             for name, fn in sides[side].items():
                 times[side][name].append(time_ms(fn))
             print(f"[kernel_ab] round {rnd} {side}: " + ", ".join(
                 f"{n} {t[-1]:.4f}" for n, t in times[side].items()) + " ms", flush=True)
+        for name, fn in library.items():
+            lib_times[name].append(time_ms(fn))
     torch.cuda.synchronize()
     summary = {}
     for name in sides["parent"]:
@@ -209,6 +292,11 @@ def main(argv=None) -> None:
             summary[name]["max_abs_diff"] = float(
                 (outs["parent"][out] - outs["change"][out]).abs().max())
             diff = f", max |parent - change| = {summary[name]['max_abs_diff']:.3e}"
+        if name in library:
+            lt = lib_times[name]
+            summary[name]["library_ms"] = statistics.median(lt)
+            summary[name]["library_range"] = [min(lt), max(lt)]
+            diff += f", library {summary[name]['library_ms']:.4f} ms ({min(lt):.4f}-{max(lt):.4f})"
         print(f"[kernel_ab] {name}: parent {summary[name]['parent_ms']:.4f} ms "
               f"({min(p):.4f}-{max(p):.4f}), change {summary[name]['change_ms']:.4f} ms "
               f"({min(c):.4f}-{max(c):.4f}){diff}", flush=True)

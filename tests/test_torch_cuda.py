@@ -136,12 +136,14 @@ def test_kernels_and_scatter_are_deterministic(dev):
     assert torch.equal(spartan.mode2_scatter(A, cols, 97), spartan.mode2_scatter(A, cols, 97))
 
 
-def _offset_tensor(shape, dtype, dev, rng, offset):
+def _offset_tensor(shape, dtype, dev, rng, offset, integers=False):
     """A contiguous tensor whose data starts ``offset`` elements past an
-    allocation's (16-byte aligned) start."""
+    allocation's (16-byte aligned) start: standard normals, or integers in
+    [-2, 2]."""
     n = int(np.prod(shape))
     t = torch.empty(n + offset, dtype=dtype, device=dev)[offset:].view(shape)
-    t.copy_(torch.tensor(rng.standard_normal(shape), dtype=dtype))
+    a = rng.integers(-2, 3, shape) if integers else rng.standard_normal(shape)
+    t.copy_(torch.tensor(a, dtype=dtype))
     return t
 
 
@@ -625,3 +627,195 @@ def test_scoo_fits_match_torch_route_on_gpu(dev, format):
         counts = {k: v for lib in libs for k, v in lib.LAUNCHES.items()}
         assert {k: v for k, v in counts.items() if v} == dict.fromkeys(kernels, n), backend
         assert np.max(np.abs(np.asarray(hist) - np.asarray(want))) <= 1e-8, backend
+
+
+# F2 and row 7, the one-launch reductions across subjects, at their edges:
+# F2 (K, I, R, offset of Q's start in elements, subject mask) -> the variant
+# it takes in f32; row 7 (K, R, subject mask). Masks: None, "some" (the
+# first and every third subject masked) or "all". K < 2048 leaves runs
+# without a subject beside the first K; K = 2049 puts two subjects in each
+# of the first 1025 runs and none in the rest.
+F2_EDGES = {
+    (58112, 56, 5, 0, "some"): "ring",            # the main path's largest CC bucket
+    (7, 56, 5, 0, None): "ring",
+    (1, 56, 5, 0, "some"): "ring",
+    (2049, 56, 5, 0, "some"): "ring",
+    (9, 56, 1, 0, "some"): "ring",                # 128 groups a block
+    (9, 20, 11, 0, None): "ring",                 # one group a block
+    (11, 56, 5, 1, "some"): "ring-element-copies",   # Q's start unaligned
+    (13, 3, 5, 0, None): "ring-element-copies",   # [I, R] tiles not whole packs
+    (9, 1, 11, 0, "some"): "ring-element-copies",    # partials read directly
+    (9, 30, 72, 0, "some"): "chunked",            # R*R past the block
+    (5, 4000, 8, 0, None): "chunked",             # I past the ring, rows in tiles
+    (3, 1452, 5, 0, "some"): "ring",              # one group's stages take all 227 KB
+    (3, 29055, 1, 0, None): "chunked",            # one tile takes all 227 KB
+    (3, 29056, 1, 0, "some"): "chunked",          # row tiles that take all 227 KB
+    (9, 56, 5, 0, "all"): "ring",
+}
+# The three F2 launches that take all 232,448 bytes of shared memory. At
+# R = 1 that needs I near 29,000: a sum whose f32 rounding in the kernel's
+# order (the parent's) and in cuBLAS's differ by more than the tolerance.
+# Their operands are small integers, exact in f32 and f64 in any order, and
+# the kernel must equal its plain version exactly.
+F2_FULL_SMEM = {(3, 1452, 5, 0, "some"), (3, 29055, 1, 0, None), (3, 29056, 1, 0, "some")}
+MODE1_REUSE_EDGES = [(58112, 5, "some"), (7, 5, None), (1, 5, "some"), (2049, 5, "some"),
+                     (9, 1, None), (40, 17, "some"), (9, 72, "some"), (9, 5, "all")]
+
+
+def _mask(K, kind, dtype, dev):
+    if kind is None:
+        return None
+    m = torch.ones(K, dtype=dtype, device=dev)
+    m[:: 1 if kind == "all" else 3] = 0
+    return m
+
+
+def _bits(t):
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int64)
+
+
+def _f2_operands(shape, dtype, dev):
+    K, I, R, offset, mk = shape
+    rng = np.random.default_rng(K + I + R + offset)
+    if shape in F2_FULL_SMEM:
+        Q = _offset_tensor((K, I, R), dtype, dev, rng, offset, integers=True)
+        XkV, Wb = (torch.tensor(rng.integers(-2, 3, s), dtype=dtype, device=dev)
+                   for s in ((K, I, R), (K, R)))
+        return Q, XkV, Wb, _mask(K, mk, dtype, dev)
+    Q = _offset_tensor((K, I, R), dtype, dev, rng, offset)
+    XkV, Wb = (torch.tensor(rng.standard_normal(s), dtype=dtype, device=dev)
+               for s in ((K, I, R), (K, R)))
+    return Q, XkV, Wb, _mask(K, mk, dtype, dev)
+
+
+def _reuse_operands(shape, dtype, dev):
+    K, R, mk = shape
+    rng = np.random.default_rng(K + R)
+    YkV, Wb = (torch.tensor(rng.standard_normal(s), dtype=dtype, device=dev)
+               for s in ((K, R, R), (K, R)))
+    return YkV, Wb, _mask(K, mk, dtype, dev)
+
+
+def _one_launch_twice(name, wrapper, plain, args, dtype):
+    """One launch a call, the plain version's result, and the same bits on
+    a second call."""
+    before = _launches()[name]
+    got = wrapper(*args)
+    torch.cuda.synchronize()
+    assert _launches()[name] == before + 1
+    _assert_matches(got, plain(*args), dtype)
+    assert torch.equal(_bits(wrapper(*args)), _bits(got))
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(F2_EDGES), ids=lambda s: "K{}-I{}-R{}-off{}-mask{}".format(*s))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fused_mode1_xkv_edges(dev, shape, dtype):
+    """F2 at the edges of its variants, with and without a subject mask,
+    against its plain version (the mask folded into Wb); every subject
+    masked gives exact zeros, and the launches that take all the shared
+    memory equal it exactly on their integer operands."""
+    args = _f2_operands(shape, dtype, dev)
+    if dtype == torch.float32:
+        assert fused.mode1_xkv_variant(*args[:2]) == F2_EDGES[shape]
+    got = _one_launch_twice("fused_mode1_xkv", fused.fused_mode1_xkv, fused.mode1_xkv_plain,
+                            args, dtype)
+    if shape in F2_FULL_SMEM:
+        assert torch.equal(got, fused.mode1_xkv_plain(*args))
+    if shape[-1] == "all":
+        assert not got.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", MODE1_REUSE_EDGES, ids=lambda s: "K{}-R{}-mask{}".format(*s))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_mode1_reuse_edges(dev, shape, dtype):
+    """Row 7 at its edges (K below and past the 2048 runs, R = 1, 17 and 72,
+    with and without a subject mask) against its plain version."""
+    args = _reuse_operands(shape, dtype, dev)
+    got = _one_launch_twice("mode1_reuse", m1.mode1_reuse, m1.mode1_reuse_plain, args, dtype)
+    if shape[-1] == "all":
+        assert not got.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_mode1_with_mask_matches_plain(dev, dtype):
+    """Row 6 shares row 7's kernel and second level: with the mask passed to
+    the kernel it matches its plain version, K below and past the runs."""
+    for K, R, C in ((7, 5, 17), (2049, 5, 128), (9, 17, 9)):
+        rng = np.random.default_rng(K + R + C)
+        Yc, Vg, Wb = (torch.tensor(rng.standard_normal(s), dtype=dtype, device=dev)
+                      for s in ((K, R, C), (K, C, R), (K, R)))
+        _one_launch_twice("mode1", m1.mode1, m1.mode1_plain,
+                          (Yc, Vg, Wb, _mask(K, "some", dtype, dev)), dtype)
+
+
+@pytest.mark.cuda
+def test_reductions_reset_their_counter_between_buckets(dev):
+    """Calls on K = 58,112 and K = 7 interleaved on one stream share a
+    workspace: each launch must leave its ticket counter at 0, so the large
+    bucket's result keeps its bits and the small one's stays right."""
+    f2_big = _f2_operands((58112, 56, 5, 0, "some"), torch.float32, dev)
+    f2_small = _f2_operands((7, 56, 5, 0, None), torch.float32, dev)
+    r7_big = _reuse_operands((58112, 5, "some"), torch.float32, dev)
+    r7_small = _reuse_operands((7, 5, None), torch.float32, dev)
+    for wrapper, plain, big, small in (
+            (fused.fused_mode1_xkv, fused.mode1_xkv_plain, f2_big, f2_small),
+            (m1.mode1_reuse, m1.mode1_reuse_plain, r7_big, r7_small)):
+        first = wrapper(*big)
+        for _ in range(3):
+            _assert_matches(wrapper(*small), plain(*small), torch.float32)
+            assert torch.equal(_bits(wrapper(*big)), _bits(first))
+        _assert_matches(first, plain(*big), torch.float32)
+
+
+@pytest.mark.cuda
+def test_reduction_workspace_is_reused_and_dropped_after_a_failed_launch(dev, monkeypatch):
+    """A repeated call of row 7 or F2 allocates its [R, R] result and
+    nothing else: the same workspace, no size query; a launch that raises
+    drops its workspace, and the next call allocates a fresh one (its
+    counter zeroed) and gives the right result."""
+    for wrapper, plain, ws, args in (
+            (m1.mode1_reuse, m1.mode1_reuse_plain, m1.WORKSPACES,
+             _reuse_operands((3000, 5, "some"), torch.float32, dev)),
+            (fused.fused_mode1_xkv, fused.mode1_xkv_plain, fused.WORKSPACES,
+             _f2_operands((3000, 56, 5, 0, "some"), torch.float32, dev))):
+        wrapper(*args)
+        torch.cuda.synchronize()
+        key = (args[0].device.index, torch.cuda.current_stream().cuda_stream, 0, 5)
+        workspace, sizes = ws._ws[key], dict(ws._elems)
+        before = torch.cuda.memory_stats()["allocation.all.allocated"]
+        wrapper(*args)
+        assert torch.cuda.memory_stats()["allocation.all.allocated"] == before + 1
+        assert ws._ws[key] is workspace and ws._elems == sizes
+        with monkeypatch.context() as mp:
+            def refuse(*a, **k):
+                raise RuntimeError("refused")
+            mp.setattr(ws._lib, "launch", refuse)
+            with pytest.raises(RuntimeError, match="refused"):
+                wrapper(*args)
+        assert key not in ws._ws
+        _assert_matches(wrapper(*args), plain(*args), torch.float32)
+
+
+@pytest.mark.cuda
+def test_fused_mode1_xkv_variant_answers(dev):
+    """F2's variant query: the ring for the main path's [56, 5] tiles in f32
+    and f64, element copies for tiles that are not whole packs or an
+    unaligned start, chunked past 128 entries or past the ring's stages."""
+    def variant(K, I, R, dtype=torch.float32, offset=0):
+        Q = torch.zeros(K * I * R + offset, dtype=dtype, device=dev)[offset:].view(K, I, R)
+        return fused.mode1_xkv_variant(Q, torch.zeros((K, I, R), dtype=dtype, device=dev))
+
+    assert variant(4, 56, 5) == "ring"
+    assert variant(4, 56, 5, torch.float64) == "ring"
+    assert variant(4, 3, 5) == "ring-element-copies"
+    assert variant(4, 3, 5, torch.float64) == "ring-element-copies"
+    assert variant(4, 56, 5, offset=1) == "ring-element-copies"
+    assert variant(4, 20, 11) == "ring"
+    assert variant(4, 20, 12) == "chunked"
+    assert variant(2, 4000, 8) == "chunked"
+    with pytest.raises(ValueError, match="CUDA"):
+        fused.mode1_xkv_variant(torch.zeros((2, 3, 4)), torch.zeros((2, 3, 4)))

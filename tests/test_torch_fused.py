@@ -179,3 +179,65 @@ def test_procrustes_b_variant_is_a_question_for_the_card():
     with pytest.raises(ValueError, match="CUDA"):
         fused.procrustes_b_variant(torch.rand((3, 8, 12)), 5)
     assert fused.LIB._lib is None
+
+
+# K below and past the 2048 runs of F2's kernel (csrc/fused.cu)
+REDUCTION_K = [7, 2100]
+
+
+def _mode1_xkv_op(K, I, R, dtype):
+    rng = np.random.default_rng(K + I + R)
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    sm = np.ones(K)
+    sm[::3] = 0.0
+    return {k: a.astype(npdt) for k, a in dict(
+        Q=rng.standard_normal((K, I, R)), XkV=rng.standard_normal((K, I, R)),
+        Wb=rng.standard_normal((K, R)), sm=sm).items()}
+
+
+@pytest.mark.parametrize("K", REDUCTION_K)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fused_mode1_xkv_matches_interpret_kernel_below_and_past_the_runs(K, dtype):
+    """fused_mode1_xkv with a subject mask against the reference's kernel in
+    interpret mode on the folded Wb, within FUSED_TOLS."""
+    op = _mode1_xkv_op(K, 8, 5, dtype)
+    t = {k: torch.tensor(v) for k, v in op.items()}
+    jd = JDT[dtype]
+    want = j_fused.fused_mode1_xkv(jnp.asarray(op["Q"], jd), jnp.asarray(op["XkV"], jd),
+                                   jnp.asarray(op["Wb"] * op["sm"][:, None], jd),
+                                   interpret=True)
+    got = fused.fused_mode1_xkv(t["Q"], t["XkV"], t["Wb"], t["sm"])
+    _close(got, want, FUSED_TOLS[dtype])
+
+
+def _emulate_mode1_xkv(Q, XkV, Wb, sm, runs=2048):
+    """The summation order of F2's kernel (csrc/fused.cu), every variant, in
+    numpy: min(K, runs) runs of ceil(K / runs) contiguous subjects; in a
+    run, subject by subject in order, s = sum_i Q[k, i, r] XkV[k, i, l] with
+    i in order, then acc += s * w_k; then per entry the runs' partials added
+    in run order."""
+    K, I, R = Q.shape
+    w = Wb * sm[:, None]
+    n = min(K, runs)
+    per = -(-K // n)
+    out = np.zeros((R, R))
+    for b in range(n):
+        acc = np.zeros((R, R))
+        for k in range(b * per, min(K, b * per + per)):
+            s = np.zeros((R, R))
+            for i in range(I):
+                s = s + np.outer(Q[k, i], XkV[k, i])
+            acc = acc + s * w[k][None, :]
+        out = out + acc
+    return out
+
+
+@pytest.mark.parametrize("K", REDUCTION_K)
+@pytest.mark.parametrize("R", [1, 5, 11])
+def test_fused_mode1_xkv_summation_order_matches_plain(K, R):
+    """F2's order (runs, subjects and rows in order, partials in run order),
+    emulated in f64, equals the plain version within 1e-12."""
+    op = _mode1_xkv_op(K, 4, R, torch.float64)
+    want = fused.fused_mode1_xkv(*(torch.tensor(op[k]) for k in ("Q", "XkV", "Wb", "sm")))
+    _close(torch.tensor(_emulate_mode1_xkv(op["Q"], op["XkV"], op["Wb"], op["sm"])), want,
+           FUSED_TOLS[torch.float64])

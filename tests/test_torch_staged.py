@@ -434,3 +434,76 @@ def test_ykv_variant_is_a_question_for_the_card():
     with pytest.raises(ValueError, match="CUDA"):
         ykv_module.ykv_variant(torch.rand((3, 5, 16)), torch.rand((3, 16, 5)))
     assert staged.LIB._lib is None
+
+
+# K below and past the 2048 runs of the mode-1 reduction kernels
+# (csrc/staged.cu rows 6 and 7, csrc/fused.cu F2)
+REDUCTION_K = [7, 2100]
+
+
+def _reuse_op(K, R, dtype):
+    rng = np.random.default_rng(K + R)
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    sm = np.ones(K)
+    sm[::3] = 0.0
+    return {k: a.astype(npdt) for k, a in dict(
+        YkV=rng.standard_normal((K, R, R)), Wb=rng.standard_normal((K, R)), sm=sm).items()}
+
+
+@pytest.mark.parametrize("K", REDUCTION_K)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_mode1_reuse_matches_interpret_kernel_below_and_past_the_runs(K, dtype):
+    """mode1_reuse with a subject mask against the reference's Pallas kernel
+    in interpret mode, f64 to 1e-12 and f32 to FUSED_TOLS."""
+    t, j = _both(_reuse_op(K, 5, dtype))
+    want = mode1_reuse_pallas(j["YkV"], j["Wb"], j["sm"], interpret=True)
+    got = mode1_reuse(t["YkV"], t["Wb"], t["sm"])
+    _close(got, want, TOLS[dtype])
+
+
+def _emulate_mode1_reuse(YkV, Wb, sm, threads=256, runs=2048, warp=32):
+    """The summation order of rows 6 and 7's kernel (csrc/staged.cu), in
+    numpy: min(K, runs) runs of ceil(K / runs) contiguous subjects; in a run,
+    G = threads // R^2 groups, group g summing subjects g, g + G, ... of the
+    run in order, and the run's partial the groups' sums added in order; then
+    per entry, lane L of a warp sums runs L, L + 32, ... in order, and a
+    butterfly over offsets 16, 8, 4, 2, 1 adds the lanes."""
+    K, R, _ = YkV.shape
+    RR = R * R
+    y = YkV.reshape(K, RR)
+    w = np.tile(Wb * sm[:, None], R)              # entry p = (r, l) takes w[l]
+    n = min(K, runs)
+    per, G = -(-K // n), max(1, threads // RR)
+    partials = np.zeros((n, RR))
+    for b in range(n):
+        k0, k1 = b * per, min(K, b * per + per)
+        accs = []
+        for g in range(G):
+            acc = np.zeros(RR)
+            for k in range(k0 + g, k1, G):
+                acc = acc + y[k] * w[k]
+            accs.append(acc)
+        s = accs[0] if G == 1 else np.zeros(RR)
+        for a in accs if G > 1 else ():
+            s = s + a
+        partials[b] = s
+    lanes = np.zeros((warp, RR))
+    for lane in range(warp):
+        for b in range(lane, n, warp):
+            lanes[lane] = lanes[lane] + partials[b]
+    off = warp // 2
+    while off:
+        lanes = lanes + lanes[np.arange(warp) ^ off]
+        off //= 2
+    return lanes[0].reshape(R, R)
+
+
+@pytest.mark.parametrize("K", REDUCTION_K)
+@pytest.mark.parametrize("R", [1, 5, 17])
+def test_mode1_reuse_summation_order_matches_plain(K, R):
+    """The kernel's order (runs, groups, lane stride, butterfly), emulated in
+    f64, equals the plain version within 1e-12."""
+    op = _reuse_op(K, R, torch.float64)
+    want = mode1_reuse(*(torch.tensor(op[k]) for k in ("YkV", "Wb", "sm")))
+    _close(torch.tensor(_emulate_mode1_reuse(op["YkV"], op["Wb"], op["sm"])),
+           want.numpy(), TOLS[torch.float64])
