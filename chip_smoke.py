@@ -26,10 +26,16 @@ Phases, any failure exits non-zero:
    persistent grid), and F2 and row 7, the one-launch reductions across
    subjects, at theirs (K from 1 to the main path's 58,112, runs past the
    last subject, R = 1, 11 and 72, I past F2's ring, unaligned starts and
-   tiles, no, some and every subject masked), where each must take the
-   variant stated and every variant must be reached, and F2 and row 7 must
-   give the same bits twice more on the same input and on their largest
-   bucket after the smaller ones; an empty (K=0) bucket through every wrapper. f64 to 1e-12 absolute, f32 to 1e-6 relative plus 1e-6 of
+   tiles, no, some and every subject masked), and rows 9 and 10, mode3 and
+   mode3_reuse, at row 9's (unaligned starts, odd C, R = 72 at C_pad =
+   1024, groups past the persistent grid and outputs past row 10's one
+   wave, one subject, no, some and every subject masked), where each must
+   take the variant stated and every variant must be reached; F2, row 7
+   and rows 9 and 10 must give the same bits twice more on the same
+   input, F2 and row 7 also on their largest bucket after
+   the smaller ones, and ``mode3(Yc, Vg, H, m)`` must equal
+   ``mode3_reuse(ykv(Yc, Vg), H, m)`` bit for bit; an empty (K=0) bucket
+   through every wrapper. f64 to 1e-12 absolute, f32 to 1e-6 relative plus 1e-6 of
    the output's largest magnitude (sums in another order differ by a
    rounding); for the two SCOO kernels the scale is the largest running
    sum of |contribution| instead, since their plain versions difference
@@ -50,7 +56,7 @@ Phases, any failure exits non-zero:
    then the paths that reach the other two staged kernels: a short
    ``mode1_reuse=False`` fit (``mode1``, buckets x iterations) and the
    backend's array-level ``mode3`` over the main path's buckets (once per
-   bucket); last, the BCC cut: the largest CC bucket's first subjects (at
+   bucket, with row 9's variant per bucket); last, the BCC cut: the largest CC bucket's first subjects (at
    most 2 GiB of BCC values), ``xk_times_v_bcc`` against ``xk_times_v``;
 4. each kernel's time beside its bound, its plain version's time, one
    PyTorch call's time (CUDA events, median of 20) and the wrapper call's
@@ -58,8 +64,8 @@ Phases, any failure exits non-zero:
    launch), and for F2 and row 7 the device kernels one call launches
    (torch.profiler) and the allocations a repeated call makes
    (torch.cuda.memory_stats; the [R, R] result only): the CC kernels at the
-   main path's largest CC bucket (with the variant F1, row 5 and row 8 take
-   there), the SCOO kernels at its largest SCOO bucket (with the variants of
+   main path's largest CC bucket (with the variant F1, F2 and rows 5, 8, 9
+   and 10 take there; row 10 has one), the SCOO kernels at its largest SCOO bucket (with the variants of
    rows 11 and 12), the gather-matmul on the BCC
    cut (beside the CSR product over the cut's nonzeros, also one PyTorch
    call on the kernel's own operands, ``library_same_input_ms``);
@@ -173,6 +179,18 @@ F2_EDGES = {
 # Their operands are small integers, exact in f32 and f64 in any order, and
 # the kernel must equal its plain version exactly.
 F2_FULL_SMEM = {(3, 1452, 5, 0, "some"), (3, 29055, 1, 0, None), (3, 29056, 1, 0, "some")}
+# rows 9 and 10 (K, R, C, offset of Yc's and YkV's starts in elements,
+# subject mask) and the variant row 9 takes in f32 (row 10 has one)
+MODE3_EDGES = {
+    (7, 5, 128, 0, "some"): "ring",                 # the main path's shape
+    (5, 5, 17, 0, None): "ring-element-copies",     # rows not whole 16-byte runs
+    (3, 72, 1024, 0, "some"): "thread-per-entry",   # R = 72 at C_pad = 1024
+    (5, 5, 128, 1, "some"): "ring-element-copies",  # starts not 16-byte aligned
+    (3000, 5, 128, 0, "some"): "ring",              # groups past the persistent grid
+    (300000, 5, 4, 0, "some"): "ring",              # row 10's outputs past one wave
+    (1, 5, 128, 0, None): "ring",                   # one subject
+    (4, 40, 128, 0, "all"): "ring",                 # R = 40, one subject a group
+}
 MODE1_REUSE_EDGES = [(58112, 5, "some"), (7, 5, "some"), (1, 5, None), (2049, 5, "some"),
                      (9, 1, None), (9, 72, "some"), (9, 5, "all")]
 XKV_EDGES = {
@@ -676,6 +694,40 @@ def check_reduction_edges(dtype, dev, errs: dict) -> set:
     return seen
 
 
+def check_mode3_edges(dtype, dev, errs: dict) -> set:
+    """Rows 9 and 10 at row 9's edges against their plain versions, twice
+    with the same bits, and mode3 equal to mode3_reuse of ykv bit for bit;
+    in f32 each shape must take row 9's variant stated. Returns the
+    (kernel, variant) pairs reached."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import mttkrp_mode3, ykv
+
+    f32, seen = dtype == torch.float32, set()
+    for (K, R, C, offset, mk), want in MODE3_EDGES.items():
+        rng = np.random.default_rng(K + R + C + offset)
+        Yc = offset_copy(rng.standard_normal((K, R, C)), dtype, dev, offset)
+        Vg, H = (torch.tensor(rng.standard_normal(s), dtype=dtype, device=dev)
+                 for s in ((K, C, R), (R, R)))
+        YkV = offset_copy(ykv.ykv(Yc, Vg).cpu().numpy(), dtype, dev, offset)
+        m = reduction_mask(K, mk, dtype, dev)
+        got = mttkrp_mode3.mode3_variant(Yc, Vg)
+        if f32 and got != want:
+            fail(f"mode3 at K={K} R={R} C={C} offset {offset} took {got}, want {want}")
+        seen.add(("mode3", got))
+        args = {"mode3": (Yc, Vg, H, m), "mode3_reuse": (YkV, H, m)}
+        check_kernels(args, errs)
+        first = {name: kernels()[name][0](*a) for name, a in args.items()}
+        for name, a in args.items():
+            if not torch.equal(bits(kernels()[name][0](*a)), bits(first[name])):
+                fail(f"{name} at K={K} R={R} C={C} gave other bits on the same input")
+        if not torch.equal(bits(first["mode3"]), bits(first["mode3_reuse"])):
+            fail(f"mode3 != mode3_reuse(ykv) bit for bit at K={K} R={R} C={C} offset {offset}")
+        if mk == "all" and first["mode3"].any():
+            fail(f"mode3 at K={K} R={R} C={C}: every subject masked, not all zeros")
+    return seen
+
+
 def phase2_kernels(dev) -> dict:
     import numpy as np
     import torch
@@ -688,6 +740,7 @@ def phase2_kernels(dev) -> dict:
         check_sparse_kernels(dtype, dev, errs)
         variants |= check_variant_edges(dtype, dev, errs)
         variants |= check_reduction_edges(dtype, dev, errs)
+        variants |= check_mode3_edges(dtype, dev, errs)
         for g in GEOMETRIES:
             data = random_irregular(n_subjects=g["K"], n_cols=g["J"],
                                     max_rows=g.get("max_rows", 9),
@@ -708,8 +761,9 @@ def phase2_kernels(dev) -> dict:
         fail(f"phase 2 did not check {sorted(set(ALL) - set(errs))}")
     from repro_torch.kernels._launch import RING_VARIANTS
     from repro_torch.kernels.fused import F2_VARIANTS
-    want = {(name, v) for name in ("ykv", "mode2_compact", "scoo_xk_times_v", "scoo_project")
-            for v in RING_VARIANTS} | {("fused_mode1_xkv", v) for v in F2_VARIANTS}
+    want = {(name, v) for name in ("ykv", "mode2_compact", "mode3", "scoo_xk_times_v",
+                                   "scoo_project") for v in RING_VARIANTS}
+    want |= {("fused_mode1_xkv", v) for v in F2_VARIANTS}
     if variants != want:
         fail(f"phase 2 did not reach the variants {sorted(want - variants)}")
     print(f"[kernels] all thirteen match their plain versions (f32, f64; "
@@ -718,7 +772,8 @@ def phase2_kernels(dev) -> dict:
           f"zero-valued triplets; BCC {BCC_GEOMETRIES}; rows 5, 8, 11 and 12 at "
           f"{len(YKV_EDGES)}, {len(MODE2_EDGES)}, {len(XKV_EDGES)} and "
           f"{len(PROJECT_EDGES)} edge shapes, F2 and row 7 at {len(F2_EDGES)} and "
-          f"{len(MODE1_REUSE_EDGES)}, each twice with the same bits, variants "
+          f"{len(MODE1_REUSE_EDGES)}, rows 9 and 10 at {len(MODE3_EDGES)} with mode3 == "
+          f"mode3_reuse(ykv) bit for bit, each twice with the same bits, variants "
           f"{sorted(variants)}; padded subjects, K=0): "
           + json.dumps({k: v[0] for k, v in errs.items()}), flush=True)
     return errs
@@ -879,8 +934,12 @@ def phase3_main_path(dev):
     counts["mode3"] = launches()
     err = max(within(r, torch_be.mode3(Yc, b.gather_v(V), H, b.subject_mask), False)[0]
               for r, b, Yc in zip(rows, bt.buckets, Ycs))
+    from repro_torch.kernels import mttkrp_mode3
+    v9 = [(b.c_pad, b.kb, mttkrp_mode3.mode3_variant(Yc, vg_like(b)))
+          for b, Yc in zip(bt.buckets, Ycs)]
     print(f"[main] array-level mode3 over the {len(bt.buckets)} buckets: launched "
-          f"{counts['mode3']['mode3']} times; max |kernel - torch| = {err:.3e}", flush=True)
+          f"{counts['mode3']['mode3']} times; max |kernel - torch| = {err:.3e}; row 9 "
+          f"variant per bucket (C_pad, subjects): {v9}", flush=True)
     if counts["mode3"]["mode3"] != len(bt.buckets):
         fail("the array-level mode3 did not launch once per bucket")
 
@@ -1069,7 +1128,7 @@ def phase4_times(bt, bt_sc, bcc_pair, state, per_kernel, errs):
     import torch
     from repro_torch.core.backend import get_backend
     from repro_torch.core.procrustes import solve_q
-    from repro_torch.kernels import fused, mttkrp_mode1, mttkrp_mode2, scoo, ykv
+    from repro_torch.kernels import fused, mttkrp_mode1, mttkrp_mode2, mttkrp_mode3, scoo, ykv
 
     b = max(bt.buckets, key=lambda x: x.vals.numel())
     H, V, W = state.H.contiguous(), state.V, state.W
@@ -1159,6 +1218,10 @@ def phase4_times(bt, bt_sc, bcc_pair, state, per_kernel, errs):
             r["variant"] = scoo.scoo_xk_times_v_variant(*a[:5], row_ends=a[5])
         if name == "mode2_compact":
             r["variant"] = mttkrp_mode2.mode2_compact_variant(Yc, b.col_mask)
+        if name == "mode3":
+            r["variant"] = mttkrp_mode3.mode3_variant(*a[:2])
+        if name == "mode3_reuse":
+            r["variant"] = "thread-per-entry"      # its one design, on one wave of blocks
         if name == "scoo_project":
             r["variant"] = scoo.scoo_project_variant(
                 *a[:5], cperm=a[5], col_ends=a[6])

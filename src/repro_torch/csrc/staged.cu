@@ -11,8 +11,9 @@
 //   row 9  mode3        out[k, l] = sum_r H[r, l] (Yc_k Vg_k)[r, l]   [K, R]
 //   row 10 mode3_reuse  the same from YkV
 //
-// Rows 6 and 9 are row 5's product with another epilogue, and rows 7 and 10
-// the same epilogues on a cached YkV: four kernel bodies in all.
+// Rows 6 and 9 are row 5's product with another epilogue (row 9 in row 5's
+// ring kernel, row 6 in row 7's reduction kernel), and rows 7 and 10 the
+// same epilogues on a cached YkV.
 //
 // Shapes (one bucket): Yc [K, R, C], Vg [K, C, R], YkV [K, R, R], Wb [K, R]
 // (W rows, subject mask folded in), H [R, R], col_mask [K, C], mask [K] (or
@@ -23,20 +24,25 @@
 // What bounds them on an H100 (3.35 TB/s): at rank R every Yc and Vg element
 // takes part in R multiply-adds, below the ~20 operations per byte before
 // arithmetic is the limit, so all six are bound by bytes; rows 7 and 10 read
-// only [K, R, R] and are bound by their launch. Design, simple first (rows
-// 6, 7, 9 and 10; rows 5 and 8 stream their operands through shared memory,
-// their notes below): one thread per output entry, reading its operands
-// straight from device memory. A warp's lanes cover neighbouring entries,
-// so the Yc row a lane reads is the one its neighbours read (one load
-// serves them all) and
-// the L1 cache holds each 32-byte sector across the next iterations; no
-// shared-memory tile, so no shape limit. The TPU kernels' padding of C to
-// block_c is not carried over: a thread loops over the C it is given (row 8
-// masks its last tile's ragged edge). The two reductions
+// only [K, R, R] and are bound by their launch. Rows 5 and 9 share one
+// persistent cp.async ring (ykv_ring_kernel, two epilogues) and row 8
+// streams C tiles through a ring of its own (their notes below). Rows 6, 7
+// and 10, and the fallbacks for shapes too large for shared memory, take
+// one thread per output entry, reading its operands straight from device
+// memory: a warp's lanes cover neighbouring entries, so the Yc row a lane
+// reads is the one its neighbours read (one load serves them all) and the
+// L1 cache holds each 32-byte sector across the next iterations. The TPU kernels' padding
+// of C to block_c is not carried over: a thread loops over the C it is
+// given (row 8 masks its last tile's ragged edge). The two reductions
 // across subjects (rows 6, 7) are one launch each, two-level and
 // deterministic, as F2 of fused.cu: fixed runs of subjects per block, then
 // the block that finishes last sums the partials in a fixed order; no
 // atomic touches a sum, so two runs give the same bits.
+//
+// Rows 5, 9 and 10 keep one summation order whatever their variant: each
+// product entry (Yc_k Vg_k)[r, l] in yv_entry's order, the coldot over r in
+// order (s += H[r, l] * y), then s * mask[k]; so mode3 equals mode3_reuse
+// of ykv bit for bit.
 //
 // Plain C interface, loaded with ctypes (repro_torch/kernels/_launch.py):
 // every entry point launches on the given stream, does not synchronise,
@@ -80,9 +86,10 @@ __device__ inline T yv_entry(const T* __restrict__ yc_row,
 
 // ---------------------------------------------------------------------------
 // Row 5, ykv. Replaces src/repro/kernels/ykv.py ykv_pallas (pallas_call at
-// :53): YkV[k] = Yc_k Vg_k. Bound: the bytes of Yc, Vg and YkV (R = 5, f32:
-// 2R operations per 8 bytes of Yc and Vg). Two variants, picked by shape
-// (ykv_variant):
+// :53): YkV[k] = Yc_k Vg_k. Row 9, mode3 (its notes below), forms the same
+// product in the same ring and ends in a coldot instead. Bound: the bytes of
+// Yc, Vg and YkV (R = 5, f32: 2R operations per 8 bytes of Yc and Vg).
+// Three variants, picked by shape (ring_variant):
 //
 // RING, the main path (two stages of one subject's Yc_k and Vg_k fit in the
 // shared memory a block may use). What held the thread-per-entry design
@@ -92,18 +99,19 @@ __device__ inline T yv_entry(const T* __restrict__ yc_row,
 // over groups of S subjects (S = 128 / (R*R) at most, 5 at R = 5). While a
 // block computes one group, cp.async copies the next group's Yc and Vg (one
 // contiguous run each) into the other of two shared-memory stages (16 bytes
-// a copy when the rows of Yc are whole 16-byte runs, else one element). A
-// thread owns an entry (s, r, l) of the group and sums it from shared memory
-// in yv_entry's order (four running sums over c mod 4, the tail into the
-// first, (s0 + s1) + (s2 + s3)), reading four Yc values at a time with one
-// 16-byte load, so the bits are the thread-per-entry kernel's. Bank
-// conflicts: Yc rows are padded to a stride of 16 mod 128 bytes, so the R
-// rows that the threads of one column read lie in different banks, and each
-// subject's Vg to 64 mod 128 bytes, so two subjects in one warp read
-// different banks. YkV of a group is one contiguous run of S*R*R values:
-// the block writes it from an output tile with 16-byte stores between an
-// element-wise head and tail (at R = 5 a group's run does not start on a
-// 16-byte boundary). At R = 5, C = 128, f32 a block holds about 53 KB.
+// a copy when the rows of Yc are whole 16-byte runs; RING-ELEMENT-COPIES,
+// one element a copy, otherwise). A thread owns an entry (s, r, l) of the
+// group and sums it from shared memory in yv_entry's order (four running
+// sums over c mod 4, the tail into the first, (s0 + s1) + (s2 + s3)),
+// reading four Yc values at a time with one 16-byte load, so the bits are
+// the thread-per-entry kernel's. Bank conflicts: Yc rows are padded to a
+// stride of 16 mod 128 bytes, so the R rows that the threads of one column
+// read lie in different banks, and each subject's Vg to 64 mod 128 bytes,
+// so two subjects in one warp read different banks. YkV of a group is one
+// contiguous run of S*R*R values: the block writes it from an output tile
+// with 16-byte stores between an element-wise head and tail (store_run; at
+// R = 5 a group's run does not start on a 16-byte boundary). At R = 5, C =
+// 128, f32 a block holds about 53 KB.
 //
 // THREAD-PER-ENTRY (one subject's two stages exceed the 227 KB a block may
 // use, e.g. R = 72 at C_pad = 1024): one thread per entry (k, r, l), its
@@ -122,10 +130,10 @@ ykv_kernel(const T* __restrict__ yc, const T* __restrict__ vg,
   }
 }
 
-constexpr int kRingThreads = 128;          // row 5: a group's entries; row 8: the
+constexpr int kRingThreads = 128;          // rows 5 and 9: a group's entries; row 8: the
                                            // widest C tile (64 was 13% slower in
                                            // paired H100 timings)
-constexpr int kRingBudget = 64 * 1024;     // rows 5 and 8 take the most that fits
+constexpr int kRingBudget = 64 * 1024;     // rows 5, 8 and 9 take the most that fits
 
 // yv_entry on a staged subject: yc_row 16-byte aligned, four values a load.
 template <typename T>
@@ -151,16 +159,33 @@ __device__ inline T yv_entry_staged(const T* yc_row, const T* vg_col, int C, int
   return (s0 + s1) + (s2 + s3);
 }
 
-// Row 5's ring in shared memory, in bytes from its start: per stage the
-// group's Yc rows [S*R] at row_bytes, then its Vg_k [C*R] at vg_bytes each;
-// after the two stages the output tile [S*R*R], one 16-byte pack longer (a
-// group's run starts up to a pack past a 16-byte boundary).
+// The block writes a run of n values from shared memory, src[0, n), to
+// dst[0, n). With PACKS, src and dst both lie m elements past a 16-byte
+// boundary, and the values between the first and the last whole 16-byte
+// pack go as 16-byte stores, the head and the tail one element a store;
+// without, every value goes alone.
+template <typename T, bool PACKS>
+__device__ inline void store_run(T* dst, const T* src, int n, int m) {
+  constexpr int VEC = 16 / sizeof(T);
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int head = PACKS ? min(n, (VEC - m) % VEC) : n, packs = (n - head) / VEC;
+  for (int j = tid; j < head; j += nthr) dst[j] = src[j];
+  for (int p = tid; p < packs; p += nthr)
+    reinterpret_cast<int4*>(dst + head)[p] = reinterpret_cast<const int4*>(src + head)[p];
+  for (int j = head + packs * VEC + tid; j < n; j += nthr) dst[j] = src[j];
+}
+
+// The ring's shared memory, in bytes from its start: per stage the group's
+// Yc rows [S*R] at row_bytes, then its Vg_k [C*R] at vg_bytes each; after
+// the two stages the product tile [S*R*R], one 16-byte pack longer (a
+// group's run starts up to a pack past a 16-byte boundary); with the coldot
+// (row 9), then H [R, R] and the output tile [S*R], one pack longer.
 struct YkvLayout {
-  size_t row_bytes, vg, vg_bytes, stage, tile, smem_bytes;
+  size_t row_bytes, vg, vg_bytes, stage, tile, h, otile, smem_bytes;
 };
 
 template <typename T>
-__host__ __device__ inline YkvLayout ykv_layout(int R, int C, int S) {
+__host__ __device__ inline YkvLayout ykv_layout(int R, int C, int S, bool coldot) {
   auto packs = [](size_t bytes) { return (bytes + 15) / 16 * 16; };
   YkvLayout s;
   s.row_bytes = packs((size_t)C * sizeof(T));
@@ -170,7 +195,9 @@ __host__ __device__ inline YkvLayout ykv_layout(int R, int C, int S) {
   s.vg = (size_t)S * R * s.row_bytes;
   s.stage = s.vg + (size_t)S * s.vg_bytes;
   s.tile = 2 * s.stage;
-  s.smem_bytes = s.tile + packs(((size_t)S * R * R + 16 / sizeof(T)) * sizeof(T));
+  s.h = s.tile + packs(((size_t)S * R * R + 16 / sizeof(T)) * sizeof(T));
+  s.otile = s.h + (coldot ? packs((size_t)R * R * sizeof(T)) : 0);
+  s.smem_bytes = s.otile + (coldot ? packs(((size_t)S * R + 16 / sizeof(T)) * sizeof(T)) : 0);
   return s;
 }
 
@@ -178,25 +205,34 @@ __host__ __device__ inline YkvLayout ykv_layout(int R, int C, int S) {
 // fewer while the ring exceeds kRingBudget; 0 if not even one subject fits
 // the most a block may use.
 template <typename T>
-int ykv_group(int R, int C) {
+int ykv_group(int R, int C, bool coldot) {
   int S = std::max(1, kRingThreads / (R * R));
-  while (S > 1 && ykv_layout<T>(R, C, S).smem_bytes > (size_t)kRingBudget) --S;
-  return ykv_layout<T>(R, C, S).smem_bytes <= (size_t)kMaxDynamicSmem ? S : 0;
+  while (S > 1 && ykv_layout<T>(R, C, S, coldot).smem_bytes > (size_t)kRingBudget) --S;
+  return ykv_layout<T>(R, C, S, coldot).smem_bytes <= (size_t)kMaxDynamicSmem ? S : 0;
 }
 
-template <typename T, bool ALIGNED>
+// What the ring does with a group's product tile: row 5 writes it as YkV,
+// row 9 takes the coldot with H and writes out[k, :].
+enum Epilogue { kStoreYkv, kColdot };
+
+template <typename T, bool ALIGNED, int EPI>
 __global__ void __launch_bounds__(kRingThreads)
 ykv_ring_kernel(const T* __restrict__ yc, const T* __restrict__ vg,
+                const T* __restrict__ h, const T* __restrict__ mask,
                 T* __restrict__ out, int K, int R, int C, int S) {
   constexpr int VEC = 16 / sizeof(T);
+  constexpr bool COLDOT = EPI == kColdot;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const YkvLayout lay = ykv_layout<T>(R, C, S);
+  const YkvLayout lay = ykv_layout<T>(R, C, S, COLDOT);
   T* tile = reinterpret_cast<T*>(smem_raw + lay.tile);
   const int tid = threadIdx.x, nthr = blockDim.x, RR = R * R;
   const int n_groups = (K - 1) / S + 1;
   const int n_mine = n_groups > (int)blockIdx.x
       ? (n_groups - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
   auto group = [&](int n) { return (int)blockIdx.x + n * (int)gridDim.x; };
+  T* h_s = reinterpret_cast<T*>(smem_raw + lay.h);
+  if constexpr (COLDOT)                      // read after the loop's first barrier
+    for (int t = tid; t < RR; t += nthr) h_s[t] = h[t];
 
   // copy group g's Yc rows and Vg_k into stage `st`
   auto fetch = [&](unsigned char* st, int g) {
@@ -220,13 +256,13 @@ ykv_ring_kernel(const T* __restrict__ yc, const T* __restrict__ vg,
   cp_async_commit();
   for (int n = 0; n < n_mine; ++n) {         // block-uniform
     cp_async_wait<0>();                      // group n's copies are in
-    __syncthreads();                         // everyone's; stage n-1 and the tile are read
+    __syncthreads();                         // everyone's; stage n-1 and the tiles are read
     if (n + 1 < n_mine) fetch(smem_raw + ((n + 1) & 1) * lay.stage, group(n + 1));
     cp_async_commit();
 
     const unsigned char* st = smem_raw + (n & 1) * lay.stage;
     const int64_t k0 = (int64_t)group(n) * S, base = k0 * RR;
-    const int ne = (int)(K - k0 < S ? K - k0 : S) * RR;
+    const int sn = (int)(K - k0 < S ? K - k0 : S), ne = sn * RR;
     const int m = ALIGNED ? (int)(base % VEC) : 0;   // the run's place in its first pack
     for (int e = tid; e < ne; e += nthr) {
       const int s = e / RR, p = e - s * RR, r = p / R, l = p - r * R;
@@ -234,17 +270,21 @@ ykv_ring_kernel(const T* __restrict__ yc, const T* __restrict__ vg,
           reinterpret_cast<const T*>(st + (s * R + r) * lay.row_bytes),
           reinterpret_cast<const T*>(st + lay.vg + s * lay.vg_bytes) + l, C, R);
     }
-    __syncthreads();                         // the tile is whole
-    T* dst = out + base - m;                 // 16-byte aligned when ALIGNED
-    if constexpr (ALIGNED) {                 // element head, 16-byte body, element tail
-      const int end = m + ne, p0 = (m + VEC - 1) / VEC, p1 = end / VEC;
-      const int h = min(end, p0 * VEC);
-      for (int j = m + tid; j < h; j += nthr) dst[j] = tile[j];
-      for (int p = p0 + tid; p < p1; p += nthr)
-        reinterpret_cast<int4*>(dst)[p] = reinterpret_cast<const int4*>(tile)[p];
-      for (int j = max(h, p1 * VEC) + tid; j < end; j += nthr) dst[j] = tile[j];
+    __syncthreads();                         // the product tile is whole
+    if constexpr (COLDOT) {                  // thread (s, l): the coldot over r, in order
+      T* otile = reinterpret_cast<T*>(smem_raw + lay.otile);
+      const int no = sn * R, mo = ALIGNED ? (int)(k0 * R % VEC) : 0;
+      for (int e = tid; e < no; e += nthr) {
+        const int s = e / R, l = e - s * R;
+        const T* col = tile + m + s * RR + l;
+        T acc = T(0);
+        for (int r = 0; r < R; ++r) acc += h_s[r * R + l] * col[r * R];
+        otile[mo + e] = mask ? acc * mask[k0 + s] : acc;
+      }
+      __syncthreads();                       // the output tile is whole
+      store_run<T, ALIGNED>(out + k0 * R, otile + mo, no, mo);
     } else {
-      for (int j = tid; j < ne; j += nthr) dst[j] = tile[j];
+      store_run<T, ALIGNED>(out + base, tile + m, ne, m);
     }
   }
   cp_async_wait<0>();                        // leave no copy in flight
@@ -516,10 +556,30 @@ mode2_ring_kernel(const T* __restrict__ yc, const T* __restrict__ h,
 // ---------------------------------------------------------------------------
 // Rows 9 and 10, mode3 / mode3_reuse. Replace src/repro/kernels/
 // mttkrp_mode3.py mode3_pallas (pallas_call at :71) and mode3_reuse_pallas
-// (:106): one thread per output entry (k, l), the coldot over r of H[:, l]
-// with column l of Yc_k Vg_k (row 9, formed on the fly) or of YkV_k (row
-// 10). The subject mask, which the reference applies after its kernel, is
-// applied here. Bound: Yc and Vg bytes (row 9), YkV bytes (row 10).
+// (:106): out[k, l], the coldot over r of H[:, l] with column l of Yc_k
+// Vg_k (row 9, formed on the fly) or of YkV_k (row 10). The subject mask,
+// which the reference applies after its kernel, is applied here. Bound: Yc
+// and Vg bytes (row 9), YkV bytes (row 10, so its launch).
+//
+// Row 9 is row 5's ring (ykv_ring_kernel) with the coldot epilogue: once a
+// group's product tile is whole, thread (s, l) takes the coldot over r with
+// H from shared memory, and the block writes the group's S*R outputs as one
+// run. What held the thread-per-entry design (mode3_kernel below, now the
+// fallback for a subject too large for the ring) at 14% of its bound: each
+// of the K*R threads read a whole Yc_k and a Vg column at stride R straight
+// from device memory, 4 bytes a load. Same variants as row 5
+// (ring_variant).
+//
+// Row 10 is the thread-per-entry kernel (mode3_kernel<T, true>) on a grid
+// of at most one wave, as many 256-thread blocks as the card holds at once,
+// whose threads loop over the outputs. At the main path's largest bucket
+// (K*R = 290,560 outputs) the uncapped grid's 1,135 blocks left 79 for a
+// second wave at eight blocks an SM. Measured on an H100 in a CUDA graph (PERF.md): the
+// uncapped kernel took 0.0038 ms, its K = 1 launch floor 0.0021, the capped
+// one 0.0036; staging each block's (or each warp's) run of YkV through
+// shared memory with 16-byte cp.async took 0.0052 (0.0047), its floor
+// 0.0026 (0.0024): a launch-bound kernel cannot hide the copy's round trip
+// through shared memory and the barrier after it.
 // ---------------------------------------------------------------------------
 template <typename T, bool REUSE>
 __global__ void __launch_bounds__(kThreads)
@@ -567,37 +627,63 @@ cudaError_t launch_mode1(const void* yc, const void* vg, const void* ykv,
   return cudaGetLastError();
 }
 
-// The variants of rows 5 and 8, as spartan_ykv_variant and
-// spartan_mode2_compact_variant report them.
+// The variants of rows 5, 8 and 9, as spartan_ykv_variant,
+// spartan_mode2_compact_variant and spartan_mode3_variant report them.
 enum Variant { kRing = 0, kRingElementCopies = 1, kThreadPerEntry = 2 };
 
-// Row 5: RING where one subject's two stages fit (16-byte copies and stores
-// when the rows of Yc are whole 16-byte runs and Yc, Vg and YkV start on
-// 16-byte boundaries), else THREAD-PER-ENTRY.
+// Rows 5 and 9: RING where one subject's two stages fit (16-byte copies and
+// stores when the rows of Yc are whole 16-byte runs and Yc, Vg and the
+// output start on 16-byte boundaries), else THREAD-PER-ENTRY.
 template <typename T>
-int ykv_variant(int C, int R, bool aligned) {
-  if (ykv_group<T>(R, C) == 0) return kThreadPerEntry;
+int ring_variant(int C, int R, bool aligned, bool coldot) {
+  if (ykv_group<T>(R, C, coldot) == 0) return kThreadPerEntry;
   return aligned && C % (16 / (int)sizeof(T)) == 0 ? kRing : kRingElementCopies;
 }
 
-template <typename T>
-cudaError_t launch_ykv(const void* yc, const void* vg, void* out, int K, int R, int C,
-                       cudaStream_t stream) {
-  const int variant = ykv_variant<T>(C, R, aligned16({yc, vg, out}));
+// Row 5 (EPI kStoreYkv: out = YkV [K, R, R]) or row 9 (kColdot: out [K, R],
+// h and mask read).
+template <typename T, int EPI>
+cudaError_t launch_ring(const void* yc, const void* vg, const void* h, const void* mask,
+                        void* out, int K, int R, int C, cudaStream_t stream) {
+  constexpr bool coldot = EPI == kColdot;
+  const int variant = ring_variant<T>(C, R, aligned16({yc, vg, out}), coldot);
   if (variant == kThreadPerEntry) {
-    ykv_kernel<T><<<grid_for((int64_t)K * R * R), kThreads, 0, stream>>>(
-        static_cast<const T*>(yc), static_cast<const T*>(vg), static_cast<T*>(out), K, R, C);
+    if constexpr (coldot)
+      mode3_kernel<T, false><<<grid_for((int64_t)K * R), kThreads, 0, stream>>>(
+          static_cast<const T*>(yc), static_cast<const T*>(vg), nullptr,
+          static_cast<const T*>(h), static_cast<const T*>(mask), static_cast<T*>(out), K, R,
+          C);
+    else
+      ykv_kernel<T><<<grid_for((int64_t)K * R * R), kThreads, 0, stream>>>(
+          static_cast<const T*>(yc), static_cast<const T*>(vg), static_cast<T*>(out), K, R,
+          C);
     return cudaGetLastError();
   }
-  const int S = ykv_group<T>(R, C);
-  const size_t smem = ykv_layout<T>(R, C, S).smem_bytes;
-  auto kernel = variant == kRing ? ykv_ring_kernel<T, true> : ykv_ring_kernel<T, false>;
+  const int S = ykv_group<T>(R, C, coldot);
+  const size_t smem = ykv_layout<T>(R, C, S, coldot).smem_bytes;
+  auto kernel = variant == kRing ? ykv_ring_kernel<T, true, EPI>
+                                 : ykv_ring_kernel<T, false, EPI>;
   cudaError_t e = allow_smem(kernel, smem);
   int grid = 0;
   if (e == cudaSuccess) e = persistent_grid(kernel, kRingThreads, smem, (K - 1) / S + 1, &grid);
   if (e != cudaSuccess) return e;
   kernel<<<grid, kRingThreads, smem, stream>>>(
-      static_cast<const T*>(yc), static_cast<const T*>(vg), static_cast<T*>(out), K, R, C, S);
+      static_cast<const T*>(yc), static_cast<const T*>(vg), static_cast<const T*>(h),
+      static_cast<const T*>(mask), static_cast<T*>(out), K, R, C, S);
+  return cudaGetLastError();
+}
+
+// Row 10: the thread-per-entry kernel on at most one wave of blocks.
+template <typename T>
+cudaError_t launch_mode3_reuse(const void* ykv, const void* h, const void* mask, void* out,
+                               int K, int R, cudaStream_t stream) {
+  auto kernel = mode3_kernel<T, true>;
+  int grid = 0;
+  const cudaError_t e = persistent_grid(kernel, kThreads, 0, grid_for((int64_t)K * R), &grid);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, kThreads, 0, stream>>>(
+      nullptr, nullptr, static_cast<const T*>(ykv), static_cast<const T*>(h),
+      static_cast<const T*>(mask), static_cast<T*>(out), K, R, 0);
   return cudaGetLastError();
 }
 
@@ -656,8 +742,8 @@ extern "C" {
 int spartan_ykv(int dtype, const void* yc, const void* vg, void* out, int K,
                 int R, int C, void* stream) {
   if (K < 1 || R < 1 || C < 1) return (int)cudaErrorInvalidValue;
-  SPARTAN_BY_DTYPE(return (int)(launch_ykv<T>(yc, vg, out, K, R, C,
-                                               static_cast<cudaStream_t>(stream))));
+  SPARTAN_BY_DTYPE(return (int)(launch_ring<T, kStoreYkv>(
+      yc, vg, nullptr, nullptr, out, K, R, C, static_cast<cudaStream_t>(stream))));
 }
 
 // The variant a spartan_ykv launch takes (Variant: 0 ring, 1 ring with
@@ -665,8 +751,8 @@ int spartan_ykv(int dtype, const void* yc, const void* vg, void* out, int K,
 // 16-byte boundary. -1 for an unknown dtype.
 int spartan_ykv_variant(int dtype, int C, int R, int aligned) {
   if (C < 1 || R < 1) return -1;
-  if (dtype == 0) return ykv_variant<float>(C, R, aligned != 0);
-  if (dtype == 1) return ykv_variant<double>(C, R, aligned != 0);
+  if (dtype == 0) return ring_variant<float>(C, R, aligned != 0, false);
+  if (dtype == 1) return ring_variant<double>(C, R, aligned != 0, false);
   return -1;
 }
 
@@ -711,28 +797,26 @@ int spartan_mode3(int dtype, const void* yc, const void* vg, const void* h,
                   const void* mask, void* out, int K, int R, int C,
                   void* stream) {
   if (K < 1 || R < 1 || C < 1) return (int)cudaErrorInvalidValue;
-  const int grid = grid_for((int64_t)K * R);
-  SPARTAN_BY_DTYPE({
-    mode3_kernel<T, false><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(yc), static_cast<const T*>(vg), nullptr,
-        static_cast<const T*>(h), static_cast<const T*>(mask),
-        static_cast<T*>(out), K, R, C);
-    return (int)cudaGetLastError();
-  });
+  SPARTAN_BY_DTYPE(return (int)(launch_ring<T, kColdot>(
+      yc, vg, h, mask, out, K, R, C, static_cast<cudaStream_t>(stream))));
+}
+
+// The variant a spartan_mode3 launch takes (Variant: 0 ring, 1 ring with
+// element copies, 2 thread-per-entry); aligned: Yc, Vg and out start on a
+// 16-byte boundary. -1 for an unknown dtype.
+int spartan_mode3_variant(int dtype, int C, int R, int aligned) {
+  if (C < 1 || R < 1) return -1;
+  if (dtype == 0) return ring_variant<float>(C, R, aligned != 0, true);
+  if (dtype == 1) return ring_variant<double>(C, R, aligned != 0, true);
+  return -1;
 }
 
 int spartan_mode3_reuse(int dtype, const void* ykv, const void* h,
                         const void* mask, void* out, int K, int R,
                         void* stream) {
   if (K < 1 || R < 1) return (int)cudaErrorInvalidValue;
-  const int grid = grid_for((int64_t)K * R);
-  SPARTAN_BY_DTYPE({
-    mode3_kernel<T, true><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        nullptr, nullptr, static_cast<const T*>(ykv),
-        static_cast<const T*>(h), static_cast<const T*>(mask),
-        static_cast<T*>(out), K, R, 0);
-    return (int)cudaGetLastError();
-  });
+  SPARTAN_BY_DTYPE(return (int)(launch_mode3_reuse<T>(ykv, h, mask, out, K, R,
+                                                      static_cast<cudaStream_t>(stream))));
 }
 
 // The elements of T of the workspace rows 6 and 7 take for K subjects at

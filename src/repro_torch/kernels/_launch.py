@@ -23,7 +23,7 @@ __all__ = ["KernelLib", "Workspaces", "P", "I", "RING_VARIANTS", "check_shapes",
 P = ctypes.c_void_p     # a pointer or the stream
 I = ctypes.c_int        # an int (shape or dtype code)
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
-# what the variant queries of rows 5, 8, 11 and 12 return, by their C
+# what the variant queries of rows 5, 8, 9, 11 and 12 return, by their C
 # entry point's code (spartan_ykv_variant, spartan_mode2_compact_variant, ...)
 RING_VARIANTS = ("ring", "ring-element-copies", "thread-per-entry")
 
@@ -156,10 +156,11 @@ def dtype_code(*ts: torch.Tensor) -> int:
     return _DTYPE_CODE[ts[0].dtype]
 
 
-def mask_operand(subject_mask: Optional[torch.Tensor], Wb: torch.Tensor) -> tuple:
-    """The reductions' nullable mask operand: () without a subject mask, else
-    (the mask [K] in Wb's dtype,), checked against Wb's K."""
+def mask_operand(subject_mask: Optional[torch.Tensor], like: torch.Tensor) -> tuple:
+    """A kernel's nullable subject-mask operand: () without a subject mask,
+    else (the mask [K] in the dtype of ``like``,), checked against the K of
+    ``like`` (an operand whose first axis is the subjects: Wb, Yc, YkV)."""
     if subject_mask is None:
         return ()
-    check_shapes(subject_mask=(subject_mask, Wb.shape[:1]))
-    return (subject_mask if subject_mask.dtype == Wb.dtype else subject_mask.to(Wb.dtype),)
+    check_shapes(subject_mask=(subject_mask, like.shape[:1]))
+    return (subject_mask if subject_mask.dtype == like.dtype else subject_mask.to(like.dtype),)

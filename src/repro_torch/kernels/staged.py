@@ -24,6 +24,7 @@ LIB = KernelLib("staged", KERNELS, {
     "spartan_mode2_compact": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "spartan_mode2_compact_variant": [_I, _I, _I, _I],
     "spartan_mode3": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "spartan_mode3_variant": [_I, _I, _I, _I],
     "spartan_mode3_reuse": [_I, _P, _P, _P, _P, _I, _I, _P],
     "spartan_mode1_workspace": [_I, _I, _I],
 })

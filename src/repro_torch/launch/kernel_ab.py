@@ -7,30 +7,36 @@ Builds ``csrc/fused.cu``, ``csrc/gather_matmul.cu``, ``csrc/staged.cu`` and
 ``csrc/scoo.cu`` of each checkout (``<dir>/src/repro_torch/csrc``) with nvcc
 and this package's flags, loads both builds into one process and times the
 same kernels of both on the same operands in turns (parent, change, change,
-parent, ...; CUDA events, median of 20 launches a turn): F1-F4, row 5
-(``spartan_ykv``), rows 6 and 7 (``mode1``, ``mode1_reuse``) and row 8
-(``spartan_mode2_compact``) at the main path's largest CC bucket shape (K =
-58,112, I = 56, C = 128, R = 5, f32, random operands, a subject mask with
-2% zeros), the BCC gather-matmul at the BCC cut's shape (K = 6,808, I = 56,
-NB = 9, L = 128, R = 5, f32), and rows 11 (``spartan_scoo_xk_times_v``) and
+parent, ...): each turn takes CUDA events around one launch (median of 20,
+the host's work for the launch included, as a caller sees it) and around
+the replay of a CUDA graph of 20 launches (median of 5 replays, divided by
+20: the device's time a launch, no host work; what separates a short
+kernel from its launch floor). F1-F4, row 5 (``spartan_ykv``), rows 6
+and 7 (``mode1``, ``mode1_reuse``), row 8 (``spartan_mode2_compact``) and
+rows 9 and 10 (``spartan_mode3``, ``spartan_mode3_reuse``) at the main
+path's largest CC bucket shape (K = 58,112, I = 56, C = 128, R = 5, f32,
+random operands, a subject mask with 2% zeros), row 10 once more at K = 1
+(``mode3_reuse_k1``: the same kernel's launch floor on the same stream),
+the BCC gather-matmul at the BCC cut's shape (K = 6,808, I = 56, NB = 9, L
+= 128, R = 5, f32), and rows 11 (``spartan_scoo_xk_times_v``) and
 12 (``spartan_scoo_project``) on the main path's largest SCOO bucket itself:
 ``choa_like(scale=0.25, seed=0)`` bucketized as SCOO on the card as the main
 path plans it (Kb = 58,112, I = 48, C = 128, N = 136), with that bucket's
 Vg gathered from a random V (row 11) and a random Q (row 12), since their
 times depend on the segment lengths and the kept columns. The dense
 kernels' times do not depend on the values (every value is read). F2 and
-rows 6 and 7 are the reductions across subjects; a build that has their
-one-launch entry points (``..._one_launch``, with the mask and a workspace)
-is called through them, an earlier build through its two-launch entries
-with the mask folded into Wb beforehand. In each round, one PyTorch call of
-each of the three is timed too (``torch.einsum("krc,kcl,kl->rl", Yc, Vg,
+rows 6 and 7, the reductions across subjects, are called through their
+one-launch entry points (``..._one_launch``, with the mask and a workspace
+of each side's own). In each round, one PyTorch call of each of F2 and
+rows 6, 7, 9 and 10 is timed too (``torch.einsum("krc,kcl,kl->rl", Yc, Vg,
 Wb)`` for row 6, ``torch.einsum("krl,kl->rl", YkV, Wb)`` for row 7,
-``(torch.bmm(Q^T, XkV) * Wb[:, None]).sum(0)`` for F2, on the folded Wb).
-Prints the card's name and power limit, each turn, per kernel the median
-of each side's turns with their range, the library calls' medians, and
-for F2 and rows 5, 6, 7, 8, 11 and 12 the largest absolute difference
-between the two builds' outputs on the same operands; the last line is one
-JSON object. Imports no JAX. The
+``(torch.bmm(Q^T, XkV) * Wb[:, None]).sum(0)`` for F2, on the folded Wb;
+``torch.einsum("krc,kcl,rl,k->kl", Yc, Vg, H, m)`` for row 9 and
+``torch.einsum("krl,rl,k->kl", YkV, H, m)`` for row 10). Prints the card's
+name and power limit, each turn, per kernel the median of each side's turns
+with their range, the library calls' medians, and for F2 and rows 5-12 the
+largest absolute difference between the two builds' outputs on the same
+operands; the last line is one JSON object. Imports no JAX. The
 two machines a comparison could otherwise land on differ by more than the
 effects, so compare versions only this way. ``--kernels`` times only the
 kernels named (and skips the SCOO generation unless row 11 or 12 is among
@@ -59,15 +65,11 @@ SIGNATURES = {
     "spartan_mode1_one_launch": [I, P, P, P, P, P, P, I, I, I, P],
     "spartan_mode1_reuse_one_launch": [I, P, P, P, P, P, I, I, P],
     "spartan_mode1_workspace": [I, I, I],
-    # the two-launch entries of earlier builds (mask folded into Wb)
-    "spartan_fused_mode1_xkv": [I, P, P, P, P, P, I, I, I, I, P],
-    "spartan_mode1_partials": [I],
-    "spartan_mode1": [I, P, P, P, P, P, I, I, I, I, P],
-    "spartan_mode1_reuse": [I, P, P, P, P, I, I, I, P],
-    "spartan_staged_partials": [I],
     "spartan_gather_matmul": [I, P, P, P, P, I, I, I, I, I, P],
     "spartan_ykv": [I, P, P, P, I, I, I, P],
     "spartan_mode2_compact": [I, P, P, P, P, P, I, I, I, P],
+    "spartan_mode3": [I, P, P, P, P, P, I, I, I, P],
+    "spartan_mode3_reuse": [I, P, P, P, P, I, I, P],
     "spartan_scoo_xk_times_v": [I, P, P, P, P, P, I, I, I, I, I, P],
     "spartan_scoo_project": [I, P, P, P, P, P, P, I, I, I, I, I, P],
 }
@@ -76,7 +78,8 @@ CC = dict(K=58112, I=56, C=128, R=5)
 BCC = dict(K=6808, I=56, NB=9, L=128, J_pad=1408)
 SCOO_SCALE = 0.25       # the choa_like scale of the main path
 COMPARED = {"fused_mode1_xkv": "m2", "ykv": "ykv5", "mode1": "m6", "mode1_reuse": "m7",
-            "mode2_compact": "a8", "scoo_xk_times_v": "xkv11",
+            "mode2_compact": "a8", "mode3": "m9", "mode3_reuse": "m10",
+            "mode3_reuse_k1": "m10k1", "scoo_xk_times_v": "xkv11",
             "scoo_project": "yc12"}   # kernel -> its output
 
 
@@ -94,46 +97,27 @@ def load(tree: str) -> dict:
 
 
 def reductions(f, st, o: dict, K: int, Ii: int, C: int, R: int, stream: int) -> dict:
-    """F2 and rows 6 and 7 of one side: through the one-launch entries (mask and a
-    workspace of this side's own) where the build has them, else through
-    the two-launch entries on the folded Wb. Both write this side's outputs."""
+    """F2 and rows 6 and 7 of one side through their one-launch entries, each
+    on a workspace of this side's own; they write this side's outputs."""
     def workspace(lib, query):
         return torch.zeros(getattr(lib, query)(0, K, R), device="cuda")
 
-    def partials(lib, query):
-        return torch.empty((getattr(lib, query)(K), R, R), device="cuda")
-
-    keep = []          # the workspaces live as long as the calls
-    if hasattr(f, "spartan_fused_mode1_xkv_one_launch"):
-        keep.append(workspace(f, "spartan_fused_mode1_workspace"))
-        ws = keep[-1].data_ptr()
-        f2 = lambda: f.spartan_fused_mode1_xkv_one_launch(   # noqa: E731
-            0, o["q2"], o["x2"], o["Wb"], o["sm"], ws, o["m2"], K, Ii, R, stream)
-    else:
-        keep.append(partials(f, "spartan_mode1_partials"))
-        n, part = keep[-1].shape[0], keep[-1].data_ptr()
-        f2 = lambda: f.spartan_fused_mode1_xkv(   # noqa: E731
-            0, o["q2"], o["x2"], o["Wbm"], part, o["m2"], K, Ii, R, n, stream)
-    if hasattr(st, "spartan_mode1_reuse_one_launch"):
-        keep += [workspace(st, "spartan_mode1_workspace") for _ in range(2)]
-        ws6, ws7 = keep[-2].data_ptr(), keep[-1].data_ptr()
-        r6 = lambda: st.spartan_mode1_one_launch(   # noqa: E731
-            0, o["yc"], o["Vg"], o["Wb"], o["sm"], ws6, o["m6"], K, R, C, stream)
-        r7 = lambda: st.spartan_mode1_reuse_one_launch(   # noqa: E731
-            0, o["ykv7"], o["Wb"], o["sm"], ws7, o["m7"], K, R, stream)
-    else:
-        keep += [partials(st, "spartan_staged_partials") for _ in range(2)]
-        n7, part6, part7 = keep[-1].shape[0], keep[-2].data_ptr(), keep[-1].data_ptr()
-        r6 = lambda: st.spartan_mode1(   # noqa: E731
-            0, o["yc"], o["Vg"], o["Wbm"], part6, o["m6"], K, R, C, n7, stream)
-        r7 = lambda: st.spartan_mode1_reuse(   # noqa: E731
-            0, o["ykv7"], o["Wbm"], part7, o["m7"], K, R, n7, stream)
-    return {"fused_mode1_xkv": f2, "mode1": r6, "mode1_reuse": r7, "keep": keep}
+    keep = [workspace(f, "spartan_fused_mode1_workspace"),   # live as long as the calls
+            *(workspace(st, "spartan_mode1_workspace") for _ in range(2))]
+    ws2, ws6, ws7 = (w.data_ptr() for w in keep)
+    return {
+        "fused_mode1_xkv": lambda: f.spartan_fused_mode1_xkv_one_launch(
+            0, o["q2"], o["x2"], o["Wb"], o["sm"], ws2, o["m2"], K, Ii, R, stream),
+        "mode1": lambda: st.spartan_mode1_one_launch(
+            0, o["yc"], o["Vg"], o["Wb"], o["sm"], ws6, o["m6"], K, R, C, stream),
+        "mode1_reuse": lambda: st.spartan_mode1_reuse_one_launch(
+            0, o["ykv7"], o["Wb"], o["sm"], ws7, o["m7"], K, R, stream),
+        "keep": keep}
 
 
-def calls(libs: dict, ops: dict, outs: dict) -> dict:
-    """name -> a function that launches that kernel of ``libs`` once; F2 and
-    rows 5, 6, 7, 8, 11 and 12 write into this side's own ``outs``."""
+def calls(libs: dict, ops: dict, outs: dict, stream: int) -> dict:
+    """name -> a function that launches that kernel of ``libs`` once on
+    ``stream``; F2 and rows 5-12 write into this side's own ``outs``."""
     f, g = libs["fused"], libs["gather_matmul"]
     st, sc = libs["staged"], libs["scoo"]
     K, Ii, C, R = CC["K"], CC["I"], CC["C"], CC["R"]
@@ -141,7 +125,6 @@ def calls(libs: dict, ops: dict, outs: dict) -> dict:
     Kb, N = ops["svals"].shape if "svals" in ops else (0, 0)
     Is = ops["sQ"].shape[1] if "sQ" in ops else 0
     Cs = ops["sends"].shape[1] if "sends" in ops else 0
-    stream = torch.cuda.current_stream().cuda_stream
 
     def check(err: int) -> None:
         if err:
@@ -164,6 +147,12 @@ def calls(libs: dict, ops: dict, outs: dict) -> dict:
         "mode1_reuse": lambda: check(red["mode1_reuse"]()),
         "mode2_compact": lambda: check(st.spartan_mode2_compact(
             0, o["yc"], o["H"], o["Wb"], o["cm"], o["a8"], K, R, C, stream)),
+        "mode3": lambda: check(st.spartan_mode3(
+            0, o["yc"], o["Vg"], o["H"], o["sm"], o["m9"], K, R, C, stream)),
+        "mode3_reuse": lambda: check(st.spartan_mode3_reuse(
+            0, o["ykv7"], o["H"], o["sm"], o["m10"], K, R, stream)),
+        "mode3_reuse_k1": lambda: check(st.spartan_mode3_reuse(
+            0, o["ykv7"], o["H"], o["sm"], o["m10k1"], 1, R, stream)),
         "scoo_xk_times_v": lambda: check(sc.spartan_scoo_xk_times_v(
             0, o["svals"], o["slcols"], o["sVg"], o["srow_ends"], o["xkv11"], Kb, N, Is, Cs, R,
             stream)),
@@ -185,6 +174,30 @@ def time_ms(fn, reps: int = 20) -> float:
         e.record()
         e.synchronize()
         out.append(s.elapsed_time(e))
+    return statistics.median(out)
+
+
+def graph_ms(fn, stream: torch.cuda.Stream, n: int = 20, reps: int = 5) -> float:
+    """The device's time for one launch of ``fn`` (which launches on
+    ``stream``): ``n`` launches captured in a CUDA graph, the graph replayed
+    between two events; median of ``reps`` replays, divided by ``n``."""
+    with torch.cuda.stream(stream):
+        fn()                                # grids and shared-memory limits settled
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=stream, capture_error_mode="relaxed"):
+        for _ in range(n):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        g.replay()
+        e.record()
+        e.synchronize()
+        out.append(s.elapsed_time(e) / n)
     return statistics.median(out)
 
 
@@ -226,12 +239,14 @@ def operands(seed: int = 0, scoo: bool = True) -> dict:
 
 
 def outputs(ops: dict) -> dict:
-    """One side's outputs of F2 and rows 5, 6, 7, 8, 11 and 12."""
+    """One side's outputs of F2 and rows 5-12."""
     K, C, R = CC["K"], CC["C"], CC["R"]
     outs = {"m2": torch.empty((R, R), device="cuda"), "m6": torch.empty((R, R), device="cuda"),
             "m7": torch.empty((R, R), device="cuda"),
             "ykv5": torch.empty((K, R, R), device="cuda"),
-            "a8": torch.empty((K, C, R), device="cuda")}
+            "a8": torch.empty((K, C, R), device="cuda"),
+            "m9": torch.empty((K, R), device="cuda"), "m10": torch.empty((K, R), device="cuda"),
+            "m10k1": torch.empty((1, R), device="cuda")}
     if "sends" in ops:
         Kb, Cs = ops["sends"].shape
         outs.update(xkv11=torch.empty((Kb, ops["sQ"].shape[1], R), device="cuda"),
@@ -259,33 +274,49 @@ def main(argv=None) -> None:
               f"C={ops['sends'].shape[1]} N={ops['svals'].shape[1]} "
               f"nnz={int(ops['sends'][:, -1].sum())}", flush=True)
     outs = {side: outputs(ops) for side in ("parent", "change")}
-    sides = {side: {name: fn for name, fn in calls(load(getattr(args, side)), ops,
-                                                     outs[side]).items()
-                    if not wanted or name in wanted}
-             for side in ("parent", "change")}
+    libs = {side: load(getattr(args, side)) for side in ("parent", "change")}
+    gstream = torch.cuda.Stream()           # where the graphs are captured
+
+    def side_calls(side: str, stream: int) -> dict:
+        return {name: fn for name, fn in calls(libs[side], ops, outs[side], stream).items()
+                if not wanted or name in wanted}
+
+    sides = {side: side_calls(side, torch.cuda.current_stream().cuda_stream) for side in libs}
+    graphed = {side: side_calls(side, gstream.cuda_stream) for side in libs}
     Qt = ops["q2"].transpose(1, 2)
-    library = {   # one PyTorch call of each reduction, timed only
+    library = {   # one PyTorch call of each, timed only
         "fused_mode1_xkv": lambda: (torch.bmm(Qt, ops["x2"]) * ops["Wbm"][:, None]).sum(0),
         "mode1": lambda: torch.einsum("krc,kcl,kl->rl", ops["yc"], ops["Vg"], ops["Wbm"]),
         "mode1_reuse": lambda: torch.einsum("krl,kl->rl", ops["ykv7"], ops["Wbm"]),
+        "mode3": lambda: torch.einsum("krc,kcl,rl,k->kl", ops["yc"], ops["Vg"], ops["H"],
+                                      ops["sm"]),
+        "mode3_reuse": lambda: torch.einsum("krl,rl,k->kl", ops["ykv7"], ops["H"], ops["sm"]),
     }
     library = {name: fn for name, fn in library.items() if not wanted or name in wanted}
     times = {side: {name: [] for name in sides[side]} for side in sides}
+    gtimes = {side: {name: [] for name in sides[side]} for side in sides}
     lib_times = {name: [] for name in library}
     for rnd in range(args.rounds):
         for side in ("parent", "change")[:: 1 if rnd % 2 == 0 else -1]:
             for name, fn in sides[side].items():
                 times[side][name].append(time_ms(fn))
+                gtimes[side][name].append(graph_ms(graphed[side][name], gstream))
             print(f"[kernel_ab] round {rnd} {side}: " + ", ".join(
-                f"{n} {t[-1]:.4f}" for n, t in times[side].items()) + " ms", flush=True)
+                f"{n} {t[-1]:.4f} (graph {gtimes[side][n][-1]:.4f})"
+                for n, t in times[side].items()) + " ms", flush=True)
         for name, fn in library.items():
             lib_times[name].append(time_ms(fn))
     torch.cuda.synchronize()
     summary = {}
     for name in sides["parent"]:
         p, c = times["parent"][name], times["change"][name]
+        gp, gc = gtimes["parent"][name], gtimes["change"][name]
         summary[name] = {"parent_ms": statistics.median(p), "change_ms": statistics.median(c),
-                         "parent_range": [min(p), max(p)], "change_range": [min(c), max(c)]}
+                         "parent_range": [min(p), max(p)], "change_range": [min(c), max(c)],
+                         "parent_graph_ms": statistics.median(gp),
+                         "change_graph_ms": statistics.median(gc),
+                         "parent_graph_range": [min(gp), max(gp)],
+                         "change_graph_range": [min(gc), max(gc)]}
         diff = ""
         if name in COMPARED:      # each side's output of its last launch
             out = COMPARED[name]
@@ -299,7 +330,10 @@ def main(argv=None) -> None:
             diff += f", library {summary[name]['library_ms']:.4f} ms ({min(lt):.4f}-{max(lt):.4f})"
         print(f"[kernel_ab] {name}: parent {summary[name]['parent_ms']:.4f} ms "
               f"({min(p):.4f}-{max(p):.4f}), change {summary[name]['change_ms']:.4f} ms "
-              f"({min(c):.4f}-{max(c):.4f}){diff}", flush=True)
+              f"({min(c):.4f}-{max(c):.4f}); in a graph parent "
+              f"{summary[name]['parent_graph_ms']:.4f} ms ({min(gp):.4f}-{max(gp):.4f}), change "
+              f"{summary[name]['change_graph_ms']:.4f} ms ({min(gc):.4f}-{max(gc):.4f}){diff}",
+              flush=True)
     print(json.dumps({"card": smi.stdout.strip(), "kernels": summary}))
 
 

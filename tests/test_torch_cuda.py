@@ -819,3 +819,75 @@ def test_fused_mode1_xkv_variant_answers(dev):
     assert variant(2, 4000, 8) == "chunked"
     with pytest.raises(ValueError, match="CUDA"):
         fused.mode1_xkv_variant(torch.zeros((2, 3, 4)), torch.zeros((2, 3, 4)))
+
+
+# (K, R, C, offset of Yc's and YkV's starts in elements, subject mask) ->
+# row 9's variant in f32 (row 10 has one)
+MODE3_EDGES = {
+    (7, 5, 128, 0, "some"): "ring",                 # the main path's shape
+    (5, 5, 17, 0, None): "ring-element-copies",     # rows not whole 16-byte runs
+    (3, 72, 1024, 0, "some"): "thread-per-entry",   # R = 72 at C_pad = 1024
+    (5, 5, 128, 1, "some"): "ring-element-copies",  # starts not 16-byte aligned
+    (3000, 5, 128, 0, "some"): "ring",              # groups past the persistent grid
+    (300000, 5, 4, 0, "some"): "ring",              # row 10's outputs past one wave
+    (1, 5, 128, 0, None): "ring",                   # one subject
+    (4, 40, 128, 0, "all"): "ring",                 # R = 40, one subject a group
+}
+
+
+def _mode3_operands(shape, dtype, dev):
+    """Yc and YkV = ykv(Yc, Vg) starting ``offset`` elements past a 16-byte
+    boundary, Vg, H and the subject mask."""
+    K, R, C, offset, mk = shape
+    rng = np.random.default_rng(K + R + C + offset)
+    Yc = _offset_tensor((K, R, C), dtype, dev, rng, offset)
+    Vg, H = (torch.tensor(rng.standard_normal(s), dtype=dtype, device=dev)
+             for s in ((K, C, R), (R, R)))
+    G = yk.ykv(Yc, Vg)
+    YkV = torch.empty(G.numel() + offset, dtype=dtype, device=dev)[offset:].view(G.shape)
+    return Yc, Vg, H, YkV.copy_(G), _mask(K, mk, dtype, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(MODE3_EDGES), ids=lambda s: "K{}-R{}-C{}-off{}-mask{}".format(*s))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_mode3_edges(dev, shape, dtype):
+    """Rows 9 and 10 at the edges of row 9's variants: the variant its
+    launcher picks (in f32), one launch a call, the plain versions' results
+    and the same bits twice; every subject masked gives exact zeros."""
+    Yc, Vg, H, YkV, m = _mode3_operands(shape, dtype, dev)
+    if dtype == torch.float32:
+        assert m3.mode3_variant(Yc, Vg) == MODE3_EDGES[shape]
+    got = (_one_launch_twice("mode3", m3.mode3, m3.mode3_plain, (Yc, Vg, H, m), dtype),
+           _one_launch_twice("mode3_reuse", m3.mode3_reuse, m3.mode3_reuse_plain,
+                             (YkV, H, m), dtype))
+    if shape[-1] == "all":
+        assert not any(g.any() for g in got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(MODE3_EDGES), ids=lambda s: "K{}-R{}-C{}-off{}-mask{}".format(*s))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_mode3_equals_mode3_reuse_of_ykv(dev, shape, dtype):
+    """Rows 5, 9 and 10 sum in one order on every variant, so mode3(Yc, Vg,
+    H, m) equals mode3_reuse(ykv(Yc, Vg), H, m) bit for bit."""
+    Yc, Vg, H, YkV, m = _mode3_operands(shape, dtype, dev)
+    assert torch.equal(_bits(m3.mode3(Yc, Vg, H, m)), _bits(m3.mode3_reuse(YkV, H, m)))
+
+
+@pytest.mark.cuda
+def test_mode3_variant_answers(dev):
+    """Row 9's variant query in f32 and f64: the ring for the main path's C,
+    element copies for odd C or an unaligned start, thread-per-entry past
+    the ring's shared memory; a CPU tensor raises."""
+    def variant(K, R, C, dtype=torch.float32, offset=0):
+        Yc = torch.zeros(K * R * C + offset, dtype=dtype, device=dev)[offset:].view(K, R, C)
+        return m3.mode3_variant(Yc, torch.zeros((K, C, R), dtype=dtype, device=dev))
+
+    for dtype in (torch.float32, torch.float64):
+        assert variant(4, 5, 128, dtype) == "ring"
+        assert variant(4, 5, 17, dtype) == "ring-element-copies"
+        assert variant(4, 5, 128, dtype, offset=1) == "ring-element-copies"
+        assert variant(2, 72, 1024, dtype) == "thread-per-entry"
+    with pytest.raises(ValueError, match="CUDA"):
+        m3.mode3_variant(torch.zeros((2, 3, 4)), torch.zeros((2, 4, 3)))

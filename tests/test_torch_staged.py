@@ -436,6 +436,62 @@ def test_ykv_variant_is_a_question_for_the_card():
     assert staged.LIB._lib is None
 
 
+# (K, R, C, offset of Yc's and YkV's starts in elements, subject mask): the
+# edge shapes of rows 9 and 10's CUDA kernels (the main path's C; C = 17,
+# rows not whole 16-byte runs; R = 72 at C = 1024, past row 9's ring; an
+# unaligned start; one subject; R = 40, one subject a group; no, some and
+# every subject masked), held here through the plain versions
+MODE3_EDGES = [(7, 5, 128, 0, "some"), (5, 5, 17, 0, None), (3, 72, 1024, 0, "some"),
+               (5, 5, 128, 1, "some"), (1, 5, 128, 0, None), (4, 40, 128, 0, "all")]
+
+
+def _offset(t, offset):
+    """A copy of ``t`` whose data starts ``offset`` elements into its storage."""
+    return torch.empty(t.numel() + offset, dtype=t.dtype)[offset:].view(t.shape).copy_(t)
+
+
+@pytest.mark.parametrize("shape", MODE3_EDGES, ids=lambda s: "K{}-R{}-C{}-off{}-mask{}".format(*s))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_mode3_edges_match_reference(shape, dtype):
+    """mode3 and mode3_reuse at the edge shapes against the reference's
+    Pallas kernels in interpret mode (f32, to 1e-6 of the largest
+    magnitude) or its ref (f64, to 1e-12); every subject masked gives exact
+    zeros."""
+    K, R, C, offset, mk = shape
+    rng = np.random.default_rng(K + R + C + offset)
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    Yc, Vg, H = (rng.standard_normal(s) for s in ((K, R, C), (K, C, R), (R, R)))
+    op = dict(Yc=Yc, Vg=Vg, H=H, YkV=np.einsum("krc,kcl->krl", Yc, Vg))
+    if mk is not None:
+        op["sm"] = np.ones(K)
+        op["sm"][:: 1 if mk == "all" else 3] = 0.0
+    t, j = _both({k: a.astype(npdt) for k, a in op.items()})
+    sm, jsm = t.get("sm"), j.get("sm")
+    if dtype == torch.float32:
+        want = mode3_pallas(j["Yc"], j["Vg"], j["H"], jsm, interpret=True)
+        want_r = mode3_reuse_pallas(j["YkV"], j["H"], jsm, interpret=True)
+    else:
+        scale = 1.0 if jsm is None else jsm[:, None]
+        want = j_ref.mode3_ref(j["Yc"], j["Vg"], j["H"]) * scale
+        want_r = j_ref.mode3_reuse_ref(j["YkV"], j["H"]) * scale
+    got = mode3(_offset(t["Yc"], offset), t["Vg"], t["H"], sm)
+    got_r = mode3_reuse(_offset(t["YkV"], offset), t["H"], sm)
+    _close(got, want, TOLS[dtype])
+    _close(got_r, want_r, TOLS[dtype])
+    if mk == "all":
+        assert not got.any() and not got_r.any()
+
+
+def test_mode3_variant_is_a_question_for_the_card():
+    """Row 9's variant is the CUDA launcher's choice: asking it for CPU
+    operands raises before any kernel library is built or loaded."""
+    from repro_torch.kernels import mttkrp_mode3
+
+    with pytest.raises(ValueError, match="CUDA"):
+        mttkrp_mode3.mode3_variant(torch.rand((3, 5, 16)), torch.rand((3, 16, 5)))
+    assert staged.LIB._lib is None
+
+
 # K below and past the 2048 runs of the mode-1 reduction kernels
 # (csrc/staged.cu rows 6 and 7, csrc/fused.cu F2)
 REDUCTION_K = [7, 2100]
