@@ -8,8 +8,9 @@ Phases, any failure exits non-zero:
 
 1. the card (nvidia-smi name and power limit), torch/CUDA versions, and the
    kernel build from ``src/repro_torch/csrc`` (``fused.cu``, ``staged.cu``,
-   ``scoo.cu`` and ``gather_matmul.cu``, one nvcc each, started together);
-2. each of the thirteen kernels against its plain torch version on the
+   ``scoo.cu``, ``gather_matmul.cu`` and ``polar.cu``, one nvcc each,
+   started together);
+2. each of the fourteen kernels against its plain torch version on the
    card, in f32 and f64: the four fused and the six staged over eleven small
    CC geometries (the reference's four; R = 40, its widest cell; R = 72,
    past the widest register tile; C_pad = 1024 at R = 40; R = 72 with
@@ -34,7 +35,15 @@ Phases, any failure exits non-zero:
    and rows 9 and 10 must give the same bits twice more on the same
    input, F2 and row 7 also on their largest bucket after
    the smaller ones, and ``mode3(Yc, Vg, H, m)`` must equal
-   ``mode3_reuse(ykv(Yc, Vg), H, m)`` bit for bit; an empty (K=0) bucket
+   ``mode3_reuse(ykv(Yc, Vg), H, m)`` bit for bit; P1, the polar's inverse
+   root (the port's own kernel), at R = 1, 2, 5, 8, 40, 72 and 130 (every
+   design: a thread a subject, a block with shared memory, a block with a
+   global workspace) and K = 1 and 37 on zero, identity, rank-deficient and
+   conditioned Grams, and at K = 16,385 and 58,112 (R = 1, 2, 5, 8 and 40),
+   16,385 (R = 72) and 1,000 (R = 130), past every design's grid, every
+   seventh Gram zero, relative to max |P_inv| (``p1_tolerance``), zero
+   Grams to exact zeros, and Q^T Q = I on full-rank B, with what an f32
+   eigh departs by (the reason P1 solves in f64); an empty (K=0) bucket
    through every wrapper. f64 to 1e-12 absolute, f32 to 1e-6 relative plus 1e-6 of
    the output's largest magnitude (sums in another order differ by a
    rounding); for the two SCOO kernels the scale is the largest running
@@ -46,18 +55,27 @@ Phases, any failure exits non-zero:
    generation bucketized twice: CC on ``backend="auto"`` (the fused
    kernels), ``"staged"`` (the staged kernels) and ``"torch"``, then SCOO
    (``format="scoo"``, planned by nnz) on ``"staged"`` (the two SCOO
-   kernels, then the staged ones), ``"scoo"`` (plain torch, no kernel) and
-   ``"auto"`` (F2 alone), each after two warm-up iterations; each route's
-   kernels must launch buckets x iterations times and no other kernel, and
-   every fit history must be finite and within 1e-4 of the CC torch
-   route's; then scale 0.002 in f64 through the entry point's ``main``:
-   CC on the three CC routes, and ``--format scoo`` and ``--format auto`` on
-   the three SCOO routes, histories within 1e-8 of the CC torch route's;
+   kernels, then the staged ones), ``"scoo"`` (plain torch) and
+   ``"auto"`` (F2), each after two warm-up iterations; each route's
+   kernels (P1 on every route, the torch and scoo ones too) must launch
+   buckets x iterations times and no other kernel, and every fit history
+   must be finite and within 1e-4 of the CC torch route's; then scale 0.002 in
+   f64 through the entry point's ``main``: CC on the three CC routes and
+   ``--engine scan --check-every 0`` on auto, and ``--format scoo`` and
+   ``--format auto`` on the three SCOO routes, histories within 1e-8 of
+   the CC torch route's;
    then the paths that reach the other two staged kernels: a short
    ``mode1_reuse=False`` fit (``mode1``, buckets x iterations) and the
    backend's array-level ``mode3`` over the main path's buckets (once per
-   bucket, with row 9's variant per bucket); last, the BCC cut: the largest CC bucket's first subjects (at
+   bucket, with row 9's variant per bucket); the BCC cut: the largest CC bucket's first subjects (at
    most 2 GiB of BCC values), ``xk_times_v_bcc`` against ``xk_times_v``;
+   last, the scan engine (CUDA graphs) on CC auto, CC staged and SCOO
+   staged at check_every 10 and 0: the same launch counts under replay, the
+   history against the same route's host engine (bit for bit, else within
+   1e-6) and the torch route's, peak memory, the replayed ms/iter beside
+   the set-up; no host sync (``set_sync_debug_mode("error")``) in one eager
+   ``als_step`` and one chunk replay; the while variant's stop and masked
+   iterations and a chunked run's overshoot at a tol the fit crosses;
 4. each kernel's time beside its bound, its plain version's time, one
    PyTorch call's time (CUDA events, median of 20) and the wrapper call's
    host time (what an event time of a short kernel includes before the
@@ -68,7 +86,10 @@ Phases, any failure exits non-zero:
    and 10 take there; row 10 has one), the SCOO kernels at its largest SCOO bucket (with the variants of
    rows 11 and 12), the gather-matmul on the BCC
    cut (beside the CSR product over the cut's nonzeros, also one PyTorch
-   call on the kernel's own operands, ``library_same_input_ms``);
+   call on the kernel's own operands, ``library_same_input_ms``), and P1 on
+   the largest CC bucket's own Grams (bound by its function, not by the
+   sweeps the kernel took; library: the chunked ``torch.linalg.eigh`` and
+   the same inverse-root algebra);
 5. a ``torch.profiler`` trace of one main-path ALS iteration on the auto and
    the staged route over the CC buckets and on the staged and the scoo
    route over the SCOO buckets: device time by kernel (and of each of the
@@ -76,7 +97,11 @@ Phases, any failure exits non-zero:
    the device's busy share of the unprofiled iteration time of phase 3 and
    of the trace's first-to-last kernel span (the profiler's own per-launch
    cost inflates the profiled wall time, so that is not a denominator;
-   traces in ``$SMOKE_OUT/als_step_trace_<route>.json``).
+   traces in ``$SMOKE_OUT/als_step_trace_<route>.json``); then one replayed
+   10-iteration chunk of the scan engine on CC auto, CC staged and SCOO
+   staged: device time an iteration and its busy share of an unprofiled
+   replay of the same chunk just before it (trace of CC auto's in
+   ``$SMOKE_OUT/scan_chunk_trace_auto.json``).
 
 Files go to ``$SMOKE_OUT`` (default ``smoke_out/``).
 
@@ -204,15 +229,29 @@ XKV_EDGES = {
     (8, 8, 24, (24, 3, 0, 9), 72, False, 0): "ring",  # R = 72, in chunks of 32
     (8, 16, 24, tuple(range(24)) * 420, 5, False, 0): "ring",   # subjects past the walkers
 }
-SOURCES = ("fused", "staged", "scoo", "gather_matmul")
+# P1 (gram_inv_sqrt) over Grams of each kind at each rank, and at the main
+# path's bucket sizes: (R, K) for every kind, then (R, K, kind) at K past
+# cuSOLVER's batch limit and past the block variants' grids, so that a block
+# takes many subjects (every seventh Gram zero there, as padded subjects).
+# R = 72 and 130 stop at K 16,385 and 1,000: their plain version on the CPU
+# would take minutes at 58,112.
+P1_RANKS = (1, 2, 5, 8, 40, 72, 130)
+P1_SMALL_K = (1, 37)
+P1_LARGE = tuple((R, K, 10.0) for R in (1, 2, 5, 8, 40) for K in (16385, 58112)) + (
+    (72, 16385, 10.0), (130, 1000, 10.0), (5, 58112, 100.0))
+EIGH_BATCH = 16384      # the most 5x5 Grams one cuSOLVER eigh was seen to take on an H100
+SOURCES = ("fused", "staged", "scoo", "gather_matmul", "polar")
 FUSED = ("fused_procrustes_b", "fused_mode1_xkv", "fused_mode2_compact", "fused_ykv")
 STAGED = ("ykv", "mode1", "mode1_reuse", "mode2_compact", "mode3", "mode3_reuse")
 SCOO = ("scoo_xk_times_v", "scoo_project")
-ALL = FUSED + STAGED + SCOO + ("gather_matmul",)
+P1 = ("gram_inv_sqrt",)      # the port's own kernel: the polar's inverse root
+ALL = FUSED + STAGED + SCOO + ("gather_matmul",) + P1
 STAGED_PATH = ("ykv", "mode1_reuse", "mode2_compact", "mode3_reuse")
-ON_MAIN_PATH = {"auto": FUSED, "staged": STAGED_PATH,
-                "staged-scoo": SCOO + STAGED_PATH, "auto-scoo": ("fused_mode1_xkv",),
-                "scoo-scoo": ()}
+# every CUDA route takes P1 in its polar step, the torch route too
+ON_MAIN_PATH = {"auto": FUSED + P1, "staged": STAGED_PATH + P1,
+                "staged-scoo": SCOO + STAGED_PATH + P1, "auto-scoo": ("fused_mode1_xkv",) + P1,
+                "scoo-scoo": P1, "torch": P1}
+SCAN_ROUTES = ("auto", "staged", "staged-scoo")   # the routes phase 3 runs under scan
 REPLACES = {
     "fused_procrustes_b": "src/repro/kernels/fused.py:132",
     "fused_mode1_xkv": "src/repro/kernels/fused.py:196",
@@ -227,6 +266,8 @@ REPLACES = {
     "scoo_xk_times_v": "src/repro/kernels/scoo.py:249",
     "scoo_project": "src/repro/kernels/scoo.py:313",
     "gather_matmul": "src/repro/kernels/gather_matmul.py:42",
+    # no TPU kernel: the reference's jnp.linalg.eigh in its compiled program
+    "gram_inv_sqrt": "src/repro/core/procrustes.py:40",
 }
 
 
@@ -285,10 +326,39 @@ def scoo_proj_plain(vals, rows, lcols, Q, c_pad, cperm, col_ends):
     return scoo.project(vals, rows, lcols, Q, c_pad, cperm=cperm, col_ends=col_ends)
 
 
+def p1_plain(G):
+    """P1's plain version over runs of at most ``EIGH_BATCH`` Grams (the
+    function is per Gram; cuSOLVER refuses larger batches). Many Grams
+    past R = 8 go to the CPU's LAPACK: cuSOLVER solves those one at a time."""
+    import torch
+    from repro_torch.kernels import polar
+
+    if G.shape[-1] > 8 and G.shape[0] > 1000:
+        return polar.gram_inv_sqrt_plain(G.cpu()).to(G.device)
+    if G.shape[0] <= EIGH_BATCH:
+        return polar.gram_inv_sqrt_plain(G)
+    return torch.cat([polar.gram_inv_sqrt_plain(g) for g in G.split(EIGH_BATCH)])
+
+
+def p1_library(G):
+    """One call's worth of PyTorch for P1's function as the port computed
+    it before P1: ``torch.linalg.eigh`` in runs of ``EIGH_BATCH`` in G's
+    dtype, then the same inverse-root algebra (timed only)."""
+    import torch
+
+    parts = [torch.linalg.eigh(g) for g in G.split(EIGH_BATCH)]
+    lam, E = torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+    scale = torch.clamp(lam, min=0.0)
+    tol = scale.amax(dim=-1, keepdim=True) * 1e-12
+    inv_root = torch.where(scale > tol, torch.rsqrt(torch.maximum(scale, tol)),
+                           torch.zeros_like(scale))
+    return (E * inv_root[:, None, :]) @ E.transpose(1, 2)
+
+
 def kernels() -> dict:
-    """name -> (wrapper, plain version, source) for the thirteen kernels."""
+    """name -> (wrapper, plain version, source) for the fourteen kernels."""
     from repro_torch.kernels import (fused, gather_matmul, mttkrp_mode1, mttkrp_mode2,
-                                     mttkrp_mode3, ykv)
+                                     mttkrp_mode3, polar, ykv)
 
     f, s = "src/repro_torch/csrc/fused.cu", "src/repro_torch/csrc/staged.cu"
     sc, g = "src/repro_torch/csrc/scoo.cu", "src/repro_torch/csrc/gather_matmul.cu"
@@ -306,6 +376,7 @@ def kernels() -> dict:
         "scoo_xk_times_v": (scoo_xkv, scoo_xkv_plain, sc),
         "scoo_project": (scoo_proj, scoo_proj_plain, sc),
         "gather_matmul": (gather_matmul.gather_matmul, gather_matmul.gather_matmul_plain, g),
+        "gram_inv_sqrt": (polar.gram_inv_sqrt, p1_plain, "src/repro_torch/csrc/polar.cu"),
     }
 
 
@@ -453,8 +524,9 @@ def check_empty(dtype, dev) -> None:
         "gather_matmul": (torch.zeros((0, I, 2, 128), **z), torch.zeros((0, 2), **ix),
                           torch.zeros((256, R), **z)),
     })
+    args["gram_inv_sqrt"] = (torch.zeros((0, R, R), **z),)
     shapes.update({"scoo_xk_times_v": [(0, I, R)], "scoo_project": [(0, R, C)],
-                   "gather_matmul": [(0, I, R)]})
+                   "gather_matmul": [(0, I, R)], "gram_inv_sqrt": [(0, R, R)]})
     before = launches()
     for name, (wrapper, _, _) in kernels().items():
         out = wrapper(*args[name])
@@ -728,6 +800,113 @@ def check_mode3_edges(dtype, dev, errs: dict) -> set:
     return seen
 
 
+def p1_grams(R: int, K: int, kind, dtype, dev, seed: int):
+    """K symmetric R x R Grams of one kind: "zero" (padded subjects),
+    "identity" (one repeated eigenvalue), "rankdef" (B^T B with B's last
+    columns exactly zero), "lowrank" (B^T B of a B with fewer rows than R),
+    or a condition number (E diag(lambda) E^T, lambda from 1 down to
+    1/condition, E random orthogonal)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    if kind == "zero":
+        G = np.zeros((K, R, R))
+    elif kind == "identity":
+        G = np.broadcast_to(np.eye(R), (K, R, R)).copy()
+    elif kind in ("rankdef", "lowrank"):
+        B = rng.standard_normal((K, R + 3 if kind == "rankdef" else max(1, R // 2), R))
+        if kind == "rankdef":
+            B[:, :, R // 2:] = 0.0
+        G = np.swapaxes(B, 1, 2) @ B
+    else:
+        E = np.linalg.qr(rng.standard_normal((K, R, R)))[0]
+        lam = np.geomspace(1.0, 1.0 / kind, R) * rng.uniform(0.5, 4.0, (K, 1))
+        G = (E * lam[:, None, :]) @ np.swapaxes(E, 1, 2)
+        G = (G + np.swapaxes(G, 1, 2)) / 2
+    return torch.tensor(G, dtype=dtype, device=dev)
+
+
+def p1_tolerance(kind, R: int, f64: bool) -> float:
+    """P1 against its plain version, relative to max |P_inv|. f64: 1e-12,
+    and at condition 1e6 the first-order bound R * condition * 2^-53 that
+    any two backward-stable eigensolvers are held to (two correct solvers
+    differ by ~1e-11 there); f32 (both solve in f64, then round): 1e-6 up to
+    condition 10, 1e-4 at 1e2."""
+    cond = kind if isinstance(kind, float) else 1.0
+    if f64:
+        return max(1e-12, R * cond * 2.0 ** -53) if cond > 1e2 else 1e-12
+    return 1e-6 if cond <= 10 else 1e-4
+
+
+def check_polar(dtype, dev, errs: dict) -> set:
+    """P1 against its plain version at every rank, kind and size; zero
+    Grams give exact zeros, every call is one launch; and Q = polar(B) is
+    orthonormal on full-rank B. Returns the variants reached."""
+    import torch
+    from repro_torch.core.procrustes import solve_q
+    from repro_torch.kernels import polar
+
+    f64 = dtype == torch.float64
+    kinds = ["zero", "identity", "rankdef", 1.0, 10.0, 100.0] + ([1e6, "lowrank"] if f64 else [])
+    cases = [(R, K, kind) for R in P1_RANKS for K in P1_SMALL_K for kind in kinds]
+    cases += [(R, K, kind) for R, K, kind in P1_LARGE]
+    worst: dict = {}
+    f32_eigh: dict = {}     # R -> what an f32 eigh departs by, condition <= 10
+    variants = set()
+    for i, (R, K, kind) in enumerate(cases):
+        G = p1_grams(R, K, kind, dtype, dev, seed=i)
+        if K >= 1000:
+            G[::7] = 0.0                                   # padded subjects
+        before = launches()["gram_inv_sqrt"]
+        got = polar.gram_inv_sqrt(G)
+        want = p1_plain(G)
+        torch.cuda.synchronize()
+        if launches()["gram_inv_sqrt"] != before + 1:
+            fail(f"gram_inv_sqrt at R={R}, K={K} did not launch its kernel once")
+        if got.shape != want.shape or got.dtype != G.dtype:
+            fail(f"gram_inv_sqrt: shape {tuple(got.shape)} {got.dtype}, want "
+                 f"{tuple(want.shape)} {G.dtype}")
+        err = float((got.double() - want.double()).abs().max())
+        scale = float(want.abs().max())
+        zero = got if kind == "zero" else got[::7] if K >= 1000 else None
+        if zero is not None and bool((zero != 0).any()):
+            fail(f"gram_inv_sqrt: zero Grams gave non-zero output (R={R}, K={K})")
+        tol = p1_tolerance(kind, R, f64)
+        if err > tol * max(scale, 1e-300) and not (scale == 0.0 and err == 0.0):
+            fail(f"gram_inv_sqrt ({'f64' if f64 else 'f32'}, R={R}, K={K}, {kind}): max "
+                 f"|kernel - plain| = {err:.3e} > {tol:.1e} x {scale:.3e}")
+        rel = err / scale if scale else err
+        worst[kind] = max(worst.get(kind, 0.0), rel)
+        if not f64 and K < 1000 and scale > 0 and kind in ("identity", "rankdef", 1.0, 10.0):
+            dep = float((p1_library(G).double() - want.double()).abs().max()) / scale
+            f32_eigh[R] = max(f32_eigh.get(R, 0.0), dep)
+        e, sc = errs.get("gram_inv_sqrt", (0.0, 0.0))
+        errs["gram_inv_sqrt"] = (max(e, err), max(sc, scale))
+        variants.add(("gram_inv_sqrt", polar.gram_inv_sqrt_variant(R)))
+    orth = 0.0
+    for R in (5, 40):
+        gen = torch.Generator(device="cpu").manual_seed(R)
+        B = torch.randn((64, 56, R), generator=gen, dtype=torch.float64).to(dtype).to(dev)
+        before = launches()["gram_inv_sqrt"]
+        Q = solve_q(B)
+        if launches()["gram_inv_sqrt"] != before + 1:
+            fail("solve_q on the card did not take P1 once")
+        eye = torch.eye(R, dtype=torch.float64, device=dev)
+        orth = max(orth, float((Q.transpose(1, 2).double() @ Q.double() - eye).abs().max()))
+    if orth > (1e-12 if f64 else 1e-5):
+        fail(f"Q^T Q - I = {orth:.3e} on full-rank B ({dtype})")
+    print(f"[p1] {'f64' if f64 else 'f32'}: {len(cases)} cases, R in {P1_RANKS}, K in "
+          f"{P1_SMALL_K} and {P1_LARGE}; largest |kernel - plain| / max |plain| by kind "
+          + json.dumps({str(k): float(f"{v:.3e}") for k, v in worst.items()})
+          + f"; max |Q^T Q - I| on B [64, 56, R in (5, 40)] {orth:.3e}", flush=True)
+    if f32_eigh:
+        print("[p1] f32: an eigh in f32 (the library call) departs from the f64 solve by, "
+              "relative to max |P_inv|, at condition <= 10, by R: "
+              + json.dumps({R: float(f"{v:.3e}") for R, v in f32_eigh.items()}), flush=True)
+    return variants
+
+
 def phase2_kernels(dev) -> dict:
     import numpy as np
     import torch
@@ -741,6 +920,7 @@ def phase2_kernels(dev) -> dict:
         variants |= check_variant_edges(dtype, dev, errs)
         variants |= check_reduction_edges(dtype, dev, errs)
         variants |= check_mode3_edges(dtype, dev, errs)
+        variants |= check_polar(dtype, dev, errs)
         for g in GEOMETRIES:
             data = random_irregular(n_subjects=g["K"], n_cols=g["J"],
                                     max_rows=g.get("max_rows", 9),
@@ -764,9 +944,11 @@ def phase2_kernels(dev) -> dict:
     want = {(name, v) for name in ("ykv", "mode2_compact", "mode3", "scoo_xk_times_v",
                                    "scoo_project") for v in RING_VARIANTS}
     want |= {("fused_mode1_xkv", v) for v in F2_VARIANTS}
+    from repro_torch.kernels.polar import VARIANTS as P1_VARIANTS
+    want |= {("gram_inv_sqrt", v) for v in P1_VARIANTS}
     if variants != want:
         fail(f"phase 2 did not reach the variants {sorted(want - variants)}")
-    print(f"[kernels] all thirteen match their plain versions (f32, f64; "
+    print(f"[kernels] all fourteen match their plain versions (f32, f64; "
           f"{len(GEOMETRIES)} CC geometries, R in {sorted({g['R'] for g in GEOMETRIES})}, "
           f"C_pad up to 1024; SCOO {', '.join(SCOO_DATA)} at R 1/5/72 and explicit "
           f"zero-valued triplets; BCC {BCC_GEOMETRIES}; rows 5, 8, 11 and 12 at "
@@ -824,13 +1006,14 @@ def phase3_main_path(dev):
     for _, b_, backend in runs:
         dec.decompose(b_, backend=backend, **{**kw, "iters": 2})
 
-    hist, ms, counts = {}, {}, {}
+    hist, ms, counts, peaks = {}, {}, {}, {}
     for label, b_, backend in runs:
         resident = torch.cuda.memory_allocated()       # both formats' buckets
         torch.cuda.reset_peak_memory_stats()
         state, hist[label], secs = dec.decompose(b_, backend=backend, **kw)  # counts from 0
         counts[label] = launches()                     # read right after the run
         peak = torch.cuda.max_memory_allocated()
+        peaks[label] = (peak - resident) / 2**30        # what the fit adds
         ms[label] = secs / len(hist[label]) * 1e3
         if label == "auto":
             main_state = state
@@ -845,7 +1028,7 @@ def phase3_main_path(dev):
             fail(f"{label}: main path fit history is not finite or short")
     print(f"[main] device bytes: CC {dev_bytes['cc']}, SCOO {dev_bytes['scoo']} "
           f"({dev_bytes['scoo'] / dev_bytes['cc']:.3f} of CC)", flush=True)
-    for label in ("auto", "staged", "staged-scoo", "scoo-scoo", "auto-scoo"):
+    for label in ("auto", "staged", "torch", "staged-scoo", "scoo-scoo", "auto-scoo"):
         n_buckets = len((bt_sc if label.endswith("-scoo") else bt).buckets)
         check_launches(label, counts[label], n_buckets * ITERS)
     from repro_torch.kernels import fused, mttkrp_mode2, scoo, ykv
@@ -876,8 +1059,6 @@ def phase3_main_path(dev):
     print(f"[main] staged: rows 5 and 8 variants per CC bucket (C_pad, subjects): {cc_v}; "
           f"staged-scoo: rows 11, 12, 5 and 8 per SCOO bucket (I_pad, C_pad, N_pad, "
           f"subjects): {sc_v}", flush=True)
-    if any(counts["torch"].values()):
-        fail("the torch route launched a kernel")
     for label in ("auto", "staged", "staged-scoo", "scoo-scoo", "auto-scoo"):
         diff = float(np.max(np.abs(np.asarray(hist[label]) - np.asarray(hist["torch"]))))
         print(f"[main] max |fit {label} - fit torch (CC)| over {ITERS} iterations = "
@@ -895,6 +1076,10 @@ def phase3_main_path(dev):
             s64[f"{backend}-{fmt}"] = dec.main(common + [
                 "--backend", backend, "--format", fmt,
                 "--json", str(OUT / f"decompose_f64_{backend}_{fmt}.json")])
+    # the whole fit as one captured iteration replayed, stopping on the device
+    s64["auto-scan0"] = dec.main(common + ["--backend", "auto", "--engine", "scan",
+                                           "--check-every", "0", "--json",
+                                           str(OUT / "decompose_f64_auto_scan0.json")])
     for label, summary in s64.items():
         if label == "torch":
             continue
@@ -907,8 +1092,13 @@ def phase3_main_path(dev):
             fail(f"f64 {label} fit history differs by {diff64:.3e} > 1e-8")
         if label.endswith("-auto") and {r["format"] for r in summary["buckets"]} != {"scoo"}:
             fail(f"{label}: format auto kept a CC bucket at CHOA's density")
-        route = label if label in ON_MAIN_PATH else label.rsplit("-", 1)[0] + "-scoo"
+        route = (label if label in ON_MAIN_PATH else "auto" if label == "auto-scan0"
+                 else label.rsplit("-", 1)[0] + "-scoo")
         check_launches(route, summary["kernel_launches"], len(summary["buckets"]) * ITERS)
+    check_launches("torch", s64["torch"]["kernel_launches"],
+                   len(s64["torch"]["buckets"]) * ITERS)
+    if (s64["auto-scan0"]["engine"], s64["auto-scan0"]["check_every"]) != ("scan", 0):
+        fail("the f64 scan run's summary does not report engine scan, check_every 0")
 
     # the two staged kernels off the main path: mode1 (mode1_reuse=False) ...
     short = dict(kw, iters=3)
@@ -948,9 +1138,144 @@ def phase3_main_path(dev):
     # each kernel's launches in the run of the path that reaches it
     path_of = {**dict.fromkeys(FUSED, "auto"), **dict.fromkeys(STAGED, "staged"),
                "mode1": "mode1", "mode3": "mode3", **dict.fromkeys(SCOO, "staged-scoo"),
-               "gather_matmul": "bcc"}
+               "gather_matmul": "bcc", "gram_inv_sqrt": "auto"}
     per_kernel = {name: counts[path_of[name]][name] for name in ALL}
-    return bt, bt_sc, (cut, bcc), main_state, per_kernel, ms
+    peaks["dev_bytes"] = dev_bytes
+    return bt, bt_sc, (cut, bcc), main_state, per_kernel, ms, hist, peaks
+
+
+def scan_opts(backend: str, check_every: int):
+    import torch
+    from repro_torch.core import Parafac2Options
+
+    return Parafac2Options(rank=5, backend=backend, dtype=torch.float32, engine="scan",
+                           check_every=check_every)
+
+
+def steady_ms(data, backend: str, check_every: int) -> tuple:
+    """(set-up seconds, its warm-up's kernel launches, ms per iteration) of
+    the scan engine on ``data``: the chunk (or the while variant) made once
+    from the seeded start (warm-up and capture: the set-up), then ``ITERS``
+    iterations timed as ``fit_device`` runs them, the fits read at the end
+    of each chunk."""
+    import torch
+    from repro_torch.core import engine, init_state
+
+    opts = scan_opts(backend, check_every)
+    s0 = init_state(data, opts, seed=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run = (engine.make_als_chunk(data, opts, check_every, state=s0) if check_every
+           else engine.make_als_while(data, opts, ITERS, 0.0, state=s0))
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if check_every:
+        s = s0
+        for _ in range(ITERS // check_every):
+            s, fits = run(s)
+            fits.tolist()
+    else:
+        _, hist, n = run(s0)
+        hist[: int(n)].tolist()
+    return setup, sum(run.setup_launches.values()), (time.perf_counter() - t0) / ITERS * 1e3
+
+
+def phase3_engines(bt, bt_sc, hist: dict, ms: dict, peaks: dict) -> dict:
+    """The scan engine (CUDA graphs) beside the host engine on the CC auto,
+    CC staged and SCOO staged routes, at check_every 10 and 0 (the while
+    variant): each fit through ``decompose`` (launch counts: buckets x
+    iterations under replay, the warm-up's kept apart), its history against
+    the same route's host history (bit for bit, else within 1e-6) and the CC
+    torch route's (1e-4), peak memory, and the steady ms/iter with the
+    set-up (warm-up and capture) outside the timing. Then no host sync in an
+    eager ``als_step`` or a replay (``set_sync_debug_mode("error")``), the
+    while variant's stop and its masked iterations at a tol that the fit
+    crosses, and a chunked run's overshoot. Returns the steady ms/iter."""
+    import numpy as np
+    import torch
+    from repro_torch.core import Parafac2Options, als_step, engine, init_state
+    from repro_torch.launch import decompose as dec
+
+    data_of = {"auto": (bt, "auto"), "staged": (bt, "staged"), "staged-scoo": (bt_sc, "staged")}
+    kw = dict(rank=5, iters=ITERS, seed=0, dtype=torch.float32, verbose=False)
+    steady = {}
+    for label in SCAN_ROUTES:
+        data, backend = data_of[label]
+        for ce in (10, 0):
+            name = f"{label} scan{ce}"
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            state, h, secs = dec.decompose(data, backend=backend, tol=0.0, engine="scan",
+                                           check_every=ce, **kw)
+            counts = launches()
+            peak = torch.cuda.max_memory_allocated()
+            check_launches(label, counts, len(data.buckets) * ITERS)
+            if len(h) != ITERS or not np.all(np.isfinite(h)) or h[-1] != float(state.fit):
+                fail(f"{name}: fit history short, not finite or not the state's fit")
+            bitwise = h == hist[label]
+            d_host = float(np.max(np.abs(np.asarray(h) - np.asarray(hist[label]))))
+            d_torch = float(np.max(np.abs(np.asarray(h) - np.asarray(hist["torch"]))))
+            setup, warm_launches, steady[name] = steady_ms(data, backend, ce)
+            peaks[name] = (peak - resident) / 2**30
+            alone = peaks[name] + peaks["dev_bytes"]["scoo" if label.endswith("-scoo") else "cc"] / 2**30
+            print(f"[scan] {name}: {steady[name]:.2f} ms/iter replayed (host engine "
+                  f"{ms[label]:.2f}), set-up (warm-up {engine.WARMUP_ITERS} iterations, "
+                  f"{warm_launches} launches of the port's kernels kept apart, + capture) "
+                  f"{setup:.2f}s, the fit with set-up {secs / ITERS * 1e3:.2f} "
+                  f"ms/iter; peak device memory {peaks[name]:.3f} GiB above what was held "
+                  f"before the fit (host engine {peaks[label]:.3f}; the route's buckets and "
+                  f"this fit alone {alone:.3f} GiB); launches "
+                  f"{ {k: v for k, v in counts.items() if v} }; fit history bit for bit the "
+                  f"host engine's: {bitwise}, max |scan - host| {d_host:.3e}, max |scan - "
+                  f"torch (CC)| {d_torch:.3e}", flush=True)
+            if d_host > 1e-6 or d_torch > 1e-4:
+                fail(f"{name}: fit history differs from the host engine's by {d_host:.3e} "
+                     f"(> 1e-6) or from the torch route's by {d_torch:.3e} (> 1e-4)")
+
+    # no host sync: one eager als_step and one replay of a captured chunk
+    for label in SCAN_ROUTES:
+        data, backend = data_of[label]
+        opts = Parafac2Options(rank=5, backend=backend, dtype=torch.float32)
+        s = als_step(data, init_state(data, opts, seed=0), opts)
+        chunk = engine.make_als_chunk(data, scan_opts(backend, 10), 10, state=s)
+        torch.cuda.synchronize()
+        for what, call in (("an eager als_step", lambda: als_step(data, s, opts)),
+                           ("a replay of a captured chunk", lambda: chunk(s))):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                call()
+            except RuntimeError as e:
+                fail(f"{label}: {what} synchronised with the host: {e}")
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+        del chunk
+    print(f"[scan] no host sync (set_sync_debug_mode('error')) in one eager als_step or "
+          f"one chunk replay on {', '.join(SCAN_ROUTES)}", flush=True)
+
+    # the stop: a tol halfway between two of CC auto's fit changes
+    d = np.sort(np.abs(np.diff(hist["auto"])))
+    tol = float((d[len(d) // 2 - 1] + d[len(d) // 2]) / 2)
+    _, h_host, _ = dec.decompose(bt, backend="auto", tol=tol, **kw)
+    opts = scan_opts("auto", 0)
+    s0 = init_state(bt, opts, seed=0)
+    run = engine.make_als_while(bt, opts, ITERS, tol, state=s0)
+    _, h_while, n = run(s0)
+    n = int(n)
+    h_while = h_while[:n].tolist()
+    state_c, h_chunk, _ = dec.decompose(bt, backend="auto", tol=tol, engine="scan",
+                                        check_every=10, **kw)
+    d_while = float(np.max(np.abs(np.asarray(h_while) - np.asarray(h_host))))
+    print(f"[scan] auto at tol {tol:.3e}: host engine stops after {len(h_host)} iterations; "
+          f"while variant after {n} ({run.replays} replays: {run.replays - n} masked past the "
+          f"stop), history bit for bit the host's: {h_while == h_host}, max |while - host| "
+          f"{d_while:.3e}; chunked (check_every 10) ran {len(h_chunk)}", flush=True)
+    if n != len(h_host) or d_while > 1e-6 or len(h_host) >= ITERS:
+        fail("the while variant did not stop after the host loop's iteration")
+    if not (len(h_host) <= len(h_chunk) < len(h_host) + 10) or h_chunk[-1] != float(state_c.fit):
+        fail("the chunked run overshot by a chunk or more, or did not end on its state's fit")
+    return steady
 
 
 def bcc_cut(bt, V):
@@ -1071,6 +1396,17 @@ def work(name: str, K: int, I: int, C: int, R: int, itemsize: int) -> tuple:
     return nbytes * itemsize, ops
 
 
+def p1_work(K: int, R: int, itemsize: int) -> tuple:
+    """(bytes, operations) of P1's function on K Grams, whatever method
+    computes it: G read once and P_inv written once; per Gram the symmetric
+    eigendecomposition with vectors by the QR algorithm's count, 9 R^3
+    (Golub and Van Loan, Matrix Computations, 8.3), R inverse roots and the
+    R (R + 1) / 2 entries of E diag E^T (3 R each). The operations are
+    taken at the peak for G's dtype: the kernel's choice to solve in f64
+    does not loosen its bound."""
+    return 2 * K * R * R * itemsize, K * (9 * R ** 3 + 4 * R + R * (R + 1) // 2 * 3 * R)
+
+
 def sparse_work(name: str, b, R: int) -> tuple:
     """(bytes, operations) of rows 11-13 on this run's data: each input read
     once, each output written once. Rows 11/12 read the true nonzeros (the
@@ -1128,7 +1464,8 @@ def phase4_times(bt, bt_sc, bcc_pair, state, per_kernel, errs):
     import torch
     from repro_torch.core.backend import get_backend
     from repro_torch.core.procrustes import solve_q
-    from repro_torch.kernels import fused, mttkrp_mode1, mttkrp_mode2, mttkrp_mode3, scoo, ykv
+    from repro_torch.kernels import (fused, mttkrp_mode1, mttkrp_mode2, mttkrp_mode3, polar,
+                                     scoo, ykv)
 
     b = max(bt.buckets, key=lambda x: x.vals.numel())
     H, V, W = state.H.contiguous(), state.V, state.W
@@ -1187,6 +1524,37 @@ def phase4_times(bt, bt_sc, bcc_pair, state, per_kernel, errs):
     need["gather_matmul"] = sparse_work("gather_matmul", bcc, R)
     args.update(sargs)
     args.update(bargs)
+    # P1 on the main path's own Grams at the largest CC bucket
+    G = B.transpose(1, 2) @ B
+    P_inv = polar.gram_inv_sqrt(G)
+    want = p1_plain(G)
+    # each Gram against its own bound: max(1e-6, R * kappa * 2^-53) of its
+    # max |P_inv|, kappa over the eigenvalues the clamp keeps (subjects with
+    # fewer rows than R have Grams near singular, f32 rounding their null
+    # space into eigenvalues ~1e-8 of the largest)
+    lam = torch.cat([torch.linalg.eigvalsh(g.double()) for g in G.split(EIGH_BATCH)])
+    top = lam[:, -1:].clamp(min=0.0)
+    kept = torch.where(lam > top * 1e-12, lam, torch.full_like(lam, float("inf")))
+    kappa = (top[:, 0] / kept.min(1).values).nan_to_num(nan=1.0, posinf=1.0)
+    err_k = (P_inv.double() - want.double()).abs().amax((1, 2))
+    scale_k = want.double().abs().amax((1, 2))
+    bound_k = torch.clamp(R * kappa * 2.0 ** -53, min=1e-6) * scale_k
+    if bool((err_k > bound_k).any()):
+        k = int((err_k - bound_k).argmax())
+        fail(f"gram_inv_sqrt on the main path's Gram {k}: |kernel - plain| "
+             f"{float(err_k[k]):.3e} > {float(bound_k[k]):.3e} (condition {float(kappa[k]):.3e})")
+    p1_err, p1_scale = float(err_k.max()), float(scale_k.max())
+    e, sc = errs["gram_inv_sqrt"]
+    errs["gram_inv_sqrt"] = (max(e, p1_err), max(sc, p1_scale))
+    args["gram_inv_sqrt"] = (G,)
+    library["gram_inv_sqrt"] = lambda: p1_library(G)
+    where["gram_inv_sqrt"] = f"K={G.shape[0]} (the largest CC bucket's Grams)"
+    need["gram_inv_sqrt"] = p1_work(G.shape[0], R, G.element_size())
+    print(f"[time] gram_inv_sqrt on the main path's Grams (K={G.shape[0]}, R={R}, f32): "
+          f"max |kernel - plain| {p1_err:.3e} against max |plain| {p1_scale:.3e}, each Gram "
+          f"within max(1e-6, R kappa 2^-53) of its max |P_inv| (largest relative error "
+          f"{float((err_k / scale_k.clamp(min=1e-300)).max()):.3e}, condition up to "
+          f"{float(kappa.max()):.3e})", flush=True)
 
     rows = []
     for name, (wrapper, plain, source) in kernels().items():
@@ -1225,6 +1593,9 @@ def phase4_times(bt, bt_sc, bcc_pair, state, per_kernel, errs):
         if name == "scoo_project":
             r["variant"] = scoo.scoo_project_variant(
                 *a[:5], cperm=a[5], col_ends=a[6])
+        if name == "gram_inv_sqrt":
+            r["variant"] = polar.gram_inv_sqrt_variant(R)
+            r["port_only"] = True          # the reference's jnp.linalg.eigh, no Pallas kernel
         if "variant" in r:
             extra = f", variant {r['variant']}"
         if name in same_input:
@@ -1238,6 +1609,14 @@ def phase4_times(bt, bt_sc, bcc_pair, state, per_kernel, errs):
     # repeated call one allocation (the result), no new device memory and
     # the same workspace
     for r in rows:
+        if r["name"] == "gram_inv_sqrt":     # one kernel, the result its one allocation
+            n_k, n_alloc, n_seg = one_call(lambda: polar.gram_inv_sqrt(G))
+            r["device_kernels_per_call"] = n_k
+            print(f"[time] gram_inv_sqrt: {n_k} device kernel(s) a call, {n_alloc} "
+                  f"allocation(s) a repeated call", flush=True)
+            if n_k != 1 or n_alloc != 1:
+                fail(f"gram_inv_sqrt: {n_k} device kernels and {n_alloc} allocations a call; "
+                     f"want 1 and 1 (the result)")
         if r["name"] not in ("fused_mode1_xkv", "mode1_reuse"):
             continue
         wrapper, a = kernels()[r["name"]][0], args[r["name"]]
@@ -1258,14 +1637,16 @@ def phase4_times(bt, bt_sc, bcc_pair, state, per_kernel, errs):
     return rows
 
 
-def phase5_profile(bt, bt_sc, iter_ms: dict) -> None:
+def phase5_profile(bt, bt_sc, iter_ms: dict, scan_ms: dict) -> None:
     """Where one main-path iteration's time goes on the auto and the staged
     route over the CC buckets and on the staged and the scoo route over the
-    SCOO buckets; ``iter_ms`` is each run's unprofiled time per iteration
-    from phase 3."""
+    SCOO buckets, then in one replayed 10-iteration chunk of the scan engine
+    on the CC auto, CC staged and SCOO staged routes, against an unprofiled
+    replay of the same chunk just before it; ``iter_ms`` and ``scan_ms`` are
+    the unprofiled times per iteration of phase 3."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import Parafac2Options, als_step, init_state
+    from repro_torch.core import Parafac2Options, als_step, engine, init_state
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
@@ -1311,6 +1692,40 @@ def phase5_profile(bt, bt_sc, iter_ms: dict) -> None:
             print(f"[profile] {route} host   {e.self_cpu_time_total / 1e3:9.3f} ms  "
                   f"x{e.count:<6d} {e.key[:90]}")
 
+    for route, data in (("auto", bt), ("staged", bt), ("staged-scoo", bt_sc)):
+        opts = scan_opts(route.split("-")[0], 10)
+        chunk = engine.make_als_chunk(data, opts, 10, state=init_state(data, opts, seed=0))
+        state, fits = chunk(init_state(data, opts, seed=0))
+        fits.tolist()                              # one replay before the timed ones
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, fits = chunk(state)
+        fits.tolist()
+        it = (time.perf_counter() - t0) / 10 * 1e3  # this replay, unprofiled, an iteration
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            state, fits = chunk(state)
+            fits.tolist()                          # the chunk's one read of the fits
+        if route == "auto":
+            prof.export_chrome_trace(str(OUT / "scan_chunk_trace_auto.json"))
+        kernels_ = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+        busy_ms = sum(dev_us(e) for e in kernels_) / 1e3 / 10
+        runs = [e.time_range for e in prof.events() if str(e.device_type).endswith("CUDA")]
+        if not runs or busy_ms <= 0:
+            print(f"[profile] scan {route}: the profiler saw no kernel of the replayed chunk; "
+                  f"device busy share not measured", flush=True)
+            continue
+        span_ms = (max(r.end for r in runs) - min(r.start for r in runs)) / 1e3 / 10
+        print(f"[profile] one replayed 10-iteration {route} chunk (scan engine): device busy "
+              f"{busy_ms:.3f} ms an iteration; against the same chunk's unprofiled replay "
+              f"before it, {it:.3f} ms an iteration (phase 3: {scan_ms[f'{route} scan10']:.3f}): "
+              f"busy {busy_ms / it:.1%}, idle {1 - busy_ms / it:.1%}; against the "
+              f"first-to-last kernel span ({span_ms:.3f} ms an iteration): busy "
+              f"{busy_ms / span_ms:.1%}", flush=True)
+        for e in sorted(kernels_, key=dev_us, reverse=True)[:8]:
+            print(f"[profile] scan {route} device {dev_us(e) / 1e3 / 10:9.3f} ms/iter  "
+                  f"x{e.count:<6d} {e.key[:90]}")
+        del chunk
+
 
 def main() -> int:
     try:
@@ -1329,9 +1744,10 @@ def main() -> int:
     t0 = time.perf_counter()
     phase1_build()
     errs = phase2_kernels(dev)
-    bt, bt_sc, bcc_pair, state, per_kernel, iter_ms = phase3_main_path(dev)
+    bt, bt_sc, bcc_pair, state, per_kernel, iter_ms, hist, peaks = phase3_main_path(dev)
+    scan_ms = phase3_engines(bt, bt_sc, hist, iter_ms, peaks)
     rows = phase4_times(bt, bt_sc, bcc_pair, state, per_kernel, errs)
-    phase5_profile(bt, bt_sc, iter_ms)
+    phase5_profile(bt, bt_sc, iter_ms, scan_ms)
     print(f"[done] {time.perf_counter() - t0:.1f}s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,299 @@
+"""Device-resident ALS engines (``repro.core.engine``): the scan engine in
+chunks and its while variant, as CUDA graphs.
+
+The host loop (``parafac2.fit`` with ``engine="host"``) launches every
+kernel of an iteration from Python and reads the fit back every iteration.
+The reference runs the same algebra as one compiled program a chunk; in
+PyTorch the counterpart of a compiled chunk is a captured CUDA graph:
+
+``engine="scan"``, ``opts.check_every > 0``
+    One ALS iteration captured once into a CUDA graph and replayed
+    ``check_every`` times a chunk (fewer for the remainder): the state, a
+    fit buffer and the iteration counter that indexes it are the graph's own
+    tensors, so replays chain with no host work and no host sync, and the
+    host reads the fits once a chunk for the tol check. Whole chunks run
+    past the tol crossing, so ``history[-1]`` is the returned state's fit.
+
+``engine="scan"``, ``opts.check_every = 0`` (the while variant)
+    The same captured iteration with the host loop's stopping rule live:
+    each replay computes ``stop = (i > 0) & (|f - prev| < tol)`` on the
+    device and commits its new H, V, W and fit only while not stopped (a
+    graph cannot branch on data); in a chunk the rule's tol is -inf, so it
+    never fires. The fit history goes to a ``[max_iters]`` device buffer.
+    The host replays without waiting for each one: it copies the stop flag
+    to pinned memory after each replay and, with two replays in flight,
+    waits for the older one's event before it launches another, so that at
+    most one masked iteration runs past the stop. State and history equal
+    the host loop's.
+
+On the CPU both run the same iteration eagerly (no graphs; the while
+variant reads its flag each iteration and runs no masked iteration). On a
+GPU ``engine="scan"`` always captures: a capture that fails raises, it never
+runs the eager loop instead. Before the capture, ``WARMUP_ITERS`` iterations
+run on a copy of the state, on the stream the capture uses: they load the
+kernel libraries and make the cuBLAS and cuSOLVER handles, the kernels'
+workspaces (kept per stream, :class:`repro_torch.kernels._launch.Workspaces`)
+and the occupancy answers outside any graph. Their launches are set-up,
+kept in ``setup_launches``; a replay adds the launches it replays to the
+libraries' counts (:func:`repro_torch.kernels._launch.add_launches`). The
+graph keeps every workspace it may name alive for as long as it lives.
+
+The reference's mesh engine waits for multi-GPU (ROADMAP A6) and its
+``make_subject_update`` for serving (ROADMAP A5).
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import parafac2 as p2
+from repro_torch.kernels import _launch
+
+__all__ = ["ENGINES", "WARMUP_ITERS", "als_chunk_fn", "fit_device", "make_als_chunk",
+           "make_als_while"]
+
+ENGINES = ("host", "scan")
+WARMUP_ITERS = 2        # eager iterations on a copy of the state before a capture
+_STATE = ("H", "V", "W", "fit")
+Carry = Dict[str, torch.Tensor]
+
+
+def als_chunk_fn(opts: "p2.Parafac2Options", length: int) -> Callable:
+    """The ``(data, state) -> (state, fits[length])`` chunk body: ``length``
+    ALS iterations, the fit of each stacked."""
+
+    def chunk(d, s):
+        fits = []
+        for _ in range(length):
+            s = p2.als_step(d, s, opts)
+            fits.append(s.fit)
+        return s, torch.stack(fits)
+
+    return chunk
+
+
+def _state(c: Carry) -> "p2.Parafac2State":
+    return p2.Parafac2State(**{f: c[f] for f in _STATE})
+
+
+class _Iteration:
+    """One ALS iteration on a carry of static tensors, with the host loop's
+    stopping rule on the device: ``stop = (n > 0) & (|f - prev| < tol)``,
+    the new H, V, W and fit committed only while not stopped, the fit
+    written to ``hist[n]`` and ``n`` counting the committed iterations
+    (``tol = -inf``: never stopped). Run eagerly on the CPU; on CUDA
+    captured once, after ``WARMUP_ITERS`` eager runs on a copy of the carry
+    on the capture stream, and replayed on the current stream."""
+
+    def __init__(self, data, opts: "p2.Parafac2Options", hist_len: int, tol: float,
+                 state: "p2.Parafac2State"):
+        def body(c: Carry) -> None:
+            s2 = p2.als_step(data, _state(c), opts)
+            f = s2.fit
+            go = ~c["stop"]
+            n = c["n"]
+            stop_now = (n > 0) & (torch.abs(f - c["prev"]) < tol)
+            c["hist"].index_copy_(0, n.clamp(max=hist_len - 1).view(1), f.view(1))
+            for k in _STATE:
+                c[k].copy_(torch.where(go, getattr(s2, k), c[k]))
+            c["prev"].copy_(torch.where(go, f, c["prev"]))
+            c["stop"].logical_or_(go & stop_now)
+            n.add_(go.to(n.dtype))
+
+        dt, dev = opts.dtype, state.H.device
+        self.body = body
+        self.carry: Carry = {f: getattr(state, f).to(dtype=dt).clone() for f in _STATE}
+        self.carry.update(hist=torch.full((hist_len,), -np.inf, dtype=dt, device=dev),
+                          n=torch.zeros((), dtype=torch.int64, device=dev),
+                          prev=torch.full((), -np.inf, dtype=dt, device=dev),
+                          stop=torch.zeros((), dtype=torch.bool, device=dev))
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.launches: Dict[Tuple[str, str], int] = {}        # what a replay launches
+        self.setup_launches: Dict[Tuple[str, str], int] = {}  # the warm-up's
+        self._workspaces: List[torch.Tensor] = []
+        if dev.type != "cuda":
+            return
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream), _launch.held_launches() as self.setup_launches:
+            scratch = {k: v.clone() for k, v in self.carry.items()}
+            for _ in range(WARMUP_ITERS):
+                body(scratch)
+            del scratch
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        # capture_begin/end rather than the torch.cuda.graph context, which
+        # first synchronises the device and empties the allocator's cache (a
+        # set-up cost of every capture that the capture does not need)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(stream), _launch.held_launches() as self.launches:
+            self.graph.capture_begin()
+            try:
+                body(self.carry)
+            finally:
+                self.graph.capture_end()
+        self._workspaces = _launch.workspace_tensors()
+
+    def start(self, state: "p2.Parafac2State") -> None:
+        """Load ``state`` (unless it is the carry's own) and reset the
+        history, the counter and the stop."""
+        c = self.carry
+        for f in _STATE:
+            src = getattr(state, f)
+            if src is not c[f]:
+                c[f].copy_(src)
+        c["hist"].fill_(-np.inf)
+        c["n"].zero_()
+        c["prev"].fill_(-np.inf)
+        c["stop"].zero_()
+
+    def run(self) -> None:
+        if self.graph is None:
+            self.body(self.carry)
+            return
+        self.graph.replay()
+        _launch.add_launches(self.launches)
+
+
+class AlsChunk:
+    """``state -> (state, fits[length])``: ``length`` ALS iterations, as
+    ``length`` replays of one captured iteration on a GPU. The state is
+    donated: the returned state and fits are the chunk's own tensors, which
+    its next call overwrites. ``chunk(state, n)`` runs the first ``n <=
+    length`` (a fit's remainder)."""
+
+    def __init__(self, data, opts: "p2.Parafac2Options", length: int,
+                 state: "p2.Parafac2State"):
+        if length < 1:
+            raise ValueError(f"a chunk runs at least one iteration, got length={length}")
+        self.length = length
+        self._it = _Iteration(data, opts, length, -np.inf, state)
+
+    @property
+    def setup_launches(self) -> Dict[Tuple[str, str], int]:
+        return self._it.setup_launches
+
+    def __call__(self, state: "p2.Parafac2State", n: Optional[int] = None):
+        n = self.length if n is None else n
+        if not 0 < n <= self.length:
+            raise ValueError(f"a chunk of {self.length} runs 1 to {self.length} "
+                             f"iterations, got {n}")
+        self._it.start(state)
+        for _ in range(n):
+            self._it.run()
+        c = self._it.carry
+        return _state(c), c["hist"][:n]
+
+
+def make_als_chunk(data, opts: "p2.Parafac2Options", length: int, *,
+                   state: Optional["p2.Parafac2State"] = None) -> AlsChunk:
+    """``state -> (state, fits[length])``: ``length`` ALS iterations, on a GPU
+    one iteration captured once into a CUDA graph and replayed ``length``
+    times at each call. ``state`` gives the shapes, dtypes and device (and
+    the warm-up's start); by default ``init_state(data, opts)``."""
+    if state is None:
+        state = p2.init_state(data, opts)
+    return AlsChunk(data, opts, length, state)
+
+
+class AlsWhile:
+    """``state -> (state, hist[max_iters], n)``: the host loop's stopping
+    rule on the device (``make_als_while``). ``replays`` is the number of
+    iterations the last call ran, masked ones included; ``n`` of them
+    committed."""
+
+    LOOKAHEAD = 2       # replays in flight on a GPU
+
+    def __init__(self, data, opts: "p2.Parafac2Options", max_iters: int, tol: float,
+                 state: "p2.Parafac2State"):
+        self.max_iters = max_iters
+        self.replays = 0
+        self._it = _Iteration(data, opts, max_iters, tol, state)
+
+    @property
+    def setup_launches(self) -> Dict[Tuple[str, str], int]:
+        return self._it.setup_launches
+
+    def __call__(self, state: "p2.Parafac2State"):
+        it, c = self._it, self._it.carry
+        it.start(state)
+        self.replays = 0
+        if it.graph is None:                       # the CPU: read the flag each time
+            while self.replays < self.max_iters and not bool(c["stop"]):
+                it.run()
+                self.replays += 1
+        else:
+            flags = torch.zeros(self.max_iters, dtype=torch.bool, pin_memory=True)
+            events: List[torch.cuda.Event] = []
+            for i in range(self.max_iters):
+                j = i - self.LOOKAHEAD
+                if j >= 0:
+                    events[j].synchronize()        # replay j is done: its flag is here
+                    if bool(flags[j]):
+                        break
+                it.run()
+                flags[i].copy_(c["stop"], non_blocking=True)
+                events.append(torch.cuda.Event())
+                events[-1].record()
+                self.replays += 1
+        return _state(c), c["hist"], c["n"]
+
+
+def make_als_while(data, opts: "p2.Parafac2Options", max_iters: int, tol: float, *,
+                   state: Optional["p2.Parafac2State"] = None) -> AlsWhile:
+    """``state -> (state, hist[max_iters], n_iters)``: the whole fit with the
+    host loop's stopping rule (stop after the first iteration ``i > 0`` with
+    ``|fit_i - fit_{i-1}| < tol``) evaluated on the device; on a GPU one
+    captured iteration replayed until the host sees the stop flag."""
+    if state is None:
+        state = p2.init_state(data, opts)
+    return AlsWhile(data, opts, max_iters, tol, state)
+
+
+def fit_device(data, opts: "p2.Parafac2Options", *, max_iters: int = 100,
+               tol: float = 1e-6, seed: int = 0, verbose: bool = False,
+               state: Optional["p2.Parafac2State"] = None
+               ) -> Tuple["p2.Parafac2State", List[float]]:
+    """The device-resident fitting loop (the ``engine="scan"`` half of
+    :func:`repro_torch.core.parafac2.fit`; same signature and return
+    contract)."""
+    if opts.engine == "mesh":
+        raise NotImplementedError(
+            "engine='mesh' waits for the multi-GPU port (ROADMAP A6); use 'scan'")
+    if opts.engine not in ENGINES:
+        raise ValueError(f"unknown engine {opts.engine!r}; choose from {ENGINES}")
+    if opts.engine == "host":
+        raise ValueError("fit_device handles the device engines; "
+                         "engine='host' is parafac2.fit's own loop")
+    state = p2.init_state(data, opts, seed, state=state)
+    if max_iters <= 0:          # nothing to capture: the host loop's answer
+        return state, []
+
+    if opts.check_every <= 0:
+        run = make_als_while(data, opts, max_iters, tol, state=state)
+        state, hist, n = run(state)
+        n = int(n)
+        history = hist[:n].tolist()
+        if verbose:
+            print(f"[engine:{opts.engine}/while] {n} iters, {run.replays - n} masked, "
+                  f"fit={history[-1] if history else float('nan'):.6f}")
+        return state, history
+
+    # chunks of check_every iterations (the last one shorter), one host read
+    # of the fits a chunk
+    chunk = make_als_chunk(data, opts, min(opts.check_every, max_iters), state=state)
+    history: List[float] = []
+    prev = -np.inf
+    done = False
+    while len(history) < max_iters and not done:
+        state, fits = chunk(state, min(chunk.length, max_iters - len(history)))
+        for f in fits.tolist():                 # one device sync a chunk
+            history.append(float(f))
+            if len(history) > 1 and abs(f - prev) < tol:
+                done = True                     # stop launching; keep the whole
+            prev = f                            # chunk so history[-1] == state.fit
+        if verbose:
+            print(f"[engine:{opts.engine}] iter {len(history) - 1:3d}  "
+                  f"fit={history[-1]:.6f}")
+    return state, history

@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -281,10 +281,23 @@ class Bucketed:
     n_subjects: int          # K (true count, before subject padding)
     n_cols: int              # J
     norm_sq: float           # ||X||_F^2 over all subjects (for the fit)
+    # norm_sq as a device scalar per dtype, made at first use
+    _norm_sq_t: Dict[torch.dtype, torch.Tensor] = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
 
     @property
     def device(self) -> torch.device:
         return self.buckets[0].cols.device
+
+    def norm_sq_tensor(self, dtype: torch.dtype) -> torch.Tensor:
+        """``norm_sq`` as a scalar of ``dtype`` on the data's device, copied
+        there once: the fit reads it every iteration without a host copy,
+        which a CUDA graph could not capture."""
+        t = self._norm_sq_t.get(dtype)
+        if t is None:
+            t = self._norm_sq_t[dtype] = torch.tensor(self.norm_sq, dtype=dtype,
+                                                      device=self.device)
+        return t
 
 
 def _pad_to(n: int, align: int) -> int:

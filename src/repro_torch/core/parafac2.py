@@ -14,9 +14,11 @@ formats:
 
 ``mode1_reuse=True`` uses Y_k V = Q_k^T (X_k V) from step 1. The stages go
 through a compute backend (``opts.backend``: "torch" | "scoo" | "fused" |
-"staged" | "auto", see :mod:`repro_torch.core.backend`). Only the host
-engine is ported: ``fit`` runs one ``als_step`` per iteration and reads the
-fit on the host.
+"staged" | "auto", see :mod:`repro_torch.core.backend`). ``opts.engine``
+picks the loop: "host" runs one ``als_step`` per iteration and reads the fit
+on the host; "scan" runs chunks of ``opts.check_every`` iterations, or the
+whole fit with the stopping rule on the device (``check_every=0``), as CUDA
+graphs on a GPU (:mod:`repro_torch.core.engine`).
 """
 from __future__ import annotations
 
@@ -55,6 +57,17 @@ class Parafac2Options:
     nnls_sweeps: int = 5
     dtype: torch.dtype = torch.float32
     backend: str = "auto"       # "torch" | "scoo" | "fused" | "staged" | "auto"
+    # Execution engine for fit() (see repro_torch.core.engine):
+    #   "host" — one als_step per iteration, the fit read on the host each
+    #            iteration (the reference loop);
+    #   "scan" — chunks of `check_every` iterations, on a GPU replays of one
+    #            captured CUDA graph, the fit history kept on the device and
+    #            read once a chunk.
+    # The engine name is checked in engine.fit_device.
+    engine: str = "host"
+    # Iterations per chunk for the scan engine. 0 selects the while variant:
+    # the whole fit with the host loop's stopping rule evaluated on the device.
+    check_every: int = 10
 
     def __post_init__(self):
         if self.constraints is not None:
@@ -175,7 +188,7 @@ def als_step(data: Bucketed, state: Parafac2State,
         cross = torch.einsum("rl,krl,kl,k->", H_new, G.to(dt), Wb, b.subject_mask)
         model = torch.einsum("rl,rl,kr,kl,k->", Phi, VtV, Wb, Wb, b.subject_mask)
         delta = delta - 2.0 * cross + model
-    norm_sq = torch.tensor(data.norm_sq, dtype=dt, device=dev)
+    norm_sq = data.norm_sq_tensor(dt)
     resid = norm_sq + delta
     fit_val = 1.0 - torch.sqrt(torch.clamp(resid, min=0.0)) / torch.sqrt(norm_sq)
     return Parafac2State(H=H_new, V=V_new, W=W_new, fit=fit_val)
@@ -187,7 +200,13 @@ def fit(data: Bucketed, opts: Parafac2Options, *, max_iters: int = 100,
         ) -> Tuple[Parafac2State, List[float]]:
     """The host loop: one ``als_step`` per iteration, one read of the fit
     per iteration (a device sync), stopping when the fit changes by less
-    than ``tol``."""
+    than ``tol``. ``opts.engine != "host"`` runs the device-resident
+    engine instead (:func:`repro_torch.core.engine.fit_device`, the same
+    contract)."""
+    if opts.engine != "host":
+        from repro_torch.core import engine as _engine
+        return _engine.fit_device(data, opts, max_iters=max_iters, tol=tol, seed=seed,
+                                  verbose=verbose, state=state)
     state = init_state(data, opts, seed, state=state)
     history: List[float] = []
     prev = -np.inf

@@ -8,16 +8,26 @@ current stream through :meth:`KernelLib.launch`, which raises on a CUDA
 error, and counts one launch. The one-launch reductions across subjects (F2,
 rows 6 and 7) also take a workspace from :class:`Workspaces`. Nothing here
 builds or loads anything at import time.
+
+A wrapper called while a CUDA graph captures counts its launch once, at
+capture; the graph launches the kernel at every replay. The engine
+(:mod:`repro_torch.core.engine`) takes the counts of a capture out with
+:func:`held_launches` and adds them back once per replay with
+:func:`add_launches`, over every library (:data:`LIBRARIES`). A graph bakes
+in its workspaces' pointers, so it keeps a reference to every workspace
+(:func:`workspace_tensors`) for as long as it lives.
 """
 from __future__ import annotations
 
 import contextlib
 import ctypes
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["KernelLib", "Workspaces", "P", "I", "RING_VARIANTS", "check_shapes",
+__all__ = ["KernelLib", "Workspaces", "P", "I", "RING_VARIANTS", "LIBRARIES",
+           "launch_counts", "add_launches", "held_launches", "workspace_tensors",
+           "check_shapes",
            "check_index", "on_cpu", "dtype_code", "mask_operand"]
 
 P = ctypes.c_void_p     # a pointer or the stream
@@ -26,6 +36,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 # what the variant queries of rows 5, 8, 9, 11 and 12 return, by their C
 # entry point's code (spartan_ykv_variant, spartan_mode2_compact_variant, ...)
 RING_VARIANTS = ("ring", "ring-element-copies", "thread-per-entry")
+LIBRARIES: List["KernelLib"] = []   # every KernelLib made, in order
+_WORKSPACES: List["Workspaces"] = []  # every Workspaces made
 
 
 class KernelLib:
@@ -40,6 +52,7 @@ class KernelLib:
         self.launches: Dict[str, int] = dict.fromkeys(self.kernels, 0)
         self._signatures = signatures
         self._lib: Optional[ctypes.CDLL] = None
+        LIBRARIES.append(self)
 
     def reset_launches(self) -> None:
         for k in self.launches:
@@ -72,6 +85,33 @@ class KernelLib:
         self.launches[name] += 1
 
 
+def launch_counts() -> Dict[Tuple[str, str], int]:
+    """Every library's launch counts, by (source, kernel)."""
+    return {(lib.source, k): n for lib in LIBRARIES for k, n in lib.launches.items()}
+
+
+def add_launches(counts: Dict[Tuple[str, str], int]) -> None:
+    """Add ``counts`` (by (source, kernel)) to the libraries' counts."""
+    by_source = {lib.source: lib for lib in LIBRARIES}
+    for (source, kernel), n in counts.items():
+        by_source[source].launches[kernel] += n
+
+
+@contextlib.contextmanager
+def held_launches() -> Iterator[Dict[Tuple[str, str], int]]:
+    """The launches counted inside the block, taken out of the libraries'
+    counts and handed back in the dict this yields (filled on exit)."""
+    before = launch_counts()
+    held: Dict[Tuple[str, str], int] = {}
+    try:
+        yield held
+    finally:
+        for key, n in launch_counts().items():
+            if n != before.get(key, 0):
+                held[key] = n - before.get(key, 0)
+        add_launches({key: -n for key, n in held.items()})
+
+
 class Workspaces:
     """The workspaces of one library's reductions across subjects, one per
     (device, stream, dtype, R): the 32-bit ticket counter that each launch
@@ -89,6 +129,7 @@ class Workspaces:
         self._query = query
         self._elems: Dict[Tuple[int, int, int], int] = {}
         self._ws: Dict[tuple, torch.Tensor] = {}
+        _WORKSPACES.append(self)
 
     def launch(self, name: str, fn: str, like: torch.Tensor, code: int, K: int,
                R: int, before: tuple, after: tuple) -> None:
@@ -113,6 +154,13 @@ class Workspaces:
         except RuntimeError:
             del self._ws[key]
             raise
+
+
+def workspace_tensors() -> List[torch.Tensor]:
+    """Every workspace tensor that the libraries hold now. A workspace
+    that grows is replaced in its library's dict, and a captured graph that
+    still names the old one must keep it alive."""
+    return [t for w in _WORKSPACES for t in w._ws.values()]
 
 
 def check_shapes(**shapes_and_want) -> None:

@@ -3,10 +3,14 @@ decompose``), on a GPU by default:
 
   PYTHONPATH=src python -m repro_torch.launch.decompose --dataset choa \
       --scale 0.002 --rank 5 --iters 20 [--format cc|scoo|auto] \
-      [--backend auto|staged|scoo|fused|torch] [--device cpu] [--json out.json]
+      [--backend auto|staged|scoo|fused|torch] [--engine host|scan] \
+      [--check-every 10] [--device cpu] [--json out.json]
 
-The host engine, the paper's constraints (H unconstrained, V and W nonneg by
-HALS) and no compression: the reference's defaults. ``--format`` picks the
+The paper's constraints (H unconstrained, V and W nonneg by HALS) and no
+compression: the reference's defaults. ``--engine scan`` runs chunks of
+``--check-every`` iterations as CUDA graph replays on a GPU
+(``--check-every 0``: the whole fit, stopping on the device), the host
+engine one iteration at a time (``repro_torch.core.engine``). ``--format`` picks the
 device layout: CC (the default), SCOO (sorted flat COO, planned by nnz) or
 ``auto`` (each bucket by its density). ``--backend auto`` sends every CC
 bucket on the GPU through the four fused CUDA kernels
@@ -32,7 +36,7 @@ from repro_torch.core import (Bucketed, Parafac2Options, Parafac2State,
 from repro_torch.core.constraints import constraint_summary
 from repro_torch.data import choa_like, movielens_like
 from repro_torch.device import resolve_device
-from repro_torch.kernels import fused, gather_matmul, scoo, staged
+from repro_torch.kernels import fused, gather_matmul, polar, scoo, staged
 from repro_torch.launch.summary import resolved_options, run_summary
 from repro_torch.sparse import IrregularCOO, plan_buckets, random_irregular, route_formats
 
@@ -72,12 +76,12 @@ def prepare(data: IrregularCOO, *, buckets: int, device: torch.device,
     return bt, stats
 
 
-LIBRARIES = (fused, staged, scoo, gather_matmul)   # every kernel library
+LIBRARIES = (fused, staged, scoo, gather_matmul, polar)   # every kernel library
 
 
 def kernel_launches() -> dict:
     """Every kernel's launch count since the last reset, over the fused,
-    staged, SCOO and gather-matmul libraries."""
+    staged, SCOO, gather-matmul and polar libraries."""
     return {k: n for lib in LIBRARIES for k, n in lib.LAUNCHES.items()}
 
 
@@ -88,13 +92,16 @@ def reset_launches() -> None:
 
 def decompose(bt: Bucketed, *, rank: int, iters: int, tol: float, seed: int,
               backend: str, dtype: torch.dtype, verbose: bool = True,
-              state: Optional[Parafac2State] = None, mode1_reuse: bool = True
+              state: Optional[Parafac2State] = None, mode1_reuse: bool = True,
+              engine: str = "host", check_every: int = 10
               ) -> Tuple[Parafac2State, List[float], float]:
     """Fit, with the kernel launch counts zeroed first; returns the state,
-    the fit history and the seconds the fit took (ending in a device sync,
-    since the host loop reads every iteration's fit)."""
+    the fit history and the seconds the fit took (ending in a device sync:
+    every engine reads the fits back). Under ``engine="scan"`` the seconds
+    include the graphs' warm-up and capture."""
     opts = Parafac2Options(rank=rank, constraints={"v": "nonneg", "w": "nonneg"},
-                           backend=backend, dtype=dtype, mode1_reuse=mode1_reuse)
+                           backend=backend, dtype=dtype, mode1_reuse=mode1_reuse,
+                           engine=engine, check_every=check_every)
     reset_launches()
     t0 = time.perf_counter()
     state, hist = fit(bt, opts, max_iters=iters, tol=tol, seed=seed,
@@ -123,6 +130,14 @@ def main(argv=None) -> dict:
                     help="device format: cc (dense over kept columns), scoo "
                          "(sorted flat COO, O(nnz)), or auto (per-bucket by "
                          "density)")
+    ap.add_argument("--engine", default="host", choices=["host", "scan"],
+                    help="ALS execution engine: host (one iteration at a time, "
+                         "the fit read every iteration), scan (chunks of "
+                         "--check-every iterations, CUDA graphs on a GPU; see "
+                         "repro_torch.core.engine)")
+    ap.add_argument("--check-every", type=int, default=10,
+                    help="iterations per chunk for the scan engine (0 = the whole "
+                         "fit, the stopping rule evaluated on the device)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--dtype", default="float32", choices=sorted(DTYPES))
     ap.add_argument("--json", default="", metavar="PATH",
@@ -148,20 +163,21 @@ def main(argv=None) -> dict:
           f"({time.perf_counter() - t0:.1f}s)")
 
     state, hist, dt = decompose(bt, rank=args.rank, iters=args.iters, tol=args.tol,
-                                seed=args.seed, backend=args.backend, dtype=dtype)
+                                seed=args.seed, backend=args.backend, dtype=dtype,
+                                engine=args.engine, check_every=args.check_every)
     print(f"[fit] {len(hist)} iters in {dt:.2f}s "
           f"({dt / max(len(hist), 1):.3f}s/iter), fit={hist[-1]:.4f}")
     launches = kernel_launches()
     print(f"[kernels] launches {launches}")
-    opts = Parafac2Options(rank=args.rank, constraints=specs,
-                           backend=args.backend, dtype=dtype)
+    opts = Parafac2Options(rank=args.rank, constraints=specs, backend=args.backend,
+                           dtype=dtype, engine=args.engine, check_every=args.check_every)
     V_np = state.V.cpu().numpy()
     summary = run_summary(
         "decompose",
         resolved_options(opts, format=args.format, tol=args.tol, seed=args.seed),
         dataset=args.dataset, scale=args.scale, rank=args.rank,
-        engine="host", backend=args.backend, precision=PRECISION[args.dtype],
-        tol=args.tol, check_every=None, seed=args.seed, format=args.format,
+        engine=args.engine, backend=args.backend, precision=PRECISION[args.dtype],
+        tol=args.tol, check_every=args.check_every, seed=args.seed, format=args.format,
         buckets=bucket_stats, device_bytes=device_bytes,
         constraints=constraint_summary(specs), compress="none",
         v_zero_fraction=float((V_np == 0.0).mean()),

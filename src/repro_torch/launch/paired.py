@@ -9,10 +9,14 @@ its kernels, makes ``choa_like(scale)`` with seed 0, uploads it as CC and
 as SCOO buckets, warms each route up for two iterations and then times
 20-iteration fits of the ``auto``, ``staged`` and ``torch`` routes on CC
 and the ``staged`` route on SCOO three times each (host clock around
-``fit``, which ends each iteration in a device sync). Runs alternate
-parent, change, change, parent, ... so that slow drifts of a shared host
-fall on both sides. Prints the card's name and
-power limit, one line per run and the medians per side; imports no JAX.
+``fit``, which ends each iteration in a device sync). A checkout whose
+``decompose`` takes an ``engine`` also times the CC ``auto`` and SCOO
+``staged`` routes under ``engine="scan"`` (chunks of 10 replays of one
+captured CUDA graph; the time includes its warm-up and capture), so that one
+call shows parent-host against change-host and change-scan in turns. Runs
+alternate parent, change, change, parent, ... so that slow drifts of a
+shared host fall on both sides. Prints the card's name and power limit, one
+line per run and the medians per side; imports no JAX.
 """
 from __future__ import annotations
 
@@ -22,26 +26,32 @@ import statistics
 import subprocess
 import sys
 
-# (label, format, backend)
-RUNS = (("auto", "cc", "auto"), ("staged", "cc", "staged"), ("torch", "cc", "torch"),
-        ("staged-scoo", "scoo", "staged"))
-ROUTES = tuple(label for label, _, _ in RUNS)
+# (label, format, backend, engine); the scan runs only where decompose takes
+# an engine (checkouts from before the scan engine run the host ones alone)
+RUNS = (("auto", "cc", "auto", "host"), ("staged", "cc", "staged", "host"),
+        ("torch", "cc", "torch", "host"), ("staged-scoo", "scoo", "staged", "host"),
+        ("auto-scan", "cc", "auto", "scan"), ("staged-scoo-scan", "scoo", "staged", "scan"))
+ROUTES = tuple(label for label, _, _, _ in RUNS)
 
 _CHILD = r"""
-import json, sys, torch
+import inspect, json, sys, torch
 sys.path.insert(0, sys.argv[1] + "/src")
 from repro_torch.launch import decompose as dec
 data = dec.load_dataset("choa", float(sys.argv[2]), 0)
 bts = {fmt: dec.prepare(data, buckets=4, device=torch.device("cuda"), dtype=torch.float32,
                         format=fmt)[0] for fmt in ("cc", "scoo")}
 kw = dict(rank=5, tol=0.0, seed=0, dtype=torch.float32, verbose=False)
-runs = %r
-for _, fmt, be in runs:
-    dec.decompose(bts[fmt], backend=be, iters=2, **kw)
-out = {label: [] for label, _, _ in runs}
+has_engine = "engine" in inspect.signature(dec.decompose).parameters
+runs = [r for r in %r if r[3] == "host" or has_engine]
+def fit(fmt, be, engine, iters):
+    extra = {"engine": engine} if has_engine else {}
+    return dec.decompose(bts[fmt], backend=be, iters=iters, **kw, **extra)
+for _, fmt, be, engine in runs:
+    fit(fmt, be, engine, 2)
+out = {label: [] for label, _, _, _ in runs}
 for _ in range(3):
-    for label, fmt, be in runs:
-        _, hist, secs = dec.decompose(bts[fmt], backend=be, iters=20, **kw)
+    for label, fmt, be, engine in runs:
+        _, hist, secs = fit(fmt, be, engine, 20)
         out[label].append(secs / len(hist) * 1e3)
 print(json.dumps(out))
 """ % (RUNS,)
@@ -71,15 +81,15 @@ def main(argv=None) -> None:
     runs = {"parent": {be: [] for be in ROUTES}, "change": {be: [] for be in ROUTES}}
     for side, tree in order:
         res = run(tree, args.scale)
-        for be in ROUTES:
+        for be in res:
             runs[side][be] += res[be]
         print(f"[paired] {side}: " + ", ".join(
-            f"{be} {[round(x, 2) for x in res[be]]} ms/iter" for be in ROUTES), flush=True)
+            f"{be} {[round(x, 2) for x in res[be]]} ms/iter" for be in res), flush=True)
     for be in ROUTES:
-        print(f"[paired] {be}: median ms/iter parent "
-              f"{statistics.median(runs['parent'][be]):.2f}, change "
-              f"{statistics.median(runs['change'][be]):.2f} "
-              f"({len(runs['parent'][be])} fits each)", flush=True)
+        med = {side: (f"{statistics.median(runs[side][be]):.2f} ({len(runs[side][be])} fits)"
+                      if runs[side][be] else "not run") for side in runs}
+        print(f"[paired] {be}: median ms/iter parent {med['parent']}, change "
+              f"{med['change']}", flush=True)
 
 
 if __name__ == "__main__":

@@ -19,17 +19,15 @@ SCHEMA_VERSION = 2
 
 def resolved_options(opts=None, **extra) -> Dict[str, Any]:
     """Canonical option block from a ``Parafac2Options`` (+ launcher extras).
-    The keys are the reference's; engine, w_layout and compress carry the
-    only values the port runs (host, global, none), and check_every the
-    reference's option default (10), which the host engine does not read:
-    the launcher's top-level ``check_every`` is None."""
+    The keys are the reference's; w_layout and compress carry the only
+    values the port runs (global, none)."""
     block: Dict[str, Any] = {}
     if opts is not None:
         block.update(
             rank=opts.rank,
-            engine="host",
+            engine=opts.engine,
             backend=opts.backend,
-            check_every=10,
+            check_every=opts.check_every,
             w_layout="global",
             procrustes=opts.procrustes,
             dtype=str(opts.dtype).removeprefix("torch."),

@@ -891,3 +891,147 @@ def test_mode3_variant_answers(dev):
         assert variant(2, 72, 1024, dtype) == "thread-per-entry"
     with pytest.raises(ValueError, match="CUDA"):
         m3.mode3_variant(torch.zeros((2, 3, 4)), torch.zeros((2, 4, 3)))
+
+
+# P1, the polar's inverse root (csrc/polar.cu), at the ranks and kinds of
+# chip_smoke.py's phase 2: K Grams of one kind at rank R.
+P1_RANKS = (1, 2, 5, 8, 40, 72, 130)
+P1_KINDS = ("zero", "identity", "rankdef", "lowrank", 1.0, 10.0, 100.0, 1e6)
+# f32 Grams of condition past 1e2, or of rank deficiency at the rounding
+# level, are not determined to the f32 tolerance: f64 only
+P1_CASES = [(dtype, kind) for dtype in (torch.float32, torch.float64) for kind in P1_KINDS
+            if dtype == torch.float64 or kind not in ("lowrank", 1e6)]
+
+
+def _p1_grams(R, K, kind, dtype, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    if kind == "zero":
+        G = np.zeros((K, R, R))
+    elif kind == "identity":
+        G = np.broadcast_to(np.eye(R), (K, R, R)).copy()
+    elif kind in ("rankdef", "lowrank"):
+        B = rng.standard_normal((K, R + 3 if kind == "rankdef" else max(1, R // 2), R))
+        if kind == "rankdef":
+            B[:, :, R // 2:] = 0.0              # exactly zero columns
+        G = np.swapaxes(B, 1, 2) @ B
+    else:
+        E = np.linalg.qr(rng.standard_normal((K, R, R)))[0]
+        lam = np.geomspace(1.0, 1.0 / kind, R) * rng.uniform(0.5, 4.0, (K, 1))
+        G = (E * lam[:, None, :]) @ np.swapaxes(E, 1, 2)
+        G = (G + np.swapaxes(G, 1, 2)) / 2
+    return torch.tensor(G, dtype=dtype, device=dev)
+
+
+def _p1_plain(G):
+    """The plain version in runs of 16,384 Grams, the most one cuSOLVER
+    eigh of 5x5 Grams took on an H100; many Grams past R = 8 on the CPU,
+    where cuSOLVER would solve them one at a time."""
+    from repro_torch.kernels import polar
+    if G.shape[-1] > 8 and G.shape[0] > 1000:
+        return polar.gram_inv_sqrt_plain(G.cpu()).to(G.device)
+    return torch.cat([polar.gram_inv_sqrt_plain(g) for g in G.split(16384)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", P1_RANKS)
+@pytest.mark.parametrize("dtype,kind", P1_CASES, ids=lambda v: str(v).removeprefix("torch."))
+def test_gram_inv_sqrt_matches_plain(dev, dtype, kind, R):
+    """P1 against its plain version, relative to max |P_inv|: f64 1e-12
+    (at condition 1e6 the first-order bound R * condition * 2^-53 of two
+    backward-stable eigensolvers); f32 (both solve in f64) 1e-6 up to
+    condition 10, 1e-4 at 1e2. Zero Grams give exact zeros; one launch a
+    call; the same bits twice."""
+    from repro_torch.kernels import polar
+    f64 = dtype == torch.float64
+    G = _p1_grams(R, 37, kind, dtype, dev, seed=R)
+    before = polar.LAUNCHES["gram_inv_sqrt"]
+    got = polar.gram_inv_sqrt(G)
+    torch.cuda.synchronize()
+    assert polar.LAUNCHES["gram_inv_sqrt"] == before + 1
+    want = _p1_plain(G)
+    assert got.dtype == dtype and got.shape == want.shape
+    if kind == "zero":
+        assert bool((got == 0).all())
+        return
+    cond = kind if isinstance(kind, float) else 1.0
+    tol = (max(1e-12, R * cond * 2.0 ** -53) if cond > 1e2 else 1e-12) if f64 else \
+        (1e-6 if cond <= 10 else 1e-4)
+    scale = float(want.abs().max())
+    assert float((got.double() - want.double()).abs().max()) <= tol * scale
+    assert torch.equal(got, polar.gram_inv_sqrt(G))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [16385, 58112])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gram_inv_sqrt_main_path_sizes(dev, dtype, K):
+    """K past cuSOLVER's batch limit at R = 5, every seventh Gram zero (the
+    padded subjects): one launch, zeros where G is zero."""
+    from repro_torch.kernels import polar
+    G = _p1_grams(5, K, 10.0, dtype, dev, seed=K)
+    G[::7] = 0.0
+    before = polar.LAUNCHES["gram_inv_sqrt"]
+    got = polar.gram_inv_sqrt(G)
+    assert polar.LAUNCHES["gram_inv_sqrt"] == before + 1
+    want = _p1_plain(G)
+    tol = 1e-12 if dtype == torch.float64 else 1e-6
+    assert float((got.double() - want.double()).abs().max()) <= tol * float(want.abs().max())
+    assert bool((got[::7] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,K", [(40, 16385), (72, 1000), (130, 600)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gram_inv_sqrt_block_variants_past_the_grid(dev, dtype, R, K):
+    """The block designs (shared memory at R = 40 and 72, the global
+    workspace at 130) with more subjects than blocks, so that a block takes
+    subject after subject, reusing its shared memory or workspace slot;
+    every seventh Gram zero."""
+    from repro_torch.kernels import polar
+    G = _p1_grams(R, K, 10.0, dtype, dev, seed=R)
+    G[::7] = 0.0
+    got = polar.gram_inv_sqrt(G)
+    want = _p1_plain(G)
+    tol = 1e-12 if dtype == torch.float64 else 1e-6
+    assert float((got.double() - want.double()).abs().max()) <= tol * float(want.abs().max())
+    assert bool((got[::7] == 0).all())
+    assert torch.equal(got, polar.gram_inv_sqrt(G))
+
+
+@pytest.mark.cuda
+def test_gram_inv_sqrt_variants_and_checks(dev):
+    from repro_torch.kernels import polar
+    assert [polar.gram_inv_sqrt_variant(R) for R in (1, 8, 9, 119, 120, 130)] == [
+        "thread-per-subject", "thread-per-subject", "block-shared", "block-shared",
+        "block-workspace", "block-workspace"]
+    with pytest.raises(TypeError):
+        polar.gram_inv_sqrt(torch.zeros((2, 3, 3), dtype=torch.float16, device=dev))
+    with pytest.raises(ValueError, match="R, R"):
+        polar.gram_inv_sqrt(torch.zeros((2, 3, 4), device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("check_every", [5, 0])
+@pytest.mark.parametrize("backend", ["auto", "staged", "torch"])
+def test_scan_engine_matches_host_on_gpu(dev, backend, check_every):
+    """choa 0.002, rank 5, f64, 12 iterations: the scan engine's CUDA
+    graphs (chunks of 5, 5 and 2, or the while variant) keep the host
+    engine's fit history to 1e-8 and the state's fit, and count every
+    kernel of the route buckets x iterations times under replay."""
+    from repro_torch.kernels import polar
+    bt = bucketize(choa_like(scale=0.002, seed=0), dtype=torch.float64, device=dev)
+    libs = (fused, staged, scoo, gather_matmul, polar)
+    runs = {}
+    for engine in ("host", "scan"):
+        for lib in libs:
+            lib.reset_launches()
+        opts = Parafac2Options(rank=5, dtype=torch.float64, backend=backend, engine=engine,
+                               check_every=check_every)
+        state, hist = fit(bt, opts, max_iters=12, tol=0.0, seed=0)
+        counts = {k: v for lib in libs for k, v in lib.LAUNCHES.items() if v}
+        runs[engine] = (state, hist, counts)
+    (_, host, host_counts), (state, scan, scan_counts) = runs["host"], runs["scan"]
+    assert len(scan) == 12 and scan[-1] == float(state.fit)
+    assert np.max(np.abs(np.asarray(scan) - np.asarray(host))) <= 1e-8
+    assert scan_counts == host_counts
+    assert set(host_counts.values()) == {len(bt.buckets) * 12}

@@ -1,0 +1,217 @@
+"""The port's device-resident engines (``repro_torch.core.engine``) and P1's
+plain version against the JAX package, on choa_like(scale=0.002), rank 5,
+f64, from the reference's state0.
+
+On the CPU the scan engine runs its chunk and while bodies eagerly (no CUDA
+graphs), so its fit histories and states must equal the port's own host
+loop bit for bit on every CPU route, and stay within 1e-8 of the
+reference's scan and while engines (``backend="jnp"``), the reference's own
+cross-engine bound. The while variant must stop after the same iteration as
+the host loop; a chunked run overshoots by less than one chunk and ends on
+its state's fit, as in ``tests/test_engine.py``.
+"""
+import json
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import (Parafac2Options as JOptions, bucketize as j_bucketize,  # noqa: E402
+                        fit as j_fit, init_state as j_init_state)
+from repro.core.procrustes import polar_gram_eigh as j_polar_gram_eigh  # noqa: E402
+from repro.data import choa_like as j_choa_like  # noqa: E402
+from repro.launch import decompose as j_decompose  # noqa: E402
+from repro_torch.convert import state_from_arrays  # noqa: E402
+from repro_torch.core import Parafac2Options, bucketize, fit  # noqa: E402
+from repro_torch.core import engine  # noqa: E402
+from repro_torch.data import choa_like  # noqa: E402
+from repro_torch.kernels import _launch, polar  # noqa: E402
+from repro_torch.launch import decompose  # noqa: E402
+
+ITERS = 12      # check_every 5: chunks of 5, 5 and 2
+STATE = ("H", "V", "W", "fit")
+
+
+@pytest.fixture(scope="module")
+def choa():
+    """Both packages' f64 CC buckets of choa_like(0.002) and the
+    reference's state0."""
+    bj = j_bucketize(j_choa_like(scale=0.002, seed=0), dtype=jnp.float64)
+    s0 = j_init_state(bj, JOptions(rank=5, dtype=jnp.float64, backend="jnp"), seed=0)
+    bt = bucketize(choa_like(scale=0.002, seed=0), device="cpu", dtype=torch.float64)
+    arrays = {k: np.asarray(getattr(s0, k)) for k in ("H", "V", "W")}
+    return dict(bj=bj, bt=bt, s0=s0, arrays=arrays)
+
+
+def _fit(choa, *, backend="torch", engine_="host", check_every=10, iters=ITERS, tol=0.0):
+    opts = Parafac2Options(rank=5, dtype=torch.float64, backend=backend, engine=engine_,
+                           check_every=check_every)
+    state0 = state_from_arrays(choa["arrays"], device="cpu", dtype=torch.float64)
+    return fit(choa["bt"], opts, max_iters=iters, tol=tol, state=state0)
+
+
+@pytest.mark.parametrize("check_every", [5, 0])
+def test_scan_matches_reference_scan_engine(choa, check_every):
+    jopts = JOptions(rank=5, dtype=jnp.float64, backend="jnp", engine="scan",
+                     check_every=check_every)
+    _, want = j_fit(choa["bj"], jopts, max_iters=ITERS, tol=0.0, state=choa["s0"])
+    state, got = _fit(choa, engine_="scan", check_every=check_every)
+    assert len(got) == len(want) == ITERS
+    assert np.max(np.abs(np.asarray(got) - np.asarray(want))) <= 1e-8
+    assert got[-1] == float(state.fit)
+
+
+@pytest.mark.parametrize("check_every", [5, 0])
+@pytest.mark.parametrize("backend", ["torch", "fused", "staged"])
+def test_scan_is_bitwise_the_host_loop(choa, backend, check_every):
+    host_state, host = _fit(choa, backend=backend)
+    state, hist = _fit(choa, backend=backend, engine_="scan", check_every=check_every)
+    assert hist == host
+    for f in STATE:
+        assert torch.equal(getattr(state, f), getattr(host_state, f)), f
+
+
+def _crossing_tol(choa, iters=30):
+    """A tol that the host loop's fit changes cross part way, set halfway
+    between two of them, so that rounding cannot move the stop."""
+    _, hist = _fit(choa, iters=iters)
+    d = np.sort(np.abs(np.diff(hist)))
+    k = len(d) // 2
+    return float((d[k - 1] + d[k]) / 2)
+
+
+def test_while_variant_stops_like_host(choa):
+    tol = _crossing_tol(choa)
+    host_state, host = _fit(choa, iters=30, tol=tol)
+    state, hist = _fit(choa, engine_="scan", check_every=0, iters=30, tol=tol)
+    assert 1 < len(host) < 30, "tol never crossed"
+    assert hist == host
+    for f in STATE:
+        assert torch.equal(getattr(state, f), getattr(host_state, f)), f
+    run = engine.make_als_while(choa["bt"], Parafac2Options(rank=5, dtype=torch.float64,
+                                                            backend="torch"), 30, tol,
+                                state=host_state)
+    _, _, n = run(state_from_arrays(choa["arrays"], device="cpu", dtype=torch.float64))
+    assert int(n) == run.replays == len(host)      # the CPU runs no masked iteration
+
+
+def test_chunked_scan_overshoots_by_less_than_one_chunk(choa):
+    tol = _crossing_tol(choa)
+    _, host = _fit(choa, iters=30, tol=tol)
+    state, hist = _fit(choa, engine_="scan", check_every=4, iters=30, tol=tol)
+    assert len(host) <= len(hist) < len(host) + 4
+    assert len(hist) % 4 == 0 or len(hist) == 30
+    assert hist[: len(host)] == host
+    assert hist[-1] == float(state.fit)
+
+
+def test_make_als_chunk_donates_its_state(choa):
+    """A chunk returns its own tensors: the next call starts from them
+    without a copy, and two chunks of 5 equal one fit of 10."""
+    opts = Parafac2Options(rank=5, dtype=torch.float64, backend="torch")
+    state0 = state_from_arrays(choa["arrays"], device="cpu", dtype=torch.float64)
+    chunk = engine.make_als_chunk(choa["bt"], opts, 5, state=state0)
+    s, f1 = chunk(state0)
+    f1 = f1.tolist()
+    s2, f2 = chunk(s)
+    assert s2.V is s.V and chunk.setup_launches == {}
+    _, host = fit(choa["bt"], opts, max_iters=10, tol=0.0, state=state0)
+    assert f1 + f2.tolist() == host
+
+
+def test_chunk_body_and_remainder_match_the_host_loop(choa):
+    """``als_chunk_fn``'s body and a chunk's first ``n`` iterations (the
+    remainder of a fit) give the host loop's fits bit for bit; a chunk
+    runs 1 to ``length`` iterations."""
+    opts = Parafac2Options(rank=5, dtype=torch.float64, backend="torch")
+    state0 = state_from_arrays(choa["arrays"], device="cpu", dtype=torch.float64)
+    _, host = fit(choa["bt"], opts, max_iters=3, tol=0.0, state=state0)
+    s, fits = engine.als_chunk_fn(opts, 3)(choa["bt"], state0)
+    assert fits.tolist() == host and float(s.fit) == host[-1]
+    chunk = engine.make_als_chunk(choa["bt"], opts, 5, state=state0)
+    s, fits = chunk(state0, 3)
+    assert fits.tolist() == host and float(s.fit) == host[-1]
+    for n in (0, 6):
+        with pytest.raises(ValueError, match="runs 1 to 5"):
+            chunk(state0, n)
+    with pytest.raises(ValueError, match="at least one"):
+        engine.make_als_chunk(choa["bt"], opts, 0, state=state0)
+
+
+@pytest.mark.parametrize("check_every", [4, 0])
+def test_no_iterations_return_the_start(choa, check_every):
+    host_state, host = _fit(choa, iters=0)
+    state, hist = _fit(choa, engine_="scan", check_every=check_every, iters=0)
+    assert hist == host == []
+    for f in STATE:
+        assert torch.equal(getattr(state, f), getattr(host_state, f)), f
+
+
+def test_engine_names(choa):
+    with pytest.raises(ValueError, match="unknown engine"):
+        _fit(choa, engine_="warp")
+    with pytest.raises(NotImplementedError, match="A6"):
+        _fit(choa, engine_="mesh")
+    assert engine.ENGINES == ("host", "scan")
+
+
+def test_held_launches_move_counts_out_and_back():
+    """A capture's counts are taken out of the libraries' and added back
+    once per replay."""
+    lib = polar.LIB
+    polar.reset_launches()
+    with _launch.held_launches() as held:
+        lib.launches["gram_inv_sqrt"] += 3
+    assert held == {("polar", "gram_inv_sqrt"): 3}
+    assert polar.LAUNCHES["gram_inv_sqrt"] == 0
+    for _ in range(2):
+        _launch.add_launches(held)
+    assert polar.LAUNCHES["gram_inv_sqrt"] == 6
+    assert {lib_.source for lib_ in _launch.LIBRARIES} >= {
+        "fused", "staged", "scoo", "gather_matmul", "polar"}
+    polar.reset_launches()
+
+
+@pytest.mark.parametrize("shape", [(7, 9, 5), (3, 12, 8), (4, 40, 17)])
+def test_p1_plain_matches_reference_polar(shape):
+    """Q = B gram_inv_sqrt_plain(B^T B) against the reference's
+    polar_gram_eigh within 1e-12 on well-conditioned B; B = 0 gives Q = 0."""
+    B = np.random.default_rng(sum(shape)).standard_normal(shape)
+    B[1] = 0.0
+    Bt = torch.tensor(B)
+    Q = Bt @ polar.gram_inv_sqrt_plain(Bt.transpose(1, 2) @ Bt)
+    np.testing.assert_allclose(Q.numpy(), np.asarray(j_polar_gram_eigh(jnp.asarray(B))),
+                               rtol=1e-12, atol=1e-12)
+    assert float(Q[1].abs().max()) == 0.0
+    # the CPU wrapper is the plain version, and an empty batch launches nothing
+    G = Bt.transpose(1, 2) @ Bt
+    assert torch.equal(polar.gram_inv_sqrt(G), polar.gram_inv_sqrt_plain(G))
+    assert polar.gram_inv_sqrt(G[:0]).shape == (0, shape[2], shape[2])
+    assert polar.LAUNCHES["gram_inv_sqrt"] == 0
+
+
+def test_p1_plain_solves_in_f64_and_returns_the_input_dtype():
+    B = np.random.default_rng(3).standard_normal((5, 30, 5))
+    G = torch.tensor(B).transpose(1, 2) @ torch.tensor(B)
+    got = polar.gram_inv_sqrt_plain(G.float())
+    assert got.dtype == torch.float32
+    assert torch.equal(got, polar.gram_inv_sqrt_plain(G.float().double()).float())
+    with pytest.raises(ValueError, match="R, R"):
+        polar.gram_inv_sqrt(G[:, :, :4])
+
+
+def test_decompose_scan_json_matches_reference(tmp_path):
+    flags = ["--dataset", "choa", "--scale", "0.002", "--rank", "5", "--iters", "6",
+             "--tol", "0", "--seed", "0", "--engine", "scan", "--check-every", "4"]
+    port = decompose.main(flags + ["--device", "cpu", "--json", str(tmp_path / "p.json")])
+    want = j_decompose.main(flags + ["--json", str(tmp_path / "r.json")])
+    got = json.loads((tmp_path / "p.json").read_text())
+    assert got == json.loads(json.dumps(port))
+    assert not set(want) - set(got)
+    for k in ("engine", "check_every", "iters", "tol", "backend", "format"):
+        assert got[k] == want[k], k
+    assert got["engine"] == "scan" and got["check_every"] == 4
+    assert got["resolved_options"] == want["resolved_options"]
+    assert len(got["fit_history"]) == 6
