@@ -36,11 +36,13 @@ Phases, any failure exits non-zero:
    input, F2 and row 7 also on their largest bucket after
    the smaller ones, and ``mode3(Yc, Vg, H, m)`` must equal
    ``mode3_reuse(ykv(Yc, Vg), H, m)`` bit for bit; P1, the polar's inverse
-   root (the port's own kernel), at R = 1, 2, 5, 8, 40, 72 and 130 (every
-   design: a thread a subject, a block with shared memory, a block with a
-   global workspace) and K = 1 and 37 on zero, identity, rank-deficient and
-   conditioned Grams, and at K = 16,385 and 58,112 (R = 1, 2, 5, 8 and 40),
-   16,385 (R = 72) and 1,000 (R = 130), past every design's grid, every
+   root (the port's own kernel), at R = 1, 2, 5, 8, 9, 10, 16, 20, 32, 33,
+   40, 64, 65, 72 and 130 (every design and its edges: a thread a subject
+   up to 8, a warp a subject up to 64, a block with shared memory, a block
+   with a global workspace) and K = 1 and 37 on zero, identity,
+   rank-deficient and conditioned Grams, and at K = 16,385 and 58,112 (R =
+   1, 2, 5, 8 and 40), 58,112 (R = 10 and 20), 16,385 (R = 72) and 1,000 (R
+   = 130), past every design's grid, every
    seventh Gram zero, relative to max |P_inv| (``p1_tolerance``), zero
    Grams to exact zeros, and Q^T Q = I on full-rank B, with what an f32
    eigh departs by (the reason P1 solves in f64); an empty (K=0) bucket
@@ -89,7 +91,10 @@ Phases, any failure exits non-zero:
    call on the kernel's own operands, ``library_same_input_ms``), and P1 on
    the largest CC bucket's own Grams (bound by its function, not by the
    sweeps the kernel took; library: the chunked ``torch.linalg.eigh`` and
-   the same inverse-root algebra);
+   the same inverse-root algebra), at the main path's R = 5 and, in its
+   row's ``by_rank``, at the paper's R = 10, 20 and 40 (B from F1 on a
+   seeded state of that rank), each Gram held to its plain version on the
+   CPU (LAPACK; cuSOLVER's f64 eigh is the less accurate of the two there);
 5. a ``torch.profiler`` trace of one main-path ALS iteration on the auto and
    the staged route over the CC buckets and on the staged and the scoo
    route over the SCOO buckets: device time by kernel (and of each of the
@@ -97,7 +102,9 @@ Phases, any failure exits non-zero:
    the device's busy share of the unprofiled iteration time of phase 3 and
    of the trace's first-to-last kernel span (the profiler's own per-launch
    cost inflates the profiled wall time, so that is not a denominator;
-   traces in ``$SMOKE_OUT/als_step_trace_<route>.json``); then one replayed
+   traces in ``$SMOKE_OUT/als_step_trace_<route>.json``); one profiled
+   iteration of CC auto at R = 10, 20 and 40 after two unprofiled ones:
+   P1's device time and share beside the largest items; then one replayed
    10-iteration chunk of the scan engine on CC auto, CC staged and SCOO
    staged: device time an iteration and its busy share of an unprofiled
    replay of the same chunk just before it (trace of CC auto's in
@@ -233,12 +240,17 @@ XKV_EDGES = {
 # path's bucket sizes: (R, K) for every kind, then (R, K, kind) at K past
 # cuSOLVER's batch limit and past the block variants' grids, so that a block
 # takes many subjects (every seventh Gram zero there, as padded subjects).
-# R = 72 and 130 stop at K 16,385 and 1,000: their plain version on the CPU
-# would take minutes at 58,112.
-P1_RANKS = (1, 2, 5, 8, 40, 72, 130)
+# The ranks reach each design's edges: a thread a subject up to 8, a warp a
+# subject from 9 (one pair short of a whole round at 9, 33 and 65, two
+# columns a lane past 32) to 64, a block past it. R = 72 and 130 stop at K
+# 16,385 and 1,000: their plain version on the CPU would take minutes at
+# 58,112.
+P1_RANKS = (1, 2, 5, 8, 9, 10, 16, 20, 32, 33, 40, 64, 65, 72, 130)
 P1_SMALL_K = (1, 37)
 P1_LARGE = tuple((R, K, 10.0) for R in (1, 2, 5, 8, 40) for K in (16385, 58112)) + (
+    (10, 58112, 10.0), (20, 58112, 10.0),
     (72, 16385, 10.0), (130, 1000, 10.0), (5, 58112, 100.0))
+P1_PAPER_RANKS = (10, 20, 40)   # the paper's Figure 5 ranks past the main path's 5
 EIGH_BATCH = 16384      # the most 5x5 Grams one cuSOLVER eigh was seen to take on an H100
 SOURCES = ("fused", "staged", "scoo", "gather_matmul", "polar")
 FUSED = ("fused_procrustes_b", "fused_mode1_xkv", "fused_mode2_compact", "fused_ykv")
@@ -1316,12 +1328,12 @@ def bcc_cut(bt, V):
     return cut, bcc, counts
 
 
-def time_ms(fn, reps: int = 20) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn`` after warm-up."""
+def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median of ``reps`` CUDA-event timings of ``fn`` after ``warmup`` calls."""
     import numpy as np
     import torch
 
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     out = []
@@ -1405,6 +1417,74 @@ def p1_work(K: int, R: int, itemsize: int) -> tuple:
     taken at the peak for G's dtype: the kernel's choice to solve in f64
     does not loosen its bound."""
     return 2 * K * R * R * itemsize, K * (9 * R ** 3 + 4 * R + R * (R + 1) // 2 * 3 * R)
+
+
+def p1_main_path_check(G, R: int) -> tuple:
+    """P1 on the main path's Grams G [K, R, R] against its plain version on
+    the CPU (LAPACK), each Gram held to its own bound: max(1e-6, R * kappa *
+    2^-53) of its max |P_inv|, kappa over the eigenvalues the clamp keeps
+    (subjects with fewer rows than R have Grams near singular, f32 rounding
+    their null space into eigenvalues ~1e-8 of the largest). The CPU's,
+    since on the fitted Grams cuSOLVER's f64 eigh itself departs from
+    LAPACK's by up to 1.1 times that bound, where P1 stays within 0.82 of
+    it. Returns (max |kernel - plain|, max |plain|)."""
+    import torch
+    from repro_torch.kernels import polar
+
+    P_inv = polar.gram_inv_sqrt(G)
+    Gc = G.cpu()
+    want = polar.gram_inv_sqrt_plain(Gc).to(G.device)
+    lam = torch.linalg.eigvalsh(Gc.double()).to(G.device)
+    top = lam[:, -1:].clamp(min=0.0)
+    kept = torch.where(lam > top * 1e-12, lam, torch.full_like(lam, float("inf")))
+    kappa = (top[:, 0] / kept.min(1).values).nan_to_num(nan=1.0, posinf=1.0)
+    err_k = (P_inv.double() - want.double()).abs().amax((1, 2))
+    scale_k = want.double().abs().amax((1, 2))
+    bound_k = torch.clamp(R * kappa * 2.0 ** -53, min=1e-6) * scale_k
+    if bool((err_k > bound_k).any()):
+        k = int((err_k - bound_k).argmax())
+        fail(f"gram_inv_sqrt on the main path's Gram {k} at R={R}: |kernel - plain| "
+             f"{float(err_k[k]):.3e} > {float(bound_k[k]):.3e} (condition {float(kappa[k]):.3e})")
+    print(f"[time] gram_inv_sqrt on the main path's Grams (K={G.shape[0]}, R={R}, f32): "
+          f"max |kernel - plain| {float(err_k.max()):.3e} against max |plain| "
+          f"{float(scale_k.max()):.3e}, each Gram within max(1e-6, R kappa 2^-53) of its max "
+          f"|P_inv| (largest relative error "
+          f"{float((err_k / scale_k.clamp(min=1e-300)).max()):.3e}, condition up to "
+          f"{float(kappa.max()):.3e})", flush=True)
+    return float(err_k.max()), float(scale_k.max())
+
+
+def p1_paper_ranks(bt, b) -> dict:
+    """P1 at the paper's ranks past 5 (``P1_PAPER_RANKS``) on the Grams of
+    the largest CC bucket ``b``: B from the auto route's F1 on
+    ``init_state(rank=R, seed=0)``, G = B^T B; each checked against its
+    plain version, then its time (CUDA events, median of 5) beside
+    ``p1_work``'s bound and the library call (the chunked eigh; one call
+    past R = 32, where cuSOLVER solves one Gram at a time)."""
+    import torch
+    from repro_torch.core import Parafac2Options, init_state
+    from repro_torch.kernels import fused, polar
+
+    out = {}
+    for R in P1_PAPER_RANKS:
+        st = init_state(bt, Parafac2Options(rank=R, backend="auto"), seed=0)
+        Wb = st.W[b.subject_ids.long()] * b.subject_mask[:, None]
+        _, B = fused.fused_procrustes_b(b.vals, b.gather_v(st.V), Wb, st.H.contiguous())
+        G = B.transpose(1, 2) @ B
+        del B
+        err, scale = p1_main_path_check(G, R)
+        nbytes, ops = p1_work(G.shape[0], R, G.element_size())
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+        ms = time_ms(lambda: polar.gram_inv_sqrt(G), reps=5, warmup=1)
+        lib = time_ms(lambda: p1_library(G), *((5, 1) if R <= 32 else (1, 0)))
+        out[R] = {"K": G.shape[0], "variant": polar.gram_inv_sqrt_variant(R), "ms": ms,
+                  "bound_ms": max(t_bytes, t_ops),
+                  "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                  "library_ms": lib, "max_abs_err": err, "max_abs_plain": scale}
+        print(f"[time] gram_inv_sqrt at R={R} (K={G.shape[0]}, f32, {out[R]['variant']}): "
+              f"kernel {ms:.4f} ms, bound {out[R]['bound_ms']:.4f} ms ({out[R]['bound_by']}, "
+              f"{nbytes} B, {ops} ops), library {lib:.4f} ms", flush=True)
+    return out
 
 
 def sparse_work(name: str, b, R: int) -> tuple:
@@ -1526,35 +1606,14 @@ def phase4_times(bt, bt_sc, bcc_pair, state, per_kernel, errs):
     args.update(bargs)
     # P1 on the main path's own Grams at the largest CC bucket
     G = B.transpose(1, 2) @ B
-    P_inv = polar.gram_inv_sqrt(G)
-    want = p1_plain(G)
-    # each Gram against its own bound: max(1e-6, R * kappa * 2^-53) of its
-    # max |P_inv|, kappa over the eigenvalues the clamp keeps (subjects with
-    # fewer rows than R have Grams near singular, f32 rounding their null
-    # space into eigenvalues ~1e-8 of the largest)
-    lam = torch.cat([torch.linalg.eigvalsh(g.double()) for g in G.split(EIGH_BATCH)])
-    top = lam[:, -1:].clamp(min=0.0)
-    kept = torch.where(lam > top * 1e-12, lam, torch.full_like(lam, float("inf")))
-    kappa = (top[:, 0] / kept.min(1).values).nan_to_num(nan=1.0, posinf=1.0)
-    err_k = (P_inv.double() - want.double()).abs().amax((1, 2))
-    scale_k = want.double().abs().amax((1, 2))
-    bound_k = torch.clamp(R * kappa * 2.0 ** -53, min=1e-6) * scale_k
-    if bool((err_k > bound_k).any()):
-        k = int((err_k - bound_k).argmax())
-        fail(f"gram_inv_sqrt on the main path's Gram {k}: |kernel - plain| "
-             f"{float(err_k[k]):.3e} > {float(bound_k[k]):.3e} (condition {float(kappa[k]):.3e})")
-    p1_err, p1_scale = float(err_k.max()), float(scale_k.max())
+    p1_err, p1_scale = p1_main_path_check(G, R)
     e, sc = errs["gram_inv_sqrt"]
     errs["gram_inv_sqrt"] = (max(e, p1_err), max(sc, p1_scale))
     args["gram_inv_sqrt"] = (G,)
     library["gram_inv_sqrt"] = lambda: p1_library(G)
     where["gram_inv_sqrt"] = f"K={G.shape[0]} (the largest CC bucket's Grams)"
     need["gram_inv_sqrt"] = p1_work(G.shape[0], R, G.element_size())
-    print(f"[time] gram_inv_sqrt on the main path's Grams (K={G.shape[0]}, R={R}, f32): "
-          f"max |kernel - plain| {p1_err:.3e} against max |plain| {p1_scale:.3e}, each Gram "
-          f"within max(1e-6, R kappa 2^-53) of its max |P_inv| (largest relative error "
-          f"{float((err_k / scale_k.clamp(min=1e-300)).max()):.3e}, condition up to "
-          f"{float(kappa.max()):.3e})", flush=True)
+    p1_by_rank = p1_paper_ranks(bt, b)
 
     rows = []
     for name, (wrapper, plain, source) in kernels().items():
@@ -1596,6 +1655,7 @@ def phase4_times(bt, bt_sc, bcc_pair, state, per_kernel, errs):
         if name == "gram_inv_sqrt":
             r["variant"] = polar.gram_inv_sqrt_variant(R)
             r["port_only"] = True          # the reference's jnp.linalg.eigh, no Pallas kernel
+            r["by_rank"] = p1_by_rank      # the paper's other ranks, on the same bucket
         if "variant" in r:
             extra = f", variant {r['variant']}"
         if name in same_input:
@@ -1691,6 +1751,34 @@ def phase5_profile(bt, bt_sc, iter_ms: dict, scan_ms: dict) -> None:
         for e in sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]:
             print(f"[profile] {route} host   {e.self_cpu_time_total / 1e3:9.3f} ms  "
                   f"x{e.count:<6d} {e.key[:90]}")
+
+    # CC auto at the paper's ranks past 5: where P1 stands in an iteration
+    for R in P1_PAPER_RANKS:
+        opts = Parafac2Options(rank=R, backend="auto")
+        state = init_state(bt, opts, seed=0)
+        for _ in range(2):                         # unprofiled; the second one timed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = als_step(bt, state, opts)
+            float(state.fit)
+            it = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            state = als_step(bt, state, opts)
+            float(state.fit)
+        kernels_ = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+        busy_ms = sum(dev_us(e) for e in kernels_) / 1e3
+        p1 = [e for e in kernels_ if "jacobi_" in e.key]      # csrc/polar.cu's kernels
+        p1_ms = sum(dev_us(e) for e in p1) / 1e3
+        if busy_ms <= 0 or not p1:
+            fail(f"the profiled CC auto iteration at R={R} ran no P1 on the device")
+        print(f"[profile] CC auto at R={R}: device busy {busy_ms:.3f} ms an iteration "
+              f"(an unprofiled iteration before it {it:.3f} ms); P1 {p1_ms:.3f} ms in "
+              f"{sum(e.count for e in p1)} launches, {p1_ms / busy_ms:.1%} of the device time",
+              flush=True)
+        for e in sorted(kernels_, key=dev_us, reverse=True)[:6]:
+            print(f"[profile] auto R={R} device {dev_us(e) / 1e3:9.3f} ms  "
+                  f"{dev_us(e) / 1e3 / busy_ms:6.1%}  x{e.count:<4d} {e.key[:80]}", flush=True)
+        del state
 
     for route, data in (("auto", bt), ("staged", bt), ("staged-scoo", bt_sc)):
         opts = scan_opts(route.split("-")[0], 10)

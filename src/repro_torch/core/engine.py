@@ -29,7 +29,10 @@ PyTorch the counterpart of a compiled chunk is a captured CUDA graph:
 On the CPU both run the same iteration eagerly (no graphs; the while
 variant reads its flag each iteration and runs no masked iteration). On a
 GPU ``engine="scan"`` always captures: a capture that fails raises, it never
-runs the eager loop instead. Before the capture, ``WARMUP_ITERS`` iterations
+runs the eager loop instead, and a fit whose iteration cannot be captured
+is refused before any warm-up: ``procrustes="svd"`` (``torch.linalg.svd``
+on CUDA reads its error flags back to the host, a sync that a capture
+refuses) raises a ValueError that names the method. Before the capture, ``WARMUP_ITERS`` iterations
 run on a copy of the state, on the stream the capture uses: they load the
 kernel libraries and make the cuBLAS and cuSOLVER handles, the kernels'
 workspaces (kept per stream, :class:`repro_torch.kernels._launch.Workspaces`)
@@ -78,6 +81,17 @@ def _state(c: Carry) -> "p2.Parafac2State":
     return p2.Parafac2State(**{f: c[f] for f in _STATE})
 
 
+def _check_capturable(opts: "p2.Parafac2Options", device: torch.device) -> None:
+    """Raise unless one ALS iteration of ``opts`` can be captured into a CUDA
+    graph on ``device`` (any iteration runs eagerly on the CPU)."""
+    if torch.device(device).type == "cuda" and opts.procrustes == "svd":
+        raise ValueError(
+            "engine='scan' captures each ALS iteration into a CUDA graph, and "
+            "procrustes='svd' cannot be captured: torch.linalg.svd on CUDA reads its "
+            "error flags back to the host; use procrustes='gram_eigh' or "
+            "'newton_schulz', or engine='host'")
+
+
 class _Iteration:
     """One ALS iteration on a carry of static tensors, with the host loop's
     stopping rule on the device: ``stop = (n > 0) & (|f - prev| < tol)``,
@@ -103,6 +117,7 @@ class _Iteration:
             n.add_(go.to(n.dtype))
 
         dt, dev = opts.dtype, state.H.device
+        _check_capturable(opts, dev)
         self.body = body
         self.carry: Carry = {f: getattr(state, f).to(dtype=dt).clone() for f in _STATE}
         self.carry.update(hist=torch.full((hist_len,), -np.inf, dtype=dt, device=dev),

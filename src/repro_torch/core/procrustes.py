@@ -9,10 +9,15 @@ B_k. Three batched solvers over B [Kb, I, R] (``repro.core.procrustes``):
 
 The Gram-eigh polar forms G = B^T B and Q = B P_inv with ``torch.bmm``, as
 the reference forms both with ``einsum`` outside Pallas; P_inv = G^{-1/2}
-comes from P1 (:mod:`repro_torch.kernels.polar`), a batched Jacobi kernel on
-CUDA tensors that never reads back to the host, so the step can be captured
-in a CUDA graph, and its plain version on ``torch.linalg.eigh`` on the CPU.
-Padded subjects have B_k = 0 and get Q_k = 0 (never NaN).
+comes from P1 (:mod:`repro_torch.kernels.polar`) on CUDA tensors: a batched
+Jacobi that never reads back to the host, so the step can be captured in a
+CUDA graph; it runs most of its sweeps in f32 and finishes in f64, a thread
+a subject up to R = 8, a warp a subject up to 64, a block past that. On the
+CPU it is P1's plain version on ``torch.linalg.eigh``. Padded subjects
+have B_k = 0 and get Q_k = 0 (never NaN). ``torch.linalg.svd`` on CUDA
+reads its error flags back to the host, so the scan engine refuses
+``svd`` on the card (:mod:`repro_torch.core.engine`); Newton-Schulz is
+matmuls only.
 """
 from __future__ import annotations
 

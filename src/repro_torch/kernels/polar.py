@@ -10,9 +10,16 @@ all-zero G (a padded subject) gives P_inv = 0. The reference takes
 port only: a batched cyclic Jacobi that decides convergence on the device,
 so that a CUDA graph can capture the polar step (``torch.linalg.eigh`` reads
 its error flags back to the host). Both the kernel and the plain version
-solve in f64 whatever the input dtype, and return the input's dtype: an f32
-eigensolver's own error (about R * condition * 2^-24 of max |P_inv|) passes
-the f32 tolerance of 1e-6 from R = 40 on.
+are accurate to an f64 solve whatever the input dtype, and return the input's
+dtype: an f32 eigensolver's own error (about R * condition * 2^-24 of max
+|P_inv|) passes the f32 tolerance of 1e-6 from R = 40 on. The kernel runs
+most of its sweeps in f32 on G scaled by a power of two, makes the f32
+eigenvectors orthonormal in f64, and finishes in f64 on E^T G E, which is
+diagonal to about 1e-6 of ||G||, so that one or two f64 sweeps remain. Its
+designs (:data:`VARIANTS`, by rank): a thread a subject in registers (R <=
+8, the main path's R = 5), a warp a subject in shared memory (R <= 64, the
+paper's 10, 20 and 40), and past that a block a subject in f64 alone, with
+its matrices in shared memory or, past R = 119, in a global workspace.
 
 On CUDA tensors :func:`gram_inv_sqrt` launches the kernel (or raises); on
 the CPU it runs :func:`gram_inv_sqrt_plain`, the algebra on
@@ -39,7 +46,8 @@ LIB = KernelLib("polar", KERNELS, {
 LAUNCHES = LIB.launches
 reset_launches = LIB.reset_launches
 # the designs of csrc/polar.cu, by the code spartan_gram_inv_sqrt_variant returns
-VARIANTS = ("thread-per-subject", "block-shared", "block-workspace")
+VARIANTS = ("thread-per-subject", "warp-per-subject", "block-shared", "block-workspace")
+_WORKSPACE: dict = {}    # (K, R) -> the doubles of workspace a launch needs
 
 
 def gram_inv_sqrt_plain(G: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -62,7 +70,9 @@ def gram_inv_sqrt(G: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     if on_cpu(G):
         return gram_inv_sqrt_plain(G, eps)
     code = dtype_code(G)
-    need = LIB.lib().spartan_gram_inv_sqrt_workspace(K, R)
+    need = _WORKSPACE.get((K, R))
+    if need is None:        # asked once per (K, R): a launch makes one ctypes call
+        need = _WORKSPACE[(K, R)] = LIB.lib().spartan_gram_inv_sqrt_workspace(K, R)
     if need < 0:
         raise ValueError(f"gram_inv_sqrt: no workspace for K={K}, R={R}")
     ws = torch.empty(need, dtype=torch.float64, device=G.device) if need else None
@@ -74,8 +84,8 @@ def gram_inv_sqrt(G: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
 
 def gram_inv_sqrt_variant(R: int) -> str:
     """The design :func:`gram_inv_sqrt` launches at rank R: a thread a
-    subject (R <= 8), a block a subject with its matrices in shared memory,
-    or in a global workspace (R > 119)."""
+    subject (R <= 8), a warp a subject (R <= 64), a block a subject with its
+    matrices in shared memory, or in a global workspace (R > 119)."""
     code = LIB.lib().spartan_gram_inv_sqrt_variant(R)
     if code < 0:
         raise ValueError(f"no gram_inv_sqrt variant for R={R}")

@@ -3,12 +3,13 @@
     PYTHONPATH=src python -m repro_torch.launch.kernel_ab PARENT_DIR CHANGE_DIR \
         [--rounds 4] [--kernels fused_mode1_xkv,mode1_reuse]
 
-Builds ``csrc/fused.cu``, ``csrc/gather_matmul.cu``, ``csrc/staged.cu`` and
-``csrc/scoo.cu`` of each checkout (``<dir>/src/repro_torch/csrc``) with nvcc
-and this package's flags, loads both builds into one process and times the
-same kernels of both on the same operands in turns (parent, change, change,
-parent, ...): each turn takes CUDA events around one launch (median of 20,
-the host's work for the launch included, as a caller sees it) and around
+Builds ``csrc/fused.cu``, ``csrc/gather_matmul.cu``, ``csrc/staged.cu``,
+``csrc/scoo.cu`` and ``csrc/polar.cu`` of each checkout
+(``<dir>/src/repro_torch/csrc``) with nvcc and this package's flags, loads
+both builds into one process and times the same kernels of both on the same
+operands in turns (parent, change, change, parent, ...): each turn takes
+CUDA events around one launch (median of 20, the host's work for the
+launch included, as a caller sees it) and around
 the replay of a CUDA graph of 20 launches (median of 5 replays, divided by
 20: the device's time a launch, no host work; what separates a short
 kernel from its launch floor). F1-F4, row 5 (``spartan_ykv``), rows 6
@@ -24,7 +25,24 @@ the BCC gather-matmul at the BCC cut's shape (K = 6,808, I = 56, NB = 9, L
 path plans it (Kb = 58,112, I = 48, C = 128, N = 136), with that bucket's
 Vg gathered from a random V (row 11) and a random Q (row 12), since their
 times depend on the segment lengths and the kept columns. The dense
-kernels' times do not depend on the values (every value is read). F2 and
+kernels' times do not depend on the values (every value is read). P1
+(``spartan_gram_inv_sqrt``, the polar's batched Jacobi) at R = 5, 10, 20
+and 40 (``gram_inv_sqrt_r5`` ... ``gram_inv_sqrt_r40``; ``--kernels
+gram_inv_sqrt`` names all four) on the main path's own Grams, since its
+time depends on the values (each subject's sweeps): ``choa_like(scale=0.25,
+seed=0)`` bucketized as CC on the card as the main path plans it, its
+largest bucket (K = 58,112, I = 56), B from one ``fused_procrustes_b`` (the
+auto route's) on the state ``init_state(rank=R, seed=0)``, G = B^T B in f32;
+subjects with fewer rows than R give singular Grams, as on the main path.
+Its two builds' outputs are held to each other Gram by Gram within
+max(1e-6, R kappa 2^-53) of the Gram's max |P_inv| (the bound
+``chip_smoke.py`` holds P1 to on the main path's Grams; kappa over the
+eigenvalues the clamp keeps), and its library call is the chunked
+``torch.linalg.eigh`` with the same inverse-root algebra (in runs of
+16,384 Grams; past R = 32, where cuSOLVER solves one Gram at a time, one
+call in the first round only). Past R = 8, where P1 takes milliseconds, a
+turn takes the median of 5 event times and a graph of 2 launches replayed 3
+times. F2 and
 rows 6 and 7, the reductions across subjects, are called through their
 one-launch entry points (``..._one_launch``, with the mask and a workspace
 of each side's own). In each round, one PyTorch call of each of F2 and
@@ -72,19 +90,24 @@ SIGNATURES = {
     "spartan_mode3_reuse": [I, P, P, P, P, I, I, P],
     "spartan_scoo_xk_times_v": [I, P, P, P, P, P, I, I, I, I, I, P],
     "spartan_scoo_project": [I, P, P, P, P, P, P, I, I, I, I, I, P],
+    "spartan_gram_inv_sqrt": [I, P, P, I, I, ctypes.c_double, P, P],
+    "spartan_gram_inv_sqrt_workspace": [I, I],
 }
-SOURCES = ("fused", "gather_matmul", "staged", "scoo")
+SOURCES = ("fused", "gather_matmul", "staged", "scoo", "polar")
 CC = dict(K=58112, I=56, C=128, R=5)
 BCC = dict(K=6808, I=56, NB=9, L=128, J_pad=1408)
 SCOO_SCALE = 0.25       # the choa_like scale of the main path
+P1_RANKS = (5, 10, 20, 40)      # the paper's Figure 5 ranks (benchmarks/fig5_rank.py)
+EIGH_BATCH = 16384      # the most 5x5 Grams one cuSOLVER eigh was seen to take on an H100
 COMPARED = {"fused_mode1_xkv": "m2", "ykv": "ykv5", "mode1": "m6", "mode1_reuse": "m7",
             "mode2_compact": "a8", "mode3": "m9", "mode3_reuse": "m10",
             "mode3_reuse_k1": "m10k1", "scoo_xk_times_v": "xkv11",
-            "scoo_project": "yc12"}   # kernel -> its output
+            "scoo_project": "yc12",
+            **{f"gram_inv_sqrt_r{R}": f"p1_r{R}" for R in P1_RANKS}}   # kernel -> its output
 
 
 def load(tree: str) -> dict:
-    """The four libraries of one checkout, with their C signatures."""
+    """The five libraries of one checkout, with their C signatures."""
     libs = {}
     for name in SOURCES:
         lib = ctypes.CDLL(str(_build.build(name, Path(tree) / "src/repro_torch/csrc")))
@@ -131,7 +154,19 @@ def calls(libs: dict, ops: dict, outs: dict, stream: int) -> dict:
             raise RuntimeError(f"CUDA error {err} at launch")
 
     red = reductions(f, st, o, K, Ii, C, R, stream)     # its closures keep the workspaces
-    return {
+    pl = libs["polar"]
+    p1 = {}
+    for r in P1_RANKS:
+        if f"G{r}" not in ops:
+            continue
+        Kp = ops[f"G{r}"].shape[0]
+        need = pl.spartan_gram_inv_sqrt_workspace(Kp, r)
+        ws = torch.empty(max(need, 0), dtype=torch.float64, device="cuda")
+        red["keep"].append(ws)
+        p1[f"gram_inv_sqrt_r{r}"] = (lambda r=r, Kp=Kp, w=ws.data_ptr() if need > 0 else None:
+                                     check(pl.spartan_gram_inv_sqrt(
+                                         0, o[f"G{r}"], o[f"p1_r{r}"], Kp, r, 1e-12, w, stream)))
+    return {**p1,
         "fused_procrustes_b": lambda: check(f.spartan_fused_procrustes_b(
             0, o["vals"], o["Vg"], o["Wb"], o["H"], o["xkv"], o["b"], K, Ii, C, R, stream)),
         "fused_mode1_xkv": lambda: check(red["fused_mode1_xkv"]()),
@@ -162,8 +197,8 @@ def calls(libs: dict, ops: dict, outs: dict, stream: int) -> dict:
     }
 
 
-def time_ms(fn, reps: int = 20) -> float:
-    for _ in range(3):
+def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     out = []
@@ -212,6 +247,60 @@ def scoo_bucket():
     return max(bt.buckets, key=lambda b: b.kb)
 
 
+def p1_grams(ranks) -> dict:
+    """``G{R}``: the Grams G = B^T B of the largest CC bucket of
+    ``choa_like(SCOO_SCALE, seed=0)`` at each rank of ``ranks``, B from
+    the auto route's ``fused_procrustes_b`` on ``init_state(rank=R,
+    seed=0)``; ``kappa{R}``: each Gram's condition over the eigenvalues
+    that the clamp keeps (chunked ``eigvalsh`` in f64)."""
+    from repro_torch.core import Parafac2Options, init_state
+    from repro_torch.kernels import fused
+    from repro_torch.launch import decompose
+
+    data = decompose.load_dataset("choa", SCOO_SCALE, 0)
+    bt, _ = decompose.prepare(data, buckets=4, device=torch.device("cuda"),
+                              dtype=torch.float32, format="cc")
+    b = max(bt.buckets, key=lambda x: x.vals.numel())
+    out = {}
+    for R in ranks:
+        st = init_state(bt, Parafac2Options(rank=R, backend="auto"), seed=0)
+        Wb = st.W[b.subject_ids.long()] * b.subject_mask[:, None]
+        _, B = fused.fused_procrustes_b(b.vals, b.gather_v(st.V), Wb, st.H.contiguous())
+        G = torch.bmm(B.transpose(1, 2), B)
+        # many Grams past R = 8 on the CPU, where cuSOLVER would solve them one at a time
+        Gd = G.double().cpu() if R > 8 else G.double()
+        lam = torch.cat([torch.linalg.eigvalsh(g) for g in Gd.split(EIGH_BATCH)]).to(G.device)
+        top = lam[:, -1:].clamp(min=0.0)
+        kept = torch.where(lam > top * 1e-12, lam, torch.full_like(lam, float("inf")))
+        out[f"G{R}"] = G
+        out[f"kappa{R}"] = (top[:, 0] / kept.min(1).values).nan_to_num(nan=1.0, posinf=1.0)
+        del B
+    return out
+
+
+def p1_library(G: torch.Tensor) -> torch.Tensor:
+    """P1's function in PyTorch: ``torch.linalg.eigh`` in runs of
+    ``EIGH_BATCH`` in G's dtype, then the clamp and E diag E^T (timed only)."""
+    parts = [torch.linalg.eigh(g) for g in G.split(EIGH_BATCH)]
+    lam, E = torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+    scale = torch.clamp(lam, min=0.0)
+    tol = scale.amax(dim=-1, keepdim=True) * 1e-12
+    inv_root = torch.where(scale > tol, torch.rsqrt(torch.maximum(scale, tol)),
+                           torch.zeros_like(scale))
+    return (E * inv_root[:, None, :]) @ E.transpose(1, 2)
+
+
+def p1_agreement(parent: torch.Tensor, change: torch.Tensor, kappa: torch.Tensor,
+                 R: int) -> tuple:
+    """(largest |parent - change| / max |parent| over the Grams, whether every
+    Gram is within max(1e-6, R kappa 2^-53) of its max |P_inv|)."""
+    err = (parent.double() - change.double()).abs().amax((1, 2))
+    scale = parent.double().abs().amax((1, 2))
+    bound = torch.clamp(R * kappa * 2.0 ** -53, min=1e-6) * scale
+    rel = float((err / scale.clamp(min=1e-300)).max())
+    return rel, bool((err <= bound).all())
+
+
 def operands(seed: int = 0, scoo: bool = True) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(seed)
     K, Ii, C, R = CC["K"], CC["I"], CC["C"], CC["R"]
@@ -247,6 +336,9 @@ def outputs(ops: dict) -> dict:
             "a8": torch.empty((K, C, R), device="cuda"),
             "m9": torch.empty((K, R), device="cuda"), "m10": torch.empty((K, R), device="cuda"),
             "m10k1": torch.empty((1, R), device="cuda")}
+    for R in P1_RANKS:
+        if f"G{R}" in ops:
+            outs[f"p1_r{R}"] = torch.empty_like(ops[f"G{R}"])
     if "sends" in ops:
         Kb, Cs = ops["sends"].shape
         outs.update(xkv11=torch.empty((Kb, ops["sQ"].shape[1], R), device="cuda"),
@@ -267,7 +359,15 @@ def main(argv=None) -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(f"[kernel_ab] card: {smi.stdout.strip() or smi.stderr.strip()}", flush=True)
+    p1_wanted = [R for R in P1_RANKS
+                 if not wanted or {"gram_inv_sqrt", f"gram_inv_sqrt_r{R}"} & wanted]
     ops = operands(scoo=not wanted or bool(wanted & {"scoo_xk_times_v", "scoo_project"}))
+    if p1_wanted:
+        ops.update(p1_grams(p1_wanted))
+        print(f"[kernel_ab] P1 on the largest CC bucket's Grams of choa scale {SCOO_SCALE}: "
+              f"K={ops[f'G{p1_wanted[0]}'].shape[0]}, R in {p1_wanted}, condition up to "
+              + ", ".join(f"{float(ops[f'kappa{R}'].max()):.3e} (R={R})" for R in p1_wanted),
+              flush=True)
     if "svals" in ops:
         print(f"[kernel_ab] rows 11 and 12 on the largest SCOO bucket of choa scale "
               f"{SCOO_SCALE}: Kb={ops['svals'].shape[0]} I={ops['sQ'].shape[1]} "
@@ -279,7 +379,8 @@ def main(argv=None) -> None:
 
     def side_calls(side: str, stream: int) -> dict:
         return {name: fn for name, fn in calls(libs[side], ops, outs[side], stream).items()
-                if not wanted or name in wanted}
+                if not wanted or name in wanted
+                or (name.startswith("gram_inv_sqrt_r") and "gram_inv_sqrt" in wanted)}
 
     sides = {side: side_calls(side, torch.cuda.current_stream().cuda_stream) for side in libs}
     graphed = {side: side_calls(side, gstream.cuda_stream) for side in libs}
@@ -292,20 +393,27 @@ def main(argv=None) -> None:
                                       ops["sm"]),
         "mode3_reuse": lambda: torch.einsum("krl,rl,k->kl", ops["ykv7"], ops["H"], ops["sm"]),
     }
-    library = {name: fn for name, fn in library.items() if not wanted or name in wanted}
+    library = {name: (fn, 20, 3) for name, fn in library.items() if not wanted or name in wanted}
+    for R in p1_wanted:     # past R = 32 cuSOLVER solves one Gram at a time: seconds a call
+        library[f"gram_inv_sqrt_r{R}"] = (lambda G=ops[f"G{R}"]: p1_library(G),
+                                          *((5, 1) if R <= 32 else (1, 0)))
     times = {side: {name: [] for name in sides[side]} for side in sides}
     gtimes = {side: {name: [] for name in sides[side]} for side in sides}
     lib_times = {name: [] for name in library}
     for rnd in range(args.rounds):
         for side in ("parent", "change")[:: 1 if rnd % 2 == 0 else -1]:
             for name, fn in sides[side].items():
-                times[side][name].append(time_ms(fn))
-                gtimes[side][name].append(graph_ms(graphed[side][name], gstream))
+                # P1 past R = 8 takes milliseconds a call: fewer repetitions
+                slow = name.startswith("gram_inv_sqrt_r") and int(name[15:]) > 8
+                times[side][name].append(time_ms(fn, *((5, 1) if slow else (20, 3))))
+                gtimes[side][name].append(graph_ms(graphed[side][name], gstream,
+                                                   *((2, 3) if slow else (20, 5))))
             print(f"[kernel_ab] round {rnd} {side}: " + ", ".join(
                 f"{n} {t[-1]:.4f} (graph {gtimes[side][n][-1]:.4f})"
                 for n, t in times[side].items()) + " ms", flush=True)
-        for name, fn in library.items():
-            lib_times[name].append(time_ms(fn))
+        for name, (fn, reps, warmup) in library.items():
+            if rnd == 0 or reps > 1:       # a call of seconds: the first round only
+                lib_times[name].append(time_ms(fn, reps, warmup))
     torch.cuda.synchronize()
     summary = {}
     for name in sides["parent"]:
@@ -323,6 +431,13 @@ def main(argv=None) -> None:
             summary[name]["max_abs_diff"] = float(
                 (outs["parent"][out] - outs["change"][out]).abs().max())
             diff = f", max |parent - change| = {summary[name]['max_abs_diff']:.3e}"
+            if name.startswith("gram_inv_sqrt_r"):
+                R = int(name.rsplit("_r", 1)[1])
+                rel, ok = p1_agreement(outs["parent"][out], outs["change"][out],
+                                       ops[f"kappa{R}"], R)
+                summary[name].update(max_rel_diff=rel, within_p1_bound=ok)
+                diff += (f" ({rel:.3e} of max |P_inv|, every Gram within max(1e-6, R kappa "
+                         f"2^-53): {ok})")
         if name in library:
             lt = lib_times[name]
             summary[name]["library_ms"] = statistics.median(lt)

@@ -895,7 +895,7 @@ def test_mode3_variant_answers(dev):
 
 # P1, the polar's inverse root (csrc/polar.cu), at the ranks and kinds of
 # chip_smoke.py's phase 2: K Grams of one kind at rank R.
-P1_RANKS = (1, 2, 5, 8, 40, 72, 130)
+P1_RANKS = (1, 2, 5, 8, 9, 10, 16, 20, 32, 33, 40, 64, 65, 72, 130)
 P1_KINDS = ("zero", "identity", "rankdef", "lowrank", 1.0, 10.0, 100.0, 1e6)
 # f32 Grams of condition past 1e2, or of rank deficiency at the rounding
 # level, are not determined to the f32 tolerance: f64 only
@@ -962,13 +962,14 @@ def test_gram_inv_sqrt_matches_plain(dev, dtype, kind, R):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("K", [16385, 58112])
+@pytest.mark.parametrize("R,K", [(5, 16385), (5, 58112), (10, 58112), (20, 58112)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_gram_inv_sqrt_main_path_sizes(dev, dtype, K):
-    """K past cuSOLVER's batch limit at R = 5, every seventh Gram zero (the
-    padded subjects): one launch, zeros where G is zero."""
+def test_gram_inv_sqrt_main_path_sizes(dev, dtype, R, K):
+    """K past cuSOLVER's batch limit at R = 5 (a thread a subject) and at the
+    main path's K at R = 10 and 20 (a warp a subject), every seventh Gram
+    zero (the padded subjects): one launch, zeros where G is zero."""
     from repro_torch.kernels import polar
-    G = _p1_grams(5, K, 10.0, dtype, dev, seed=K)
+    G = _p1_grams(R, K, 10.0, dtype, dev, seed=K)
     G[::7] = 0.0
     before = polar.LAUNCHES["gram_inv_sqrt"]
     got = polar.gram_inv_sqrt(G)
@@ -983,10 +984,11 @@ def test_gram_inv_sqrt_main_path_sizes(dev, dtype, K):
 @pytest.mark.parametrize("R,K", [(40, 16385), (72, 1000), (130, 600)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_gram_inv_sqrt_block_variants_past_the_grid(dev, dtype, R, K):
-    """The block designs (shared memory at R = 40 and 72, the global
-    workspace at 130) with more subjects than blocks, so that a block takes
-    subject after subject, reusing its shared memory or workspace slot;
-    every seventh Gram zero."""
+    """The wide designs with many subjects: a warp a subject at R = 40 (in
+    blocks of four warps, the last block part empty), a block a subject
+    with shared memory at 72 and the global workspace at 130, with more
+    subjects than blocks, so that a block takes subject after subject,
+    reusing its shared memory or workspace slot; every seventh Gram zero."""
     from repro_torch.kernels import polar
     G = _p1_grams(R, K, 10.0, dtype, dev, seed=R)
     G[::7] = 0.0
@@ -1001,13 +1003,52 @@ def test_gram_inv_sqrt_block_variants_past_the_grid(dev, dtype, R, K):
 @pytest.mark.cuda
 def test_gram_inv_sqrt_variants_and_checks(dev):
     from repro_torch.kernels import polar
-    assert [polar.gram_inv_sqrt_variant(R) for R in (1, 8, 9, 119, 120, 130)] == [
-        "thread-per-subject", "thread-per-subject", "block-shared", "block-shared",
-        "block-workspace", "block-workspace"]
+    assert [polar.gram_inv_sqrt_variant(R) for R in (1, 8, 9, 64, 65, 119, 120, 130)] == [
+        "thread-per-subject", "thread-per-subject", "warp-per-subject", "warp-per-subject",
+        "block-shared", "block-shared", "block-workspace", "block-workspace"]
     with pytest.raises(TypeError):
         polar.gram_inv_sqrt(torch.zeros((2, 3, 3), dtype=torch.float16, device=dev))
     with pytest.raises(ValueError, match="R, R"):
         polar.gram_inv_sqrt(torch.zeros((2, 3, 4), device=dev))
+
+
+# a tensor whose every B_k has full column rank with room to spare, where
+# the svd polar is unique and well determined (tests/test_torch_engine.py)
+WELL_CONDITIONED = dict(n_subjects=24, n_cols=60, max_rows=30, min_rows=12,
+                        avg_nnz_per_subject=150, seed=3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine,check_every", [("host", 5), ("scan", 5), ("scan", 0)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("method", ["newton_schulz", "svd"])
+def test_other_polars_on_gpu(dev, method, dtype, engine, check_every):
+    """The svd and Newton-Schulz polars through ``fit`` on the card (auto
+    route), 12 iterations from the CPU's start, against the same method on
+    the CPU's torch route: f64 within 1e-8, f32 within 1e-4. Newton-Schulz
+    on choa_like(0.002); svd on a tensor whose B_k are far from singular
+    (at a singular B_k its polar is not unique, and cuSOLVER and LAPACK part
+    by 9e-8 on choa_like(0.002) in f64). The scan engine refuses svd on the
+    card before any warm-up: torch.linalg.svd reads its error flags back to
+    the host, which a CUDA graph cannot capture."""
+    from repro_torch.core import init_state
+    data = (choa_like(scale=0.002, seed=0) if method == "newton_schulz"
+            else random_irregular(**WELL_CONDITIONED))
+    bt_cpu = bucketize(data, dtype=dtype, device="cpu")
+    opts = dict(rank=5, dtype=dtype, procrustes=method)
+    state0 = init_state(bt_cpu, Parafac2Options(**opts), seed=0)
+    _, want = fit(bt_cpu, Parafac2Options(**opts, backend="torch"), max_iters=12, tol=0.0,
+                  state=state0)
+    bt = bucketize(data, dtype=dtype, device=dev)
+    gpu = Parafac2Options(**opts, backend="auto", engine=engine, check_every=check_every)
+    if method == "svd" and engine == "scan":
+        with pytest.raises(ValueError, match="procrustes='svd'"):
+            fit(bt, gpu, max_iters=12, tol=0.0, state=state0)
+        return
+    state, got = fit(bt, gpu, max_iters=12, tol=0.0, state=state0)
+    assert len(got) == 12 and got[-1] == float(state.fit)
+    tol = 1e-8 if dtype == torch.float64 else 1e-4
+    assert np.max(np.abs(np.asarray(got) - np.asarray(want))) <= tol
 
 
 @pytest.mark.cuda

@@ -9,6 +9,14 @@ reference's scan and while engines (``backend="jnp"``), the reference's own
 cross-engine bound. The while variant must stop after the same iteration as
 the host loop; a chunked run overshoots by less than one chunk and ends on
 its state's fit, as in ``tests/test_engine.py``.
+
+The other polar solvers, ``svd`` and ``newton_schulz``, are held the same
+way. Newton-Schulz is held on choa_like(0.002). The svd polar is not unique
+at a singular B_k and changes fast near one, and on choa_like(0.002) the
+two packages' LAPACK calls part by 3.1e-8 after a few iterations; so svd is
+held to the reference on a synthetic tensor whose B_k are all far from
+singular (checked at the start), and to the port's own host loop bit for
+bit on choa_like(0.002).
 """
 import json
 
@@ -23,12 +31,15 @@ from repro.core import (Parafac2Options as JOptions, bucketize as j_bucketize,  
 from repro.core.procrustes import polar_gram_eigh as j_polar_gram_eigh  # noqa: E402
 from repro.data import choa_like as j_choa_like  # noqa: E402
 from repro.launch import decompose as j_decompose  # noqa: E402
+from repro.sparse import random_irregular as j_random_irregular  # noqa: E402
 from repro_torch.convert import state_from_arrays  # noqa: E402
 from repro_torch.core import Parafac2Options, bucketize, fit  # noqa: E402
 from repro_torch.core import engine  # noqa: E402
+from repro_torch.core.backend import get_backend  # noqa: E402
 from repro_torch.data import choa_like  # noqa: E402
 from repro_torch.kernels import _launch, polar  # noqa: E402
 from repro_torch.launch import decompose  # noqa: E402
+from repro_torch.sparse import random_irregular  # noqa: E402
 
 ITERS = 12      # check_every 5: chunks of 5, 5 and 2
 STATE = ("H", "V", "W", "fit")
@@ -45,9 +56,26 @@ def choa():
     return dict(bj=bj, bt=bt, s0=s0, arrays=arrays)
 
 
-def _fit(choa, *, backend="torch", engine_="host", check_every=10, iters=ITERS, tol=0.0):
+# a tensor whose every B_k has full column rank with room to spare: at least
+# 12 rows and ~150 nonzeros over 60 columns a subject, rank 5
+WELL_CONDITIONED = dict(n_subjects=24, n_cols=60, max_rows=30, min_rows=12,
+                        avg_nnz_per_subject=150, seed=3)
+
+
+@pytest.fixture(scope="module")
+def well_conditioned():
+    """The ``choa`` fixture's dict for ``WELL_CONDITIONED``."""
+    bj = j_bucketize(j_random_irregular(**WELL_CONDITIONED), dtype=jnp.float64)
+    s0 = j_init_state(bj, JOptions(rank=5, dtype=jnp.float64, backend="jnp"), seed=0)
+    bt = bucketize(random_irregular(**WELL_CONDITIONED), device="cpu", dtype=torch.float64)
+    arrays = {k: np.asarray(getattr(s0, k)) for k in ("H", "V", "W")}
+    return dict(bj=bj, bt=bt, s0=s0, arrays=arrays)
+
+
+def _fit(choa, *, backend="torch", engine_="host", check_every=10, iters=ITERS, tol=0.0,
+         procrustes="gram_eigh"):
     opts = Parafac2Options(rank=5, dtype=torch.float64, backend=backend, engine=engine_,
-                           check_every=check_every)
+                           check_every=check_every, procrustes=procrustes)
     state0 = state_from_arrays(choa["arrays"], device="cpu", dtype=torch.float64)
     return fit(choa["bt"], opts, max_iters=iters, tol=tol, state=state0)
 
@@ -61,6 +89,54 @@ def test_scan_matches_reference_scan_engine(choa, check_every):
     assert len(got) == len(want) == ITERS
     assert np.max(np.abs(np.asarray(got) - np.asarray(want))) <= 1e-8
     assert got[-1] == float(state.fit)
+
+
+@pytest.mark.parametrize("check_every", [5, 0])
+@pytest.mark.parametrize("method", ["newton_schulz", "svd"])
+def test_other_polars_match_reference_scan_engine(request, method, check_every):
+    """The port's scan and while engines with the svd and Newton-Schulz
+    polars against the reference's, within 1e-8 (svd on the well-conditioned
+    tensor, where its polar is unique and well determined)."""
+    data = request.getfixturevalue("choa" if method == "newton_schulz" else "well_conditioned")
+    if method == "svd":     # every B_k of the start far from singular
+        s0 = state_from_arrays(data["arrays"], device="cpu", dtype=torch.float64)
+        for b in data["bt"].buckets:
+            Wb = s0.W[b.subject_ids.long()] * b.subject_mask[:, None]
+            _, B = get_backend("torch").procrustes_b_bucket(b, s0.H, Wb, s0.V)
+            sv = torch.linalg.svdvals(B[b.subject_mask > 0])
+            assert float((sv[:, -1] / sv[:, 0]).min()) > 1e-3
+    jopts = JOptions(rank=5, dtype=jnp.float64, backend="jnp", engine="scan",
+                     check_every=check_every, procrustes=method)
+    _, want = j_fit(data["bj"], jopts, max_iters=ITERS, tol=0.0, state=data["s0"])
+    state, got = _fit(data, engine_="scan", check_every=check_every, procrustes=method)
+    assert len(got) == len(want) == ITERS
+    assert np.max(np.abs(np.asarray(got) - np.asarray(want))) <= 1e-8
+    assert got[-1] == float(state.fit)
+
+
+@pytest.mark.parametrize("check_every", [5, 0])
+@pytest.mark.parametrize("method", ["newton_schulz", "svd"])
+def test_other_polars_scan_is_bitwise_the_host_loop(choa, method, check_every):
+    host_state, host = _fit(choa, procrustes=method)
+    state, hist = _fit(choa, engine_="scan", check_every=check_every, procrustes=method)
+    assert hist == host
+    for f in STATE:
+        assert torch.equal(getattr(state, f), getattr(host_state, f)), f
+
+
+def test_scan_refuses_svd_on_cuda_before_capture():
+    """procrustes='svd' cannot be captured on CUDA (torch.linalg.svd reads
+    its error flags back to the host): the scan engine raises a ValueError
+    that names the method before any warm-up; on the CPU, and for the other
+    solvers, nothing is refused."""
+    for method in ("svd", "gram_eigh", "newton_schulz"):
+        opts = Parafac2Options(rank=5, engine="scan", procrustes=method)
+        engine._check_capturable(opts, torch.device("cpu"))
+        if method != "svd":
+            engine._check_capturable(opts, torch.device("cuda"))
+    with pytest.raises(ValueError, match="procrustes='svd'"):
+        engine._check_capturable(Parafac2Options(rank=5, procrustes="svd"),
+                                 torch.device("cuda", 0))
 
 
 @pytest.mark.parametrize("check_every", [5, 0])
