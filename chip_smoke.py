@@ -8,9 +8,9 @@ Phases, any failure exits non-zero:
 
 1. the card (nvidia-smi name and power limit), torch/CUDA versions, and the
    kernel build from ``src/repro_torch/csrc`` (``fused.cu``, ``staged.cu``,
-   ``scoo.cu``, ``gather_matmul.cu`` and ``polar.cu``, one nvcc each,
-   started together);
-2. each of the fourteen kernels against its plain torch version on the
+   ``scoo.cu``, ``gather_matmul.cu``, ``polar.cu`` and ``tridiag.cu``, one
+   nvcc each, started together);
+2. each of the fifteen kernels against its plain torch version on the
    card, in f32 and f64: the four fused and the six staged over eleven small
    CC geometries (the reference's four; R = 40, its widest cell; R = 72,
    past the widest register tile; C_pad = 1024 at R = 40; R = 72 with
@@ -45,7 +45,13 @@ Phases, any failure exits non-zero:
    = 130), past every design's grid, every
    seventh Gram zero, relative to max |P_inv| (``p1_tolerance``), zero
    Grams to exact zeros, and Q^T Q = I on full-rank B, with what an f32
-   eigh departs by (the reason P1 solves in f64); an empty (K=0) bucket
+   eigh departs by (the reason P1 solves in f64); P2, the smooth prox's
+   tridiagonal solve (the port's own kernel), at N = 2, 3, 33, 64, 65,
+   1,025, 4,097, 116,225 and 464,900, R = 1, 5 and 40, lam = 0, 0.1 and 5
+   (f32 to 1e-6 times the condition bound 1 + 8 lam / rho), the same bits
+   twice, a captured call replayed after rho changed on the device, and
+   its device kernels a call at N = 116,225 and 464,900 counted in a
+   captured graph against the levels its C library reports; an empty (K=0) bucket
    through every wrapper. f64 to 1e-12 absolute, f32 to 1e-6 relative plus 1e-6 of
    the output's largest magnitude (sums in another order differ by a
    rounding); for the two SCOO kernels the scale is the largest running
@@ -78,11 +84,21 @@ Phases, any failure exits non-zero:
    the set-up; no host sync (``set_sync_debug_mode("error")``) in one eager
    ``als_step`` and one chunk replay; the while variant's stop and masked
    iterations and a chunked run's overshoot at a tol the fit crosses;
+   then the constraint layer (``CONSTRAINED``: ADMM nonneg on V and W, and
+   nonneg+l1 on V with smooth on W, the latter through P2) on CC auto and
+   SCOO staged beside the CC torch route, host engine and scan engine at
+   check_every 10 and 0: scan bit for bit the host (the history and every
+   state tensor, W and the duals included), within 1e-4 of the
+   torch route, P2 launched once a prox (201 times a fit), no host sync in
+   an eager step or a replay; and scale 0.002 in f64 through
+   ``decompose.main --constraint`` on the card within 1e-8 of the port's
+   own CPU run;
 4. each kernel's time beside its bound, its plain version's time, one
    PyTorch call's time (CUDA events, median of 20) and the wrapper call's
    host time (what an event time of a short kernel includes before the
-   launch), and for F2 and row 7 the device kernels one call launches
-   (torch.profiler) and the allocations a repeated call makes
+   launch), and for F2, row 7, P1 and P2 the device kernels one call
+   launches (the kernel nodes of a graph captured from the call, read back
+   from the driver) and the allocations a repeated call makes
    (torch.cuda.memory_stats; the [R, R] result only): the CC kernels at the
    main path's largest CC bucket (with the variant F1, F2 and rows 5, 8, 9
    and 10 take there; row 10 has one), the SCOO kernels at its largest SCOO bucket (with the variants of
@@ -94,7 +110,10 @@ Phases, any failure exits non-zero:
    the same inverse-root algebra), at the main path's R = 5 and, in its
    row's ``by_rank``, at the paper's R = 10, 20 and 40 (B from F1 on a
    seeded state of that rank), each Gram held to its plain version on the
-   CPU (LAPACK; cuSOLVER's f64 eigh is the less accurate of the two there);
+   CPU (LAPACK; cuSOLVER's f64 eigh is the less accurate of the two there),
+   and P2 on the l1-smooth fit's W (N = 116,225, R = 5) by events and in a
+   replayed CUDA graph, its device kernels and allocations a call measured,
+   no library call (none solves a tridiagonal system);
 5. a ``torch.profiler`` trace of one main-path ALS iteration on the auto and
    the staged route over the CC buckets and on the staged and the scoo
    route over the SCOO buckets: device time by kernel (and of each of the
@@ -103,7 +122,8 @@ Phases, any failure exits non-zero:
    of the trace's first-to-last kernel span (the profiler's own per-launch
    cost inflates the profiled wall time, so that is not a denominator;
    traces in ``$SMOKE_OUT/als_step_trace_<route>.json``); one profiled
-   iteration of CC auto at R = 10, 20 and 40 after two unprofiled ones:
+   iteration of CC auto with each ``CONSTRAINED`` spec (P2's device time);
+   one profiled iteration of CC auto at R = 10, 20 and 40 after two unprofiled ones:
    P1's device time and share beside the largest items; then one replayed
    10-iteration chunk of the scan engine on CC auto, CC staged and SCOO
    staged: device time an iteration and its busy share of an unprofiled
@@ -252,12 +272,28 @@ P1_LARGE = tuple((R, K, 10.0) for R in (1, 2, 5, 8, 40) for K in (16385, 58112))
     (72, 16385, 10.0), (130, 1000, 10.0), (5, 58112, 100.0))
 P1_PAPER_RANKS = (10, 20, 40)   # the paper's Figure 5 ranks past the main path's 5
 EIGH_BATCH = 16384      # the most 5x5 Grams one cuSOLVER eigh was seen to take on an H100
-SOURCES = ("fused", "staged", "scoo", "gather_matmul", "polar")
+# P2 (tridiag_solve) at its edges: N = 2 and 3; 33, one past a chunk of 32
+# rows and a warp; 64, the most the direct solve takes, and 65, one past it;
+# 1,025 and 4,097 (two and three levels); 116,225 and 464,900, W's rows at
+# choa 0.25 and at the full CHOA; R = 1, 5 and 40 (past a chunk's 32 column
+# threads); lam = 0, 0.1 and 5; rho a device scalar
+P2_N = (2, 3, 33, 64, 65, 1025, 4097, 116225, 464900)
+P2_R = (1, 5, 40)
+P2_LAM = (0.0, 0.1, 5.0)
+P2_RHO = 0.7
+# the constrained fits of phase 3: ADMM nonnegativity on V and W, and sparse
+# phenotypes (nonneg + l1 on V) with temporally smooth subject weights (W),
+# the latter through P2
+CONSTRAINED = {"admm": {"v": "nonneg_admm", "w": "nonneg_admm"},
+               "l1-smooth": {"v": "nonneg+l1:0.1", "w": "smooth:0.1"}}
+CONSTRAINED_ROUTES = {"auto": "cc", "staged-scoo": "scoo"}   # route -> format
+SOURCES = ("fused", "staged", "scoo", "gather_matmul", "polar", "tridiag")
 FUSED = ("fused_procrustes_b", "fused_mode1_xkv", "fused_mode2_compact", "fused_ykv")
 STAGED = ("ykv", "mode1", "mode1_reuse", "mode2_compact", "mode3", "mode3_reuse")
 SCOO = ("scoo_xk_times_v", "scoo_project")
 P1 = ("gram_inv_sqrt",)      # the port's own kernel: the polar's inverse root
-ALL = FUSED + STAGED + SCOO + ("gather_matmul",) + P1
+P2 = ("tridiag_solve",)      # the port's own kernel: the smooth prox's solve
+ALL = FUSED + STAGED + SCOO + ("gather_matmul",) + P1 + P2
 STAGED_PATH = ("ykv", "mode1_reuse", "mode2_compact", "mode3_reuse")
 # every CUDA route takes P1 in its polar step, the torch route too
 ON_MAIN_PATH = {"auto": FUSED + P1, "staged": STAGED_PATH + P1,
@@ -280,6 +316,8 @@ REPLACES = {
     "gather_matmul": "src/repro/kernels/gather_matmul.py:42",
     # no TPU kernel: the reference's jnp.linalg.eigh in its compiled program
     "gram_inv_sqrt": "src/repro/core/procrustes.py:40",
+    # no TPU kernel: the reference's lax.linalg.tridiagonal_solve in prox_smooth
+    "tridiag_solve": "src/repro/core/constraints.py:149",
 }
 
 
@@ -368,9 +406,9 @@ def p1_library(G):
 
 
 def kernels() -> dict:
-    """name -> (wrapper, plain version, source) for the fourteen kernels."""
+    """name -> (wrapper, plain version, source) for the fifteen kernels."""
     from repro_torch.kernels import (fused, gather_matmul, mttkrp_mode1, mttkrp_mode2,
-                                     mttkrp_mode3, polar, ykv)
+                                     mttkrp_mode3, polar, tridiag, ykv)
 
     f, s = "src/repro_torch/csrc/fused.cu", "src/repro_torch/csrc/staged.cu"
     sc, g = "src/repro_torch/csrc/scoo.cu", "src/repro_torch/csrc/gather_matmul.cu"
@@ -389,6 +427,8 @@ def kernels() -> dict:
         "scoo_project": (scoo_proj, scoo_proj_plain, sc),
         "gather_matmul": (gather_matmul.gather_matmul, gather_matmul.gather_matmul_plain, g),
         "gram_inv_sqrt": (polar.gram_inv_sqrt, p1_plain, "src/repro_torch/csrc/polar.cu"),
+        "tridiag_solve": (tridiag.tridiag_solve, tridiag.tridiag_solve_plain,
+                          "src/repro_torch/csrc/tridiag.cu"),
     }
 
 
@@ -537,8 +577,10 @@ def check_empty(dtype, dev) -> None:
                           torch.zeros((256, R), **z)),
     })
     args["gram_inv_sqrt"] = (torch.zeros((0, R, R), **z),)
+    args["tridiag_solve"] = (torch.zeros((N, 0), **z), torch.ones((), **z), 0.1)  # no column
     shapes.update({"scoo_xk_times_v": [(0, I, R)], "scoo_project": [(0, R, C)],
-                   "gather_matmul": [(0, I, R)], "gram_inv_sqrt": [(0, R, R)]})
+                   "gather_matmul": [(0, I, R)], "gram_inv_sqrt": [(0, R, R)],
+                   "tridiag_solve": [(N, 0)]})
     before = launches()
     for name, (wrapper, _, _) in kernels().items():
         out = wrapper(*args[name])
@@ -919,6 +961,81 @@ def check_polar(dtype, dev, errs: dict) -> set:
     return variants
 
 
+def p2_tolerance(lam: float, f64: bool) -> float:
+    """P2's tolerance relative to max |Z|: 1e-12 in f64; in f32 1e-6 times
+    the matrix's condition bound 1 + 8 lam / rho (two backward-stable solves
+    of one system part by about the condition number times the rounding)."""
+    return 1e-12 if f64 else 1e-6 * (1.0 + 8.0 * lam / P2_RHO)
+
+
+def check_tridiag(dtype, dev, errs: dict) -> None:
+    """P2 against its plain version at every edge (``P2_N`` x ``P2_R`` x
+    ``P2_LAM``), one launch a call and the same bits twice; then a captured
+    call replayed after rho changed in place on the device, which only a
+    kernel that reads rho from device memory follows; then the device
+    kernels of one call at W's rows, counted in a captured graph, against
+    the level count the C library reports."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import tridiag
+
+    f64 = dtype == torch.float64
+    rng = np.random.default_rng(22)
+    worst = 0.0
+    for N in P2_N:
+        for R in P2_R:
+            Y = torch.tensor(rng.standard_normal((N, R)), dtype=dtype, device=dev)
+            rho = torch.full((), P2_RHO, dtype=dtype, device=dev)
+            for lam in P2_LAM:
+                before = launches()["tridiag_solve"]
+                got = tridiag.tridiag_solve(Y, rho, lam)
+                again = tridiag.tridiag_solve(Y, rho, lam)
+                want = tridiag.tridiag_solve_plain(Y, rho, lam)
+                torch.cuda.synchronize()
+                if launches()["tridiag_solve"] != before + 2:
+                    fail(f"tridiag_solve at N={N}, R={R} did not launch its kernel once a call")
+                if not torch.equal(got, again):
+                    fail(f"tridiag_solve at N={N}, R={R}, lam={lam}: two calls differ")
+                err = float((got.double() - want.double()).abs().max())
+                scale = float(want.abs().max())
+                if err > p2_tolerance(lam, f64) * scale:
+                    fail(f"tridiag_solve ({'f64' if f64 else 'f32'}, N={N}, R={R}, lam={lam}): "
+                         f"max |kernel - plain| = {err:.3e} > {p2_tolerance(lam, f64):.1e} x "
+                         f"{scale:.3e}")
+                worst = max(worst, err / scale)
+                e, sc = errs.get("tridiag_solve", (0.0, 0.0))
+                errs["tridiag_solve"] = (max(e, err), max(sc, scale))
+    Y = torch.tensor(rng.standard_normal((4097, 5)), dtype=dtype, device=dev)
+    rho = torch.full((), P2_RHO, dtype=dtype, device=dev)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        tridiag.tridiag_solve(Y, rho, 0.1)           # the workspace, outside the capture
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = tridiag.tridiag_solve(Y, rho, 0.1)
+    rho.fill_(2.5)
+    graph.replay()
+    torch.cuda.synchronize()
+    err = float((out.double() - tridiag.tridiag_solve_plain(Y, rho, 0.1).double()).abs().max())
+    if err > p2_tolerance(0.1, f64) * float(out.abs().max()):
+        fail(f"tridiag_solve replayed after rho changed on the device is off by {err:.3e}")
+    counted = {}
+    for N in (116225, 464900):
+        Y = torch.tensor(rng.standard_normal((N, 5)), dtype=dtype, device=dev)
+        counted[N] = captured_kernels(lambda: tridiag.tridiag_solve(Y, rho, 0.1))
+        if counted[N] != tridiag.device_kernels(N):
+            fail(f"tridiag_solve at N={N}: {counted[N]} device kernels in a captured call, "
+                 f"its C library reports {tridiag.device_kernels(N)}")
+    print(f"[p2] {'f64' if f64 else 'f32'}: N in {P2_N}, R in {P2_R}, lam in {P2_LAM}, rho "
+          f"{P2_RHO}: largest |kernel - plain| / max |plain| {worst:.3e}, each within "
+          f"{'1e-12' if f64 else '1e-6 (1 + 8 lam / rho)'}; two calls the same bits; device "
+          f"kernels a call at N = 116,225 and 464,900, R 5, counted in a captured graph: "
+          f"{counted[116225]}, {counted[464900]}; a captured call follows rho changed on the "
+          f"device ({err:.3e})", flush=True)
+
+
 def phase2_kernels(dev) -> dict:
     import numpy as np
     import torch
@@ -933,6 +1050,7 @@ def phase2_kernels(dev) -> dict:
         variants |= check_reduction_edges(dtype, dev, errs)
         variants |= check_mode3_edges(dtype, dev, errs)
         variants |= check_polar(dtype, dev, errs)
+        check_tridiag(dtype, dev, errs)
         for g in GEOMETRIES:
             data = random_irregular(n_subjects=g["K"], n_cols=g["J"],
                                     max_rows=g.get("max_rows", 9),
@@ -960,14 +1078,15 @@ def phase2_kernels(dev) -> dict:
     want |= {("gram_inv_sqrt", v) for v in P1_VARIANTS}
     if variants != want:
         fail(f"phase 2 did not reach the variants {sorted(want - variants)}")
-    print(f"[kernels] all fourteen match their plain versions (f32, f64; "
+    print(f"[kernels] all fifteen match their plain versions (f32, f64; "
           f"{len(GEOMETRIES)} CC geometries, R in {sorted({g['R'] for g in GEOMETRIES})}, "
           f"C_pad up to 1024; SCOO {', '.join(SCOO_DATA)} at R 1/5/72 and explicit "
           f"zero-valued triplets; BCC {BCC_GEOMETRIES}; rows 5, 8, 11 and 12 at "
           f"{len(YKV_EDGES)}, {len(MODE2_EDGES)}, {len(XKV_EDGES)} and "
           f"{len(PROJECT_EDGES)} edge shapes, F2 and row 7 at {len(F2_EDGES)} and "
           f"{len(MODE1_REUSE_EDGES)}, rows 9 and 10 at {len(MODE3_EDGES)} with mode3 == "
-          f"mode3_reuse(ykv) bit for bit, each twice with the same bits, variants "
+          f"mode3_reuse(ykv) bit for bit, each twice with the same bits, P2 at "
+          f"{len(P2_N) * len(P2_R) * len(P2_LAM)} edges, variants "
           f"{sorted(variants)}; padded subjects, K=0): "
           + json.dumps({k: v[0] for k, v in errs.items()}), flush=True)
     return errs
@@ -1147,24 +1266,25 @@ def phase3_main_path(dev):
 
     cut, bcc, counts["bcc"] = bcc_cut(bt, main_state.V)
 
-    # each kernel's launches in the run of the path that reaches it
+    # each kernel's launches in the run of the path that reaches it (P2's
+    # path is the constrained fit of phase3_constrained)
     path_of = {**dict.fromkeys(FUSED, "auto"), **dict.fromkeys(STAGED, "staged"),
                "mode1": "mode1", "mode3": "mode3", **dict.fromkeys(SCOO, "staged-scoo"),
                "gather_matmul": "bcc", "gram_inv_sqrt": "auto"}
-    per_kernel = {name: counts[path_of[name]][name] for name in ALL}
+    per_kernel = {name: counts[path_of[name]][name] for name in ALL if name in path_of}
     peaks["dev_bytes"] = dev_bytes
     return bt, bt_sc, (cut, bcc), main_state, per_kernel, ms, hist, peaks
 
 
-def scan_opts(backend: str, check_every: int):
+def scan_opts(backend: str, check_every: int, constraints=None):
     import torch
     from repro_torch.core import Parafac2Options
 
     return Parafac2Options(rank=5, backend=backend, dtype=torch.float32, engine="scan",
-                           check_every=check_every)
+                           check_every=check_every, constraints=constraints)
 
 
-def steady_ms(data, backend: str, check_every: int) -> tuple:
+def steady_ms(data, backend: str, check_every: int, constraints=None) -> tuple:
     """(set-up seconds, its warm-up's kernel launches, ms per iteration) of
     the scan engine on ``data``: the chunk (or the while variant) made once
     from the seeded start (warm-up and capture: the set-up), then ``ITERS``
@@ -1173,7 +1293,7 @@ def steady_ms(data, backend: str, check_every: int) -> tuple:
     import torch
     from repro_torch.core import engine, init_state
 
-    opts = scan_opts(backend, check_every)
+    opts = scan_opts(backend, check_every, constraints)
     s0 = init_state(data, opts, seed=0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1290,6 +1410,130 @@ def phase3_engines(bt, bt_sc, hist: dict, ms: dict, peaks: dict) -> dict:
     return steady
 
 
+def check_constrained_launches(label: str, got: dict, n_buckets: int, specs: dict) -> None:
+    """A constrained fit's launches: the route's main-path kernels buckets x
+    iterations times each, P2 once per prox of a smooth W (the duals'
+    start, then ``admm_iters`` = 10 an iteration), no other kernel."""
+    want = dict.fromkeys(ON_MAIN_PATH[label], n_buckets * ITERS)
+    if specs.get("w", "").startswith("smooth"):
+        want["tridiag_solve"] = 1 + 10 * ITERS
+    for name, n in got.items():
+        if n != want.get(name, 0):
+            fail(f"{label} with {specs}: {name} launched {n} times, want {want.get(name, 0)}")
+
+
+def phase3_constrained(bt, bt_sc) -> dict:
+    """The constraint layer at the main path's width: choa 0.25, rank 5, 20
+    iterations, f32, with ``CONSTRAINED``'s specs, on CC auto and SCOO
+    staged (``CONSTRAINED_ROUTES``) beside the CC torch route with the same
+    specs: the host engine, then the scan engine at check_every 10 and 0,
+    each history and state bit for bit the host engine's and within 1e-4 of the CC
+    torch route's, the launches (``check_constrained_launches``) and the
+    replayed ms/iter; no host sync in an eager step or a chunk replay; then
+    choa 0.002 in f64 through ``decompose.main --constraint`` on the card
+    against the port's own CPU run, within 1e-8. Returns the ms/iter by run,
+    P2's launches on CC auto and CC auto's fitted l1-smooth state."""
+    import numpy as np
+    import torch
+    from repro_torch.core import Parafac2Options, als_step, engine, init_state
+    from repro_torch.launch import decompose as dec
+
+    data_of = {"torch": (bt, "torch"), "auto": (bt, "auto"), "staged-scoo": (bt_sc, "staged")}
+    kw = dict(rank=5, iters=ITERS, tol=0.0, seed=0, dtype=torch.float32, verbose=False)
+    out = {"ms": {}}
+    for cname, specs in CONSTRAINED.items():
+        hist = {}
+        for label in ("torch",) + tuple(CONSTRAINED_ROUTES):
+            data, backend = data_of[label]
+            dec.decompose(data, backend=backend, constraints=specs, **{**kw, "iters": 2})
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            state, h, secs = dec.decompose(data, backend=backend, constraints=specs, **kw)
+            counts = launches()
+            added = (torch.cuda.max_memory_allocated() - resident) / 2**30
+            check_constrained_launches(label, counts, len(data.buckets), specs)
+            if len(h) != ITERS or not np.all(np.isfinite(h)):
+                fail(f"{cname} {label}: fit history short or not finite")
+            hist[label] = h
+            out["ms"][f"{cname} {label} host"] = secs / ITERS * 1e3
+            d_torch = float(np.max(np.abs(np.asarray(h) - np.asarray(hist["torch"]))))
+            print(f"[constrained] {cname} {specs} {label}, host engine: "
+                  f"{secs / ITERS * 1e3:.2f} ms/iter, {added:.3f} GiB above what was held, "
+                  f"fit {h[-1]:.6f}, max |fit - torch (CC)| {d_torch:.3e}, launches "
+                  f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+            print(f"[constrained] {cname} {label} fit history {json.dumps(h)}", flush=True)
+            if d_torch > 1e-4:
+                fail(f"{cname} {label}: fit history differs from the torch route's by "
+                     f"{d_torch:.3e} > 1e-4")
+            if label == "auto" and cname == "l1-smooth":
+                out["p2_launches"], out["state"] = counts["tridiag_solve"], state
+            if label == "torch":
+                continue
+            for ce in (10, 0):
+                s_scan, hs, secs_s = dec.decompose(data, backend=backend, constraints=specs,
+                                                   engine="scan", check_every=ce, **kw)
+                counts = launches()
+                check_constrained_launches(label, counts, len(data.buckets), specs)
+                if hs != h or hs[-1] != float(s_scan.fit):
+                    d = float(np.max(np.abs(np.asarray(hs) - np.asarray(h))))
+                    fail(f"{cname} {label} scan{ce}: fit history not bit for bit the host "
+                         f"engine's (max difference {d:.3e})")
+                got, want = engine._flatten(s_scan), engine._flatten(state)
+                if [k for k, _ in got] != [k for k, _ in want] or not all(
+                        torch.equal(x, y) for (_, x), (_, y) in zip(got, want)):
+                    fail(f"{cname} {label} scan{ce}: the state (H, V, W or a dual) is not bit "
+                         f"for bit the host engine's")
+                setup, warm, steady = steady_ms(data, backend, ce, specs)
+                out["ms"][f"{cname} {label} scan{ce}"] = steady
+                print(f"[constrained] {cname} {label} scan{ce}: {steady:.2f} ms/iter "
+                      f"replayed (host engine {secs / ITERS * 1e3:.2f}), set-up {setup:.2f}s "
+                      f"({warm} warm-up launches kept apart), the fit with set-up "
+                      f"{secs_s / ITERS * 1e3:.2f} ms/iter; history and every state tensor "
+                      f"bit for bit the host engine's; launches { {k: v for k, v in counts.items() if v} }",
+                      flush=True)
+        for label in CONSTRAINED_ROUTES:
+            data, backend = data_of[label]
+            opts = Parafac2Options(rank=5, backend=backend, dtype=torch.float32,
+                                   constraints=specs)
+            s = als_step(data, init_state(data, opts, seed=0), opts)
+            chunk = engine.make_als_chunk(data, scan_opts(backend, 10, specs), 10, state=s)
+            torch.cuda.synchronize()
+            for what, call in (("an eager als_step", lambda: als_step(data, s, opts)),
+                               ("a replay of a captured chunk", lambda: chunk(s))):
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    call()
+                except RuntimeError as e:
+                    fail(f"{cname} {label}: {what} synchronised with the host: {e}")
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                torch.cuda.synchronize()
+            del chunk
+        print(f"[constrained] {cname}: no host sync (set_sync_debug_mode('error')) in one "
+              f"eager als_step or one chunk replay on {', '.join(CONSTRAINED_ROUTES)}",
+              flush=True)
+
+    for cname, specs in CONSTRAINED.items():
+        common = ["--dataset", "choa", "--scale", "0.002", "--rank", "5", "--iters",
+                  str(ITERS), "--tol", "0", "--dtype", "float64", "--constraint",
+                  ",".join(f"{m}={v}" for m, v in specs.items())]
+        cpu = dec.main(common + ["--device", "cpu", "--backend", "torch"])
+        for backend, fmt in (("auto", "cc"), ("staged", "scoo")):
+            gpu = dec.main(common + ["--device", "cuda", "--backend", backend, "--format", fmt,
+                                     "--json", str(OUT / f"decompose_f64_{cname}_{backend}_{fmt}.json")])
+            d = float(np.max(np.abs(np.asarray(gpu["fit_history"])
+                                    - np.asarray(cpu["fit_history"]))))
+            label = "auto" if fmt == "cc" else "staged-scoo"
+            check_constrained_launches(label, gpu["kernel_launches"], len(gpu["buckets"]), specs)
+            print(f"[constrained] scale 0.002 f64 {cname} {backend}/{fmt} on the card: max "
+                  f"|fit - the port's CPU run| = {d:.3e}; constraints {gpu['constraints']}",
+                  flush=True)
+            if d > 1e-8:
+                fail(f"f64 {cname} {backend}/{fmt}: the card's fit history differs from the "
+                     f"CPU's by {d:.3e} > 1e-8")
+    return out
+
+
 def bcc_cut(bt, V):
     """The largest CC bucket's first subjects, as many as keep the BCC
     values within ``BCC_CUT_BYTES`` (width unchanged, depth cut), converted
@@ -1364,20 +1608,55 @@ def host_ms(fn, reps: int = 20) -> float:
     return float(np.median(out))
 
 
+def captured_kernels(fn) -> int:
+    """Device kernels that one call of ``fn`` enqueues, read back from the
+    driver as the kernel nodes of a CUDA graph captured from the call,
+    after a warm-up call on the capture's stream. Fails if the graph holds
+    a node of another kind (a copy, a memset). A torch.profiler trace is not
+    used for this: on an H100 (torch 2.11) a trace now and then held none of
+    a short call's kernels, in three traces running."""
+    import ctypes
+    import torch
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(raw, None, ctypes.byref(n)) != 0:
+        fail("cuGraphGetNodes could not count a captured call's nodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    if n.value and cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) != 0:
+        fail("cuGraphGetNodes could not list a captured call's nodes")
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) != 0:
+            fail("cuGraphNodeGetType could not read a captured node's kind")
+        kinds.append(kind.value)
+    torch.cuda.synchronize()
+    del graph
+    if any(k != 0 for k in kinds):             # CU_GRAPH_NODE_TYPE_KERNEL is 0
+        fail(f"a captured call holds nodes other than kernels (kinds {sorted(set(kinds))})")
+    return len(kinds)
+
+
 def one_call(fn) -> tuple:
     """(device kernels, caching-allocator allocations, new device segments)
-    of one call of ``fn`` after a warm-up call: the kernels from a
-    torch.profiler trace of a second call, the allocations and the segments
-    (cudaMalloc calls) from torch.cuda.memory_stats around a third."""
+    of one call of ``fn``: the kernels from ``captured_kernels``, the
+    allocations and the segments (cudaMalloc calls) from
+    torch.cuda.memory_stats around a later eager call."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
+    n_kernels = captured_kernels(fn)
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    n_kernels = sum(1 for e in prof.events() if str(e.device_type).endswith("CUDA"))
     keys = ("allocation.all.allocated", "segment.all.allocated")
     before = [torch.cuda.memory_stats()[k] for k in keys]
     fn()
@@ -1540,12 +1819,21 @@ def cc_csr(b, J: int):
                                    ).coalesce().to_sparse_csr()
 
 
-def phase4_times(bt, bt_sc, bcc_pair, state, per_kernel, errs):
+def p2_work(N: int, R: int, itemsize: int) -> tuple:
+    """(bytes, operations) of P2's function: Y read once and Z written once;
+    by Thomas's count, per row the pivot and its multiplier (3) and per row
+    and column the right-hand side's scaling, its elimination (3) and the
+    back substitution (2)."""
+    return 2 * N * R * itemsize, N * (3 + 6 * R)
+
+
+def phase4_times(bt, bt_sc, bcc_pair, state, per_kernel, errs, w_state):
     import torch
     from repro_torch.core.backend import get_backend
     from repro_torch.core.procrustes import solve_q
     from repro_torch.kernels import (fused, mttkrp_mode1, mttkrp_mode2, mttkrp_mode3, polar,
-                                     scoo, ykv)
+                                     scoo, tridiag, ykv)
+    from repro_torch.launch.kernel_ab import graph_ms
 
     b = max(bt.buckets, key=lambda x: x.vals.numel())
     H, V, W = state.H.contiguous(), state.V, state.W
@@ -1614,6 +1902,15 @@ def phase4_times(bt, bt_sc, bcc_pair, state, per_kernel, errs):
     where["gram_inv_sqrt"] = f"K={G.shape[0]} (the largest CC bucket's Grams)"
     need["gram_inv_sqrt"] = p1_work(G.shape[0], R, G.element_size())
     p1_by_rank = p1_paper_ranks(bt, b)
+    # P2 at the W update of the main path's l1-smooth fit: its fitted W [K, R]
+    # as Y, rho a device scalar, lam 0.1
+    Yw = w_state.W.contiguous()
+    p2_args = {"tridiag_solve": (Yw, torch.ones((), dtype=Yw.dtype, device=Yw.device), 0.1)}
+    check_kernels(p2_args, errs)
+    args.update(p2_args)
+    library["tridiag_solve"] = None       # no PyTorch call solves a tridiagonal system
+    where["tridiag_solve"] = f"N={Yw.shape[0]} (W's rows), lam 0.1"
+    need["tridiag_solve"] = p2_work(*Yw.shape, Yw.element_size())
 
     rows = []
     for name, (wrapper, plain, source) in kernels().items():
@@ -1630,7 +1927,7 @@ def phase4_times(bt, bt_sc, bcc_pair, state, per_kernel, errs):
             "plain_ms": time_ms(lambda: plain(*a)),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": time_ms(library[name]),
+            "library_ms": time_ms(library[name]) if library[name] else None,
             "host_ms": host_ms(lambda: wrapper(*a)),
         })
         r = rows[-1]
@@ -1656,6 +1953,20 @@ def phase4_times(bt, bt_sc, bcc_pair, state, per_kernel, errs):
             r["variant"] = polar.gram_inv_sqrt_variant(R)
             r["port_only"] = True          # the reference's jnp.linalg.eigh, no Pallas kernel
             r["by_rank"] = p1_by_rank      # the paper's other ranks, on the same bucket
+        if name == "tridiag_solve":
+            r["port_only"] = True          # the reference's lax tridiagonal_solve, no Pallas kernel
+            r["graph_ms"] = graph_ms(lambda: wrapper(*a), torch.cuda.Stream())
+            # the levels' kernels from one C call, counted in a captured graph
+            n_k, n_alloc, n_seg = one_call(lambda: wrapper(*a))
+            r["device_kernels_per_call"] = n_k
+            r["allocations_per_call"] = {"caching_allocator": n_alloc, "device_segments": n_seg}
+            extra = (f", in a graph {r['graph_ms']:.4f} ms, {n_k} device kernels a call, "
+                     f"{n_alloc} allocation(s) a repeated call (the result), {n_seg} new "
+                     f"device segment(s)")
+            want_k = tridiag.device_kernels(a[0].shape[0])
+            if n_k != want_k or n_alloc != 1 or n_seg != 0:
+                fail(f"tridiag_solve: {n_k} device kernels, {n_alloc} allocations and {n_seg} "
+                     f"new segments a call; want {want_k} (its levels), 1 (the result) and 0")
         if "variant" in r:
             extra = f", variant {r['variant']}"
         if name in same_input:
@@ -1663,8 +1974,9 @@ def phase4_times(bt, bt_sc, bcc_pair, state, per_kernel, errs):
             extra = f", library on the same input {r['library_same_input_ms']:.4f} ms"
         print(f"[time] {name} at {where[name]} R={R} f32: kernel {r['ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, {nbytes} B, {ops} ops), "
-              f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, wrapper "
-              f"host time {r['host_ms']:.4f} ms{extra}", flush=True)
+              f"plain {r['plain_ms']:.4f} ms, library "
+              f"{'none' if r['library_ms'] is None else format(r['library_ms'], '.4f') + ' ms'}, "
+              f"wrapper host time {r['host_ms']:.4f} ms{extra}", flush=True)
     # the two reductions across subjects: one device kernel a call, and on a
     # repeated call one allocation (the result), no new device memory and
     # the same workspace
@@ -1697,7 +2009,7 @@ def phase4_times(bt, bt_sc, bcc_pair, state, per_kernel, errs):
     return rows
 
 
-def phase5_profile(bt, bt_sc, iter_ms: dict, scan_ms: dict) -> None:
+def phase5_profile(bt, bt_sc, iter_ms: dict, scan_ms: dict, con_ms: dict) -> None:
     """Where one main-path iteration's time goes on the auto and the staged
     route over the CC buckets and on the staged and the scoo route over the
     SCOO buckets, then in one replayed 10-iteration chunk of the scan engine
@@ -1751,6 +2063,32 @@ def phase5_profile(bt, bt_sc, iter_ms: dict, scan_ms: dict) -> None:
         for e in sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]:
             print(f"[profile] {route} host   {e.self_cpu_time_total / 1e3:9.3f} ms  "
                   f"x{e.count:<6d} {e.key[:90]}")
+
+    # the constrained fits on CC auto: where an ADMM iteration's time goes
+    for cname, specs in CONSTRAINED.items():
+        opts = Parafac2Options(rank=5, backend="auto", constraints=specs)
+        state = als_step(bt, init_state(bt, opts, seed=0), opts)       # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            state = als_step(bt, state, opts)
+            float(state.fit)
+        kernels_ = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+        busy_ms = sum(dev_us(e) for e in kernels_) / 1e3
+        mark = "void (anonymous namespace)::"      # csrc/tridiag.cu's three kernels, not
+        p2 = [e for e in kernels_ if e.key.startswith(mark) and   # at::native's reduce_kernel
+              e.key[len(mark):].split("<")[0] in ("reduce_kernel", "expand_kernel",
+                                                  "base_kernel")]
+        p2_ms = sum(dev_us(e) for e in p2) / 1e3
+        if busy_ms <= 0 or (specs["w"].startswith("smooth") and not p2):
+            fail(f"the profiled CC auto {cname} iteration ran no P2 or nothing on the device")
+        it = con_ms[f"{cname} auto host"]
+        print(f"[profile] CC auto {cname} {specs}: device busy {busy_ms:.3f} ms an iteration; "
+              f"against the unprofiled {it:.3f} ms/iter of phase 3: busy {busy_ms / it:.1%}; "
+              f"P2 {p2_ms:.3f} ms in {sum(e.count for e in p2)} device kernels", flush=True)
+        for e in sorted(kernels_, key=dev_us, reverse=True)[:8]:
+            print(f"[profile] auto {cname} device {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} "
+                  f"{e.key[:90]}", flush=True)
+        del state
 
     # CC auto at the paper's ranks past 5: where P1 stands in an iteration
     for R in P1_PAPER_RANKS:
@@ -1834,8 +2172,10 @@ def main() -> int:
     errs = phase2_kernels(dev)
     bt, bt_sc, bcc_pair, state, per_kernel, iter_ms, hist, peaks = phase3_main_path(dev)
     scan_ms = phase3_engines(bt, bt_sc, hist, iter_ms, peaks)
-    rows = phase4_times(bt, bt_sc, bcc_pair, state, per_kernel, errs)
-    phase5_profile(bt, bt_sc, iter_ms, scan_ms)
+    con = phase3_constrained(bt, bt_sc)
+    per_kernel["tridiag_solve"] = con["p2_launches"]
+    rows = phase4_times(bt, bt_sc, bcc_pair, state, per_kernel, errs, con.pop("state"))
+    phase5_profile(bt, bt_sc, iter_ms, scan_ms, con["ms"])
     print(f"[done] {time.perf_counter() - t0:.1f}s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,11 @@
-"""Carry PARAFAC2 factors between the JAX package and the port.
+"""Carry PARAFAC2 states between the JAX package and the port.
 
 The reference's ``Parafac2State`` leaves, as numpy arrays, become the port's
 state on a chosen device and dtype, and back. This is how a parity test
 starts both packages from the same state: ``torch.Generator`` cannot
-reproduce the reference's ``jax.random`` initialisation.
+reproduce the reference's ``jax.random`` initialisation. A bucketed W is a
+list (or tuple) of per-bucket arrays; ``aux``, the constraint layer's duals,
+is the reference's nested dict of tuples and lists of arrays.
 """
 from __future__ import annotations
 
@@ -12,17 +14,21 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from repro_torch.core.constraints import tree_map
 from repro_torch.core.parafac2 import Parafac2State
 from repro_torch.device import resolve_device
 
 __all__ = ["state_from_arrays", "state_to_arrays"]
 
 
-def state_from_arrays(arrays: Mapping[str, np.ndarray], device="cuda",
+def state_from_arrays(arrays: Mapping, device="cuda",
                       dtype: torch.dtype = torch.float32) -> Parafac2State:
-    """``{"H", "V", "W"[, "fit"]}`` numpy arrays -> :class:`Parafac2State`
-    (global W layout; ``fit`` defaults to -inf, the fresh-start value) on
-    ``device``, a GPU by default (raises without one unless ``"cpu"``)."""
+    """``{"H", "V", "W"[, "fit"][, "aux"]}`` arrays -> :class:`Parafac2State`
+    on ``device``, a GPU by default (raises without one unless ``"cpu"``).
+    ``W`` is one [K, R] array, or a list of per-bucket [Kb, R] arrays (the
+    bucketed layout, a tuple in the state); ``fit`` defaults to -inf, the
+    fresh-start value; ``aux`` to none (``init_state`` then makes the
+    duals)."""
     missing = {"H", "V", "W"} - set(arrays)
     if missing:
         raise KeyError(f"state arrays lack {sorted(missing)}")
@@ -31,11 +37,19 @@ def state_from_arrays(arrays: Mapping[str, np.ndarray], device="cuda",
     def t(a):
         return torch.tensor(np.array(a), dtype=dtype, device=device)
 
-    return Parafac2State(H=t(arrays["H"]), V=t(arrays["V"]), W=t(arrays["W"]),
-                         fit=t(arrays.get("fit", -np.inf)))
+    W = arrays["W"]
+    W = tuple(t(w) for w in W) if isinstance(W, (list, tuple)) else t(W)
+    return Parafac2State(H=t(arrays["H"]), V=t(arrays["V"]), W=W,
+                         fit=t(arrays.get("fit", -np.inf)),
+                         aux=tree_map(t, arrays.get("aux", ())))
 
 
 def state_to_arrays(state: Parafac2State) -> dict:
-    """The inverse: a state's H, V, W and fit as numpy arrays on the host."""
-    return {f: getattr(state, f).detach().cpu().numpy()
-            for f in ("H", "V", "W", "fit")}
+    """The inverse: the state's H, V, W (a list for the bucketed layout),
+    fit and aux as numpy arrays on the host."""
+    def a(x):
+        return x.detach().cpu().numpy()
+
+    W = [a(w) for w in state.W] if isinstance(state.W, tuple) else a(state.W)
+    return {"H": a(state.H), "V": a(state.V), "W": W, "fit": a(state.fit),
+            "aux": tree_map(a, state.aux)}

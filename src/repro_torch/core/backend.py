@@ -174,6 +174,38 @@ class MttkrpBackend:
         """Per-subject M3 rows [Kb, R] = coldot(H, Y_k V)."""
         return spartan.mode3_bucket(Yc, Vg, H, subject_mask, YkV=YkV)
 
+    # -- whole-tensor helpers (one call a mode over every bucket's Yc) -------
+    # The ALS step does not call them: it goes bucket by bucket through the
+    # stages above. On the staged backend they reach row 6 (mode1), row 8
+    # (mode2_compact) and row 9 (mode3).
+    def mttkrp_mode1(self, buckets, Ycs, V: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+        """M1 [R, R] over all buckets, with W global [K, R]."""
+        return sum(self.mode1(Yc, b.gather_v(V), W[b.subject_ids.long()], b.subject_mask)
+                   for b, Yc in zip(buckets, Ycs))
+
+    def mttkrp_mode2(self, buckets, Ycs, H: torch.Tensor, W: torch.Tensor,
+                     J: int) -> torch.Tensor:
+        """M2 [J, R]: the compact stage per bucket, then the shared
+        deterministic scatter."""
+        M2 = H.new_zeros((J, H.shape[0]))
+        for b, Yc in zip(buckets, Ycs):
+            A = self.mode2_compact(Yc, H, W[b.subject_ids.long()], b.col_mask,
+                                   b.subject_mask)
+            M2 = M2 + self.mode2_scatter(A, b.cols, J,
+                                         order=(b.scatter_perm, b.scatter_ends)).to(M2.dtype)
+        return M2
+
+    def mttkrp_mode3(self, buckets, Ycs, V: torch.Tensor, H: torch.Tensor,
+                     K: int) -> torch.Tensor:
+        """M3 [K, R]: per-subject rows put at their global subject ids by a
+        row assignment (each subject lies in one bucket, its real subjects
+        in the first ``n_real`` slots): no atomics, deterministic."""
+        M3 = H.new_zeros((K, H.shape[0]))
+        for b, Yc in zip(buckets, Ycs):
+            rows = self.mode3(Yc, b.gather_v(V), H, b.subject_mask)
+            M3[b.subject_ids[: b.n_real].long()] = rows[: b.n_real].to(M3.dtype)
+        return M3
+
 
 class TorchBackend(MttkrpBackend):
     """The :mod:`repro_torch.core.spartan` math (the reference's ``jnp``)."""

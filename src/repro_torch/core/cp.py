@@ -5,7 +5,7 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["normalize_columns"]
+__all__ = ["cp_gram", "normalize_columns"]
 
 
 def normalize_columns(X: torch.Tensor, *, eps: float = 1e-12
@@ -13,3 +13,12 @@ def normalize_columns(X: torch.Tensor, *, eps: float = 1e-12
     """Unit-normalize columns; return (normalized, norms)."""
     norms = torch.sqrt((X * X).sum(dim=0))
     return X / torch.clamp(norms, min=eps), norms
+
+
+def cp_gram(*factors: torch.Tensor) -> torch.Tensor:
+    """Hadamard product of the factors' Grams: prod_i (F_i^T F_i)."""
+    G = None
+    for F in factors:
+        FtF = F.T @ F
+        G = FtF if G is None else G * FtF
+    return G

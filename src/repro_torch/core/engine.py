@@ -17,7 +17,7 @@ PyTorch the counterpart of a compiled chunk is a captured CUDA graph:
 ``engine="scan"``, ``opts.check_every = 0`` (the while variant)
     The same captured iteration with the host loop's stopping rule live:
     each replay computes ``stop = (i > 0) & (|f - prev| < tol)`` on the
-    device and commits its new H, V, W and fit only while not stopped (a
+    device and commits its new state only while not stopped (a
     graph cannot branch on data); in a chunk the rule's tol is -inf, so it
     never fires. The fit history goes to a ``[max_iters]`` device buffer.
     The host replays without waiting for each one: it copies the stop flag
@@ -43,6 +43,13 @@ graph keeps every workspace it may name alive for as long as it lives.
 
 The reference's mesh engine waits for multi-GPU (ROADMAP A6) and its
 ``make_subject_update`` for serving (ROADMAP A5).
+
+The carry holds every tensor of the state under a fixed name, each with a
+static buffer: H, V, W (one tensor, or one a bucket in the bucketed layout),
+the fit and the constraint layer's ADMM duals (:func:`_flatten`); each is
+committed through ``torch.where`` like the others. The default constraint
+bundle has no duals, so its iteration launches what it launched before the
+duals were carried.
 """
 from __future__ import annotations
 
@@ -51,6 +58,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import constraints as cst
 from repro_torch.core import parafac2 as p2
 from repro_torch.kernels import _launch
 
@@ -59,7 +67,6 @@ __all__ = ["ENGINES", "WARMUP_ITERS", "als_chunk_fn", "fit_device", "make_als_ch
 
 ENGINES = ("host", "scan")
 WARMUP_ITERS = 2        # eager iterations on a copy of the state before a capture
-_STATE = ("H", "V", "W", "fit")
 Carry = Dict[str, torch.Tensor]
 
 
@@ -77,8 +84,40 @@ def als_chunk_fn(opts: "p2.Parafac2Options", length: int) -> Callable:
     return chunk
 
 
-def _state(c: Carry) -> "p2.Parafac2State":
-    return p2.Parafac2State(**{f: c[f] for f in _STATE})
+_FIELDS = ("H", "V", "W", "fit", "aux")   # the state's fields, in the carry's order
+
+
+def _walk(x, name: str, leaves: List[Tuple[str, torch.Tensor]]):
+    """``x``'s nesting with each tensor replaced by its fixed name, each
+    tensor appended to ``leaves`` as ``(name, tensor)``: ``W`` or ``W.0``,
+    ``W.1``, ... for a per-bucket W; ``aux.v.0`` and ``aux.v.1`` for V's
+    ADMM pair, ``aux.w.<bucket>.<0|1>`` for per-bucket duals."""
+    if isinstance(x, torch.Tensor):
+        leaves.append((name, x))
+        return name
+    if isinstance(x, dict):
+        return {k: _walk(v, f"{name}.{k}", leaves) for k, v in x.items()}
+    parts = [_walk(v, f"{name}.{k}", leaves) for k, v in enumerate(x)]
+    return parts if isinstance(x, list) else tuple(parts)
+
+
+def _split(state: "p2.Parafac2State") -> Tuple[dict, List[Tuple[str, torch.Tensor]]]:
+    """(the skeleton of each state field, by field name; every tensor of
+    ``state``, H, V, W, fit and then the duals, each under its fixed name)."""
+    leaves: List[Tuple[str, torch.Tensor]] = []
+    skel = {f: _walk(getattr(state, f), f, leaves) for f in _FIELDS}
+    return skel, leaves
+
+
+def _flatten(state: "p2.Parafac2State") -> List[Tuple[str, torch.Tensor]]:
+    """Every tensor of ``state`` under its fixed name, in the carry's order."""
+    return _split(state)[1]
+
+
+def _state(skel: dict, c: Carry) -> "p2.Parafac2State":
+    """The state held in the carry ``c`` (``skel``: the skeleton of each
+    state field, by field name)."""
+    return p2.Parafac2State(**{f: cst.tree_map(c.__getitem__, v) for f, v in skel.items()})
 
 
 def _check_capturable(opts: "p2.Parafac2Options", device: torch.device) -> None:
@@ -95,7 +134,7 @@ def _check_capturable(opts: "p2.Parafac2Options", device: torch.device) -> None:
 class _Iteration:
     """One ALS iteration on a carry of static tensors, with the host loop's
     stopping rule on the device: ``stop = (n > 0) & (|f - prev| < tol)``,
-    the new H, V, W and fit committed only while not stopped, the fit
+    the new state committed only while not stopped, the fit
     written to ``hist[n]`` and ``n`` counting the committed iterations
     (``tol = -inf``: never stopped). Run eagerly on the CPU; on CUDA
     captured once, after ``WARMUP_ITERS`` eager runs on a copy of the carry
@@ -103,15 +142,21 @@ class _Iteration:
 
     def __init__(self, data, opts: "p2.Parafac2Options", hist_len: int, tol: float,
                  state: "p2.Parafac2State"):
+        # the state's structure (W layout, duals) without its tensors; the
+        # body must not reference self: a cycle would leave a dropped graph
+        # to the garbage collector, which could then destroy it while a new
+        # capture runs and so invalidate that capture
+        skel, leaves = _split(state)
+
         def body(c: Carry) -> None:
-            s2 = p2.als_step(data, _state(c), opts)
+            s2 = p2.als_step(data, _state(skel, c), opts)
             f = s2.fit
             go = ~c["stop"]
             n = c["n"]
             stop_now = (n > 0) & (torch.abs(f - c["prev"]) < tol)
             c["hist"].index_copy_(0, n.clamp(max=hist_len - 1).view(1), f.view(1))
-            for k in _STATE:
-                c[k].copy_(torch.where(go, getattr(s2, k), c[k]))
+            for k, new in _flatten(s2):
+                c[k].copy_(torch.where(go, new, c[k]))
             c["prev"].copy_(torch.where(go, f, c["prev"]))
             c["stop"].logical_or_(go & stop_now)
             n.add_(go.to(n.dtype))
@@ -119,7 +164,8 @@ class _Iteration:
         dt, dev = opts.dtype, state.H.device
         _check_capturable(opts, dev)
         self.body = body
-        self.carry: Carry = {f: getattr(state, f).to(dtype=dt).clone() for f in _STATE}
+        self._skel, self._names = skel, [k for k, _ in leaves]
+        self.carry: Carry = {k: t.to(dtype=dt).clone() for k, t in leaves}
         self.carry.update(hist=torch.full((hist_len,), -np.inf, dtype=dt, device=dev),
                           n=torch.zeros((), dtype=torch.int64, device=dev),
                           prev=torch.full((), -np.inf, dtype=dt, device=dev),
@@ -150,14 +196,21 @@ class _Iteration:
                 self.graph.capture_end()
         self._workspaces = _launch.workspace_tensors()
 
+    def state(self, c: Carry) -> "p2.Parafac2State":
+        """The state held in the carry ``c``."""
+        return _state(self._skel, c)
+
     def start(self, state: "p2.Parafac2State") -> None:
-        """Load ``state`` (unless it is the carry's own) and reset the
-        history, the counter and the stop."""
+        """Load ``state``'s tensors (those that are not the carry's own) and
+        reset the history, the counter and the stop."""
         c = self.carry
-        for f in _STATE:
-            src = getattr(state, f)
-            if src is not c[f]:
-                c[f].copy_(src)
+        leaves = _flatten(state)
+        if [k for k, _ in leaves] != self._names:     # empty containers may differ
+            raise ValueError("the state's W layout or constraint duals differ from "
+                             "those the iteration was made for")
+        for k, src in leaves:
+            if src is not c[k]:
+                c[k].copy_(src)
         c["hist"].fill_(-np.inf)
         c["n"].zero_()
         c["prev"].fill_(-np.inf)
@@ -198,7 +251,7 @@ class AlsChunk:
         for _ in range(n):
             self._it.run()
         c = self._it.carry
-        return _state(c), c["hist"][:n]
+        return self._it.state(c), c["hist"][:n]
 
 
 def make_als_chunk(data, opts: "p2.Parafac2Options", length: int, *,
@@ -252,7 +305,7 @@ class AlsWhile:
                 events.append(torch.cuda.Event())
                 events[-1].record()
                 self.replays += 1
-        return _state(c), c["hist"], c["n"]
+        return it.state(c), c["hist"], c["n"]
 
 
 def make_als_while(data, opts: "p2.Parafac2Options", max_iters: int, tol: float, *,

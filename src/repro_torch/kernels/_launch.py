@@ -6,7 +6,8 @@ A wrapper takes its kernel's plain torch version only for tensors on the
 CPU; for CUDA tensors it checks the operands, calls the C entry point on the
 current stream through :meth:`KernelLib.launch`, which raises on a CUDA
 error, and counts one launch. The one-launch reductions across subjects (F2,
-rows 6 and 7) also take a workspace from :class:`Workspaces`. Nothing here
+rows 6 and 7) and P2's levels also take a workspace from
+:class:`Workspaces`. Nothing here
 builds or loads anything at import time.
 
 A wrapper called while a CUDA graph captures counts its launch once, at

@@ -4,10 +4,13 @@ decompose``), on a GPU by default:
   PYTHONPATH=src python -m repro_torch.launch.decompose --dataset choa \
       --scale 0.002 --rank 5 --iters 20 [--format cc|scoo|auto] \
       [--backend auto|staged|scoo|fused|torch] [--engine host|scan] \
-      [--check-every 10] [--device cpu] [--json out.json]
+      [--check-every 10] [--constraint v=nonneg+l1:0.1,w=smooth:0.1] \
+      [--device cpu] [--json out.json]
 
-The paper's constraints (H unconstrained, V and W nonneg by HALS) and no
-compression: the reference's defaults. ``--engine scan`` runs chunks of
+``--constraint`` sets the per-mode factor constraints in the reference's
+grammar (``repro_torch.core.constraints``; a bare spec applies to V and W);
+without it, the paper's (H unconstrained, V and W nonneg by HALS). No
+compression, as the reference's default. ``--engine scan`` runs chunks of
 ``--check-every`` iterations as CUDA graph replays on a GPU
 (``--check-every 0``: the whole fit, stopping on the device), the host
 engine one iteration at a time (``repro_torch.core.engine``). ``--format`` picks the
@@ -33,10 +36,11 @@ import torch
 
 from repro_torch.core import (Bucketed, Parafac2Options, Parafac2State,
                               bucketize, fit)
-from repro_torch.core.constraints import constraint_summary
+from repro_torch.core.constraints import (available as available_constraints,
+                                          constraint_summary, parse_constraint_arg)
 from repro_torch.data import choa_like, movielens_like
 from repro_torch.device import resolve_device
-from repro_torch.kernels import fused, gather_matmul, polar, scoo, staged
+from repro_torch.kernels import fused, gather_matmul, polar, scoo, staged, tridiag
 from repro_torch.launch.summary import resolved_options, run_summary
 from repro_torch.sparse import IrregularCOO, plan_buckets, random_irregular, route_formats
 
@@ -76,12 +80,13 @@ def prepare(data: IrregularCOO, *, buckets: int, device: torch.device,
     return bt, stats
 
 
-LIBRARIES = (fused, staged, scoo, gather_matmul, polar)   # every kernel library
+LIBRARIES = (fused, staged, scoo, gather_matmul, polar, tridiag)   # every kernel library
+PAPER_CONSTRAINTS = {"v": "nonneg", "w": "nonneg"}   # the default of --constraint
 
 
 def kernel_launches() -> dict:
     """Every kernel's launch count since the last reset, over the fused,
-    staged, SCOO, gather-matmul and polar libraries."""
+    staged, SCOO, gather-matmul, polar and tridiagonal libraries."""
     return {k: n for lib in LIBRARIES for k, n in lib.LAUNCHES.items()}
 
 
@@ -93,13 +98,15 @@ def reset_launches() -> None:
 def decompose(bt: Bucketed, *, rank: int, iters: int, tol: float, seed: int,
               backend: str, dtype: torch.dtype, verbose: bool = True,
               state: Optional[Parafac2State] = None, mode1_reuse: bool = True,
-              engine: str = "host", check_every: int = 10
+              engine: str = "host", check_every: int = 10,
+              constraints: Optional[dict] = None
               ) -> Tuple[Parafac2State, List[float], float]:
     """Fit, with the kernel launch counts zeroed first; returns the state,
     the fit history and the seconds the fit took (ending in a device sync:
     every engine reads the fits back). Under ``engine="scan"`` the seconds
-    include the graphs' warm-up and capture."""
-    opts = Parafac2Options(rank=rank, constraints={"v": "nonneg", "w": "nonneg"},
+    include the graphs' warm-up and capture. ``constraints`` is a per-mode
+    spec dict, by default the paper's."""
+    opts = Parafac2Options(rank=rank, constraints=constraints or PAPER_CONSTRAINTS,
                            backend=backend, dtype=dtype, mode1_reuse=mode1_reuse,
                            engine=engine, check_every=check_every)
     reset_launches()
@@ -138,16 +145,25 @@ def main(argv=None) -> dict:
     ap.add_argument("--check-every", type=int, default=10,
                     help="iterations per chunk for the scan engine (0 = the whole "
                          "fit, the stopping rule evaluated on the device)")
+    ap.add_argument("--constraint", default="", metavar="SPECS",
+                    help="per-mode factor constraints, e.g. "
+                         "'v=nonneg+l1:0.1,w=smooth:0.1' (modes h/v/w; a bare "
+                         "spec applies to v and w; registered: "
+                         f"{', '.join(available_constraints())}; see "
+                         "repro_torch.core.constraints). Default: the paper's "
+                         "nonneg V/W.")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--dtype", default="float32", choices=sorted(DTYPES))
     ap.add_argument("--json", default="", metavar="PATH",
                     help="write the machine-readable run summary to PATH")
     args = ap.parse_args(argv)
 
+    # a bad spec raises ValueError listing the registered constraints here,
+    # before any data is built
+    specs = parse_constraint_arg(args.constraint) if args.constraint else PAPER_CONSTRAINTS
+    print(f"[constraints] {constraint_summary(specs)}")
     device = resolve_device(args.device)
     dtype = DTYPES[args.dtype]
-    specs = {"v": "nonneg", "w": "nonneg"}
-    print(f"[constraints] {constraint_summary(specs)}")
     t0 = time.perf_counter()
     data = load_dataset(args.dataset, args.scale, args.seed)
     print(f"[data] K={data.n_subjects} J={data.n_cols} nnz={data.nnz} "
@@ -164,7 +180,8 @@ def main(argv=None) -> dict:
 
     state, hist, dt = decompose(bt, rank=args.rank, iters=args.iters, tol=args.tol,
                                 seed=args.seed, backend=args.backend, dtype=dtype,
-                                engine=args.engine, check_every=args.check_every)
+                                engine=args.engine, check_every=args.check_every,
+                                constraints=specs)
     print(f"[fit] {len(hist)} iters in {dt:.2f}s "
           f"({dt / max(len(hist), 1):.3f}s/iter), fit={hist[-1]:.4f}")
     launches = kernel_launches()

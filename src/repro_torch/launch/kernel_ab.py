@@ -4,8 +4,9 @@
         [--rounds 4] [--kernels fused_mode1_xkv,mode1_reuse]
 
 Builds ``csrc/fused.cu``, ``csrc/gather_matmul.cu``, ``csrc/staged.cu``,
-``csrc/scoo.cu`` and ``csrc/polar.cu`` of each checkout
-(``<dir>/src/repro_torch/csrc``) with nvcc and this package's flags, loads
+``csrc/scoo.cu``, ``csrc/polar.cu`` and ``csrc/tridiag.cu`` of each checkout
+(``<dir>/src/repro_torch/csrc``; a source a checkout lacks is skipped, with
+its kernels) with nvcc and this package's flags, loads
 both builds into one process and times the same kernels of both on the same
 operands in turns (parent, change, change, parent, ...): each turn takes
 CUDA events around one launch (median of 20, the host's work for the
@@ -42,7 +43,10 @@ eigenvalues the clamp keeps), and its library call is the chunked
 16,384 Grams; past R = 32, where cuSOLVER solves one Gram at a time, one
 call in the first round only). Past R = 8, where P1 takes milliseconds, a
 turn takes the median of 5 event times and a graph of 2 launches replayed 3
-times. F2 and
+times. P2 (``spartan_tridiag_solve``, the smooth prox's tridiagonal solve)
+at W's rows of choa 0.25 (N = 116,225, R = 5, f32, random Y, rho = 1 on
+the device, lam = 0.1), on a workspace of each side's own; its time does
+not depend on the values. F2 and
 rows 6 and 7, the reductions across subjects, are called through their
 one-launch entry points (``..._one_launch``, with the mask and a workspace
 of each side's own). In each round, one PyTorch call of each of F2 and
@@ -92,8 +96,11 @@ SIGNATURES = {
     "spartan_scoo_project": [I, P, P, P, P, P, P, I, I, I, I, I, P],
     "spartan_gram_inv_sqrt": [I, P, P, I, I, ctypes.c_double, P, P],
     "spartan_gram_inv_sqrt_workspace": [I, I],
+    "spartan_tridiag_solve": [I, P, P, P, I, I, ctypes.c_double, P, P],
+    "spartan_tridiag_workspace": [I, I, I],
 }
-SOURCES = ("fused", "gather_matmul", "staged", "scoo", "polar")
+SOURCES = ("fused", "gather_matmul", "staged", "scoo", "polar", "tridiag")
+P2 = dict(N=116225, R=5, lam=0.1)       # W's rows at the main path's choa 0.25
 CC = dict(K=58112, I=56, C=128, R=5)
 BCC = dict(K=6808, I=56, NB=9, L=128, J_pad=1408)
 SCOO_SCALE = 0.25       # the choa_like scale of the main path
@@ -102,15 +109,18 @@ EIGH_BATCH = 16384      # the most 5x5 Grams one cuSOLVER eigh was seen to take 
 COMPARED = {"fused_mode1_xkv": "m2", "ykv": "ykv5", "mode1": "m6", "mode1_reuse": "m7",
             "mode2_compact": "a8", "mode3": "m9", "mode3_reuse": "m10",
             "mode3_reuse_k1": "m10k1", "scoo_xk_times_v": "xkv11",
-            "scoo_project": "yc12",
+            "scoo_project": "yc12", "tridiag_solve": "p2",
             **{f"gram_inv_sqrt_r{R}": f"p1_r{R}" for R in P1_RANKS}}   # kernel -> its output
 
 
 def load(tree: str) -> dict:
-    """The five libraries of one checkout, with their C signatures."""
+    """The libraries of one checkout, with their C signatures."""
     libs = {}
+    csrc = Path(tree) / "src/repro_torch/csrc"
     for name in SOURCES:
-        lib = ctypes.CDLL(str(_build.build(name, Path(tree) / "src/repro_torch/csrc")))
+        if not (csrc / f"{name}.cu").exists():
+            continue
+        lib = ctypes.CDLL(str(_build.build(name, csrc)))
         for fn, argtypes in SIGNATURES.items():
             if hasattr(lib, fn):
                 getattr(lib, fn).argtypes = argtypes
@@ -154,6 +164,13 @@ def calls(libs: dict, ops: dict, outs: dict, stream: int) -> dict:
             raise RuntimeError(f"CUDA error {err} at launch")
 
     red = reductions(f, st, o, K, Ii, C, R, stream)     # its closures keep the workspaces
+    p2 = {}
+    if "tridiag" in libs:
+        td, N2, R2 = libs["tridiag"], P2["N"], P2["R"]
+        ws2 = torch.zeros(td.spartan_tridiag_workspace(0, N2, R2), device="cuda")
+        red["keep"].append(ws2)
+        p2["tridiag_solve"] = lambda: check(td.spartan_tridiag_solve(
+            0, o["p2y"], o["p2rho"], o["p2"], N2, R2, 2.0 * P2["lam"], ws2.data_ptr(), stream))
     pl = libs["polar"]
     p1 = {}
     for r in P1_RANKS:
@@ -166,7 +183,7 @@ def calls(libs: dict, ops: dict, outs: dict, stream: int) -> dict:
         p1[f"gram_inv_sqrt_r{r}"] = (lambda r=r, Kp=Kp, w=ws.data_ptr() if need > 0 else None:
                                      check(pl.spartan_gram_inv_sqrt(
                                          0, o[f"G{r}"], o[f"p1_r{r}"], Kp, r, 1e-12, w, stream)))
-    return {**p1,
+    return {**p1, **p2,
         "fused_procrustes_b": lambda: check(f.spartan_fused_procrustes_b(
             0, o["vals"], o["Vg"], o["Wb"], o["H"], o["xkv"], o["b"], K, Ii, C, R, stream)),
         "fused_mode1_xkv": lambda: check(red["fused_mode1_xkv"]()),
@@ -318,7 +335,8 @@ def operands(seed: int = 0, scoo: bool = True) -> dict:
         g=rand(K, R, R), bvals=rand(Kb, Ii, NB, L), V=rand(BCC["J_pad"], R),
         ids=torch.randint(0, BCC["J_pad"] // L, (Kb, NB), device="cuda", dtype=torch.int32,
                           generator=gen),
-        gout=rand(Kb, Ii, R), yc=rand(K, R, C))
+        gout=rand(Kb, Ii, R), yc=rand(K, R, C), p2y=rand(P2["N"], P2["R"]),
+        p2rho=torch.ones((), device="cuda"))
     if not scoo:
         return dense
     sb = scoo_bucket()
@@ -335,7 +353,8 @@ def outputs(ops: dict) -> dict:
             "ykv5": torch.empty((K, R, R), device="cuda"),
             "a8": torch.empty((K, C, R), device="cuda"),
             "m9": torch.empty((K, R), device="cuda"), "m10": torch.empty((K, R), device="cuda"),
-            "m10k1": torch.empty((1, R), device="cuda")}
+            "m10k1": torch.empty((1, R), device="cuda"),
+            "p2": torch.empty((P2["N"], P2["R"]), device="cuda")}
     for R in P1_RANKS:
         if f"G{R}" in ops:
             outs[f"p1_r{R}"] = torch.empty_like(ops[f"G{R}"])
@@ -384,6 +403,10 @@ def main(argv=None) -> None:
 
     sides = {side: side_calls(side, torch.cuda.current_stream().cuda_stream) for side in libs}
     graphed = {side: side_calls(side, gstream.cuda_stream) for side in libs}
+    for side in libs:       # a kernel one checkout lacks is timed on neither side
+        other = sides["change" if side == "parent" else "parent"]
+        sides[side] = {n: fn for n, fn in sides[side].items() if n in other}
+        graphed[side] = {n: fn for n, fn in graphed[side].items() if n in other}
     Qt = ops["q2"].transpose(1, 2)
     library = {   # one PyTorch call of each, timed only
         "fused_mode1_xkv": lambda: (torch.bmm(Qt, ops["x2"]) * ops["Wbm"][:, None]).sum(0),

@@ -16,7 +16,10 @@ captured CUDA graph; the time includes its warm-up and capture), so that one
 call shows parent-host against change-host and change-scan in turns. Runs
 alternate parent, change, change, parent, ... so that slow drifts of a
 shared host fall on both sides. Prints the card's name and power limit, one
-line per run and the medians per side; imports no JAX.
+line per run and the medians per side, and whether every fit history of a
+route, over both checkouts and all their runs, is the same bit for bit
+(what a change that must not move the default path shows); imports no
+JAX.
 """
 from __future__ import annotations
 
@@ -49,11 +52,13 @@ def fit(fmt, be, engine, iters):
 for _, fmt, be, engine in runs:
     fit(fmt, be, engine, 2)
 out = {label: [] for label, _, _, _ in runs}
+hists = {}
 for _ in range(3):
     for label, fmt, be, engine in runs:
         _, hist, secs = fit(fmt, be, engine, 20)
         out[label].append(secs / len(hist) * 1e3)
-print(json.dumps(out))
+        hists.setdefault(label, []).append(hist)
+print(json.dumps({"ms": out, "hist": hists}))
 """ % (RUNS,)
 
 
@@ -79,17 +84,23 @@ def main(argv=None) -> None:
     for i in range(args.pairs):
         order += [("parent", args.parent), ("change", args.change)][:: 1 if i % 2 == 0 else -1]
     runs = {"parent": {be: [] for be in ROUTES}, "change": {be: [] for be in ROUTES}}
+    hists = {"parent": {be: [] for be in ROUTES}, "change": {be: [] for be in ROUTES}}
     for side, tree in order:
         res = run(tree, args.scale)
-        for be in res:
-            runs[side][be] += res[be]
+        for be in res["ms"]:
+            runs[side][be] += res["ms"][be]
+            hists[side][be] += res["hist"][be]
         print(f"[paired] {side}: " + ", ".join(
-            f"{be} {[round(x, 2) for x in res[be]]} ms/iter" for be in res), flush=True)
+            f"{be} {[round(x, 2) for x in res['ms'][be]]} ms/iter" for be in res["ms"]),
+              flush=True)
     for be in ROUTES:
         med = {side: (f"{statistics.median(runs[side][be]):.2f} ({len(runs[side][be])} fits)"
                       if runs[side][be] else "not run") for side in runs}
+        every = hists["parent"][be] + hists["change"][be]
+        same = bool(every) and all(h == every[0] for h in every)
         print(f"[paired] {be}: median ms/iter parent {med['parent']}, change "
-              f"{med['change']}", flush=True)
+              f"{med['change']}; every fit history of both checkouts bit for bit the same: "
+              f"{same}", flush=True)
 
 
 if __name__ == "__main__":

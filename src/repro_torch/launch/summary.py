@@ -19,8 +19,8 @@ SCHEMA_VERSION = 2
 
 def resolved_options(opts=None, **extra) -> Dict[str, Any]:
     """Canonical option block from a ``Parafac2Options`` (+ launcher extras).
-    The keys are the reference's; w_layout and compress carry the only
-    values the port runs (global, none)."""
+    The keys are the reference's; compress carries the only value the port
+    runs (none)."""
     block: Dict[str, Any] = {}
     if opts is not None:
         block.update(
@@ -28,7 +28,7 @@ def resolved_options(opts=None, **extra) -> Dict[str, Any]:
             engine=opts.engine,
             backend=opts.backend,
             check_every=opts.check_every,
-            w_layout="global",
+            w_layout=opts.w_layout,
             procrustes=opts.procrustes,
             dtype=str(opts.dtype).removeprefix("torch."),
             constraints=constraint_summary(opts.constraint_specs()),

@@ -169,10 +169,12 @@ def test_default_constraint_bundle():
     M, A, prev = G.T @ G @ np.eye(3) + 1.0, G.T @ G, rng.random((3, 3))
     for m in ("h", "v"):
         want, _ = refb[m].update(_j(M), _j(A), _j(prev), ())
-        _close(port[m].update(_t(M), _t(A), _t(prev)), want)
+        got, aux = port[m].update(_t(M), _t(A), _t(prev), ())
+        _close(got, want)
+        assert aux == ()
     for spec in ("l1:0.1", "smooth", "nonneg_admm", "nonneg+l1:0.1"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            cst.parse_spec(spec)
+        assert cst.parse_spec(spec).spec == j_cst.parse_spec(spec).spec
+        assert cst.parse_spec(spec).admm and j_cst.parse_spec(spec).admm
     with pytest.raises(ValueError, match="unknown constraint"):
         cst.parse_spec("sparsemax")
     with pytest.raises(ValueError, match="mode"):

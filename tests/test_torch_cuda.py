@@ -1076,3 +1076,138 @@ def test_scan_engine_matches_host_on_gpu(dev, backend, check_every):
     assert np.max(np.abs(np.asarray(scan) - np.asarray(host))) <= 1e-8
     assert scan_counts == host_counts
     assert set(host_counts.values()) == {len(bt.buckets) * 12}
+
+
+# P2 (tridiag_solve) at its edges, as chip_smoke.py holds it: N = 2 and 3,
+# one past a chunk of 32 rows and a warp (33), the direct solve's limit and
+# one past (64, 65), two and three levels (1,025, 4,097), W's rows at choa
+# 0.25 and the full CHOA (116,225, 464,900); R = 1, 5 and 40
+P2_N = (2, 3, 33, 64, 65, 1025, 4097, 116225, 464900)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", P2_N)
+@pytest.mark.parametrize("R", [1, 5, 40])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_tridiag_solve_matches_plain(dev, N, R, dtype):
+    """P2 against its plain version (cyclic reduction) at lam 0, 0.1 and 5,
+    rho 0.7 on the device, relative to max |Z|: f64 1e-12; f32 1e-6 times
+    the condition bound 1 + 8 lam / rho (two backward-stable solves of one
+    system part by about the condition number times the rounding). One
+    launch a call, the same bits twice."""
+    from repro_torch.kernels import tridiag
+    Y = torch.tensor(np.random.default_rng(N + R).standard_normal((N, R)), dtype=dtype,
+                     device=dev)
+    rho = torch.full((), 0.7, dtype=dtype, device=dev)
+    for lam in (0.0, 0.1, 5.0):
+        before = tridiag.LAUNCHES["tridiag_solve"]
+        got = tridiag.tridiag_solve(Y, rho, lam)
+        assert tridiag.LAUNCHES["tridiag_solve"] == before + 1
+        want = tridiag.tridiag_solve_plain(Y, rho, lam)
+        tol = 1e-12 if dtype == torch.float64 else 1e-6 * (1 + 8 * lam / 0.7)
+        assert got.dtype == dtype and got.shape == Y.shape
+        assert float((got.double() - want.double()).abs().max()) <= tol * float(want.abs().max())
+        assert torch.equal(got, tridiag.tridiag_solve(Y, rho, lam))
+
+
+@pytest.mark.cuda
+def test_tridiag_solve_reads_rho_on_the_device_and_checks(dev):
+    """A captured call follows rho changed in place on the device (the
+    kernel reads it there); a float rho, N < 2, f16 and a strided Y are
+    refused."""
+    from repro_torch.kernels import tridiag
+    Y = torch.randn((4097, 5), dtype=torch.float64, device=dev)
+    rho = torch.full((), 0.7, dtype=torch.float64, device=dev)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        tridiag.tridiag_solve(Y, rho, 0.1)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = tridiag.tridiag_solve(Y, rho, 0.1)
+    rho.fill_(2.5)
+    graph.replay()
+    torch.cuda.synchronize()
+    want = tridiag.tridiag_solve_plain(Y, rho, 0.1)
+    assert float((out - want).abs().max()) <= 1e-12 * float(want.abs().max())
+    with pytest.raises(TypeError, match="one-element tensor"):
+        tridiag.tridiag_solve(Y, 0.7, 0.1)
+    with pytest.raises(ValueError, match="N >= 2"):
+        tridiag.tridiag_solve(Y[:1], rho, 0.1)
+    with pytest.raises(TypeError):
+        tridiag.tridiag_solve(Y.half(), rho.half(), 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        tridiag.tridiag_solve(Y.T.contiguous().T, rho, 0.1)
+    assert tridiag.device_kernels(116225) == 7 and tridiag.device_kernels(64) == 1
+
+
+CONSTRAINED = {"admm": ({"v": "nonneg_admm", "w": "nonneg_admm"}, {}),
+               "admm-bucketed": ({"v": "nonneg_admm", "w": "nonneg_admm"},
+                                 {"w_layout": "bucketed"}),
+               "l1-smooth": ({"v": "nonneg+l1:0.1", "w": "smooth:0.1"}, {}),
+               "ridge": (None, {"ridge": 1e-3})}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,format", [("auto", "cc"), ("staged", "scoo"),
+                                            ("torch", "cc")])
+@pytest.mark.parametrize("case", list(CONSTRAINED))
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_constrained_fits_on_gpu(dev, case, backend, format, dtype):
+    """choa 0.002, rank 5, 20 iterations: the constrained fit on the card,
+    host engine and scan engine (chunks of 10 and the while variant, each
+    bit for bit the host engine's, duals carried), against the CPU's torch
+    route from the same start: f64 within 1e-8, f32 within 1e-4; P2 once
+    per prox of a smooth W (200 launches: the start carries its duals, so
+    only the ADMM steps take a prox)."""
+    from repro_torch.core import engine, init_state
+    from repro_torch.kernels import tridiag
+    specs, kw = CONSTRAINED[case]
+    data = choa_like(scale=0.002, seed=0)
+    bt_cpu = bucketize(data, dtype=dtype, device="cpu", format=format)
+    opts = dict(rank=5, dtype=dtype, constraints=specs, **kw)
+    state0 = init_state(bt_cpu, Parafac2Options(**opts), seed=0)
+    _, want = fit(bt_cpu, Parafac2Options(**opts, backend="torch"), max_iters=20, tol=0.0,
+                  state=state0)
+    bt = bucketize(data, dtype=dtype, device=dev, format=format)
+    tridiag.reset_launches()
+    host_state, host = fit(bt, Parafac2Options(**opts, backend=backend), max_iters=20,
+                           tol=0.0, state=state0)
+    assert tridiag.LAUNCHES["tridiag_solve"] == (200 if case == "l1-smooth" else 0)
+    tol = 1e-8 if dtype == torch.float64 else 1e-4
+    assert np.max(np.abs(np.asarray(host) - np.asarray(want))) <= tol
+    for check_every in (10, 0):
+        state, scan = fit(bt, Parafac2Options(**opts, backend=backend, engine="scan",
+                                              check_every=check_every),
+                          max_iters=20, tol=0.0, state=state0)
+        assert scan == host
+        got, want_leaves = engine._flatten(state), engine._flatten(host_state)
+        assert [k for k, _ in got] == [k for k, _ in want_leaves]
+        for (k, g), (_, w) in zip(got, want_leaves):      # W and every dual too
+            assert torch.equal(g, w), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CONSTRAINED))
+def test_constrained_iteration_has_no_host_sync(dev, case):
+    """One eager ALS step and one replay of a captured chunk with
+    ``set_sync_debug_mode("error")``: rho, the l1 threshold and P2's rho
+    stay on the device, ``cholesky_ex`` and ``cholesky_solve`` do not read
+    back, and a ridge is part of the captured iteration."""
+    from repro_torch.core import als_step, engine, init_state
+    specs, kw = CONSTRAINED[case]
+    bt = bucketize(choa_like(scale=0.002, seed=0), dtype=torch.float32, device=dev)
+    opts = Parafac2Options(rank=5, backend="auto", constraints=specs, **kw)
+    s = als_step(bt, init_state(bt, opts, seed=0), opts)
+    chunk = engine.make_als_chunk(bt, Parafac2Options(rank=5, backend="auto", constraints=specs,
+                                                      engine="scan", check_every=4, **kw),
+                                  4, state=s)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        als_step(bt, s, opts)
+        chunk(s)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()

@@ -24,7 +24,7 @@ from repro_torch.core import (Parafac2Options, als_step, bucketize, fit,  # noqa
                               init_state, w_global)
 from repro_torch.core.backend import dispatch_tally, get_backend  # noqa: E402
 from repro_torch.data import choa_like  # noqa: E402
-from repro_torch.kernels import fused, gather_matmul, polar, scoo, staged  # noqa: E402
+from repro_torch.kernels import fused, gather_matmul, polar, scoo, staged, tridiag  # noqa: E402
 from repro_torch.launch import decompose  # noqa: E402
 
 ITERS = 20
@@ -154,7 +154,7 @@ def test_decompose_cpu_json_matches_reference_keys(tmp_path):
         [{k: v for k, v in r.items() if k != "device_bytes"} for r in want["buckets"]]
     assert got["kernel_launches"] == dict.fromkeys(
         fused.KERNELS + staged.KERNELS + scoo.KERNELS + gather_matmul.KERNELS
-        + polar.KERNELS, 0)
+        + polar.KERNELS + tridiag.KERNELS, 0)
     assert got["device"] == "cpu" and got["platform"] == "cpu"
     # the reference's values for the same flags: check_every is the option's
     # default (10), which the host engine does not read

@@ -49,7 +49,7 @@ from repro_torch.core import (BlockBucket, Parafac2Options, SparseBucket,  # noq
                               als_step, bucket_format, bucketize, fit, to_block_bucket)
 from repro_torch.core.backend import dispatch_tally, get_backend  # noqa: E402
 from repro_torch.data import choa_like  # noqa: E402
-from repro_torch.kernels import fused, gather_matmul, ops, polar, scoo, staged  # noqa: E402
+from repro_torch.kernels import fused, gather_matmul, ops, polar, scoo, staged, tridiag  # noqa: E402
 from repro_torch.launch import decompose  # noqa: E402
 from repro_torch.sparse import (SCOO_DENSITY_THRESHOLD, IrregularCOO, SubjectCOO,  # noqa: E402
                                 fixed_plan, plan_buckets, random_irregular,
@@ -596,7 +596,7 @@ def test_decompose_scoo_cpu_json_matches_reference_keys(tmp_path):
     assert all(r["format"] == "scoo" for r in got["buckets"])
     assert got["kernel_launches"] == dict.fromkeys(
         fused.KERNELS + staged.KERNELS + scoo.KERNELS + gather_matmul.KERNELS
-        + polar.KERNELS, 0)
+        + polar.KERNELS + tridiag.KERNELS, 0)
     assert len(got["fit_history"]) == 3 and np.all(np.isfinite(got["fit_history"]))
 
 

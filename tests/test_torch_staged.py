@@ -40,7 +40,7 @@ from repro_torch.convert import state_from_arrays  # noqa: E402
 from repro_torch.core import Parafac2Options, als_step, bucketize, fit  # noqa: E402
 from repro_torch.core.backend import dispatch_tally, get_backend  # noqa: E402
 from repro_torch.data import choa_like  # noqa: E402
-from repro_torch.kernels import fused, gather_matmul, ops, polar, scoo, staged  # noqa: E402
+from repro_torch.kernels import fused, gather_matmul, ops, polar, scoo, staged, tridiag  # noqa: E402
 from repro_torch.kernels.mttkrp_mode1 import mode1, mode1_reuse  # noqa: E402
 from repro_torch.kernels.mttkrp_mode2 import mode2_compact  # noqa: E402
 from repro_torch.kernels.mttkrp_mode3 import mode3, mode3_reuse  # noqa: E402
@@ -347,7 +347,7 @@ def test_decompose_staged_cpu_summary(tmp_path):
     assert got["backend"] == "staged" and auto["backend"] == "auto"
     assert got["kernel_launches"] == dict.fromkeys(
         fused.KERNELS + staged.KERNELS + scoo.KERNELS + gather_matmul.KERNELS
-        + polar.KERNELS, 0)
+        + polar.KERNELS + tridiag.KERNELS, 0)
     assert np.max(np.abs(np.asarray(got["fit_history"]) - auto["fit_history"])) <= 1e-5
 
 
