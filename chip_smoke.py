@@ -84,6 +84,16 @@ Phases, any failure exits non-zero:
    the set-up; no host sync (``set_sync_debug_mode("error")``) in one eager
    ``als_step`` and one chunk replay; the while variant's stop and masked
    iterations and a chunked run's overshoot at a tol the fit crosses;
+   then half precision (``phase3_half``): the nine kernels that take half
+   operands (F1, F3, F4, rows 5, 6, 8, 9, 11 and 12) against their plain
+   versions on bf16 and f16 inputs at the largest CC and SCOO buckets (row 5
+   also with one operand f32; f32 tolerance: products of half values are
+   exact in f32), one refused dtype combination a kernel family, and the
+   CC auto, CC staged and SCOO staged fits at bf16 and f16 on the host and
+   scan (check_every 10) engines: within 1e-3 of the route's f32 fit, scan
+   bit for bit the host, the route's launches, ms/iter and the memory each
+   fit adds (its half copy of the values included), no host sync in a bf16
+   eager step or replay, and the paths of rows 6 and 9 at bf16;
    then the constraint layer (``CONSTRAINED``: ADMM nonneg on V and W, and
    nonneg+l1 on V with smooth on W, the latter through P2) on CC auto and
    SCOO staged beside the CC torch route, host engine and scan engine at
@@ -113,7 +123,10 @@ Phases, any failure exits non-zero:
    CPU (LAPACK; cuSOLVER's f64 eigh is the less accurate of the two there),
    and P2 on the l1-smooth fit's W (N = 116,225, R = 5) by events and in a
    replayed CUDA graph, its device kernels and allocations a call measured,
-   no library call (none solves a tridiagonal system);
+   no library call (none solves a tridiagonal system); then the nine half
+   kernels at bf16 on the same buckets (``phase4_half``): events, a
+   replayed graph, the plain version, the byte bound at half width and one
+   PyTorch call on the same half inputs where one computes the function;
 5. a ``torch.profiler`` trace of one main-path ALS iteration on the auto and
    the staged route over the CC buckets and on the staged and the scoo
    route over the SCOO buckets: device time by kernel (and of each of the
@@ -132,7 +145,8 @@ Phases, any failure exits non-zero:
 
 Files go to ``$SMOKE_OUT`` (default ``smoke_out/``).
 
-The last two lines are a JSON object with the kernels' numbers and
+The last two lines are a JSON object with the kernels' numbers (the bf16
+rows of the nine half kernels named ``<kernel>[bf16]``) and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -151,6 +165,12 @@ OUT = Path(os.environ.get("SMOKE_OUT", "smoke_out"))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
 F64_FLOPS = 34e12              # H100 SXM float64 outside the tensor cores
+HALF_FLOPS = 989e12            # H100 SXM bfloat16/float16 (tensor cores, dense)
+HALF = ("bf16", "f16")         # the compute precisions below f32
+# the nine kernels that take half operands, and the route of the path that
+# reaches each at half precision (rows 6 and 9: their own short paths)
+HALF_KERNELS = ("fused_procrustes_b", "fused_mode2_compact", "fused_ykv", "ykv", "mode1",
+                "mode2_compact", "mode3", "scoo_xk_times_v", "scoo_project")
 ITERS = 20
 MAIN_SCALE = 0.25
 GEOMETRIES = [
@@ -321,6 +341,21 @@ REPLACES = {
 }
 
 
+def free_cached(label: str) -> None:
+    """Collect garbage and release the caching allocator's free blocks
+    (``torch.cuda.empty_cache``), then print what stays allocated: each
+    CUDA graph captures into a private pool, which cannot take the free
+    blocks of the others, and no memory can be freed while a capture
+    runs."""
+    import gc
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[memory] after {label}: {torch.cuda.memory_allocated() / 2**30:.3f} GiB "
+          f"allocated, {torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved", flush=True)
+
+
 def fail(msg: str) -> None:
     print(f"[FAIL] {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
@@ -361,7 +396,7 @@ def scoo_xkv(vals, rows, lcols, Vg, i_pad, row_ends):
 def scoo_xkv_plain(vals, rows, lcols, Vg, i_pad, row_ends):
     from repro_torch.kernels import scoo
 
-    return scoo.xk_times_v(vals, rows, lcols, Vg, i_pad, row_ends=row_ends)
+    return scoo.xk_times_v_plain(vals, rows, lcols, Vg, i_pad, row_ends=row_ends)
 
 
 def scoo_proj(vals, rows, lcols, Q, c_pad, cperm, col_ends):
@@ -373,7 +408,7 @@ def scoo_proj(vals, rows, lcols, Q, c_pad, cperm, col_ends):
 def scoo_proj_plain(vals, rows, lcols, Q, c_pad, cperm, col_ends):
     from repro_torch.kernels import scoo
 
-    return scoo.project(vals, rows, lcols, Q, c_pad, cperm=cperm, col_ends=col_ends)
+    return scoo.project_plain(vals, rows, lcols, Q, c_pad, cperm=cperm, col_ends=col_ends)
 
 
 def p1_plain(G):
@@ -1276,15 +1311,17 @@ def phase3_main_path(dev):
     return bt, bt_sc, (cut, bcc), main_state, per_kernel, ms, hist, peaks
 
 
-def scan_opts(backend: str, check_every: int, constraints=None):
+def scan_opts(backend: str, check_every: int, constraints=None, precision: str = "f32"):
     import torch
     from repro_torch.core import Parafac2Options
 
     return Parafac2Options(rank=5, backend=backend, dtype=torch.float32, engine="scan",
-                           check_every=check_every, constraints=constraints)
+                           check_every=check_every, constraints=constraints,
+                           precision=precision)
 
 
-def steady_ms(data, backend: str, check_every: int, constraints=None) -> tuple:
+def steady_ms(data, backend: str, check_every: int, constraints=None,
+              precision: str = "f32") -> tuple:
     """(set-up seconds, its warm-up's kernel launches, ms per iteration) of
     the scan engine on ``data``: the chunk (or the while variant) made once
     from the seeded start (warm-up and capture: the set-up), then ``ITERS``
@@ -1293,7 +1330,7 @@ def steady_ms(data, backend: str, check_every: int, constraints=None) -> tuple:
     import torch
     from repro_torch.core import engine, init_state
 
-    opts = scan_opts(backend, check_every, constraints)
+    opts = scan_opts(backend, check_every, constraints, precision)
     s0 = init_state(data, opts, seed=0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1408,6 +1445,343 @@ def phase3_engines(bt, bt_sc, hist: dict, ms: dict, peaks: dict) -> dict:
     if not (len(h_host) <= len(h_chunk) < len(h_host) + 10) or h_chunk[-1] != float(state_c.fit):
         fail("the chunked run overshot by a chunk or more, or did not end on its state's fit")
     return steady
+
+
+def half_kernel_args(b, bs, H, V, W, Q, Qs, half) -> dict:
+    """The nine kernels' half-width operands at the largest CC bucket ``b``
+    and the largest SCOO bucket ``bs``, as the routes pass them at that
+    precision: the slab, Yc, Vg and the SCOO values half, every other
+    operand f32; row 5 also with Yc f32 and with Vg f32. Returns name ->
+    list of argument tuples."""
+    import torch
+    from repro_torch.kernels.common import fold_subject_mask
+
+    Vg = b.gather_v(V)
+    Wr = W[b.subject_ids.long()]
+    Wb = fold_subject_mask(Wr, b.subject_mask)
+    vh, gh = b.vals.to(half), Vg.to(half)
+    Yc = torch.bmm(Q.transpose(1, 2), b.vals)
+    yh = Yc.to(half)
+    sargs, _ = scoo_args(bs, V, Qs)
+    xa, pa = sargs["scoo_xk_times_v"], sargs["scoo_project"]
+    svh = bs.vals.to(half)
+    return {
+        "fused_procrustes_b": [(vh, gh, Wb, H)],
+        "fused_mode2_compact": [(vh, Q, H, Wb, b.col_mask)],
+        "fused_ykv": [(vh, Q, gh)],
+        "ykv": [(yh, gh), (Yc, gh), (yh, Vg)],
+        "mode1": [(yh, gh, Wr, b.subject_mask)],
+        "mode2_compact": [(yh, H, Wb, b.col_mask)],
+        "mode3": [(yh, gh, H, b.subject_mask)],
+        "scoo_xk_times_v": [(svh, xa[1], xa[2], xa[3].to(half), *xa[4:])],
+        "scoo_project": [(svh, *pa[1:])],
+    }
+
+
+def check_half_refusals(b, half) -> None:
+    """One combination each kernel family does not take raises a TypeError
+    before any launch: F1 with an f32 slab and a half Vg, row 5 with
+    bfloat16 beside float16, row 11 with half values and an f32 Vg."""
+    import torch
+    from repro_torch.kernels import fused, scoo, ykv
+
+    other = torch.float16 if half == torch.bfloat16 else torch.bfloat16
+    K, I, C, R = 4, 8, 16, 5
+    z = dict(device=b.vals.device)
+    cases = {
+        "fused": lambda: fused.fused_procrustes_b(
+            torch.ones((K, I, C), **z), torch.ones((K, C, R), dtype=half, **z),
+            torch.ones((K, R), **z), torch.eye(R, **z)),
+        "staged": lambda: ykv.ykv(torch.ones((K, R, C), dtype=half, **z),
+                                  torch.ones((K, C, R), dtype=other, **z)),
+        "scoo": lambda: scoo.scoo_xk_times_v(
+            torch.ones((K, 8), dtype=half, **z), torch.zeros((K, 8), dtype=torch.int32, **z),
+            torch.zeros((K, 8), dtype=torch.int32, **z), torch.ones((K, C, R), **z), I,
+            row_ends=torch.zeros((K, I), dtype=torch.int32, **z)),
+    }
+    before = launches()
+    for family, call in cases.items():
+        try:
+            call()
+        except TypeError:
+            continue
+        fail(f"{family}: a combination of dtypes its kernels do not take was not refused")
+    if launches() != before:
+        fail("a refused half combination launched a kernel")
+
+
+def phase3_half(bt, bt_sc, state, hist: dict, ms: dict, peaks: dict) -> tuple:
+    """Half precision (bf16, f16). The nine kernels that take half operands
+    against their plain versions on the same half inputs at the main path's
+    largest CC and SCOO buckets (row 5 also with one operand f32), each
+    launching its kernel, f32 tolerance (products of half values are exact
+    in f32: only the order of the sums differs); one refused combination
+    per kernel family. Then the choa 0.25 fits of CC auto, CC staged and
+    SCOO staged at each precision, host and scan (check_every 10) engines:
+    finite, within 1e-3 of the same route's f32 host fit of phase 3, scan
+    bit for bit the host, the route's kernels buckets x iterations times,
+    no host sync in an eager step or a chunk replay; ms/iter and the device
+    memory each fit adds, its half copy of the values included. Last, the
+    paths that reach rows 6 and 9 at bf16 (``mode1_reuse=False``, the
+    array-level ``mode3``). Returns (errors by kernel and precision,
+    bf16 launches by kernel, ms by run)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import Parafac2Options, als_step, engine, init_state
+    from repro_torch.core.backend import get_backend
+    from repro_torch.core.procrustes import solve_q
+    from repro_torch.kernels.common import PRECISION_DTYPES
+    from repro_torch.launch import decompose as dec
+
+    table = kernels()
+    b = max(bt.buckets, key=lambda x: x.vals.numel())
+    bs = max(bt_sc.buckets, key=lambda x: x.kb)
+    H, V, W = state.H.contiguous(), state.V, state.W
+    _, B = get_backend("auto", b.vals.device).procrustes_b_bucket(
+        b, H, W[b.subject_ids.long()] * b.subject_mask[:, None], V)
+    Q = solve_q(B) * b.subject_mask[:, None, None]
+    _, Bs = get_backend("staged").procrustes_b_bucket(
+        bs, H, W[bs.subject_ids.long()] * bs.subject_mask[:, None], V)
+    Qs = solve_q(Bs) * bs.subject_mask[:, None, None]
+    errs = {}
+    for prec in HALF:
+        half = PRECISION_DTYPES[prec]
+        for name, calls in half_kernel_args(b, bs, H, V, W, Q, Qs, half).items():
+            wrapper, plain, _ = table[name]
+            for args in calls:
+                before = launches()[name]
+                got = wrapper(*args)
+                want = plain(*args)
+                torch.cuda.synchronize()
+                if launches()[name] != before + 1:
+                    fail(f"{name} ({prec}) did not launch its kernel")
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                scale = None
+                if name in SCOO:
+                    idx = args[2] if name == "scoo_xk_times_v" else args[1]
+                    scale = prefix_scale(args[0], idx, args[3])
+                for g, w in zip(got, want):
+                    if g.dtype != torch.float32 or g.shape != w.shape:
+                        fail(f"{name} ({prec}): {g.dtype} {tuple(g.shape)}, want float32 "
+                             f"{tuple(w.shape)}")
+                    err, ok = within(g, w, False, scale)
+                    if not ok:
+                        fail(f"{name} ({prec}, operands "
+                             f"{[str(a.dtype)[6:] for a in args if torch.is_tensor(a)]}): "
+                             f"max |kernel - plain| = {err:.3e}")
+                    e, sc = errs.get((name, prec), (0.0, 0.0))
+                    errs[(name, prec)] = (max(e, err), max(sc, float(w.abs().max())))
+        check_half_refusals(b, half)
+    print(f"[half] the nine kernels match their plain versions on half inputs at the main "
+          f"path's largest CC (K={b.kb} I={b.i_pad} C={b.c_pad}) and SCOO (Kb={bs.kb} "
+          f"N={bs.n_pad}) buckets, row 5 also with Yc or Vg f32; one refused combination "
+          f"a family raised: "
+          + json.dumps({f"{n}[{p}]": v[0] for (n, p), v in errs.items()}), flush=True)
+
+    data_of = {"auto": (bt, "auto"), "staged": (bt, "staged"), "staged-scoo": (bt_sc, "staged")}
+    kw = dict(rank=5, iters=ITERS, seed=0, dtype=torch.float32, verbose=False, tol=0.0)
+    for _, (data, backend) in data_of.items():      # two iterations first, as phase 3
+        dec.decompose(data, backend=backend, **{**kw, "iters": 2}, precision="bf16")
+    half_ms, counts_bf16 = {}, {}
+    for prec in HALF:
+        for label in SCAN_ROUTES:
+            data, backend = data_of[label]
+            n = len(data.buckets) * ITERS
+            runs = {}
+            for eng in ("host", "scan"):
+                resident = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                _, h, secs = dec.decompose(data, backend=backend, engine=eng, check_every=10,
+                                           precision=prec, **kw)
+                counts = launches()
+                added = (torch.cuda.max_memory_allocated() - resident) / 2**30
+                check_launches(label, counts, n)
+                if len(h) != ITERS or not np.all(np.isfinite(h)):
+                    fail(f"{label} {prec} {eng}: fit history short or not finite")
+                runs[eng] = h
+                key = f"{label} {prec} {eng}"
+                half_ms[key] = secs / ITERS * 1e3
+                peaks[key] = added
+                if prec == "bf16" and eng == "host":
+                    counts_bf16[label] = counts
+                d32 = float(np.max(np.abs(np.asarray(h) - np.asarray(hist[label]))))
+                print(f"[half] {key}: {half_ms[key]:.2f} ms/iter"
+                      f"{' (with the set-up)' if eng == 'scan' else ''} (f32 host "
+                      f"{ms[label]:.2f}), device memory added {added:.3f} GiB (f32 host "
+                      f"{peaks[label]:.3f}; the half copy of the values "
+                      f"{sum(x.vals.numel() * 2 for x in data.buckets) / 2**30:.3f} GiB); "
+                      f"max |fit - f32 fit| {d32:.3e}; launches "
+                      f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+                print(f"[half] {key} fit history {json.dumps(h)}", flush=True)
+                if d32 > 1e-3:
+                    fail(f"{key}: fit history departs from the f32 fit by {d32:.3e} > 1e-3")
+                torch.cuda.empty_cache()        # release the fit's half copy
+            if runs["scan"] != runs["host"]:
+                fail(f"{label} {prec}: the scan engine's history is not the host engine's "
+                     f"bit for bit")
+            if prec == "bf16":
+                setup, _, half_ms[f"{label} bf16 scan10 replay"] = steady_ms(
+                    data, backend, 10, precision="bf16")
+                print(f"[half] {label} bf16 scan10: "
+                      f"{half_ms[f'{label} bf16 scan10 replay']:.2f} ms/iter replayed, "
+                      f"set-up {setup:.2f}s", flush=True)
+    print(f"[half] scan (check_every 10) bit for bit the host engine on "
+          f"{', '.join(SCAN_ROUTES)} at {', '.join(HALF)}", flush=True)
+
+    # no host sync at half precision: one eager als_step and one chunk replay
+    for label in SCAN_ROUTES:
+        data, backend = data_of[label]
+        opts = Parafac2Options(rank=5, backend=backend, dtype=torch.float32, precision="bf16")
+        dh = data.with_compute_values("bf16")
+        s = als_step(dh, init_state(dh, opts, seed=0), opts)
+        chunk = engine.make_als_chunk(data, scan_opts(backend, 10, precision="bf16"), 10,
+                                      state=s)
+        torch.cuda.synchronize()
+        for what, call in (("an eager als_step", lambda: als_step(dh, s, opts)),
+                           ("a replay of a captured chunk", lambda: chunk(s))):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                call()
+            except RuntimeError as e:
+                fail(f"{label} bf16: {what} synchronised with the host: {e}")
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+        del chunk, dh
+    print(f"[half] no host sync (set_sync_debug_mode('error')) in one eager bf16 als_step "
+          f"or one chunk replay on {', '.join(SCAN_ROUTES)}", flush=True)
+
+    # rows 6 and 9 at bf16, on their own paths
+    _, h6, _ = dec.decompose(bt, backend="staged", mode1_reuse=False, precision="bf16",
+                             **{**kw, "iters": 3})
+    counts_bf16["mode1"] = launches()
+    if counts_bf16["mode1"]["mode1"] != len(bt.buckets) * 3 or not np.all(np.isfinite(h6)):
+        fail("the bf16 mode1_reuse=False path did not launch mode1 buckets x iterations")
+    be = get_backend("staged", precision="bf16")
+    reset_launches()
+    for bb in bt.buckets:
+        Yc = be.project_bucket(bb, torch.zeros((bb.kb, bb.i_pad, 5), device=bb.vals.device))
+        be.mode3(Yc, be._pc(bb.gather_v(V)), H, bb.subject_mask)
+    counts_bf16["mode3"] = launches()
+    if counts_bf16["mode3"]["mode3"] != len(bt.buckets):
+        fail("the bf16 array-level mode3 did not launch once per bucket")
+    path_of = {**dict.fromkeys(("fused_procrustes_b", "fused_mode2_compact", "fused_ykv"),
+                               "auto"),
+               "ykv": "staged", "mode2_compact": "staged", "mode1": "mode1", "mode3": "mode3",
+               **dict.fromkeys(SCOO, "staged-scoo")}
+    per_kernel = {name: counts_bf16[path_of[name]][name] for name in HALF_KERNELS}
+    print(f"[half] bf16 launches of the nine kernels on their paths: {per_kernel}", flush=True)
+    return errs, per_kernel, half_ms
+
+
+def work_half(name: str, K: int, I: int, C: int, R: int) -> tuple:
+    """(bytes, operations) of a CC kernel at half precision: the streamed
+    operands (the slab, Yc, Vg) at 2 bytes a value, every other operand and
+    the output at 4; operations as ``work``'s."""
+    slab, ir, cr, kr, rr, krr = K * I * C, K * I * R, K * C * R, K * R, R * R, K * R * R
+    streamed = {"fused_procrustes_b": (slab + cr, kr + rr + 2 * ir),
+                "fused_mode2_compact": (slab, ir + rr + kr + K * C + cr),
+                "fused_ykv": (slab + cr, ir + krr),
+                "ykv": (2 * cr, krr), "mode1": (2 * cr, kr + rr + K),
+                "mode2_compact": (cr, rr + kr + K * C + cr),
+                "mode3": (2 * cr, rr + K + kr)}
+    half, full = streamed[name]
+    return 2 * half + 4 * full, work(name, K, I, C, R, 4)[1]
+
+
+def sparse_work_half(name: str, b, R: int) -> tuple:
+    """(bytes, operations) of rows 11 and 12 at half precision on this run's
+    data: the values (and row 11's Vg rows) at 2 bytes, Q, the indices and
+    the f32 output as ``sparse_work`` counts them."""
+    nbytes, ops = sparse_work(name, b, R)
+    nnz = int(b.nnz_counts.sum())
+    saved = 2 * nnz + (2 * int(b.col_mask.sum()) * R if name == "scoo_xk_times_v" else 0)
+    return nbytes - saved, ops
+
+
+def phase4_half(bt, bt_sc, state, per_kernel: dict, errs: dict) -> list:
+    """The nine half kernels at bf16 at the main path's largest CC and SCOO
+    buckets: time by CUDA events and in a replayed CUDA graph, the plain
+    version's time, the byte bound at half width, and one PyTorch call on
+    the same half inputs where one computes the function (the X_k V part of
+    F1, row 5's product, row 11's sparse product; none takes half values
+    beside f32 Q, H or Wb)."""
+    import torch
+    from repro_torch.core.backend import get_backend
+    from repro_torch.core.procrustes import solve_q
+    from repro_torch.kernels import fused, mttkrp_mode2, mttkrp_mode3, scoo, ykv
+    from repro_torch.launch.kernel_ab import graph_ms
+
+    b = max(bt.buckets, key=lambda x: x.vals.numel())
+    bs = max(bt_sc.buckets, key=lambda x: x.kb)
+    H, V, W = state.H.contiguous(), state.V, state.W
+    _, B = get_backend("auto", b.vals.device).procrustes_b_bucket(
+        b, H, W[b.subject_ids.long()] * b.subject_mask[:, None], V)
+    Q = solve_q(B) * b.subject_mask[:, None, None]
+    _, Bs = get_backend("staged").procrustes_b_bucket(
+        bs, H, W[bs.subject_ids.long()] * bs.subject_mask[:, None], V)
+    Qs = solve_q(Bs) * bs.subject_mask[:, None, None]
+    half = torch.bfloat16
+    variant = {   # the variant each launch takes, where a kernel has several
+        "fused_procrustes_b": lambda a: fused.procrustes_b_variant(a[0], a[1].shape[-1]),
+        "ykv": lambda a: ykv.ykv_variant(*a),
+        "mode2_compact": lambda a: mttkrp_mode2.mode2_compact_variant(a[0], a[3]),
+        "mode3": lambda a: mttkrp_mode3.mode3_variant(a[0], a[1]),
+        "scoo_xk_times_v": lambda a: scoo.scoo_xk_times_v_variant(*a[:5], row_ends=a[5]),
+        "scoo_project": lambda a: scoo.scoo_project_variant(*a[:5], cperm=a[5],
+                                                            col_ends=a[6]),
+    }
+    args = {n: a[0] for n, a in half_kernel_args(b, bs, H, V, W, Q, Qs, half).items()}
+    K, I, C = b.vals.shape
+    R = H.shape[0]
+    xa = args["scoo_xk_times_v"]
+    csr = {}
+
+    def sparse_half():          # the bucket's CSR at half width, made at the first call
+        if "A" not in csr:
+            csr["A"] = block_csr(bs).to(half)
+        return torch.sparse.mm(csr["A"], xa[3].reshape(-1, R))
+
+    library = {"fused_procrustes_b": lambda: torch.bmm(args["fused_procrustes_b"][0],
+                                                       args["fused_procrustes_b"][1]),
+               "ykv": lambda: torch.bmm(*args["ykv"]),
+               "scoo_xk_times_v": sparse_half}
+    rows = []
+    for name in HALF_KERNELS:
+        wrapper, plain, source = kernels()[name]
+        a = args[name]
+        if name in SCOO:
+            nbytes, ops = sparse_work_half(name, bs, R)
+            where = f"Kb={bs.kb} I={bs.i_pad} C={bs.c_pad} N={bs.n_pad}"
+        else:
+            nbytes, ops = work_half(name, K, I, C, R)
+            where = f"K={K} I={I} C={C}"
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / HALF_FLOPS * 1e3
+        lib_ms, lib_note = None, ""
+        if name in library:
+            try:
+                lib_ms = time_ms(library[name])
+            except (RuntimeError, TypeError, NotImplementedError) as e:   # a yardstick only
+                lib_note = f" (library call refused: {str(e).splitlines()[0][:80]})"
+        r = {"name": f"{name}[bf16]", "precision": "bf16", "route": "cuda", "source": source,
+             "replaces": REPLACES[name], "launches": per_kernel[name],
+             "max_abs_err": errs[(name, "bf16")][0], "max_abs_plain": errs[(name, "bf16")][1],
+             "max_abs_err_f16": errs[(name, "f16")][0],
+             "ms": time_ms(lambda: wrapper(*a)), "plain_ms": time_ms(lambda: plain(*a)),
+             "graph_ms": graph_ms(lambda: wrapper(*a), torch.cuda.Stream()),
+             "bound_ms": max(t_bytes, t_ops),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "library_ms": lib_ms}
+        if name in variant:
+            r["variant"] = variant[name](a)
+        rows.append(r)
+        print(f"[time] {name} bf16 at {where} R={R}: kernel {r['ms']:.4f} ms, in a graph "
+              f"{r['graph_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+              f"{nbytes} B at half width, {ops} ops), plain {r['plain_ms']:.4f} ms, library "
+              f"{'none' if lib_ms is None else format(lib_ms, '.4f') + ' ms'}{lib_note}, "
+              f"launches {r['launches']}, variant {r.get('variant', 'one design')}", flush=True)
+    return rows
 
 
 def check_constrained_launches(label: str, got: dict, n_buckets: int, specs: dict) -> None:
@@ -2012,7 +2386,8 @@ def phase4_times(bt, bt_sc, bcc_pair, state, per_kernel, errs, w_state):
 def phase5_profile(bt, bt_sc, iter_ms: dict, scan_ms: dict, con_ms: dict) -> None:
     """Where one main-path iteration's time goes on the auto and the staged
     route over the CC buckets and on the staged and the scoo route over the
-    SCOO buckets, then in one replayed 10-iteration chunk of the scan engine
+    SCOO buckets, and at bf16 on CC auto and SCOO staged (from the fit's
+    half copy of the values), then in one replayed 10-iteration chunk of the scan engine
     on the CC auto, CC staged and SCOO staged routes, against an unprofiled
     replay of the same chunk just before it; ``iter_ms`` and ``scan_ms`` are
     the unprofiled times per iteration of phase 3."""
@@ -2024,8 +2399,10 @@ def phase5_profile(bt, bt_sc, iter_ms: dict, scan_ms: dict, con_ms: dict) -> Non
         return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
 
     for route, data in (("auto", bt), ("staged", bt), ("staged-scoo", bt_sc),
-                        ("scoo-scoo", bt_sc)):
-        opts = Parafac2Options(rank=5, backend=route.split("-")[0])
+                        ("scoo-scoo", bt_sc), ("auto bf16", bt), ("staged-scoo bf16", bt_sc)):
+        prec = "bf16" if route.endswith("bf16") else "f32"
+        opts = Parafac2Options(rank=5, backend=route.split("-")[0].split()[0], precision=prec)
+        data = data.with_compute_values(prec)
         state = als_step(data, init_state(data, opts, seed=0), opts)   # warm-up
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2043,7 +2420,7 @@ def phase5_profile(bt, bt_sc, iter_ms: dict, scan_ms: dict, con_ms: dict) -> Non
         if not runs or busy_ms <= 0:
             fail(f"the profiled {route} iteration ran nothing on the device")
         span_ms = (max(r.end for r in runs) - min(r.start for r in runs)) / 1e3
-        it = iter_ms[route]
+        it = iter_ms[route if prec == "f32" else route.replace(" bf16", "") + " bf16 host"]
         print(f"[profile] one {route} iteration: device busy {busy_ms:.3f} ms; against "
               f"the unprofiled {it:.3f} ms/iter of phase 3: busy {busy_ms / it:.1%}, "
               f"idle {1 - busy_ms / it:.1%}; against the trace's first-to-last kernel "
@@ -2060,6 +2437,7 @@ def phase5_profile(bt, bt_sc, iter_ms: dict, scan_ms: dict, con_ms: dict) -> Non
                 own[body] = (ms_ + dev_us(e) / 1e3, n_ + e.count)
         print(f"[profile] {route} port kernels (device ms, launches): "
               + json.dumps({k: [round(v[0], 4), v[1]] for k, v in sorted(own.items())}))
+        del data, state
         for e in sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]:
             print(f"[profile] {route} host   {e.self_cpu_time_total / 1e3:9.3f} ms  "
                   f"x{e.count:<6d} {e.key[:90]}")
@@ -2172,9 +2550,15 @@ def main() -> int:
     errs = phase2_kernels(dev)
     bt, bt_sc, bcc_pair, state, per_kernel, iter_ms, hist, peaks = phase3_main_path(dev)
     scan_ms = phase3_engines(bt, bt_sc, hist, iter_ms, peaks)
+    free_cached("the scan engine")
+    half_errs, half_launches, half_ms = phase3_half(bt, bt_sc, state, hist, iter_ms, peaks)
+    iter_ms.update(half_ms)
+    free_cached("half precision")
     con = phase3_constrained(bt, bt_sc)
+    free_cached("the constrained fits")
     per_kernel["tridiag_solve"] = con["p2_launches"]
     rows = phase4_times(bt, bt_sc, bcc_pair, state, per_kernel, errs, con.pop("state"))
+    rows += phase4_half(bt, bt_sc, state, half_launches, half_errs)
     phase5_profile(bt, bt_sc, iter_ms, scan_ms, con["ms"])
     print(f"[done] {time.perf_counter() - t0:.1f}s", flush=True)
     print(json.dumps({"kernels": rows}))

@@ -40,19 +40,32 @@ The bucket-level stages (``procrustes_b_bucket`` / ``project_bucket`` /
 ``mode1_xkv_bucket`` / ``ykv_bucket`` / ``mode{1,2,3}_bucket``) are what
 ``als_step`` calls. :func:`dispatch_tally` counts the streaming stage calls
 per bucket, with the reference's stage names on every route.
+
+Compute precision (``precision``, the reference's): at ``"bf16"``/``"f16"``
+each route stages the large streamed operands half-width where the
+reference's backend does (``_pc``: the slab, Vg and, on the dense route,
+Q and the projected Yc), while every contraction accumulates in f32
+(``accum_dtype``); products of two half values are exact in f32, so only
+the casts lose bits. The slab's half copy is the bucket's ``vals_half``
+when a fit made it (:meth:`Bucketed.with_compute_values`), else a cast.
+On CUDA the half operands go to the kernels at half width, and the torch
+route's products (no kernel in the reference either) to cuBLAS with an
+f32 result (``spartan.bmm_acc``). ``"f32"`` is the unconfigured backend,
+bit for bit.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core import spartan
 from repro_torch.core.irregular import SparseBucket
 from repro_torch.kernels import fused, ops, scoo
-from repro_torch.kernels.common import fold_subject_mask
+from repro_torch.kernels.common import (PRECISION_DTYPES, PRECISIONS, compute_cast,
+                                        fold_subject_mask)
 
 __all__ = [
     "MttkrpBackend",
@@ -102,20 +115,55 @@ class MttkrpBackend:
     Per-bucket shapes (Kb subjects, C kept columns padded, rank R):
     Yc [Kb, R, C] compressed slices; Vg [Kb, C, R] gathered V rows;
     Wb [Kb, R] W rows; masks 1.0 = real, 0.0 = padding.
+
+    ``precision`` ("f32" default) below f32 stages the streamed operands
+    half-width (:meth:`_pc`) while accumulating in f32; "f32" keeps every
+    path bit for bit the unconfigured backend's.
     """
 
     name: str = "?"
 
+    def __init__(self, precision: str = "f32"):
+        if precision not in PRECISIONS:
+            raise ValueError(f"unknown compute precision {precision!r}; "
+                             f"choose from {PRECISIONS}")
+        self.precision = precision
+
+    def _pc(self, x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """A streamed operand at the compute precision (the identity at
+        "f32")."""
+        return compute_cast(x, self.precision)
+
+    def _vals(self, b) -> torch.Tensor:
+        """The bucket's values at the compute precision: its ``vals_half``
+        where a fit made them at this precision, else ``_pc(b.vals)``."""
+        if self.precision == "f32":
+            return b.vals
+        half = b.vals_half
+        if half is not None and half.dtype == PRECISION_DTYPES[self.precision]:
+            return half
+        return self._pc(b.vals)
+
+    def _vg(self, b, V) -> torch.Tensor:
+        """The bucket's V rows at the compute precision: ``gather_v`` of V
+        cast, the reference's ``_pc(gather_v(V))`` value for value (the
+        column mask is 0 or 1) without an f32 Vg in between."""
+        return b.gather_v(self._pc(V))
+
     # -- shared stages ------------------------------------------------------
     def ykv(self, Yc: torch.Tensor, Vg: torch.Tensor) -> torch.Tensor:
         """Y_k V [Kb, R, R], shared by the mode-3 reuse path and the fit."""
-        return torch.bmm(spartan._f(Yc), spartan._f(Vg))
+        return spartan.bmm_acc(Yc, Vg)
 
     mode2_scatter = staticmethod(spartan.mode2_scatter)
 
     # -- bucket-level stages (the als_step contract) ------------------------
     def xkv_bucket(self, b, V, Vg=None) -> torch.Tensor:
-        """X_k V [Kb, I_pad, R], the Procrustes-step input."""
+        """X_k V [Kb, I_pad, R], the Procrustes-step input (half slab and Vg
+        below f32 on CC buckets, f32 sums)."""
+        if self.precision != "f32" and not isinstance(b, SparseBucket):
+            Vg = b.gather_v(V) if Vg is None else Vg
+            return spartan.bmm_acc(self._vals(b), self._pc(Vg))
         return b.xk_times_v(V, Vg)
 
     def procrustes_b_bucket(self, b, H, Wb, V, Vg=None):
@@ -130,25 +178,28 @@ class MttkrpBackend:
         """Partial M1 [R,R] via the mode-1 reuse identity
         Y_k V = Q_k^T (X_k V)."""
         _tick("mode1")
-        YkV = torch.bmm(Q.transpose(1, 2), XkV)
+        YkV = torch.bmm(Q.transpose(1, 2), spartan._f(XkV))
         return self.mode1(None, None, Wb, b.subject_mask, YkV=YkV)
 
     def project_bucket(self, b, Q):
         """The projected representation the later stages consume: the
         compact Yc [Kb, R, C] on the torch route (a segment sum on SCOO
-        buckets)."""
+        buckets); below f32 on CC buckets from half Q and slab, rounded to
+        half."""
         _tick("project")
+        if self.precision != "f32" and not isinstance(b, SparseBucket):
+            return self._pc(spartan.bmm_acc(self._pc(Q).transpose(1, 2), self._vals(b)))
         return b.project(Q)
 
     def ykv_bucket(self, b, proj, V) -> torch.Tensor:
         """Y_k V [Kb, R, R] for factor ``V`` (the W update and the fit)."""
         _tick("ykv")
-        return self.ykv(proj, b.gather_v(V))
+        return self.ykv(proj, self._vg(b, V))
 
     def mode1_bucket(self, b, proj, Wb, V=None, *, YkV=None) -> torch.Tensor:
         if YkV is None:
             _tick("mode1")
-        Vg = None if YkV is not None else b.gather_v(V)
+        Vg = None if YkV is not None else self._vg(b, V)
         return self.mode1(proj, Vg, Wb, b.subject_mask, YkV=YkV)
 
     def mode2_bucket(self, b, proj, H, Wb) -> torch.Tensor:
@@ -158,7 +209,7 @@ class MttkrpBackend:
     def mode3_bucket(self, b, proj, H, V=None, *, YkV=None) -> torch.Tensor:
         if YkV is None:
             _tick("mode3")
-        Vg = None if YkV is not None else b.gather_v(V)
+        Vg = None if YkV is not None else self._vg(b, V)
         return self.mode3(proj, Vg, H, b.subject_mask, YkV=YkV)
 
     # -- per-bucket contractions --------------------------------------------
@@ -225,9 +276,8 @@ class SparseBackend(TorchBackend):
 
     name = "scoo"
 
-    @staticmethod
-    def _ykv_native(b, Q, V):
-        return scoo.ykv_scoo(b.vals, b.rows, b.lcols, Q, b.gather_v(V))
+    def _ykv_native(self, b, Q, V):
+        return scoo.ykv_scoo(self._vals(b), b.rows, b.lcols, Q, self._vg(b, V))
 
     def project_bucket(self, b, Q):
         if not isinstance(b, SparseBucket):
@@ -252,7 +302,7 @@ class SparseBackend(TorchBackend):
         if not isinstance(b, SparseBucket):
             return super().mode2_bucket(b, proj, H, Wb)
         _tick("mode2")
-        return scoo.mode2_compact_scoo(b.vals, b.rows, b.lcols, proj, H, Wb,
+        return scoo.mode2_compact_scoo(self._vals(b), b.rows, b.lcols, proj, H, Wb,
                                        b.col_mask, b.subject_mask,
                                        cperm=b.cperm, col_ends=b.col_ends)
 
@@ -284,7 +334,7 @@ class FusedBackend(SparseBackend):
             return super().procrustes_b_bucket(b, H, Wb, V, Vg)
         _tick("procrustes_b")
         Vg = b.gather_v(V) if Vg is None else Vg
-        return fused.fused_procrustes_b(b.vals, Vg, Wb, H.contiguous())
+        return fused.fused_procrustes_b(self._vals(b), self._pc(Vg), Wb, H.contiguous())
 
     def project_bucket(self, b, Q):
         return Q
@@ -297,7 +347,7 @@ class FusedBackend(SparseBackend):
         if isinstance(b, SparseBucket):
             return super().ykv_bucket(b, proj, V)
         _tick("ykv")
-        return fused.fused_ykv(b.vals, proj, b.gather_v(V))
+        return fused.fused_ykv(self._vals(b), proj, self._vg(b, V))
 
     def mode1_bucket(self, b, proj, Wb, V=None, *, YkV=None):
         if isinstance(b, SparseBucket):
@@ -311,7 +361,7 @@ class FusedBackend(SparseBackend):
             return super().mode2_bucket(b, proj, H, Wb)
         _tick("mode2")
         return fused.fused_mode2_compact(
-            b.vals, proj, H.contiguous(), fold_subject_mask(Wb, b.subject_mask),
+            self._vals(b), proj, H.contiguous(), fold_subject_mask(Wb, b.subject_mask),
             b.col_mask)
 
     def mode3_bucket(self, b, proj, H, V=None, *, YkV=None):
@@ -330,7 +380,9 @@ class StagedBackend(TorchBackend):
     (``xkv_bucket``, ``project_bucket``). Unlike the reference, f64
     operands stay f64 (its demotion to f32 is a limit of the TPU compiler,
     not of the card). H is made contiguous here (a transposed solve result
-    is a view)."""
+    is a view). Below f32 the two SCOO kernels take the half values (and
+    half Vg) and return f32 sums, which this route rounds to half, as the
+    reference's ``use_pallas`` wrappers round theirs."""
 
     name = "staged"
 
@@ -338,15 +390,17 @@ class StagedBackend(TorchBackend):
         if not isinstance(b, SparseBucket):
             return super().xkv_bucket(b, V, Vg)
         Vg = b.gather_v(V) if Vg is None else Vg
-        return scoo.scoo_xk_times_v(b.vals, b.rows, b.lcols, Vg, b.i_pad,
-                                    row_ends=b.row_ends)
+        vals = self._vals(b)
+        return scoo.scoo_xk_times_v(vals, b.rows, b.lcols, self._pc(Vg), b.i_pad,
+                                    row_ends=b.row_ends).to(vals.dtype)
 
     def project_bucket(self, b, Q):
         if not isinstance(b, SparseBucket):
             return super().project_bucket(b, Q)
         _tick("project")
-        return scoo.scoo_project(b.vals, b.rows, b.lcols, Q, b.c_pad,
-                                 cperm=b.cperm, col_ends=b.col_ends)
+        vals = self._vals(b)
+        return scoo.scoo_project(vals, b.rows, b.lcols, Q, b.c_pad,
+                                 cperm=b.cperm, col_ends=b.col_ends).to(vals.dtype)
 
     def ykv(self, Yc, Vg):
         return ops.ykv(Yc, Vg)
@@ -366,20 +420,32 @@ class StagedBackend(TorchBackend):
 BACKENDS = {"torch": TorchBackend(), "scoo": SparseBackend(),
             "fused": FusedBackend(), "staged": StagedBackend()}
 
+# configured (below-f32 precision) instances, one per (name, precision), so
+# that repeated calls hand back the same backend object
+_CONFIGURED: Dict[Tuple[str, str], MttkrpBackend] = {}
 
-def get_backend(name, device=None) -> MttkrpBackend:
+
+def get_backend(name, device=None, precision: Optional[str] = None) -> MttkrpBackend:
     """Resolve a backend by name ("torch" | "scoo" | "fused" | "staged" |
     "auto") or pass an :class:`MttkrpBackend` instance through unchanged.
     ``auto`` needs the data's ``device``: ``fused`` on CUDA, ``torch`` on
-    the CPU."""
+    the CPU. ``precision`` (None/"f32" default) returns a configured
+    instance that stages the streamed operands at that compute precision,
+    cached per (name, precision); the f32 singletons in ``BACKENDS`` are
+    untouched."""
     if isinstance(name, MttkrpBackend):
         return name
     if name == "auto":
         if device is None:
             raise ValueError("backend 'auto' is resolved from the data's device; "
                              "pass device=")
-        return BACKENDS["fused" if torch.device(device).type == "cuda" else "torch"]
+        name = "fused" if torch.device(device).type == "cuda" else "torch"
     if name not in BACKENDS:
         raise ValueError(f"unknown MTTKRP backend {name!r}; choose from "
                          f"{sorted(BACKENDS) + ['auto']}")
-    return BACKENDS[name]
+    if precision is None or precision == "f32":
+        return BACKENDS[name]
+    key = (name, precision)
+    if key not in _CONFIGURED:
+        _CONFIGURED[key] = type(BACKENDS[name])(precision=precision)
+    return _CONFIGURED[key]

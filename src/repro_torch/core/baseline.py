@@ -77,7 +77,7 @@ def baseline_als_step(data, state, opts):
     cons = constraints_for(opts)
     solve_kw = dict(nnls_sweeps=opts.nnls_sweeps, admm_iters=opts.admm_iters)
     aux = state.aux if isinstance(state.aux, dict) else cst.empty_aux()
-    be = get_backend(opts.backend, data.device)
+    be = get_backend(opts.backend, data.device, opts.precision)
     Ycs = [b.project(_procrustes_project(b, H, V, W, opts, i, be)[2])
            for i, b in enumerate(data.buckets)]
     Y = dense_y(data.buckets, Ycs, J, K)                     # the memory blow-up

@@ -44,6 +44,12 @@ graph keeps every workspace it may name alive for as long as it lives.
 The reference's mesh engine waits for multi-GPU (ROADMAP A6) and its
 ``make_subject_update`` for serving (ROADMAP A5).
 
+Below f32 ``opts.precision`` the iteration makes the buckets' half values
+(:meth:`~repro_torch.core.irregular.Bucketed.with_compute_values`) before
+the warm-up, outside any capture, and its body closes over that data: the
+graph holds them alive as it holds its workspaces, and every replay reads
+them.
+
 The carry holds every tensor of the state under a fixed name, each with a
 static buffer: H, V, W (one tensor, or one a bucket in the bucketed layout),
 the fit and the constraint layer's ADMM duals (:func:`_flatten`); each is
@@ -147,6 +153,7 @@ class _Iteration:
         # to the garbage collector, which could then destroy it while a new
         # capture runs and so invalidate that capture
         skel, leaves = _split(state)
+        data = data.with_compute_values(opts.precision)   # before any warm-up
 
         def body(c: Carry) -> None:
             s2 = p2.als_step(data, _state(skel, c), opts)

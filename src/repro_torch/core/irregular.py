@@ -37,6 +37,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops, scoo
+from repro_torch.kernels.common import compute_cast
 from repro_torch.sparse.bucketing import (SCOO_DENSITY_THRESHOLD, BucketPlan,
                                           plan_buckets, route_formats)
 from repro_torch.sparse.coo import IrregularCOO
@@ -94,6 +95,9 @@ class Bucket:
     scatter_perm, scatter_ends: the column sort of ``cols``
                   (:func:`scatter_order`), computed once at ``bucketize``
                   for the mode-2 scatter
+    vals_half:    ``vals`` at a half compute precision (bf16/f16), made once
+                  for a fit by :meth:`Bucketed.with_compute_values`; None
+                  otherwise
     """
 
     vals: torch.Tensor
@@ -105,6 +109,8 @@ class Bucket:
     n_real: int
     scatter_perm: torch.Tensor
     scatter_ends: torch.Tensor
+    vals_half: Optional[torch.Tensor] = dataclasses.field(default=None, repr=False,
+                                                          compare=False)
 
     format = "cc"  # class tag, not a field (see bucket_format)
 
@@ -128,8 +134,9 @@ class Bucket:
 
     # -- core contractions (batched over Kb) --------------------------------
     def gather_v(self, V: torch.Tensor) -> torch.Tensor:
-        """V rows for this bucket's kept columns: [Kb, C_pad, R] (pad rows 0)."""
-        return V[self.cols.long()] * self.col_mask[..., None]
+        """V rows for this bucket's kept columns: [Kb, C_pad, R] in V's dtype
+        (pad rows 0)."""
+        return V[self.cols.long()] * self.col_mask[..., None].to(V.dtype)
 
     def xk_times_v(self, V: torch.Tensor,
                    Vg: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -175,7 +182,7 @@ class SparseBucket:
     cols, col_mask, subject_ids, subject_mask, row_counts: as :class:`Bucket`
     nnz_counts:   i32[Kb]          true nnz_k (pad subjects 0)
     n_rows_pad:   I_pad, the row space Q and X_k V use
-    n_real, scatter_perm, scatter_ends: as :class:`Bucket`
+    n_real, scatter_perm, scatter_ends, vals_half: as :class:`Bucket`
 
     Every subject owns one N_pad segment, so ``nnz_offsets`` is
     ``arange(Kb) * N_pad``. Pad triplets carry 0 and lie past every end, so
@@ -198,6 +205,8 @@ class SparseBucket:
     n_real: int
     scatter_perm: torch.Tensor
     scatter_ends: torch.Tensor
+    vals_half: Optional[torch.Tensor] = dataclasses.field(default=None, repr=False,
+                                                          compare=False)
 
     format = "scoo"
 
@@ -231,8 +240,9 @@ class SparseBucket:
 
     # -- core contractions (batched over Kb, O(nnz * R)) ---------------------
     def gather_v(self, V: torch.Tensor) -> torch.Tensor:
-        """V rows for this bucket's kept columns: [Kb, C_pad, R] (pad rows 0)."""
-        return V[self.cols.long()] * self.col_mask[..., None]
+        """V rows for this bucket's kept columns: [Kb, C_pad, R] in V's dtype
+        (pad rows 0)."""
+        return V[self.cols.long()] * self.col_mask[..., None].to(V.dtype)
 
     def xk_times_v(self, V: torch.Tensor,
                    Vg: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -288,6 +298,19 @@ class Bucketed:
     @property
     def device(self) -> torch.device:
         return self.buckets[0].cols.device
+
+    def with_compute_values(self, precision: Optional[str]) -> "Bucketed":
+        """This data with each bucket's values also held at the compute
+        precision: ``vals_half = compute_cast(vals, precision)``, made once
+        here so that a fit's stages read the half values instead of casting
+        the slab at every stage call. ``norm_sq`` stays the f32 host value.
+        At ``"f32"`` (or None) it is this data itself: nothing is copied."""
+        if precision in (None, "f32"):
+            return self
+        half = [dataclasses.replace(b, vals_half=compute_cast(b.vals, precision))
+                for b in self.buckets]
+        return Bucketed(buckets=half, n_subjects=self.n_subjects, n_cols=self.n_cols,
+                        norm_sq=self.norm_sq)
 
     def norm_sq_tensor(self, dtype: torch.dtype) -> torch.Tensor:
         """``norm_sq`` as a scalar of ``dtype`` on the data's device, copied

@@ -22,7 +22,10 @@ on the host; "scan" runs chunks of ``opts.check_every`` iterations, or the
 whole fit with the stopping rule on the device (``check_every=0``), as CUDA
 graphs on a GPU (:mod:`repro_torch.core.engine`). W is one [K, R] tensor
 (``w_layout="global"``) or a tuple of per-bucket [Kb, R] tensors whose
-padded slots stay zero (``"bucketed"``).
+padded slots stay zero (``"bucketed"``). ``opts.precision`` ("f32", "bf16",
+"f16") is the compute precision of the streamed operands (see
+:mod:`repro_torch.core.backend`); below f32 ``fit`` makes each bucket's
+half values once, before the first iteration.
 """
 from __future__ import annotations
 
@@ -37,6 +40,7 @@ from repro_torch.core.backend import MttkrpBackend, get_backend
 from repro_torch.core.cp import normalize_columns
 from repro_torch.core.irregular import Bucket, Bucketed
 from repro_torch.core.procrustes import solve_q
+from repro_torch.kernels.common import PRECISIONS
 
 __all__ = ["Parafac2State", "Parafac2Options", "constraints_for", "init_state",
            "als_step", "fit", "reconstruct_uk", "w_global"]
@@ -78,6 +82,11 @@ class Parafac2Options:
     ridge: float = 0.0
     dtype: torch.dtype = torch.float32
     backend: str = "auto"       # "torch" | "scoo" | "fused" | "staged" | "auto"
+    # Compute precision of the streamed operands: "f32" (the default, bit for
+    # bit the unconfigured path), or "bf16"/"f16", which stage the slab, Vg
+    # and the projected slices half-width while every product still
+    # accumulates in f32 (the kernels read the half operands at 2 bytes).
+    precision: str = "f32"
     # W layout: "global" [K, R], or "bucketed" (a tuple of per-bucket [Kb, R]
     # rows aligned with the buckets: no W gathers)
     w_layout: str = "global"
@@ -108,6 +117,15 @@ class Parafac2Options:
             raise ValueError(f"ridge must be >= 0, got {self.ridge}")
         if self.w_layout not in W_LAYOUTS:
             raise ValueError(f"unknown w_layout {self.w_layout!r}; choose from {W_LAYOUTS}")
+        if self.precision not in PRECISIONS:
+            raise ValueError(
+                f"unknown precision {self.precision!r}; "
+                f"choose from {PRECISIONS}")
+        if self.precision != "f32" and self.dtype == torch.float64:
+            raise ValueError(
+                "precision='bf16'/'f16' casts the streamed operands below "
+                "the requested f64 factor dtype; use dtype=float32 with "
+                "reduced precision, or precision='f32' with f64")
 
     def constraint_specs(self) -> Dict[str, str]:
         """Resolved per-mode constraint specs (``constraints=None`` keeps the
@@ -227,7 +245,7 @@ def als_step(data: Bucketed, state: Parafac2State,
     H, V, W = state.H, state.V, state.W
     R, J, K = opts.rank, data.n_cols, data.n_subjects
     dt, dev = opts.dtype, data.device
-    be = get_backend(opts.backend, dev)
+    be = get_backend(opts.backend, dev, opts.precision)
     cons = constraints_for(opts)
     solve_kw = dict(nnls_sweeps=opts.nnls_sweeps, admm_iters=opts.admm_iters)
     aux = state.aux if isinstance(state.aux, dict) else cst.empty_aux()
@@ -323,12 +341,15 @@ def fit(data: Bucketed, opts: Parafac2Options, *, max_iters: int = 100,
     per iteration (a device sync), stopping when the fit changes by less
     than ``tol``. ``opts.engine != "host"`` runs the device-resident
     engine instead (:func:`repro_torch.core.engine.fit_device`, the same
-    contract)."""
+    contract). Below f32 ``opts.precision`` the buckets' half values are
+    made once here (:meth:`Bucketed.with_compute_values`) and dropped with
+    the fit."""
     if opts.engine != "host":
         from repro_torch.core import engine as _engine
         return _engine.fit_device(data, opts, max_iters=max_iters, tol=tol, seed=seed,
                                   verbose=verbose, state=state)
     state = init_state(data, opts, seed, state=state)
+    data = data.with_compute_values(opts.precision)
     history: List[float] = []
     prev = -np.inf
     for it in range(max_iters):
@@ -347,7 +368,7 @@ def reconstruct_uk(data: Bucketed, state: Parafac2State,
                    opts: Parafac2Options) -> Dict[int, np.ndarray]:
     """U_k = Q_k H per subject, as numpy arrays of its I_k rows (host side,
     for interpretation)."""
-    be = get_backend(opts.backend, data.device)
+    be = get_backend(opts.backend, data.device, opts.precision)
     out: Dict[int, np.ndarray] = {}
     for i, b in enumerate(data.buckets):
         _, _, Q = _procrustes_project(b, state.H, state.V, state.W, opts, i, be)

@@ -16,9 +16,10 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.common import accum_dtype
+from repro_torch.kernels.common import HALF_DTYPES, accum_dtype
 
 __all__ = [
+    "bmm_acc",
     "mode1_bucket",
     "mode2_bucket_compact",
     "mode2_scatter",
@@ -31,12 +32,24 @@ def _f(x: torch.Tensor) -> torch.Tensor:
     return x.to(accum_dtype(x))
 
 
+def bmm_acc(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.bmm(a, b)`` summed and returned in the accumulation dtype,
+    the reference's ``preferred_element_type=accum_dtype``: two CUDA
+    operands of one half dtype go to cuBLAS as they are, with a float32
+    result (``out_dtype``; the half reductions are off,
+    ``device.resolve_device``), so the slab is not widened in memory; any
+    other pair is widened first (the CPU's bmm has no ``out_dtype``)."""
+    if a.is_cuda and a.dtype == b.dtype and a.dtype in HALF_DTYPES:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(_f(a), _f(b))
+
+
 def mode1_bucket(Yc, Vg, Wb, subject_mask, *, YkV=None) -> torch.Tensor:
     """Partial M1 [R, R] = sum_k (Y_k V) * W(k,:) for one bucket. With
     ``YkV`` [Kb,R,R] given (the mode-1 reuse identity), the gather and
     product are skipped."""
     if YkV is None:
-        YkV = torch.bmm(_f(Yc), _f(Vg))
+        YkV = bmm_acc(Yc, Vg)
     scaled = _f(YkV) * _f(Wb)[:, None, :]
     return torch.einsum("krl,k->rl", scaled, subject_mask.to(scaled.dtype))
 
@@ -88,6 +101,6 @@ def _running_sum(g: torch.Tensor, block: int = 1024) -> torch.Tensor:
 def mode3_bucket(Yc, Vg, H, subject_mask, *, YkV=None) -> torch.Tensor:
     """Per-subject rows of M3 for one bucket, coldot(H, Y_k V): [Kb, R]."""
     if YkV is None:
-        YkV = torch.bmm(_f(Yc), _f(Vg))
+        YkV = bmm_acc(Yc, Vg)
     rows = torch.einsum("rl,krl->kl", H.to(accum_dtype(YkV)), _f(YkV))
     return rows * subject_mask[:, None]

@@ -1,5 +1,6 @@
 // What the port's CUDA sources share (sm_90a): the shared-memory limits,
-// the cp.async primitives, a division-free index walk, the 16-byte alignment
+// the cp.async primitives, the half-width operand types and their widening
+// to the compute type, a division-free index walk, the 16-byte alignment
 // test, the opt-in to more than 48 KB of dynamic shared memory, the size
 // of a persistent grid and the ticket of the one-launch reductions across
 // subjects.
@@ -7,6 +8,8 @@
 // its own library; kernels/_build.py hashes it into every build.
 #pragma once
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -31,6 +34,57 @@ __device__ inline void cp_async(void* dst, const void* src) {
 __device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
 __device__ inline void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+
+// One element of E into shared memory: cp.async for 4- and 8-byte elements;
+// a plain load and store for a 2-byte one, which cp.async does not take (it
+// is in shared memory at the barrier after the caller's cp_async_wait).
+template <typename E>
+__device__ inline void copy_elem(E* dst, const E* src) {
+  if constexpr (sizeof(E) >= 4)
+    cp_async<sizeof(E)>(dst, src);
+  else
+    *dst = *src;
+}
+
+// The operand types of the kernels (the codes the C entry points take:
+// 0 float32, 1 float64, 2 bfloat16, 3 float16). A kernel that streams a
+// half-width operand (bfloat16 or float16) loads it at 2 bytes and widens
+// it to float, its compute type, before any product: every sum
+// accumulates in float (accum_dtype), as the reference's kernels do with
+// preferred_element_type=float32. widen() is the identity on float and
+// double.
+using bf16 = __nv_bfloat16;
+using f16 = __half;
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ double widen(double x) { return x; }
+__device__ __forceinline__ float widen(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float widen(f16 x) { return __half2float(x); }
+
+// A half-width value from its 16 bits (little-endian: the first of two
+// values packed in 32 bits is the low half).
+template <typename S>
+__device__ __forceinline__ S half_from_bits(unsigned short b);
+template <>
+__device__ __forceinline__ bf16 half_from_bits<bf16>(unsigned short b) {
+  return __ushort_as_bfloat16(b);
+}
+template <>
+__device__ __forceinline__ f16 half_from_bits<f16>(unsigned short b) {
+  return __ushort_as_half(b);
+}
+
+// The dtype code of streamed operand j (0 the first) in an entry point's
+// `dtypes` word: the first operand's code in bits 0-3; operand j's in bits
+// 4j to 4j+3 as one more than its code, 0 there meaning the first
+// operand's code. So a word of 0 or 1 gives every operand float32 or
+// float64, and the words of the f32/f64 entry points before half
+// precision are the same.
+inline int operand_code(int dtypes, int j) {
+  const int first = dtypes & 15;
+  if (j == 0) return first;
+  const int n = (dtypes >> (4 * j)) & 15;
+  return n ? n - 1 : first;
+}
 
 // A thread's walk over the flat index u = start, start + n, ... of an array
 // of rows of `width`, keeping (row, col) = divmod(u, width) without a

@@ -8,7 +8,12 @@
 // kept columns), Vg [K, C, R] (gathered V rows), Q / XkV [K, I, R],
 // Wb [K, R] (W rows, subject mask folded in), H [R, R], col_mask [K, C].
 // T is float or double; every sum accumulates in T (accum_dtype: f32 -> f32,
-// f64 -> f64). All tensors are contiguous, row-major.
+// f64 -> f64). The slab and Vg (S) may be half-width instead (bfloat16 or
+// float16, with T = float): F1 and F4 take both half, F3 a half slab; each
+// half value is loaded at 2 bytes and widened to float before its product
+// (common.cuh), so the slab bytes halve and the arithmetic stays F1-F4's in
+// float. F2 reads no slab and takes float or double. All tensors are
+// contiguous, row-major.
 //
 // Any R, I and C: the arithmetic runs on register tiles of RMAX = 8, 16, 32
 // or 64 entries of R; above 64 (WIDE) a kernel loops over R in 64-wide
@@ -68,26 +73,26 @@ __device__ inline T* smem_base() {
 }
 
 // Copy the [n, w] tile at src (a row-major matrix with leading dimension
-// ld) into shared memory with row stride RS. A tile fits in shared memory,
-// so its offsets fit in 32 bits.
-template <typename T>
-__device__ inline void stage_tile(T* dst, const T* __restrict__ src, int n,
+// ld) into shared memory with row stride RS, widened to T. A tile fits in
+// shared memory, so its offsets fit in 32 bits.
+template <typename T, typename S>
+__device__ inline void stage_tile(T* dst, const S* __restrict__ src, int n,
                                   int w, int ld, int RS) {
   for (int t = threadIdx.x; t < n * w; t += blockDim.x) {
     const int row = t / w, col = t - row * w;
-    dst[row * RS + col] = src[row * ld + col];
+    dst[row * RS + col] = widen(src[row * ld + col]);
   }
 }
 
 // One warp adds a slab row piece's x[r] += sum_c row[c] * vg_s[c, r] over
 // c < cn, r < RW: lanes stride over c (coalesced loads). The caller sums
 // the lanes (warp_sum) once every chunk of the row is in.
-template <typename T, int RMAX>
-__device__ inline void row_times_vg(const T* __restrict__ row, const T* vg_s,
+template <typename T, typename S, int RMAX>
+__device__ inline void row_times_vg(const S* __restrict__ row, const T* vg_s,
                                     int cn, int RW, int RS, int lane,
                                     T (&acc)[RMAX]) {
   for (int c = lane; c < cn; c += kWarp) {
-    const T v = row[c];
+    const T v = widen(row[c]);
     const T* vrow = vg_s + c * RS;
 #pragma unroll
     for (int r = 0; r < RMAX; ++r)
@@ -114,8 +119,8 @@ __device__ inline T pick(const T (&acc)[RMAX], int idx) {
 // F1 fused_procrustes_b. Replaces src/repro/kernels/fused.py
 // fused_procrustes_b (pallas_call at :153, body _procrustes_b_kernel at
 // :100): XkV_k = X_k Vg_k and B_k = (XkV_k * w_k) H^T in one pass over the
-// slab. Bound: the slab bytes (R = 5, f32: 10 operations per 4-byte load).
-// Two variants, picked by shape (f1_variant):
+// slab. Bound: the slab bytes (R = 5, f32: 10 operations per 4-byte load;
+// half: per 2-byte load). Two variants, picked by shape (f1_variant):
 //
 // RING, the main path (R <= 64 and two subjects' operands fit in shared
 // memory). What held the row-warp design below at 46% of the bound: a serial
@@ -142,6 +147,15 @@ __device__ inline T pick(const T (&acc)[RMAX], int idx) {
 // read back. The arithmetic is FMA in full f32 / f64: at 10 operations per
 // 4 bytes the card is far from its FMA limit, and TF32 tensor cores would
 // break the 1e-6 relative f32 parity.
+// With a half slab and Vg (S) a 16-byte copy carries eight values, and the
+// stages hold them at half width, widened as they are read. cp.async takes
+// no 2-byte copy, so a half Vg_k (one contiguous run of C*R values) arrives
+// by 16-byte copies in a raw area of its stage, and the block puts it in
+// its packs after the stage's barrier (one more barrier a subject); where
+// the run is not whole 16-byte packs, its element copies are plain loads
+// and stores. (At bf16 at the main path's largest bucket on an H100, in a
+// graph: element copies of every Vg_k 0.907 ms, the raw run 0.748, and
+// with the register cap below 0.678, against 0.661 in f32.)
 //
 // ROW-WARP (R > 64, or a subject too large for two stages): one block per
 // subject: Vg_k (in CC-row chunks), H and w_k in shared memory, one warp per
@@ -157,99 +171,130 @@ constexpr int kRingWarps = kRingThreads / kWarp;
 constexpr int kGroups = 8;                 // lanes that split one row's C
 constexpr int kSlots = kWarp / kGroups;    // rows a warp takes per row tile
 
-// 16 bytes of T from shared memory.
-template <typename T>
+// 16 bytes of S from shared memory.
+template <typename S>
 struct Pack {
-  static constexpr int kN = 16 / sizeof(T);
-  T v[kN];
+  static constexpr int kN = 16 / sizeof(S);
+  S v[kN];
 };
-template <typename T>
-__device__ inline Pack<T> load_pack(const T* p) {
-  Pack<T> f;
-  if constexpr (sizeof(T) == 4) {
+template <typename S>
+__device__ inline Pack<S> load_pack(const S* p) {
+  Pack<S> f;
+  if constexpr (sizeof(S) == 4) {
     const float4 q = *reinterpret_cast<const float4*>(p);
     f.v[0] = q.x; f.v[1] = q.y; f.v[2] = q.z; f.v[3] = q.w;
-  } else {
+  } else if constexpr (sizeof(S) == 8) {
     const double2 q = *reinterpret_cast<const double2*>(p);
     f.v[0] = q.x; f.v[1] = q.y;
+  } else {                                   // eight half-width values
+    const uint4 q = *reinterpret_cast<const uint4*>(p);
+    const unsigned w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      f.v[2 * j] = half_from_bits<S>((unsigned short)(w[j] & 0xffffu));
+      f.v[2 * j + 1] = half_from_bits<S>((unsigned short)(w[j] >> 16));
+    }
   }
   return f;
 }
 
-// The ring's shared-memory layout, in elements of T (every part a whole
-// number of 16-byte packs): per stage the slab [I, SP packs], Vg_k
-// [NP packs of c][RS][VEC] and w_k; after the stages, H [R, R].
+// The ring's shared-memory layout, in bytes (every part a whole number of
+// 16-byte packs): per stage the slab [I, SP packs] and Vg_k [NP packs of
+// c][RS][VEC] of S, w_k of T and, for a half S, Vg_k's raw run [C*R] as it
+// arrives; after the stages, H [R, R] of T. VEC = 16 / sizeof(S) values a
+// pack.
 struct RingLayout {
   int vec, np, sp, rs;
-  size_t slab, vg, w, stage, smem_bytes;
+  size_t slab, vg, w, raw, stage, smem_bytes;
 };
 
-template <typename T>
+template <typename T, typename S>
 __host__ __device__ inline RingLayout ring_layout(int I, int C, int R) {
   RingLayout s;
-  s.vec = 16 / (int)sizeof(T);
+  s.vec = 16 / (int)sizeof(S);
   s.np = (C + s.vec - 1) / s.vec;          // 16-byte packs of a row
   // SP = 2 mod 8: the 4 rows x 2 packs that 8 lanes read at once hit
   // distinct banks; RS odd: the two groups' Vg packs do too
   s.sp = s.np + ((2 - s.np % 8) + 8) % 8;
   s.rs = R | 1;
-  s.slab = (size_t)I * s.sp * s.vec;
-  s.vg = (size_t)s.np * s.rs * s.vec;
-  s.w = (size_t)(R + s.vec - 1) / s.vec * s.vec;
-  s.stage = s.slab + s.vg + s.w;
-  s.smem_bytes = (kStages * s.stage + (size_t)R * R) * sizeof(T);
+  s.slab = (size_t)I * s.sp * 16;
+  s.vg = (size_t)s.np * s.rs * 16;
+  s.w = ((size_t)R * sizeof(T) + 15) / 16 * 16;
+  s.raw = s.slab + s.vg + s.w;
+  s.stage = s.raw + (sizeof(S) == 2 ? ((size_t)C * R * sizeof(S) + 15) / 16 * 16 : 0);
+  s.smem_bytes = kStages * s.stage + (size_t)R * R * sizeof(T);
   return s;
 }
 
-template <typename T, int RMAX, bool ALIGNED>
-__global__ void __launch_bounds__(kRingThreads)
-procrustes_b_ring_kernel(const T* __restrict__ vals, const T* __restrict__ vg,
+// Blocks of the ring an SM must hold: four at half width up to R = 8,
+// whose eight-value packs took 101 registers a thread at R = 5, two blocks
+// an SM (f32 takes 64 registers, and its 66 KB of stages hold three). In a
+// graph on an H100 at bf16, R = 5: no bound 0.748 ms, three blocks 0.698,
+// four (64 registers) 0.678. Wider tiles keep the compiler's count.
+template <typename S, int RMAX>
+constexpr int kRingMinBlocks = sizeof(S) == 2 && RMAX <= 8 ? 4 : 1;
+
+template <typename T, typename S, int RMAX, bool ALIGNED>
+__global__ void __launch_bounds__(kRingThreads, kRingMinBlocks<S, RMAX>)
+procrustes_b_ring_kernel(const S* __restrict__ vals, const S* __restrict__ vg,
                          const T* __restrict__ wb, const T* __restrict__ h,
                          T* __restrict__ xkv, T* __restrict__ bout, int K, int I,
                          int C, int R) {
-  constexpr int VEC = 16 / sizeof(T);
+  constexpr int VEC = 16 / sizeof(S);
   constexpr int RPT = RMAX <= 16 ? 2 : 1;      // rows a lane owns per row tile
   constexpr int kTileRows = RPT * kRingWarps * kSlots;
-  const RingLayout lay = ring_layout<T>(I, C, R);
+  const RingLayout lay = ring_layout<T, S>(I, C, R);
   const int NP = lay.np, SP = lay.sp, RS = lay.rs;
-  T* ring = smem_base<T>();
-  T* h_s = ring + kStages * lay.stage;
+  unsigned char* ring = smem_base<unsigned char>();
+  T* h_s = reinterpret_cast<T*>(ring + kStages * lay.stage);
   const int tid = threadIdx.x, nthr = blockDim.x, warp = tid / kWarp, lane = tid % kWarp;
   const int q = lane / kSlots, slot = lane % kSlots;   // C group, row slot
   const int n_mine = K > (int)blockIdx.x ? (K - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
+  // a half Vg_k arrives as whole 16-byte packs in the raw area
+  const bool vg16 = sizeof(S) == 2 && (C * R) % VEC == 0 &&
+                    reinterpret_cast<uintptr_t>(vg) % 16 == 0;
 
   // pads that no copy writes: slab columns and Vg rows C .. NP*VEC - 1
   const int cpad = NP * VEC - C;
   for (int s = 0; s < kStages; ++s) {
-    T* st = ring + s * lay.stage;
+    S* st = reinterpret_cast<S*>(ring + s * lay.stage);
+    S* vst = reinterpret_cast<S*>(ring + s * lay.stage + lay.slab);
     for (int t = tid; t < I * cpad; t += nthr)
-      st[(t / cpad) * SP * VEC + C + t % cpad] = T(0);
+      st[(t / cpad) * SP * VEC + C + t % cpad] = S(0.0f);
     for (int t = tid; t < cpad * R; t += nthr) {
       const int c = C + t / R, r = t % R;
-      st[lay.slab + ((c / VEC) * RS + r) * VEC + c % VEC] = T(0);
+      vst[((c / VEC) * RS + r) * VEC + c % VEC] = S(0.0f);
     }
   }
   for (int t = tid; t < R * R; t += nthr) h_s[t] = h[t];
 
-  // copy subject k's slab, Vg_k and w_k into stage `st`
+  // copy subject k's slab, Vg_k and w_k into the stage at `stb`
   const Walk slab0(tid, nthr, ALIGNED ? NP : C), vg0(tid, nthr, R);
-  auto fetch = [&](T* st, int64_t k) {
-    const T* src = vals + k * I * C;
+  auto fetch = [&](unsigned char* stb, int64_t k) {
+    S* st = reinterpret_cast<S*>(stb);
+    const S* src = vals + k * I * C;
     Walk w = slab0;
     if constexpr (ALIGNED) {                  // rows are whole 16-byte runs
       for (int u = tid; u < I * NP; u += nthr, w.step())
         cp_async<16>(st + (w.row * SP + w.col) * VEC, src + (int64_t)u * VEC);
     } else {
       for (int u = tid; u < I * C; u += nthr, w.step())
-        cp_async<sizeof(T)>(st + w.row * SP * VEC + w.col, src + u);
+        copy_elem(st + w.row * SP * VEC + w.col, src + u);
     }
-    const T* vsrc = vg + k * C * R;
-    T* vdst = st + lay.slab;
-    w = vg0;                                  // (c, r) of Vg_k
-    for (int u = tid; u < C * R; u += nthr, w.step())
-      cp_async<sizeof(T)>(vdst + ((w.row / VEC) * RS + w.col) * VEC + w.row % VEC, vsrc + u);
+    const S* vsrc = vg + k * C * R;
+    if (vg16) {                               // the raw run, put in its packs later
+      S* raw = reinterpret_cast<S*>(stb + lay.raw);
+      for (int u = tid; u * VEC < C * R; u += nthr)
+        cp_async<16>(raw + u * VEC, vsrc + u * VEC);
+    } else {
+      S* vdst = reinterpret_cast<S*>(stb + lay.slab);
+      w = vg0;                                // (c, r) of Vg_k
+      for (int u = tid; u < C * R; u += nthr, w.step())
+        copy_elem(vdst + ((w.row / VEC) * RS + w.col) * VEC + w.row % VEC, vsrc + u);
+    }
+    T* wdst = reinterpret_cast<T*>(stb + lay.slab + lay.vg);
     for (int u = tid; u < R; u += nthr)
-      cp_async<sizeof(T)>(st + lay.slab + lay.vg + u, wb + k * R + u);
+      cp_async<sizeof(T)>(wdst + u, wb + k * R + u);
   };
   auto subject = [&](int n) { return (int64_t)blockIdx.x + (int64_t)n * gridDim.x; };
 
@@ -264,11 +309,20 @@ procrustes_b_ring_kernel(const T* __restrict__ vals, const T* __restrict__ vg,
     const int nn = n + kStages - 1;
     if (nn < n_mine) fetch(ring + (nn % kStages) * lay.stage, subject(nn));
     cp_async_commit();
+    if (vg16) {                               // subject n's raw Vg_k into its packs
+      unsigned char* sw = ring + (n % kStages) * lay.stage;
+      const S* raw = reinterpret_cast<const S*>(sw + lay.raw);
+      S* vdst = reinterpret_cast<S*>(sw + lay.slab);
+      Walk w = vg0;                           // (c, r) of Vg_k
+      for (int u = tid; u < C * R; u += nthr, w.step())
+        vdst[((w.row / VEC) * RS + w.col) * VEC + w.row % VEC] = raw[u];
+      __syncthreads();                        // the packs are whole
+    }
 
-    const T* st = ring + (n % kStages) * lay.stage;
-    const T* x_s = st;
-    const T* vg_s = st + lay.slab;
-    const T* w_s = vg_s + lay.vg;
+    const unsigned char* stb = ring + (n % kStages) * lay.stage;
+    const S* x_s = reinterpret_cast<const S*>(stb);
+    const S* vg_s = reinterpret_cast<const S*>(stb + lay.slab);
+    const T* w_s = reinterpret_cast<const T*>(stb + lay.slab + lay.vg);
     const int64_t k = subject(n);
     for (int i0 = 0; i0 < I; i0 += kTileRows) {
       int rows[RPT];
@@ -281,18 +335,18 @@ procrustes_b_ring_kernel(const T* __restrict__ vals, const T* __restrict__ vg,
       }
       if (i0 + warp * kSlots >= I) break;    // warp-uniform: no row of this warp is left
       for (int p = q; p < NP; p += kGroups) {
-        Pack<T> xp[RPT];
+        Pack<S> xp[RPT];
 #pragma unroll
         for (int t = 0; t < RPT; ++t)
           xp[t] = load_pack(x_s + ((rows[t] < I ? rows[t] : 0) * SP + p) * VEC);
 #pragma unroll
         for (int r = 0; r < RMAX; ++r) {
           if (r < R) {
-            const Pack<T> vp = load_pack(vg_s + (p * RS + r) * VEC);
+            const Pack<S> vp = load_pack(vg_s + (p * RS + r) * VEC);
 #pragma unroll
             for (int t = 0; t < RPT; ++t)
 #pragma unroll
-              for (int j = 0; j < VEC; ++j) acc[t][r] += xp[t].v[j] * vp.v[j];
+              for (int j = 0; j < VEC; ++j) acc[t][r] += widen(xp[t].v[j]) * widen(vp.v[j]);
           }
         }
       }
@@ -324,24 +378,24 @@ procrustes_b_ring_kernel(const T* __restrict__ vals, const T* __restrict__ vg,
   cp_async_wait<0>();                        // leave no copy in flight
 }
 
-template <typename T, int RMAX, bool WIDE, bool CHUNKED>
+template <typename T, typename S, int RMAX, bool WIDE, bool CHUNKED>
 __global__ void __launch_bounds__(kThreads)
-procrustes_b_kernel(const T* __restrict__ vals, const T* __restrict__ vg,
+procrustes_b_kernel(const S* __restrict__ vals, const S* __restrict__ vg,
                     const T* __restrict__ wb, const T* __restrict__ h,
                     T* __restrict__ xkv, T* __restrict__ bout,
                     int I, int C, int R, int CC) {
   const int RS = row_stride(WIDE ? RMAX : R);
-  T* vg_s = smem_base<T>();                 // [CC, RS]
+  T* vg_s = smem_base<T>();                 // [CC, RS], widened
   T* h_s = vg_s + (size_t)CC * RS;          // [R, R]  (not WIDE)
   T* w_s = h_s + R * R;                     // [R]     (not WIDE)
   const int64_t k = blockIdx.x;
-  const T* vg_k = vg + k * C * R;
+  const S* vg_k = vg + k * C * R;
   if (!WIDE) {
     for (int t = threadIdx.x; t < R * R; t += blockDim.x) h_s[t] = h[t];
     for (int t = threadIdx.x; t < R; t += blockDim.x) w_s[t] = wb[k * R + t];
   }
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const T* vals_k = vals + k * I * C;
+  const S* vals_k = vals + k * I * C;
 
   // Row i's XkV[i, r0:r0+RW] is in acc (every lane): write it, and B.
   auto finish_row = [&](int i, T (&acc)[RMAX], int r0, int RW) {
@@ -390,7 +444,7 @@ procrustes_b_kernel(const T* __restrict__ vals, const T* __restrict__ vg,
         T acc[RMAX];
 #pragma unroll
         for (int r = 0; r < RMAX; ++r) acc[r] = T(0);
-        row_times_vg<T, RMAX>(vals_k + (int64_t)i * C, vg_s, C, RW, RS, lane, acc);
+        row_times_vg<T, S, RMAX>(vals_k + (int64_t)i * C, vg_s, C, RW, RS, lane, acc);
         finish_row(i, acc, r0, RW);
       }
     } else {
@@ -406,8 +460,8 @@ procrustes_b_kernel(const T* __restrict__ vals, const T* __restrict__ vg,
           stage_tile(vg_s, vg_k + (int64_t)c0 * R + r0, cn, RW, R, RS);
           __syncthreads();
           if (i < I)
-            row_times_vg<T, RMAX>(vals_k + (int64_t)i * C + c0, vg_s, cn, RW, RS,
-                                  lane, acc);
+            row_times_vg<T, S, RMAX>(vals_k + (int64_t)i * C + c0, vg_s, cn, RW, RS,
+                                     lane, acc);
         }
         if (i < I) finish_row(i, acc, r0, RW);   // warp-uniform
       }
@@ -674,11 +728,12 @@ mode1_chunked_kernel(const T* __restrict__ q, const T* __restrict__ xkv,
 // Q_k (in IC-row chunks), H and w_k in shared memory, the R-wide column of
 // Y_k in registers. WIDE (R > 64): H and w_k from global memory, and each
 // output row sums the R chunks in place (one owning thread). Padded columns
-// and masked subjects write zeros.
+// and masked subjects write zeros. A half slab (S) is read at 2 bytes a
+// value and widened.
 // ---------------------------------------------------------------------------
-template <typename T, int RMAX, bool WIDE, bool CHUNKED>
+template <typename T, typename S, int RMAX, bool WIDE, bool CHUNKED>
 __global__ void __launch_bounds__(kThreads)
-mode2_compact_kernel(const T* __restrict__ vals, const T* __restrict__ q,
+mode2_compact_kernel(const S* __restrict__ vals, const T* __restrict__ q,
                      const T* __restrict__ h, const T* __restrict__ wb,
                      const T* __restrict__ col_mask, T* __restrict__ out,
                      int I, int C, int R, int IC) {
@@ -692,12 +747,12 @@ mode2_compact_kernel(const T* __restrict__ vals, const T* __restrict__ q,
     for (int t = threadIdx.x; t < R * R; t += blockDim.x) h_s[t] = h[t];
     for (int t = threadIdx.x; t < R; t += blockDim.x) w_s[t] = wb[k * R + t];
   }
-  const T* vals_k = vals + k * I * C;
+  const S* vals_k = vals + k * I * C;
 
   // y[r] += sum_i X_k[i0 + i, c] * Q_k[i0 + i, r0 + r] over the staged rows
   auto column_times_q = [&](int c, int i0, int in, int RW, T (&y)[RMAX]) {
     for (int i = 0; i < in; ++i) {
-      const T v = vals_k[(int64_t)(i0 + i) * C + c];
+      const T v = widen(vals_k[(int64_t)(i0 + i) * C + c]);
       const T* qrow = q_s + i * RS;
 #pragma unroll
       for (int r = 0; r < RMAX; ++r)
@@ -770,11 +825,13 @@ mode2_compact_kernel(const T* __restrict__ vals, const T* __restrict__ q,
 // in shared memory beside that tile of Q_k, and one thread per (r, l) entry
 // reduces Q_k^T (X_k Vg_k) over the tile's rows in a fixed order, adding the
 // tiles and the 64-wide chunks of l in place (one owning thread per entry).
+// A half slab and Vg (S) are read at 2 bytes a value; Vg_k is staged
+// widened.
 // ---------------------------------------------------------------------------
-template <typename T, int RMAX, bool WIDE, bool CHUNKED>
+template <typename T, typename S, int RMAX, bool WIDE, bool CHUNKED>
 __global__ void __launch_bounds__(kThreads)
-ykv_kernel(const T* __restrict__ vals, const T* __restrict__ q,
-           const T* __restrict__ vg, T* __restrict__ out, int I, int C, int R,
+ykv_kernel(const S* __restrict__ vals, const T* __restrict__ q,
+           const S* __restrict__ vg, T* __restrict__ out, int I, int C, int R,
            int CC, int IT) {
   const int RS = row_stride(WIDE ? RMAX : R);   // Vg_k and X_k Vg_k tiles
   const int RQ = WIDE ? row_stride(R) : RS;     // Q_k tile: all of R
@@ -782,10 +839,10 @@ ykv_kernel(const T* __restrict__ vals, const T* __restrict__ q,
   T* q_s = vg_s + (size_t)CC * RS;              // [IT, RQ]
   T* x_s = q_s + (size_t)IT * RQ;               // [IT, RS]  X_k Vg_k
   const int64_t k = blockIdx.x;
-  const T* vg_k = vg + k * C * R;
+  const S* vg_k = vg + k * C * R;
   const T* q_k = q + k * I * R;
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const T* vals_k = vals + k * I * C;
+  const S* vals_k = vals + k * I * C;
 
   // Tile row i's X_k Vg_k piece is in acc (every lane): keep it in x_s.
   auto finish_row = [&](int i, T (&acc)[RMAX], int RW) {
@@ -813,8 +870,8 @@ ykv_kernel(const T* __restrict__ vals, const T* __restrict__ q,
           T acc[RMAX];
 #pragma unroll
           for (int r = 0; r < RMAX; ++r) acc[r] = T(0);
-          row_times_vg<T, RMAX>(vals_k + (int64_t)(t0 + i) * C, vg_s, C, RW, RS,
-                                lane, acc);
+          row_times_vg<T, S, RMAX>(vals_k + (int64_t)(t0 + i) * C, vg_s, C, RW, RS,
+                                   lane, acc);
           finish_row(i, acc, RW);
         }
       } else {                                  // Vg_k in chunks of CC rows
@@ -829,8 +886,8 @@ ykv_kernel(const T* __restrict__ vals, const T* __restrict__ q,
             stage_tile(vg_s, vg_k + (int64_t)c0 * R + r0, cn, RW, R, RS);
             __syncthreads();
             if (i < in)
-              row_times_vg<T, RMAX>(vals_k + (int64_t)(t0 + i) * C + c0, vg_s, cn,
-                                    RW, RS, lane, acc);
+              row_times_vg<T, S, RMAX>(vals_k + (int64_t)(t0 + i) * C + c0, vg_s, cn,
+                                       RW, RS, lane, acc);
           }
           if (i < in) finish_row(i, acc, RW);
         }
@@ -872,31 +929,31 @@ int f1_rows_per_chunk(int C, int R, bool wide, int rmax) {
 
 // RING where its stages fit and R <= 64 (16-byte copies when every slab
 // row starts on a 16-byte boundary), else ROW-WARP.
-template <typename T>
+template <typename T, typename S>
 int f1_variant(int I, int C, int R, bool aligned) {
-  if (R <= kTile && ring_layout<T>(I, C, R).smem_bytes <= (size_t)kMaxDynamicSmem)
-    return aligned && C % (16 / (int)sizeof(T)) == 0 ? kRing : kRingElementCopies;
+  if (R <= kTile && ring_layout<T, S>(I, C, R).smem_bytes <= (size_t)kMaxDynamicSmem)
+    return aligned && C % (16 / (int)sizeof(S)) == 0 ? kRing : kRingElementCopies;
   const bool wide = R > kTile;
   const bool chunked = f1_rows_per_chunk<T>(C, R, wide, kTile) < C;
   return wide ? (chunked ? kRowWarpWideChunked : kRowWarpWide)
               : (chunked ? kRowWarpChunked : kRowWarp);
 }
 
-template <typename T, int RMAX, bool WIDE>
+template <typename T, typename S, int RMAX, bool WIDE>
 cudaError_t launch_f1(const void* vals, const void* vg, const void* wb,
                       const void* h, void* xkv, void* b, int K, int I, int C,
                       int R, cudaStream_t stream) {
-  const int variant = f1_variant<T>(I, C, R, reinterpret_cast<uintptr_t>(vals) % 16 == 0);
+  const int variant = f1_variant<T, S>(I, C, R, reinterpret_cast<uintptr_t>(vals) % 16 == 0);
   if (variant == kRing || variant == kRingElementCopies) {
-    const size_t smem = ring_layout<T>(I, C, R).smem_bytes;
-    auto kernel = variant == kRing ? procrustes_b_ring_kernel<T, RMAX, true>
-                                   : procrustes_b_ring_kernel<T, RMAX, false>;
+    const size_t smem = ring_layout<T, S>(I, C, R).smem_bytes;
+    auto kernel = variant == kRing ? procrustes_b_ring_kernel<T, S, RMAX, true>
+                                   : procrustes_b_ring_kernel<T, S, RMAX, false>;
     cudaError_t e = allow_smem(kernel, smem);
     int grid = 0;
     if (e == cudaSuccess) e = persistent_grid(kernel, kRingThreads, smem, K, &grid);
     if (e != cudaSuccess) return e;
     kernel<<<grid, kRingThreads, smem, stream>>>(
-        static_cast<const T*>(vals), static_cast<const T*>(vg),
+        static_cast<const S*>(vals), static_cast<const S*>(vg),
         static_cast<const T*>(wb), static_cast<const T*>(h),
         static_cast<T*>(xkv), static_cast<T*>(b), K, I, C, R);
     return cudaGetLastError();
@@ -906,18 +963,18 @@ cudaError_t launch_f1(const void* vals, const void* vg, const void* wb,
   const int CC = f1_rows_per_chunk<T>(C, R, WIDE, RMAX);
   if (CC < 1) return cudaErrorInvalidValue;
   const size_t smem = ((size_t)CC * RS + fixed) * sizeof(T);
-  auto kernel = CC < C ? procrustes_b_kernel<T, RMAX, WIDE, true>
-                       : procrustes_b_kernel<T, RMAX, WIDE, false>;
+  auto kernel = CC < C ? procrustes_b_kernel<T, S, RMAX, WIDE, true>
+                       : procrustes_b_kernel<T, S, RMAX, WIDE, false>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   kernel<<<K, kThreads, smem, stream>>>(
-      static_cast<const T*>(vals), static_cast<const T*>(vg),
+      static_cast<const S*>(vals), static_cast<const S*>(vg),
       static_cast<const T*>(wb), static_cast<const T*>(h),
       static_cast<T*>(xkv), static_cast<T*>(b), I, C, R, CC);
   return cudaGetLastError();
 }
 
-template <typename T, int RMAX, bool WIDE>
+template <typename T, typename S, int RMAX, bool WIDE>
 cudaError_t launch_f3(const void* vals, const void* q, const void* h,
                       const void* wb, const void* cm, void* out, int K, int I,
                       int C, int R, cudaStream_t stream) {
@@ -926,18 +983,18 @@ cudaError_t launch_f3(const void* vals, const void* q, const void* h,
   const int IC = std::min(I, rows_that_fit<T>(fixed, RS));
   if (IC < 1) return cudaErrorInvalidValue;
   const size_t smem = ((size_t)IC * RS + fixed) * sizeof(T);
-  auto kernel = IC < I ? mode2_compact_kernel<T, RMAX, WIDE, true>
-                       : mode2_compact_kernel<T, RMAX, WIDE, false>;
+  auto kernel = IC < I ? mode2_compact_kernel<T, S, RMAX, WIDE, true>
+                       : mode2_compact_kernel<T, S, RMAX, WIDE, false>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   kernel<<<K, kThreads, smem, stream>>>(
-      static_cast<const T*>(vals), static_cast<const T*>(q),
+      static_cast<const S*>(vals), static_cast<const T*>(q),
       static_cast<const T*>(h), static_cast<const T*>(wb),
       static_cast<const T*>(cm), static_cast<T*>(out), I, C, R, IC);
   return cudaGetLastError();
 }
 
-template <typename T, int RMAX, bool WIDE>
+template <typename T, typename S, int RMAX, bool WIDE>
 cudaError_t launch_f4(const void* vals, const void* q, const void* vg,
                       void* out, int K, int I, int C, int R,
                       cudaStream_t stream) {
@@ -950,13 +1007,13 @@ cudaError_t launch_f4(const void* vals, const void* q, const void* vg,
   }
   if (CC < 1) return cudaErrorInvalidValue;
   const size_t smem = ((size_t)CC * RS + (size_t)IT * (RQ + RS)) * sizeof(T);
-  auto kernel = CC < C || IT < I ? ykv_kernel<T, RMAX, WIDE, true>
-                                 : ykv_kernel<T, RMAX, WIDE, false>;
+  auto kernel = CC < C || IT < I ? ykv_kernel<T, S, RMAX, WIDE, true>
+                                 : ykv_kernel<T, S, RMAX, WIDE, false>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   kernel<<<K, kThreads, smem, stream>>>(
-      static_cast<const T*>(vals), static_cast<const T*>(q),
-      static_cast<const T*>(vg), static_cast<T*>(out), I, C, R, CC, IT);
+      static_cast<const S*>(vals), static_cast<const T*>(q),
+      static_cast<const S*>(vg), static_cast<T*>(out), I, C, R, CC, IT);
   return cudaGetLastError();
 }
 
@@ -1013,47 +1070,62 @@ cudaError_t launch_f2(const void* q, const void* xkv, const void* wb, const void
 
 }  // namespace
 
-// Instantiate a launcher for T in {float, double}: register tiles of 8, 16,
-// 32 or 64 entries of R, and the 64-wide tile looped over R above 64.
-#define SPARTAN_DISPATCH(LAUNCH, ...)                                         \
+// Instantiate a launcher for (T, S): register tiles of 8, 16, 32 or 64
+// entries of R, and the 64-wide tile looped over R above 64.
+#define SPARTAN_BY_RANK(T, S, LAUNCH, ...)                                    \
+  do {                                                                        \
+    if (R <= 8) return (int)LAUNCH<T, S, 8, false>(__VA_ARGS__);              \
+    if (R <= 16) return (int)LAUNCH<T, S, 16, false>(__VA_ARGS__);            \
+    if (R <= 32) return (int)LAUNCH<T, S, 32, false>(__VA_ARGS__);            \
+    if (R <= kTile) return (int)LAUNCH<T, S, kTile, false>(__VA_ARGS__);      \
+    return (int)LAUNCH<T, S, kTile, true>(__VA_ARGS__);                       \
+  } while (0)
+
+// The streamed operands' code (the slab, and Vg for F1 and F4, which share
+// it) picks (T, S): 0 (float, float), 1 (double, double), 2 (float,
+// bfloat16), 3 (float, float16).
+#define SPARTAN_DISPATCH(CODE, LAUNCH, ...)                                   \
   do {                                                                        \
     if (R < 1) return (int)cudaErrorInvalidValue;                             \
-    if (dtype == 0) {                                                         \
-      if (R <= 8) return (int)LAUNCH<float, 8, false>(__VA_ARGS__);           \
-      if (R <= 16) return (int)LAUNCH<float, 16, false>(__VA_ARGS__);         \
-      if (R <= 32) return (int)LAUNCH<float, 32, false>(__VA_ARGS__);         \
-      if (R <= kTile) return (int)LAUNCH<float, kTile, false>(__VA_ARGS__);   \
-      return (int)LAUNCH<float, kTile, true>(__VA_ARGS__);                    \
-    }                                                                         \
-    if (dtype == 1) {                                                         \
-      if (R <= 8) return (int)LAUNCH<double, 8, false>(__VA_ARGS__);          \
-      if (R <= 16) return (int)LAUNCH<double, 16, false>(__VA_ARGS__);        \
-      if (R <= 32) return (int)LAUNCH<double, 32, false>(__VA_ARGS__);        \
-      if (R <= kTile) return (int)LAUNCH<double, kTile, false>(__VA_ARGS__);  \
-      return (int)LAUNCH<double, kTile, true>(__VA_ARGS__);                   \
+    switch (CODE) {                                                           \
+      case 0: SPARTAN_BY_RANK(float, float, LAUNCH, __VA_ARGS__);             \
+      case 1: SPARTAN_BY_RANK(double, double, LAUNCH, __VA_ARGS__);           \
+      case 2: SPARTAN_BY_RANK(float, bf16, LAUNCH, __VA_ARGS__);              \
+      case 3: SPARTAN_BY_RANK(float, f16, LAUNCH, __VA_ARGS__);               \
     }                                                                         \
     return (int)cudaErrorInvalidValue;                                        \
   } while (0)
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = float64. Returns a cudaError_t (0 = success).
+// dtypes: the dtype code of each streamed operand (0 float32, 1 float64,
+// 2 bfloat16, 3 float16), packed as common.cuh's operand_code reads it:
+// F1 and F4 stream the slab and Vg, which take one code; F3 the slab. With
+// a half code every other operand and the outputs are float32; else they
+// take the streamed operands' dtype. F2 takes one dtype code (0, 1) for all
+// its operands. Returns a cudaError_t (0 = success); a combination not
+// listed is cudaErrorInvalidValue, before any launch.
 
-int spartan_fused_procrustes_b(int dtype, const void* vals, const void* vg,
+int spartan_fused_procrustes_b(int dtypes, const void* vals, const void* vg,
                                const void* wb, const void* h, void* xkv,
                                void* b, int K, int I, int C, int R,
                                void* stream) {
-  SPARTAN_DISPATCH(launch_f1, vals, vg, wb, h, xkv, b, K, I, C, R,
+  const int code = operand_code(dtypes, 0);
+  if (operand_code(dtypes, 1) != code) return (int)cudaErrorInvalidValue;
+  SPARTAN_DISPATCH(code, launch_f1, vals, vg, wb, h, xkv, b, K, I, C, R,
                    static_cast<cudaStream_t>(stream));
 }
 
 // The variant a spartan_fused_procrustes_b launch takes (F1Variant: 0 ring,
-// 1 ring with element copies, 2-5 row-warp, chunked, wide, wide chunked);
-// aligned: the slab starts on a 16-byte boundary. -1 for an unknown dtype.
+// 1 ring with element copies, 2-5 row-warp, chunked, wide, wide chunked)
+// for a slab of dtype code `dtype`; aligned: the slab starts on a 16-byte
+// boundary. -1 for an unknown dtype.
 int spartan_fused_procrustes_b_variant(int dtype, int I, int C, int R, int aligned) {
   if (R < 1 || I < 1 || C < 1) return -1;
-  if (dtype == 0) return f1_variant<float>(I, C, R, aligned != 0);
-  if (dtype == 1) return f1_variant<double>(I, C, R, aligned != 0);
+  if (dtype == 0) return f1_variant<float, float>(I, C, R, aligned != 0);
+  if (dtype == 1) return f1_variant<double, double>(I, C, R, aligned != 0);
+  if (dtype == 2) return f1_variant<float, bf16>(I, C, R, aligned != 0);
+  if (dtype == 3) return f1_variant<float, f16>(I, C, R, aligned != 0);
   return -1;
 }
 
@@ -1080,18 +1152,20 @@ int spartan_fused_mode1_xkv_variant(int dtype, int I, int R, int aligned) {
   return -1;
 }
 
-int spartan_fused_mode2_compact(int dtype, const void* vals, const void* q,
+int spartan_fused_mode2_compact(int dtypes, const void* vals, const void* q,
                                 const void* h, const void* wb, const void* cm,
                                 void* out, int K, int I, int C, int R,
                                 void* stream) {
-  SPARTAN_DISPATCH(launch_f3, vals, q, h, wb, cm, out, K, I, C, R,
+  SPARTAN_DISPATCH(operand_code(dtypes, 0), launch_f3, vals, q, h, wb, cm, out, K, I, C, R,
                    static_cast<cudaStream_t>(stream));
 }
 
-int spartan_fused_ykv(int dtype, const void* vals, const void* q,
+int spartan_fused_ykv(int dtypes, const void* vals, const void* q,
                       const void* vg, void* out, int K, int I, int C, int R,
                       void* stream) {
-  SPARTAN_DISPATCH(launch_f4, vals, q, vg, out, K, I, C, R,
+  const int code = operand_code(dtypes, 0);
+  if (operand_code(dtypes, 1) != code) return (int)cudaErrorInvalidValue;
+  SPARTAN_DISPATCH(code, launch_f4, vals, q, vg, out, K, I, C, R,
                    static_cast<cudaStream_t>(stream));
 }
 

@@ -15,7 +15,12 @@
 // row_ends int32 [Kb, I], col_ends int32 [Kb, C], Vg [Kb, C, R], Q [Kb, I, R].
 // A segment is [ends[s - 1], ends[s]) (from 0 for s = 0); pad triplets lie
 // past every end. T is float or double; sums accumulate in T (accum_dtype:
-// f32 -> f32, f64 -> f64). Any R, I, C, N. All tensors contiguous, row-major.
+// f32 -> f32, f64 -> f64). At half precision the values (S) may be
+// bfloat16 or float16, with T = float: row 11 takes vals and Vg half, row
+// 12 vals half (Q stays float); a half value is loaded at 2 bytes and
+// widened to float before its product (common.cuh), and the outputs are
+// float, as the Pallas kernels' are. Any R, I, C, N. All tensors contiguous,
+// row-major.
 //
 // What bounds them on an H100 (3.35 TB/s): each triplet takes part in R
 // multiply-adds against 12-24 bytes of triplet and index, far below the ~20
@@ -57,14 +62,14 @@ constexpr int kRingBudget = 64 * 1024;     // a ring block's shared memory, at m
 
 // Copy n elements of E from src into shared memory at dst, thread t of nt:
 // 16-byte packs (reading up to the next whole pack, which the caller keeps
-// in bounds) when ALIGNED, else one element a copy.
+// in bounds) when ALIGNED, else one element a copy (copy_elem).
 template <typename E, bool ALIGNED>
 __device__ inline void copy_run(int t, int nt, E* dst, const E* __restrict__ src, int n) {
   if constexpr (ALIGNED) {
     constexpr int V = 16 / sizeof(E);
     for (int p = t; p * V < n; p += nt) cp_async<16>(dst + p * V, src + p * V);
   } else {
-    for (int u = t; u < n; u += nt) cp_async<sizeof(E)>(dst + u, src + u);
+    for (int u = t; u < n; u += nt) copy_elem(dst + u, src + u);
   }
 }
 
@@ -120,10 +125,10 @@ __host__ __device__ inline size_t whole_packs(size_t bytes) { return (bytes + 15
 // segment to lie in [0, nnz_k), nnz_k = row_ends[k, I-1], which is the
 // bucket's layout.
 // ---------------------------------------------------------------------------
-template <typename T>
+template <typename T, typename S>
 __global__ void __launch_bounds__(kThreads)
-xkv_kernel(const T* __restrict__ vals, const int* __restrict__ lcols,
-           const T* __restrict__ vg, const int* __restrict__ row_ends,
+xkv_kernel(const S* __restrict__ vals, const int* __restrict__ lcols,
+           const S* __restrict__ vg, const int* __restrict__ row_ends,
            T* __restrict__ out, int Kb, int N, int I, int C, int R) {
   const int64_t IR = (int64_t)I * R, n_out = (int64_t)Kb * IR;
   for (int64_t t = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; t < n_out;
@@ -132,31 +137,32 @@ xkv_kernel(const T* __restrict__ vals, const int* __restrict__ lcols,
     const int p = (int)(t - k * IR), i = p / R, r = p - i * R;
     const int* ends = row_ends + k * I;
     const int n0 = i ? ends[i - 1] : 0, n1 = ends[i];
-    const T* v = vals + k * N;
+    const S* v = vals + k * N;
     const int* lc = lcols + k * N;
-    const T* g = vg + k * C * R + r;
+    const S* g = vg + k * C * R + r;
     T acc = T(0);
-    for (int n = n0; n < n1; ++n) acc += v[n] * g[(int64_t)lc[n] * R];
+    for (int n = n0; n < n1; ++n) acc += widen(v[n]) * widen(g[(int64_t)lc[n] * R]);
     out[t] = acc;
   }
 }
 
 
 // Row 11's ring per warp, in bytes from the warp's start: three triplet
-// stages (vals [N], lcols [N], row_ends [I]), two Vg stages [C, R] and the
-// output tile [I, R], each part a whole number of 16-byte packs.
+// stages (vals [N] of S, lcols [N], row_ends [I]), two Vg stages [C, R] of
+// S and the output tile [I, R] of T, each part a whole number of 16-byte
+// packs.
 struct XkvLayout {
   size_t lcols, ends, trip, vg, vg_stage, tile, warp_bytes;
 };
 
-template <typename T>
+template <typename T, typename S>
 __host__ __device__ inline XkvLayout xkv_layout(int N, int I, int C, int R) {
   XkvLayout s;
-  s.lcols = whole_packs((size_t)N * sizeof(T));
+  s.lcols = whole_packs((size_t)N * sizeof(S));
   s.ends = s.lcols + whole_packs((size_t)N * sizeof(int));
   s.trip = s.ends + whole_packs((size_t)I * sizeof(int));
   s.vg = 3 * s.trip;
-  s.vg_stage = whole_packs((size_t)C * R * sizeof(T));
+  s.vg_stage = whole_packs((size_t)C * R * sizeof(S));
   s.tile = s.vg + 2 * s.vg_stage;
   s.warp_bytes = s.tile + whole_packs((size_t)I * R * sizeof(T));
   return s;
@@ -164,13 +170,13 @@ __host__ __device__ inline XkvLayout xkv_layout(int N, int I, int C, int R) {
 
 constexpr int kXkvWarps = kRingThreads / 32;    // walkers a block
 
-template <typename T, int RMAX, bool ALIGNED>
+template <typename T, typename S, int RMAX, bool ALIGNED>
 __global__ void __launch_bounds__(kRingThreads)
-xkv_ring_kernel(const T* __restrict__ vals, const int* __restrict__ lcols,
-                const T* __restrict__ vg, const int* __restrict__ row_ends,
+xkv_ring_kernel(const S* __restrict__ vals, const int* __restrict__ lcols,
+                const S* __restrict__ vg, const int* __restrict__ row_ends,
                 T* __restrict__ out, int Kb, int N, int I, int C, int R) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const XkvLayout lay = xkv_layout<T>(N, I, C, R);
+  const XkvLayout lay = xkv_layout<T, S>(N, I, C, R);
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, warps = blockDim.x / 32;
   unsigned char* mine = smem_raw + warp * lay.warp_bytes;
   T* tile = reinterpret_cast<T*>(mine + lay.tile);
@@ -187,7 +193,7 @@ xkv_ring_kernel(const T* __restrict__ vals, const int* __restrict__ lcols,
   auto fetch_triplets = [&](int n, int cnt) {
     const int64_t k = subject(n);
     unsigned char* st = trip(n);
-    copy_run<T, ALIGNED>(lane, 32, reinterpret_cast<T*>(st), vals + k * N, cnt);
+    copy_run<S, ALIGNED>(lane, 32, reinterpret_cast<S*>(st), vals + k * N, cnt);
     copy_run<int, ALIGNED>(lane, 32, reinterpret_cast<int*>(st + lay.lcols), lcols + k * N, cnt);
     copy_run<int, ALIGNED>(lane, 32, reinterpret_cast<int*>(st + lay.ends), row_ends + k * I, I);
   };
@@ -199,7 +205,7 @@ xkv_ring_kernel(const T* __restrict__ vals, const int* __restrict__ lcols,
     int top = -1;
     for (int u = lane; u < cnt; u += 32) top = max(top, lc[u]);
     top = __reduce_max_sync(0xffffffffu, top);
-    copy_run<T, ALIGNED>(lane, 32, reinterpret_cast<T*>(vg_stage(n)), vg + subject(n) * C * R,
+    copy_run<S, ALIGNED>(lane, 32, reinterpret_cast<S*>(vg_stage(n)), vg + subject(n) * C * R,
                          (top + 1) * R);
   };
 
@@ -222,10 +228,10 @@ xkv_ring_kernel(const T* __restrict__ vals, const int* __restrict__ lcols,
     cnt_next = cnt_after;
 
     const unsigned char* st = trip(n);
-    const T* v_s = reinterpret_cast<const T*>(st);
+    const S* v_s = reinterpret_cast<const S*>(st);
     const int* lc_s = reinterpret_cast<const int*>(st + lay.lcols);
     const int* ends_s = reinterpret_cast<const int*>(st + lay.ends);
-    const T* g_s = reinterpret_cast<const T*>(vg_stage(n));
+    const S* g_s = reinterpret_cast<const S*>(vg_stage(n));
     for (int i = lane; i < I; i += 32) {
       const int n0 = i ? ends_s[i - 1] : 0, n1 = ends_s[i];
       for (int r0 = 0; r0 < R; r0 += RMAX) {
@@ -233,11 +239,11 @@ xkv_ring_kernel(const T* __restrict__ vals, const int* __restrict__ lcols,
 #pragma unroll
         for (int r = 0; r < RMAX; ++r) acc[r] = T(0);
         for (int m = n0; m < n1; ++m) {
-          const T v = v_s[m];
-          const T* grow = g_s + lc_s[m] * R + r0;
+          const T v = widen(v_s[m]);
+          const S* grow = g_s + lc_s[m] * R + r0;
 #pragma unroll
           for (int r = 0; r < RMAX; ++r)
-            if (r0 + r < R) acc[r] += v * grow[r];
+            if (r0 + r < R) acc[r] += v * widen(grow[r]);
         }
 #pragma unroll
         for (int r = 0; r < RMAX; ++r)
@@ -286,17 +292,18 @@ xkv_ring_kernel(const T* __restrict__ vals, const int* __restrict__ lcols,
 // true nnz, so it takes cperm[k, :nnz_k] to be a permutation of
 // [0, nnz_k), nnz_k = col_ends[k, C-1], which is the bucket's layout.
 // ---------------------------------------------------------------------------
-// The ring's shared memory, in bytes from its start: per stage vals [N],
-// Q_k [I, R], rows [N], cperm [N] and col_ends [C], each part a whole
-// number of 16-byte packs; after the two stages the output tile [R, C].
+// The ring's shared memory, in bytes from its start: per stage vals [N] of
+// S, Q_k [I, R] of T, rows [N], cperm [N] and col_ends [C], each part a
+// whole number of 16-byte packs; after the two stages the output tile [R,
+// C] of T.
 struct ProjectLayout {
   size_t q, rows, cperm, ends, stage, tile, smem_bytes;
 };
 
-template <typename T>
+template <typename T, typename S>
 __host__ __device__ inline ProjectLayout project_layout(int N, int I, int C, int R) {
   ProjectLayout s;
-  s.q = whole_packs((size_t)N * sizeof(T));
+  s.q = whole_packs((size_t)N * sizeof(S));
   s.rows = s.q + whole_packs((size_t)I * R * sizeof(T));
   s.cperm = s.rows + whole_packs((size_t)N * sizeof(int));
   s.ends = s.cperm + whole_packs((size_t)N * sizeof(int));
@@ -306,14 +313,14 @@ __host__ __device__ inline ProjectLayout project_layout(int N, int I, int C, int
   return s;
 }
 
-template <typename T, int RMAX, bool ALIGNED>
+template <typename T, typename S, int RMAX, bool ALIGNED>
 __global__ void __launch_bounds__(kRingThreads)
-project_ring_kernel(const T* __restrict__ vals, const int* __restrict__ rows,
+project_ring_kernel(const S* __restrict__ vals, const int* __restrict__ rows,
                     const int* __restrict__ cperm, const T* __restrict__ q,
                     const int* __restrict__ col_ends, T* __restrict__ out, int Kb,
                     int N, int I, int C, int R) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const ProjectLayout lay = project_layout<T>(N, I, C, R);
+  const ProjectLayout lay = project_layout<T, S>(N, I, C, R);
   T* tile = reinterpret_cast<T*>(smem_raw + lay.tile);
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int n_mine = Kb > (int)blockIdx.x ? (Kb - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
@@ -323,7 +330,7 @@ project_ring_kernel(const T* __restrict__ vals, const int* __restrict__ rows,
     return n < n_mine ? min(N, max(0, __ldg(col_ends + subject(n) * C + C - 1))) : 0;
   };
   auto fetch = [&](unsigned char* st, int64_t k, int cnt) {
-    copy_run<T, ALIGNED>(tid, nthr, reinterpret_cast<T*>(st), vals + k * N, cnt);
+    copy_run<S, ALIGNED>(tid, nthr, reinterpret_cast<S*>(st), vals + k * N, cnt);
     copy_run<T, ALIGNED>(tid, nthr, reinterpret_cast<T*>(st + lay.q), q + k * I * R, I * R);
     copy_run<int, ALIGNED>(tid, nthr, reinterpret_cast<int*>(st + lay.rows), rows + k * N, cnt);
     copy_run<int, ALIGNED>(tid, nthr, reinterpret_cast<int*>(st + lay.cperm), cperm + k * N, cnt);
@@ -342,7 +349,7 @@ project_ring_kernel(const T* __restrict__ vals, const int* __restrict__ rows,
     cnt_next = cnt_after;
 
     const unsigned char* st = smem_raw + (n & 1) * lay.stage;
-    const T* v_s = reinterpret_cast<const T*>(st);
+    const S* v_s = reinterpret_cast<const S*>(st);
     const T* q_s = reinterpret_cast<const T*>(st + lay.q);
     const int* rw_s = reinterpret_cast<const int*>(st + lay.rows);
     const int* perm_s = reinterpret_cast<const int*>(st + lay.cperm);
@@ -355,7 +362,7 @@ project_ring_kernel(const T* __restrict__ vals, const int* __restrict__ rows,
         for (int r = 0; r < RMAX; ++r) acc[r] = T(0);
         for (int m = m0; m < m1; ++m) {
           const int t = perm_s[m];
-          const T v = v_s[t];
+          const T v = widen(v_s[t]);
           const T* qrow = q_s + rw_s[t] * R + r0;
 #pragma unroll
           for (int r = 0; r < RMAX; ++r)
@@ -372,9 +379,9 @@ project_ring_kernel(const T* __restrict__ vals, const int* __restrict__ rows,
   cp_async_wait<0>();                        // leave no copy in flight
 }
 
-template <typename T>
+template <typename T, typename S>
 __global__ void __launch_bounds__(kThreads)
-project_kernel(const T* __restrict__ vals, const int* __restrict__ rows,
+project_kernel(const S* __restrict__ vals, const int* __restrict__ rows,
                const int* __restrict__ cperm, const T* __restrict__ q,
                const int* __restrict__ col_ends, T* __restrict__ out, int Kb,
                int N, int I, int C, int R) {
@@ -385,14 +392,14 @@ project_kernel(const T* __restrict__ vals, const int* __restrict__ rows,
     const int p = (int)(t - k * RC), r = p / C, c = p - r * C;
     const int* ends = col_ends + k * C;
     const int m0 = c ? ends[c - 1] : 0, m1 = ends[c];
-    const T* v = vals + k * N;
+    const S* v = vals + k * N;
     const int* rw = rows + k * N;
     const int* perm = cperm + k * N;
     const T* qk = q + k * I * R + r;
     T acc = T(0);
     for (int m = m0; m < m1; ++m) {
       const int n = perm[m];
-      acc += v[n] * qk[(int64_t)rw[n] * R];
+      acc += widen(v[n]) * qk[(int64_t)rw[n] * R];
     }
     out[t] = acc;
   }
@@ -406,37 +413,38 @@ enum Variant { kRing = 0, kRingElementCopies = 1, kThreadPerEntry = 2 };
 // (16-byte copies and stores when every run a copy or store takes is whole
 // 16-byte packs and every operand starts on a 16-byte boundary), else
 // THREAD-PER-ENTRY.
-template <typename T>
+template <typename T, typename S>
 int xkv_variant(int N, int I, int C, int R, bool aligned) {
-  if (xkv_layout<T>(N, I, C, R).warp_bytes * kXkvWarps > (size_t)kRingBudget)
+  if (xkv_layout<T, S>(N, I, C, R).warp_bytes * kXkvWarps > (size_t)kRingBudget)
     return kThreadPerEntry;
-  const int64_t V = 16 / (int)sizeof(T);
-  const bool packs = N % 4 == 0 && I % 4 == 0 && (int64_t)I * R % V == 0 &&
-                     (int64_t)C * R % V == 0;
+  const int64_t V = 16 / (int)sizeof(T), VS = 16 / (int)sizeof(S);
+  const bool packs = N % 4 == 0 && N % VS == 0 && I % 4 == 0 && (int64_t)I * R % V == 0 &&
+                     (int64_t)C * R % VS == 0;
   return aligned && packs ? kRing : kRingElementCopies;
 }
 
-template <typename T, int RMAX>
+template <typename T, typename S, int RMAX>
 cudaError_t launch_xkv(const void* vals, const void* lcols, const void* vg,
                        const void* row_ends, void* out, int Kb, int N, int I, int C,
                        int R, cudaStream_t stream) {
-  const int variant = xkv_variant<T>(N, I, C, R, aligned16({vals, lcols, vg, row_ends, out}));
+  const int variant = xkv_variant<T, S>(N, I, C, R,
+                                        aligned16({vals, lcols, vg, row_ends, out}));
   if (variant == kThreadPerEntry) {
-    xkv_kernel<T><<<grid_for((int64_t)Kb * I * R), kThreads, 0, stream>>>(
-        static_cast<const T*>(vals), static_cast<const int*>(lcols), static_cast<const T*>(vg),
+    xkv_kernel<T, S><<<grid_for((int64_t)Kb * I * R), kThreads, 0, stream>>>(
+        static_cast<const S*>(vals), static_cast<const int*>(lcols), static_cast<const S*>(vg),
         static_cast<const int*>(row_ends), static_cast<T*>(out), Kb, N, I, C, R);
     return cudaGetLastError();
   }
-  const size_t smem = xkv_layout<T>(N, I, C, R).warp_bytes * kXkvWarps;
-  auto kernel = variant == kRing ? xkv_ring_kernel<T, RMAX, true>
-                                 : xkv_ring_kernel<T, RMAX, false>;
+  const size_t smem = xkv_layout<T, S>(N, I, C, R).warp_bytes * kXkvWarps;
+  auto kernel = variant == kRing ? xkv_ring_kernel<T, S, RMAX, true>
+                                 : xkv_ring_kernel<T, S, RMAX, false>;
   cudaError_t e = allow_smem(kernel, smem);
   int grid = 0;
   if (e == cudaSuccess)
     e = persistent_grid(kernel, kRingThreads, smem, (Kb - 1) / kXkvWarps + 1, &grid);
   if (e != cudaSuccess) return e;
   kernel<<<grid, kRingThreads, smem, stream>>>(
-      static_cast<const T*>(vals), static_cast<const int*>(lcols), static_cast<const T*>(vg),
+      static_cast<const S*>(vals), static_cast<const int*>(lcols), static_cast<const S*>(vg),
       static_cast<const int*>(row_ends), static_cast<T*>(out), Kb, N, I, C, R);
   return cudaGetLastError();
 }
@@ -444,35 +452,36 @@ cudaError_t launch_xkv(const void* vals, const void* lcols, const void* vg,
 // Row 12: RING where two stages and the tile fit kRingBudget (16-byte copies
 // and stores when every run a copy or store takes is whole 16-byte packs and
 // every operand starts on a 16-byte boundary), else THREAD-PER-ENTRY.
-template <typename T>
+template <typename T, typename S>
 int project_variant(int N, int I, int C, int R, bool aligned) {
-  if (project_layout<T>(N, I, C, R).smem_bytes > (size_t)kRingBudget) return kThreadPerEntry;
-  const bool packs = N % 4 == 0 && C % 4 == 0 && (int64_t)I * R % (16 / (int)sizeof(T)) == 0;
+  if (project_layout<T, S>(N, I, C, R).smem_bytes > (size_t)kRingBudget) return kThreadPerEntry;
+  const bool packs = N % 4 == 0 && N % (16 / (int)sizeof(S)) == 0 && C % 4 == 0 &&
+                     (int64_t)I * R % (16 / (int)sizeof(T)) == 0;
   return aligned && packs ? kRing : kRingElementCopies;
 }
 
-template <typename T, int RMAX>
+template <typename T, typename S, int RMAX>
 cudaError_t launch_project(const void* vals, const void* rows, const void* cperm,
                            const void* q, const void* col_ends, void* out, int Kb,
                            int N, int I, int C, int R, cudaStream_t stream) {
-  const int variant = project_variant<T>(N, I, C, R,
-                                         aligned16({vals, rows, cperm, q, col_ends, out}));
+  const int variant = project_variant<T, S>(N, I, C, R,
+                                            aligned16({vals, rows, cperm, q, col_ends, out}));
   if (variant == kThreadPerEntry) {
-    project_kernel<T><<<grid_for((int64_t)Kb * R * C), kThreads, 0, stream>>>(
-        static_cast<const T*>(vals), static_cast<const int*>(rows),
+    project_kernel<T, S><<<grid_for((int64_t)Kb * R * C), kThreads, 0, stream>>>(
+        static_cast<const S*>(vals), static_cast<const int*>(rows),
         static_cast<const int*>(cperm), static_cast<const T*>(q),
         static_cast<const int*>(col_ends), static_cast<T*>(out), Kb, N, I, C, R);
     return cudaGetLastError();
   }
-  const size_t smem = project_layout<T>(N, I, C, R).smem_bytes;
-  auto kernel = variant == kRing ? project_ring_kernel<T, RMAX, true>
-                                 : project_ring_kernel<T, RMAX, false>;
+  const size_t smem = project_layout<T, S>(N, I, C, R).smem_bytes;
+  auto kernel = variant == kRing ? project_ring_kernel<T, S, RMAX, true>
+                                 : project_ring_kernel<T, S, RMAX, false>;
   cudaError_t e = allow_smem(kernel, smem);
   int grid = 0;
   if (e == cudaSuccess) e = persistent_grid(kernel, kRingThreads, smem, Kb, &grid);
   if (e != cudaSuccess) return e;
   kernel<<<grid, kRingThreads, smem, stream>>>(
-      static_cast<const T*>(vals), static_cast<const int*>(rows),
+      static_cast<const S*>(vals), static_cast<const int*>(rows),
       static_cast<const int*>(cperm), static_cast<const T*>(q),
       static_cast<const int*>(col_ends), static_cast<T*>(out), Kb, N, I, C, R);
   return cudaGetLastError();
@@ -480,61 +489,71 @@ cudaError_t launch_project(const void* vals, const void* rows, const void* cperm
 
 }  // namespace
 
-// Run the statement(s) with T = float (dtype 0) or double (dtype 1).
-#define SPARTAN_BY_DTYPE(...)                                                 \
+// Run the statement(s) with (T, S) from the values' code CODE: 0 (float,
+// float), 1 (double, double), 2 (float, bfloat16), 3 (float, float16);
+// return FAIL for any other code.
+#define SPARTAN_BY_VALUES(FAIL, CODE, ...)                                    \
   do {                                                                        \
-    if (dtype == 0) { using T = float; __VA_ARGS__; }                         \
-    if (dtype == 1) { using T = double; __VA_ARGS__; }                        \
-    return (int)cudaErrorInvalidValue;                                        \
+    if ((CODE) == 0) { using T = float; using S = float; __VA_ARGS__; }       \
+    if ((CODE) == 1) { using T = double; using S = double; __VA_ARGS__; }     \
+    if ((CODE) == 2) { using T = float; using S = bf16; __VA_ARGS__; }        \
+    if ((CODE) == 3) { using T = float; using S = f16; __VA_ARGS__; }         \
+    return FAIL;                                                              \
   } while (0)
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = float64. Returns a cudaError_t (0 = success).
-// Both entry points need Kb, N, I, C, R >= 1 (the wrappers return zeros for
-// an empty bucket without a launch).
+// dtypes: the dtype code of each streamed operand (0 float32, 1 float64,
+// 2 bfloat16, 3 float16), packed as common.cuh's operand_code reads it:
+// vals then Vg for row 11 (one code for both), vals for row 12. With a half
+// code Q and the outputs are float32, else they take the values' dtype.
+// Returns a cudaError_t (0 = success); a combination not listed is
+// cudaErrorInvalidValue, before any launch. Both entry points need Kb, N,
+// I, C, R >= 1 (the wrappers return zeros for an empty bucket without a
+// launch).
 
 // Both take register tiles of 8 entries of R, or 32 with R in chunks of 32
 // above 8.
-int spartan_scoo_xk_times_v(int dtype, const void* vals, const void* lcols,
+int spartan_scoo_xk_times_v(int dtypes, const void* vals, const void* lcols,
                             const void* vg, const void* row_ends, void* out,
                             int Kb, int N, int I, int C, int R, void* stream) {
   if (Kb < 1 || N < 1 || I < 1 || C < 1 || R < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  SPARTAN_BY_DTYPE(return (int)(R <= 8
-      ? launch_xkv<T, 8>(vals, lcols, vg, row_ends, out, Kb, N, I, C, R, s)
-      : launch_xkv<T, 32>(vals, lcols, vg, row_ends, out, Kb, N, I, C, R, s)));
+  const int code = operand_code(dtypes, 0);
+  if (operand_code(dtypes, 1) != code) return (int)cudaErrorInvalidValue;
+  SPARTAN_BY_VALUES((int)cudaErrorInvalidValue, code, return (int)(R <= 8
+      ? launch_xkv<T, S, 8>(vals, lcols, vg, row_ends, out, Kb, N, I, C, R, s)
+      : launch_xkv<T, S, 32>(vals, lcols, vg, row_ends, out, Kb, N, I, C, R, s)));
 }
 
 // The variant a spartan_scoo_xk_times_v launch takes (Variant: 0 ring, 1
-// ring with element copies, 2 thread-per-entry); aligned: every operand and
-// the output start on a 16-byte boundary. -1 for an unknown dtype.
+// ring with element copies, 2 thread-per-entry) for values of dtype code
+// `dtype`; aligned: every operand and the output start on a 16-byte
+// boundary. -1 for an unknown dtype.
 int spartan_scoo_xk_times_v_variant(int dtype, int N, int I, int C, int R, int aligned) {
   if (N < 1 || I < 1 || C < 1 || R < 1) return -1;
-  if (dtype == 0) return xkv_variant<float>(N, I, C, R, aligned != 0);
-  if (dtype == 1) return xkv_variant<double>(N, I, C, R, aligned != 0);
-  return -1;
+  SPARTAN_BY_VALUES(-1, dtype, return xkv_variant<T, S>(N, I, C, R, aligned != 0));
 }
 
-int spartan_scoo_project(int dtype, const void* vals, const void* rows,
+int spartan_scoo_project(int dtypes, const void* vals, const void* rows,
                          const void* cperm, const void* q, const void* col_ends,
                          void* out, int Kb, int N, int I, int C, int R,
                          void* stream) {
   if (Kb < 1 || N < 1 || I < 1 || C < 1 || R < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  SPARTAN_BY_DTYPE(return (int)(R <= 8
-      ? launch_project<T, 8>(vals, rows, cperm, q, col_ends, out, Kb, N, I, C, R, s)
-      : launch_project<T, 32>(vals, rows, cperm, q, col_ends, out, Kb, N, I, C, R, s)));
+  SPARTAN_BY_VALUES((int)cudaErrorInvalidValue, operand_code(dtypes, 0),
+                    return (int)(R <= 8
+      ? launch_project<T, S, 8>(vals, rows, cperm, q, col_ends, out, Kb, N, I, C, R, s)
+      : launch_project<T, S, 32>(vals, rows, cperm, q, col_ends, out, Kb, N, I, C, R, s)));
 }
 
 // The variant a spartan_scoo_project launch takes (Variant: 0 ring,
-// 1 ring with element copies, 2 thread-per-entry); aligned: every operand
-// and the output start on a 16-byte boundary. -1 for an unknown dtype.
+// 1 ring with element copies, 2 thread-per-entry) for values of dtype code
+// `dtype`; aligned: every operand and the output start on a 16-byte
+// boundary. -1 for an unknown dtype.
 int spartan_scoo_project_variant(int dtype, int N, int I, int C, int R, int aligned) {
   if (N < 1 || I < 1 || C < 1 || R < 1) return -1;
-  if (dtype == 0) return project_variant<float>(N, I, C, R, aligned != 0);
-  if (dtype == 1) return project_variant<double>(N, I, C, R, aligned != 0);
-  return -1;
+  SPARTAN_BY_VALUES(-1, dtype, return project_variant<T, S>(N, I, C, R, aligned != 0));
 }
 
 }  // extern "C"

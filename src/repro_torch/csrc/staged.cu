@@ -18,8 +18,12 @@
 // Shapes (one bucket): Yc [K, R, C], Vg [K, C, R], YkV [K, R, R], Wb [K, R]
 // (W rows, subject mask folded in), H [R, R], col_mask [K, C], mask [K] (or
 // null: no subject mask). T is float or double; every sum accumulates in T
-// (accum_dtype: f32 -> f32, f64 -> f64). Any R and C. All tensors are
-// contiguous, row-major.
+// (accum_dtype: f32 -> f32, f64 -> f64). At half precision Yc (TY) and Vg
+// (TV) may be half-width (bfloat16 or float16) with T = float: rows 5, 6
+// and 9 take each of the two in float or half, row 8 a half Yc; a half
+// value is loaded at 2 bytes and widened to float before its product
+// (common.cuh). Rows 7 and 10 read YkV, float or double. Any R and C. All
+// tensors are contiguous, row-major.
 //
 // What bounds them on an H100 (3.35 TB/s): at rank R every Yc and Vg element
 // takes part in R multiply-adds, below the ~20 operations per byte before
@@ -69,18 +73,18 @@ int grid_for(int64_t n) {
 // (Yc_k Vg_k)[r, l] = sum_c yc_row[c] * vg_col[c * R], with yc_row =
 // Yc[k, r, :] and vg_col = Vg[k, :, l]; four running sums, for independent
 // loads in flight and a shorter chain of roundings.
-template <typename T>
-__device__ inline T yv_entry(const T* __restrict__ yc_row,
-                             const T* __restrict__ vg_col, int C, int R) {
+template <typename T, typename TY, typename TV>
+__device__ inline T yv_entry(const TY* __restrict__ yc_row,
+                             const TV* __restrict__ vg_col, int C, int R) {
   T s0 = T(0), s1 = T(0), s2 = T(0), s3 = T(0);
   int c = 0;
   for (; c + 3 < C; c += 4) {
-    s0 += yc_row[c] * vg_col[(int64_t)c * R];
-    s1 += yc_row[c + 1] * vg_col[(int64_t)(c + 1) * R];
-    s2 += yc_row[c + 2] * vg_col[(int64_t)(c + 2) * R];
-    s3 += yc_row[c + 3] * vg_col[(int64_t)(c + 3) * R];
+    s0 += widen(yc_row[c]) * widen(vg_col[(int64_t)c * R]);
+    s1 += widen(yc_row[c + 1]) * widen(vg_col[(int64_t)(c + 1) * R]);
+    s2 += widen(yc_row[c + 2]) * widen(vg_col[(int64_t)(c + 2) * R]);
+    s3 += widen(yc_row[c + 3]) * widen(vg_col[(int64_t)(c + 3) * R]);
   }
-  for (; c < C; ++c) s0 += yc_row[c] * vg_col[(int64_t)c * R];
+  for (; c < C; ++c) s0 += widen(yc_row[c]) * widen(vg_col[(int64_t)c * R]);
   return (s0 + s1) + (s2 + s3);
 }
 
@@ -100,7 +104,9 @@ __device__ inline T yv_entry(const T* __restrict__ yc_row,
 // block computes one group, cp.async copies the next group's Yc and Vg (one
 // contiguous run each) into the other of two shared-memory stages (16 bytes
 // a copy when the rows of Yc are whole 16-byte runs; RING-ELEMENT-COPIES,
-// one element a copy, otherwise). A thread owns an entry (s, r, l) of the
+// one element a copy, otherwise: cp.async takes no 2-byte copy, so a half
+// element is a plain load and store). The stages hold half operands at
+// half width. A thread owns an entry (s, r, l) of the
 // group and sums it from shared memory in yv_entry's order (four running
 // sums over c mod 4, the tail into the first, (s0 + s1) + (s2 + s3)),
 // reading four Yc values at a time with one 16-byte load, so the bits are
@@ -117,16 +123,16 @@ __device__ inline T yv_entry(const T* __restrict__ yc_row,
 // use, e.g. R = 72 at C_pad = 1024): one thread per entry (k, r, l), its
 // operands straight from device memory.
 // ---------------------------------------------------------------------------
-template <typename T>
+template <typename T, typename TY, typename TV>
 __global__ void __launch_bounds__(kThreads)
-ykv_kernel(const T* __restrict__ yc, const T* __restrict__ vg,
+ykv_kernel(const TY* __restrict__ yc, const TV* __restrict__ vg,
            T* __restrict__ out, int K, int R, int C) {
   const int64_t RR = (int64_t)R * R, n = K * RR;
   for (int64_t t = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; t < n;
        t += (int64_t)gridDim.x * blockDim.x) {
     const int64_t k = t / RR;
     const int p = (int)(t - k * RR), r = p / R, l = p - r * R;
-    out[t] = yv_entry(yc + (k * R + r) * C, vg + k * C * R + l, C, R);
+    out[t] = yv_entry<T>(yc + (k * R + r) * C, vg + k * C * R + l, C, R);
   }
 }
 
@@ -136,26 +142,32 @@ constexpr int kRingThreads = 128;          // rows 5 and 9: a group's entries; r
 constexpr int kRingBudget = 64 * 1024;     // rows 5, 8 and 9 take the most that fits
 
 // yv_entry on a staged subject: yc_row 16-byte aligned, four values a load.
-template <typename T>
-__device__ inline T yv_entry_staged(const T* yc_row, const T* vg_col, int C, int R) {
+template <typename T, typename TY, typename TV>
+__device__ inline T yv_entry_staged(const TY* yc_row, const TV* vg_col, int C, int R) {
   T s0 = T(0), s1 = T(0), s2 = T(0), s3 = T(0);
   int c = 0;
   for (; c + 3 < C; c += 4) {
     T y[4];
-    if constexpr (sizeof(T) == 4) {
+    if constexpr (sizeof(TY) == 4) {
       const float4 q = *reinterpret_cast<const float4*>(yc_row + c);
       y[0] = q.x, y[1] = q.y, y[2] = q.z, y[3] = q.w;
-    } else {
+    } else if constexpr (sizeof(TY) == 8) {
       const double2 a = *reinterpret_cast<const double2*>(yc_row + c);
       const double2 b = *reinterpret_cast<const double2*>(yc_row + c + 2);
       y[0] = a.x, y[1] = a.y, y[2] = b.x, y[3] = b.y;
+    } else {                                   // four half values, 8 bytes
+      const uint2 q = *reinterpret_cast<const uint2*>(yc_row + c);
+      y[0] = widen(half_from_bits<TY>((unsigned short)(q.x & 0xffffu)));
+      y[1] = widen(half_from_bits<TY>((unsigned short)(q.x >> 16)));
+      y[2] = widen(half_from_bits<TY>((unsigned short)(q.y & 0xffffu)));
+      y[3] = widen(half_from_bits<TY>((unsigned short)(q.y >> 16)));
     }
-    s0 += y[0] * vg_col[c * R];
-    s1 += y[1] * vg_col[(c + 1) * R];
-    s2 += y[2] * vg_col[(c + 2) * R];
-    s3 += y[3] * vg_col[(c + 3) * R];
+    s0 += y[0] * widen(vg_col[c * R]);
+    s1 += y[1] * widen(vg_col[(c + 1) * R]);
+    s2 += y[2] * widen(vg_col[(c + 2) * R]);
+    s3 += y[3] * widen(vg_col[(c + 3) * R]);
   }
-  for (; c < C; ++c) s0 += yc_row[c] * vg_col[c * R];
+  for (; c < C; ++c) s0 += widen(yc_row[c]) * widen(vg_col[c * R]);
   return (s0 + s1) + (s2 + s3);
 }
 
@@ -176,7 +188,8 @@ __device__ inline void store_run(T* dst, const T* src, int n, int m) {
 }
 
 // The ring's shared memory, in bytes from its start: per stage the group's
-// Yc rows [S*R] at row_bytes, then its Vg_k [C*R] at vg_bytes each; after
+// Yc rows [S*R] of TY at row_bytes, then its Vg_k [C*R] of TV at vg_bytes
+// each; after
 // the two stages the product tile [S*R*R], one 16-byte pack longer (a
 // group's run starts up to a pack past a 16-byte boundary); with the coldot
 // (row 9), then H [R, R] and the output tile [S*R], one pack longer.
@@ -184,13 +197,13 @@ struct YkvLayout {
   size_t row_bytes, vg, vg_bytes, stage, tile, h, otile, smem_bytes;
 };
 
-template <typename T>
+template <typename T, typename TY, typename TV>
 __host__ __device__ inline YkvLayout ykv_layout(int R, int C, int S, bool coldot) {
   auto packs = [](size_t bytes) { return (bytes + 15) / 16 * 16; };
   YkvLayout s;
-  s.row_bytes = packs((size_t)C * sizeof(T));
+  s.row_bytes = packs((size_t)C * sizeof(TY));
   s.row_bytes += (144 - s.row_bytes % 128) % 128;      // 16 mod 128
-  s.vg_bytes = packs((size_t)C * R * sizeof(T));
+  s.vg_bytes = packs((size_t)C * R * sizeof(TV));
   s.vg_bytes += (192 - s.vg_bytes % 128) % 128;        // 64 mod 128
   s.vg = (size_t)S * R * s.row_bytes;
   s.stage = s.vg + (size_t)S * s.vg_bytes;
@@ -204,26 +217,26 @@ __host__ __device__ inline YkvLayout ykv_layout(int R, int C, int S, bool coldot
 // Subjects a group: the most whose entries fill one pass of the block,
 // fewer while the ring exceeds kRingBudget; 0 if not even one subject fits
 // the most a block may use.
-template <typename T>
+template <typename T, typename TY, typename TV>
 int ykv_group(int R, int C, bool coldot) {
   int S = std::max(1, kRingThreads / (R * R));
-  while (S > 1 && ykv_layout<T>(R, C, S, coldot).smem_bytes > (size_t)kRingBudget) --S;
-  return ykv_layout<T>(R, C, S, coldot).smem_bytes <= (size_t)kMaxDynamicSmem ? S : 0;
+  while (S > 1 && ykv_layout<T, TY, TV>(R, C, S, coldot).smem_bytes > (size_t)kRingBudget) --S;
+  return ykv_layout<T, TY, TV>(R, C, S, coldot).smem_bytes <= (size_t)kMaxDynamicSmem ? S : 0;
 }
 
 // What the ring does with a group's product tile: row 5 writes it as YkV,
 // row 9 takes the coldot with H and writes out[k, :].
 enum Epilogue { kStoreYkv, kColdot };
 
-template <typename T, bool ALIGNED, int EPI>
+template <typename T, typename TY, typename TV, bool ALIGNED, int EPI>
 __global__ void __launch_bounds__(kRingThreads)
-ykv_ring_kernel(const T* __restrict__ yc, const T* __restrict__ vg,
+ykv_ring_kernel(const TY* __restrict__ yc, const TV* __restrict__ vg,
                 const T* __restrict__ h, const T* __restrict__ mask,
                 T* __restrict__ out, int K, int R, int C, int S) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr bool COLDOT = EPI == kColdot;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const YkvLayout lay = ykv_layout<T>(R, C, S, COLDOT);
+  const YkvLayout lay = ykv_layout<T, TY, TV>(R, C, S, COLDOT);
   T* tile = reinterpret_cast<T*>(smem_raw + lay.tile);
   const int tid = threadIdx.x, nthr = blockDim.x, RR = R * R;
   const int n_groups = (K - 1) / S + 1;
@@ -238,18 +251,25 @@ ykv_ring_kernel(const T* __restrict__ yc, const T* __restrict__ vg,
   auto fetch = [&](unsigned char* st, int g) {
     const int64_t k0 = (int64_t)g * S;
     const int sn = (int)(K - k0 < S ? K - k0 : S);
-    const T* ysrc = yc + k0 * R * C;
-    const T* vsrc = vg + k0 * C * R;
-    constexpr int E = ALIGNED ? VEC : 1;     // elements a copy
-    const int yw = C / E, vw = C * R / E;    // copies a Yc row, a Vg_k
+    const TY* ysrc = yc + k0 * R * C;
+    const TV* vsrc = vg + k0 * C * R;
+    constexpr int EY = ALIGNED ? 16 / sizeof(TY) : 1;   // elements a copy
+    constexpr int EV = ALIGNED ? 16 / sizeof(TV) : 1;
+    const int yw = C / EY, vw = C * R / EV;  // copies a Yc row, a Vg_k
     Walk w(tid, nthr, yw);
-    for (int u = tid; u < sn * R * yw; u += nthr, w.step())
-      cp_async<E * sizeof(T)>(st + w.row * lay.row_bytes + w.col * E * sizeof(T),
-                              ysrc + (int64_t)w.row * C + w.col * E);
+    for (int u = tid; u < sn * R * yw; u += nthr, w.step()) {
+      unsigned char* d = st + w.row * lay.row_bytes + w.col * EY * sizeof(TY);
+      const TY* src = ysrc + (int64_t)w.row * C + w.col * EY;
+      if constexpr (ALIGNED) cp_async<16>(d, src);
+      else copy_elem(reinterpret_cast<TY*>(d), src);
+    }
     Walk v(tid, nthr, vw);
-    for (int u = tid; u < sn * vw; u += nthr, v.step())
-      cp_async<E * sizeof(T)>(st + lay.vg + v.row * lay.vg_bytes + v.col * E * sizeof(T),
-                              vsrc + (int64_t)v.row * C * R + v.col * E);
+    for (int u = tid; u < sn * vw; u += nthr, v.step()) {
+      unsigned char* d = st + lay.vg + v.row * lay.vg_bytes + v.col * EV * sizeof(TV);
+      const TV* src = vsrc + (int64_t)v.row * C * R + v.col * EV;
+      if constexpr (ALIGNED) cp_async<16>(d, src);
+      else copy_elem(reinterpret_cast<TV*>(d), src);
+    }
   };
 
   if (n_mine > 0) fetch(smem_raw, group(0));
@@ -266,9 +286,9 @@ ykv_ring_kernel(const T* __restrict__ yc, const T* __restrict__ vg,
     const int m = ALIGNED ? (int)(base % VEC) : 0;   // the run's place in its first pack
     for (int e = tid; e < ne; e += nthr) {
       const int s = e / RR, p = e - s * RR, r = p / R, l = p - r * R;
-      tile[m + e] = yv_entry_staged(
-          reinterpret_cast<const T*>(st + (s * R + r) * lay.row_bytes),
-          reinterpret_cast<const T*>(st + lay.vg + s * lay.vg_bytes) + l, C, R);
+      tile[m + e] = yv_entry_staged<T>(
+          reinterpret_cast<const TY*>(st + (s * R + r) * lay.row_bytes),
+          reinterpret_cast<const TV*>(st + lay.vg + s * lay.vg_bytes) + l, C, R);
     }
     __syncthreads();                         // the product tile is whole
     if constexpr (COLDOT) {                  // thread (s, l): the coldot over r, in order
@@ -335,9 +355,9 @@ __device__ void sum_partials_by_lanes(const T* partials, T* __restrict__ out,
   }
 }
 
-template <typename T, bool REUSE>
+template <typename T, typename TY, typename TV, bool REUSE>
 __global__ void __launch_bounds__(kThreads * kRunsPerBlock)
-mode1_kernel(const T* __restrict__ yc, const T* __restrict__ vg,
+mode1_kernel(const TY* __restrict__ yc, const TV* __restrict__ vg,
              const T* __restrict__ ykv, const T* __restrict__ wb,
              const T* __restrict__ mask, unsigned* counter, T* partials,
              T* __restrict__ out, int K, int R, int C, int runs, int per_block, int ld) {
@@ -355,8 +375,8 @@ mode1_kernel(const T* __restrict__ yc, const T* __restrict__ vg,
     T acc = T(0);
     for (int k = k0 + g; k < k1; k += G) {
       const T y = REUSE ? ykv[(int64_t)k * RR + p]
-                        : yv_entry(yc + ((int64_t)k * R + r) * C,
-                                   vg + (int64_t)k * C * R + l, C, R);
+                        : yv_entry<T>(yc + ((int64_t)k * R + r) * C,
+                                      vg + (int64_t)k * C * R + l, C, R);
       T w = wb[(int64_t)k * R + l];
       if (mask) w = w * mask[k];
       acc += y * w;
@@ -405,9 +425,9 @@ mode1_kernel(const T* __restrict__ yc, const T* __restrict__ vg,
 // THREAD-PER-ENTRY (R too wide for even a 32-column tile): one thread per
 // output entry (k, c, l), so a warp's stores are contiguous.
 // ---------------------------------------------------------------------------
-template <typename T>
+template <typename T, typename TY>
 __global__ void __launch_bounds__(kThreads)
-mode2_compact_kernel(const T* __restrict__ yc, const T* __restrict__ h,
+mode2_compact_kernel(const TY* __restrict__ yc, const T* __restrict__ h,
                      const T* __restrict__ wb, const T* __restrict__ cm,
                      T* __restrict__ out, int K, int R, int C) {
   const int64_t n = (int64_t)K * C * R;
@@ -417,56 +437,53 @@ mode2_compact_kernel(const T* __restrict__ yc, const T* __restrict__ h,
     const int l = (int)(t - kc * R);
     const int64_t k = kc / C;
     const int c = (int)(kc - k * C);
-    const T* ycol = yc + k * R * C + c;
+    const TY* ycol = yc + k * R * C + c;
     T a = T(0);
-    for (int r = 0; r < R; ++r) a += ycol[(int64_t)r * C] * h[r * R + l];
+    for (int r = 0; r < R; ++r) a += widen(ycol[(int64_t)r * C]) * h[r * R + l];
     out[t] = a * wb[k * R + l] * cm[kc];
   }
 }
 
-// The ring's shared memory, in elements of T from its start (every part a
-// whole number of 16-byte packs): per stage the Yc tile [R, TC], col_mask
-// [TC] and w_k [R]; after the two stages the output tile [TC, R] and H [R, R].
+// The ring's shared memory, in bytes from its start (every part a whole
+// number of 16-byte packs): per stage the Yc tile [R, TC] of TY, col_mask
+// [TC] and w_k [R] of T; after the two stages the output tile [TC, R] and
+// H [R, R] of T.
 struct Mode2Layout {
   size_t cm, w, stage, tile, h, smem_bytes;
 };
 
-template <typename T>
+template <typename T, typename TY>
 __host__ __device__ inline Mode2Layout mode2_layout(int R, int tc) {
-  auto packs = [](size_t n) {
-    constexpr size_t V = 16 / sizeof(T);
-    return (n + V - 1) / V * V;
-  };
+  auto packs = [](size_t bytes) { return (bytes + 15) / 16 * 16; };
   Mode2Layout s;
-  s.cm = packs((size_t)R * tc);
-  s.w = s.cm + packs(tc);
-  s.stage = s.w + packs(R);
+  s.cm = packs((size_t)R * tc * sizeof(TY));
+  s.w = s.cm + packs(tc * sizeof(T));
+  s.stage = s.w + packs(R * sizeof(T));
   s.tile = 2 * s.stage;
-  s.h = s.tile + packs((size_t)tc * R);
-  s.smem_bytes = (s.h + packs((size_t)R * R)) * sizeof(T);
+  s.h = s.tile + packs((size_t)tc * R * sizeof(T));
+  s.smem_bytes = s.h + packs((size_t)R * R * sizeof(T));
   return s;
 }
 
 // The tile width: the widest of 128, 64, 32 within kRingBudget, else 32
 // within the most a block may use; 0 if not even that fits.
-template <typename T>
+template <typename T, typename TY>
 int mode2_tile(int R) {
   for (int tc = kRingThreads; tc >= 32; tc /= 2)
-    if (mode2_layout<T>(R, tc).smem_bytes <= (size_t)kRingBudget) return tc;
-  return mode2_layout<T>(R, 32).smem_bytes <= (size_t)kMaxDynamicSmem ? 32 : 0;
+    if (mode2_layout<T, TY>(R, tc).smem_bytes <= (size_t)kRingBudget) return tc;
+  return mode2_layout<T, TY>(R, 32).smem_bytes <= (size_t)kMaxDynamicSmem ? 32 : 0;
 }
 
-template <typename T, int RMAX, bool ALIGNED>
+template <typename T, typename TY, int RMAX, bool ALIGNED>
 __global__ void __launch_bounds__(kRingThreads)
-mode2_ring_kernel(const T* __restrict__ yc, const T* __restrict__ h,
+mode2_ring_kernel(const TY* __restrict__ yc, const T* __restrict__ h,
                   const T* __restrict__ wb, const T* __restrict__ cm,
                   T* __restrict__ out, int K, int R, int C, int TC) {
-  constexpr int VEC = 16 / sizeof(T);
+  constexpr int VEC = 16 / sizeof(T), VY = 16 / sizeof(TY);
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
-  const Mode2Layout lay = mode2_layout<T>(R, TC);
-  T* tile = smem + lay.tile;
-  T* h_s = smem + lay.h;
+  const Mode2Layout lay = mode2_layout<T, TY>(R, TC);
+  T* tile = reinterpret_cast<T*>(smem_raw + lay.tile);
+  T* h_s = reinterpret_cast<T*>(smem_raw + lay.h);
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int n_ct = (C + TC - 1) / TC;
   const int64_t n_items = (int64_t)K * n_ct;
@@ -474,26 +491,29 @@ mode2_ring_kernel(const T* __restrict__ yc, const T* __restrict__ h,
       ? (int)((n_items - 1 - blockIdx.x) / gridDim.x + 1) : 0;
   for (int t = tid; t < R * R; t += nthr) h_s[t] = h[t];
 
-  // copy item (k, ct)'s Yc tile, col_mask and w_k into stage `st`
-  auto fetch = [&](T* st, int k, int ct) {
+  // copy item (k, ct)'s Yc tile, col_mask and w_k into the stage at `stb`
+  auto fetch = [&](unsigned char* stb, int k, int ct) {
     const int c0 = ct * TC, tc = min(TC, C - c0);
-    const T* src = yc + (int64_t)k * R * C + c0;
+    const TY* src = yc + (int64_t)k * R * C + c0;
+    TY* st = reinterpret_cast<TY*>(stb);
+    T* cm_d = reinterpret_cast<T*>(stb + lay.cm);
     if constexpr (ALIGNED) {                 // rows are whole 16-byte runs
-      const int np = tc / VEC;
+      const int np = tc / VY;
       Walk w(tid, nthr, np);
       for (int u = tid; u < R * np; u += nthr, w.step())
-        cp_async<16>(st + w.row * TC + w.col * VEC, src + (int64_t)w.row * C + w.col * VEC);
-      for (int p = tid; p < np; p += nthr)
-        cp_async<16>(st + lay.cm + p * VEC, cm + (int64_t)k * C + c0 + p * VEC);
+        cp_async<16>(st + w.row * TC + w.col * VY, src + (int64_t)w.row * C + w.col * VY);
+      for (int p = tid; p < tc / VEC; p += nthr)
+        cp_async<16>(cm_d + p * VEC, cm + (int64_t)k * C + c0 + p * VEC);
     } else {
       Walk w(tid, nthr, tc);
       for (int u = tid; u < R * tc; u += nthr, w.step())
-        cp_async<sizeof(T)>(st + w.row * TC + w.col, src + (int64_t)w.row * C + w.col);
+        copy_elem(st + w.row * TC + w.col, src + (int64_t)w.row * C + w.col);
       for (int u = tid; u < tc; u += nthr)
-        cp_async<sizeof(T)>(st + lay.cm + u, cm + (int64_t)k * C + c0 + u);
+        cp_async<sizeof(T)>(cm_d + u, cm + (int64_t)k * C + c0 + u);
     }
+    T* w_d = reinterpret_cast<T*>(stb + lay.w);
     for (int u = tid; u < R; u += nthr)
-      cp_async<sizeof(T)>(st + lay.w + u, wb + (int64_t)k * R + u);
+      cp_async<sizeof(T)>(w_d + u, wb + (int64_t)k * R + u);
   };
   // the block's items, (k, ct) = divmod(blockIdx.x + n * gridDim.x, n_ct)
   int fk = blockIdx.x / n_ct, fct = blockIdx.x % n_ct;          // next to fetch
@@ -505,26 +525,26 @@ mode2_ring_kernel(const T* __restrict__ yc, const T* __restrict__ h,
   };
   int k = fk, ct = fct;                                        // being computed
 
-  if (n_mine > 0) fetch(smem, fk, fct);
+  if (n_mine > 0) fetch(smem_raw, fk, fct);
   cp_async_commit();
   advance(fk, fct);
   for (int n = 0; n < n_mine; ++n) {         // block-uniform
     cp_async_wait<0>();                      // item n's copies are in
     __syncthreads();                         // everyone's; stage n-1 is read
-    if (n + 1 < n_mine) fetch(smem + ((n + 1) & 1) * lay.stage, fk, fct);
+    if (n + 1 < n_mine) fetch(smem_raw + ((n + 1) & 1) * lay.stage, fk, fct);
     cp_async_commit();
     advance(fk, fct);
 
-    const T* st = smem + (n & 1) * lay.stage;
-    const T* y_s = st;
-    const T* cm_s = st + lay.cm;
-    const T* w_s = st + lay.w;
+    const unsigned char* st = smem_raw + (n & 1) * lay.stage;
+    const TY* y_s = reinterpret_cast<const TY*>(st);
+    const T* cm_s = reinterpret_cast<const T*>(st + lay.cm);
+    const T* w_s = reinterpret_cast<const T*>(st + lay.w);
     const int c0 = ct * TC, tc = min(TC, C - c0);
     for (int c = tid; c < tc; c += nthr) {
       if constexpr (RMAX > 0) {
         T y[RMAX];
 #pragma unroll
-        for (int r = 0; r < RMAX; ++r) y[r] = r < R ? y_s[r * TC + c] : T(0);
+        for (int r = 0; r < RMAX; ++r) y[r] = r < R ? widen(y_s[r * TC + c]) : T(0);
         for (int l = 0; l < R; ++l) {
           T a = T(0);
 #pragma unroll
@@ -535,7 +555,7 @@ mode2_ring_kernel(const T* __restrict__ yc, const T* __restrict__ h,
       } else {
         for (int l = 0; l < R; ++l) {
           T a = T(0);
-          for (int r = 0; r < R; ++r) a += y_s[r * TC + c] * h_s[r * R + l];
+          for (int r = 0; r < R; ++r) a += widen(y_s[r * TC + c]) * h_s[r * R + l];
           tile[c * R + l] = a * w_s[l] * cm_s[c];
         }
       }
@@ -581,9 +601,9 @@ mode2_ring_kernel(const T* __restrict__ yc, const T* __restrict__ h,
 // 0.0026 (0.0024): a launch-bound kernel cannot hide the copy's round trip
 // through shared memory and the barrier after it.
 // ---------------------------------------------------------------------------
-template <typename T, bool REUSE>
+template <typename T, typename TY, typename TV, bool REUSE>
 __global__ void __launch_bounds__(kThreads)
-mode3_kernel(const T* __restrict__ yc, const T* __restrict__ vg,
+mode3_kernel(const TY* __restrict__ yc, const TV* __restrict__ vg,
              const T* __restrict__ ykv, const T* __restrict__ h,
              const T* __restrict__ mask, T* __restrict__ out, int K, int R,
              int C) {
@@ -595,7 +615,7 @@ mode3_kernel(const T* __restrict__ yc, const T* __restrict__ vg,
     T s = T(0);
     for (int r = 0; r < R; ++r) {
       const T y = REUSE ? ykv[(k * R + r) * R + l]
-                        : yv_entry(yc + (k * R + r) * C, vg + k * C * R + l, C, R);
+                        : yv_entry<T>(yc + (k * R + r) * C, vg + k * C * R + l, C, R);
       s += h[r * R + l] * y;
     }
     out[t] = mask ? s * mask[k] : s;
@@ -605,7 +625,7 @@ mode3_kernel(const T* __restrict__ yc, const T* __restrict__ vg,
 // ---------------------------------------------------------------------------
 // Host-side launchers
 // ---------------------------------------------------------------------------
-template <typename T, bool REUSE>
+template <typename T, typename TY, typename TV, bool REUSE>
 cudaError_t launch_mode1(const void* yc, const void* vg, const void* ykv,
                          const void* wb, const void* mask, void* ws, void* out,
                          int K, int R, int C, cudaStream_t stream) {
@@ -614,12 +634,12 @@ cudaError_t launch_mode1(const void* yc, const void* vg, const void* ykv,
   const size_t smem = G > 1 ? (size_t)kRunsPerBlock * G * RR * sizeof(T) : 0;
   const int runs = reduction_runs(K);
   const int per_block = (K + runs - 1) / runs;
-  auto kernel = mode1_kernel<T, REUSE>;
+  auto kernel = mode1_kernel<T, TY, TV, REUSE>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   kernel<<<(runs + kRunsPerBlock - 1) / kRunsPerBlock, kThreads * kRunsPerBlock, smem,
            stream>>>(
-      static_cast<const T*>(yc), static_cast<const T*>(vg),
+      static_cast<const TY*>(yc), static_cast<const TV*>(vg),
       static_cast<const T*>(ykv), static_cast<const T*>(wb),
       static_cast<const T*>(mask), static_cast<unsigned*>(ws),
       static_cast<T*>(ws) + counter_elems<T>(), static_cast<T*>(out), K, R, C, runs,
@@ -632,43 +652,46 @@ cudaError_t launch_mode1(const void* yc, const void* vg, const void* ykv,
 enum Variant { kRing = 0, kRingElementCopies = 1, kThreadPerEntry = 2 };
 
 // Rows 5 and 9: RING where one subject's two stages fit (16-byte copies and
-// stores when the rows of Yc are whole 16-byte runs and Yc, Vg and the
-// output start on 16-byte boundaries), else THREAD-PER-ENTRY.
-template <typename T>
+// stores when the rows of Yc and each subject's Vg_k are whole 16-byte runs
+// and Yc, Vg and the output start on 16-byte boundaries), else
+// THREAD-PER-ENTRY.
+template <typename T, typename TY, typename TV>
 int ring_variant(int C, int R, bool aligned, bool coldot) {
-  if (ykv_group<T>(R, C, coldot) == 0) return kThreadPerEntry;
-  return aligned && C % (16 / (int)sizeof(T)) == 0 ? kRing : kRingElementCopies;
+  if (ykv_group<T, TY, TV>(R, C, coldot) == 0) return kThreadPerEntry;
+  const bool packs = C % (16 / (int)sizeof(TY)) == 0 &&
+                     (int64_t)C * R % (16 / (int)sizeof(TV)) == 0;
+  return aligned && packs ? kRing : kRingElementCopies;
 }
 
 // Row 5 (EPI kStoreYkv: out = YkV [K, R, R]) or row 9 (kColdot: out [K, R],
 // h and mask read).
-template <typename T, int EPI>
+template <typename T, typename TY, typename TV, int EPI>
 cudaError_t launch_ring(const void* yc, const void* vg, const void* h, const void* mask,
                         void* out, int K, int R, int C, cudaStream_t stream) {
   constexpr bool coldot = EPI == kColdot;
-  const int variant = ring_variant<T>(C, R, aligned16({yc, vg, out}), coldot);
+  const int variant = ring_variant<T, TY, TV>(C, R, aligned16({yc, vg, out}), coldot);
   if (variant == kThreadPerEntry) {
     if constexpr (coldot)
-      mode3_kernel<T, false><<<grid_for((int64_t)K * R), kThreads, 0, stream>>>(
-          static_cast<const T*>(yc), static_cast<const T*>(vg), nullptr,
+      mode3_kernel<T, TY, TV, false><<<grid_for((int64_t)K * R), kThreads, 0, stream>>>(
+          static_cast<const TY*>(yc), static_cast<const TV*>(vg), nullptr,
           static_cast<const T*>(h), static_cast<const T*>(mask), static_cast<T*>(out), K, R,
           C);
     else
-      ykv_kernel<T><<<grid_for((int64_t)K * R * R), kThreads, 0, stream>>>(
-          static_cast<const T*>(yc), static_cast<const T*>(vg), static_cast<T*>(out), K, R,
+      ykv_kernel<T, TY, TV><<<grid_for((int64_t)K * R * R), kThreads, 0, stream>>>(
+          static_cast<const TY*>(yc), static_cast<const TV*>(vg), static_cast<T*>(out), K, R,
           C);
     return cudaGetLastError();
   }
-  const int S = ykv_group<T>(R, C, coldot);
-  const size_t smem = ykv_layout<T>(R, C, S, coldot).smem_bytes;
-  auto kernel = variant == kRing ? ykv_ring_kernel<T, true, EPI>
-                                 : ykv_ring_kernel<T, false, EPI>;
+  const int S = ykv_group<T, TY, TV>(R, C, coldot);
+  const size_t smem = ykv_layout<T, TY, TV>(R, C, S, coldot).smem_bytes;
+  auto kernel = variant == kRing ? ykv_ring_kernel<T, TY, TV, true, EPI>
+                                 : ykv_ring_kernel<T, TY, TV, false, EPI>;
   cudaError_t e = allow_smem(kernel, smem);
   int grid = 0;
   if (e == cudaSuccess) e = persistent_grid(kernel, kRingThreads, smem, (K - 1) / S + 1, &grid);
   if (e != cudaSuccess) return e;
   kernel<<<grid, kRingThreads, smem, stream>>>(
-      static_cast<const T*>(yc), static_cast<const T*>(vg), static_cast<const T*>(h),
+      static_cast<const TY*>(yc), static_cast<const TV*>(vg), static_cast<const T*>(h),
       static_cast<const T*>(mask), static_cast<T*>(out), K, R, C, S);
   return cudaGetLastError();
 }
@@ -677,7 +700,7 @@ cudaError_t launch_ring(const void* yc, const void* vg, const void* h, const voi
 template <typename T>
 cudaError_t launch_mode3_reuse(const void* ykv, const void* h, const void* mask, void* out,
                                int K, int R, cudaStream_t stream) {
-  auto kernel = mode3_kernel<T, true>;
+  auto kernel = mode3_kernel<T, T, T, true>;
   int grid = 0;
   const cudaError_t e = persistent_grid(kernel, kThreads, 0, grid_for((int64_t)K * R), &grid);
   if (e != cudaSuccess) return e;
@@ -690,35 +713,36 @@ cudaError_t launch_mode3_reuse(const void* ykv, const void* h, const void* mask,
 // Row 8: RING where a 32-column tile fits (16-byte copies and stores when
 // the rows of Yc and col_mask are whole 16-byte runs and Yc, col_mask and A
 // start on 16-byte boundaries), else THREAD-PER-ENTRY.
-template <typename T>
+template <typename T, typename TY>
 int mode2_variant(int C, int R, bool aligned) {
-  if (mode2_tile<T>(R) == 0) return kThreadPerEntry;
-  return aligned && C % (16 / (int)sizeof(T)) == 0 ? kRing : kRingElementCopies;
+  if (mode2_tile<T, TY>(R) == 0) return kThreadPerEntry;
+  const bool packs = C % (16 / (int)sizeof(TY)) == 0 && C % (16 / (int)sizeof(T)) == 0;
+  return aligned && packs ? kRing : kRingElementCopies;
 }
 
-template <typename T>
+template <typename T, typename TY>
 cudaError_t launch_mode2(const void* yc, const void* h, const void* wb, const void* cm,
                          void* out, int K, int R, int C, cudaStream_t stream) {
-  const int variant = mode2_variant<T>(C, R, aligned16({yc, cm, out}));
+  const int variant = mode2_variant<T, TY>(C, R, aligned16({yc, cm, out}));
   if (variant == kThreadPerEntry) {
-    mode2_compact_kernel<T><<<grid_for((int64_t)K * C * R), kThreads, 0, stream>>>(
-        static_cast<const T*>(yc), static_cast<const T*>(h), static_cast<const T*>(wb),
+    mode2_compact_kernel<T, TY><<<grid_for((int64_t)K * C * R), kThreads, 0, stream>>>(
+        static_cast<const TY*>(yc), static_cast<const T*>(h), static_cast<const T*>(wb),
         static_cast<const T*>(cm), static_cast<T*>(out), K, R, C);
     return cudaGetLastError();
   }
-  const int TC = mode2_tile<T>(R);
-  const size_t smem = mode2_layout<T>(R, TC).smem_bytes;
-  auto kernel = R <= 8 ? (variant == kRing ? mode2_ring_kernel<T, 8, true>
-                                           : mode2_ring_kernel<T, 8, false>)
-                       : (variant == kRing ? mode2_ring_kernel<T, 0, true>
-                                           : mode2_ring_kernel<T, 0, false>);
+  const int TC = mode2_tile<T, TY>(R);
+  const size_t smem = mode2_layout<T, TY>(R, TC).smem_bytes;
+  auto kernel = R <= 8 ? (variant == kRing ? mode2_ring_kernel<T, TY, 8, true>
+                                           : mode2_ring_kernel<T, TY, 8, false>)
+                       : (variant == kRing ? mode2_ring_kernel<T, TY, 0, true>
+                                           : mode2_ring_kernel<T, TY, 0, false>);
   cudaError_t e = allow_smem(kernel, smem);
   int grid = 0;
   if (e == cudaSuccess)
     e = persistent_grid(kernel, kRingThreads, smem, (int64_t)K * ((C + TC - 1) / TC), &grid);
   if (e != cudaSuccess) return e;
   kernel<<<grid, kRingThreads, smem, stream>>>(
-      static_cast<const T*>(yc), static_cast<const T*>(h), static_cast<const T*>(wb),
+      static_cast<const TY*>(yc), static_cast<const T*>(h), static_cast<const T*>(wb),
       static_cast<const T*>(cm), static_cast<T*>(out), K, R, C, TC);
   return cudaGetLastError();
 }
@@ -733,82 +757,133 @@ cudaError_t launch_mode2(const void* yc, const void* h, const void* wb, const vo
     return (int)cudaErrorInvalidValue;                                        \
   } while (0)
 
+// Run the statement(s) with the compute type T and the types TY of Yc and
+// TV of Vg from their codes CY, CV: both float or both double, or each of
+// them float or one half type (bfloat16, float16) with T = float; return
+// FAIL for any other pair.
+#define SPARTAN_BY_OPERANDS(FAIL, CY, CV, ...)                                \
+  do {                                                                        \
+    SPARTAN_CASE(CY, CV, 0, 0, float, float, float, __VA_ARGS__);             \
+    SPARTAN_CASE(CY, CV, 1, 1, double, double, double, __VA_ARGS__);         \
+    SPARTAN_CASE(CY, CV, 2, 2, float, bf16, bf16, __VA_ARGS__);               \
+    SPARTAN_CASE(CY, CV, 3, 3, float, f16, f16, __VA_ARGS__);                 \
+    SPARTAN_CASE(CY, CV, 0, 2, float, float, bf16, __VA_ARGS__);             \
+    SPARTAN_CASE(CY, CV, 2, 0, float, bf16, float, __VA_ARGS__);             \
+    SPARTAN_CASE(CY, CV, 0, 3, float, float, f16, __VA_ARGS__);              \
+    SPARTAN_CASE(CY, CV, 3, 0, float, f16, float, __VA_ARGS__);              \
+    return FAIL;                                                              \
+  } while (0)
+#define SPARTAN_CASE(CY, CV, A, B, T_, TY_, TV_, ...)                         \
+  if ((CY) == (A) && (CV) == (B)) {                                           \
+    using T = T_;                                                             \
+    using TY = TY_;                                                           \
+    using TV = TV_;                                                           \
+    __VA_ARGS__;                                                              \
+  }
+
+// Run the statement(s) with T and the type TY of Yc from its code CY: 0
+// (float, float), 1 (double, double), 2 (float, bfloat16), 3 (float,
+// float16); return FAIL for any other code.
+#define SPARTAN_BY_YC(FAIL, CY, ...)                                          \
+  do {                                                                        \
+    SPARTAN_CASE(CY, CY, 0, 0, float, float, float, __VA_ARGS__);             \
+    SPARTAN_CASE(CY, CY, 1, 1, double, double, double, __VA_ARGS__);         \
+    SPARTAN_CASE(CY, CY, 2, 2, float, bf16, bf16, __VA_ARGS__);               \
+    SPARTAN_CASE(CY, CY, 3, 3, float, f16, f16, __VA_ARGS__);                 \
+    return FAIL;                                                              \
+  } while (0)
+
 extern "C" {
 
-// dtype: 0 = float32, 1 = float64. Returns a cudaError_t (0 = success).
-// Every entry point needs K >= 1, R >= 1, C >= 1 (the wrappers return
-// zeros for an empty bucket without a launch).
+// dtypes: the dtype code of each streamed operand (0 float32, 1 float64,
+// 2 bfloat16, 3 float16), packed as common.cuh's operand_code reads it:
+// Yc then Vg for rows 5, 6 and 9, Yc for row 8. With a half code every
+// other operand (H, Wb, masks) and the output are float32, else they take
+// the operands' dtype. Rows 7 and 10, and the workspace query, take one
+// dtype code (0, 1): the YkV's, the accumulation's. Returns a cudaError_t
+// (0 = success); a combination not listed is cudaErrorInvalidValue, before
+// any launch. Every entry point needs K >= 1, R >= 1, C >= 1 (the wrappers
+// return zeros for an empty bucket without a launch).
 
-int spartan_ykv(int dtype, const void* yc, const void* vg, void* out, int K,
+int spartan_ykv(int dtypes, const void* yc, const void* vg, void* out, int K,
                 int R, int C, void* stream) {
   if (K < 1 || R < 1 || C < 1) return (int)cudaErrorInvalidValue;
-  SPARTAN_BY_DTYPE(return (int)(launch_ring<T, kStoreYkv>(
-      yc, vg, nullptr, nullptr, out, K, R, C, static_cast<cudaStream_t>(stream))));
+  SPARTAN_BY_OPERANDS((int)cudaErrorInvalidValue, operand_code(dtypes, 0),
+                      operand_code(dtypes, 1),
+                      return (int)(launch_ring<T, TY, TV, kStoreYkv>(
+                          yc, vg, nullptr, nullptr, out, K, R, C,
+                          static_cast<cudaStream_t>(stream))));
 }
 
 // The variant a spartan_ykv launch takes (Variant: 0 ring, 1 ring with
-// element copies, 2 thread-per-entry); aligned: Yc, Vg and YkV start on a
-// 16-byte boundary. -1 for an unknown dtype.
-int spartan_ykv_variant(int dtype, int C, int R, int aligned) {
+// element copies, 2 thread-per-entry) for Yc and Vg of these dtypes;
+// aligned: Yc, Vg and YkV start on a 16-byte boundary. -1 for an unknown
+// combination.
+int spartan_ykv_variant(int dtypes, int C, int R, int aligned) {
   if (C < 1 || R < 1) return -1;
-  if (dtype == 0) return ring_variant<float>(C, R, aligned != 0, false);
-  if (dtype == 1) return ring_variant<double>(C, R, aligned != 0, false);
-  return -1;
+  SPARTAN_BY_OPERANDS(-1, operand_code(dtypes, 0), operand_code(dtypes, 1),
+                      return ring_variant<T, TY, TV>(C, R, aligned != 0, false));
 }
 
 // Rows 6 and 7, one launch each. mask: [K] or null (no subject mask); ws:
-// spartan_mode1_workspace(dtype, K, R) elements of T, zeroed before its
-// first launch (a launch leaves its counter 0).
-int spartan_mode1_one_launch(int dtype, const void* yc, const void* vg, const void* wb,
+// spartan_mode1_workspace(dtype, K, R) elements of the accumulation type,
+// zeroed before its first launch (a launch leaves its counter 0).
+int spartan_mode1_one_launch(int dtypes, const void* yc, const void* vg, const void* wb,
                              const void* mask, void* ws, void* out, int K, int R, int C,
                              void* stream) {
   if (K < 1 || R < 1 || C < 1) return (int)cudaErrorInvalidValue;
-  SPARTAN_BY_DTYPE(return (int)(launch_mode1<T, false>(
-      yc, vg, nullptr, wb, mask, ws, out, K, R, C, static_cast<cudaStream_t>(stream))));
+  SPARTAN_BY_OPERANDS((int)cudaErrorInvalidValue, operand_code(dtypes, 0),
+                      operand_code(dtypes, 1),
+                      return (int)(launch_mode1<T, TY, TV, false>(
+                          yc, vg, nullptr, wb, mask, ws, out, K, R, C,
+                          static_cast<cudaStream_t>(stream))));
 }
 
 int spartan_mode1_reuse_one_launch(int dtype, const void* ykv, const void* wb,
                                    const void* mask, void* ws, void* out, int K, int R,
                                    void* stream) {
   if (K < 1 || R < 1) return (int)cudaErrorInvalidValue;
-  SPARTAN_BY_DTYPE(return (int)(launch_mode1<T, true>(
+  SPARTAN_BY_DTYPE(return (int)(launch_mode1<T, T, T, true>(
       nullptr, nullptr, ykv, wb, mask, ws, out, K, R, 0, static_cast<cudaStream_t>(stream))));
 }
 
-int spartan_mode2_compact(int dtype, const void* yc, const void* h,
+int spartan_mode2_compact(int dtypes, const void* yc, const void* h,
                           const void* wb, const void* cm, void* out, int K,
                           int R, int C, void* stream) {
   if (K < 1 || R < 1 || C < 1) return (int)cudaErrorInvalidValue;
-  SPARTAN_BY_DTYPE(return (int)(launch_mode2<T>(yc, h, wb, cm, out, K, R, C,
-                                                static_cast<cudaStream_t>(stream))));
+  SPARTAN_BY_YC((int)cudaErrorInvalidValue, operand_code(dtypes, 0),
+                return (int)(launch_mode2<T, TY>(yc, h, wb, cm, out, K, R, C,
+                                                 static_cast<cudaStream_t>(stream))));
 }
 
 // The variant a spartan_mode2_compact launch takes (Variant: 0 ring,
-// 1 ring with element copies, 2 thread-per-entry); aligned: Yc, col_mask
-// and A start on a 16-byte boundary. -1 for an unknown dtype.
-int spartan_mode2_compact_variant(int dtype, int C, int R, int aligned) {
+// 1 ring with element copies, 2 thread-per-entry) for a Yc of this dtype;
+// aligned: Yc, col_mask and A start on a 16-byte boundary. -1 for an
+// unknown dtype.
+int spartan_mode2_compact_variant(int dtypes, int C, int R, int aligned) {
   if (C < 1 || R < 1) return -1;
-  if (dtype == 0) return mode2_variant<float>(C, R, aligned != 0);
-  if (dtype == 1) return mode2_variant<double>(C, R, aligned != 0);
-  return -1;
+  SPARTAN_BY_YC(-1, operand_code(dtypes, 0), return mode2_variant<T, TY>(C, R, aligned != 0));
 }
 
-int spartan_mode3(int dtype, const void* yc, const void* vg, const void* h,
+int spartan_mode3(int dtypes, const void* yc, const void* vg, const void* h,
                   const void* mask, void* out, int K, int R, int C,
                   void* stream) {
   if (K < 1 || R < 1 || C < 1) return (int)cudaErrorInvalidValue;
-  SPARTAN_BY_DTYPE(return (int)(launch_ring<T, kColdot>(
-      yc, vg, h, mask, out, K, R, C, static_cast<cudaStream_t>(stream))));
+  SPARTAN_BY_OPERANDS((int)cudaErrorInvalidValue, operand_code(dtypes, 0),
+                      operand_code(dtypes, 1),
+                      return (int)(launch_ring<T, TY, TV, kColdot>(
+                          yc, vg, h, mask, out, K, R, C,
+                          static_cast<cudaStream_t>(stream))));
 }
 
 // The variant a spartan_mode3 launch takes (Variant: 0 ring, 1 ring with
-// element copies, 2 thread-per-entry); aligned: Yc, Vg and out start on a
-// 16-byte boundary. -1 for an unknown dtype.
-int spartan_mode3_variant(int dtype, int C, int R, int aligned) {
+// element copies, 2 thread-per-entry) for Yc and Vg of these dtypes;
+// aligned: Yc, Vg and out start on a 16-byte boundary. -1 for an unknown
+// combination.
+int spartan_mode3_variant(int dtypes, int C, int R, int aligned) {
   if (C < 1 || R < 1) return -1;
-  if (dtype == 0) return ring_variant<float>(C, R, aligned != 0, true);
-  if (dtype == 1) return ring_variant<double>(C, R, aligned != 0, true);
-  return -1;
+  SPARTAN_BY_OPERANDS(-1, operand_code(dtypes, 0), operand_code(dtypes, 1),
+                      return ring_variant<T, TY, TV>(C, R, aligned != 0, true));
 }
 
 int spartan_mode3_reuse(int dtype, const void* ykv, const void* h,

@@ -16,7 +16,9 @@ __all__ = ["resolve_device"]
 def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
     """``cuda`` (or ``cuda:N``) needs a GPU and raises without one; ``cpu``
     is explicit. On CUDA, float32 products are kept in full float32 (TF32
-    off for matmuls and cuDNN)."""
+    off for matmuls and cuDNN), and a bfloat16/float16 product reduces in
+    float32 (cuBLAS's reduced-precision reductions off), as the reference's
+    half products accumulate."""
     dev = torch.device(device)
     if dev.type == "cpu":
         return dev
@@ -28,4 +30,6 @@ def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
                            "command line) to run on the CPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
     return dev

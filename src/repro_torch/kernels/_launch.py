@@ -10,6 +10,12 @@ rows 6 and 7) and P2's levels also take a workspace from
 :class:`Workspaces`. Nothing here
 builds or loads anything at import time.
 
+At half precision nine kernels take half-width operands (bfloat16 or
+float16) where they stream the slab or the projected slices:
+:func:`dtype_codes` checks each kernel's combination and packs one dtype
+code per streamed operand into the word its C entry point takes; every
+other kernel takes one dtype of float32/float64 (:func:`dtype_code`).
+
 A wrapper called while a CUDA graph captures counts its launch once, at
 capture; the graph launches the kernel at every replay. The engine
 (:mod:`repro_torch.core.engine`) takes the counts of a capture out with
@@ -26,14 +32,19 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.kernels.common import HALF_DTYPES, accum_dtype
+
 __all__ = ["KernelLib", "Workspaces", "P", "I", "RING_VARIANTS", "LIBRARIES",
            "launch_counts", "add_launches", "held_launches", "workspace_tensors",
            "check_shapes",
-           "check_index", "on_cpu", "dtype_code", "mask_operand"]
+           "check_index", "on_cpu", "dtype_code", "dtype_codes", "pack_codes",
+           "mask_operand", "DTYPE_CODES"]
 
 P = ctypes.c_void_p     # a pointer or the stream
 I = ctypes.c_int        # an int (shape or dtype code)
-_DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
+# the dtype codes of the C entry points (common.cuh)
+DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2, torch.float16: 3}
+_FULL = (torch.float32, torch.float64)
 # what the variant queries of rows 5, 8, 9, 11 and 12 return, by their C
 # entry point's code (spartan_ykv_variant, spartan_mode2_compact_variant, ...)
 RING_VARIANTS = ("ring", "ring-element-copies", "thread-per-entry")
@@ -115,7 +126,7 @@ def held_launches() -> Iterator[Dict[Tuple[str, str], int]]:
 
 class Workspaces:
     """The workspaces of one library's reductions across subjects, one per
-    (device, stream, dtype, R): the 32-bit ticket counter that each launch
+    (device, stream, accumulation dtype, R): the 32-bit ticket counter that each launch
     leaves at 0 and the first level's partials, in one tensor zeroed once
     when it is allocated. It grows when a larger bucket needs more partials.
     Its size comes from the C query ``query(dtype, K, R)``, asked once per
@@ -137,13 +148,17 @@ class Workspaces:
         """``fn(code, *before, workspace, *after, stream)`` through
         :meth:`KernelLib.launch`, on the current stream of ``like``'s device
         and the workspace of that device, that stream, ``like``'s dtype and
-        R, for K subjects."""
+        R, for K subjects. ``like`` is an operand of the accumulation dtype
+        (float32 or float64; Wb, whose dtype it is also at half precision),
+        which keys, sizes and types the workspace; ``code`` is the kernel's
+        dtype word."""
         dev = like.device
         stream = torch.cuda.current_stream(dev).cuda_stream
-        key = (dev.index, stream, code, R)
-        need = self._elems.get((code, K, R))
+        acc = DTYPE_CODES[like.dtype]
+        key = (dev.index, stream, acc, R)
+        need = self._elems.get((acc, K, R))
         if need is None:
-            need = self._elems[(code, K, R)] = getattr(self._lib.lib(), self._query)(code, K, R)
+            need = self._elems[(acc, K, R)] = getattr(self._lib.lib(), self._query)(acc, K, R)
             if need < 0:
                 raise ValueError(f"{name}: no workspace for K={K}, R={R}")
         ws = self._ws.get(key)
@@ -189,27 +204,74 @@ def on_cpu(*ts: torch.Tensor) -> bool:
     return next(iter(devs)).type == "cpu"
 
 
+def _on_card(ts: Sequence[torch.Tensor]) -> None:
+    dev = ts[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"the kernels run on CUDA tensors, got {dev}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("the kernels take contiguous tensors")
+
+
 def dtype_code(*ts: torch.Tensor) -> int:
     """Raise on what the kernels do not take (a non-CUDA tensor, a dtype
     other than one of float32/float64 for all operands, a non-contiguous
     operand); return the dtype code the C entry points take."""
-    dev = ts[0].device
-    if dev.type != "cuda":
-        raise ValueError(f"the kernels run on CUDA tensors, got {dev}")
+    _on_card(ts)
     dtypes = {t.dtype for t in ts}
-    if len(dtypes) != 1 or ts[0].dtype not in _DTYPE_CODE:
+    if len(dtypes) != 1 or ts[0].dtype not in _FULL:
         raise TypeError(f"the kernels take one dtype of float32/float64, "
                         f"got {sorted(map(str, dtypes))}")
-    if not all(t.is_contiguous() for t in ts):
-        raise ValueError("the kernels take contiguous tensors")
-    return _DTYPE_CODE[ts[0].dtype]
+    return DTYPE_CODES[ts[0].dtype]
+
+
+def pack_codes(codes: Sequence[int]) -> int:
+    """The dtypes word of common.cuh's ``operand_code``: the first code in
+    bits 0-3, code j in bits 4j to 4j+3 as one more than itself where it
+    differs from the first (0 there: the first's)."""
+    word = codes[0]
+    for j, c in enumerate(codes[1:], 1):
+        if c != codes[0]:
+            word |= (c + 1) << (4 * j)
+    return word
+
+
+def dtype_codes(streamed: Sequence[torch.Tensor], *others: torch.Tensor,
+                paired: bool = True) -> int:
+    """Check the operands of a kernel that takes half-width ``streamed``
+    operands (the slab, Yc, Vg) beside float ``others``, and return the
+    dtypes word its C entry point takes (:func:`pack_codes`).
+
+    Without a half operand every operand has one dtype of float32/float64,
+    as :func:`dtype_code` asks. With one, every other operand is float32,
+    the half operands share one half dtype, and each streamed operand is
+    that dtype or float32; ``paired`` (F1, F4, row 11) asks the streamed
+    operands to share one dtype. Anything else raises a TypeError (f64 with
+    a half operand, bfloat16 with float16, a half operand the kernel does
+    not stream); a non-CUDA or non-contiguous operand a ValueError."""
+    ts = (*streamed, *others)
+    _on_card(ts)
+    halves = {t.dtype for t in streamed if t.dtype in HALF_DTYPES}
+    if not halves:
+        return dtype_code(*ts)
+    full = {t.dtype for t in ts if t.dtype not in HALF_DTYPES}
+    stream_dtypes = {t.dtype for t in streamed}
+    if (len(halves) != 1 or any(t.dtype in HALF_DTYPES for t in others)
+            or not full <= {torch.float32} or (paired and len(stream_dtypes) != 1)):
+        want = ("one half dtype (bfloat16 or float16) for the streamed operands "
+                + ("together" if paired else "or float32 for each"))
+        raise TypeError(f"at half precision the kernel takes {want} and float32 for "
+                        f"the others, got streamed {[str(t.dtype) for t in streamed]}, "
+                        f"others {[str(t.dtype) for t in others]}")
+    return pack_codes([DTYPE_CODES[t.dtype] for t in streamed])
 
 
 def mask_operand(subject_mask: Optional[torch.Tensor], like: torch.Tensor) -> tuple:
     """A kernel's nullable subject-mask operand: () without a subject mask,
-    else (the mask [K] in the dtype of ``like``,), checked against the K of
-    ``like`` (an operand whose first axis is the subjects: Wb, Yc, YkV)."""
+    else (the mask [K] in the accumulation dtype of ``like``,), checked
+    against the K of ``like`` (an operand whose first axis is the subjects:
+    Wb, Yc, YkV)."""
     if subject_mask is None:
         return ()
     check_shapes(subject_mask=(subject_mask, like.shape[:1]))
-    return (subject_mask if subject_mask.dtype == like.dtype else subject_mask.to(like.dtype),)
+    acc = accum_dtype(like)
+    return (subject_mask if subject_mask.dtype == acc else subject_mask.to(acc),)

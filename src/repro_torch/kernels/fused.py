@@ -21,7 +21,13 @@ CPU (the tests); for a CUDA tensor it launches the kernel from
 ``repro_torch/csrc/fused.cu`` or raises, and adds one to ``LAUNCHES[name]``
 where it launches. Kernels accumulate per ``accum_dtype`` and take float32
 and float64 at any R, I and C (operands too large for a block's shared
-memory are staged in chunks). The kernel library is built at first use.
+memory are staged in chunks). At half precision F1 and F4 take the slab
+and Vg in one half dtype (bfloat16 or float16), F3 a half slab, every
+other operand float32; they read the half values at 2 bytes, sum in
+float32 and return float32, as the reference's kernels do; F2 reads no
+slab and takes float32/float64. The plain versions widen the half
+operands with ``accum_dtype`` and compute in float32, the same function.
+The kernel library is built at first use.
 """
 from __future__ import annotations
 
@@ -31,7 +37,7 @@ import torch
 
 from repro_torch.kernels._launch import I as _I, P as _P
 from repro_torch.kernels._launch import (KernelLib, Workspaces, check_shapes, dtype_code,
-                                        mask_operand, on_cpu)
+                                        dtype_codes, mask_operand, on_cpu)
 from repro_torch.kernels.common import accum_dtype, fold_subject_mask
 
 __all__ = [
@@ -122,8 +128,8 @@ def fused_procrustes_b(vals, Vg, Wb, H) -> Tuple[torch.Tensor, torch.Tensor]:
         return z, z.clone()
     if on_cpu(vals, Vg, Wb, H):
         return procrustes_b_plain(vals, Vg, Wb, H)
-    code = dtype_code(vals, Vg, Wb, H)
-    XkV = torch.empty((K, I, R), dtype=vals.dtype, device=vals.device)
+    code = dtype_codes((vals, Vg), Wb, H)
+    XkV = torch.empty((K, I, R), dtype=accum_dtype(vals), device=vals.device)
     B = torch.empty_like(XkV)
     LIB.launch("fused_procrustes_b", "spartan_fused_procrustes_b", vals.device,
                 code, vals.data_ptr(), Vg.data_ptr(), Wb.data_ptr(), H.data_ptr(),
@@ -133,11 +139,12 @@ def fused_procrustes_b(vals, Vg, Wb, H) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def procrustes_b_variant(vals: torch.Tensor, R: int) -> str:
     """Which variant of F1's kernel :func:`fused_procrustes_b` launches for a
-    CUDA slab ``vals`` [K,I,C] at rank R: ``ring`` (the main path's), or
-    ``ring-element-copies`` for a slab whose rows are not whole 16-byte
-    runs, or ``row-warp*`` for R > 64 or a subject too large for the ring."""
+    CUDA slab ``vals`` [K,I,C] (float32, float64 or half) at rank R:
+    ``ring`` (the main path's), or ``ring-element-copies`` for a slab whose
+    rows are not whole 16-byte runs, or ``row-warp*`` for R > 64 or a
+    subject too large for the ring."""
     K, I, C = vals.shape
-    dtype = dtype_code(vals)           # raises for a tensor off the card
+    dtype = dtype_codes((vals,))       # raises for a tensor off the card
     code = LIB.lib().spartan_fused_procrustes_b_variant(
         dtype, I, C, R, int(vals.data_ptr() % 16 == 0))
     if code < 0:
@@ -194,8 +201,8 @@ def fused_mode2_compact(vals, Q, H, Wb, col_mask) -> torch.Tensor:
         return vals.new_zeros((0, C, R), dtype=accum_dtype(vals))
     if on_cpu(vals, Q, H, Wb, col_mask):
         return mode2_compact_plain(vals, Q, H, Wb, col_mask)
-    code = dtype_code(vals, Q, H, Wb, col_mask)
-    out = torch.empty((K, C, R), dtype=vals.dtype, device=vals.device)
+    code = dtype_codes((vals,), Q, H, Wb, col_mask)
+    out = torch.empty((K, C, R), dtype=accum_dtype(vals), device=vals.device)
     LIB.launch("fused_mode2_compact", "spartan_fused_mode2_compact", vals.device,
                 code, vals.data_ptr(), Q.data_ptr(), H.data_ptr(), Wb.data_ptr(),
                 col_mask.data_ptr(), out.data_ptr(), K, I, C, R)
@@ -212,8 +219,8 @@ def fused_ykv(vals, Q, Vg) -> torch.Tensor:
         return vals.new_zeros((0, R, R), dtype=accum_dtype(vals))
     if on_cpu(vals, Q, Vg):
         return ykv_plain(vals, Q, Vg)
-    code = dtype_code(vals, Q, Vg)
-    out = torch.empty((K, R, R), dtype=vals.dtype, device=vals.device)
+    code = dtype_codes((vals, Vg), Q)
+    out = torch.empty((K, R, R), dtype=accum_dtype(vals), device=vals.device)
     LIB.launch("fused_ykv", "spartan_fused_ykv", vals.device,
                 code, vals.data_ptr(), Q.data_ptr(), Vg.data_ptr(), out.data_ptr(),
                 K, I, C, R)

@@ -11,8 +11,11 @@ a bucket, in two forms:
 CUDA tensors each launches its kernel of ``csrc/staged.cu`` once (two
 levels in one launch, deterministic: two runs give the same bits; the
 kernel multiplies W(k,:) by the mask itself, as torch folds it) on a
-workspace kept per device, stream, dtype and R, or raises; on the CPU it
-runs its plain version. A repeated call allocates only its [R, R] result.
+workspace kept per device, stream, accumulation dtype and R, or raises;
+on the CPU it runs its plain version. A repeated call allocates only its
+[R, R] result. At half precision :func:`mode1` takes Yc and Vg each in
+float32 or one half dtype (Wb and the mask float32) and returns float32;
+:func:`mode1_reuse` takes float32/float64 YkV.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels._launch import (Workspaces, check_shapes, dtype_code,
-                                        mask_operand, on_cpu)
+                                        dtype_codes, mask_operand, on_cpu)
 from repro_torch.kernels.common import accum_dtype, fold_subject_mask
 from repro_torch.kernels.staged import LIB
 
@@ -41,10 +44,11 @@ def mode1_reuse_plain(YkV, Wb, subject_mask=None) -> torch.Tensor:
 
 def _launch(name: str, fn: str, inputs: tuple, Wb: torch.Tensor, mask: tuple,
             dims: tuple) -> torch.Tensor:
-    """One launch of row 6 or 7 on ``inputs`` (Yc, Vg or YkV), Wb and
+    """One launch of row 6 (``inputs`` Yc, Vg) or 7 (YkV) with Wb and
     ``mask`` (() for none: a null pointer)."""
     K, R = Wb.shape
-    code = dtype_code(*inputs, Wb, *mask)
+    code = (dtype_codes(inputs, Wb, *mask, paired=False) if len(inputs) == 2
+            else dtype_code(*inputs, Wb, *mask))
     out = torch.empty((R, R), dtype=Wb.dtype, device=Wb.device)
     WORKSPACES.launch(name, fn, Wb, code, K, R,
                       (*(t.data_ptr() for t in inputs), Wb.data_ptr(),

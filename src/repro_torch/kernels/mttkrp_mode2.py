@@ -8,7 +8,9 @@ into W(k,:)) padded subjects, exactly: the sorted-segment scatter relies on
 those zeros. On CUDA tensors :func:`mode2_compact` launches
 ``spartan_mode2_compact`` of ``csrc/staged.cu`` (or raises), whose variant
 :func:`mode2_compact_variant` names; on the CPU it runs
-:func:`mode2_compact_plain`.
+:func:`mode2_compact_plain`. At half precision Yc may be bfloat16 or
+float16 (H, Wb and the masks float32); the kernel reads it at 2 bytes and
+returns A in float32.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels._launch import RING_VARIANTS, check_shapes, dtype_code, on_cpu
+from repro_torch.kernels._launch import RING_VARIANTS, check_shapes, dtype_codes, on_cpu
 from repro_torch.kernels.common import accum_dtype, fold_subject_mask
 from repro_torch.kernels.staged import LIB
 
@@ -30,11 +32,12 @@ def mode2_compact_plain(Yc, H, Wb, col_mask=None, subject_mask=None) -> torch.Te
 
 
 def _mask_operand(Yc: torch.Tensor, col_mask: Optional[torch.Tensor]) -> torch.Tensor:
-    """col_mask as the kernel reads it: Yc's dtype, ones when absent."""
+    """col_mask as the kernel reads it: the accumulation dtype of Yc, ones
+    when absent."""
     K, _, C = Yc.shape
     if col_mask is None:
-        return torch.ones((K, C), dtype=Yc.dtype, device=Yc.device)
-    return col_mask.to(Yc.dtype)
+        return torch.ones((K, C), dtype=accum_dtype(Yc), device=Yc.device)
+    return col_mask.to(accum_dtype(Yc))
 
 
 def mode2_compact(Yc: torch.Tensor, H: torch.Tensor, Wb: torch.Tensor,
@@ -52,8 +55,8 @@ def mode2_compact(Yc: torch.Tensor, H: torch.Tensor, Wb: torch.Tensor,
         return mode2_compact_plain(Yc, H, Wb, col_mask, subject_mask)
     Wb = fold_subject_mask(Wb, subject_mask)
     cm = _mask_operand(Yc, col_mask)
-    code = dtype_code(Yc, H, Wb, cm)
-    out = torch.empty((K, C, R), dtype=Yc.dtype, device=Yc.device)
+    code = dtype_codes((Yc,), H, Wb, cm)
+    out = torch.empty((K, C, R), dtype=accum_dtype(Yc), device=Yc.device)
     LIB.launch("mode2_compact", "spartan_mode2_compact", Yc.device, code,
                Yc.data_ptr(), H.data_ptr(), Wb.data_ptr(), cm.data_ptr(),
                out.data_ptr(), K, R, C)
@@ -67,7 +70,7 @@ def mode2_compact_variant(Yc: torch.Tensor, col_mask: Optional[torch.Tensor] = N
     or operands that do not start on a 16-byte boundary, or
     ``thread-per-entry`` for an R too wide for the ring's tile."""
     K, R, C = Yc.shape
-    dtype = dtype_code(Yc)                # raises for a tensor off the card
+    dtype = dtype_codes((Yc,))            # raises for a tensor off the card
     cm = _mask_operand(Yc, col_mask)
     aligned = Yc.data_ptr() % 16 == 0 and cm.data_ptr() % 16 == 0
     code = LIB.lib().spartan_mode2_compact_variant(dtype, C, R, int(aligned))

@@ -7,7 +7,10 @@ cached. ``subject_mask`` zeroes the rows of padded subjects. On CUDA
 tensors each launches its kernel of ``csrc/staged.cu`` (or raises), row
 9's in the variant :func:`mode3_variant` names; on the CPU it runs its
 plain version. Both kernels sum in one order, so on the card ``mode3(Yc,
-Vg, H, m)`` equals ``mode3_reuse(ykv(Yc, Vg), H, m)`` bit for bit.
+Vg, H, m)`` equals ``mode3_reuse(ykv(Yc, Vg), H, m)`` bit for bit. At half
+precision :func:`mode3` takes Yc and Vg each in float32 or one half dtype
+(H and the mask float32) and returns float32; :func:`mode3_reuse` takes
+float32/float64 YkV.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels._launch import (RING_VARIANTS, check_shapes, dtype_code,
-                                        mask_operand, on_cpu)
+                                        dtype_codes, mask_operand, on_cpu)
 from repro_torch.kernels.common import accum_dtype
 from repro_torch.kernels.staged import LIB
 
@@ -46,8 +49,8 @@ def mode3(Yc: torch.Tensor, Vg: torch.Tensor, H: torch.Tensor,
         return Yc.new_zeros((K, R), dtype=accum_dtype(Yc))
     if on_cpu(Yc, Vg, H, *mask):
         return mode3_plain(Yc, Vg, H, subject_mask)
-    code = dtype_code(Yc, Vg, H, *mask)
-    out = torch.empty((K, R), dtype=Yc.dtype, device=Yc.device)
+    code = dtype_codes((Yc, Vg), H, *mask, paired=False)
+    out = torch.empty((K, R), dtype=accum_dtype(Yc), device=Yc.device)
     LIB.launch("mode3", "spartan_mode3", Yc.device, code, Yc.data_ptr(), Vg.data_ptr(),
                H.data_ptr(), mask[0].data_ptr() if mask else None, out.data_ptr(), K, R, C)
     return out
@@ -78,7 +81,7 @@ def mode3_variant(Yc: torch.Tensor, Vg: torch.Tensor) -> str:
     ``thread-per-entry`` for a subject too large for the ring's two
     shared-memory stages."""
     K, R, C = Yc.shape
-    dtype = dtype_code(Yc, Vg)            # raises for a tensor off the card
+    dtype = dtype_codes((Yc, Vg), paired=False)   # raises for a tensor off the card
     aligned = Yc.data_ptr() % 16 == 0 and Vg.data_ptr() % 16 == 0
     code = LIB.lib().spartan_mode3_variant(dtype, C, R, int(aligned))
     if code < 0:

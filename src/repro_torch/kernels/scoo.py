@@ -34,6 +34,15 @@ call without them raises; :func:`scoo_xk_times_v_variant` and
 :func:`scoo_project_variant` name the variant a launch takes. On CPU
 tensors they run the plain versions.
 Accumulation follows ``accum_dtype``.
+
+At half precision (bfloat16 or float16 ``vals``) the plain helpers follow
+the reference's: :func:`xk_times_v` and :func:`project` round their f32
+sums back to ``vals.dtype``, :func:`ykv_scoo` and
+:func:`mode2_compact_scoo` widen with ``accum_dtype`` and return f32. The
+two kernels, like the reference's Pallas kernels, return the f32 sums
+(row 11 with vals and Vg half, row 12 with vals half and Q float32), and
+so do their CPU paths; a caller that wants the reference's rounding (the
+staged route) rounds after the call.
 """
 from __future__ import annotations
 
@@ -43,12 +52,13 @@ import torch
 
 from repro_torch.kernels._launch import I as _I, P as _P
 from repro_torch.kernels._launch import (RING_VARIANTS, KernelLib, check_index,
-                                         check_shapes, dtype_code, on_cpu)
+                                         check_shapes, dtype_codes, on_cpu)
 from repro_torch.kernels.common import accum_dtype
 
 __all__ = [
     "KERNELS", "LAUNCHES", "LIB", "reset_launches",
-    "segment_sum_sorted", "xk_times_v", "project", "ykv_scoo", "mode1_scoo",
+    "segment_sum_sorted", "xk_times_v", "project", "xk_times_v_plain", "project_plain",
+    "ykv_scoo", "mode1_scoo",
     "mode2_compact_scoo", "mode3_scoo", "scoo_xk_times_v", "scoo_project",
     "scoo_xk_times_v_variant", "scoo_project_variant",
 ]
@@ -103,30 +113,44 @@ def _segsum(contrib, idx, ends, n_out: int) -> torch.Tensor:
     return out.scatter_add_(1, idx.long()[..., None].expand(-1, -1, R), contrib)
 
 
+def xk_times_v_plain(vals, rows, lcols, Vg, i_pad: int,
+                     row_ends: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Row 11's plain version: :func:`xk_times_v` in the accumulation dtype,
+    without its rounding to ``vals.dtype`` (the two differ below f32 only)."""
+    acc = accum_dtype(vals)
+    contrib = _gather_n(Vg.to(acc), lcols) * vals.to(acc)[..., None]
+    return _segsum(contrib, rows, row_ends, i_pad)
+
+
 def xk_times_v(vals, rows, lcols, Vg, i_pad: int, *,
                row_ends: Optional[torch.Tensor] = None) -> torch.Tensor:
     """X_k V from SCOO triplets: vals [Kb,N], rows/lcols i32 [Kb,N], Vg
-    [Kb,C,R] (V rows of the kept columns, masked) -> [Kb, I_pad, R].
-    ``row_ends`` (i32 [Kb, I_pad]) selects the sorted path."""
-    acc = accum_dtype(vals)
-    contrib = _gather_n(Vg.to(acc), lcols) * vals.to(acc)[..., None]
-    return _segsum(contrib, rows, row_ends, i_pad).to(vals.dtype)
+    [Kb,C,R] (V rows of the kept columns, masked) -> [Kb, I_pad, R] in
+    ``vals.dtype``. ``row_ends`` (i32 [Kb, I_pad]) selects the sorted path."""
+    return xk_times_v_plain(vals, rows, lcols, Vg, i_pad, row_ends).to(vals.dtype)
 
 
-def project(vals, rows, lcols, Q, c_pad: int, *,
-            cperm: Optional[torch.Tensor] = None,
-            col_ends: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Y_k = Q_k^T X_k from SCOO triplets -> [Kb, R, C_pad], CC's compact
-    Yc layout. ``cperm``/``col_ends`` (the column-sorted view) select the
-    sorted path."""
+def project_plain(vals, rows, lcols, Q, c_pad: int, cperm: Optional[torch.Tensor] = None,
+                  col_ends: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Row 12's plain version: :func:`project` in the accumulation dtype,
+    without its rounding to ``vals.dtype`` (the two differ below f32 only)."""
     acc = accum_dtype(vals)
     if cperm is not None and col_ends is not None:
         p = cperm.long()
         vals_c = torch.gather(vals, 1, p).to(acc)
         qg = _gather_n(Q.to(acc), torch.gather(rows, 1, p))
-        return _segsum_t((qg * vals_c[..., None]).transpose(1, 2), col_ends).to(vals.dtype)
+        return _segsum_t((qg * vals_c[..., None]).transpose(1, 2), col_ends)
     contrib = _gather_n(Q.to(acc), rows) * vals.to(acc)[..., None]
-    return _segsum(contrib, lcols, None, c_pad).transpose(1, 2).contiguous().to(vals.dtype)
+    return _segsum(contrib, lcols, None, c_pad).transpose(1, 2).contiguous()
+
+
+def project(vals, rows, lcols, Q, c_pad: int, *,
+            cperm: Optional[torch.Tensor] = None,
+            col_ends: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Y_k = Q_k^T X_k from SCOO triplets -> [Kb, R, C_pad] in
+    ``vals.dtype``, CC's compact Yc layout. ``cperm``/``col_ends`` (the
+    column-sorted view) select the sorted path."""
+    return project_plain(vals, rows, lcols, Q, c_pad, cperm, col_ends).to(vals.dtype)
 
 
 def ykv_scoo(vals, rows, lcols, Q, Vg) -> torch.Tensor:
@@ -183,9 +207,10 @@ def scoo_xk_times_v(vals: torch.Tensor, rows: torch.Tensor, lcols: torch.Tensor,
                     row_ends: Optional[torch.Tensor] = None) -> torch.Tensor:
     """X_k V [Kb, I_pad, R] from the triplets (vals [Kb,N], rows/lcols i32
     [Kb,N], Vg [Kb,C,R], row_ends i32 [Kb,I_pad]); the counterpart of
-    ``xk_times_v_pallas``. On CUDA tensors it launches
-    ``spartan_scoo_xk_times_v`` (or raises, also without ``row_ends``); on
-    the CPU it runs :func:`xk_times_v`."""
+    ``xk_times_v_pallas``, in the accumulation dtype (float32 for half vals
+    and Vg). On CUDA tensors it launches ``spartan_scoo_xk_times_v`` (or
+    raises, also without ``row_ends``); on the CPU it runs
+    :func:`xk_times_v_plain`."""
     Kb, N = vals.shape
     _, C, R = Vg.shape
     check_shapes(rows=(rows, (Kb, N)), lcols=(lcols, (Kb, N)), Vg=(Vg, (Kb, C, R)))
@@ -194,12 +219,12 @@ def scoo_xk_times_v(vals: torch.Tensor, rows: torch.Tensor, lcols: torch.Tensor,
     if Kb == 0 or i_pad == 0:
         return vals.new_zeros((Kb, i_pad, R), dtype=accum_dtype(vals))
     if on_cpu(vals, rows, lcols, Vg, *([] if row_ends is None else [row_ends])):
-        return xk_times_v(vals, rows, lcols, Vg, i_pad, row_ends=row_ends)
+        return xk_times_v_plain(vals, rows, lcols, Vg, i_pad, row_ends)
     if row_ends is None:
         raise ValueError("scoo_xk_times_v on CUDA sums each row's segment: pass row_ends")
-    code = dtype_code(vals, Vg)
+    code = dtype_codes((vals, Vg))
     check_index(lcols=lcols, row_ends=row_ends)
-    out = torch.empty((Kb, i_pad, R), dtype=vals.dtype, device=vals.device)
+    out = torch.empty((Kb, i_pad, R), dtype=accum_dtype(vals), device=vals.device)
     LIB.launch("scoo_xk_times_v", "spartan_scoo_xk_times_v", vals.device, code,
                vals.data_ptr(), lcols.data_ptr(), Vg.data_ptr(), row_ends.data_ptr(),
                out.data_ptr(), Kb, N, i_pad, C, R)
@@ -215,7 +240,7 @@ def scoo_xk_times_v_variant(vals: torch.Tensor, rows: torch.Tensor, lcols: torch
     ring's shared-memory stages."""
     Kb, N = vals.shape
     _, C, R = Vg.shape
-    dtype = dtype_code(vals, Vg)          # raises for a tensor off the card
+    dtype = dtype_codes((vals, Vg))       # raises for a tensor off the card
     aligned = all(t.data_ptr() % 16 == 0 for t in (vals, lcols, Vg, row_ends))
     code = LIB.lib().spartan_scoo_xk_times_v_variant(dtype, N, i_pad, C, R, int(aligned))
     if code < 0:
@@ -229,10 +254,11 @@ def scoo_project(vals: torch.Tensor, rows: torch.Tensor, lcols: torch.Tensor,
                  col_ends: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Y_k = Q_k^T X_k [Kb, R, C_pad] from the triplets and Q [Kb,I,R]
     (cperm i32 [Kb,N], col_ends i32 [Kb,C_pad]); the counterpart of
-    ``project_pallas``. Empty column segments (padded columns and subjects)
+    ``project_pallas``, in the accumulation dtype (float32 for half vals,
+    with Q float32). Empty column segments (padded columns and subjects)
     are exact zeros. On CUDA tensors it launches ``spartan_scoo_project``
     (or raises, also without ``cperm``/``col_ends``); on the CPU it runs
-    :func:`project`."""
+    :func:`project_plain`."""
     Kb, N = vals.shape
     _, I, R = Q.shape
     check_shapes(rows=(rows, (Kb, N)), lcols=(lcols, (Kb, N)), Q=(Q, (Kb, I, R)))
@@ -244,13 +270,13 @@ def scoo_project(vals: torch.Tensor, rows: torch.Tensor, lcols: torch.Tensor,
         return vals.new_zeros((Kb, R, c_pad), dtype=accum_dtype(vals))
     index = [t for t in (cperm, col_ends) if t is not None]
     if on_cpu(vals, rows, lcols, Q, *index):
-        return project(vals, rows, lcols, Q, c_pad, cperm=cperm, col_ends=col_ends)
+        return project_plain(vals, rows, lcols, Q, c_pad, cperm, col_ends)
     if cperm is None or col_ends is None:
         raise ValueError("scoo_project on CUDA sums each column's segment: "
                          "pass cperm and col_ends")
-    code = dtype_code(vals, Q)
+    code = dtype_codes((vals,), Q)
     check_index(rows=rows, cperm=cperm, col_ends=col_ends)
-    out = torch.empty((Kb, R, c_pad), dtype=vals.dtype, device=vals.device)
+    out = torch.empty((Kb, R, c_pad), dtype=accum_dtype(vals), device=vals.device)
     LIB.launch("scoo_project", "spartan_scoo_project", vals.device, code,
                vals.data_ptr(), rows.data_ptr(), cperm.data_ptr(), Q.data_ptr(),
                col_ends.data_ptr(), out.data_ptr(), Kb, N, I, c_pad, R)
@@ -267,7 +293,7 @@ def scoo_project_variant(vals: torch.Tensor, rows: torch.Tensor, lcols: torch.Te
     ring's two shared-memory stages."""
     Kb, N = vals.shape
     _, I, R = Q.shape
-    dtype = dtype_code(vals, Q)           # raises for a tensor off the card
+    dtype = dtype_codes((vals,), Q)       # raises for a tensor off the card
     aligned = all(t.data_ptr() % 16 == 0 for t in (vals, rows, cperm, Q, col_ends))
     code = LIB.lib().spartan_scoo_project_variant(dtype, N, I, c_pad, R, int(aligned))
     if code < 0:

@@ -4,14 +4,16 @@
 V rows: the product that the mode-1 and mode-3 reuse paths and the fit
 share. On CUDA tensors :func:`ykv` launches ``spartan_ykv`` of
 ``csrc/staged.cu`` (or raises), whose variant :func:`ykv_variant` names; on
-the CPU it runs :func:`ykv_plain`.
+the CPU it runs :func:`ykv_plain`. At half precision Yc and Vg are each
+float32 or one half dtype (bfloat16, float16); the kernel reads the half
+values at 2 bytes and returns YkV in float32.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels._launch import RING_VARIANTS, check_shapes, dtype_code, on_cpu
+from repro_torch.kernels._launch import RING_VARIANTS, check_shapes, dtype_codes, on_cpu
 from repro_torch.kernels.common import accum_dtype
 from repro_torch.kernels.staged import LIB
 
@@ -28,8 +30,8 @@ def ykv(Yc: torch.Tensor, Vg: torch.Tensor) -> torch.Tensor:
         return Yc.new_zeros((K, R, R), dtype=accum_dtype(Yc))
     if on_cpu(Yc, Vg):
         return ykv_plain(Yc, Vg)
-    code = dtype_code(Yc, Vg)
-    out = torch.empty((K, R, R), dtype=Yc.dtype, device=Yc.device)
+    code = dtype_codes((Yc, Vg), paired=False)
+    out = torch.empty((K, R, R), dtype=accum_dtype(Yc), device=Yc.device)
     LIB.launch("ykv", "spartan_ykv", Yc.device, code, Yc.data_ptr(),
                Vg.data_ptr(), out.data_ptr(), K, R, C)
     return out
@@ -43,7 +45,7 @@ def ykv_variant(Yc: torch.Tensor, Vg: torch.Tensor) -> str:
     ``thread-per-entry`` for a subject too large for the ring's two
     shared-memory stages."""
     K, R, C = Yc.shape
-    dtype = dtype_code(Yc, Vg)            # raises for a tensor off the card
+    dtype = dtype_codes((Yc, Vg), paired=False)   # raises for a tensor off the card
     aligned = Yc.data_ptr() % 16 == 0 and Vg.data_ptr() % 16 == 0
     code = LIB.lib().spartan_ykv_variant(dtype, C, R, int(aligned))
     if code < 0:

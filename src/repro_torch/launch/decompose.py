@@ -5,7 +5,7 @@ decompose``), on a GPU by default:
       --scale 0.002 --rank 5 --iters 20 [--format cc|scoo|auto] \
       [--backend auto|staged|scoo|fused|torch] [--engine host|scan] \
       [--check-every 10] [--constraint v=nonneg+l1:0.1,w=smooth:0.1] \
-      [--device cpu] [--json out.json]
+      [--precision f32|bf16|f16] [--device cpu] [--json out.json]
 
 ``--constraint`` sets the per-mode factor constraints in the reference's
 grammar (``repro_torch.core.constraints``; a bare spec applies to V and W);
@@ -21,8 +21,13 @@ bucket on the GPU through the four fused CUDA kernels
 route; ``--backend staged`` runs the staged kernels (``repro_torch.kernels.
 ops``, the reference's ``pallas``), on SCOO buckets after the two SCOO
 kernels; ``--backend scoo`` contracts SCOO buckets in plain torch. Without a
-GPU it raises unless ``--device cpu`` is given. The ``--json`` summary has
-the reference's keys, plus the device and each kernel's launch count.
+GPU it raises unless ``--device cpu`` is given. ``--precision bf16|f16``
+stages the streamed operands (the slab, Vg, the projected slices)
+half-width while every product accumulates in f32, as the reference's; on
+a GPU the nine kernels that stream them read them at 2 bytes. The
+``--json`` summary has the reference's keys (``precision`` is
+``--precision``'s), plus ``dtype`` (``--dtype``), the device and each
+kernel's launch count.
 """
 from __future__ import annotations
 
@@ -48,7 +53,6 @@ __all__ = ["load_dataset", "prepare", "decompose", "kernel_launches",
            "reset_launches", "main"]
 
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
-PRECISION = {"float32": "f32", "float64": "f64"}   # the summary's spelling
 
 
 def load_dataset(name: str, scale: float, seed: int) -> IrregularCOO:
@@ -99,16 +103,17 @@ def decompose(bt: Bucketed, *, rank: int, iters: int, tol: float, seed: int,
               backend: str, dtype: torch.dtype, verbose: bool = True,
               state: Optional[Parafac2State] = None, mode1_reuse: bool = True,
               engine: str = "host", check_every: int = 10,
-              constraints: Optional[dict] = None
+              constraints: Optional[dict] = None, precision: str = "f32"
               ) -> Tuple[Parafac2State, List[float], float]:
     """Fit, with the kernel launch counts zeroed first; returns the state,
     the fit history and the seconds the fit took (ending in a device sync:
     every engine reads the fits back). Under ``engine="scan"`` the seconds
-    include the graphs' warm-up and capture. ``constraints`` is a per-mode
+    include the graphs' warm-up and capture; below f32 ``precision`` they
+    include the half copy of the values. ``constraints`` is a per-mode
     spec dict, by default the paper's."""
     opts = Parafac2Options(rank=rank, constraints=constraints or PAPER_CONSTRAINTS,
                            backend=backend, dtype=dtype, mode1_reuse=mode1_reuse,
-                           engine=engine, check_every=check_every)
+                           engine=engine, check_every=check_every, precision=precision)
     reset_launches()
     t0 = time.perf_counter()
     state, hist = fit(bt, opts, max_iters=iters, tol=tol, seed=seed,
@@ -133,6 +138,10 @@ def main(argv=None) -> dict:
                          "on the projected slices (formed by the SCOO kernels "
                          "on SCOO buckets), 'scoo' the O(nnz) plain route on "
                          "SCOO buckets, 'auto' picks 'fused' on a GPU")
+    ap.add_argument("--precision", default="f32", choices=["f32", "bf16", "f16"],
+                    help="compute precision for the streamed operands: bf16/f16 "
+                         "stage the slab values half-width while every product "
+                         "accumulates f32 (repro_torch.kernels.common)")
     ap.add_argument("--format", default="cc", choices=["cc", "scoo", "auto"],
                     help="device format: cc (dense over kept columns), scoo "
                          "(sorted flat COO, O(nnz)), or auto (per-bucket by "
@@ -153,7 +162,9 @@ def main(argv=None) -> dict:
                          "repro_torch.core.constraints). Default: the paper's "
                          "nonneg V/W.")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    ap.add_argument("--dtype", default="float32", choices=sorted(DTYPES))
+    ap.add_argument("--dtype", default="float32", choices=sorted(DTYPES),
+                    help="factor and accumulation dtype (float64 needs "
+                         "--precision f32)")
     ap.add_argument("--json", default="", metavar="PATH",
                     help="write the machine-readable run summary to PATH")
     args = ap.parse_args(argv)
@@ -164,6 +175,10 @@ def main(argv=None) -> dict:
     print(f"[constraints] {constraint_summary(specs)}")
     device = resolve_device(args.device)
     dtype = DTYPES[args.dtype]
+    # the options' errors (an f64 dtype below f32 precision) before any data
+    opts = Parafac2Options(rank=args.rank, constraints=specs, backend=args.backend,
+                           dtype=dtype, engine=args.engine, check_every=args.check_every,
+                           precision=args.precision)
     t0 = time.perf_counter()
     data = load_dataset(args.dataset, args.scale, args.seed)
     print(f"[data] K={data.n_subjects} J={data.n_cols} nnz={data.nnz} "
@@ -181,20 +196,18 @@ def main(argv=None) -> dict:
     state, hist, dt = decompose(bt, rank=args.rank, iters=args.iters, tol=args.tol,
                                 seed=args.seed, backend=args.backend, dtype=dtype,
                                 engine=args.engine, check_every=args.check_every,
-                                constraints=specs)
+                                constraints=specs, precision=args.precision)
     print(f"[fit] {len(hist)} iters in {dt:.2f}s "
           f"({dt / max(len(hist), 1):.3f}s/iter), fit={hist[-1]:.4f}")
     launches = kernel_launches()
     print(f"[kernels] launches {launches}")
-    opts = Parafac2Options(rank=args.rank, constraints=specs, backend=args.backend,
-                           dtype=dtype, engine=args.engine, check_every=args.check_every)
     V_np = state.V.cpu().numpy()
     summary = run_summary(
         "decompose",
         resolved_options(opts, format=args.format, tol=args.tol, seed=args.seed),
         dataset=args.dataset, scale=args.scale, rank=args.rank,
-        engine=args.engine, backend=args.backend, precision=PRECISION[args.dtype],
-        tol=args.tol, check_every=args.check_every, seed=args.seed, format=args.format,
+        engine=args.engine, backend=args.backend, precision=args.precision,
+        dtype=args.dtype, tol=args.tol, check_every=args.check_every, seed=args.seed, format=args.format,
         buckets=bucket_stats, device_bytes=device_bytes,
         constraints=constraint_summary(specs), compress="none",
         v_zero_fraction=float((V_np == 0.0).mean()),

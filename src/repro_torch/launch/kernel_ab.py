@@ -1,7 +1,7 @@
 """Paired kernel times of two checkouts of the port on one GPU.
 
     PYTHONPATH=src python -m repro_torch.launch.kernel_ab PARENT_DIR CHANGE_DIR \
-        [--rounds 4] [--kernels fused_mode1_xkv,mode1_reuse]
+        [--rounds 4] [--kernels fused_mode1_xkv,mode1_reuse] [--precision bf16]
 
 Builds ``csrc/fused.cu``, ``csrc/gather_matmul.cu``, ``csrc/staged.cu``,
 ``csrc/scoo.cu``, ``csrc/polar.cu`` and ``csrc/tridiag.cu`` of each checkout
@@ -62,7 +62,12 @@ operands; the last line is one JSON object. Imports no JAX. The
 two machines a comparison could otherwise land on differ by more than the
 effects, so compare versions only this way. ``--kernels`` times only the
 kernels named (and skips the SCOO generation unless row 11 or 12 is among
-them).
+them). ``--precision bf16|f16`` times the nine kernels that take half
+operands (``HALF_KERNELS``: F1, F3, F4 and rows 5, 6, 8, 9, 11, 12) on
+half copies of the operands they stream (the slab, Yc, Vg, the SCOO
+values), the others float32, as the main path hands them at that
+precision; it times no library call, and both checkouts must take half
+operands (an older build refuses the dtype code, which raises).
 """
 from __future__ import annotations
 
@@ -105,6 +110,11 @@ CC = dict(K=58112, I=56, C=128, R=5)
 BCC = dict(K=6808, I=56, NB=9, L=128, J_pad=1408)
 SCOO_SCALE = 0.25       # the choa_like scale of the main path
 P1_RANKS = (5, 10, 20, 40)      # the paper's Figure 5 ranks (benchmarks/fig5_rank.py)
+HALF_KERNELS = ("fused_procrustes_b", "fused_mode2_compact", "fused_ykv", "ykv", "mode1",
+                "mode2_compact", "mode3", "scoo_xk_times_v", "scoo_project")
+HALF_CODES = {"f32": 0, "bf16": 2, "f16": 3}      # common.cuh's dtype codes
+HALF_DTYPES = {"bf16": torch.bfloat16, "f16": torch.float16}
+STREAMED = ("vals", "Vg", "yc", "svals", "sVg")   # the operands the nine kernels stream
 EIGH_BATCH = 16384      # the most 5x5 Grams one cuSOLVER eigh was seen to take on an H100
 COMPARED = {"fused_mode1_xkv": "m2", "ykv": "ykv5", "mode1": "m6", "mode1_reuse": "m7",
             "mode2_compact": "a8", "mode3": "m9", "mode3_reuse": "m10",
@@ -129,9 +139,11 @@ def load(tree: str) -> dict:
     return libs
 
 
-def reductions(f, st, o: dict, K: int, Ii: int, C: int, R: int, stream: int) -> dict:
+def reductions(f, st, o: dict, K: int, Ii: int, C: int, R: int, stream: int,
+               code: int = 0) -> dict:
     """F2 and rows 6 and 7 of one side through their one-launch entries, each
-    on a workspace of this side's own; they write this side's outputs."""
+    on a workspace of this side's own; they write this side's outputs. Row
+    6 takes its streamed operands' dtype ``code``."""
     def workspace(lib, query):
         return torch.zeros(getattr(lib, query)(0, K, R), device="cuda")
 
@@ -142,15 +154,17 @@ def reductions(f, st, o: dict, K: int, Ii: int, C: int, R: int, stream: int) -> 
         "fused_mode1_xkv": lambda: f.spartan_fused_mode1_xkv_one_launch(
             0, o["q2"], o["x2"], o["Wb"], o["sm"], ws2, o["m2"], K, Ii, R, stream),
         "mode1": lambda: st.spartan_mode1_one_launch(
-            0, o["yc"], o["Vg"], o["Wb"], o["sm"], ws6, o["m6"], K, R, C, stream),
+            code, o["yc"], o["Vg"], o["Wb"], o["sm"], ws6, o["m6"], K, R, C, stream),
         "mode1_reuse": lambda: st.spartan_mode1_reuse_one_launch(
             0, o["ykv7"], o["Wb"], o["sm"], ws7, o["m7"], K, R, stream),
         "keep": keep}
 
 
-def calls(libs: dict, ops: dict, outs: dict, stream: int) -> dict:
+def calls(libs: dict, ops: dict, outs: dict, stream: int, code: int = 0) -> dict:
     """name -> a function that launches that kernel of ``libs`` once on
-    ``stream``; F2 and rows 5-12 write into this side's own ``outs``."""
+    ``stream``; F2 and rows 5-12 write into this side's own ``outs``. The
+    nine kernels of ``HALF_KERNELS`` take their streamed operands' dtype
+    ``code`` (0 float32, 2 bfloat16, 3 float16)."""
     f, g = libs["fused"], libs["gather_matmul"]
     st, sc = libs["staged"], libs["scoo"]
     K, Ii, C, R = CC["K"], CC["I"], CC["C"], CC["R"]
@@ -163,7 +177,7 @@ def calls(libs: dict, ops: dict, outs: dict, stream: int) -> dict:
         if err:
             raise RuntimeError(f"CUDA error {err} at launch")
 
-    red = reductions(f, st, o, K, Ii, C, R, stream)     # its closures keep the workspaces
+    red = reductions(f, st, o, K, Ii, C, R, stream, code)   # its closures keep the workspaces
     p2 = {}
     if "tridiag" in libs:
         td, N2, R2 = libs["tridiag"], P2["N"], P2["R"]
@@ -185,31 +199,31 @@ def calls(libs: dict, ops: dict, outs: dict, stream: int) -> dict:
                                          0, o[f"G{r}"], o[f"p1_r{r}"], Kp, r, 1e-12, w, stream)))
     return {**p1, **p2,
         "fused_procrustes_b": lambda: check(f.spartan_fused_procrustes_b(
-            0, o["vals"], o["Vg"], o["Wb"], o["H"], o["xkv"], o["b"], K, Ii, C, R, stream)),
+            code, o["vals"], o["Vg"], o["Wb"], o["H"], o["xkv"], o["b"], K, Ii, C, R, stream)),
         "fused_mode1_xkv": lambda: check(red["fused_mode1_xkv"]()),
         "fused_mode2_compact": lambda: check(f.spartan_fused_mode2_compact(
-            0, o["vals"], o["Q"], o["H"], o["Wb"], o["cm"], o["a"], K, Ii, C, R, stream)),
+            code, o["vals"], o["Q"], o["H"], o["Wb"], o["cm"], o["a"], K, Ii, C, R, stream)),
         "fused_ykv": lambda: check(f.spartan_fused_ykv(
-            0, o["vals"], o["Q"], o["Vg"], o["g"], K, Ii, C, R, stream)),
+            code, o["vals"], o["Q"], o["Vg"], o["g"], K, Ii, C, R, stream)),
         "gather_matmul": lambda: check(g.spartan_gather_matmul(
             0, o["bvals"], o["ids"], o["V"], o["gout"], BCC["K"], BCC["I"], BCC["NB"],
             BCC["L"], R, stream)),
-        "ykv": lambda: check(st.spartan_ykv(0, o["yc"], o["Vg"], o["ykv5"], K, R, C, stream)),
+        "ykv": lambda: check(st.spartan_ykv(code, o["yc"], o["Vg"], o["ykv5"], K, R, C, stream)),
         "mode1": lambda: check(red["mode1"]()),
         "mode1_reuse": lambda: check(red["mode1_reuse"]()),
         "mode2_compact": lambda: check(st.spartan_mode2_compact(
-            0, o["yc"], o["H"], o["Wb"], o["cm"], o["a8"], K, R, C, stream)),
+            code, o["yc"], o["H"], o["Wb"], o["cm"], o["a8"], K, R, C, stream)),
         "mode3": lambda: check(st.spartan_mode3(
-            0, o["yc"], o["Vg"], o["H"], o["sm"], o["m9"], K, R, C, stream)),
+            code, o["yc"], o["Vg"], o["H"], o["sm"], o["m9"], K, R, C, stream)),
         "mode3_reuse": lambda: check(st.spartan_mode3_reuse(
             0, o["ykv7"], o["H"], o["sm"], o["m10"], K, R, stream)),
         "mode3_reuse_k1": lambda: check(st.spartan_mode3_reuse(
             0, o["ykv7"], o["H"], o["sm"], o["m10k1"], 1, R, stream)),
         "scoo_xk_times_v": lambda: check(sc.spartan_scoo_xk_times_v(
-            0, o["svals"], o["slcols"], o["sVg"], o["srow_ends"], o["xkv11"], Kb, N, Is, Cs, R,
+            code, o["svals"], o["slcols"], o["sVg"], o["srow_ends"], o["xkv11"], Kb, N, Is, Cs, R,
             stream)),
         "scoo_project": lambda: check(sc.spartan_scoo_project(
-            0, o["svals"], o["srows"], o["scperm"], o["sQ"], o["sends"], o["yc12"], Kb, N, Is,
+            code, o["svals"], o["srows"], o["scperm"], o["sQ"], o["sends"], o["yc12"], Kb, N, Is,
             Cs, R, stream)),
     }
 
@@ -355,9 +369,9 @@ def outputs(ops: dict) -> dict:
             "m9": torch.empty((K, R), device="cuda"), "m10": torch.empty((K, R), device="cuda"),
             "m10k1": torch.empty((1, R), device="cuda"),
             "p2": torch.empty((P2["N"], P2["R"]), device="cuda")}
-    for R in P1_RANKS:
-        if f"G{R}" in ops:
-            outs[f"p1_r{R}"] = torch.empty_like(ops[f"G{R}"])
+    for r in P1_RANKS:       # not R: rows 11 and 12's outputs below are at rank R
+        if f"G{r}" in ops:
+            outs[f"p1_r{r}"] = torch.empty_like(ops[f"G{r}"])
     if "sends" in ops:
         Kb, Cs = ops["sends"].shape
         outs.update(xkv11=torch.empty((Kb, ops["sQ"].shape[1], R), device="cuda"),
@@ -371,8 +385,16 @@ def main(argv=None) -> None:
     ap.add_argument("change")
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--kernels", default="", help="comma-separated kernel names (default: all)")
+    ap.add_argument("--precision", default="f32", choices=sorted(HALF_CODES),
+                    help="bf16/f16: the nine kernels of HALF_KERNELS on half copies "
+                         "of their streamed operands")
     args = ap.parse_args(argv)
     wanted = set(filter(None, args.kernels.split(",")))
+    half = args.precision != "f32"
+    if half:
+        if wanted - set(HALF_KERNELS):
+            raise SystemExit(f"--precision {args.precision} times only {HALF_KERNELS}")
+        wanted = wanted or set(HALF_KERNELS)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab times kernels on a CUDA device; none is present")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -381,6 +403,10 @@ def main(argv=None) -> None:
     p1_wanted = [R for R in P1_RANKS
                  if not wanted or {"gram_inv_sqrt", f"gram_inv_sqrt_r{R}"} & wanted]
     ops = operands(scoo=not wanted or bool(wanted & {"scoo_xk_times_v", "scoo_project"}))
+    if half:        # the streamed operands at half width, as the main path hands them
+        ops.update({k: ops[k].to(HALF_DTYPES[args.precision]) for k in STREAMED if k in ops})
+        print(f"[kernel_ab] precision {args.precision}: {', '.join(STREAMED)} half-width",
+              flush=True)
     if p1_wanted:
         ops.update(p1_grams(p1_wanted))
         print(f"[kernel_ab] P1 on the largest CC bucket's Grams of choa scale {SCOO_SCALE}: "
@@ -397,7 +423,8 @@ def main(argv=None) -> None:
     gstream = torch.cuda.Stream()           # where the graphs are captured
 
     def side_calls(side: str, stream: int) -> dict:
-        return {name: fn for name, fn in calls(libs[side], ops, outs[side], stream).items()
+        code = HALF_CODES[args.precision]
+        return {name: fn for name, fn in calls(libs[side], ops, outs[side], stream, code).items()
                 if not wanted or name in wanted
                 or (name.startswith("gram_inv_sqrt_r") and "gram_inv_sqrt" in wanted)}
 
@@ -416,7 +443,8 @@ def main(argv=None) -> None:
                                       ops["sm"]),
         "mode3_reuse": lambda: torch.einsum("krl,rl,k->kl", ops["ykv7"], ops["H"], ops["sm"]),
     }
-    library = {name: (fn, 20, 3) for name, fn in library.items() if not wanted or name in wanted}
+    library = {name: (fn, 20, 3) for name, fn in library.items()
+               if not half and (not wanted or name in wanted)}
     for R in p1_wanted:     # past R = 32 cuSOLVER solves one Gram at a time: seconds a call
         library[f"gram_inv_sqrt_r{R}"] = (lambda G=ops[f"G{R}"]: p1_library(G),
                                           *((5, 1) if R <= 32 else (1, 0)))
@@ -472,7 +500,8 @@ def main(argv=None) -> None:
               f"{summary[name]['parent_graph_ms']:.4f} ms ({min(gp):.4f}-{max(gp):.4f}), change "
               f"{summary[name]['change_graph_ms']:.4f} ms ({min(gc):.4f}-{max(gc):.4f}){diff}",
               flush=True)
-    print(json.dumps({"card": smi.stdout.strip(), "kernels": summary}))
+    print(json.dumps({"card": smi.stdout.strip(), "precision": args.precision,
+                      "kernels": summary}))
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 """Paired end-to-end comparison of two checkouts of the port on one GPU.
 
     PYTHONPATH=src python -m repro_torch.launch.paired PARENT_DIR CHANGE_DIR \
-        [--pairs 3] [--scale 0.25]
+        [--pairs 3] [--scale 0.25] [--precision bf16]
 
 Each run is a fresh process that imports ``repro_torch`` from one checkout
 (``<dir>/src``, whatever package this module was imported from), builds
@@ -19,7 +19,8 @@ shared host fall on both sides. Prints the card's name and power limit, one
 line per run and the medians per side, and whether every fit history of a
 route, over both checkouts and all their runs, is the same bit for bit
 (what a change that must not move the default path shows); imports no
-JAX.
+JAX. ``--precision bf16|f16`` runs every fit at that compute precision;
+both checkouts' ``decompose`` must then take a ``precision``.
 """
 from __future__ import annotations
 
@@ -44,7 +45,12 @@ data = dec.load_dataset("choa", float(sys.argv[2]), 0)
 bts = {fmt: dec.prepare(data, buckets=4, device=torch.device("cuda"), dtype=torch.float32,
                         format=fmt)[0] for fmt in ("cc", "scoo")}
 kw = dict(rank=5, tol=0.0, seed=0, dtype=torch.float32, verbose=False)
-has_engine = "engine" in inspect.signature(dec.decompose).parameters
+params = inspect.signature(dec.decompose).parameters
+has_engine = "engine" in params
+if sys.argv[3] != "f32":
+    if "precision" not in params:
+        raise SystemExit(f"{sys.argv[1]}: decompose takes no precision")
+    kw["precision"] = sys.argv[3]
 runs = [r for r in %r if r[3] == "host" or has_engine]
 def fit(fmt, be, engine, iters):
     extra = {"engine": engine} if has_engine else {}
@@ -62,8 +68,8 @@ print(json.dumps({"ms": out, "hist": hists}))
 """ % (RUNS,)
 
 
-def run(tree: str, scale: float) -> dict:
-    proc = subprocess.run([sys.executable, "-c", _CHILD, tree, str(scale)],
+def run(tree: str, scale: float, precision: str = "f32") -> dict:
+    proc = subprocess.run([sys.executable, "-c", _CHILD, tree, str(scale), precision],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise SystemExit(f"run in {tree} failed:\n{proc.stderr[-4000:]}")
@@ -76,6 +82,7 @@ def main(argv=None) -> None:
     ap.add_argument("change")
     ap.add_argument("--pairs", type=int, default=3)
     ap.add_argument("--scale", type=float, default=0.25)
+    ap.add_argument("--precision", default="f32", choices=["f32", "bf16", "f16"])
     args = ap.parse_args(argv)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
@@ -86,7 +93,7 @@ def main(argv=None) -> None:
     runs = {"parent": {be: [] for be in ROUTES}, "change": {be: [] for be in ROUTES}}
     hists = {"parent": {be: [] for be in ROUTES}, "change": {be: [] for be in ROUTES}}
     for side, tree in order:
-        res = run(tree, args.scale)
+        res = run(tree, args.scale, args.precision)
         for be in res["ms"]:
             runs[side][be] += res["ms"][be]
             hists[side][be] += res["hist"][be]

@@ -184,16 +184,35 @@ def test_procrustes_b_edges(dev, shape, dtype):
 
 @pytest.mark.cuda
 def test_kernels_reject_what_they_do_not_take(dev):
-    """A dtype other than f32/f64 and non-contiguous operands raise; a rank
-    past the widest register tile (R = 72) is taken and matches the plain
-    version."""
+    """What the kernels still refuse raises: f64 beside a half operand,
+    bfloat16 beside float16, a half operand that a kernel does not stream
+    (Wb, H; every operand of F2 and rows 7, 10 and 13), F1's slab and Vg in
+    two dtypes, and non-contiguous operands; a rank past the widest register
+    tile (R = 72) is taken and matches the plain version. The half operands
+    the nine kernels do take are held against their plain versions in the
+    ``test_half_*`` tests."""
     vals = torch.rand((3, 8, 12), device=dev, dtype=torch.float16)
     Vg = torch.rand((3, 12, 4), device=dev, dtype=torch.float16)
     Wb, H = torch.rand((3, 4), device=dev, dtype=torch.float16), torch.eye(4, device=dev)
-    with pytest.raises(TypeError):
+    with pytest.raises(TypeError):          # a half Wb and H
         fused.fused_procrustes_b(vals, Vg, Wb, H.half())
-    with pytest.raises(TypeError):
-        yk.ykv(torch.rand((3, 4, 12), device=dev, dtype=torch.float16), Vg)
+    with pytest.raises(TypeError):          # f64 beside half
+        fused.fused_procrustes_b(vals, Vg, Wb.double(), H.double())
+    with pytest.raises(TypeError):          # F1 takes the slab and Vg in one dtype
+        fused.fused_procrustes_b(vals, Vg.float(), Wb.float(), H)
+    with pytest.raises(TypeError):          # bfloat16 beside float16
+        yk.ykv(torch.rand((3, 4, 12), device=dev, dtype=torch.bfloat16), Vg)
+    q, x = (torch.rand((3, 8, 4), device=dev, dtype=torch.float16) for _ in range(2))
+    with pytest.raises(TypeError):          # F2 streams no slab
+        fused.fused_mode1_xkv(q, x, Wb.float())
+    with pytest.raises(TypeError):          # row 7
+        m1.mode1_reuse(torch.rand((3, 4, 4), device=dev).half(), Wb.float())
+    with pytest.raises(TypeError):          # row 10
+        m3.mode3_reuse(torch.rand((3, 4, 4), device=dev).half(), H)
+    with pytest.raises(TypeError):          # row 13
+        gather_matmul.gather_matmul(torch.rand((3, 8, 2, 128), device=dev).half(),
+                                    torch.zeros((3, 2), dtype=torch.int32, device=dev),
+                                    torch.rand((256, 4), device=dev).half())
     v32 = vals.float()
     with pytest.raises(ValueError, match="contiguous"):
         fused.fused_ykv(v32, torch.rand((3, 4, 8), device=dev).transpose(1, 2), Vg.float())
@@ -278,9 +297,11 @@ def _prefix_scale(vals, idx, M) -> float:
     return max(1.0, float(run.max())) if run.numel() else 1.0
 
 
-def _scoo_calls(name, dtype, dev, R):
+def _scoo_calls(name, dtype, dev, R, half=None):
     """(name, wrapper call, plain call, scale) for rows 11 and 12 on every
-    SCOO bucket of one dataset, subject padding included."""
+    SCOO bucket of one dataset, subject padding included; with ``half``
+    (torch.bfloat16 or torch.float16) the values, and row 11's Vg, at that
+    width."""
     bt = bucketize(SCOO_DATA[name](), format="scoo", dtype=dtype, device=dev,
                    col_align=4, max_buckets=3, subject_align=4)
     rng = np.random.default_rng(R)
@@ -288,13 +309,15 @@ def _scoo_calls(name, dtype, dev, R):
     for b in bt.buckets:
         Vg = b.gather_v(V)
         Q = torch.tensor(rng.standard_normal((b.kb, b.i_pad, R)), dtype=dtype, device=dev)
-        xa = (b.vals, b.rows, b.lcols, Vg, b.i_pad)
-        pa = (b.vals, b.rows, b.lcols, Q, b.c_pad)
+        vals = b.vals if half is None else b.vals.to(half)
+        Vg = Vg if half is None else Vg.to(half)
+        xa = (vals, b.rows, b.lcols, Vg, b.i_pad)
+        pa = (vals, b.rows, b.lcols, Q, b.c_pad)
         xk, pk = dict(row_ends=b.row_ends), dict(cperm=b.cperm, col_ends=b.col_ends)
         yield ("scoo_xk_times_v", lambda: scoo.scoo_xk_times_v(*xa, **xk),
-               lambda: scoo.xk_times_v(*xa, **xk), _prefix_scale(b.vals, b.lcols, Vg))
+               lambda: scoo.xk_times_v_plain(*xa, **xk), _prefix_scale(vals, b.lcols, Vg))
         yield ("scoo_project", lambda: scoo.scoo_project(*pa, **pk),
-               lambda: scoo.project(*pa, **pk), _prefix_scale(b.vals, b.rows, Q))
+               lambda: scoo.project_plain(*pa, **pk), _prefix_scale(vals, b.rows, Q))
 
 
 @pytest.mark.cuda
@@ -380,7 +403,8 @@ def test_gather_matmul_edges(dev, shape, dtype):
 @pytest.mark.cuda
 def test_new_kernels_are_deterministic_and_reject_what_they_do_not_take(dev):
     """Two runs give the same bits; a CUDA call without the segment ends,
-    an f16 operand or a non-contiguous operand raises."""
+    f16 values beside an f32 Vg (row 11 takes the two in one dtype) or a
+    non-contiguous operand raises."""
     for _, call, _, _ in _scoo_calls("random-odd", torch.float32, dev, 5):
         assert torch.equal(call(), call())
     bt = bucketize(random_irregular(n_subjects=9, n_cols=300, max_rows=12,
@@ -399,7 +423,7 @@ def test_new_kernels_are_deterministic_and_reject_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="col_ends"):
         scoo.scoo_project(sb.vals, sb.rows, sb.lcols, Q, sb.c_pad)
     with pytest.raises(TypeError):
-        scoo.scoo_xk_times_v(sb.vals.half(), sb.rows, sb.lcols, Vg.half(), sb.i_pad,
+        scoo.scoo_xk_times_v(sb.vals.half(), sb.rows, sb.lcols, Vg, sb.i_pad,
                              row_ends=sb.row_ends)
     with pytest.raises(ValueError, match="contiguous"):
         scoo.scoo_project(sb.vals, sb.rows, sb.lcols,
@@ -1211,3 +1235,137 @@ def test_constrained_iteration_has_no_host_sync(dev, case):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# half precision: the nine kernels that take half-width operands
+# ---------------------------------------------------------------------------
+
+HALF_DTYPES = [torch.bfloat16, torch.float16]
+
+
+def _half_args(args: dict, half) -> dict:
+    """The half-width cases of the nine kernels from one bucket's f32
+    operands: F1 and F4 with the slab and Vg half, F3 with the slab half,
+    rows 5, 6 and 9 with Yc and Vg half and with one of them half, row 8
+    with Yc half (H, Wb, Q and the masks stay f32)."""
+    vals, Vg, Wb, H = args["fused_procrustes_b"]
+    _, Q, _, _, cm = args["fused_mode2_compact"]
+    Yc = args["ykv"][0]
+    sm = args["mode3"][3]
+    vh, gh, yh = vals.to(half), Vg.to(half), Yc.to(half)
+    cases = [("fused_procrustes_b", (vh, gh, Wb, H)), ("fused_mode2_compact", (vh, Q, H, Wb, cm)),
+             ("fused_ykv", (vh, Q, gh)), ("mode2_compact", (yh, H, Wb, cm))]
+    for y, g in ((yh, gh), (Yc, gh), (yh, Vg)):
+        cases += [("ykv", (y, g)), ("mode1", (y, g, Wb)), ("mode3", (y, g, H, sm))]
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom", GEOMETRIES)
+@pytest.mark.parametrize("half", HALF_DTYPES, ids=["bf16", "f16"])
+def test_half_kernels_match_plain(dev, geom, half):
+    """Each of the seven CC kernels that take half operands launches once,
+    returns f32 and matches its plain version on the same half inputs to
+    the f32 bound (the products of half values are exact in f32, so only
+    the order of the sums differs), over every geometry: the ring, its
+    element copies (C_pad 17), the row-warp and wide designs (R = 72) and the
+    chunked tiles."""
+    for args in _buckets_and_args(torch.float32, dev, **geom):
+        for name, a in _half_args(args, half):
+            wrapper, plain = KERNELS[name]
+            before = _launches()[name]
+            got = wrapper(*a)
+            torch.cuda.synchronize()
+            assert _launches()[name] == before + 1, name
+            _assert_matches(got, plain(*a), torch.float32)
+            again = wrapper(*a)
+            for x, y in zip(got if isinstance(got, tuple) else (got,),
+                            again if isinstance(again, tuple) else (again,)):
+                assert torch.equal(x, y), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SCOO_DATA))
+@pytest.mark.parametrize("R", [1, 5, 72])
+@pytest.mark.parametrize("half", HALF_DTYPES, ids=["bf16", "f16"])
+def test_half_scoo_kernels_match_plain(dev, name, R, half):
+    """Rows 11 (half values and Vg) and 12 (half values, f32 Q) against
+    their plain versions (f32 sums, unrounded), at the running-sum scale."""
+    for kname, call, plain, scale in _scoo_calls(name, torch.float32, dev, R, half):
+        launches = scoo.LAUNCHES[kname]
+        got = call()
+        torch.cuda.synchronize()
+        assert scoo.LAUNCHES[kname] == launches + 1 and got.dtype == torch.float32
+        want = plain()
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-6,
+                                   atol=1e-6 * scale)
+
+
+# (kernel, K, I, C, R) -> the variant at half width: C % 8 == 0 takes the
+# 16-byte ring, C % 8 == 4 (whole packs in f32) the element copies
+HALF_EDGES = {
+    ("fused_procrustes_b", 9, 11, 16, 5): "ring",
+    ("fused_procrustes_b", 9, 11, 12, 5): "ring-element-copies",
+    ("fused_procrustes_b", 3, 9, 20, 72): "row-warp-wide",
+    ("ykv", 9, 1, 16, 5): "ring",
+    ("ykv", 9, 1, 12, 5): "ring-element-copies",
+    ("ykv", 2, 1, 1024, 72): "thread-per-entry",
+    ("mode2_compact", 9, 1, 16, 5): "ring",
+    ("mode2_compact", 9, 1, 12, 5): "ring-element-copies",
+    ("mode3", 9, 1, 12, 5): "ring-element-copies",
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(HALF_EDGES), ids=lambda c: "{}-K{}-I{}-C{}-R{}".format(*c))
+@pytest.mark.parametrize("half", HALF_DTYPES, ids=["bf16", "f16"])
+def test_half_variant_edges(dev, case, half):
+    """The variant a half launch takes at the edges of the 16-byte ring
+    (eight half values a copy) and past it, and the plain version's result
+    there."""
+    name, K, I, C, R = case
+    rng = np.random.default_rng(K + I + C + R)
+    t = lambda *s: torch.tensor(rng.standard_normal(s), dtype=torch.float32, device=dev)  # noqa: E731
+    if name == "fused_procrustes_b":
+        a = (t(K, I, C).to(half), t(K, C, R).to(half), t(K, R), t(R, R))
+        assert fused.procrustes_b_variant(a[0], R) == HALF_EDGES[case]
+    elif name == "mode2_compact":
+        a = (t(K, R, C).to(half), t(R, R), t(K, R), torch.ones((K, C), device=dev))
+        assert m2.mode2_compact_variant(a[0], a[3]) == HALF_EDGES[case]
+    else:
+        a = (t(K, R, C).to(half), t(K, C, R).to(half))
+        variant = (yk.ykv_variant if name == "ykv" else m3.mode3_variant)(*a)
+        assert variant == HALF_EDGES[case]
+        if name == "mode3":
+            a = a + (t(R, R),)
+    wrapper, plain = KERNELS[name]
+    _assert_matches(wrapper(*a), plain(*a), torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,fmt", [("auto", "cc"), ("staged", "cc"), ("staged", "scoo")])
+@pytest.mark.parametrize("precision", ["bf16", "f16"])
+def test_half_fit_within_contract_on_gpu(dev, backend, fmt, precision):
+    """choa 0.002, rank 5, 20 iterations: the half fit on the card is finite,
+    within 1e-3 of the same route's f32 fit at every iteration, and the
+    half kernels of the route launched (buckets x iterations)."""
+    bt = bucketize(choa_like(scale=0.002, seed=0), dtype=torch.float32, device=dev,
+                   format=fmt)
+    hists = {}
+    for prec in ("f32", precision):
+        fused.reset_launches()
+        staged.reset_launches()
+        scoo.reset_launches()
+        _, hists[prec] = fit(bt, Parafac2Options(rank=5, backend=backend, precision=prec),
+                             max_iters=20, tol=0.0, seed=0)
+    half = np.asarray(hists[precision])
+    assert np.all(np.isfinite(half))
+    assert np.max(np.abs(half - np.asarray(hists["f32"]))) < 1e-3
+    n = len(bt.buckets) * 20
+    if backend == "auto":
+        assert fused.LAUNCHES["fused_procrustes_b"] == fused.LAUNCHES["fused_ykv"] == n
+    elif fmt == "scoo":
+        assert scoo.LAUNCHES["scoo_project"] == staged.LAUNCHES["mode2_compact"] == n
+    else:
+        assert staged.LAUNCHES["ykv"] == staged.LAUNCHES["mode2_compact"] == n

@@ -162,9 +162,12 @@ def test_decompose_cpu_json_matches_reference_keys(tmp_path):
 
 
 def test_decompose_json_reports_its_precision(tmp_path):
+    """``precision`` is ``--precision``'s, as the reference's summary has it;
+    the factor dtype (``--dtype``) has its own key."""
     got = decompose.main(["--scale", "0.001", "--iters", "1", "--dtype", "float64",
                           "--device", "cpu", "--json", str(tmp_path / "p.json")])
-    assert got["precision"] == "f64" and got["resolved_options"]["dtype"] == "float64"
+    assert got["precision"] == "f32" and got["resolved_options"]["dtype"] == "float64"
+    assert got["dtype"] == "float64"
 
 
 def test_decompose_without_cuda_raises(monkeypatch):
