@@ -51,7 +51,12 @@ Phases, any failure exits non-zero:
    (f32 to 1e-6 times the condition bound 1 + 8 lam / rho), the same bits
    twice, a captured call replayed after rho changed on the device, and
    its device kernels a call at N = 116,225 and 464,900 counted in a
-   captured graph against the levels its C library reports; an empty (K=0) bucket
+   captured graph against the levels its C library reports; the
+   compression path's core shapes (``CORE_SPECS``): F1-F4 and rows 5, 7, 8
+   and 10 on the rsvd cores [Kb, 18, 128] at R = 5 and [Kb, 16, 128] at R =
+   4 of a small dataset, with the variant each takes, and P1 at R = S on the
+   same buckets' range-finder Grams (thin subjects' rank-deficient and
+   padded subjects' zero Grams among them) Gram by Gram; an empty (K=0) bucket
    through every wrapper. f64 to 1e-12 absolute, f32 to 1e-6 relative plus 1e-6 of
    the output's largest magnitude (sums in another order differ by a
    rounding); for the two SCOO kernels the scale is the largest running
@@ -102,7 +107,16 @@ Phases, any failure exits non-zero:
    torch route, P2 launched once a prox (201 times a fit), no host sync in
    an eager step or a replay; and scale 0.002 in f64 through
    ``decompose.main --constraint`` on the card within 1e-8 of the port's
-   own CPU run;
+   own CPU run; then compression (``phase3_compress``, ``compress="rsvd"``,
+   S = 18): on CC auto, CC staged and SCOO staged the pass alone (seconds,
+   captured energy, the GiB its cores and bases hold, P1 once a bucket),
+   the core ALS alone (host ms/iter, each core kernel buckets x iterations
+   times, scan replays), and the entry point end to end on the host and
+   scan engines: the GiB the fit adds, the core kernels launched, the
+   final fit within 1e-3 relative of the route's uncompressed fit, scan bit
+   for bit the host; and scale 0.002 in f64 through ``decompose.main
+   --compress rsvd`` on the card within 1e-8 of the port's CPU run, with
+   the reference's compress block;
 4. each kernel's time beside its bound, its plain version's time, one
    PyTorch call's time (CUDA events, median of 20) and the wrapper call's
    host time (what an event time of a short kernel includes before the
@@ -127,6 +141,11 @@ Phases, any failure exits non-zero:
    kernels at bf16 on the same buckets (``phase4_half``): events, a
    replayed graph, the plain version, the byte bound at half width and one
    PyTorch call on the same half inputs where one computes the function;
+   then (``phase4_cores``) F1-F4 and rows 5, 7, 8 and 10 at CC auto's
+   largest core bucket [58,112, 18, 128] on the compressed fit's state and
+   P1 at R = 18 on that bucket's range Grams, by events and in a replayed
+   graph, beside their bounds (rows ``<kernel>[core]`` and
+   ``gram_inv_sqrt[range]``);
 5. a ``torch.profiler`` trace of one main-path ALS iteration on the auto and
    the staged route over the CC buckets and on the staged and the scoo
    route over the SCOO buckets: device time by kernel (and of each of the
@@ -136,6 +155,7 @@ Phases, any failure exits non-zero:
    cost inflates the profiled wall time, so that is not a denominator;
    traces in ``$SMOKE_OUT/als_step_trace_<route>.json``); one profiled
    iteration of CC auto with each ``CONSTRAINED`` spec (P2's device time);
+   one profiled iteration of CC auto's rsvd cores (``auto-cores``);
    one profiled iteration of CC auto at R = 10, 20 and 40 after two unprofiled ones:
    P1's device time and share beside the largest items; then one replayed
    10-iteration chunk of the scan engine on CC auto, CC staged and SCOO
@@ -146,7 +166,8 @@ Phases, any failure exits non-zero:
 Files go to ``$SMOKE_OUT`` (default ``smoke_out/``).
 
 The last two lines are a JSON object with the kernels' numbers (the bf16
-rows of the nine half kernels named ``<kernel>[bf16]``) and
+rows of the nine half kernels named ``<kernel>[bf16]``, the core-shape rows
+``<kernel>[core]`` and ``gram_inv_sqrt[range]``) and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -307,6 +328,16 @@ P2_RHO = 0.7
 CONSTRAINED = {"admm": {"v": "nonneg_admm", "w": "nonneg_admm"},
                "l1-smooth": {"v": "nonneg+l1:0.1", "w": "smooth:0.1"}}
 CONSTRAINED_ROUTES = {"auto": "cc", "staged-scoo": "scoo"}   # route -> format
+# the compression path (``compress="rsvd"``): its core shapes in phase 2, the
+# rsvd cores of a small dataset with thin subjects (fewer rows than S) and
+# padded ones, at the default spec (S = 2R + 8 = 18 at R = 5) and at
+# rsvd:10:6 (S = 16 at R = 4), C_pad 128 as choa's
+CORE_SPECS = (("rsvd", 5), ("rsvd:10:6", 4))
+CORE_DATA = dict(n_subjects=301, n_cols=700, max_rows=64, avg_nnz_per_subject=60, seed=11)
+COMPRESS = "rsvd"       # phase 3's spec at rank 5: S = 18
+# the routes phase 3 compresses on: route -> (format, backend)
+COMPRESS_ROUTES = {"auto": ("cc", "auto"), "staged": ("cc", "staged"),
+                   "staged-scoo": ("scoo", "staged")}
 SOURCES = ("fused", "staged", "scoo", "gather_matmul", "polar", "tridiag")
 FUSED = ("fused_procrustes_b", "fused_mode1_xkv", "fused_mode2_compact", "fused_ykv")
 STAGED = ("ykv", "mode1", "mode1_reuse", "mode2_compact", "mode3", "mode3_reuse")
@@ -315,6 +346,10 @@ P1 = ("gram_inv_sqrt",)      # the port's own kernel: the polar's inverse root
 P2 = ("tridiag_solve",)      # the port's own kernel: the smooth prox's solve
 ALL = FUSED + STAGED + SCOO + ("gather_matmul",) + P1 + P2
 STAGED_PATH = ("ykv", "mode1_reuse", "mode2_compact", "mode3_reuse")
+CORE_KERNELS = FUSED + STAGED_PATH      # F1-F4 and rows 5, 7, 8 and 10: the core ALS's
+# the kernels a core iteration launches on each compressed route: the cores
+# are CC buckets whatever the format they were compressed from
+ON_CORES = {"auto": FUSED + P1, "staged": STAGED_PATH + P1, "staged-scoo": STAGED_PATH + P1}
 # every CUDA route takes P1 in its polar step, the torch route too
 ON_MAIN_PATH = {"auto": FUSED + P1, "staged": STAGED_PATH + P1,
                 "staged-scoo": SCOO + STAGED_PATH + P1, "auto-scoo": ("fused_mode1_xkv",) + P1,
@@ -1071,6 +1106,64 @@ def check_tridiag(dtype, dev, errs: dict) -> None:
           f"device ({err:.3e})", flush=True)
 
 
+def check_cores(dtype, dev, errs: dict) -> set:
+    """F1-F4 and rows 5, 7, 8 and 10 on the compression path's core buckets
+    [Kb, S, 128] (``CORE_SPECS``: S = 18 at R = 5, S = 16 at R = 4), made by
+    the rsvd pass on the card, against their plain versions, with the
+    variant each takes there; and P1 at R = S on the same buckets' range
+    finder Grams (``Y^T Y``; the thin subjects' rank-deficient Grams and the
+    padded subjects' zero ones among them), Gram by Gram. Returns the
+    variants of F2 and rows 5 and 8 reached (F1's is printed)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import Parafac2Options, bucketize, parse_preprocess_spec
+    from repro_torch.kernels import fused, mttkrp_mode2, polar, sketch, ykv
+    from repro_torch.sparse import random_irregular
+
+    data = random_irregular(**CORE_DATA)
+    bt = bucketize(data, max_buckets=2, dtype=dtype, device=dev, subject_align=8)
+    rng = np.random.default_rng(11)
+    seen, variants = [], set()
+    for spec, R in CORE_SPECS:
+        pp = parse_preprocess_spec(spec)
+        S = pp.sketch_dim(R)
+        comp = pp.apply(bt, Parafac2Options(rank=R, dtype=dtype, backend="auto"), seed=0)
+        H, V, W = (torch.tensor(rng.standard_normal(sh), dtype=dtype, device=dev)
+                   for sh in ((R, R), (data.n_cols, R), (data.n_subjects, R)))
+        omega = sketch.gaussian_sketch(0, data.n_cols, S, dtype, dev)
+        for b, cb in zip(bt.buckets, comp.buckets):
+            if not cb.compressed:
+                continue
+            core = cb.core
+            Q = torch.tensor(rng.standard_normal((core.kb, S, R)), dtype=dtype, device=dev)
+            args = kernel_args(core, H, V, W, Q)
+            check_kernels({k: args[k] for k in CORE_KERNELS}, errs)
+            Yc, Vg = args["ykv"]
+            v = {"fused_procrustes_b": fused.procrustes_b_variant(core.vals, R),
+                 "fused_mode1_xkv": fused.mode1_xkv_variant(*args["fused_mode1_xkv"][:2]),
+                 "ykv": ykv.ykv_variant(Yc, Vg),
+                 "mode2_compact": mttkrp_mode2.mode2_compact_variant(Yc, core.col_mask)}
+            variants |= {(k, x) for k, x in v.items() if k != "fused_procrustes_b"}
+            Y = sketch.power_iterate(b, sketch.sketch_bucket(b, omega), pp.param("q"))
+            G = Y.transpose(1, 2) @ Y
+            thin = int(((b.row_counts < S) & (b.subject_mask > 0)).sum())
+            padded = int((b.subject_mask == 0).sum())
+            err, scale = p1_main_path_check(
+                G, S, label=f"the range Grams of a [{b.kb}, {b.i_pad}, {b.c_pad}] bucket "
+                f"({thin} thin subjects, {padded} padded)", tag="[cores]")
+            if bool((polar.gram_inv_sqrt(G)[b.subject_mask == 0] != 0).any()):
+                fail("gram_inv_sqrt: a padded subject's zero range Gram gave non-zero output")
+            e, sc = errs.get("gram_inv_sqrt", (0.0, 0.0))
+            errs["gram_inv_sqrt"] = (max(e, err), max(sc, scale))
+            seen.append((core.kb, S, core.c_pad, R, thin, padded, v))
+    if not any(t for *_, t, _, _ in seen) or not any(p for *_, p, _ in seen):
+        fail("the core check saw no thin or no padded subject")
+    print(f"[cores] {str(dtype).removeprefix('torch.')}: F1-F4 and rows 5, 7, 8 and 10 "
+          f"match their plain versions on the rsvd cores (Kb, S, C_pad, R, thin subjects, "
+          f"padded subjects, variants): {seen}", flush=True)
+    return variants
+
+
 def phase2_kernels(dev) -> dict:
     import numpy as np
     import torch
@@ -1085,6 +1178,7 @@ def phase2_kernels(dev) -> dict:
         variants |= check_reduction_edges(dtype, dev, errs)
         variants |= check_mode3_edges(dtype, dev, errs)
         variants |= check_polar(dtype, dev, errs)
+        variants |= check_cores(dtype, dev, errs)
         check_tridiag(dtype, dev, errs)
         for g in GEOMETRIES:
             data = random_irregular(n_subjects=g["K"], n_cols=g["J"],
@@ -1127,13 +1221,13 @@ def phase2_kernels(dev) -> dict:
     return errs
 
 
-def check_launches(route: str, got: dict, want: int) -> None:
-    """The route's main-path kernels launched ``want`` times each, and no
-    other kernel launched."""
+def check_launches(route: str, got: dict, want: int, path: dict = ON_MAIN_PATH) -> None:
+    """The route's kernels on ``path`` (the main path's, or ``ON_CORES``)
+    launched ``want`` times each, and no other kernel launched."""
     for name, n in got.items():
-        expect = want if name in ON_MAIN_PATH[route] else 0
+        expect = want if name in path[route] else 0
         if n != expect:
-            fail(f"{route}: {name} launched {n} times on the main path, want {expect}")
+            fail(f"{route}: {name} launched {n} times, want {expect}")
 
 
 def phase3_main_path(dev):
@@ -1908,6 +2002,142 @@ def phase3_constrained(bt, bt_sc) -> dict:
     return out
 
 
+def phase3_compress(bt, bt_sc, hist: dict) -> dict:
+    """The compression path (``compress="rsvd"``: S = 18 at rank 5) on the
+    main path's choa 0.25 buckets, on CC auto, CC staged and SCOO staged:
+    the pass alone (seconds, captured energy, the GiB the cores and bases
+    hold, its peak), the core ALS alone (host engine ms/iter after two
+    warm-up iterations, each core kernel buckets x iterations times and no
+    other; scan engine replays), then the entry point end to end
+    (``decompose(..., compress="rsvd")``: pass, core fit, expansion, exact
+    fit) on the host and scan (check_every 10) engines: the GiB the fit
+    adds, the core kernels launched, the history within 1e-3 relative of
+    the route's uncompressed history (``hist``) and its last entry, the
+    exact fit at a fresh Q, within 1e-3 relative of the uncompressed final
+    state's exact fit at a fresh Q (``exact_fit`` on the original buckets),
+    scan bit for bit the host.
+    Then choa 0.002 in f64 through ``decompose.main --compress`` on the card
+    (CC auto, SCOO staged) within 1e-8 of the port's CPU run. Returns CC
+    auto's pass and fitted state, the core ms/iter and each kernel's
+    launches on the cores."""
+    import numpy as np
+    import torch
+    from repro_torch.core import Parafac2Options, parse_preprocess_spec
+    from repro_torch.core import compress as cmp_mod
+    from repro_torch.core import parafac2 as p2
+    from repro_torch.core.backend import get_backend
+    from repro_torch.launch import decompose as dec
+
+    pp = parse_preprocess_spec(COMPRESS)
+    kw = dict(rank=5, iters=ITERS, tol=0.0, seed=0, dtype=torch.float32, verbose=False)
+    out = {"ms": {}, "launches": {}}
+    for label, (fmt, backend) in COMPRESS_ROUTES.items():
+        data = bt if fmt == "cc" else bt_sc
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        comp = pp.apply(data, Parafac2Options(rank=5, backend=backend), seed=0)
+        torch.cuda.synchronize()
+        t_pass = time.perf_counter() - t0
+        pass_launches = {k: v for k, v in launches().items() if v}
+        held = (torch.cuda.memory_allocated() - resident) / 2**30
+        pass_peak = (torch.cuda.max_memory_allocated() - resident) / 2**30
+        energy = comp.core_norm_sq / comp.data.norm_sq
+        nb = sum(cb.compressed for cb in comp.buckets)
+        if nb != len(data.buckets) or pass_launches != {"gram_inv_sqrt": nb}:
+            fail(f"{label}: the pass compressed {nb} of {len(data.buckets)} buckets, "
+                 f"launches {pass_launches} (want P1 once a bucket)")
+        core_shapes = [tuple(cb.core.vals.shape) for cb in comp.buckets]
+        dec.decompose(comp.data, backend=backend, **{**kw, "iters": 2})     # warm-up
+        _, h_core, secs = dec.decompose(comp.data, backend=backend, **kw)
+        counts = launches()
+        check_launches(label, counts, nb * ITERS, ON_CORES)
+        out["launches"][label] = counts
+        out["ms"][label] = secs / ITERS * 1e3
+        setup, _, out["ms"][f"{label} scan10"] = steady_ms(comp.data, backend, 10)
+        if label == "auto":
+            out["comp"], out["range_launches"] = comp, pass_launches["gram_inv_sqrt"]
+        del comp
+        runs = {}
+        for engine in ("host", "scan"):
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            state, h, secs = dec.decompose(data, backend=backend, engine=engine,
+                                           check_every=10, compress=COMPRESS, **kw)
+            added = (torch.cuda.max_memory_allocated() - resident) / 2**30
+            runs[engine] = (state, h, secs, launches(), added)
+            if len(h) != ITERS or not np.all(np.isfinite(h)) or h[-1] != float(state.fit):
+                fail(f"{label} {engine} compressed: fit history short, not finite or its last "
+                     f"entry not the state's exact fit")
+            missing = [k for k in ON_CORES[label] if not runs[engine][3][k]]
+            if missing:
+                fail(f"{label} {engine} compressed: {missing} did not launch on the cores")
+        (s_host, h_host, secs_host, c_host, add_host), (s_scan, h_scan, secs_scan, _, add_scan) = \
+            runs["host"], runs["scan"]
+        # like with like: the engines' entries take the step-start Q on both
+        # paths; the last compressed entry is the exact fit at a fresh Q, so
+        # it is held to the uncompressed final state's exact fit at a fresh Q
+        s_un, h_un, _ = dec.decompose(data, backend=backend, **kw)
+        opts_un = Parafac2Options(rank=5, backend=backend)
+        be = get_backend(backend, data.device)
+        Qs = [p2._procrustes_project(b, s_un.H, s_un.V, s_un.W, opts_un, i, be)[2]
+              for i, b in enumerate(data.buckets)]
+        exact_un = float(cmp_mod.exact_fit(data, s_un, opts_un, Qs))
+        del Qs, s_un
+        rel_hist = max(abs(a - b) / abs(b) for a, b in zip(h_host[:-1], hist[label][:-1]))
+        rel = abs(h_host[-1] - exact_un) / abs(exact_un)
+        raw = abs(h_host[-1] - hist[label][-1]) / abs(hist[label][-1])
+        bitwise = h_scan == h_host and torch.equal(s_scan.V, s_host.V)
+        if label == "auto":
+            out["state"] = s_host
+        print(f"[compress] {label} ({fmt} buckets, backend {backend}) {COMPRESS}: pass "
+              f"{t_pass:.3f}s, captured energy {energy:.6f}, cores {core_shapes}, the cores "
+              f"and bases hold {held:.3f} GiB (pass peak {pass_peak:.3f} GiB above what it "
+              f"found); core ALS {out['ms'][label]:.2f} ms/iter on the host engine (the "
+              f"uncompressed route's is in [main]), {out['ms'][f'{label} scan10']:.2f} ms/iter "
+              f"replayed (scan 10, set-up {setup:.2f}s); core launches "
+              f"{ {k: v for k, v in counts.items() if v} }; the entry point end to end: host "
+              f"{secs_host:.3f}s ({secs_host / ITERS * 1e3:.2f} ms/iter with the pass and the "
+              f"expansion), scan 10 {secs_scan:.3f}s, GiB added host {add_host:.3f}, scan "
+              f"{add_scan:.3f}; launches { {k: v for k, v in c_host.items() if v} }; "
+              f"iterations 1-{ITERS - 1} within {rel_hist:.3e} relative of the uncompressed "
+              f"history (step-start Q on both; the uncompressed rerun bit for bit phase 3's: "
+              f"{h_un == hist[label]}); final exact fit {h_host[-1]:.6f} against the "
+              f"uncompressed final state's exact fit {exact_un:.6f} ({rel:.3e} relative) and "
+              f"its last history entry {hist[label][-1]:.6f} ({raw:.3e} relative: the fresh Q's "
+              f"one-step gain); scan bit for bit the host: {bitwise}", flush=True)
+        print(f"[compress] {label} core fit history {json.dumps(h_core)}; end to end "
+              f"{json.dumps(h_host)}", flush=True)
+        if rel > 1e-3 or rel_hist > 1e-3:
+            fail(f"{label} compressed: final exact fit {rel:.3e} relative from the uncompressed "
+                 f"one, or the history {rel_hist:.3e} from the uncompressed history (> 1e-3)")
+        if not bitwise:
+            fail(f"{label} compressed: the scan engine's history or V is not bit for bit the "
+                 f"host engine's")
+        del runs, s_host, s_scan
+        free_cached(f"the compressed {label} fits")
+
+    common = ["--dataset", "choa", "--scale", "0.002", "--rank", "5", "--iters", str(ITERS),
+              "--tol", "0", "--dtype", "float64", "--compress", COMPRESS]
+    for backend, fmt in (("auto", "cc"), ("staged", "scoo")):
+        cpu = dec.main(common + ["--device", "cpu", "--backend", "torch", "--format", fmt])
+        gpu = dec.main(common + ["--device", "cuda", "--backend", backend, "--format", fmt,
+                                 "--json", str(OUT / f"decompose_f64_compress_{backend}_{fmt}.json")])
+        d = float(np.max(np.abs(np.asarray(gpu["fit_history"]) - np.asarray(cpu["fit_history"]))))
+        block = gpu["resolved_options"]["compress"]
+        label = "auto" if fmt == "cc" else "staged-scoo"
+        missing = [k for k in ON_CORES[label] if not gpu["kernel_launches"][k]]
+        print(f"[compress] scale 0.002 f64 {backend}/{fmt} {COMPRESS} on the card: max |fit - "
+              f"the port's CPU run| = {d:.3e}; compress block {block}; launches "
+              f"{ {k: v for k, v in gpu['kernel_launches'].items() if v} }", flush=True)
+        if d > 1e-8 or missing or block != {"spec": "rsvd", "sketch_dim": 18, "power_iters": 1}:
+            fail(f"f64 compressed {backend}/{fmt}: the card's fit differs from the CPU's by "
+                 f"{d:.3e} (> 1e-8), or {missing} did not launch, or the block is {block}")
+    return out
+
+
 def bcc_cut(bt, V):
     """The largest CC bucket's first subjects, as many as keep the BCC
     values within ``BCC_CUT_BYTES`` (width unchanged, depth cut), converted
@@ -2072,18 +2302,21 @@ def p1_work(K: int, R: int, itemsize: int) -> tuple:
     return 2 * K * R * R * itemsize, K * (9 * R ** 3 + 4 * R + R * (R + 1) // 2 * 3 * R)
 
 
-def p1_main_path_check(G, R: int) -> tuple:
+def p1_main_path_check(G, R: int, label: str = "the main path's Grams",
+                       tag: str = "[time]") -> tuple:
     """P1 on the main path's Grams G [K, R, R] against its plain version on
-    the CPU (LAPACK), each Gram held to its own bound: max(1e-6, R * kappa *
-    2^-53) of its max |P_inv|, kappa over the eigenvalues the clamp keeps
+    the CPU (LAPACK), each Gram held to its own bound: max(floor, R * kappa
+    * 2^-53) of its max |P_inv|, kappa over the eigenvalues the clamp keeps
     (subjects with fewer rows than R have Grams near singular, f32 rounding
-    their null space into eigenvalues ~1e-8 of the largest). The CPU's,
-    since on the fitted Grams cuSOLVER's f64 eigh itself departs from
-    LAPACK's by up to 1.1 times that bound, where P1 stays within 0.82 of
-    it. Returns (max |kernel - plain|, max |plain|)."""
+    their null space into eigenvalues ~1e-8 of the largest), floor 1e-6 in
+    f32 and 1e-12 in f64. The CPU's, since on the fitted Grams cuSOLVER's
+    f64 eigh itself departs from LAPACK's by up to 1.1 times that bound,
+    where P1 stays within 0.82 of it. Returns (max |kernel - plain|, max
+    |plain|)."""
     import torch
     from repro_torch.kernels import polar
 
+    floor = 1e-12 if G.dtype == torch.float64 else 1e-6
     P_inv = polar.gram_inv_sqrt(G)
     Gc = G.cpu()
     want = polar.gram_inv_sqrt_plain(Gc).to(G.device)
@@ -2093,14 +2326,15 @@ def p1_main_path_check(G, R: int) -> tuple:
     kappa = (top[:, 0] / kept.min(1).values).nan_to_num(nan=1.0, posinf=1.0)
     err_k = (P_inv.double() - want.double()).abs().amax((1, 2))
     scale_k = want.double().abs().amax((1, 2))
-    bound_k = torch.clamp(R * kappa * 2.0 ** -53, min=1e-6) * scale_k
+    bound_k = torch.clamp(R * kappa * 2.0 ** -53, min=floor) * scale_k
     if bool((err_k > bound_k).any()):
         k = int((err_k - bound_k).argmax())
-        fail(f"gram_inv_sqrt on the main path's Gram {k} at R={R}: |kernel - plain| "
+        fail(f"gram_inv_sqrt on {label}, Gram {k} at R={R}: |kernel - plain| "
              f"{float(err_k[k]):.3e} > {float(bound_k[k]):.3e} (condition {float(kappa[k]):.3e})")
-    print(f"[time] gram_inv_sqrt on the main path's Grams (K={G.shape[0]}, R={R}, f32): "
+    print(f"{tag} gram_inv_sqrt on {label} (K={G.shape[0]}, R={R}, "
+          f"{str(G.dtype).removeprefix('torch.')}): "
           f"max |kernel - plain| {float(err_k.max()):.3e} against max |plain| "
-          f"{float(scale_k.max()):.3e}, each Gram within max(1e-6, R kappa 2^-53) of its max "
+          f"{float(scale_k.max()):.3e}, each Gram within max({floor:.0e}, R kappa 2^-53) of its max "
           f"|P_inv| (largest relative error "
           f"{float((err_k / scale_k.clamp(min=1e-300)).max()):.3e}, condition up to "
           f"{float(kappa.max()):.3e})", flush=True)
@@ -2201,6 +2435,117 @@ def p2_work(N: int, R: int, itemsize: int) -> tuple:
     return 2 * N * R * itemsize, N * (3 + 6 * R)
 
 
+def cc_library(b, args: dict, H, XkV, Wb) -> dict:
+    """One PyTorch call for each of the ten CC kernels' functions on
+    ``kernel_args``' operands (the port never calls them; F1's is its X_k
+    Vg_k only)."""
+    import torch
+
+    Vg, Q = args["fused_procrustes_b"][1], args["fused_ykv"][1]
+    Yc, YkV, m = args["ykv"][0], args["mode1_reuse"][0], b.subject_mask
+    return {
+        "fused_procrustes_b": lambda: torch.bmm(b.vals, Vg),
+        "fused_mode1_xkv": lambda: torch.einsum("kir,kil,kl->rl", Q, XkV, Wb),
+        "fused_mode2_compact": lambda: torch.einsum(
+            "kic,kir,rl,kl,kc->kcl", b.vals, Q, H, Wb, b.col_mask),
+        "fused_ykv": lambda: torch.einsum("kir,kic,kcl->krl", Q, b.vals, Vg),
+        "ykv": lambda: torch.bmm(Yc, Vg),
+        "mode1": lambda: torch.einsum("krc,kcl,kl->rl", Yc, Vg, Wb),
+        "mode1_reuse": lambda: torch.einsum("krl,kl->rl", YkV, Wb),
+        "mode2_compact": lambda: torch.einsum("krc,rl,kl,kc->kcl", Yc, H, Wb, b.col_mask),
+        "mode3": lambda: torch.einsum("krc,kcl,rl,k->kl", Yc, Vg, H, m),
+        "mode3_reuse": lambda: torch.einsum("krl,rl,k->kl", YkV, H, m),
+    }
+
+
+def phase4_cores(bt, comp, state, core_launches: dict, range_launches: int) -> list:
+    """F1-F4 and rows 5, 7, 8 and 10 at CC auto's largest core bucket
+    [Kb, 18, 128] on the compressed fit's state (Q from F1 and P1 there, as
+    the core iteration forms it), and P1 at R = 18 on the range finder's
+    Grams of the same original bucket: each against its plain version (P1
+    Gram by Gram against LAPACK), its time by events and in a replayed CUDA
+    graph (``kernel_ab.graph_ms``), its plain version's and one PyTorch
+    call's, beside its bound. Rows ``<kernel>[core]`` and
+    ``gram_inv_sqrt[range]``; launches from the core fit of phase 3 (the
+    range Grams: the pass's)."""
+    import torch
+    from repro_torch.core.procrustes import solve_q
+    from repro_torch.kernels import fused, mttkrp_mode2, polar, sketch, ykv
+    from repro_torch.launch.kernel_ab import graph_ms
+
+    i = max(range(len(comp.buckets)), key=lambda j: comp.buckets[j].core.vals.numel())
+    b, orig = comp.buckets[i].core, bt.buckets[i]
+    H, V, W = state.H.contiguous(), state.V, state.W
+    R = H.shape[0]
+    Wb = W[b.subject_ids.long()] * b.subject_mask[:, None]
+    XkV, B = fused.fused_procrustes_b(b.vals, b.gather_v(V), Wb, H)
+    Q = solve_q(B) * b.subject_mask[:, None, None]
+    all_args = kernel_args(b, H, V, W, Q)
+    args = {k: a for k, a in all_args.items() if k in CORE_KERNELS}
+    errs: dict = {}
+    check_kernels(args, errs)
+    library = cc_library(b, all_args, H, XkV, Wb)
+    K, S, C = b.vals.shape
+    Yc = args["ykv"][0]
+    variant = {"fused_procrustes_b": fused.procrustes_b_variant(b.vals, R),
+               "fused_mode1_xkv": fused.mode1_xkv_variant(*args["fused_mode1_xkv"][:2]),
+               "ykv": ykv.ykv_variant(*args["ykv"]),
+               "mode2_compact": mttkrp_mode2.mode2_compact_variant(Yc, b.col_mask),
+               "mode3_reuse": "thread-per-entry"}
+    table = kernels()
+    stream = torch.cuda.Stream()
+    rows = []
+
+    def row(name, fn, plain_fn, lib_fn, nbytes, ops, source, launches, err, scale, extra):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / F32_FLOPS * 1e3
+        r = {"name": name, "route": "cuda", "source": source,
+             "replaces": REPLACES[name.split("[")[0]], "launches": launches,
+             "max_abs_err": err, "max_abs_plain": scale, "ms": time_ms(fn),
+             "graph_ms": graph_ms(fn, stream), "plain_ms": time_ms(plain_fn, *extra),
+             "bound_ms": max(t_bytes, t_ops),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "library_ms": time_ms(lib_fn, *extra) if lib_fn else None,
+             "host_ms": host_ms(fn)}
+        r["share_of_bound"] = r["bound_ms"] / r["graph_ms"]
+        rows.append(r)
+        return r
+
+    for name, a in args.items():
+        wrapper, plain, source = table[name]
+        route = "auto" if name in FUSED else "staged"
+        r = row(f"{name}[core]", lambda: wrapper(*a), lambda: plain(*a), library[name],
+                *work(name, K, S, C, R, b.vals.element_size()), source,
+                core_launches[route][name], *errs[name], ())
+        if name in variant:
+            r["variant"] = variant[name]
+        print(f"[core-time] {name} at the largest core bucket K={K} S={S} C={C} R={R} f32: "
+              f"kernel {r['ms']:.4f} ms, in a graph {r['graph_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}; {r['share_of_bound']:.0%} of it in a "
+              f"graph), plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, wrapper "
+              f"host time {r['host_ms']:.4f} ms, variant {r.get('variant', 'one design')}; "
+              f"max |kernel - plain| {r['max_abs_err']:.3e}", flush=True)
+
+    # P1 at R = 18 on the range finder's Grams of the same original bucket
+    omega = sketch.gaussian_sketch(0, bt.n_cols, S, torch.float32, b.vals.device)
+    Y = sketch.power_iterate(orig, sketch.sketch_bucket(orig, omega), 1)
+    G = Y.transpose(1, 2) @ Y
+    del Y
+    thin = int(((orig.row_counts < S) & (orig.subject_mask > 0)).sum())
+    err, scale = p1_main_path_check(G, S, label=f"the range Grams of the largest CC bucket "
+                                    f"({thin} thin subjects)", tag="[core-time]")
+    r = row("gram_inv_sqrt[range]", lambda: polar.gram_inv_sqrt(G), lambda: p1_plain(G),
+            lambda: p1_library(G), *p1_work(K, S, G.element_size()),
+            "src/repro_torch/csrc/polar.cu", range_launches, err, scale, (5, 1))
+    r["variant"] = polar.gram_inv_sqrt_variant(S)
+    r["port_only"] = True
+    print(f"[core-time] gram_inv_sqrt on the range Grams K={K} R={S} f32 ({r['variant']}): "
+          f"kernel {r['ms']:.4f} ms, in a graph {r['graph_ms']:.4f} ms, bound "
+          f"{r['bound_ms']:.4f} ms ({r['bound_by']}; {r['share_of_bound']:.1%} of it), plain "
+          f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms", flush=True)
+    return rows
+
+
 def phase4_times(bt, bt_sc, bcc_pair, state, per_kernel, errs, w_state):
     import torch
     from repro_torch.core.backend import get_backend
@@ -2217,21 +2562,8 @@ def phase4_times(bt, bt_sc, bcc_pair, state, per_kernel, errs, w_state):
     Q = solve_q(B) * b.subject_mask[:, None, None]
     args = kernel_args(b, H, V, W, Q)
     check_kernels(args, errs)                     # at the main path's shapes too
-    Yc, YkV, m = args["ykv"][0], args["mode1_reuse"][0], b.subject_mask
-    library = {
-        # one PyTorch call for each function; the port never calls them
-        "fused_procrustes_b": lambda: torch.bmm(b.vals, Vg),     # X_k Vg_k only
-        "fused_mode1_xkv": lambda: torch.einsum("kir,kil,kl->rl", Q, XkV, Wb),
-        "fused_mode2_compact": lambda: torch.einsum(
-            "kic,kir,rl,kl,kc->kcl", b.vals, Q, H, Wb, b.col_mask),
-        "fused_ykv": lambda: torch.einsum("kir,kic,kcl->krl", Q, b.vals, Vg),
-        "ykv": lambda: torch.bmm(Yc, Vg),
-        "mode1": lambda: torch.einsum("krc,kcl,kl->rl", Yc, Vg, Wb),
-        "mode1_reuse": lambda: torch.einsum("krl,kl->rl", YkV, Wb),
-        "mode2_compact": lambda: torch.einsum("krc,rl,kl,kc->kcl", Yc, H, Wb, b.col_mask),
-        "mode3": lambda: torch.einsum("krc,kcl,rl,k->kl", Yc, Vg, H, m),
-        "mode3_reuse": lambda: torch.einsum("krl,rl,k->kl", YkV, H, m),
-    }
+    Yc = args["ykv"][0]
+    library = cc_library(b, args, H, XkV, Wb)
     K, I, C = b.vals.shape
     R = H.shape[0]
     where = dict.fromkeys(args, f"K={K} I={I} C={C}")
@@ -2383,14 +2715,16 @@ def phase4_times(bt, bt_sc, bcc_pair, state, per_kernel, errs, w_state):
     return rows
 
 
-def phase5_profile(bt, bt_sc, iter_ms: dict, scan_ms: dict, con_ms: dict) -> None:
+def phase5_profile(bt, bt_sc, iter_ms: dict, scan_ms: dict, con_ms: dict, cores) -> None:
     """Where one main-path iteration's time goes on the auto and the staged
     route over the CC buckets and on the staged and the scoo route over the
     SCOO buckets, and at bf16 on CC auto and SCOO staged (from the fit's
     half copy of the values), then in one replayed 10-iteration chunk of the scan engine
     on the CC auto, CC staged and SCOO staged routes, against an unprofiled
     replay of the same chunk just before it; ``iter_ms`` and ``scan_ms`` are
-    the unprofiled times per iteration of phase 3."""
+    the unprofiled times per iteration of phase 3. ``cores`` is CC auto's
+    rsvd core data: one core iteration of the compressed path is profiled
+    beside the others (``auto-cores``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import Parafac2Options, als_step, engine, init_state
@@ -2399,7 +2733,8 @@ def phase5_profile(bt, bt_sc, iter_ms: dict, scan_ms: dict, con_ms: dict) -> Non
         return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
 
     for route, data in (("auto", bt), ("staged", bt), ("staged-scoo", bt_sc),
-                        ("scoo-scoo", bt_sc), ("auto bf16", bt), ("staged-scoo bf16", bt_sc)):
+                        ("scoo-scoo", bt_sc), ("auto bf16", bt), ("staged-scoo bf16", bt_sc),
+                        ("auto-cores", cores)):
         prec = "bf16" if route.endswith("bf16") else "f32"
         opts = Parafac2Options(rank=5, backend=route.split("-")[0].split()[0], precision=prec)
         data = data.with_compute_values(prec)
@@ -2557,9 +2892,13 @@ def main() -> int:
     con = phase3_constrained(bt, bt_sc)
     free_cached("the constrained fits")
     per_kernel["tridiag_solve"] = con["p2_launches"]
+    cmp = phase3_compress(bt, bt_sc, hist)
+    iter_ms["auto-cores"] = cmp["ms"]["auto"]
+    free_cached("the compressed fits")
     rows = phase4_times(bt, bt_sc, bcc_pair, state, per_kernel, errs, con.pop("state"))
     rows += phase4_half(bt, bt_sc, state, half_launches, half_errs)
-    phase5_profile(bt, bt_sc, iter_ms, scan_ms, con["ms"])
+    rows += phase4_cores(bt, cmp["comp"], cmp["state"], cmp["launches"], cmp["range_launches"])
+    phase5_profile(bt, bt_sc, iter_ms, scan_ms, con["ms"], cmp["comp"].data)
     print(f"[done] {time.perf_counter() - t0:.1f}s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

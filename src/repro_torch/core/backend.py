@@ -181,6 +181,17 @@ class MttkrpBackend:
         YkV = torch.bmm(Q.transpose(1, 2), spartan._f(XkV))
         return self.mode1(None, None, Wb, b.subject_mask, YkV=YkV)
 
+    def sketch_bucket(self, b, Omega: torch.Tensor,
+                      Og: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Y_k = X_k Ω [Kb, I_pad, S], the randomized range finder's sketch
+        (:mod:`repro_torch.core.compress`): the contraction of
+        ``xkv_bucket`` with a wider right factor, on every route a
+        ``torch.bmm`` on CC buckets and the plain segment sum on SCOO
+        buckets (never densified), as the reference's einsum."""
+        from repro_torch.kernels import sketch as _sketch
+
+        return _sketch.sketch_bucket(b, Omega, Og)
+
     def project_bucket(self, b, Q):
         """The projected representation the later stages consume: the
         compact Yc [Kb, R, C] on the torch route (a segment sum on SCOO

@@ -341,6 +341,13 @@ def fit_device(data, opts: "p2.Parafac2Options", *, max_iters: int = 100,
     if opts.engine == "host":
         raise ValueError("fit_device handles the device engines; "
                          "engine='host' is parafac2.fit's own loop")
+    if opts.compress not in ("", "none"):
+        # the compression pass is preprocessing above the engines:
+        # parafac2.fit compresses, then comes back here with compress="none"
+        # on the core data
+        raise ValueError(
+            f"fit_device runs the core ALS only (compress={opts.compress!r}); "
+            f"route compressed fits through repro_torch.core.parafac2.fit")
     state = p2.init_state(data, opts, seed, state=state)
     if max_iters <= 0:          # nothing to capture: the host loop's answer
         return state, []

@@ -43,7 +43,8 @@ from repro_torch.sparse.bucketing import (SCOO_DENSITY_THRESHOLD, BucketPlan,
 from repro_torch.sparse.coo import IrregularCOO
 
 __all__ = ["Bucket", "SparseBucket", "BlockBucket", "Bucketed", "bucketize",
-           "bucket_format", "scatter_order", "to_block_bucket", "FORMATS", "LANE"]
+           "bucket_format", "cc_bucket_like", "scatter_order", "to_block_bucket",
+           "FORMATS", "LANE"]
 
 LANE = 128  # BCC column-block width (the reference's TPU lane width)
 
@@ -281,6 +282,25 @@ AnyBucket = Union[Bucket, SparseBucket]
 def bucket_format(b) -> str:
     """Device-format tag of a bucket: "cc" | "scoo"."""
     return getattr(b, "format", "cc")
+
+
+def cc_bucket_like(b: AnyBucket, vals: torch.Tensor,
+                   row_counts: Optional[torch.Tensor] = None) -> Bucket:
+    """A CC :class:`Bucket` holding ``vals`` [Kb, I', C_pad] under ``b``'s
+    column and subject metadata (``b`` CC or SCOO: both carry ``cols``,
+    ``col_mask``, the subject fields, ``n_real`` and the scatter order). The
+    row space I' may differ from ``b.i_pad``: this is how the compression
+    stage (:mod:`repro_torch.core.compress`) wraps the small cores
+    ``G_k = P_k^T X_k`` as a bucket the engines iterate on."""
+    if vals.shape[0] != b.kb or vals.shape[2] != b.c_pad:
+        raise ValueError(
+            f"vals shape {tuple(vals.shape)} does not match bucket metadata "
+            f"(Kb={b.kb}, C_pad={b.c_pad})")
+    return Bucket(
+        vals=vals, cols=b.cols, col_mask=b.col_mask, subject_ids=b.subject_ids,
+        subject_mask=b.subject_mask,
+        row_counts=b.row_counts if row_counts is None else row_counts,
+        n_real=b.n_real, scatter_perm=b.scatter_perm, scatter_ends=b.scatter_ends)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -25,7 +25,10 @@ graphs on a GPU (:mod:`repro_torch.core.engine`). W is one [K, R] tensor
 padded slots stay zero (``"bucketed"``). ``opts.precision`` ("f32", "bf16",
 "f16") is the compute precision of the streamed operands (see
 :mod:`repro_torch.core.backend`); below f32 ``fit`` makes each bucket's
-half values once, before the first iteration.
+half values once, before the first iteration. ``opts.compress`` (a
+:mod:`repro_torch.core.compress` spec, ``"none"`` by default) runs the whole
+loop on randomized small cores: compress, this same ``fit`` on the core
+data, then the exact expansion and the residual-corrected fit.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import compress as _compress
 from repro_torch.core import constraints as cst
 from repro_torch.core.backend import MttkrpBackend, get_backend
 from repro_torch.core.cp import normalize_columns
@@ -101,6 +105,11 @@ class Parafac2Options:
     # Iterations per chunk for the scan engine. 0 selects the while variant:
     # the whole fit with the host loop's stopping rule evaluated on the device.
     check_every: int = 10
+    # Preprocessing stage spec (repro_torch.core.compress): "none" (the
+    # default), or "rsvd[:r[:p[:q]]]", which makes fit() compress the data
+    # first, run the unchanged core ALS on the small cores and expand exactly
+    # at the end.
+    compress: str = "none"
 
     def __post_init__(self, nonneg):
         if nonneg is not None:
@@ -111,6 +120,9 @@ class Parafac2Options:
         if self.constraints is not None:
             object.__setattr__(
                 self, "constraints", tuple(sorted(dict(self.constraints).items())))
+        # a bad preprocessing spec fails here (ValueError listing the
+        # registered preprocessors), as a bad constraint spec does
+        _compress.parse_preprocess_spec(self.compress)
         if self.dtype not in (torch.float32, torch.float64):
             raise ValueError(f"dtype must be float32 or float64, got {self.dtype}")
         if self.ridge < 0.0:
@@ -343,7 +355,11 @@ def fit(data: Bucketed, opts: Parafac2Options, *, max_iters: int = 100,
     engine instead (:func:`repro_torch.core.engine.fit_device`, the same
     contract). Below f32 ``opts.precision`` the buckets' half values are
     made once here (:meth:`Bucketed.with_compute_values`) and dropped with
-    the fit."""
+    the fit. A non-identity ``opts.compress`` goes to
+    :func:`repro_torch.core.compress.fit_compressed` before any engine."""
+    if not _compress.parse_preprocess_spec(opts.compress).identity:
+        return _compress.fit_compressed(data, opts, max_iters=max_iters, tol=tol,
+                                        seed=seed, verbose=verbose, state=state)
     if opts.engine != "host":
         from repro_torch.core import engine as _engine
         return _engine.fit_device(data, opts, max_iters=max_iters, tol=tol, seed=seed,

@@ -5,12 +5,17 @@ decompose``), on a GPU by default:
       --scale 0.002 --rank 5 --iters 20 [--format cc|scoo|auto] \
       [--backend auto|staged|scoo|fused|torch] [--engine host|scan] \
       [--check-every 10] [--constraint v=nonneg+l1:0.1,w=smooth:0.1] \
-      [--precision f32|bf16|f16] [--device cpu] [--json out.json]
+      [--precision f32|bf16|f16] [--compress rsvd[:r[:p[:q]]]] \
+      [--device cpu] [--json out.json]
 
 ``--constraint`` sets the per-mode factor constraints in the reference's
 grammar (``repro_torch.core.constraints``; a bare spec applies to V and W);
-without it, the paper's (H unconstrained, V and W nonneg by HALS). No
-compression, as the reference's default. ``--engine scan`` runs chunks of
+without it, the paper's (H unconstrained, V and W nonneg by HALS).
+``--compress`` picks the preprocessing stage (``repro_torch.core.compress``;
+``none`` by default, as the reference's): ``rsvd[:r[:p[:q]]]`` compresses
+every tall bucket to randomized cores [Kb, r + p, C_pad], runs the whole ALS
+on them through the chosen backend and engine, and expands exactly at the
+end, printing a ``[compress]`` line. ``--engine scan`` runs chunks of
 ``--check-every`` iterations as CUDA graph replays on a GPU
 (``--check-every 0``: the whole fit, stopping on the device), the host
 engine one iteration at a time (``repro_torch.core.engine``). ``--format`` picks the
@@ -41,6 +46,7 @@ import torch
 
 from repro_torch.core import (Bucketed, Parafac2Options, Parafac2State,
                               bucketize, fit)
+from repro_torch.core.compress import available as available_preprocess
 from repro_torch.core.constraints import (available as available_constraints,
                                           constraint_summary, parse_constraint_arg)
 from repro_torch.data import choa_like, movielens_like
@@ -103,17 +109,20 @@ def decompose(bt: Bucketed, *, rank: int, iters: int, tol: float, seed: int,
               backend: str, dtype: torch.dtype, verbose: bool = True,
               state: Optional[Parafac2State] = None, mode1_reuse: bool = True,
               engine: str = "host", check_every: int = 10,
-              constraints: Optional[dict] = None, precision: str = "f32"
+              constraints: Optional[dict] = None, precision: str = "f32",
+              compress: str = "none"
               ) -> Tuple[Parafac2State, List[float], float]:
     """Fit, with the kernel launch counts zeroed first; returns the state,
     the fit history and the seconds the fit took (ending in a device sync:
     every engine reads the fits back). Under ``engine="scan"`` the seconds
     include the graphs' warm-up and capture; below f32 ``precision`` they
-    include the half copy of the values. ``constraints`` is a per-mode
-    spec dict, by default the paper's."""
+    include the half copy of the values; with a ``compress`` spec they
+    include the compression pass and the expansion. ``constraints`` is a
+    per-mode spec dict, by default the paper's."""
     opts = Parafac2Options(rank=rank, constraints=constraints or PAPER_CONSTRAINTS,
                            backend=backend, dtype=dtype, mode1_reuse=mode1_reuse,
-                           engine=engine, check_every=check_every, precision=precision)
+                           engine=engine, check_every=check_every, precision=precision,
+                           compress=compress)
     reset_launches()
     t0 = time.perf_counter()
     state, hist = fit(bt, opts, max_iters=iters, tol=tol, seed=seed,
@@ -161,6 +170,13 @@ def main(argv=None) -> dict:
                          f"{', '.join(available_constraints())}; see "
                          "repro_torch.core.constraints). Default: the paper's "
                          "nonneg V/W.")
+    ap.add_argument("--compress", default="none", metavar="SPEC",
+                    help="preprocessing stage (repro_torch.core.compress): "
+                         f"registered: {', '.join(available_preprocess())}. "
+                         "'rsvd[:r[:p[:q]]]' compresses every tall bucket to "
+                         "randomized cores (rank r, default 2*rank; "
+                         "oversampling p; q power iterations), runs the core "
+                         "ALS, and expands exactly at the end")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--dtype", default="float32", choices=sorted(DTYPES),
                     help="factor and accumulation dtype (float64 needs "
@@ -175,10 +191,11 @@ def main(argv=None) -> dict:
     print(f"[constraints] {constraint_summary(specs)}")
     device = resolve_device(args.device)
     dtype = DTYPES[args.dtype]
-    # the options' errors (an f64 dtype below f32 precision) before any data
+    # the options' errors (an f64 dtype below f32 precision; a bad compress
+    # spec, with the registered preprocessors) before any data
     opts = Parafac2Options(rank=args.rank, constraints=specs, backend=args.backend,
                            dtype=dtype, engine=args.engine, check_every=args.check_every,
-                           precision=args.precision)
+                           precision=args.precision, compress=args.compress)
     t0 = time.perf_counter()
     data = load_dataset(args.dataset, args.scale, args.seed)
     print(f"[data] K={data.n_subjects} J={data.n_cols} nnz={data.nnz} "
@@ -196,7 +213,8 @@ def main(argv=None) -> dict:
     state, hist, dt = decompose(bt, rank=args.rank, iters=args.iters, tol=args.tol,
                                 seed=args.seed, backend=args.backend, dtype=dtype,
                                 engine=args.engine, check_every=args.check_every,
-                                constraints=specs, precision=args.precision)
+                                constraints=specs, precision=args.precision,
+                                compress=args.compress)
     print(f"[fit] {len(hist)} iters in {dt:.2f}s "
           f"({dt / max(len(hist), 1):.3f}s/iter), fit={hist[-1]:.4f}")
     launches = kernel_launches()
@@ -209,7 +227,7 @@ def main(argv=None) -> dict:
         engine=args.engine, backend=args.backend, precision=args.precision,
         dtype=args.dtype, tol=args.tol, check_every=args.check_every, seed=args.seed, format=args.format,
         buckets=bucket_stats, device_bytes=device_bytes,
-        constraints=constraint_summary(specs), compress="none",
+        constraints=constraint_summary(specs), compress=args.compress,
         v_zero_fraction=float((V_np == 0.0).mean()),
         n_subjects=data.n_subjects, n_cols=data.n_cols, nnz=data.nnz,
         fit=float(hist[-1]), fit_history=[float(f) for f in hist],

@@ -10,6 +10,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 
+from repro_torch.core.compress import preprocess_summary
 from repro_torch.core.constraints import constraint_summary
 
 __all__ = ["SCHEMA_VERSION", "resolved_options", "run_summary"]
@@ -18,9 +19,10 @@ SCHEMA_VERSION = 2
 
 
 def resolved_options(opts=None, **extra) -> Dict[str, Any]:
-    """Canonical option block from a ``Parafac2Options`` (+ launcher extras).
-    The keys are the reference's; compress carries the only value the port
-    runs (none)."""
+    """Canonical option block from a ``Parafac2Options`` (+ launcher extras),
+    with the reference's keys; the constraint and compress specs resolved
+    (``repro_torch.core.constraints`` / ``repro_torch.core.compress``), so
+    that two spellings of one spec give one block."""
     block: Dict[str, Any] = {}
     if opts is not None:
         block.update(
@@ -32,7 +34,7 @@ def resolved_options(opts=None, **extra) -> Dict[str, Any]:
             procrustes=opts.procrustes,
             dtype=str(opts.dtype).removeprefix("torch."),
             constraints=constraint_summary(opts.constraint_specs()),
-            compress={"spec": "none"},
+            compress=preprocess_summary(opts.compress, opts.rank),
         )
     block.update(extra)
     return block

@@ -15,7 +15,9 @@ bucket costs ``Kb * I_pad * C_pad`` cells whatever its nonzero count
 (``padding_waste``); the SCOO format stores flat per-subject triplets padded
 to the bucket's ``N_pad`` (``nnz_pads``; plan with ``sort_by="nnz"``).
 :func:`route_formats` turns each bucket's density (true nonzeros over the
-densified CC cell count) into its "cc"/"scoo" decision.
+densified CC cell count) into its "cc"/"scoo" decision, and
+:func:`route_compress` each bucket's padded rows into the rsvd stage's
+compress-or-pass-through decision (``repro_torch.core.compress``).
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-__all__ = ["BucketPlan", "fixed_plan", "plan_buckets", "route_formats",
+__all__ = ["BucketPlan", "fixed_plan", "plan_buckets", "route_compress", "route_formats",
            "SCOO_DENSITY_THRESHOLD"]
 
 # Density below which the SCOO format takes a bucket under format="auto"
@@ -177,3 +179,19 @@ def route_formats(plan: BucketPlan, nnz_counts: Sequence[int], *,
         raise ValueError(f"unknown format {format!r}; choose from 'cc', 'scoo', 'auto'")
     return ["scoo" if d < density_threshold else "cc"
             for d in plan.bucket_densities(nnz_counts)]
+
+
+def route_compress(shapes, sketch_dim: int) -> List[bool]:
+    """Per-bucket decision of the rsvd preprocessing stage
+    (:mod:`repro_torch.core.compress`): compress a bucket only when its
+    padded row space exceeds the sketch width; otherwise its core would be
+    as large as the data and the pass pure overhead.
+
+    ``shapes`` is a list of ``(i_pad, c_pad)`` pairs (``BucketPlan.shapes``
+    or the buckets' padded shapes) or a :class:`BucketPlan`; one bool per
+    bucket."""
+    if isinstance(shapes, BucketPlan):
+        shapes = shapes.shapes
+    if sketch_dim < 1:
+        raise ValueError(f"sketch_dim must be >= 1, got {sketch_dim}")
+    return [int(ip) > int(sketch_dim) for ip, _ in shapes]

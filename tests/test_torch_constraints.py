@@ -24,6 +24,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# with several pytest-xdist workers on the cores, torch's intra-op threads
+# oversubscribe them (six workers ran these fits 25x slower): one each
+torch.set_num_threads(1)
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 

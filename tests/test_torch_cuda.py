@@ -1369,3 +1369,111 @@ def test_half_fit_within_contract_on_gpu(dev, backend, fmt, precision):
         assert scoo.LAUNCHES["scoo_project"] == staged.LAUNCHES["mode2_compact"] == n
     else:
         assert staged.LAUNCHES["ykv"] == staged.LAUNCHES["mode2_compact"] == n
+
+
+# ---------------------------------------------------------------------------
+# compression (rsvd): the core ALS on [Kb, S, C_pad] cores, P1 at R = S
+# ---------------------------------------------------------------------------
+
+def _compress_launches(backend: str, nb: int, iters: int) -> dict:
+    """Every kernel launch of a compressed fit whose ``nb`` buckets all
+    compress: the range bases (P1 once a bucket), ``iters`` core iterations,
+    then ``expand_q`` (the core Procrustes step once more) and ``exact_fit``
+    (Y_k V on the originals: F4 on CC, row 12's projection and row 5 on
+    SCOO). The cores are CC buckets, so row 11 never launches."""
+    core = nb * iters
+    if backend == "auto":
+        return {"fused_procrustes_b": core + nb, "fused_mode1_xkv": core,
+                "fused_mode2_compact": core, "fused_ykv": core + nb,
+                "gram_inv_sqrt": core + 2 * nb}
+    return {"ykv": core + nb, "mode1_reuse": core, "mode2_compact": core, "mode3_reuse": core,
+            "scoo_project": nb, "gram_inv_sqrt": core + 2 * nb}
+
+
+def _kappa(G: torch.Tensor) -> torch.Tensor:
+    """Per Gram, its condition over the eigenvalues the polar's clamp keeps
+    (on the CPU's LAPACK, in f64)."""
+    lam = torch.linalg.eigvalsh(G.cpu().double())
+    top = lam[:, -1:].clamp(min=0.0)
+    kept = torch.where(lam > top * 1e-12, lam, torch.full_like(lam, float("inf")))
+    return (top[:, 0] / kept.min(1).values).nan_to_num(nan=1.0, posinf=1.0)
+
+
+def _solve_bound(G: torch.Tensor, floor: float) -> torch.Tensor:
+    """Per Gram G [K, R, R], what two f64 solves of its inverse root or of
+    the range basis it orthonormalizes may part by, relative to the
+    result's scale: max(floor, R kappa 2^-53) (a direction of eigenvalue
+    lam moves by rounding / lam)."""
+    return torch.clamp(G.shape[-1] * _kappa(G) * 2.0 ** -53, min=floor)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,fmt", [("auto", "cc"), ("staged", "scoo")])
+def test_compressed_fit_on_gpu_matches_cpu(dev, backend, fmt):
+    """choa 0.002, rank 5, f64, 20 iterations, ``compress="rsvd"``: the
+    card's fit (Ω drawn on the CPU and moved, the same start) within 1e-8 of
+    the port's CPU fit at every iteration, its last entry the exact fit, and
+    each kernel of the route launched as the pass, the core iterations and
+    the expansion need."""
+    from repro_torch.launch.decompose import kernel_launches, reset_launches
+    data = choa_like(scale=0.002, seed=0)
+    opts = dict(rank=5, dtype=torch.float64, compress="rsvd")
+    bt_cpu = bucketize(data, dtype=torch.float64, device="cpu", format=fmt)
+    _, want = fit(bt_cpu, Parafac2Options(**opts, backend="torch"), max_iters=20, tol=0.0)
+    bt = bucketize(data, dtype=torch.float64, device=dev, format=fmt)
+    reset_launches()
+    state, got = fit(bt, Parafac2Options(**opts, backend=backend), max_iters=20, tol=0.0)
+    counts = {k: v for k, v in kernel_launches().items() if v}
+    assert len(got) == 20 and got[-1] == float(state.fit)
+    assert np.max(np.abs(np.asarray(got) - np.asarray(want))) <= 1e-8
+    assert counts == _compress_launches(backend, len(bt.buckets), 20)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,fmt", [("auto", "cc"), ("staged", "cc"), ("staged", "scoo")])
+def test_compressed_scan_matches_host_on_gpu(dev, backend, fmt):
+    """The scan engine (chunks of 5 and the while variant) on the cores:
+    history and V bit for bit the host engine's (f32, rsvd:10:6:1, rank
+    4, 12 iterations)."""
+    bt = bucketize(choa_like(scale=0.002, seed=0), device=dev, format=fmt)
+    base = Parafac2Options(rank=4, backend=backend, compress="rsvd:10:6:1")
+    s_host, h_host = fit(bt, base, max_iters=12, tol=0.0)
+    for check_every in (5, 0):
+        s, h = fit(bt, Parafac2Options(rank=4, backend=backend, compress="rsvd:10:6:1",
+                                       engine="scan", check_every=check_every),
+                   max_iters=12, tol=0.0)
+        assert h == h_host and torch.equal(s.V, s_host.V)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["cc", "scoo"])
+def test_range_basis_on_gpu_matches_plain(dev, fmt):
+    """``range_basis`` on the card (P1 at R = S = 18 on the range finder's
+    Grams) against its plain version on the CPU (the same Ω, LAPACK), f64,
+    subject by subject by its projector P P^T within max(1e-12, S kappa
+    2^-53); P^T P idempotent; padding subjects a zero basis; and P1 on
+    those Grams, in f32 and f64, against its plain version, each Gram
+    within max(floor, R kappa 2^-53) of its max |P_inv| (thin subjects
+    hand it rank-deficient Grams)."""
+    from repro_torch.kernels import polar, sketch
+    data = choa_like(scale=0.002, seed=0)
+    bt = bucketize(data, dtype=torch.float64, device=dev, format=fmt, subject_align=8)
+    bt_cpu = bucketize(data, dtype=torch.float64, device="cpu", format=fmt, subject_align=8)
+    omega = sketch.gaussian_sketch(0, data.n_cols, 18, torch.float64)
+    for b, bc in zip(bt.buckets, bt_cpu.buckets):
+        P = sketch.range_basis(b, omega.to(dev))
+        Y = sketch.power_iterate(bc, sketch.sketch_bucket(bc, omega), 1)
+        G64 = Y.transpose(1, 2) @ Y
+        Pc = sketch.range_basis(bc, omega)
+        err = ((P @ P.transpose(1, 2)).cpu() - Pc @ Pc.transpose(1, 2)).abs().amax((1, 2))
+        assert bool((err <= _solve_bound(G64, 1e-12)).all()), float(err.max())
+        PtP = P.transpose(1, 2) @ P
+        assert float((PtP @ PtP - PtP).abs().max()) <= 1e-4
+        assert bool((P[b.subject_mask == 0] == 0).all())
+        for dtype, floor in ((torch.float32, 1e-6), (torch.float64, 1e-12)):
+            G = G64.to(dtype)
+            got = polar.gram_inv_sqrt(G.to(dev)).double().cpu()
+            want = polar.gram_inv_sqrt_plain(G).double()
+            bound = _solve_bound(G, floor) * want.abs().amax((1, 2))
+            assert bool(((got - want).abs().amax((1, 2)) <= bound).all())
+            assert bool((got[bc.subject_mask == 0] == 0).all())

@@ -13,6 +13,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# with several pytest-xdist workers on the cores, torch's intra-op threads
+# oversubscribe them (six workers ran these fits 25x slower): one each
+torch.set_num_threads(1)
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core import (Parafac2Options as JOptions, als_step as j_als_step,  # noqa: E402
