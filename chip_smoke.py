@@ -116,7 +116,26 @@ Phases, any failure exits non-zero:
    final fit within 1e-3 relative of the route's uncompressed fit, scan bit
    for bit the host; and scale 0.002 in f64 through ``decompose.main
    --compress rsvd`` on the card within 1e-8 of the port's CPU run, with
-   the reference's compress block;
+   the reference's compress block; then serving (``phase3_stream``): choa
+   0.25's synthetic stream (warm fraction 0.6), a ``StreamService`` warm
+   started by 20 iterations on CC auto (8 and 64 slots) and SCOO staged (8
+   slots), the first 4,096 payloads: dispatch latency p50/p99 with the
+   host staging and the device part apart, subjects per second, the
+   launches a dispatch (F1, F4 and P1 on auto; rows 11, 12, 5, 10 and P1 on
+   staged; nothing else), the ``_adopt`` pass's seconds; on the 8-slot
+   services save, restore and one more batch bit for bit the uninterrupted
+   service, a cold refit bit for bit the batch fit over the union, and the
+   GiB a service with one refit adds; the ``_adopt`` pass over the whole
+   116,225-subject union; f64 choa 0.002 on the card against the CPU: the
+   warm fits within 1e-8, and from the same warm factors the replay's
+   stream_fit, drift and baseline within 1e-8, and the W rows and
+   residuals (relative) of the subjects whose kept Gram condition is at
+   most 1e4 (a W row of an ill-conditioned subject is determined only to
+   about its condition times 2^-53 of its inputs); then the supervised scan fit (``phase3_supervisor``,
+   CC auto, scan 10, 20 iterations): faultless, a blip, a restore from
+   disk, a NaN rollback and a resume, each bit for bit the bare scan fit,
+   ms/iter beside the bare fit's (with and without a shared chunk cache),
+   a checkpoint write's seconds and a ridge escalation's fit;
 4. each kernel's time beside its bound, its plain version's time, one
    PyTorch call's time (CUDA events, median of 20) and the wrapper call's
    host time (what an event time of a short kernel includes before the
@@ -140,7 +159,8 @@ Phases, any failure exits non-zero:
    no library call (none solves a tridiagonal system); then the nine half
    kernels at bf16 on the same buckets (``phase4_half``): events, a
    replayed graph, the plain version, the byte bound at half width and one
-   PyTorch call on the same half inputs where one computes the function;
+   PyTorch call a function on the same half inputs (F3, F4 and rows 6, 8
+   and 9 by an einsum with every operand at bf16);
    then (``phase4_cores``) F1-F4 and rows 5, 7, 8 and 10 at CC auto's
    largest core bucket [58,112, 18, 128] on the compressed fit's state and
    P1 at R = 18 on that bucket's range Grams, by events and in a replayed
@@ -161,7 +181,8 @@ Phases, any failure exits non-zero:
    10-iteration chunk of the scan engine on CC auto, CC staged and SCOO
    staged: device time an iteration and its busy share of an unprofiled
    replay of the same chunk just before it (trace of CC auto's in
-   ``$SMOKE_OUT/scan_chunk_trace_auto.json``).
+   ``$SMOKE_OUT/scan_chunk_trace_auto.json``); last, one 8-slot dispatch
+   of the CC auto stream service (``stream_dispatch_trace_auto.json``).
 
 Files go to ``$SMOKE_OUT`` (default ``smoke_out/``).
 
@@ -338,6 +359,17 @@ COMPRESS = "rsvd"       # phase 3's spec at rank 5: S = 18
 # the routes phase 3 compresses on: route -> (format, backend)
 COMPRESS_ROUTES = {"auto": ("cc", "auto"), "staged": ("cc", "staged"),
                    "staged-scoo": ("scoo", "staged")}
+# the serving layer (``repro_torch.launch.stream``): the first STREAM_LIMIT
+# payloads of choa 0.25's synthetic stream (warm fraction 0.6) through a
+# service per (backend, format, batch slots); the kernels each dispatch must
+# launch there (CC batches on auto take F1 and F4; SCOO batches on staged
+# rows 11 and 12, then rows 5 and 10); every polar takes P1
+STREAM_LIMIT = 4096
+STREAM_RUNS = (("auto", "cc", 8), ("staged", "scoo", 8), ("auto", "cc", 64))
+ON_STREAM = {"auto": ("fused_procrustes_b", "fused_ykv") + ("gram_inv_sqrt",),
+             "staged": ("scoo_xk_times_v", "scoo_project", "ykv", "mode3_reuse",
+                        "gram_inv_sqrt")}
+STREAM_F64 = 256        # payloads of the f64 choa 0.002 replay, card against CPU
 SOURCES = ("fused", "staged", "scoo", "gather_matmul", "polar", "tridiag")
 FUSED = ("fused_procrustes_b", "fused_mode1_xkv", "fused_mode2_compact", "fused_ykv")
 STAGED = ("ykv", "mode1", "mode1_reuse", "mode2_compact", "mode3", "mode3_reuse")
@@ -1254,7 +1286,6 @@ def phase3_main_path(dev):
               f"device bytes {dev_bytes[fmt]} ({dev_bytes[fmt] / 2**30:.3f} GiB); "
               f"generation {t_data:.1f}s, bucketize+upload {time.perf_counter() - t0:.1f}s",
               flush=True)
-    del data
     bt, bt_sc = bts["cc"], bts["scoo"]
     kw = dict(rank=5, iters=ITERS, tol=0.0, seed=0, dtype=torch.float32, verbose=False)
     # (label, buckets, backend): the CC routes, then the SCOO ones
@@ -1402,7 +1433,7 @@ def phase3_main_path(dev):
                "gather_matmul": "bcc", "gram_inv_sqrt": "auto"}
     per_kernel = {name: counts[path_of[name]][name] for name in ALL if name in path_of}
     peaks["dev_bytes"] = dev_bytes
-    return bt, bt_sc, (cut, bcc), main_state, per_kernel, ms, hist, peaks
+    return bt, bt_sc, (cut, bcc), main_state, per_kernel, ms, hist, peaks, data
 
 
 def scan_opts(backend: str, check_every: int, constraints=None, precision: str = "f32"):
@@ -1797,10 +1828,11 @@ def sparse_work_half(name: str, b, R: int) -> tuple:
 def phase4_half(bt, bt_sc, state, per_kernel: dict, errs: dict) -> list:
     """The nine half kernels at bf16 at the main path's largest CC and SCOO
     buckets: time by CUDA events and in a replayed CUDA graph, the plain
-    version's time, the byte bound at half width, and one PyTorch call on
-    the same half inputs where one computes the function (the X_k V part of
-    F1, row 5's product, row 11's sparse product; none takes half values
-    beside f32 Q, H or Wb)."""
+    version's time, the byte bound at half width, and one PyTorch call a
+    function on the same half inputs (the X_k V part of F1, row 5's
+    product, rows 11 and 12's sparse products; for F3, F4 and rows 6, 8 and
+    9, whose f32 operands no call takes beside half ones, an einsum with
+    every operand at bf16)."""
     import torch
     from repro_torch.core.backend import get_backend
     from repro_torch.core.procrustes import solve_q
@@ -1837,10 +1869,31 @@ def phase4_half(bt, bt_sc, state, per_kernel: dict, errs: dict) -> list:
             csr["A"] = block_csr(bs).to(half)
         return torch.sparse.mm(csr["A"], xa[3].reshape(-1, R))
 
+    def sparse_half_t():        # the transposed CSR at half width (row 12's yardstick)
+        if "At" not in csr:
+            csr["At"] = block_csr(bs, transpose=True).to(half)
+        return torch.sparse.mm(csr["At"], qsh.reshape(-1, R))
+
+    # one PyTorch call a function, on the same operands with every f32 one
+    # (Q, H, Wb, the masks) cast to bf16 as well: no call takes half values
+    # beside f32 ones, so these compute the function with all products at
+    # bf16 (a yardstick of time only)
+    vh, gh = args["fused_ykv"][0], args["fused_ykv"][2]
+    yh = args["mode3"][0]
+    qh, hh, qsh = Q.to(half), H.to(half), Qs.to(half)
+    Wbh = args["fused_procrustes_b"][2].to(half)
+    Wrh, mh = args["mode1"][2].to(half), b.subject_mask.to(half)
+    cmh = b.col_mask.to(half)
     library = {"fused_procrustes_b": lambda: torch.bmm(args["fused_procrustes_b"][0],
                                                        args["fused_procrustes_b"][1]),
+               "fused_mode2_compact": lambda: torch.einsum("kic,kir,rl,kl,kc->kcl", vh, qh, hh,
+                                                           Wbh, cmh),
+               "fused_ykv": lambda: torch.einsum("kir,kic,kcl->krl", qh, vh, gh),
                "ykv": lambda: torch.bmm(*args["ykv"]),
-               "scoo_xk_times_v": sparse_half}
+               "mode1": lambda: torch.einsum("krc,kcl,kl,k->rl", yh, gh, Wrh, mh),
+               "mode2_compact": lambda: torch.einsum("krc,rl,kl,kc->kcl", yh, hh, Wbh, cmh),
+               "mode3": lambda: torch.einsum("krc,kcl,rl,k->kl", yh, gh, hh, mh),
+               "scoo_xk_times_v": sparse_half, "scoo_project": sparse_half_t}
     rows = []
     for name in HALF_KERNELS:
         wrapper, plain, source = kernels()[name]
@@ -2136,6 +2189,310 @@ def phase3_compress(bt, bt_sc, hist: dict) -> dict:
             fail(f"f64 compressed {backend}/{fmt}: the card's fit differs from the CPU's by "
                  f"{d:.3e} (> 1e-8), or {missing} did not launch, or the block is {block}")
     return out
+
+
+def same_state(a, b) -> bool:
+    """Every tensor of two ``Parafac2State``s equal bit for bit."""
+    import torch
+    from repro_torch.core import engine
+
+    la, lb = engine._flatten(a), engine._flatten(b)
+    return [k for k, _ in la] == [k for k, _ in lb] and all(
+        torch.equal(x, y) for (_, x), (_, y) in zip(la, lb))
+
+
+def phase3_stream(bt, state, data) -> dict:
+    """The serving layer at choa 0.25, rank 5, f32: the synthetic stream of
+    ``data`` (warm fraction 0.6), a service per ``STREAM_RUNS`` entry warm
+    started by 20 iterations (a service of the same backend and format as
+    an earlier one restores that one's warm checkpoint: the same fit), then
+    the first ``STREAM_LIMIT`` payloads: the
+    dispatch latency (p50/p99, host staging and device apart), subjects per
+    second, each kernel's launches a dispatch (``ON_STREAM`` must launch,
+    nothing else may), the ``_adopt`` pass's seconds; on the two 8-slot
+    services, save, restore and one more batch bit for bit the uninterrupted
+    service, and a cold refit bit for bit the batch fit over the union (its
+    seconds), and the GiB a service with one refit adds. Then the same
+    ``update_subjects`` pass ``_adopt`` makes over the whole 116,225-subject
+    union (the main path's CC buckets, the main state), and the f64 choa
+    0.002 replay on the card against the port's CPU (``kept_condition``).
+    Returns the auto
+    8-slot service and payloads it has not seen, for phase 5."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.core import Parafac2Options, fit, update_subjects
+    from repro_torch.launch import decompose as dec
+    from repro_torch.launch import stream
+
+    t0 = time.perf_counter()
+    warm, payloads = stream.synthetic_stream(data, warm_frac=0.6, seed=0)
+    print(f"[stream] choa {MAIN_SCALE}: warm population {warm.n_subjects} subjects, "
+          f"{warm.nnz} nnz; {len(payloads)} payloads "
+          f"({sum('subject' in p for p in payloads)} accruals); split "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    served, warm_ckpt = {}, {}
+    for backend, fmt, slots in STREAM_RUNS:
+        label = f"{backend}-{fmt} x{slots}"
+        opts = Parafac2Options(rank=5, backend=backend)
+        kw = dict(batch_slots=slots, format=fmt, refit="cold", refit_iters=ITERS,
+                  refit_tol=0.0, drift_threshold=float("inf"), device="cuda")
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        if (backend, fmt) in warm_ckpt:     # the same warm fit: restored, not refitted
+            t0 = time.perf_counter()
+            svc = stream.StreamService.from_checkpoint(warm_ckpt[(backend, fmt)], warm, opts,
+                                                       **kw)
+            info = dict(fit=float("nan"), seconds=time.perf_counter() - t0, restored=True)
+        else:
+            svc, info = stream.StreamService.warm_start(warm, opts, iters=ITERS, tol=0.0,
+                                                        seed=0, **kw)
+            warm_ckpt[(backend, fmt)] = tempfile.mkdtemp(prefix="stream_warm_", dir=OUT)
+            svc.save(warm_ckpt[(backend, fmt)])
+        reset_launches()                                # counts from 0 for the stream
+        t0 = time.perf_counter()
+        for p in payloads[:STREAM_LIMIT]:
+            svc.submit(p)
+        svc.flush()
+        stream_s = time.perf_counter() - t0
+        counts = {k: v for k, v in launches().items() if v}
+        st = svc.stats()
+        lat = np.asarray(svc.batch_latencies) * 1e3
+        host = np.asarray(svc.stage_latencies) * 1e3
+        devp = lat - host
+        pct = lambda a, q: float(np.percentile(a, q))  # noqa: E731
+        per = {k: v / svc.n_batches for k, v in counts.items()}
+        print(f"[stream] {label}: {st['appends']} appends in {st['batches']} dispatches "
+              f"({stream_s:.2f}s); dispatch latency p50 {pct(lat, 50):.3f} ms, p99 "
+              f"{pct(lat, 99):.3f} ms; host staging p50 {pct(host, 50):.3f} ms, p99 "
+              f"{pct(host, 99):.3f} ms; device part (update, sync, copy back) p50 "
+              f"{pct(devp, 50):.3f} ms, p99 {pct(devp, 99):.3f} ms; "
+              f"{st['subjects_per_s']:.1f} subjects/s; launches a dispatch {per}; "
+              f"geometries {st['compiled_geometries']} (I_pad, C_pad, N_pad "
+              f"{svc._i_pad, svc._c_pad, svc._n_pad}); "
+              + (f"warm state restored from the 8-slot service's warm checkpoint in "
+                 f"{info['seconds']:.2f}s" if info.get("restored") else
+                 f"warm fit {info['fit']:.6f} in {info['seconds']:.2f}s, its _adopt pass "
+                 f"over {warm.n_subjects} subjects {svc.adopt_latencies[0]:.3f}s")
+              + f"; stream_fit {st['stream_fit']:.6f}, drift {st['drift']:.3e}", flush=True)
+        if set(counts) != set(ON_STREAM[backend]):
+            fail(f"stream {label}: launched {sorted(counts)}, want {sorted(ON_STREAM[backend])}")
+        if not np.isfinite(st["stream_fit"]) or st["appends"] != STREAM_LIMIT:
+            fail(f"stream {label}: stream_fit not finite or appends short")
+        if slots == 8:
+            nxt = payloads[STREAM_LIMIT:STREAM_LIMIT + slots]
+            ck = tempfile.mkdtemp(prefix="stream_ckpt_", dir=OUT)
+            t0 = time.perf_counter()
+            svc.save(ck)
+            save_s = time.perf_counter() - t0
+            back = stream.StreamService.from_checkpoint(ck, svc.union_data(), opts, **kw)
+            for s_ in (svc, back):
+                for p in nxt:
+                    s_.submit(p)
+                s_.flush()
+            same = (np.array_equal(back.W, svc.W) and torch.equal(back.H, svc.H)
+                    and torch.equal(back.V, svc.V)
+                    and np.array_equal(back._sub_resid, svc._sub_resid)
+                    and back.stream_fit == svc.stream_fit)
+            del back
+            t0 = time.perf_counter()
+            rinfo = svc.refit(mode="cold")
+            refit_s = time.perf_counter() - t0
+            added = (torch.cuda.max_memory_allocated() - resident) / 2**30
+            bt_u = svc._bucketize_union(svc.union_data())
+            s_b, h_b = fit(bt_u, opts, max_iters=ITERS, tol=0.0, seed=0)
+            W_b, _ = update_subjects(bt_u, s_b.H, s_b.V, opts, w_init=s_b.W)
+            cold = (torch.equal(svc.H, s_b.H) and torch.equal(svc.V, s_b.V)
+                    and rinfo["fit"] == h_b[-1] and np.array_equal(svc.W, W_b.cpu().numpy()))
+            del bt_u, s_b, W_b
+            print(f"[stream] {label}: save {save_s:.3f}s, restore and one more batch bit for "
+                  f"bit the uninterrupted service: {same}; cold refit over "
+                  f"{rinfo['n_subjects']} subjects {refit_s:.2f}s ({rinfo['iters']} "
+                  f"iterations, fit {rinfo['fit']:.6f}; its _adopt pass "
+                  f"{svc.adopt_latencies[-1]:.3f}s) bit for bit the batch fit over the "
+                  f"union: {cold}; the service with one refit added {added:.3f} GiB of "
+                  f"device memory", flush=True)
+            if not (same and cold):
+                fail(f"stream {label}: the restored service or the cold refit is not bit "
+                     f"for bit its reference")
+        if (backend, slots) == ("auto", 8):
+            served = dict(svc=svc, payloads=payloads[STREAM_LIMIT + slots:
+                                                     STREAM_LIMIT + 2 * slots])
+        else:
+            del svc
+    del warm, payloads
+
+    # the _adopt pass over the whole union: the main path's CC buckets
+    opts = Parafac2Options(rank=5, backend="auto")
+    for _ in range(2):                                  # the second one timed
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        W_u, r_u = update_subjects(bt, state.H, state.V, opts, w_init=state.W)
+        r_u.sum().item()
+        union_s = time.perf_counter() - t0
+    counts = {k: v for k, v in launches().items() if v}
+    print(f"[stream] the _adopt pass over the whole union ({bt.n_subjects} subjects, "
+          f"{len(bt.buckets)} CC buckets, auto): {union_s * 1e3:.3f} ms, launches "
+          f"{counts}", flush=True)
+    if set(counts) != set(ON_STREAM["auto"]) or not bool(torch.isfinite(W_u).all()):
+        fail("the union pass did not launch F1, F4 and P1 alone, or gave non-finite rows")
+    del W_u, r_u
+
+    # f64 choa 0.002: the card against the port's CPU. The warm fits at the
+    # model level; the serving path (the _adopt pass, then the dispatches)
+    # from the same factors, the CPU warm fit's, on both devices
+    small = dec.load_dataset("choa", 0.002, 0)
+    warm, payloads = stream.synthetic_stream(small, warm_frac=0.6, seed=0)
+    kw = dict(batch_slots=8, drift_threshold=float("inf"))
+    for backend, fmt in (("auto", "cc"), ("staged", "scoo")):
+        opts = Parafac2Options(rank=5, backend=backend, dtype=torch.float64)
+        fits = {d: stream.StreamService.warm_start(warm, opts, iters=ITERS, tol=0.0,
+                                                   format=fmt, device=d, **kw)
+                for d in ("cpu", "cuda")}
+        base = fits["cpu"][0]
+        d_warm = max(abs(fits["cpu"][1]["fit"] - fits["cuda"][1]["fit"]),
+                     abs(base.baseline_fit - fits["cuda"][0].baseline_fit))
+        svcs = {}
+        for device in ("cpu", "cuda"):
+            svc = stream.StreamService(warm.subjects, warm.n_cols, opts, H=base.H.cpu(),
+                                       V=base.V.cpu(), W=base.W, format=fmt, device=device,
+                                       **kw)
+            svc._adopt(svc._bucketize_union(svc.union_data()), base.H.cpu(), base.V.cpu(),
+                       base.W)
+            for p in payloads[:STREAM_F64]:
+                svc.submit(p)
+            svc.flush()
+            svcs[device] = svc
+        a, b = svcs["cpu"], svcs["cuda"]
+        kappa = kept_condition(a)
+        dw = np.abs(a.W - b.W).max(1) / np.maximum(1.0, np.abs(a.W).max(1))
+        dr = np.abs(a._sub_resid - b._sub_resid) / np.maximum(1.0, a._sub_norm)
+        well = kappa <= 1e4
+        model = max(abs(a.stream_fit - b.stream_fit), abs(a.drift - b.drift),
+                    abs(a.baseline_fit - b.baseline_fit))
+        worst = int(np.argmax(dw))
+        print(f"[stream] f64 choa 0.002 {backend}-{fmt}: warm fits and baselines, card against "
+              f"CPU, within {d_warm:.3e}; from the CPU's warm factors, {STREAM_F64} payloads: "
+              f"stream_fit, drift and baseline within {model:.3e}; the {int(well.sum())} of "
+              f"{well.size} subjects whose kept Gram condition is at most 1e4: max |W| "
+              f"{dw[well].max():.3e} of the row's largest magnitude, max |resid| "
+              f"{dr[well].max():.3e} of ||X_k||^2; over all subjects max |W| {dw.max():.3e} "
+              f"(subject {worst}, condition {kappa[worst]:.3e}), max |resid| {dr.max():.3e}",
+              flush=True)
+        if max(d_warm, model, dw[well].max(), dr[well].max()) > 1e-8:
+            fail(f"f64 stream replay {backend}-{fmt}: card and CPU differ by more than 1e-8")
+    return served
+
+
+def kept_condition(svc):
+    """Each subject's condition number of its Procrustes Gram B_k^T B_k at
+    the service's W, over the spectrum the polar keeps (above 1e-12 of the
+    largest), on the CPU: a W row moves by about that times 2^-53 under a
+    rounding of H or V (the polar at a near-singular B_k), so card and CPU
+    are held per subject on the well-conditioned subjects, and at the
+    model level on all."""
+    import numpy as np
+    import torch
+    from repro_torch.core.backend import get_backend
+
+    bt = svc._bucketize_union(svc.union_data())
+    W = torch.as_tensor(svc.W)
+    H, V = svc.H.cpu(), svc.V.cpu()
+    out = np.zeros(bt.n_subjects)
+    for b in bt.buckets:
+        _, B = get_backend("torch").procrustes_b_bucket(
+            b, H, W[b.subject_ids.long()] * b.subject_mask[:, None], V)
+        ev = torch.linalg.eigvalsh(B.transpose(1, 2) @ B)
+        kept = torch.where(ev > ev[:, -1:] * 1e-12, ev, torch.full_like(ev, float("inf")))
+        out[b.subject_ids[: b.n_real].long().numpy()] = (
+            ev[:, -1] / kept.min(1).values)[: b.n_real].numpy()
+    return out
+
+
+def phase3_supervisor(bt) -> None:
+    """The supervised scan fit on CC auto (scan 10, 20 iterations, f32):
+    faultless, a blip (``--fail-at 1``), retries exhausted and a restore
+    from disk (``--fail-at 1:5``), a NaN rollback (``--nan-at 1``) and a
+    resume after 10 iterations, each bit for bit the bare scan fit (history
+    and every state tensor), each twice; ms/iter of each (the faster call)
+    beside the bare fit's, with and without a chunk cache shared across
+    calls; a checkpoint write's
+    seconds; a ridge escalation's fit (``nan_steps={1: 2}``)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.core import fit
+    from repro_torch.dist import FaultInjector, SupervisorConfig, supervised_fit
+
+    opts = scan_opts("auto", 10)
+    kw = dict(max_iters=ITERS, tol=0.0, seed=0)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) / ITERS * 1e3
+
+    (s_bare, h_bare), bare_ms = timed(lambda: fit(bt, opts, **kw))
+    print(f"[supervisor] bare scan fit (CC auto, check_every 10, {ITERS} iterations): "
+          f"{bare_ms:.2f} ms/iter with its capture, fit {h_bare[-1]:.6f}", flush=True)
+
+    def run(label, make_cfg):
+        """Two supervised fits of ``make_cfg()`` (fresh injectors, fresh
+        directories), both bit for bit the bare fit; the faster reported
+        (a call's set-up, its capture, moves by ~0.1 s between calls)."""
+        mss = []
+        for _ in range(2):
+            cfg = SupervisorConfig(**make_cfg())
+            (s, h, rep), ms = timed(lambda: supervised_fit(bt, opts, config=cfg, **kw))
+            mss.append(ms * ITERS / (ITERS - (rep.resumed_from_step or 0)))   # iterations run
+            if not (h == h_bare and same_state(s, s_bare)):
+                fail(f"supervised {label}: not bit for bit the bare scan fit")
+        print(f"[supervisor] {label}: {min(mss):.2f} ms/iter (bare {bare_ms:.2f}; both calls "
+              f"{mss[0]:.2f}, {mss[1]:.2f}); retries {rep.retries}, restores {rep.restores}, "
+              f"rollbacks {rep.rollbacks}, checkpoints {rep.checkpoints_written}; both bit "
+              f"for bit the bare scan fit", flush=True)
+        return rep
+
+    def resumed():
+        ck = tempfile.mkdtemp(prefix="sup_resume_", dir=OUT)
+        supervised_fit(bt, opts, config=SupervisorConfig(ckpt_dir=ck),
+                       **{**kw, "max_iters": 10})
+        return dict(ckpt_dir=ck, resume=True)
+
+    run("faultless", dict)
+    run("--fail-at 1", lambda: dict(injector=FaultInjector({1: 1})))
+    rep = run("--fail-at 1:5 --ckpt-dir", lambda: dict(
+        injector=FaultInjector({1: 5}), ckpt_dir=tempfile.mkdtemp(prefix="sup_ckpt_", dir=OUT)))
+    if rep.restores != 1:
+        fail("--fail-at 1:5 did not restore from the checkpoint")
+    rep = run("--nan-at 1", lambda: dict(injector=FaultInjector(nan_steps=[1])))
+    if rep.rollbacks != 1:
+        fail("--nan-at 1 did not roll back")
+    rep = run("resume after 10 iterations (the resumed call)", resumed)
+    if rep.resumed_from_step != 10:
+        fail("the resumed fit did not start from step 10")
+    cache = {}
+    supervised_fit(bt, opts, config=SupervisorConfig(chunk_cache=cache), **kw)
+    run("faultless, a chunk cache shared with an earlier call", lambda: dict(chunk_cache=cache))
+    del cache
+    t0 = time.perf_counter()
+    ckpt.save(tempfile.mkdtemp(prefix="sup_write_", dir=OUT), ITERS, s_bare)
+    write_s = time.perf_counter() - t0
+    (s_r, h_r, rep), ms = timed(lambda: supervised_fit(
+        bt, opts, config=SupervisorConfig(injector=FaultInjector(nan_steps={1: 2})), **kw))
+    print(f"[supervisor] a checkpoint write of the state (W {tuple(s_bare.W.shape)}): "
+          f"{write_s * 1e3:.2f} ms; ridge escalation (nan_steps {{1: 2}}): "
+          f"{rep.escalations} escalation, ridge {rep.ridge_final:g}, {rep.rollbacks} "
+          f"rollbacks, fit {h_r[-1]:.6f} against the bare {h_bare[-1]:.6f} "
+          f"(|gap| {abs(h_r[-1] - h_bare[-1]):.3e}), {ms:.2f} ms/iter", flush=True)
+    if rep.escalations != 1 or not all(map(np.isfinite, h_r)) or abs(h_r[-1] - h_bare[-1]) > 1e-3:
+        fail("the ridge escalation did not recover a finite fit near the bare one")
 
 
 def bcc_cut(bt, V):
@@ -2715,7 +3072,8 @@ def phase4_times(bt, bt_sc, bcc_pair, state, per_kernel, errs, w_state):
     return rows
 
 
-def phase5_profile(bt, bt_sc, iter_ms: dict, scan_ms: dict, con_ms: dict, cores) -> None:
+def phase5_profile(bt, bt_sc, iter_ms: dict, scan_ms: dict, con_ms: dict, cores,
+                   served: dict) -> None:
     """Where one main-path iteration's time goes on the auto and the staged
     route over the CC buckets and on the staged and the scoo route over the
     SCOO buckets, and at bf16 on CC auto and SCOO staged (from the fit's
@@ -2724,7 +3082,9 @@ def phase5_profile(bt, bt_sc, iter_ms: dict, scan_ms: dict, con_ms: dict, cores)
     replay of the same chunk just before it; ``iter_ms`` and ``scan_ms`` are
     the unprofiled times per iteration of phase 3. ``cores`` is CC auto's
     rsvd core data: one core iteration of the compressed path is profiled
-    beside the others (``auto-cores``)."""
+    beside the others (``auto-cores``). ``served`` holds phase 3's auto
+    8-slot stream service and payloads it has not seen: one more dispatch is
+    profiled last."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import Parafac2Options, als_step, engine, init_state
@@ -2865,6 +3225,33 @@ def phase5_profile(bt, bt_sc, iter_ms: dict, scan_ms: dict, con_ms: dict, cores)
                   f"x{e.count:<6d} {e.key[:90]}")
         del chunk
 
+    # one 8-slot dispatch of the stream service (CC batches on auto)
+    svc = served["svc"]
+    for p in served["payloads"]:
+        svc.submit(p)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        svc.flush()                                # one dispatch, its one sync
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    prof.export_chrome_trace(str(OUT / "stream_dispatch_trace_auto.json"))
+    events = prof.key_averages()
+    kernels_ = [e for e in events if str(e.device_type).endswith("CUDA")]
+    busy_ms = sum(dev_us(e) for e in kernels_) / 1e3
+    if busy_ms <= 0:
+        fail("the profiled stream dispatch ran nothing on the device")
+    lat = sorted(svc.batch_latencies)
+    print(f"[profile] one 8-slot stream dispatch (auto, CC): device busy {busy_ms:.3f} ms in "
+          f"{sum(e.count for e in kernels_)} kernels; profiled wall {wall_ms:.3f} ms "
+          f"(inflated by the profiler); unprofiled dispatches' median "
+          f"{lat[len(lat) // 2] * 1e3:.3f} ms: busy {busy_ms / (lat[len(lat) // 2] * 1e3):.1%}",
+          flush=True)
+    for e in sorted(kernels_, key=dev_us, reverse=True)[:10]:
+        print(f"[profile] stream device {dev_us(e) / 1e3:9.4f} ms  x{e.count:<4d} {e.key[:90]}")
+    for e in sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:10]:
+        print(f"[profile] stream host   {e.self_cpu_time_total / 1e3:9.3f} ms  "
+              f"x{e.count:<5d} {e.key[:90]}")
+
 
 def main() -> int:
     try:
@@ -2883,7 +3270,7 @@ def main() -> int:
     t0 = time.perf_counter()
     phase1_build()
     errs = phase2_kernels(dev)
-    bt, bt_sc, bcc_pair, state, per_kernel, iter_ms, hist, peaks = phase3_main_path(dev)
+    bt, bt_sc, bcc_pair, state, per_kernel, iter_ms, hist, peaks, data = phase3_main_path(dev)
     scan_ms = phase3_engines(bt, bt_sc, hist, iter_ms, peaks)
     free_cached("the scan engine")
     half_errs, half_launches, half_ms = phase3_half(bt, bt_sc, state, hist, iter_ms, peaks)
@@ -2895,10 +3282,15 @@ def main() -> int:
     cmp = phase3_compress(bt, bt_sc, hist)
     iter_ms["auto-cores"] = cmp["ms"]["auto"]
     free_cached("the compressed fits")
+    served = phase3_stream(bt, state, data)
+    del data
+    free_cached("the stream service")
+    phase3_supervisor(bt)
+    free_cached("the supervised fits")
     rows = phase4_times(bt, bt_sc, bcc_pair, state, per_kernel, errs, con.pop("state"))
     rows += phase4_half(bt, bt_sc, state, half_launches, half_errs)
     rows += phase4_cores(bt, cmp["comp"], cmp["state"], cmp["launches"], cmp["range_launches"])
-    phase5_profile(bt, bt_sc, iter_ms, scan_ms, con["ms"], cmp["comp"].data)
+    phase5_profile(bt, bt_sc, iter_ms, scan_ms, con["ms"], cmp["comp"].data, served)
     print(f"[done] {time.perf_counter() - t0:.1f}s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

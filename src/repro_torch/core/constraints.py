@@ -235,6 +235,51 @@ class Constraint:
             aux = self.init_aux(prev)
         return admm_solve(M, A, aux, self.prox, iters=admm_iters)
 
+    def prox_rows(self, Y: torch.Tensor, rho: torch.Tensor) -> torch.Tensor:
+        """The prox of each row of ``Y`` [N, R] as a one-row factor at its own
+        penalty ``rho`` [N, 1]: ``smooth`` couples rows only, so it leaves a
+        single row as it is."""
+        kinds = {d.kind for d in self._defs}
+        if "smooth" in kinds:
+            return Y
+        if "custom" in kinds:
+            return torch.cat([self.prox(Y[k:k + 1], rho[k, 0]) for k in range(Y.shape[0])])
+        return self.prox(Y, rho)
+
+    def update_rows(self, M: torch.Tensor, A: torch.Tensor, prev: torch.Tensor, *,
+                    nnls_sweeps: int = 5, admm_iters: int = 10) -> torch.Tensor:
+        """``update`` row by row with a Gram of each row's own: row ``n`` of
+        the result is ``update(M[n:n+1], A[n], prev[n:n+1], ())``, the
+        reference's ``vmap`` of the one-row solve, batched (M, prev [N, R];
+        A [N, R, R]). ADMM starts from fresh duals, and no duals are
+        returned."""
+        R = A.shape[-1]
+        eye = torch.eye(R, dtype=A.dtype, device=A.device)
+        trace = torch.diagonal(A, dim1=-2, dim2=-1).sum(-1)                 # [N]
+        if self.solver == "ridge":
+            floor = torch.finfo(A.dtype).tiny * 128
+            lam = torch.clamp(1e-10 * trace / R, min=floor)
+            L, _ = torch.linalg.cholesky_ex(A + lam[:, None, None] * eye)
+            return torch.cholesky_solve(M[..., None], L)[..., 0]
+        if self.solver == "hals":
+            diag = torch.clamp(torch.diagonal(A, dim1=-2, dim2=-1), min=1e-12)
+            X = torch.clamp(prev, min=0.0)
+            for _ in range(nnls_sweeps):
+                for r in range(R):
+                    numer = M[:, r] - (X * A[:, :, r]).sum(-1) + X[:, r] * A[:, r, r]
+                    X[:, r] = torch.clamp(numer / diag[:, r], min=0.0)
+            return X
+        dt = M.dtype
+        rho = torch.clamp(trace / R, min=1e-12).to(dt)[:, None]             # [N, 1]
+        L, _ = torch.linalg.cholesky_ex(A.to(dt) + rho[:, :, None] * eye.to(dt))
+        Z, U = self.prox_rows(prev, torch.ones_like(rho)), torch.zeros_like(prev)
+        for _ in range(admm_iters):
+            rhs = M + rho * (Z - U)
+            X = torch.cholesky_solve(rhs[..., None], L)[..., 0]
+            Z = self.prox_rows(X + U, rho)
+            U = U + X - Z
+        return Z
+
 
 def _canon(name: str, lam: float, d: TermDef) -> str:
     return f"{name}:{lam:g}" if d.default_lam or lam else name

@@ -41,8 +41,11 @@ kept in ``setup_launches``; a replay adds the launches it replays to the
 libraries' counts (:func:`repro_torch.kernels._launch.add_launches`). The
 graph keeps every workspace it may name alive for as long as it lives.
 
-The reference's mesh engine waits for multi-GPU (ROADMAP A6) and its
-``make_subject_update`` for serving (ROADMAP A5).
+The reference's mesh engine waits for multi-GPU (ROADMAP A6).
+:func:`make_subject_update` is the serving dispatch
+(``repro_torch.launch.stream``): the request batch is an argument of each
+call, and the call runs eagerly (a CUDA graph a pinned batch geometry is
+untried work, ROADMAP A5).
 
 Below f32 ``opts.precision`` the iteration makes the buckets' half values
 (:meth:`~repro_torch.core.irregular.Bucketed.with_compute_values`) before
@@ -68,10 +71,11 @@ from repro_torch.core import constraints as cst
 from repro_torch.core import parafac2 as p2
 from repro_torch.kernels import _launch
 
-__all__ = ["ENGINES", "WARMUP_ITERS", "als_chunk_fn", "fit_device", "make_als_chunk",
-           "make_als_while"]
+__all__ = ["ENGINES", "MESH_WAITS", "WARMUP_ITERS", "als_chunk_fn", "fit_device",
+           "make_als_chunk", "make_als_while", "make_subject_update"]
 
 ENGINES = ("host", "scan")
+MESH_WAITS = "engine='mesh' waits for the multi-GPU port (ROADMAP A6); use 'scan'"
 WARMUP_ITERS = 2        # eager iterations on a copy of the state before a capture
 Carry = Dict[str, torch.Tensor]
 
@@ -326,6 +330,23 @@ def make_als_while(data, opts: "p2.Parafac2Options", max_iters: int, tol: float,
     return AlsWhile(data, opts, max_iters, tol, state)
 
 
+def make_subject_update(opts: "p2.Parafac2Options", *, smooth_lam: float = 0.0,
+                        inner_iters: int = 1) -> Callable:
+    """``(batch, H, V, w_init, w_prev, prev_mask) -> (W, resid)``: the
+    incremental-subject dispatch (:func:`repro_torch.core.parafac2.
+    update_subjects`) with the options bound and the request batch an
+    argument of each call, as the streaming service dispatches one batch
+    after another. The reference compiles one program a batch geometry;
+    here each call launches the same kernels eagerly."""
+
+    def update(batch, H, V, w_init, w_prev, prev_mask):
+        return p2.update_subjects(batch, H, V, opts, w_init=w_init, w_prev=w_prev,
+                                  prev_mask=prev_mask, smooth_lam=smooth_lam,
+                                  inner_iters=inner_iters)
+
+    return update
+
+
 def fit_device(data, opts: "p2.Parafac2Options", *, max_iters: int = 100,
                tol: float = 1e-6, seed: int = 0, verbose: bool = False,
                state: Optional["p2.Parafac2State"] = None
@@ -334,8 +355,7 @@ def fit_device(data, opts: "p2.Parafac2Options", *, max_iters: int = 100,
     :func:`repro_torch.core.parafac2.fit`; same signature and return
     contract)."""
     if opts.engine == "mesh":
-        raise NotImplementedError(
-            "engine='mesh' waits for the multi-GPU port (ROADMAP A6); use 'scan'")
+        raise NotImplementedError(MESH_WAITS)
     if opts.engine not in ENGINES:
         raise ValueError(f"unknown engine {opts.engine!r}; choose from {ENGINES}")
     if opts.engine == "host":

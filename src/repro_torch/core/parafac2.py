@@ -47,7 +47,7 @@ from repro_torch.core.procrustes import solve_q
 from repro_torch.kernels.common import PRECISIONS
 
 __all__ = ["Parafac2State", "Parafac2Options", "constraints_for", "init_state",
-           "als_step", "fit", "reconstruct_uk", "w_global"]
+           "als_step", "fit", "reconstruct_uk", "update_subjects", "w_global"]
 
 W_LAYOUTS = ("global", "bucketed")
 
@@ -378,6 +378,93 @@ def fit(data: Bucketed, opts: Parafac2Options, *, max_iters: int = 100,
             break
         prev = f
     return state, history
+
+
+def update_subjects(batch: Bucketed, H: torch.Tensor, V: torch.Tensor,
+                    opts: Parafac2Options, *, w_init: Optional[torch.Tensor] = None,
+                    w_prev: Optional[torch.Tensor] = None,
+                    prev_mask: Optional[torch.Tensor] = None, smooth_lam: float = 0.0,
+                    inner_iters: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Incremental per-subject solve with the factors ``H``/``V`` fixed (the
+    serving entry point, ``repro_torch.launch.stream``): a new or touched
+    subject needs only its own Procrustes basis ``Q_k`` and W row, both
+    independent across subjects. Per inner iteration, per bucket, through the
+    same backend stages ``als_step`` uses:
+
+      1. ``B_k = X_k V S_k H^T``, ``Q_k = polar(B_k)`` at the current w_k
+         (``w_init`` on the first pass);
+      2. ``G_k = Y_k V`` and the mode-3 row, then the W-row solve through
+         ``opts``' "w" constraint: ``als_step``'s stage 3c (with
+         ``smooth_lam == 0`` and ``inner_iters == 1`` it is that stage, on
+         a batch of the touched subjects).
+
+    ``smooth_lam > 0`` anchors subjects with a previous row (``prev_mask``)
+    by ``lam * ||w_k - w_k^prev||^2``, folded into each row's normal
+    equations (``M += lam w_prev``, ``A += lam I``), so each row has a Gram
+    of its own and is solved by :meth:`Constraint.update_rows`. ADMM-routed
+    W constraints start from fresh duals. Below f32 ``opts.precision`` the
+    batch's half values are made here, once a call.
+
+    Returns ``(W_rows [batch.n_subjects, R], resid [batch.n_subjects])`` with
+    ``resid[k] = ||X_k - Q_k H S_k V^T||_F^2`` at the returned row (the
+    ``als_step`` fit's algebra, per subject). Rows are put at their subject
+    ids by a row assignment of each bucket's real slots: no atomics.
+    """
+    if inner_iters < 1:
+        raise ValueError(f"inner_iters must be >= 1, got {inner_iters}")
+    R, dt, dev = opts.rank, opts.dtype, batch.device
+    batch = batch.with_compute_values(opts.precision)
+    be = get_backend(opts.backend, dev, opts.precision)
+    cons_w = constraints_for(opts)["w"]
+    solve_kw = dict(nnls_sweeps=opts.nnls_sweeps, admm_iters=opts.admm_iters)
+    VtV = V.T @ V
+    Phi = H.T @ H
+    gram3 = VtV * Phi                                     # [R, R]
+    K = batch.n_subjects
+    if w_init is None:
+        w_init = torch.ones((K, R), dtype=dt, device=dev)
+    if w_prev is None:
+        w_prev = torch.zeros((K, R), dtype=dt, device=dev)
+    if prev_mask is None:
+        prev_mask = torch.zeros((K,), dtype=dt, device=dev)
+
+    def row_solve(rows, wb, prevb, pmaskb):
+        """The stage-3c W solve for one bucket's rows [Kb, R]."""
+        if smooth_lam <= 0.0:
+            return cons_w.update(rows.to(wb.dtype), gram3, wb, (), **solve_kw)[0]
+        lam_k = smooth_lam * pmaskb                                      # [Kb]
+        M = rows.to(wb.dtype) + lam_k[:, None] * prevb
+        eye = torch.eye(R, dtype=wb.dtype, device=dev)
+        A = gram3.to(wb.dtype)[None] + lam_k[:, None, None] * eye       # [Kb, R, R]
+        w0 = prevb * pmaskb[:, None] + wb * (1.0 - pmaskb)[:, None]
+        return cons_w.update_rows(M, A, w0, **solve_kw)
+
+    ids = [b.subject_ids.long() for b in batch.buckets]
+    wbs = [w_init[i] * b.subject_mask[:, None] for i, b in zip(ids, batch.buckets)]
+    Gs: List[torch.Tensor] = [None] * len(batch.buckets)
+    for _ in range(inner_iters):
+        Wt = tuple(wbs)
+        for i, b in enumerate(batch.buckets):
+            proj, _, _ = _procrustes_project(b, H, V, Wt, opts, i, be)
+            G = be.ykv_bucket(b, proj, V)                 # [Kb, R, R]
+            Gs[i] = G
+            rows = be.mode3_bucket(b, proj, H, YkV=G)     # [Kb, R]
+            pmaskb = prev_mask[ids[i]] * b.subject_mask
+            wbs[i] = row_solve(rows, wbs[i], w_prev[ids[i]], pmaskb) * b.subject_mask[:, None]
+
+    # per-subject residual at the final rows (Q from the last Procrustes,
+    # the als_step fit's convention)
+    W_out = torch.zeros((K, R), dtype=dt, device=dev)
+    resid = torch.zeros((K,), dtype=dt, device=dev)
+    for b, i, wb, G in zip(batch.buckets, ids, wbs, Gs):
+        sq = b.sq_norms().to(dt)
+        cross = torch.einsum("rl,krl,kl->k", H, G.to(H.dtype), wb).to(dt)
+        model = torch.einsum("rl,rl,kr,kl->k", Phi, VtV, wb, wb).to(dt)
+        m = b.subject_mask.to(dt)
+        real = i[: b.n_real]
+        W_out[real] = (wb.to(dt) * m[:, None])[: b.n_real]
+        resid[real] = ((sq - 2.0 * cross + model) * m)[: b.n_real]
+    return W_out, resid
 
 
 def reconstruct_uk(data: Bucketed, state: Parafac2State,

@@ -51,13 +51,18 @@ _WORKSPACE: dict = {}    # (K, R) -> the doubles of workspace a launch needs
 
 
 def gram_inv_sqrt_plain(G: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
-    """The polar's inverse root on ``torch.linalg.eigh``, in f64."""
-    lam, E = torch.linalg.eigh(G.to(torch.float64))          # ascending
+    """The polar's inverse root on ``torch.linalg.eigh``, in f64. A Gram
+    with a non-finite entry (a state poisoned with NaNs) gives NaNs, as the
+    reference's ``eigh`` does, where ``torch.linalg.eigh`` would raise."""
+    G64 = G.to(torch.float64)
+    bad = ~torch.isfinite(G64).all(dim=-1).all(dim=-1)[:, None, None]
+    lam, E = torch.linalg.eigh(torch.where(bad, 0.0, G64))   # ascending
     scale = torch.clamp(lam, min=0.0)
     tol = scale.amax(dim=-1, keepdim=True) * eps
     inv_root = torch.where(scale > tol, torch.rsqrt(torch.maximum(scale, tol)),
                            torch.zeros_like(scale))
-    return ((E * inv_root[:, None, :]) @ E.transpose(1, 2)).to(G.dtype)   # E diag E^T
+    out = (E * inv_root[:, None, :]) @ E.transpose(1, 2)       # E diag E^T
+    return torch.where(bad, float("nan"), out).to(G.dtype)
 
 
 def gram_inv_sqrt(G: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:

@@ -33,6 +33,17 @@ a GPU the nine kernels that stream them read them at 2 bytes. The
 ``--json`` summary has the reference's keys (``precision`` is
 ``--precision``'s), plus ``dtype`` (``--dtype``), the device and each
 kernel's launch count.
+
+Fault tolerance (``repro_torch.dist.supervisor``, the scan engine only):
+``--ckpt-dir`` checkpoints every ``--ckpt-every`` chunks and ``--resume``
+continues from the newest one, bit for bit. ``--fail-at "1,3:5"`` injects
+transient faults at chunk boundaries (a ``:times`` above ``--max-retries``
+exhausts the in-place retries and forces the checkpoint-restore path);
+``--nan-at`` poisons a chunk's state with NaNs, so the health sentinel
+rolls back. A faulted run ends on the same factors as a faultless one, and
+the retry, restore and rollback counts land in the summary's
+``supervisor`` block. ``--supervise`` engages the supervisor without
+faults. ``--engine mesh`` waits for the multi-GPU port and raises.
 """
 from __future__ import annotations
 
@@ -51,14 +62,37 @@ from repro_torch.core.constraints import (available as available_constraints,
                                           constraint_summary, parse_constraint_arg)
 from repro_torch.data import choa_like, movielens_like
 from repro_torch.device import resolve_device
+from repro_torch.dist import FaultInjector, SupervisorConfig, supervised_fit
 from repro_torch.kernels import fused, gather_matmul, polar, scoo, staged, tridiag
 from repro_torch.launch.summary import resolved_options, run_summary
 from repro_torch.sparse import IrregularCOO, plan_buckets, random_irregular, route_formats
 
-__all__ = ["load_dataset", "prepare", "decompose", "kernel_launches",
+__all__ = ["load_dataset", "parse_fail_spec", "prepare", "decompose", "kernel_launches",
            "reset_launches", "main"]
 
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+def parse_fail_spec(spec: str) -> dict:
+    """``"1,3:5"`` -> ``{1: 1, 3: 5}``: comma-separated chunk indices, each
+    with an optional ``:times`` count (how many attempts fault before the
+    injected failure clears; times > --max-retries forces a restore)."""
+    out = {}
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        try:
+            if ":" in part:
+                step, times = part.split(":", 1)
+                out[int(step)] = int(times)
+            else:
+                out[int(part)] = 1
+        except ValueError:
+            raise ValueError(
+                f"bad fault spec {part!r} (want CHUNK or CHUNK:TIMES, "
+                f"e.g. '1,3:5')") from None
+    return out
 
 
 def load_dataset(name: str, scale: float, seed: int) -> IrregularCOO:
@@ -155,11 +189,12 @@ def main(argv=None) -> dict:
                     help="device format: cc (dense over kept columns), scoo "
                          "(sorted flat COO, O(nnz)), or auto (per-bucket by "
                          "density)")
-    ap.add_argument("--engine", default="host", choices=["host", "scan"],
+    ap.add_argument("--engine", default="host", choices=["host", "scan", "mesh"],
                     help="ALS execution engine: host (one iteration at a time, "
                          "the fit read every iteration), scan (chunks of "
                          "--check-every iterations, CUDA graphs on a GPU; see "
-                         "repro_torch.core.engine)")
+                         "repro_torch.core.engine); mesh waits for the "
+                         "multi-GPU port and raises")
     ap.add_argument("--check-every", type=int, default=10,
                     help="iterations per chunk for the scan engine (0 = the whole "
                          "fit, the stopping rule evaluated on the device)")
@@ -183,7 +218,46 @@ def main(argv=None) -> dict:
                          "--precision f32)")
     ap.add_argument("--json", default="", metavar="PATH",
                     help="write the machine-readable run summary to PATH")
+    # --- fault-tolerant supervisor (repro_torch.dist.supervisor) ----------
+    ap.add_argument("--supervise", action="store_true",
+                    help="run the fit under the fault-tolerant supervisor "
+                         "even without faults or checkpoints (scan only; a "
+                         "faultless supervised run is bit for bit the bare fit)")
+    ap.add_argument("--ckpt-dir", default="", metavar="DIR",
+                    help="checkpoint directory: write checkpoints every "
+                         "--ckpt-every chunks (repro_torch.checkpoint)")
+    ap.add_argument("--ckpt-every", type=int, default=1, metavar="N",
+                    help="chunks between checkpoint writes (with --ckpt-dir)")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from the newest checkpoint in --ckpt-dir "
+                         "(restore-then-continue is bit for bit)")
+    ap.add_argument("--fail-at", default="", metavar="SPEC",
+                    help="inject transient faults at these chunk boundaries: "
+                         "'1,3:5' = a blip at chunk 1, a 5-times fault at "
+                         "chunk 3 (times > --max-retries forces the "
+                         "checkpoint-restore path)")
+    ap.add_argument("--nan-at", default="", metavar="SPEC",
+                    help="poison the state with NaNs at these chunk "
+                         "boundaries (same SPEC syntax as --fail-at); the "
+                         "health sentinel rolls back to the last good boundary")
+    ap.add_argument("--max-retries", type=int, default=3,
+                    help="in-place retries per chunk before escalating to "
+                         "checkpoint-restore")
+    ap.add_argument("--backoff", type=float, default=0.0,
+                    help="base retry backoff seconds (exponential, "
+                         "deterministic seeded jitter; repro_torch.dist.fault)")
     args = ap.parse_args(argv)
+
+    fail_spec = parse_fail_spec(args.fail_at)
+    nan_spec = parse_fail_spec(args.nan_at)
+    supervise = (args.supervise or bool(args.ckpt_dir) or args.resume
+                 or bool(fail_spec) or bool(nan_spec))
+    if supervise and args.engine not in ("scan", "mesh"):
+        raise SystemExit(
+            "--supervise/--ckpt-dir/--resume/--fail-at/--nan-at need the "
+            "chunked device engines: pass --engine scan or --engine mesh")
+    if args.resume and not args.ckpt_dir:
+        raise SystemExit("--resume needs --ckpt-dir")
 
     # a bad spec raises ValueError listing the registered constraints here,
     # before any data is built
@@ -210,11 +284,31 @@ def main(argv=None) -> dict:
           + f"; device bytes {device_bytes / 2**20:.1f} MiB on {device} "
           f"({time.perf_counter() - t0:.1f}s)")
 
-    state, hist, dt = decompose(bt, rank=args.rank, iters=args.iters, tol=args.tol,
-                                seed=args.seed, backend=args.backend, dtype=dtype,
-                                engine=args.engine, check_every=args.check_every,
-                                constraints=specs, precision=args.precision,
-                                compress=args.compress)
+    supervisor_report = None
+    if supervise:
+        injector = (FaultInjector(fail_spec, nan_steps=nan_spec)
+                    if (fail_spec or nan_spec) else None)
+        cfg = SupervisorConfig(
+            max_retries=args.max_retries, backoff=args.backoff,
+            jitter=0.1 if args.backoff else 0.0,
+            ckpt_dir=args.ckpt_dir or None, ckpt_every=args.ckpt_every,
+            resume=args.resume, injector=injector)
+        reset_launches()
+        t0 = time.perf_counter()
+        state, hist, report = supervised_fit(bt, opts, max_iters=args.iters, tol=args.tol,
+                                             seed=args.seed, verbose=True, config=cfg)
+        dt = time.perf_counter() - t0
+        supervisor_report = report.as_dict()
+        print(f"[supervisor] retries={report.retries} "
+              f"restores={report.restores} rollbacks={report.rollbacks} "
+              f"stragglers={len(report.stragglers)} "
+              f"checkpoints={report.checkpoints_written}")
+    else:
+        state, hist, dt = decompose(bt, rank=args.rank, iters=args.iters, tol=args.tol,
+                                    seed=args.seed, backend=args.backend, dtype=dtype,
+                                    engine=args.engine, check_every=args.check_every,
+                                    constraints=specs, precision=args.precision,
+                                    compress=args.compress)
     print(f"[fit] {len(hist)} iters in {dt:.2f}s "
           f"({dt / max(len(hist), 1):.3f}s/iter), fit={hist[-1]:.4f}")
     launches = kernel_launches()
@@ -234,7 +328,7 @@ def main(argv=None) -> dict:
         iters=len(hist), seconds_total=dt,
         seconds_per_iter=dt / max(len(hist), 1),
         platform="gpu" if device.type == "cuda" else "cpu",
-        supervisor=None, shard_balance=None,
+        supervisor=supervisor_report, shard_balance=None,
         device=str(device),
         device_name=(torch.cuda.get_device_name(device)
                      if device.type == "cuda" else "cpu"),

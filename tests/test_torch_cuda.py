@@ -1477,3 +1477,154 @@ def test_range_basis_on_gpu_matches_plain(dev, fmt):
             bound = _solve_bound(G, floor) * want.abs().amax((1, 2))
             assert bool(((got - want).abs().amax((1, 2)) <= bound).all())
             assert bool((got[bc.subject_mask == 0] == 0).all())
+
+
+# ---------------------------------------------------------------------------
+# serving and robustness: update_subjects, the supervised scan fit, checkpoints
+# ---------------------------------------------------------------------------
+
+def _stream_batch(data, members, fmt, dev, dtype):
+    """``members`` of ``data`` in an eight-slot batch, as the stream service
+    pads a request batch (``fixed_plan``)."""
+    import dataclasses
+    from repro_torch.sparse import fixed_plan
+
+    sub = IrregularCOO(subjects=[data.subjects[k] for k in members], n_cols=data.n_cols)
+    i_pad = 8 * -(-max(s.n_rows for s in sub.subjects) // 8)
+    c_pad = 8 * -(-max(s.nonzero_cols().size for s in sub.subjects) // 8)
+    n_pad = 32 * -(-max(s.nnz for s in sub.subjects) // 32) if fmt == "scoo" else None
+    bt = bucketize(sub, plan=fixed_plan(len(members), i_pad, c_pad, nnz_pad=n_pad),
+                   formats=[fmt], subject_align=8, dtype=dtype, device=dev)
+    return dataclasses.replace(bt, n_subjects=8)
+
+
+STREAM_KERNELS = {("auto", "cc"): {"fused_procrustes_b", "fused_ykv", "gram_inv_sqrt"},
+                  ("staged", "cc"): {"ykv", "mode3_reuse", "gram_inv_sqrt"},
+                  ("staged", "scoo"): {"scoo_xk_times_v", "scoo_project", "ykv",
+                                       "mode3_reuse", "gram_inv_sqrt"},
+                  ("auto", "scoo"): {"gram_inv_sqrt"}}
+
+
+# every subject's B_k far from singular (at least 12 rows and ~150 nonzeros
+# over 60 columns at rank 5; checked in the test): the polar, and so each W
+# row, is then determined to rounding
+WELL_CONDITIONED = dict(n_subjects=24, n_cols=60, max_rows=30, min_rows=12,
+                        avg_nnz_per_subject=150, seed=3)
+
+
+def _kept_condition(bt, H, V, W) -> torch.Tensor:
+    """Each subject's condition number of its Procrustes Gram B_k^T B_k at
+    W, over the spectrum the polar keeps (above 1e-12 of the largest)."""
+    from repro_torch.core.backend import get_backend
+    out = torch.zeros(bt.n_subjects, dtype=torch.float64)
+    for b in bt.buckets:
+        _, B = get_backend("torch").procrustes_b_bucket(
+            b, H, W[b.subject_ids.long()] * b.subject_mask[:, None], V)
+        ev = torch.linalg.eigvalsh(B.transpose(1, 2) @ B)
+        kept = torch.where(ev > ev[:, -1:] * 1e-12, ev, torch.full_like(ev, float("inf")))
+        out[b.subject_ids[: b.n_real].long()] = (ev[:, -1] / kept.min(1).values)[: b.n_real]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("smooth_lam", [0.0, 0.1])
+@pytest.mark.parametrize("backend,fmt", list(STREAM_KERNELS))
+@pytest.mark.parametrize("dataset", ["well-conditioned", "choa"])
+def test_update_subjects_on_gpu_matches_cpu(dev, dataset, backend, fmt, smooth_lam):
+    """``update_subjects`` on an eight-slot request batch (six subjects)
+    and over the whole union's buckets (the ``_adopt`` pass), f64, on the
+    card against the port's CPU, the route's kernels launched, and the same
+    bits twice. On a tensor whose every B_k is far from singular, W rows
+    and residuals within 1e-12 (of the output's largest magnitude). On
+    choa_like(0.002) most subjects' Grams are ill-conditioned (kept
+    condition median ~2e7 at rank 5): there a 1-ulp change of H and V moves
+    a W row by up to ~30 kappa 2^-53 (3e-8), so the polar, and each W row,
+    is not determined to 1e-12, and the union's summed residual (the
+    stream's fit) is held within 1e-12 relative instead."""
+    from repro_torch.core import update_subjects
+    from repro_torch.launch.decompose import kernel_launches, reset_launches
+    well = dataset == "well-conditioned"
+    data = random_irregular(**WELL_CONDITIONED) if well else choa_like(scale=0.002, seed=0)
+    f64 = torch.float64
+    bt_cpu = bucketize(data, dtype=f64, device="cpu", format=fmt)
+    state, _ = fit(bt_cpu, Parafac2Options(rank=5, dtype=f64, backend="torch"), max_iters=8)
+    if well:
+        assert float(_kept_condition(bt_cpu, state.H, state.V, state.W).max()) < 1e4
+    members = [0, 3, 7, 11, 15, 20] if well else [3, 17, 42, 101, 250, 600]
+    rng = np.random.default_rng(0)
+    w_prev = state.W[members + [0, 0]]
+    w_init = (w_prev * torch.tensor(1.0 + 0.1 * rng.random((8, 1)))).contiguous()
+    pmask = torch.tensor([1, 0, 1, 1, 0, 1, 0, 0], dtype=f64)
+    kw = dict(smooth_lam=smooth_lam, inner_iters=2)
+    for union in (False, True):
+        def run(device, be):
+            d = (bucketize(data, dtype=f64, device=device, format=fmt) if union
+                 else _stream_batch(data, members, fmt, device, f64))
+            opts = Parafac2Options(rank=5, dtype=f64, backend=be)
+            if union:
+                return update_subjects(d, state.H.to(device), state.V.to(device), opts,
+                                       w_init=state.W.to(device))
+            return update_subjects(d, state.H.to(device), state.V.to(device), opts,
+                                   w_init=w_init.to(device), w_prev=w_prev.to(device),
+                                   prev_mask=pmask.to(device), **kw)
+
+        want = run("cpu", backend)
+        reset_launches()
+        got = run(dev, backend)
+        launched = {k for k, v in kernel_launches().items() if v}
+        again = run(dev, backend)
+        assert launched == STREAM_KERNELS[(backend, fmt)]
+        assert all(torch.equal(g, a) for g, a in zip(got, again))
+        if well:
+            for g, w in zip(got, want):
+                scale = max(1.0, float(w.abs().max()))
+                assert float((g.cpu() - w).abs().max()) <= 1e-12 * scale
+        else:
+            r_got, r_want = float(got[1].sum()), float(want[1].sum())
+            assert abs(r_got - r_want) <= 1e-12 * abs(r_want)
+            assert bool(torch.isfinite(got[0]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["faultless", "blip", "restore", "rollback", "resume"])
+def test_supervised_scan_fit_bit_for_bit_on_gpu(dev, case, tmp_path):
+    """The supervised scan fit on the card (CC auto, f32, check_every 5,
+    20 iterations), each fault path bit for bit the bare scan fit."""
+    from repro_torch.core import engine
+    from repro_torch.dist import FaultInjector, SupervisorConfig, supervised_fit
+    bt = bucketize(choa_like(scale=0.002, seed=0), device=dev)
+    opts = Parafac2Options(rank=5, backend="auto", engine="scan", check_every=5)
+    s0, h0 = fit(bt, opts, max_iters=20, tol=0.0)
+    cfg = {"faultless": {}, "blip": dict(injector=FaultInjector({1: 1})),
+           "restore": dict(injector=FaultInjector({2: 5}), ckpt_dir=str(tmp_path)),
+           "rollback": dict(injector=FaultInjector(nan_steps=[2])),
+           "resume": dict(ckpt_dir=str(tmp_path), resume=True)}[case]
+    if case == "resume":
+        supervised_fit(bt, opts, max_iters=10, tol=0.0,
+                       config=SupervisorConfig(ckpt_dir=str(tmp_path)))
+    s, h, rep = supervised_fit(bt, opts, max_iters=20, tol=0.0, config=SupervisorConfig(**cfg))
+    assert h == h0
+    la, lb = engine._flatten(s), engine._flatten(s0)
+    assert [k for k, _ in la] == [k for k, _ in lb]
+    assert all(torch.equal(x, y) for (_, x), (_, y) in zip(la, lb))
+    assert (rep.restores, rep.rollbacks) == {"restore": (1, 0), "rollback": (0, 1)}.get(
+        case, (0, 0))
+
+
+@pytest.mark.cuda
+def test_checkpoint_from_card_restores_on_card_and_cpu(dev, tmp_path):
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.core import init_state
+    bt = bucketize(choa_like(scale=0.002, seed=0), device=dev)
+    opts = Parafac2Options(rank=5, backend="auto",
+                           constraints={"v": "nonneg_admm", "w": "nonneg+l1:0.01"})
+    state, _ = fit(bt, opts, max_iters=3)
+    ckpt.save(str(tmp_path), 3, state)
+    bt_cpu = bucketize(choa_like(scale=0.002, seed=0), device="cpu")
+    for template in (init_state(bt, opts), init_state(bt_cpu, opts)):
+        back, step, _ = ckpt.restore(str(tmp_path), template)
+        assert step == 3 and back.H.device == template.H.device
+        for f in ("H", "V", "W", "fit"):
+            assert torch.equal(getattr(back, f).cpu(), getattr(state, f).cpu())
+        for a, b in zip(back.aux["v"] + back.aux["w"], state.aux["v"] + state.aux["w"]):
+            assert torch.equal(a.cpu(), b.cpu())
