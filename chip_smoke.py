@@ -24,9 +24,19 @@ Phases, any failure exits non-zero:
    of their variants (unaligned and odd C, C past the tile, R = 72 at C_pad
    = 1024, empty subjects, rows and columns, a segment of length N, N and I
    past the shared-memory stages, unaligned starts, more subjects than the
-   persistent grid), and F2 and row 7, the one-launch reductions across
-   subjects, at theirs (K from 1 to the main path's 58,112, runs past the
-   last subject, R = 1, 11 and 72, I past F2's ring, unaligned starts and
+   persistent grid), F4 and F3 at theirs (``SLAB_EDGES``: the main path's
+   shape, subjects past the persistent grid, rows not whole 16-byte runs,
+   an unaligned slab, one subject of one row, the rsvd cores' 18 rows
+   (below the rings' 32), R = 9 past F4's register owners, R = 64, C_pad =
+   1024 with I not a multiple of 16, subjects too large for the rings, R =
+   72, chunked tiles) with a float32, float64,
+   bfloat16 and float16 slab, where each shape must take the variant stated,
+   every variant of each must be reached at each dtype (the tensor-core
+   ring of F4 at half width), each call must give the same bits twice and
+   F3 zeros at masked subjects and columns, and F2 and row 7, the
+   one-launch reductions across subjects, at theirs (K from 1 to the main
+   path's 58,112, runs past the last subject, R = 1, 11 and 72, I past
+   F2's ring, unaligned starts and
    tiles, no, some and every subject masked), and rows 9 and 10, mode3 and
    mode3_reuse, at row 9's (unaligned starts, odd C, R = 72 at C_pad =
    1024, groups past the persistent grid and outputs past row 10's one
@@ -143,7 +153,7 @@ Phases, any failure exits non-zero:
    launches (the kernel nodes of a graph captured from the call, read back
    from the driver) and the allocations a repeated call makes
    (torch.cuda.memory_stats; the [R, R] result only): the CC kernels at the
-   main path's largest CC bucket (with the variant F1, F2 and rows 5, 8, 9
+   main path's largest CC bucket (with the variant F1-F4 and rows 5, 8, 9
    and 10 take there; row 10 has one), the SCOO kernels at its largest SCOO bucket (with the variants of
    rows 11 and 12), the gather-matmul on the BCC
    cut (beside the CSR product over the cut's nonzeros, also one PyTorch
@@ -265,6 +275,44 @@ PROJECT_EDGES = {
     (1000, 32, 40, (40, 0, 33), 8, False, 0): "thread-per-entry",     # I past the stages
     (24, 32, 96, (96, 50, 0, 1), 72, False, 0): "ring",  # R = 72, in chunks of 32
     (8, 16, 24, tuple(range(24)) * 60, 5, False, 0): "ring",   # subjects past the persistent grid
+}
+# F4 and F3 at the edges of their variants: (K, I, C, R, offset of the
+# slab's start in elements) -> the (F4, F3) variants taken with a float32,
+# a float64 and a half (bfloat16, float16) slab; every variant of each is
+# reached at each of the four dtypes
+_RING2 = ("ring", "ring")
+_COPIES2 = ("ring-element-copies",) * 2
+_SMALL2 = ("row-warp", "thread-per-column")   # the one-block-a-subject designs
+SLAB_EDGES = {
+    (7, 56, 128, 5, 0): dict(f32=_RING2, f64=_RING2, half=("ring-mma", "ring")),  # the main path's
+    (1000, 40, 16, 5, 0): dict(f32=_RING2, f64=_RING2,
+                               half=("ring-mma", "ring")),        # subjects past the grid
+    # rows not whole 16-byte runs (f32, half); I past a row tile and an m-tile
+    (7, 57, 130, 5, 0): dict(f32=_COPIES2, f64=_RING2,
+                             half=("ring-mma-element-copies", "ring-element-copies")),
+    (5, 33, 36, 8, 1): dict(f32=_COPIES2, f64=_COPIES2,           # the slab's start not
+                            half=("ring-mma-element-copies", "ring-element-copies")),  # aligned
+    (1, 1, 5, 1, 0): dict(f32=_SMALL2, f64=_SMALL2,               # one subject of one row
+                          half=("ring-mma-element-copies", "thread-per-column")),
+    (6, 18, 128, 5, 0): dict(f32=_SMALL2, f64=_SMALL2,            # the rsvd cores' rows:
+                             half=("ring-mma", "thread-per-column")),   # below the rings'
+    (6, 37, 40, 9, 0): dict(f32=_RING2, f64=_RING2, half=_RING2),  # R past G's register owners
+    (5, 33, 40, 9, 1): dict(f32=_COPIES2, f64=_COPIES2, half=_COPIES2),
+    (4, 70, 64, 64, 0): dict(f32=_RING2, f64=("row-warp", "ring"), half=_RING2),  # widest tile
+    (6, 19, 1024, 8, 0): dict(f32=_SMALL2, f64=_SMALL2,           # C_pad 1024, I not 16k
+                              half=("ring-mma", "thread-per-column")),
+    (2, 9, 1024, 40, 0): dict(f32=_SMALL2, f64=("row-warp-chunked", "thread-per-column"),
+                              half=_SMALL2),
+    (3, 120, 1024, 5, 0): dict(f32=_SMALL2, f64=_SMALL2, half=_SMALL2),   # too large a subject
+    (2, 900, 16, 64, 0): dict(f32=("row-warp-chunked", "thread-per-column-chunked"),
+                              f64=("row-warp-chunked", "thread-per-column-chunked"),
+                              half=("row-warp-chunked", "thread-per-column-chunked")),
+    (3, 9, 20, 72, 0): dict(f32=("row-warp-wide", "thread-per-column-wide"),   # R past 64
+                            f64=("row-warp-wide", "thread-per-column-wide"),
+                            half=("row-warp-wide", "thread-per-column-wide")),
+    (2, 900, 16, 72, 0): dict(f32=("row-warp-wide-chunked", "thread-per-column-wide-chunked"),
+                              f64=("row-warp-wide-chunked", "thread-per-column-wide-chunked"),
+                              half=("row-warp-wide-chunked", "thread-per-column-wide-chunked")),
 }
 # F2 and row 7, the one-launch reductions across subjects, at their edges:
 # F2 (K, I, R, offset of Q's start in elements, subject mask) and the
@@ -854,6 +902,53 @@ def check_variant_edges(dtype, dev, errs: dict) -> set:
     return seen
 
 
+def check_slab_edges(dev, errs: dict) -> None:
+    """F4 and F3 at the edges of their variants (``SLAB_EDGES``) with a
+    float32, float64, bfloat16 and float16 slab against their plain
+    versions (f64 to 1e-12, the others to the f32 bound), twice with the
+    same bits; each shape must take the variant stated, and every variant
+    of each kernel must be reached at each dtype."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import fused
+
+    queries = (("fused_ykv", fused.ykv_fused_variant, fused.F4_VARIANTS),
+               ("fused_mode2_compact", fused.mode2_compact_fused_variant, fused.F3_VARIANTS))
+    table = kernels()
+    for dtype, key in ((torch.float32, "f32"), (torch.float64, "f64"),
+                       (torch.bfloat16, "half"), (torch.float16, "half")):
+        acc = torch.float64 if dtype == torch.float64 else torch.float32
+        seen = {name: set() for name, _, _ in queries}
+        for (K, I, C, R, offset), want in SLAB_EDGES.items():
+            rng = np.random.default_rng(K + I + C + R + offset)
+            vals = offset_copy(rng.standard_normal((K, I, C)), dtype, dev, offset)
+            Vg = torch.tensor(rng.standard_normal((K, C, R)), device=dev).to(dtype)
+            Q, H, Wb = (torch.tensor(rng.standard_normal(s), dtype=acc, device=dev)
+                        for s in ((K, I, R), (R, R), (K, R)))
+            Wb[::3] = 0                                   # masked subjects, folded in
+            cm = torch.tensor(rng.random((K, C)) < 0.7, dtype=acc, device=dev)
+            args = {"fused_ykv": (vals, Q, Vg), "fused_mode2_compact": (vals, Q, H, Wb, cm)}
+            for (name, query, _), stated in zip(queries, want[key]):
+                got = query(vals, R)
+                if got != stated:
+                    fail(f"{name} ({dtype}) at K={K} I={I} C={C} R={R} offset {offset} took "
+                         f"{got}, want {stated}")
+                seen[name].add(got)
+                check_kernels({name: args[name]}, errs)
+                first = table[name][0](*args[name])
+                if not torch.equal(bits(table[name][0](*args[name])), bits(first)):
+                    fail(f"{name} ({dtype}) at K={K} I={I} C={C} R={R} gave other bits on "
+                         f"the same input")
+                if name == "fused_mode2_compact" and (first[::3].any() or first[cm == 0].any()):
+                    fail(f"{name} ({dtype}) at K={K} I={I} C={C} R={R}: a masked subject or "
+                         f"column is not zero")
+        for name, _, variants in queries:
+            half = key == "half"
+            reach = {v for v in variants if half or "mma" not in v}
+            if seen[name] != reach:
+                fail(f"{name} ({dtype}) did not reach {sorted(reach - seen[name])}")
+
+
 def reduction_mask(K: int, kind, dtype, dev):
     """A subject mask of F2_EDGES / MODE1_REUSE_EDGES: None, "some" (the
     first and every third subject masked) or "all"."""
@@ -1204,6 +1299,7 @@ def phase2_kernels(dev) -> dict:
 
     errs: dict = {}
     variants = set()
+    check_slab_edges(dev, errs)
     for dtype in (torch.float32, torch.float64):
         check_sparse_kernels(dtype, dev, errs)
         variants |= check_variant_edges(dtype, dev, errs)
@@ -1244,7 +1340,9 @@ def phase2_kernels(dev) -> dict:
           f"C_pad up to 1024; SCOO {', '.join(SCOO_DATA)} at R 1/5/72 and explicit "
           f"zero-valued triplets; BCC {BCC_GEOMETRIES}; rows 5, 8, 11 and 12 at "
           f"{len(YKV_EDGES)}, {len(MODE2_EDGES)}, {len(XKV_EDGES)} and "
-          f"{len(PROJECT_EDGES)} edge shapes, F2 and row 7 at {len(F2_EDGES)} and "
+          f"{len(PROJECT_EDGES)} edge shapes, F4 and F3 at {len(SLAB_EDGES)} in f32, f64, "
+          f"bf16 and f16 (every variant reached at each, each twice with the same bits), "
+          f"F2 and row 7 at {len(F2_EDGES)} and "
           f"{len(MODE1_REUSE_EDGES)}, rows 9 and 10 at {len(MODE3_EDGES)} with mode3 == "
           f"mode3_reuse(ykv) bit for bit, each twice with the same bits, P2 at "
           f"{len(P2_N) * len(P2_R) * len(P2_LAM)} edges, variants "
@@ -1851,6 +1949,8 @@ def phase4_half(bt, bt_sc, state, per_kernel: dict, errs: dict) -> list:
     half = torch.bfloat16
     variant = {   # the variant each launch takes, where a kernel has several
         "fused_procrustes_b": lambda a: fused.procrustes_b_variant(a[0], a[1].shape[-1]),
+        "fused_mode2_compact": lambda a: fused.mode2_compact_fused_variant(a[0], a[1].shape[-1]),
+        "fused_ykv": lambda a: fused.ykv_fused_variant(a[0], a[1].shape[-1]),
         "ykv": lambda a: ykv.ykv_variant(*a),
         "mode2_compact": lambda a: mttkrp_mode2.mode2_compact_variant(a[0], a[3]),
         "mode3": lambda a: mttkrp_mode3.mode3_variant(a[0], a[1]),
@@ -2846,6 +2946,8 @@ def phase4_cores(bt, comp, state, core_launches: dict, range_launches: int) -> l
     Yc = args["ykv"][0]
     variant = {"fused_procrustes_b": fused.procrustes_b_variant(b.vals, R),
                "fused_mode1_xkv": fused.mode1_xkv_variant(*args["fused_mode1_xkv"][:2]),
+               "fused_mode2_compact": fused.mode2_compact_fused_variant(b.vals, R),
+               "fused_ykv": fused.ykv_fused_variant(b.vals, R),
                "ykv": ykv.ykv_variant(*args["ykv"]),
                "mode2_compact": mttkrp_mode2.mode2_compact_variant(Yc, b.col_mask),
                "mode3_reuse": "thread-per-entry"}
@@ -2999,6 +3101,9 @@ def phase4_times(bt, bt_sc, bcc_pair, state, per_kernel, errs, w_state):
             r["variant"] = fused.procrustes_b_variant(b.vals, R)
         if name == "fused_mode1_xkv":
             r["variant"] = fused.mode1_xkv_variant(*a[:2])
+        if name in ("fused_mode2_compact", "fused_ykv"):
+            r["variant"] = (fused.mode2_compact_fused_variant if name == "fused_mode2_compact"
+                            else fused.ykv_fused_variant)(b.vals, R)
         if name == "ykv":
             r["variant"] = ykv.ykv_variant(*a)
         if name == "scoo_xk_times_v":

@@ -30,10 +30,12 @@
 // bound by the slab bytes (K*I*C*itemsize / 3.35 TB/s); F2 reads only the
 // [K, I, R] operands and is bound by those bytes. So the design reads every
 // slab element once, coalesced along C, keeps the small operands (Vg_k, Q_k,
-// H, w_k) in shared memory, and does the R-wide arithmetic in FMA units, no
-// tensor cores. F1 streams the slab through a multi-stage cp.async ring in
-// persistent blocks, and F2 its [I, R] operands (their notes below); F3 and
-// F4 read the slab straight from device memory, one block per subject.
+// H, w_k) in shared memory, and does the R-wide arithmetic in FMA units; the
+// one exception is F4 on a half slab, whose X_k Vg_k runs on the tensor
+// cores (its note below). F1, F3 and F4 stream the slab through multi-stage
+// cp.async rings in persistent blocks (F4's f32/f64 ring is F1's with
+// another epilogue), and F2 its [I, R] operands (their notes below); shapes
+// too large for a ring keep a block per subject.
 //
 // Plain C interface, loaded with ctypes (repro_torch/kernels/_build.py):
 // every entry point launches on the given stream, does not synchronise,
@@ -44,6 +46,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -165,7 +168,21 @@ __device__ inline T pick(const T (&acc)[RMAX], int idx) {
 // kernel's block_c chunking (a VMEM budget) has no counterpart: a block
 // reads its rows straight from device memory.
 // ---------------------------------------------------------------------------
-constexpr int kStages = 2;                 // ring depth (subjects a block holds)
+constexpr int kStages = 2;                 // F1's ring depth (subjects a block holds)
+constexpr int kMaxStages = 8;              // F4's deepest ring
+
+// cp.async.wait_group with a count known only at run time (0 .. 6)
+__device__ inline void cp_async_wait_dyn(int pending) {
+  switch (pending) {
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 6: cp_async_wait<6>(); break;
+    default: cp_async_wait<0>();
+  }
+}
 constexpr int kRingThreads = 256;
 constexpr int kRingWarps = kRingThreads / kWarp;
 constexpr int kGroups = 8;                 // lanes that split one row's C
@@ -198,18 +215,37 @@ __device__ inline Pack<S> load_pack(const S* p) {
   return f;
 }
 
+// What the ring does with a subject's rows of X_k Vg_k: F1 forms B (and
+// writes XkV), F4 reduces them to G_k = Q_k^T (X_k Vg_k).
+enum RingEpi { kEpiB = 0, kEpiG = 1 };
+
+// F4's ring keeps G's partials in registers up to this R (one owner lane a
+// row of G); above it the subject's X_k Vg_k rows go through shared memory.
+constexpr int kOwnerR = 8;
+
+// The fewest rows a subject for F3's ring and F4's FMA ring: one row tile of
+// F4's ring (kRingWarps warps of kSlots rows). Below it a block's warps idle
+// and the per-subject barriers and epilogue are not covered: at the rsvd
+// cores' I = 18 (f32, R = 5, C = 128, K = 58,112, in a graph on an H100)
+// the rings took 0.3082 (F3) and 0.4281 ms (F4) against 0.3032 and 0.4151
+// for the one-block-a-subject designs, which such subjects keep; at I = 56
+// the rings took 0.6745 and 0.6407 against 0.7435 and 1.0474.
+constexpr int kRingMinRows = 32;
+
 // The ring's shared-memory layout, in bytes (every part a whole number of
 // 16-byte packs): per stage the slab [I, SP packs] and Vg_k [NP packs of
-// c][RS][VEC] of S, w_k of T and, for a half S, Vg_k's raw run [C*R] as it
-// arrives; after the stages, H [R, R] of T. VEC = 16 / sizeof(S) values a
-// pack.
+// c][RS][VEC] of S, then F1's w_k [R] or F4's Q_k [I, R] of T and, for a
+// half S, Vg_k's raw run [C*R] as it arrives; after the stages, F1's H [R, R]
+// of T, or F4's partials of G, [2][kRingWarps][R*R] of T (R <= kOwnerR), or
+// its rows of X_k Vg_k, [I][R|1] of T (R > kOwnerR). VEC = 16 / sizeof(S)
+// values a pack.
 struct RingLayout {
   int vec, np, sp, rs;
   size_t slab, vg, w, raw, stage, smem_bytes;
 };
 
-template <typename T, typename S>
-__host__ __device__ inline RingLayout ring_layout(int I, int C, int R) {
+template <typename T, typename S, int EPI>
+__host__ __device__ inline RingLayout ring_layout(int I, int C, int R, int nst) {
   RingLayout s;
   s.vec = 16 / (int)sizeof(S);
   s.np = (C + s.vec - 1) / s.vec;          // 16-byte packs of a row
@@ -219,10 +255,12 @@ __host__ __device__ inline RingLayout ring_layout(int I, int C, int R) {
   s.rs = R | 1;
   s.slab = (size_t)I * s.sp * 16;
   s.vg = (size_t)s.np * s.rs * 16;
-  s.w = ((size_t)R * sizeof(T) + 15) / 16 * 16;
+  s.w = ((size_t)(EPI == kEpiB ? R : I * R) * sizeof(T) + 15) / 16 * 16;
   s.raw = s.slab + s.vg + s.w;
   s.stage = s.raw + (sizeof(S) == 2 ? ((size_t)C * R * sizeof(S) + 15) / 16 * 16 : 0);
-  s.smem_bytes = kStages * s.stage + (size_t)R * R * sizeof(T);
+  const size_t tail = EPI == kEpiB ? (size_t)R * R
+                      : R <= kOwnerR ? (size_t)2 * kRingWarps * R * R : (size_t)I * (R | 1);
+  s.smem_bytes = nst * s.stage + tail * sizeof(T);
   return s;
 }
 
@@ -234,29 +272,38 @@ __host__ __device__ inline RingLayout ring_layout(int I, int C, int R) {
 template <typename S, int RMAX>
 constexpr int kRingMinBlocks = sizeof(S) == 2 && RMAX <= 8 ? 4 : 1;
 
-template <typename T, typename S, int RMAX, bool ALIGNED>
+// The ring of F1 (EPI kEpiB) and F4 (kEpiG): wq is F1's Wb [K, R] or F4's
+// Q [K, I, R]; h (F1's H) and xkv (F1's XkV) are null for F4; out is F1's
+// B [K, I, R] or F4's G [K, R, R].
+template <typename T, typename S, int RMAX, bool ALIGNED, int EPI>
 __global__ void __launch_bounds__(kRingThreads, kRingMinBlocks<S, RMAX>)
-procrustes_b_ring_kernel(const S* __restrict__ vals, const S* __restrict__ vg,
-                         const T* __restrict__ wb, const T* __restrict__ h,
-                         T* __restrict__ xkv, T* __restrict__ bout, int K, int I,
-                         int C, int R) {
+slab_ring_kernel(const S* __restrict__ vals, const S* __restrict__ vg,
+                 const T* __restrict__ wq, const T* __restrict__ h,
+                 T* __restrict__ xkv, T* __restrict__ out, int K, int I,
+                 int C, int R, int nst) {
   constexpr int VEC = 16 / sizeof(S);
   constexpr int RPT = RMAX <= 16 ? 2 : 1;      // rows a lane owns per row tile
   constexpr int kTileRows = RPT * kRingWarps * kSlots;
-  const RingLayout lay = ring_layout<T, S>(I, C, R);
-  const int NP = lay.np, SP = lay.sp, RS = lay.rs;
+  constexpr bool OWNERS = EPI == kEpiG && RMAX <= kOwnerR;   // G's partials in registers
+  if constexpr (EPI == kEpiB) nst = kStages;   // F1: a ring depth known at compile time
+  const RingLayout lay = ring_layout<T, S, EPI>(I, C, R, nst);
+  const int NP = lay.np, SP = lay.sp, RS = lay.rs, RR = R * R;
   unsigned char* ring = smem_base<unsigned char>();
-  T* h_s = reinterpret_cast<T*>(ring + kStages * lay.stage);
+  T* h_s = reinterpret_cast<T*>(ring + nst * lay.stage);   // F1's H; F4's partials or rows
   const int tid = threadIdx.x, nthr = blockDim.x, warp = tid / kWarp, lane = tid % kWarp;
   const int q = lane / kSlots, slot = lane % kSlots;   // C group, row slot
   const int n_mine = K > (int)blockIdx.x ? (K - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
   // a half Vg_k arrives as whole 16-byte packs in the raw area
   const bool vg16 = sizeof(S) == 2 && (C * R) % VEC == 0 &&
                     reinterpret_cast<uintptr_t>(vg) % 16 == 0;
+  // F4's Q_k arrives as whole 16-byte packs
+  constexpr int PT = 16 / sizeof(T);
+  const bool q16 = EPI == kEpiG && (I * R) % PT == 0 &&
+                   reinterpret_cast<uintptr_t>(wq) % 16 == 0;
 
   // pads that no copy writes: slab columns and Vg rows C .. NP*VEC - 1
   const int cpad = NP * VEC - C;
-  for (int s = 0; s < kStages; ++s) {
+  for (int s = 0; s < nst; ++s) {
     S* st = reinterpret_cast<S*>(ring + s * lay.stage);
     S* vst = reinterpret_cast<S*>(ring + s * lay.stage + lay.slab);
     for (int t = tid; t < I * cpad; t += nthr)
@@ -266,9 +313,10 @@ procrustes_b_ring_kernel(const S* __restrict__ vals, const S* __restrict__ vg,
       vst[((c / VEC) * RS + r) * VEC + c % VEC] = S(0.0f);
     }
   }
-  for (int t = tid; t < R * R; t += nthr) h_s[t] = h[t];
+  if constexpr (EPI == kEpiB)
+    for (int t = tid; t < R * R; t += nthr) h_s[t] = h[t];
 
-  // copy subject k's slab, Vg_k and w_k into the stage at `stb`
+  // copy subject k's slab, Vg_k and w_k (F1) or Q_k (F4) into the stage at `stb`
   const Walk slab0(tid, nthr, ALIGNED ? NP : C), vg0(tid, nthr, R);
   auto fetch = [&](unsigned char* stb, int64_t k) {
     S* st = reinterpret_cast<S*>(stb);
@@ -293,24 +341,46 @@ procrustes_b_ring_kernel(const S* __restrict__ vals, const S* __restrict__ vg,
         copy_elem(vdst + ((w.row / VEC) * RS + w.col) * VEC + w.row % VEC, vsrc + u);
     }
     T* wdst = reinterpret_cast<T*>(stb + lay.slab + lay.vg);
-    for (int u = tid; u < R; u += nthr)
-      cp_async<sizeof(T)>(wdst + u, wb + k * R + u);
+    if constexpr (EPI == kEpiB) {
+      for (int u = tid; u < R; u += nthr)
+        cp_async<sizeof(T)>(wdst + u, wq + k * R + u);
+    } else if (q16) {
+      for (int u = tid; u * PT < I * R; u += nthr)
+        cp_async<16>(wdst + u * PT, wq + k * I * R + u * PT);
+    } else {
+      for (int u = tid; u < I * R; u += nthr)
+        cp_async<sizeof(T)>(wdst + u, wq + k * I * R + u);
+    }
   };
   auto subject = [&](int n) { return (int64_t)blockIdx.x + (int64_t)n * gridDim.x; };
+  // F4, R <= kOwnerR: G of the block's n-th subject, summing the warps'
+  // partials (buffer n % 2) in warp order, one thread an entry
+  auto sum_partials = [&](int n) {
+    const T* part = h_s + (n % 2) * kRingWarps * RR;
+    for (int p = tid; p < RR; p += nthr) {
+      T g = T(0);
+      for (int w = 0; w < kRingWarps; ++w) g += part[w * RR + p];
+      out[subject(n) * RR + p] = g;
+    }
+  };
 
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
+  for (int s = 0; s < nst - 1; ++s) {
     if (s < n_mine) fetch(ring + s * lay.stage, subject(s));
     cp_async_commit();
   }
   for (int n = 0; n < n_mine; ++n) {         // block-uniform
-    cp_async_wait<kStages - 2>();           // subject n's copies are in
+    if constexpr (EPI == kEpiB)
+      cp_async_wait<kStages - 2>();          // subject n's copies are in
+    else
+      cp_async_wait_dyn(nst - 2);
     __syncthreads();                         // everyone's; stage n-1 is read
-    const int nn = n + kStages - 1;
-    if (nn < n_mine) fetch(ring + (nn % kStages) * lay.stage, subject(nn));
+    if constexpr (OWNERS)
+      if (n > 0) sum_partials(n - 1);        // written before this barrier
+    const int nn = n + nst - 1;
+    if (nn < n_mine) fetch(ring + (nn % nst) * lay.stage, subject(nn));
     cp_async_commit();
     if (vg16) {                               // subject n's raw Vg_k into its packs
-      unsigned char* sw = ring + (n % kStages) * lay.stage;
+      unsigned char* sw = ring + (n % nst) * lay.stage;
       const S* raw = reinterpret_cast<const S*>(sw + lay.raw);
       S* vdst = reinterpret_cast<S*>(sw + lay.slab);
       Walk w = vg0;                           // (c, r) of Vg_k
@@ -319,11 +389,14 @@ procrustes_b_ring_kernel(const S* __restrict__ vals, const S* __restrict__ vg,
       __syncthreads();                        // the packs are whole
     }
 
-    const unsigned char* stb = ring + (n % kStages) * lay.stage;
+    const unsigned char* stb = ring + (n % nst) * lay.stage;
     const S* x_s = reinterpret_cast<const S*>(stb);
     const S* vg_s = reinterpret_cast<const S*>(stb + lay.slab);
-    const T* w_s = reinterpret_cast<const T*>(stb + lay.slab + lay.vg);
+    const T* w_s = reinterpret_cast<const T*>(stb + lay.slab + lay.vg);   // F1's w_k, F4's Q_k
     const int64_t k = subject(n);
+    T gacc[OWNERS ? RMAX : 1];                // F4: row q of G, over this lane's rows
+#pragma unroll
+    for (int l = 0; l < (OWNERS ? RMAX : 1); ++l) gacc[l] = T(0);
     for (int i0 = 0; i0 < I; i0 += kTileRows) {
       int rows[RPT];
       T acc[RPT][RMAX];
@@ -334,24 +407,30 @@ procrustes_b_ring_kernel(const S* __restrict__ vals, const S* __restrict__ vg,
         for (int r = 0; r < RMAX; ++r) acc[t][r] = T(0);
       }
       if (i0 + warp * kSlots >= I) break;    // warp-uniform: no row of this warp is left
+      // F4: whether the tile's second row slot holds a row of the block (F1
+      // computes it regardless, as it always has)
+      const bool second = EPI == kEpiB || i0 + kRingWarps * kSlots < I;
       for (int p = q; p < NP; p += kGroups) {
         Pack<S> xp[RPT];
 #pragma unroll
         for (int t = 0; t < RPT; ++t)
-          xp[t] = load_pack(x_s + ((rows[t] < I ? rows[t] : 0) * SP + p) * VEC);
+          if (t == 0 || second)
+            xp[t] = load_pack(x_s + ((rows[t] < I ? rows[t] : 0) * SP + p) * VEC);
 #pragma unroll
         for (int r = 0; r < RMAX; ++r) {
           if (r < R) {
             const Pack<S> vp = load_pack(vg_s + (p * RS + r) * VEC);
 #pragma unroll
             for (int t = 0; t < RPT; ++t)
+              if (t == 0 || second)
 #pragma unroll
-              for (int j = 0; j < VEC; ++j) acc[t][r] += widen(xp[t].v[j]) * widen(vp.v[j]);
+                for (int j = 0; j < VEC; ++j) acc[t][r] += widen(xp[t].v[j]) * widen(vp.v[j]);
           }
         }
       }
 #pragma unroll
       for (int t = 0; t < RPT; ++t) {
+        if (t > 0 && !second) break;          // block-uniform
         // the kGroups C groups of a row: lanes slot + kSlots * g, in a fixed order
 #pragma unroll
         for (int r = 0; r < RMAX; ++r) {
@@ -362,20 +441,61 @@ procrustes_b_ring_kernel(const S* __restrict__ vals, const S* __restrict__ vg,
           }
         }
         if (rows[t] < I) {
-          const int64_t o = (k * I + rows[t]) * R;
-          for (int l = q; l < R; l += kGroups) {   // B[i, l] = sum_r (XkV w)[r] H[l, r]
-            T b = T(0);
+          if constexpr (EPI == kEpiB) {
+            const int64_t o = (k * I + rows[t]) * R;
+            for (int l = q; l < R; l += kGroups) {   // B[i, l] = sum_r (XkV w)[r] H[l, r]
+              T b = T(0);
 #pragma unroll
-            for (int r = 0; r < RMAX; ++r)
-              if (r < R) b += (acc[t][r] * w_s[r]) * h_s[l * R + r];
-            xkv[o + l] = pick<T, RMAX>(acc[t], l);
-            bout[o + l] = b;
+              for (int r = 0; r < RMAX; ++r)
+                if (r < R) b += (acc[t][r] * w_s[r]) * h_s[l * R + r];
+              xkv[o + l] = pick<T, RMAX>(acc[t], l);
+              out[o + l] = b;
+            }
+          } else if constexpr (OWNERS) {
+            if (q < R) {                      // G[q, l] += Q[i, q] * XkV[i, l]
+              const T qv = w_s[rows[t] * R + q];
+#pragma unroll
+              for (int l = 0; l < RMAX; ++l)
+                if (l < R) gacc[l] += qv * acc[t][l];
+            }
+          } else {                            // the row into shared memory
+            for (int l = q; l < R; l += kGroups)
+              h_s[rows[t] * RS + l] = pick<T, RMAX>(acc[t], l);
           }
         }
       }
     }
+    if constexpr (OWNERS) {
+      // the kSlots row slots of a warp in a fixed order, then the warps'
+      // partials into buffer n % 2, summed after the next barrier
+#pragma unroll
+      for (int l = 0; l < RMAX; ++l) {
+        gacc[l] += __shfl_xor_sync(0xffffffffu, gacc[l], 1);
+        gacc[l] += __shfl_xor_sync(0xffffffffu, gacc[l], 2);
+      }
+      if (slot == 0 && q < R) {
+        T* part = h_s + (n % 2) * kRingWarps * RR + warp * RR + q * R;
+#pragma unroll
+        for (int l = 0; l < RMAX; ++l)
+          if (l < R) part[l] = gacc[l];
+      }
+    } else if constexpr (EPI == kEpiG) {
+      // G[r, l] = sum_i Q[i, r] XkV[i, l], i in order, one thread an entry;
+      // stage n is refilled only after the next barrier
+      __syncthreads();
+      for (int p = tid; p < RR; p += nthr) {
+        const int r = p / R, l = p - r * R;
+        T g = T(0);
+        for (int i = 0; i < I; ++i) g += w_s[i * R + r] * h_s[i * RS + l];
+        out[k * RR + p] = g;
+      }
+    }
   }
   cp_async_wait<0>();                        // leave no copy in flight
+  if constexpr (OWNERS) {
+    __syncthreads();                         // the last subject's partials
+    if (n_mine > 0) sum_partials(n_mine - 1);
+  }
 }
 
 template <typename T, typename S, int RMAX, bool WIDE, bool CHUNKED>
@@ -721,15 +841,55 @@ mode1_chunked_kernel(const T* __restrict__ q, const T* __restrict__ xkv,
 
 // ---------------------------------------------------------------------------
 // F3 fused_mode2_compact. Replaces src/repro/kernels/fused.py
-// fused_mode2_compact (pallas_call at :284): A[k, c, :] =
-// ((X_k[:, c]^T Q_k) H) * w_k * col_mask[k, c], the second pass over the
-// slab; Y_k is never written. Bound: the slab bytes. One block per subject,
-// one thread per kept column (loads along C are coalesced across the warp),
-// Q_k (in IC-row chunks), H and w_k in shared memory, the R-wide column of
-// Y_k in registers. WIDE (R > 64): H and w_k from global memory, and each
-// output row sums the R chunks in place (one owning thread). Padded columns
-// and masked subjects write zeros. A half slab (S) is read at 2 bytes a
-// value and widened.
+// fused_mode2_compact (pallas_call at :284, body _mode2_kernel at :229):
+// A[k, c, :] = ((X_k[:, c]^T Q_k) H) * w_k * col_mask[k, c], the second
+// pass over the slab; Y_k is never written. Bound: the slab bytes (R = 5,
+// f32: 10 operations per 4-byte load; half: per 2-byte load). Padded
+// columns and masked subjects write zeros. Every variant keeps one order: a
+// column's y[r] = sum_i X[i, c] Q[i, r] over i in order, then a = sum_r
+// y[r] H[r, l] over r in order, then (a * w[l]) * col_mask[c] (WIDE: per
+// 64-wide chunk of r, the chunks' products added in place). Two designs,
+// picked by shape (f3_variant):
+//
+// RING, the main path (R <= 64, at least kRingMinRows rows a subject, and
+// two stages fit in shared memory). What held the thread-per-column design
+// below at 75% of the bound in f32 and 48% at half width: one block per
+// subject reading its slab straight from device memory, one 4-byte (2-byte)
+// load a thread a row, so half width halved the bytes in flight, a serial
+// prologue staging Q_k before the first slab load, and 5-float output rows
+// stored at a 20-byte stride. Here persistent blocks walk over groups of G
+// consecutive subjects through a ring of kF3Stages shared-memory stages:
+// while a block computes group n, cp.async copies the slabs, Q_k, w_k and
+// col_mask rows of group n+1 into the next stage (16 bytes a copy where the
+// slab's rows are whole 16-byte runs; RING-ELEMENT-COPIES, one element a
+// copy, otherwise), so the bytes in flight no longer depend on the width
+// of a value. A thread owns one column of a subject (TPS = min(C,
+// kF3MaxThreads) threads a subject, looping over the columns past that)
+// and sums it over every row of the stage, in chunks of kF3Chunk entries of
+// R (a chunk's y in registers; the next chunk carries `a` through the
+// output tile, so the order is the unchunked one). Q_k's rows are staged
+// padded to whole 16-byte packs and read as 16-byte broadcasts: two loads
+// a row at R = 5 in f32 instead of five, whose shared-memory wavefronts
+// otherwise outnumber the slab's. The epilogue (y H) * w_k * col_mask runs
+// from registers into an output tile [G][C][R] in shared memory, which the
+// block stores as one contiguous run of 16-byte stores (A of G consecutive
+// subjects). G is the most that keeps the block within kF3MaxThreads and
+// the ring within kF3Budget, so that three blocks share an SM. Arithmetic
+// is FMA in f32 / f64 (Q is f32): the order above is the thread-per-column
+// kernel's, so the two give the same bits. Paired on an H100 in a graph at
+// the main path's largest bucket (f32 / bf16 ms; parent 0.7423 / 0.6641):
+// a thread a 16-byte pack of columns, one warp a subject, 1.0111 / 1.4325
+// (the row loop's latency, three warps an SM); a thread a column with
+// scalar Q reads, 0.7669 / 0.6456; at most 128 threads a block, 0.7330 /
+// 0.6452; with 16-byte Q reads, 0.6745 / 0.5550.
+//
+// THREAD-PER-COLUMN (R > 64, a subject too large for the ring, or one of
+// fewer than kRingMinRows rows): one
+// block per subject, one thread per kept column (loads along C coalesced
+// across the warp), Q_k (in IC-row chunks), H and w_k in shared memory, the
+// R-wide column of Y_k in registers. WIDE (R > 64): H and w_k from global
+// memory, and each output row sums the R chunks in place (one owning
+// thread). A half slab (S) is read at 2 bytes a value and widened.
 // ---------------------------------------------------------------------------
 template <typename T, typename S, int RMAX, bool WIDE, bool CHUNKED>
 __global__ void __launch_bounds__(kThreads)
@@ -816,17 +976,254 @@ mode2_compact_kernel(const S* __restrict__ vals, const T* __restrict__ q,
   }
 }
 
+constexpr int kF3Stages = 2;
+constexpr int kF3MaxThreads = 128;
+constexpr int kF3Chunk = 8;                  // entries of R a thread sums at once
+constexpr int kF3Budget = kMaxDynamicSmem / 3;   // three ring blocks an SM
+
+// F3's ring layout, in bytes (every part a whole number of 16-byte packs):
+// per stage, G subjects, each its slab [I, NP packs] of S, Q_k [I, RQ]
+// (rows padded to whole 16-byte packs, so a thread reads a row's chunk of R
+// with 16-byte broadcasts), w_k [R] and col_mask[k] [C] of T; after the
+// stages H [R, R] and the output tile [G, C, R] of T. TPS: the threads a
+// subject (one a column, at most kF3MaxThreads, which then loop over the
+// columns).
+struct F3Layout {
+  int vec, np, rq, tps, threads;
+  size_t slab, q, w, cm, subject, stage, h, tile, smem_bytes;
+};
+
+template <typename T, typename S>
+__host__ __device__ inline F3Layout f3_layout(int I, int C, int R, int G) {
+  auto packs = [](size_t bytes) { return (bytes + 15) / 16 * 16; };
+  F3Layout s;
+  s.vec = 16 / (int)sizeof(S);
+  s.np = (C + s.vec - 1) / s.vec;
+  s.rq = (R + 16 / (int)sizeof(T) - 1) / (16 / (int)sizeof(T)) * (16 / (int)sizeof(T));
+  s.tps = C < kF3MaxThreads ? C : kF3MaxThreads;
+  s.threads = (G * s.tps + kWarp - 1) / kWarp * kWarp;
+  s.slab = (size_t)I * s.np * 16;
+  s.q = s.slab + packs((size_t)I * s.rq * sizeof(T));
+  s.w = s.q + packs((size_t)R * sizeof(T));
+  s.cm = s.w + packs((size_t)C * sizeof(T));
+  s.subject = s.cm;
+  s.stage = (size_t)G * s.subject;
+  s.h = kF3Stages * s.stage;
+  s.tile = s.h + packs((size_t)R * R * sizeof(T));
+  s.smem_bytes = s.tile + packs((size_t)G * C * R * sizeof(T));
+  return s;
+}
+
+// Subjects a stage: the most of 8, 4, 2, 1 whose threads fit a block and
+// whose ring fits kF3Budget, else 1 if its ring fits the most a block may
+// use; 0 where the ring does not apply (R > 64, fewer than kRingMinRows
+// rows, or not even one subject fits).
+template <typename T, typename S>
+int f3_group(int I, int C, int R) {
+  if (R > kTile || I < kRingMinRows) return 0;
+  for (int g = 8; g >= 1; g /= 2) {
+    const F3Layout lay = f3_layout<T, S>(I, C, R, g);
+    if (g * lay.tps <= kF3MaxThreads && lay.smem_bytes <= (size_t)kF3Budget) return g;
+  }
+  return f3_layout<T, S>(I, C, R, 1).smem_bytes <= (size_t)kMaxDynamicSmem ? 1 : 0;
+}
+
+template <typename T, typename S, bool ALIGNED>
+__global__ void __launch_bounds__(kF3MaxThreads)
+mode2_ring_kernel(const S* __restrict__ vals, const T* __restrict__ q,
+                  const T* __restrict__ h, const T* __restrict__ wb,
+                  const T* __restrict__ col_mask, T* __restrict__ out, int K,
+                  int I, int C, int R, int G) {
+  constexpr int VEC = 16 / sizeof(S), PT = 16 / sizeof(T);
+  const F3Layout lay = f3_layout<T, S>(I, C, R, G);
+  const int NP = lay.np, TPS = lay.tps, RS = NP * VEC, RQ = lay.rq;   // row strides
+  unsigned char* ring = smem_base<unsigned char>();
+  T* h_s = reinterpret_cast<T*>(ring + lay.h);
+  T* tile = reinterpret_cast<T*>(ring + lay.tile);
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int mine = tid / TPS, c0 = tid - mine * TPS;   // the thread's subject of a group, column
+  const int64_t n_groups = ((int64_t)K + G - 1) / G;
+  const int n_mine = n_groups > blockIdx.x
+      ? (int)((n_groups - 1 - blockIdx.x) / gridDim.x + 1) : 0;
+  const bool q16 = R % PT == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0;   // RQ == R
+  const bool cm16 = C % PT == 0 && reinterpret_cast<uintptr_t>(col_mask) % 16 == 0;
+  const bool out16 = (C * R) % PT == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  for (int t = tid; t < R * R; t += nthr) h_s[t] = h[t];
+
+  auto group = [&](int n) { return (int64_t)blockIdx.x + (int64_t)n * gridDim.x; };
+  // copy group g's slabs, Q_k, w_k and col_mask rows into the stage at `stb`
+  auto fetch = [&](unsigned char* stb, int64_t g) {
+    const int64_t k0 = g * G;
+    const int ng = (int)(K - k0 < G ? K - k0 : G);
+    for (int s = 0; s < ng; ++s) {
+      const int64_t k = k0 + s;
+      unsigned char* sb = stb + s * lay.subject;
+      S* st = reinterpret_cast<S*>(sb);
+      const S* src = vals + k * I * C;
+      if constexpr (ALIGNED) {                // rows are whole 16-byte runs
+        for (int u = tid; u < I * NP; u += nthr)
+          cp_async<16>(st + u * VEC, src + (int64_t)u * VEC);
+      } else {
+        Walk w(tid, nthr, C);
+        for (int u = tid; u < I * C; u += nthr, w.step())
+          copy_elem(st + w.row * NP * VEC + w.col, src + u);
+      }
+      T* qd = reinterpret_cast<T*>(sb + lay.slab);
+      if (q16) {
+        for (int u = tid; u * PT < I * R; u += nthr)
+          cp_async<16>(qd + u * PT, q + k * I * R + u * PT);
+      } else {
+        Walk w(tid, nthr, R);                 // (i, r) of Q_k, into rows of RQ
+        for (int u = tid; u < I * R; u += nthr, w.step())
+          cp_async<sizeof(T)>(qd + w.row * RQ + w.col, q + k * I * R + u);
+      }
+      T* wd = reinterpret_cast<T*>(sb + lay.q);
+      for (int u = tid; u < R; u += nthr) cp_async<sizeof(T)>(wd + u, wb + k * R + u);
+      T* cd = reinterpret_cast<T*>(sb + lay.w);
+      if (cm16) {
+        for (int u = tid; u * PT < C; u += nthr)
+          cp_async<16>(cd + u * PT, col_mask + k * C + u * PT);
+      } else {
+        for (int u = tid; u < C; u += nthr) cp_async<sizeof(T)>(cd + u, col_mask + k * C + u);
+      }
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < kF3Stages - 1; ++s) {
+    if (s < n_mine) fetch(ring + s * lay.stage, group(s));
+    cp_async_commit();
+  }
+  for (int n = 0; n < n_mine; ++n) {         // block-uniform
+    cp_async_wait<kF3Stages - 2>();         // group n's copies are in
+    __syncthreads();                         // everyone's; stage n-1 is read, the tile stored
+    const int nn = n + kF3Stages - 1;
+    if (nn < n_mine) fetch(ring + (nn % kF3Stages) * lay.stage, group(nn));
+    cp_async_commit();
+
+    const int64_t k0 = group(n) * G;
+    const int ng = (int)(K - k0 < G ? K - k0 : G);
+    if (mine < ng) {
+      const unsigned char* sb = ring + (n % kF3Stages) * lay.stage + mine * lay.subject;
+      const S* x_s = reinterpret_cast<const S*>(sb);
+      const T* q_s = reinterpret_cast<const T*>(sb + lay.slab);
+      const T* w_s = reinterpret_cast<const T*>(sb + lay.q);
+      const T* cm_s = reinterpret_cast<const T*>(sb + lay.w);
+      T* trow = tile + (size_t)mine * C * R;
+      for (int c = c0; c < C; c += TPS) {
+        for (int r0 = 0; r0 < R; r0 += kF3Chunk) {
+          const int RW = min(kF3Chunk, R - r0);
+          T y[kF3Chunk];
+#pragma unroll
+          for (int r = 0; r < kF3Chunk; ++r) y[r] = T(0);
+#pragma unroll 4
+          for (int i = 0; i < I; ++i) {
+            const T v = widen(x_s[i * RS + c]);
+            T qv[kF3Chunk];                   // Q[i, r0 : r0 + 8], 16-byte broadcasts
+#pragma unroll
+            for (int u = 0; u < kF3Chunk / PT; ++u) {
+              if (u * PT < RW) {
+                const Pack<T> pk = load_pack(q_s + i * RQ + r0 + u * PT);
+#pragma unroll
+                for (int j = 0; j < PT; ++j) qv[u * PT + j] = pk.v[j];
+              }
+            }
+#pragma unroll
+            for (int r = 0; r < kF3Chunk; ++r)
+              if (r < RW) y[r] += v * qv[r];
+          }
+          const bool last = r0 + kF3Chunk >= R;
+          for (int l = 0; l < R; ++l) {
+            T a = r0 == 0 ? T(0) : trow[c * R + l];
+#pragma unroll
+            for (int r = 0; r < kF3Chunk; ++r)
+              if (r < RW) a += y[r] * h_s[(r0 + r) * R + l];
+            trow[c * R + l] = last ? a * w_s[l] * cm_s[c] : a;
+          }
+        }
+      }
+    }
+    __syncthreads();                         // the tile is whole
+    T* dst = out + k0 * C * R;               // A of the group's subjects, contiguous
+    const int n_out = ng * C * R;
+    if (out16) {
+      for (int t = tid; t * PT < n_out; t += nthr)
+        reinterpret_cast<int4*>(dst)[t] = reinterpret_cast<const int4*>(tile)[t];
+    } else {
+      for (int t = tid; t < n_out; t += nthr) dst[t] = tile[t];
+    }
+  }
+  cp_async_wait<0>();                        // leave no copy in flight
+}
+
 // ---------------------------------------------------------------------------
 // F4 fused_ykv. Replaces src/repro/kernels/fused.py fused_ykv (pallas_call
-// at :357): G_k = Q_k^T X_k Vg_k [R, R], the third pass over the slab; it
-// feeds the mode-3 coldot and the fit. Bound: the slab bytes. One block per
-// subject: the slab rows go through X_k Vg_k exactly as in F1 (one warp per
-// row, Vg_k in CC-row chunks), the [IT, R] products of a tile of rows stay
-// in shared memory beside that tile of Q_k, and one thread per (r, l) entry
-// reduces Q_k^T (X_k Vg_k) over the tile's rows in a fixed order, adding the
-// tiles and the 64-wide chunks of l in place (one owning thread per entry).
-// A half slab and Vg (S) are read at 2 bytes a value; Vg_k is staged
-// widened.
+// at :357, body _ykv_kernel at :309): G_k = Q_k^T X_k Vg_k [R, R], the third
+// pass over the slab; it feeds the mode-3 coldot and the fit. Bound: the
+// slab bytes (R = 5, f32: 10 operations per 4-byte load; half: per 2-byte
+// load). Three designs, picked by shape and type (f4_variant):
+//
+// RING (R <= 64, at least kRingMinRows rows a subject and two subjects'
+// stages fit in shared memory; at half width only past R = 8): F1's ring
+// (slab_ring_kernel, EPI kEpiG), whose X_k Vg_k is exactly F1's XkV, with
+// Q_k in each stage in place of w_k. What held the row-warp design below
+// at 53% of the bound in f32 (28% at half width) is what held F1's own
+// row-warp design: one block per subject, a serial prologue
+// staging Vg_k and Q_k before the first slab load, 4-byte (2-byte) lane
+// loads, a chain of R warp sums after every row before the warp's next
+// row, and a tail in which R*R of 128 threads each summed I products with
+// no slab byte in flight. Here the epilogue is the G reduction: up to R =
+// kOwnerR the lanes q < R of a row (which all hold the row's XkV after the
+// fixed-order reduction) each accumulate row q of the outer product Q[i,
+// q] XkV[i, :] in registers over the lane's rows; at the subject's end the
+// four row slots of a warp add in a fixed order (two shuffles), each warp
+// puts its partial in shared memory (two buffers, by the subject's parity),
+// and after the next subject's barrier one thread an entry adds the eight
+// warps' partials in warp order: no barrier of its own, no atomics. Past
+// kOwnerR the rows of X_k Vg_k go into shared memory and, after one more
+// barrier, one thread an entry sums Q_k^T XkV over the rows in order. Q_k
+// arrives by 16-byte copies where its [I, R] tile is whole packs, else one
+// element a copy. RING-ELEMENT-COPIES as F1's. F4's ring depth is chosen at
+// run time (f4_stages: as many stages as let three blocks share an SM), and
+// a row tile's second slot is skipped where it holds no row. Paired on an
+// H100 in a graph at the main path's largest bucket, f32: parent 1.0474 ms,
+// this ring 0.6407 (88% of the byte bound).
+//
+// RING-MMA (a half slab and Vg, R <= 8, two stages fit): X_k Vg_k on the
+// tensor cores, mma.sync.m16n8k16 (bf16 or f16 in, f32 accumulators). F1's
+// FMA ring gains nothing at half width (0.6745 ms at bf16 against 0.6610
+// in f32 at the main path's largest bucket, in a graph on an H100): its
+// time goes to the per-subject work of the widening and R FMAs a value,
+// not to bytes. Persistent blocks of kMmaThreads walk over the subjects
+// through kMmaStages cp.async stages, each the slab [I rounded to 16, SPM
+// packs] (SPM odd, so ldmatrix's eight rows hit distinct banks), Vg_k as
+// its raw run [C, R] and Q_k [I, R] of float. Warp w takes the 16-row
+// m-tiles w, w + kMmaWarps, ...; for each 16-wide k-step it loads A (16
+// rows x 16 columns) with one ldmatrix.x4 and B (Vg_k's 16 rows, R padded
+// to 8 columns with zeros, rows past C zeros) from the raw run, and issues
+// one mma. The pads of the slab (columns C .. C rounded to 16, rows I ..
+// I rounded to 16) are zeroed once a block and no copy writes them, so no
+// stale byte enters a product, and rows past I are left out of G. The G
+// epilogue runs from the accumulator fragments: a lane holds XkV at rows
+// (g, g + 8) of the tile and columns (2q, 2q + 1), and accumulates G[r,
+// 2q + e] over those rows for every r (Q_k from shared memory, f32); at
+// the subject's end the eight lane groups add in a fixed order (three
+// shuffles), and the warps' partials are added in warp order after the
+// next barrier, as in RING. Products of half values are exact in f32, so
+// only the order of the sums differs from the FMA designs; the f32 path
+// stays on FMA, since TF32 would break the 1e-6 f32 parity. Paired on an
+// H100 in a graph at the main path's largest bucket, bf16: parent 1.0351
+// ms, this ring 0.3501 (83% of the half-width byte bound); f16 0.3495.
+//
+// ROW-WARP (R > 64, a subject too large for the ring, or one of fewer than
+// kRingMinRows rows): one block per subject: the slab rows go through X_k
+// Vg_k exactly as in F1's row-warp
+// design (one warp per row, Vg_k in CC-row chunks), the [IT, R] products
+// of a tile of rows stay in shared memory beside that tile of Q_k, and one
+// thread per (r, l) entry reduces Q_k^T (X_k Vg_k) over the tile's rows in
+// a fixed order, adding the tiles and the 64-wide chunks of l in place (one
+// owning thread per entry). A half slab and Vg (S) are read at 2 bytes a
+// value; Vg_k is staged widened.
 // ---------------------------------------------------------------------------
 template <typename T, typename S, int RMAX, bool WIDE, bool CHUNKED>
 __global__ void __launch_bounds__(kThreads)
@@ -905,6 +1302,204 @@ ykv_kernel(const S* __restrict__ vals, const T* __restrict__ q,
   }
 }
 
+constexpr int kMmaThreads = 128;
+constexpr int kMmaWarps = kMmaThreads / kWarp;
+constexpr int kMmaStages = 2;
+constexpr int kMmaMinBlocks = 4;
+
+// RING-MMA's shared-memory layout, in bytes (every part a whole number of
+// 16-byte packs): per stage the slab [I16 rows][SPM packs] of S, Vg_k's
+// raw run [C * R] of S and Q_k [I, R] of float; after the stages the
+// warps' partials of G, [2][kMmaWarps][R*R] of float. I16 and C16: I and C
+// rounded up to 16 (an m-tile's rows, a k-step's columns).
+struct MmaLayout {
+  int np, spm, i16, c16;
+  size_t slab, vg, stage, smem_bytes;
+};
+
+__host__ __device__ inline MmaLayout mma_layout(int I, int C, int R) {
+  MmaLayout s;
+  s.np = (C + 7) / 8;                       // 16-byte packs of a row's data
+  s.i16 = (I + 15) / 16 * 16;
+  s.c16 = (C + 15) / 16 * 16;
+  s.spm = s.c16 / 8 + 1;                    // odd
+  s.slab = (size_t)s.i16 * s.spm * 16;
+  s.vg = s.slab + ((size_t)C * R * 2 + 15) / 16 * 16;
+  s.stage = s.vg + ((size_t)I * R * sizeof(float) + 15) / 16 * 16;
+  s.smem_bytes = kMmaStages * s.stage + (size_t)2 * kMmaWarps * R * R * sizeof(float);
+  return s;
+}
+
+// D += A B for one m16n8k16 tile: A row-major 16 x 16, B "col" 16 x 8, half
+// operands, f32 accumulators (the PTX ISA's fragment layouts).
+template <typename S>
+__device__ inline void mma_16816(float (&d)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
+  if constexpr (std::is_same<S, bf16>::value) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+}
+
+// Four 8x8 matrices of 16-bit values from shared memory: lane L gives the
+// address of row L % 8 of matrix L / 8; the lane gets row L / 4, columns
+// 2 (L % 4) and 2 (L % 4) + 1 of each matrix.
+__device__ inline void ldmatrix_x4(unsigned (&a)[4], const void* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(s));
+}
+
+template <typename S, bool ALIGNED>
+__global__ void __launch_bounds__(kMmaThreads, kMmaMinBlocks)
+ykv_mma_ring_kernel(const S* __restrict__ vals, const float* __restrict__ q,
+                    const S* __restrict__ vg, float* __restrict__ out, int K, int I,
+                    int C, int R) {
+  constexpr int VEC = 8;                     // half values a pack
+  const MmaLayout lay = mma_layout(I, C, R);
+  const int NP = lay.np, SPV = lay.spm * VEC, RR = R * R;
+  const int MT = lay.i16 / 16, KS = lay.c16 / 16;
+  unsigned char* ring = smem_base<unsigned char>();
+  float* part_s = reinterpret_cast<float*>(ring + kMmaStages * lay.stage);
+  const int tid = threadIdx.x, nthr = blockDim.x, warp = tid / kWarp, lane = tid % kWarp;
+  const int g = lane >> 2, qd = lane & 3;    // the fragments' row group and column pair
+  const int n_mine = K > (int)blockIdx.x ? (K - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
+  const bool vg16 = (C * R) % VEC == 0 && reinterpret_cast<uintptr_t>(vg) % 16 == 0;
+  const bool q16 = (I * R) % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0;
+
+  // pads that no copy writes: columns C .. C16 - 1 of every row, rows I .. I16 - 1
+  for (int s = 0; s < kMmaStages; ++s) {
+    S* st = reinterpret_cast<S*>(ring + s * lay.stage);
+    for (int t = tid; t < lay.i16 * lay.c16; t += nthr) {
+      const int row = t / lay.c16, col = t - row * lay.c16;
+      if (row >= I || col >= C) st[row * SPV + col] = S(0.0f);
+    }
+  }
+
+  // copy subject k's slab, Vg_k and Q_k into the stage at `stb`
+  const Walk slab0(tid, nthr, ALIGNED ? NP : C);
+  auto fetch = [&](unsigned char* stb, int64_t k) {
+    S* st = reinterpret_cast<S*>(stb);
+    const S* src = vals + k * I * C;
+    Walk w = slab0;
+    if constexpr (ALIGNED) {                  // rows are whole 16-byte runs
+      for (int u = tid; u < I * NP; u += nthr, w.step())
+        cp_async<16>(st + w.row * SPV + w.col * VEC, src + (int64_t)u * VEC);
+    } else {
+      for (int u = tid; u < I * C; u += nthr, w.step())
+        copy_elem(st + w.row * SPV + w.col, src + u);
+    }
+    S* vd = reinterpret_cast<S*>(stb + lay.slab);
+    const S* vsrc = vg + k * C * R;
+    if (vg16) {
+      for (int u = tid; u * VEC < C * R; u += nthr) cp_async<16>(vd + u * VEC, vsrc + u * VEC);
+    } else {
+      for (int u = tid; u < C * R; u += nthr) copy_elem(vd + u, vsrc + u);
+    }
+    float* qdst = reinterpret_cast<float*>(stb + lay.vg);
+    const float* qsrc = q + k * I * R;
+    if (q16) {
+      for (int u = tid; u * 4 < I * R; u += nthr) cp_async<16>(qdst + u * 4, qsrc + u * 4);
+    } else {
+      for (int u = tid; u < I * R; u += nthr) cp_async<4>(qdst + u, qsrc + u);
+    }
+  };
+  auto subject = [&](int n) { return (int64_t)blockIdx.x + (int64_t)n * gridDim.x; };
+  // G of the block's n-th subject: the warps' partials (buffer n % 2) in
+  // warp order, one thread an entry
+  auto sum_partials = [&](int n) {
+    const float* part = part_s + (n % 2) * kMmaWarps * RR;
+    for (int p = tid; p < RR; p += nthr) {
+      float v = 0.0f;
+      for (int w = 0; w < kMmaWarps; ++w) v += part[w * RR + p];
+      out[subject(n) * RR + p] = v;
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < kMmaStages - 1; ++s) {
+    if (s < n_mine) fetch(ring + s * lay.stage, subject(s));
+    cp_async_commit();
+  }
+  for (int n = 0; n < n_mine; ++n) {         // block-uniform
+    cp_async_wait<kMmaStages - 2>();        // subject n's copies are in
+    __syncthreads();                         // everyone's; stage n-1 is read
+    if (n > 0) sum_partials(n - 1);
+    const int nn = n + kMmaStages - 1;
+    if (nn < n_mine) fetch(ring + (nn % kMmaStages) * lay.stage, subject(nn));
+    cp_async_commit();
+
+    const unsigned char* stb = ring + (n % kMmaStages) * lay.stage;
+    const S* x_s = reinterpret_cast<const S*>(stb);
+    const unsigned short* vr = reinterpret_cast<const unsigned short*>(stb + lay.slab);
+    const float* q_s = reinterpret_cast<const float*>(stb + lay.vg);
+    // Vg_k[c, n] as 16 bits, zero past C and past R
+    auto vbits = [&](int c, int col) -> unsigned {
+      return c < C && col < R ? (unsigned)vr[c * R + col] : 0u;
+    };
+    float gacc[kOwnerR][2];                  // G[r, 2 qd + e] over this lane's rows
+#pragma unroll
+    for (int r = 0; r < kOwnerR; ++r) gacc[r][0] = gacc[r][1] = 0.0f;
+    for (int mt = warp; mt < MT; mt += kMmaWarps) {
+      float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      const S* arow = x_s + (mt * 16 + (lane & 15)) * SPV + (lane >> 4) * 8;
+      for (int ks = 0; ks < KS; ++ks) {
+        const int c0 = ks * 16 + 2 * qd;
+        const unsigned b[2] = {vbits(c0, g) | (vbits(c0 + 1, g) << 16),
+                               vbits(c0 + 8, g) | (vbits(c0 + 9, g) << 16)};
+        unsigned a[4];
+        ldmatrix_x4(a, arow + ks * 16);
+        mma_16816<S>(d, a, b);
+      }
+      const int ia = mt * 16 + g, ib = ia + 8;
+#pragma unroll
+      for (int r = 0; r < kOwnerR; ++r) {
+        if (r < R) {
+          if (ia < I) {
+            const float qa = q_s[ia * R + r];
+            gacc[r][0] += qa * d[0];
+            gacc[r][1] += qa * d[1];
+          }
+          if (ib < I) {
+            const float qb = q_s[ib * R + r];
+            gacc[r][0] += qb * d[2];
+            gacc[r][1] += qb * d[3];
+          }
+        }
+      }
+    }
+    // the eight row groups of a warp in a fixed order, then the warp's
+    // partial into buffer n % 2, summed after the next barrier
+#pragma unroll
+    for (int r = 0; r < kOwnerR; ++r)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int off = 4; off < kWarp; off <<= 1)
+          gacc[r][e] += __shfl_xor_sync(0xffffffffu, gacc[r][e], off);
+    if (g == 0) {
+      float* part = part_s + (n % 2) * kMmaWarps * RR + warp * RR;
+#pragma unroll
+      for (int r = 0; r < kOwnerR; ++r)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (r < R && 2 * qd + e < R) part[r * R + 2 * qd + e] = gacc[r][e];
+    }
+  }
+  cp_async_wait<0>();                        // leave no copy in flight
+  __syncthreads();                           // the last subject's partials
+  if (n_mine > 0) sum_partials(n_mine - 1);
+}
+
 // ---------------------------------------------------------------------------
 // Host-side launchers. Each sizes its shared-memory chunks: the whole
 // subject when it fits in kMaxDynamicSmem, else as many rows as fit.
@@ -931,7 +1526,8 @@ int f1_rows_per_chunk(int C, int R, bool wide, int rmax) {
 // row starts on a 16-byte boundary), else ROW-WARP.
 template <typename T, typename S>
 int f1_variant(int I, int C, int R, bool aligned) {
-  if (R <= kTile && ring_layout<T, S>(I, C, R).smem_bytes <= (size_t)kMaxDynamicSmem)
+  if (R <= kTile &&
+      ring_layout<T, S, kEpiB>(I, C, R, kStages).smem_bytes <= (size_t)kMaxDynamicSmem)
     return aligned && C % (16 / (int)sizeof(S)) == 0 ? kRing : kRingElementCopies;
   const bool wide = R > kTile;
   const bool chunked = f1_rows_per_chunk<T>(C, R, wide, kTile) < C;
@@ -945,9 +1541,9 @@ cudaError_t launch_f1(const void* vals, const void* vg, const void* wb,
                       int R, cudaStream_t stream) {
   const int variant = f1_variant<T, S>(I, C, R, reinterpret_cast<uintptr_t>(vals) % 16 == 0);
   if (variant == kRing || variant == kRingElementCopies) {
-    const size_t smem = ring_layout<T, S>(I, C, R).smem_bytes;
-    auto kernel = variant == kRing ? procrustes_b_ring_kernel<T, S, RMAX, true>
-                                   : procrustes_b_ring_kernel<T, S, RMAX, false>;
+    const size_t smem = ring_layout<T, S, kEpiB>(I, C, R, kStages).smem_bytes;
+    auto kernel = variant == kRing ? slab_ring_kernel<T, S, RMAX, true, kEpiB>
+                                   : slab_ring_kernel<T, S, RMAX, false, kEpiB>;
     cudaError_t e = allow_smem(kernel, smem);
     int grid = 0;
     if (e == cudaSuccess) e = persistent_grid(kernel, kRingThreads, smem, K, &grid);
@@ -955,7 +1551,7 @@ cudaError_t launch_f1(const void* vals, const void* vg, const void* wb,
     kernel<<<grid, kRingThreads, smem, stream>>>(
         static_cast<const S*>(vals), static_cast<const S*>(vg),
         static_cast<const T*>(wb), static_cast<const T*>(h),
-        static_cast<T*>(xkv), static_cast<T*>(b), K, I, C, R);
+        static_cast<T*>(xkv), static_cast<T*>(b), K, I, C, R, kStages);
     return cudaGetLastError();
   }
   const int RS = row_stride(WIDE ? RMAX : R);
@@ -974,13 +1570,53 @@ cudaError_t launch_f1(const void* vals, const void* vg, const void* wb,
   return cudaGetLastError();
 }
 
+// F3's variants, as spartan_fused_mode2_compact_variant reports them.
+enum F3Variant { kF3Ring = 0, kF3RingElementCopies = 1, kF3Column = 2, kF3ColumnChunked = 3,
+                 kF3ColumnWide = 4, kF3ColumnWideChunked = 5 };
+
+// The rows of Q_k the thread-per-column variant stages at a time.
+template <typename T>
+int f3_rows_per_chunk(int I, int R, bool wide, int rmax) {
+  const size_t fixed = wide ? 0 : (size_t)R * R + R;
+  return std::min(I, rows_that_fit<T>(fixed, row_stride(wide ? rmax : R)));
+}
+
+// RING where a group's stages fit and R <= 64 (16-byte copies when every
+// slab row starts on a 16-byte boundary), else THREAD-PER-COLUMN.
+template <typename T, typename S>
+int f3_variant(int I, int C, int R, bool aligned) {
+  if (f3_group<T, S>(I, C, R) > 0)
+    return aligned && C % (16 / (int)sizeof(S)) == 0 ? kF3Ring : kF3RingElementCopies;
+  const bool wide = R > kTile;
+  const bool chunked = f3_rows_per_chunk<T>(I, R, wide, kTile) < I;
+  return wide ? (chunked ? kF3ColumnWideChunked : kF3ColumnWide)
+              : (chunked ? kF3ColumnChunked : kF3Column);
+}
+
 template <typename T, typename S, int RMAX, bool WIDE>
 cudaError_t launch_f3(const void* vals, const void* q, const void* h,
                       const void* wb, const void* cm, void* out, int K, int I,
                       int C, int R, cudaStream_t stream) {
+  const int variant = f3_variant<T, S>(I, C, R, reinterpret_cast<uintptr_t>(vals) % 16 == 0);
+  if (variant == kF3Ring || variant == kF3RingElementCopies) {
+    const int G = f3_group<T, S>(I, C, R);
+    const F3Layout lay = f3_layout<T, S>(I, C, R, G);
+    auto kernel = variant == kF3Ring ? mode2_ring_kernel<T, S, true>
+                                     : mode2_ring_kernel<T, S, false>;
+    cudaError_t e = allow_smem(kernel, lay.smem_bytes);
+    int grid = 0;
+    if (e == cudaSuccess)
+      e = persistent_grid(kernel, lay.threads, lay.smem_bytes, ((int64_t)K + G - 1) / G, &grid);
+    if (e != cudaSuccess) return e;
+    kernel<<<grid, lay.threads, lay.smem_bytes, stream>>>(
+        static_cast<const S*>(vals), static_cast<const T*>(q),
+        static_cast<const T*>(h), static_cast<const T*>(wb),
+        static_cast<const T*>(cm), static_cast<T*>(out), K, I, C, R, G);
+    return cudaGetLastError();
+  }
   const int RS = row_stride(WIDE ? RMAX : R);
   const size_t fixed = WIDE ? 0 : (size_t)R * R + R;
-  const int IC = std::min(I, rows_that_fit<T>(fixed, RS));
+  const int IC = f3_rows_per_chunk<T>(I, R, WIDE, RMAX);
   if (IC < 1) return cudaErrorInvalidValue;
   const size_t smem = ((size_t)IC * RS + fixed) * sizeof(T);
   auto kernel = IC < I ? mode2_compact_kernel<T, S, RMAX, WIDE, true>
@@ -994,17 +1630,102 @@ cudaError_t launch_f3(const void* vals, const void* q, const void* h,
   return cudaGetLastError();
 }
 
+// F4's variants, as spartan_fused_ykv_variant reports them: F1's six, then
+// the tensor-core ring and its element copies.
+enum F4Variant { kRingMma = 6, kRingMmaElementCopies = 7 };
+
+// The row-warp variant's chunks: Vg_k rows CC and rows IT (the whole of
+// each where the subject fits in kMaxDynamicSmem).
+template <typename T>
+void f4_row_warp_chunks(int I, int C, int R, bool wide, int rmax, int* CC, int* IT) {
+  const int RS = row_stride(wide ? rmax : R), RQ = row_stride(R);
+  *CC = C;
+  *IT = I;
+  if (((size_t)C * RS + (size_t)I * (RQ + RS)) * sizeof(T) > (size_t)kMaxDynamicSmem) {
+    // half of the budget to tiles of rows (Q_k and X_k Vg_k), the rest to Vg_k
+    *IT = std::min(I, std::max(1, rows_that_fit<T>(0, 2 * (size_t)(RQ + RS))));
+    *CC = std::min(C, rows_that_fit<T>((size_t)*IT * (RQ + RS), RS));
+  }
+}
+
+// The stages of F4's FMA ring: as many as fit in a third of the shared
+// memory a block may use (three blocks an SM, as its 79 registers a thread
+// allow), from 2 to kMaxStages, so that a small subject (the rsvd cores'
+// I = 18) keeps several in flight. On an H100 in a graph, f32, R = 5: at I
+// = 56 two stages took 0.6384 ms against three (two blocks an SM) 0.6986;
+// at I = 18 five stages 0.4703 against eight 0.6126.
+template <typename T, typename S>
+int f4_stages(int I, int C, int R) {
+  const RingLayout lay = ring_layout<T, S, kEpiG>(I, C, R, 0);   // the tail alone
+  const size_t budget = kMaxDynamicSmem / 3;
+  const int fit = budget > lay.smem_bytes ? (int)((budget - lay.smem_bytes) / lay.stage) : 0;
+  return std::max(2, std::min(kMaxStages, fit));
+}
+
+// RING-MMA for a half slab and Vg at R <= 8 where its stages fit; else
+// RING (FMA) where its stages fit, R <= 64 and I >= kRingMinRows, never for
+// a half slab at R <= 8; else ROW-WARP. Element copies where a slab row is not a whole
+// number of 16-byte packs or the slab does not start on a 16-byte boundary.
+template <typename T, typename S>
+int f4_variant(int I, int C, int R, bool aligned) {
+  const bool whole = aligned && C % (16 / (int)sizeof(S)) == 0;
+  const bool half_narrow = sizeof(S) == 2 && R <= kOwnerR;
+  if (half_narrow && mma_layout(I, C, R).smem_bytes <= (size_t)kMaxDynamicSmem)
+    return whole ? kRingMma : kRingMmaElementCopies;
+  if (!half_narrow && R <= kTile && I >= kRingMinRows &&
+      ring_layout<T, S, kEpiG>(I, C, R, 2).smem_bytes <= (size_t)kMaxDynamicSmem)
+    return whole ? kRing : kRingElementCopies;
+  const bool wide = R > kTile;
+  int CC = 0, IT = 0;
+  f4_row_warp_chunks<T>(I, C, R, wide, kTile, &CC, &IT);
+  const bool chunked = CC < C || IT < I;
+  return wide ? (chunked ? kRowWarpWideChunked : kRowWarpWide)
+              : (chunked ? kRowWarpChunked : kRowWarp);
+}
+
 template <typename T, typename S, int RMAX, bool WIDE>
 cudaError_t launch_f4(const void* vals, const void* q, const void* vg,
                       void* out, int K, int I, int C, int R,
                       cudaStream_t stream) {
-  const int RS = row_stride(WIDE ? RMAX : R), RQ = row_stride(R);
-  int CC = C, IT = I;
-  if (((size_t)C * RS + (size_t)I * (RQ + RS)) * sizeof(T) > (size_t)kMaxDynamicSmem) {
-    // half of the budget to tiles of rows (Q_k and X_k Vg_k), the rest to Vg_k
-    IT = std::min(I, std::max(1, rows_that_fit<T>(0, 2 * (size_t)(RQ + RS))));
-    CC = std::min(C, rows_that_fit<T>((size_t)IT * (RQ + RS), RS));
+  const int variant = f4_variant<T, S>(I, C, R, reinterpret_cast<uintptr_t>(vals) % 16 == 0);
+  constexpr bool kHalfNarrow = sizeof(S) == 2 && RMAX <= kOwnerR;
+  if (variant == kRingMma || variant == kRingMmaElementCopies) {
+    if constexpr (kHalfNarrow) {
+      const size_t smem = mma_layout(I, C, R).smem_bytes;
+      auto kernel = variant == kRingMma ? ykv_mma_ring_kernel<S, true>
+                                        : ykv_mma_ring_kernel<S, false>;
+      cudaError_t e = allow_smem(kernel, smem);
+      int grid = 0;
+      if (e == cudaSuccess) e = persistent_grid(kernel, kMmaThreads, smem, K, &grid);
+      if (e != cudaSuccess) return e;
+      kernel<<<grid, kMmaThreads, smem, stream>>>(
+          static_cast<const S*>(vals), static_cast<const float*>(q),
+          static_cast<const S*>(vg), static_cast<float*>(out), K, I, C, R);
+      return cudaGetLastError();
+    }
+    return cudaErrorInvalidValue;            // no such shape reaches here
   }
+  if (variant == kRing || variant == kRingElementCopies) {
+    if constexpr (!kHalfNarrow && !WIDE) {
+      const int nst = f4_stages<T, S>(I, C, R);
+      const size_t smem = ring_layout<T, S, kEpiG>(I, C, R, nst).smem_bytes;
+      auto kernel = variant == kRing ? slab_ring_kernel<T, S, RMAX, true, kEpiG>
+                                     : slab_ring_kernel<T, S, RMAX, false, kEpiG>;
+      cudaError_t e = allow_smem(kernel, smem);
+      int grid = 0;
+      if (e == cudaSuccess) e = persistent_grid(kernel, kRingThreads, smem, K, &grid);
+      if (e != cudaSuccess) return e;
+      kernel<<<grid, kRingThreads, smem, stream>>>(
+          static_cast<const S*>(vals), static_cast<const S*>(vg),
+          static_cast<const T*>(q), static_cast<const T*>(nullptr),
+          static_cast<T*>(nullptr), static_cast<T*>(out), K, I, C, R, nst);
+      return cudaGetLastError();
+    }
+    return cudaErrorInvalidValue;            // no such shape reaches here
+  }
+  const int RS = row_stride(WIDE ? RMAX : R), RQ = row_stride(R);
+  int CC = 0, IT = 0;
+  f4_row_warp_chunks<T>(I, C, R, WIDE, RMAX, &CC, &IT);
   if (CC < 1) return cudaErrorInvalidValue;
   const size_t smem = ((size_t)CC * RS + (size_t)IT * (RQ + RS)) * sizeof(T);
   auto kernel = CC < C || IT < I ? ykv_kernel<T, S, RMAX, WIDE, true>
@@ -1160,6 +1881,19 @@ int spartan_fused_mode2_compact(int dtypes, const void* vals, const void* q,
                    static_cast<cudaStream_t>(stream));
 }
 
+// The variant a spartan_fused_mode2_compact launch takes (F3Variant: 0
+// ring, 1 ring with element copies, 2-5 thread-per-column, chunked, wide,
+// wide chunked) for a slab of dtype code `dtype`; aligned: the slab starts
+// on a 16-byte boundary. -1 for an unknown dtype.
+int spartan_fused_mode2_compact_variant(int dtype, int I, int C, int R, int aligned) {
+  if (R < 1 || I < 1 || C < 1) return -1;
+  if (dtype == 0) return f3_variant<float, float>(I, C, R, aligned != 0);
+  if (dtype == 1) return f3_variant<double, double>(I, C, R, aligned != 0);
+  if (dtype == 2) return f3_variant<float, bf16>(I, C, R, aligned != 0);
+  if (dtype == 3) return f3_variant<float, f16>(I, C, R, aligned != 0);
+  return -1;
+}
+
 int spartan_fused_ykv(int dtypes, const void* vals, const void* q,
                       const void* vg, void* out, int K, int I, int C, int R,
                       void* stream) {
@@ -1167,6 +1901,19 @@ int spartan_fused_ykv(int dtypes, const void* vals, const void* q,
   if (operand_code(dtypes, 1) != code) return (int)cudaErrorInvalidValue;
   SPARTAN_DISPATCH(code, launch_f4, vals, q, vg, out, K, I, C, R,
                    static_cast<cudaStream_t>(stream));
+}
+
+// The variant a spartan_fused_ykv launch takes (F4Variant: F1's six codes,
+// then 6 ring on the tensor cores, 7 the same with element copies) for a
+// slab and Vg of dtype code `dtype`; aligned: the slab starts on a 16-byte
+// boundary. -1 for an unknown dtype.
+int spartan_fused_ykv_variant(int dtype, int I, int C, int R, int aligned) {
+  if (R < 1 || I < 1 || C < 1) return -1;
+  if (dtype == 0) return f4_variant<float, float>(I, C, R, aligned != 0);
+  if (dtype == 1) return f4_variant<double, double>(I, C, R, aligned != 0);
+  if (dtype == 2) return f4_variant<float, bf16>(I, C, R, aligned != 0);
+  if (dtype == 3) return f4_variant<float, f16>(I, C, R, aligned != 0);
+  return -1;
 }
 
 // The elements of T of the workspace F2 takes for K subjects at rank R: one

@@ -27,7 +27,11 @@ other operand float32; they read the half values at 2 bytes, sum in
 float32 and return float32, as the reference's kernels do; F2 reads no
 slab and takes float32/float64. The plain versions widen the half
 operands with ``accum_dtype`` and compute in float32, the same function.
-The kernel library is built at first use.
+F1, F3 and F4 stream the slab through cp.async rings; F4 on a half slab
+(R <= 8) forms X_k Vg_k on the tensor cores. Each launcher picks a variant
+by shape and type; ``procrustes_b_variant``, ``mode1_xkv_variant``,
+``mode2_compact_fused_variant`` and ``ykv_fused_variant`` report it for
+CUDA operands. The kernel library is built at first use.
 """
 from __future__ import annotations
 
@@ -54,8 +58,12 @@ __all__ = [
     "ykv_plain",
     "procrustes_b_variant",
     "mode1_xkv_variant",
+    "mode2_compact_fused_variant",
+    "ykv_fused_variant",
     "F1_VARIANTS",
     "F2_VARIANTS",
+    "F3_VARIANTS",
+    "F4_VARIANTS",
     "WORKSPACES",
     "reset_launches",
 ]
@@ -70,11 +78,17 @@ LIB = KernelLib("fused", KERNELS, {
     "spartan_fused_mode1_workspace": [_I, _I, _I],
     "spartan_fused_procrustes_b_variant": [_I, _I, _I, _I, _I],
     "spartan_fused_mode1_xkv_variant": [_I, _I, _I, _I],
+    "spartan_fused_mode2_compact_variant": [_I, _I, _I, _I, _I],
+    "spartan_fused_ykv_variant": [_I, _I, _I, _I, _I],
 })
-# spartan_fused_procrustes_b_variant's and spartan_fused_mode1_xkv_variant's codes
+# the codes of spartan_fused_procrustes_b_variant, ..._mode1_xkv_variant,
+# ..._mode2_compact_variant and ..._ykv_variant
 F1_VARIANTS = ("ring", "ring-element-copies", "row-warp", "row-warp-chunked",
                "row-warp-wide", "row-warp-wide-chunked")
 F2_VARIANTS = ("ring", "ring-element-copies", "chunked")
+F3_VARIANTS = ("ring", "ring-element-copies", "thread-per-column", "thread-per-column-chunked",
+               "thread-per-column-wide", "thread-per-column-wide-chunked")
+F4_VARIANTS = F1_VARIANTS + ("ring-mma", "ring-mma-element-copies")
 # F2's workspace (partials and ticket counter), per device, stream, dtype and R
 WORKSPACES = Workspaces(LIB, "spartan_fused_mode1_workspace")
 # kernel launches per wrapper; plain-version calls on the CPU are not counted
@@ -137,19 +151,24 @@ def fused_procrustes_b(vals, Vg, Wb, H) -> Tuple[torch.Tensor, torch.Tensor]:
     return XkV, B
 
 
+def _slab_variant(fn: str, table: tuple, label: str, vals: torch.Tensor, R: int) -> str:
+    """The variant ``fn`` (a C variant query) reports for a CUDA slab
+    ``vals`` [K,I,C] at rank R; raises for a slab off the card."""
+    K, I, C = vals.shape
+    dtype = dtype_codes((vals,))       # raises for a tensor off the card
+    code = getattr(LIB.lib(), fn)(dtype, I, C, R, int(vals.data_ptr() % 16 == 0))
+    if code < 0:
+        raise ValueError(f"no {label} variant for I={I}, C={C}, R={R}")
+    return table[code]
+
+
 def procrustes_b_variant(vals: torch.Tensor, R: int) -> str:
     """Which variant of F1's kernel :func:`fused_procrustes_b` launches for a
     CUDA slab ``vals`` [K,I,C] (float32, float64 or half) at rank R:
     ``ring`` (the main path's), or ``ring-element-copies`` for a slab whose
     rows are not whole 16-byte runs, or ``row-warp*`` for R > 64 or a
     subject too large for the ring."""
-    K, I, C = vals.shape
-    dtype = dtype_codes((vals,))       # raises for a tensor off the card
-    code = LIB.lib().spartan_fused_procrustes_b_variant(
-        dtype, I, C, R, int(vals.data_ptr() % 16 == 0))
-    if code < 0:
-        raise ValueError(f"no F1 variant for I={I}, C={C}, R={R}")
-    return F1_VARIANTS[code]
+    return _slab_variant("spartan_fused_procrustes_b_variant", F1_VARIANTS, "F1", vals, R)
 
 
 def fused_mode1_xkv(Q, XkV, Wb, subject_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -207,6 +226,25 @@ def fused_mode2_compact(vals, Q, H, Wb, col_mask) -> torch.Tensor:
                 code, vals.data_ptr(), Q.data_ptr(), H.data_ptr(), Wb.data_ptr(),
                 col_mask.data_ptr(), out.data_ptr(), K, I, C, R)
     return out
+
+
+def mode2_compact_fused_variant(vals: torch.Tensor, R: int) -> str:
+    """Which variant of F3's kernel :func:`fused_mode2_compact` launches for
+    a CUDA slab ``vals`` [K,I,C] (float32, float64 or half) at rank R:
+    ``ring`` (the main path's), ``ring-element-copies`` for a slab whose
+    rows are not whole 16-byte runs, or ``thread-per-column*`` for R > 64,
+    a subject too large for the ring or one of fewer than 32 rows."""
+    return _slab_variant("spartan_fused_mode2_compact_variant", F3_VARIANTS, "F3", vals, R)
+
+
+def ykv_fused_variant(vals: torch.Tensor, R: int) -> str:
+    """Which variant of F4's kernel :func:`fused_ykv` launches for a CUDA
+    slab ``vals`` [K,I,C] (with Vg of its dtype) at rank R: ``ring-mma``
+    (a half slab at R <= 8: X_k Vg_k on the tensor cores) or ``ring`` (FMA,
+    float32/float64, and a half slab past R = 8; at least 32 rows a
+    subject), each ``...-element-copies`` for a slab whose rows are not
+    whole 16-byte runs, else ``row-warp*``."""
+    return _slab_variant("spartan_fused_ykv_variant", F4_VARIANTS, "F4", vals, R)
 
 
 def fused_ykv(vals, Q, Vg) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """Paired kernel times of two checkouts of the port on one GPU.
 
     PYTHONPATH=src python -m repro_torch.launch.kernel_ab PARENT_DIR CHANGE_DIR \
-        [--rounds 4] [--kernels fused_mode1_xkv,mode1_reuse] [--precision bf16]
+        [--rounds 4] [--kernels fused_mode1_xkv,mode1_reuse] [--precision bf16] [--core]
 
 Builds ``csrc/fused.cu``, ``csrc/gather_matmul.cu``, ``csrc/staged.cu``,
 ``csrc/scoo.cu``, ``csrc/polar.cu`` and ``csrc/tridiag.cu`` of each checkout
@@ -56,9 +56,14 @@ Wb)`` for row 6, ``torch.einsum("krl,kl->rl", YkV, Wb)`` for row 7,
 ``torch.einsum("krc,kcl,rl,k->kl", Yc, Vg, H, m)`` for row 9 and
 ``torch.einsum("krl,rl,k->kl", YkV, H, m)`` for row 10). Prints the card's
 name and power limit, each turn, per kernel the median of each side's turns
-with their range, the library calls' medians, and for F2 and rows 5-12 the
+with their range, the library calls' medians, for F1-F4 and rows 5-13 the
 largest absolute difference between the two builds' outputs on the same
-operands; the last line is one JSON object. Imports no JAX. The
+operands (F1's over XkV and B), and for F1, F3 and F4 the byte bound at
+3.35 TB/s (each streamed operand read once at its width, each output
+written once) and the change's share of it in a graph; the last line is one
+JSON object. ``--core`` takes the dense kernels at the compressed fit's
+core shape instead (I = 18, the rsvd cores' S at rank 5; K, C, R as
+above). Imports no JAX. The
 two machines a comparison could otherwise land on differ by more than the
 effects, so compare versions only this way. ``--kernels`` times only the
 kernels named (and skips the SCOO generation unless row 11 or 12 is among
@@ -107,6 +112,8 @@ SIGNATURES = {
 SOURCES = ("fused", "gather_matmul", "staged", "scoo", "polar", "tridiag")
 P2 = dict(N=116225, R=5, lam=0.1)       # W's rows at the main path's choa 0.25
 CC = dict(K=58112, I=56, C=128, R=5)
+CORE_I = 18             # the rsvd cores' S = 2R + 8 at rank 5 (--core)
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 BCC = dict(K=6808, I=56, NB=9, L=128, J_pad=1408)
 SCOO_SCALE = 0.25       # the choa_like scale of the main path
 P1_RANKS = (5, 10, 20, 40)      # the paper's Figure 5 ranks (benchmarks/fig5_rank.py)
@@ -116,8 +123,9 @@ HALF_CODES = {"f32": 0, "bf16": 2, "f16": 3}      # common.cuh's dtype codes
 HALF_DTYPES = {"bf16": torch.bfloat16, "f16": torch.float16}
 STREAMED = ("vals", "Vg", "yc", "svals", "sVg")   # the operands the nine kernels stream
 EIGH_BATCH = 16384      # the most 5x5 Grams one cuSOLVER eigh was seen to take on an H100
-COMPARED = {"fused_mode1_xkv": "m2", "ykv": "ykv5", "mode1": "m6", "mode1_reuse": "m7",
-            "mode2_compact": "a8", "mode3": "m9", "mode3_reuse": "m10",
+COMPARED = {"fused_procrustes_b": ("xkv", "b"), "fused_mode2_compact": "a", "fused_ykv": "g",
+            "gather_matmul": "gout", "fused_mode1_xkv": "m2", "ykv": "ykv5", "mode1": "m6",
+            "mode1_reuse": "m7", "mode2_compact": "a8", "mode3": "m9", "mode3_reuse": "m10",
             "mode3_reuse_k1": "m10k1", "scoo_xk_times_v": "xkv11",
             "scoo_project": "yc12", "tridiag_solve": "p2",
             **{f"gram_inv_sqrt_r{R}": f"p1_r{R}" for R in P1_RANKS}}   # kernel -> its output
@@ -162,7 +170,7 @@ def reductions(f, st, o: dict, K: int, Ii: int, C: int, R: int, stream: int,
 
 def calls(libs: dict, ops: dict, outs: dict, stream: int, code: int = 0) -> dict:
     """name -> a function that launches that kernel of ``libs`` once on
-    ``stream``; F2 and rows 5-12 write into this side's own ``outs``. The
+    ``stream``; F1-F4 and rows 5-13 write into this side's own ``outs``. The
     nine kernels of ``HALF_KERNELS`` take their streamed operands' dtype
     ``code`` (0 float32, 2 bfloat16, 3 float16)."""
     f, g = libs["fused"], libs["gather_matmul"]
@@ -226,6 +234,18 @@ def calls(libs: dict, ops: dict, outs: dict, stream: int, code: int = 0) -> dict
             code, o["svals"], o["srows"], o["scperm"], o["sQ"], o["sends"], o["yc12"], Kb, N, Is,
             Cs, R, stream)),
     }
+
+
+def slab_bound_ms(name: str, itemsize: int) -> float:
+    """The byte bound of F1, F3 or F4 at ``CC``: the slab (and Vg for F1 and
+    F4) read once at ``itemsize`` bytes, the float32 operands read and the
+    outputs written once, over 3.35 TB/s."""
+    K, Ii, C, R = CC["K"], CC["I"], CC["C"], CC["R"]
+    streamed = Ii * C + (C * R if name != "fused_mode2_compact" else 0)
+    floats = {"fused_procrustes_b": R + 2 * Ii * R,            # Wb; XkV, B
+              "fused_mode2_compact": Ii * R + R + C + C * R,   # Q, Wb, col_mask; A
+              "fused_ykv": Ii * R + R * R}[name]               # Q; G
+    return K * (streamed * itemsize + floats * 4) / HBM_BYTES_PER_S * 1e3
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -345,11 +365,10 @@ def operands(seed: int = 0, scoo: bool = True) -> dict:
     dense = dict(
         vals=rand(K, Ii, C), Vg=rand(K, C, R), Wb=Wb, H=rand(R, R), Q=rand(K, Ii, R),
         sm=sm, Wbm=Wb * sm[:, None], q2=rand(K, Ii, R), x2=rand(K, Ii, R), ykv7=rand(K, R, R),
-        cm=rand(K, C), xkv=rand(K, Ii, R), b=rand(K, Ii, R), a=rand(K, C, R),
-        g=rand(K, R, R), bvals=rand(Kb, Ii, NB, L), V=rand(BCC["J_pad"], R),
+        cm=rand(K, C), bvals=rand(Kb, BCC["I"], NB, L), V=rand(BCC["J_pad"], R),
         ids=torch.randint(0, BCC["J_pad"] // L, (Kb, NB), device="cuda", dtype=torch.int32,
                           generator=gen),
-        gout=rand(Kb, Ii, R), yc=rand(K, R, C), p2y=rand(P2["N"], P2["R"]),
+        yc=rand(K, R, C), p2y=rand(P2["N"], P2["R"]),
         p2rho=torch.ones((), device="cuda"))
     if not scoo:
         return dense
@@ -360,9 +379,13 @@ def operands(seed: int = 0, scoo: bool = True) -> dict:
 
 
 def outputs(ops: dict) -> dict:
-    """One side's outputs of F2 and rows 5-12."""
-    K, C, R = CC["K"], CC["C"], CC["R"]
-    outs = {"m2": torch.empty((R, R), device="cuda"), "m6": torch.empty((R, R), device="cuda"),
+    """One side's outputs of F1-F4 and rows 5-13."""
+    K, Ii, C, R = CC["K"], CC["I"], CC["C"], CC["R"]
+    outs = {"xkv": torch.empty((K, Ii, R), device="cuda"),
+            "gout": torch.empty((BCC["K"], BCC["I"], R), device="cuda"),
+            "b": torch.empty((K, Ii, R), device="cuda"),
+            "a": torch.empty((K, C, R), device="cuda"), "g": torch.empty((K, R, R), device="cuda"),
+            "m2": torch.empty((R, R), device="cuda"), "m6": torch.empty((R, R), device="cuda"),
             "m7": torch.empty((R, R), device="cuda"),
             "ykv5": torch.empty((K, R, R), device="cuda"),
             "a8": torch.empty((K, C, R), device="cuda"),
@@ -385,6 +408,8 @@ def main(argv=None) -> None:
     ap.add_argument("change")
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--kernels", default="", help="comma-separated kernel names (default: all)")
+    ap.add_argument("--core", action="store_true",
+                    help=f"the dense kernels at the rsvd core shape (I = {CORE_I})")
     ap.add_argument("--precision", default="f32", choices=sorted(HALF_CODES),
                     help="bf16/f16: the nine kernels of HALF_KERNELS on half copies "
                          "of their streamed operands")
@@ -397,9 +422,12 @@ def main(argv=None) -> None:
         wanted = wanted or set(HALF_KERNELS)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab times kernels on a CUDA device; none is present")
+    if args.core:
+        CC["I"] = CORE_I
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
-    print(f"[kernel_ab] card: {smi.stdout.strip() or smi.stderr.strip()}", flush=True)
+    print(f"[kernel_ab] card: {smi.stdout.strip() or smi.stderr.strip()}; dense kernels at "
+          f"K={CC['K']} I={CC['I']} C={CC['C']} R={CC['R']}", flush=True)
     p1_wanted = [R for R in P1_RANKS
                  if not wanted or {"gram_inv_sqrt", f"gram_inv_sqrt_r{R}"} & wanted]
     ops = operands(scoo=not wanted or bool(wanted & {"scoo_xk_times_v", "scoo_project"}))
@@ -477,11 +505,13 @@ def main(argv=None) -> None:
                          "parent_graph_range": [min(gp), max(gp)],
                          "change_graph_range": [min(gc), max(gc)]}
         diff = ""
-        if name in COMPARED:      # each side's output of its last launch
+        if name in COMPARED:      # each side's output(s) of its last launch
             out = COMPARED[name]
-            summary[name]["max_abs_diff"] = float(
-                (outs["parent"][out] - outs["change"][out]).abs().max())
+            summary[name]["max_abs_diff"] = max(
+                float((outs["parent"][o] - outs["change"][o]).abs().max())
+                for o in ((out,) if isinstance(out, str) else out))
             diff = f", max |parent - change| = {summary[name]['max_abs_diff']:.3e}"
+            out = out if isinstance(out, str) else out[-1]
             if name.startswith("gram_inv_sqrt_r"):
                 R = int(name.rsplit("_r", 1)[1])
                 rel, ok = p1_agreement(outs["parent"][out], outs["change"][out],
@@ -489,6 +519,14 @@ def main(argv=None) -> None:
                 summary[name].update(max_rel_diff=rel, within_p1_bound=ok)
                 diff += (f" ({rel:.3e} of max |P_inv|, every Gram within max(1e-6, R kappa "
                          f"2^-53): {ok})")
+        if name in ("fused_procrustes_b", "fused_mode2_compact", "fused_ykv"):
+            bound = slab_bound_ms(name, 2 if half else 4)
+            summary[name].update(bound_ms=bound,
+                                 change_share=bound / summary[name]["change_graph_ms"],
+                                 parent_share=bound / summary[name]["parent_graph_ms"])
+            diff += (f", bound {bound:.4f} ms (share in a graph: parent "
+                     f"{summary[name]['parent_share']:.1%}, change "
+                     f"{summary[name]['change_share']:.1%})")
         if name in library:
             lt = lib_times[name]
             summary[name]["library_ms"] = statistics.median(lt)
@@ -501,7 +539,7 @@ def main(argv=None) -> None:
               f"{summary[name]['change_graph_ms']:.4f} ms ({min(gc):.4f}-{max(gc):.4f}){diff}",
               flush=True)
     print(json.dumps({"card": smi.stdout.strip(), "precision": args.precision,
-                      "kernels": summary}))
+                      "shape": dict(CC), "kernels": summary}))
 
 
 if __name__ == "__main__":

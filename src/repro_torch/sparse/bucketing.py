@@ -77,6 +77,16 @@ class BucketPlan:
                 self.shapes, self.members, self.bucket_nnz(nnz_counts))
         ]
 
+    def nnz_waste(self, nnz_counts: Sequence[int]) -> float:
+        """Fraction of padded SCOO entries that are padding (needs a plan
+        built with ``nnz_counts``, so that ``nnz_pads`` is set)."""
+        if self.nnz_pads is None:
+            raise ValueError("plan has no nnz_pads; pass nnz_counts to "
+                             "plan_buckets to plan the SCOO layout")
+        used = sum(self.bucket_nnz(nnz_counts))
+        total = sum(npad * len(mem) for npad, mem in zip(self.nnz_pads, self.members))
+        return 1.0 - used / max(total, 1)
+
     def stats(self, row_counts: Sequence[int], col_counts: Sequence[int],
               nnz_counts: Sequence[int],
               formats: Optional[Sequence[str]] = None) -> List[dict]:

@@ -1,6 +1,7 @@
 """The port's small dense algebra against the JAX package's, in f64.
 
 Procrustes (three solvers), HALS and ridge solves, column normalisation,
+the CP-ALS factor update and the dense CP-ALS reference,
 the mode-2 scatter, the SPARTan bucket modes, the staged-kernel oracles and
 the constraint bundle: same numpy inputs through both, within 1e-12. The
 polar factor is compared at well-conditioned B only (it is not unique at a
@@ -17,11 +18,13 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.core import constraints as j_cst  # noqa: E402
 from repro.core import spartan as j_spartan  # noqa: E402
+from repro.core import cp as j_cp  # noqa: E402
 from repro.core.cp import normalize_columns as j_normalize_columns  # noqa: E402
 from repro.core.nnls import hals_nnls as j_hals, ridge_solve as j_ridge  # noqa: E402
 from repro.core.procrustes import solve_q as j_solve_q  # noqa: E402
 from repro.kernels import common as j_common, ref as j_ref  # noqa: E402
 from repro_torch.core import constraints as cst, spartan  # noqa: E402
+from repro_torch.core import cp  # noqa: E402
 from repro_torch.core.cp import normalize_columns  # noqa: E402
 from repro_torch.core.irregular import scatter_order  # noqa: E402
 from repro_torch.core.nnls import hals_nnls, ridge_solve  # noqa: E402
@@ -182,3 +185,45 @@ def test_default_constraint_bundle():
         cst.parse_spec("sparsemax")
     with pytest.raises(ValueError, match="mode"):
         cst.bundle({"q": "none"})
+
+
+@pytest.mark.parametrize("nonneg", [False, True])
+def test_factor_update_matches(nonneg):
+    rng = np.random.default_rng(11)
+    M, prev = rng.standard_normal((9, 4)), np.abs(rng.standard_normal((9, 4)))
+    F = rng.standard_normal((12, 4))
+    gram = F.T @ F
+    np.testing.assert_allclose(
+        cp.factor_update(_t(M), _t(gram), _t(prev), nonneg=nonneg).numpy(),
+        np.asarray(j_cp.factor_update(_j(M), _j(gram), _j(prev), nonneg=nonneg)), **TOL)
+
+
+@pytest.mark.parametrize("nonneg", [False, True])
+def test_cp_als_dense_matches_with_the_reference_init(nonneg, monkeypatch):
+    """The dense CP-ALS reference from the reference's own initial factors
+    (``jax.random`` bits, injected through ``init_factors``): every factor
+    and the weights within 1e-12 after 6 iterations."""
+    import jax
+
+    rng = np.random.default_rng(3)
+    X = rng.standard_normal((6, 5, 4))
+    X = np.abs(X) if nonneg else X
+    rank, seed = 3, 2
+    want = j_cp.cp_als_dense(_j(X), rank, iters=6, nonneg=nonneg, seed=seed,
+                             dtype=jnp.float64)
+    k0, k1 = jax.random.split(jax.random.PRNGKey(seed))
+    draw = jax.random.uniform if nonneg else jax.random.normal
+    U0, V0 = (np.asarray(draw(k, (n, rank), jnp.float64)) for k, n in ((k0, 6), (k1, 5)))
+    monkeypatch.setattr(cp, "init_factors", lambda *a, **kw: (_t(U0), _t(V0)))
+    got = cp.cp_als_dense(_t(X), rank, iters=6, nonneg=nonneg, seed=seed, dtype=torch.float64)
+    assert isinstance(got, cp.CPState)
+    for f in cp.CPState._fields:
+        np.testing.assert_allclose(getattr(got, f).numpy(), np.asarray(getattr(want, f)), **TOL)
+
+
+def test_init_factors_shapes_and_range():
+    U, V = cp.init_factors(6, 5, 3, nonneg=True, seed=0, dtype=torch.float64)
+    assert U.shape == (6, 3) and V.shape == (5, 3) and U.dtype == torch.float64
+    assert bool((U >= 0).all() and (U < 1).all() and (V >= 0).all())
+    assert torch.equal(cp.init_factors(6, 5, 3, nonneg=False, seed=4)[0],
+                       cp.init_factors(6, 5, 3, nonneg=False, seed=4)[0])

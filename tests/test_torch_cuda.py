@@ -182,6 +182,79 @@ def test_procrustes_b_edges(dev, shape, dtype):
     assert all(torch.equal(x, y) for x, y in zip(got, again))
 
 
+# (K, I, C, R, offset of the slab's start in elements) -> the (F4, F3)
+# variants with a float32, a float64 and a half (bfloat16, float16) slab
+_RING2 = ("ring", "ring")
+_COPIES2 = ("ring-element-copies",) * 2
+_SMALL2 = ("row-warp", "thread-per-column")   # the one-block-a-subject designs
+SLAB_EDGES = {
+    (7, 56, 128, 5, 0): dict(f32=_RING2, f64=_RING2, half=("ring-mma", "ring")),  # the main path's
+    (1000, 40, 16, 5, 0): dict(f32=_RING2, f64=_RING2,
+                               half=("ring-mma", "ring")),        # subjects past the grid
+    # rows not whole 16-byte runs (f32, half); I past a row tile and an m-tile
+    (7, 57, 130, 5, 0): dict(f32=_COPIES2, f64=_RING2,
+                             half=("ring-mma-element-copies", "ring-element-copies")),
+    (5, 33, 36, 8, 1): dict(f32=_COPIES2, f64=_COPIES2,           # the slab's start not
+                            half=("ring-mma-element-copies", "ring-element-copies")),  # aligned
+    (1, 1, 5, 1, 0): dict(f32=_SMALL2, f64=_SMALL2,               # one subject of one row
+                          half=("ring-mma-element-copies", "thread-per-column")),
+    (6, 18, 128, 5, 0): dict(f32=_SMALL2, f64=_SMALL2,            # the rsvd cores' rows:
+                             half=("ring-mma", "thread-per-column")),   # below the rings'
+    (6, 37, 40, 9, 0): dict(f32=_RING2, f64=_RING2, half=_RING2),  # R past G's register owners
+    (5, 33, 40, 9, 1): dict(f32=_COPIES2, f64=_COPIES2, half=_COPIES2),
+    (4, 70, 64, 64, 0): dict(f32=_RING2, f64=("row-warp", "ring"), half=_RING2),  # widest tile
+    (6, 19, 1024, 8, 0): dict(f32=_SMALL2, f64=_SMALL2,           # C_pad 1024, I not 16k
+                              half=("ring-mma", "thread-per-column")),
+    (2, 9, 1024, 40, 0): dict(f32=_SMALL2, f64=("row-warp-chunked", "thread-per-column"),
+                              half=_SMALL2),
+    (3, 120, 1024, 5, 0): dict(f32=_SMALL2, f64=_SMALL2, half=_SMALL2),   # too large a subject
+    (2, 900, 16, 64, 0): dict(f32=("row-warp-chunked", "thread-per-column-chunked"),
+                              f64=("row-warp-chunked", "thread-per-column-chunked"),
+                              half=("row-warp-chunked", "thread-per-column-chunked")),
+    (3, 9, 20, 72, 0): dict(f32=("row-warp-wide", "thread-per-column-wide"),   # R past 64
+                            f64=("row-warp-wide", "thread-per-column-wide"),
+                            half=("row-warp-wide", "thread-per-column-wide")),
+    (2, 900, 16, 72, 0): dict(f32=("row-warp-wide-chunked", "thread-per-column-wide-chunked"),
+                              f64=("row-warp-wide-chunked", "thread-per-column-wide-chunked"),
+                              half=("row-warp-wide-chunked", "thread-per-column-wide-chunked")),
+}
+SLAB_DTYPES = {"f32": torch.float32, "f64": torch.float64, "bf16": torch.bfloat16,
+               "f16": torch.float16}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(SLAB_EDGES),
+                         ids=lambda s: "K{}-I{}-C{}-R{}-off{}".format(*s))
+@pytest.mark.parametrize("dt", list(SLAB_DTYPES))
+def test_ykv_and_mode2_compact_edges(dev, shape, dt):
+    """F4 and F3 at the edges of their variants: the variant each launcher
+    picks, the plain version's result (f64 to 1e-12, f32 and half slabs to
+    the f32 bound), the same bits twice, and zeros at masked subjects and
+    columns (F3)."""
+    K, I, C, R, offset = shape
+    dtype = SLAB_DTYPES[dt]
+    acc = torch.float64 if dtype == torch.float64 else torch.float32
+    rng = np.random.default_rng(K + I + C + R + offset)
+    vals = _offset_tensor((K, I, C), dtype, dev, rng, offset)
+    Vg = torch.tensor(rng.standard_normal((K, C, R)), device=dev).to(dtype)
+    Q, H, Wb = (torch.tensor(rng.standard_normal(s), dtype=acc, device=dev)
+                for s in ((K, I, R), (R, R), (K, R)))
+    Wb[::3] = 0
+    cm = torch.tensor(rng.random((K, C)) < 0.7, dtype=acc, device=dev)
+    want = SLAB_EDGES[shape]["half" if dt in ("bf16", "f16") else dt]
+    assert (fused.ykv_fused_variant(vals, R), fused.mode2_compact_fused_variant(vals, R)) == want
+    for name, a in (("fused_ykv", (vals, Q, Vg)), ("fused_mode2_compact", (vals, Q, H, Wb, cm))):
+        wrapper, plain = KERNELS[name]
+        before = fused.LAUNCHES[name]
+        got = wrapper(*a)
+        torch.cuda.synchronize()
+        assert fused.LAUNCHES[name] == before + 1
+        _assert_matches(got, plain(*a), acc)
+        assert torch.equal(got, wrapper(*a)), name
+    A = fused.fused_mode2_compact(vals, Q, H, Wb, cm)
+    assert not A[::3].any() and not A[cm == 0].any()
+
+
 @pytest.mark.cuda
 def test_kernels_reject_what_they_do_not_take(dev):
     """What the kernels still refuse raises: f64 beside a half operand,

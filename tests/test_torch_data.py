@@ -72,6 +72,22 @@ def test_plan_buckets_identical(kw):
     assert pt.padding_waste(*args) == pj.padding_waste(*args)
 
 
+def test_nnz_waste_matches_and_needs_nnz_pads():
+    """BucketPlan.nnz_waste equals the reference's on the same plans, and a
+    plan built without nnz_counts raises the reference's error in both."""
+    data = t_data.choa_like(scale=0.002, seed=0)
+    args = (data.row_counts(), data.col_counts())
+    nz = data.nnz_counts()
+    for kw in (dict(max_buckets=3, sort_by="nnz"), dict(max_buckets=2, col_align=4)):
+        pt = t_sparse.plan_buckets(*args, nnz_counts=nz, **kw)
+        pj = j_sparse.plan_buckets(*args, nnz_counts=nz, **kw)
+        assert 0.0 <= pt.nnz_waste(nz) < 1.0
+        assert pt.nnz_waste(nz) == pj.nnz_waste(nz)
+    for plan in (t_sparse.plan_buckets(*args), j_sparse.plan_buckets(*args)):
+        with pytest.raises(ValueError, match="plan has no nnz_pads"):
+            plan.nnz_waste(nz)
+
+
 @pytest.mark.parametrize("dtype,jdtype", [(torch.float32, jnp.float32),
                                           (torch.float64, jnp.float64)])
 @pytest.mark.parametrize("kw", [dict(col_align=128), dict(col_align=4, subject_align=8)])

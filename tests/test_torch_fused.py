@@ -244,3 +244,187 @@ def test_fused_mode1_xkv_summation_order_matches_plain(K, R):
     want = fused.fused_mode1_xkv(*(torch.tensor(op[k]) for k in ("Q", "XkV", "Wb", "sm")))
     _close(torch.tensor(_emulate_mode1_xkv(op["Q"], op["XkV"], op["Wb"], op["sm"])), want,
            FUSED_TOLS[torch.float64])
+
+
+# ---------------------------------------------------------------------------
+# F3 and F4: the summation order of every variant of their kernels
+# (csrc/fused.cu), emulated in numpy over all subjects at once
+# ---------------------------------------------------------------------------
+
+def _butterfly(parts):
+    """The lanes' fixed-order shuffle reduction (xor over the lowest index
+    bit first): ((p0 + p1) + (p2 + p3)) + ... over 2^n parts."""
+    parts = list(parts)
+    while len(parts) > 1:
+        parts = [parts[i] + parts[i + 1] for i in range(0, len(parts), 2)]
+    return parts[0]
+
+
+def _ring_xkv(vals, Vg, vec):
+    """F1's ring order for X_k Vg_k (F4's FMA ring shares it): eight lane
+    groups q sum the 16-byte packs p = q, q + 8, ... of a row, each pack's
+    vec values in order, then the groups add in a butterfly."""
+    K, I, C = vals.shape
+    n_packs = -(-C // vec)
+    groups = []
+    for q in range(8):
+        acc = np.zeros((K, I, Vg.shape[-1]))
+        for p in range(q, n_packs, 8):
+            for c in range(p * vec, min(C, p * vec + vec)):
+                acc = acc + vals[:, :, c, None] * Vg[:, None, c, :]
+        groups.append(acc)
+    return _butterfly(groups)
+
+
+def _row_warp_xkv(vals, Vg):
+    """The row-warp order: lane L of a warp sums columns L, L + 32, ... in
+    order, then the 32 lanes add in a butterfly (xor 16 first)."""
+    K, I, C = vals.shape
+    lanes = []
+    for L in range(32):
+        acc = np.zeros((K, I, Vg.shape[-1]))
+        for c in range(L, C, 32):
+            acc = acc + vals[:, :, c, None] * Vg[:, None, c, :]
+        lanes.append(acc)
+    for off in (16, 8, 4, 2, 1):         # each lane adds its partner's sum to its own
+        lanes = [lanes[L] + lanes[L ^ off] for L in range(32)]
+    return lanes[0]
+
+
+def _mma_xkv(vals, Vg):
+    """The tensor-core order: 16-wide k-steps in order, each adding one
+    16-term block product (the inner order is the hardware's)."""
+    K, I, C = vals.shape
+    acc = np.zeros((K, I, Vg.shape[-1]))
+    for k0 in range(0, C, 16):
+        acc = acc + vals[:, :, k0:k0 + 16] @ Vg[:, k0:k0 + 16, :]
+    return acc
+
+
+def _sequential_g(Q, X, rows):
+    g = np.zeros((Q.shape[0], Q.shape[2], X.shape[2]))
+    for i in rows:
+        g = g + Q[:, i, :, None] * X[:, i, None, :]
+    return g
+
+
+def _emulate_ykv(vals, Q, Vg, variant):
+    """G_k = Q_k^T X_k Vg_k in the order of F4's ``variant``."""
+    K, I, C = vals.shape
+    R = Q.shape[-1]
+    if variant.startswith("ring-mma"):
+        X = _mma_xkv(vals, Vg)
+        MT = -(-I // 16)
+        warps = []
+        for w in range(4):               # warp w: m-tiles w, w + 4, ...; group g: rows g, g + 8
+            groups = []
+            for g in range(8):
+                rows = [i for mt in range(w, MT, 4) for i in (mt * 16 + g, mt * 16 + g + 8)
+                        if i < I]
+                groups.append(_sequential_g(Q, X, rows))
+            warps.append(_butterfly(groups))
+        return sum(warps[1:], warps[0])
+    if variant.startswith("ring"):
+        X = _ring_xkv(vals, Vg, vec=2)   # f64: two values a 16-byte pack
+        if R > 8:                        # the rows through shared memory, in order
+            return _sequential_g(Q, X, range(I))
+        warps = []                       # owner (warp w, slot s): rows i = w*4 + s mod 32
+        for w in range(8):
+            warps.append(_butterfly([_sequential_g(Q, X, range(w * 4 + s, I, 32))
+                                     for s in range(4)]))
+        return sum(warps[1:], warps[0])
+    # row-warp (and wide: its 64-wide chunks of l are independent columns)
+    return _sequential_g(Q, _row_warp_xkv(vals, Vg), range(I))
+
+
+def _emulate_mode2(vals, Q, H, Wb, cm, variant):
+    """A_k in the order of F3's ``variant``: y[c, r] over i in order, a over
+    r in order, then (a * w) * col_mask; wide: per 64-wide chunk of r."""
+    K, I, C = vals.shape
+    R = Q.shape[-1]
+    y = np.zeros((K, C, R))
+    for i in range(I):
+        y = y + vals[:, i, :, None] * Q[:, i, None, :]
+    chunk = 64 if variant.endswith(("wide", "wide-chunked")) else R
+    out = None
+    for r0 in range(0, R, chunk):
+        a = np.zeros((K, C, R))
+        for r in range(r0, min(R, r0 + chunk)):
+            a = a + y[:, :, r, None] * H[None, None, r, :]
+        part = a * Wb[:, None, :] * cm[:, :, None]
+        out = part if out is None else out + part
+    return out
+
+
+# (variant, R): F4's variants by rank, F3's by rank
+F4_ORDER_CASES = [(v, R) for R in (1, 5, 8) for v in ("ring", "ring-mma", "row-warp")] + [
+    ("ring", 9), ("row-warp", 9), ("row-warp-wide", 72)]
+F3_ORDER_CASES = [(v, R) for R in (1, 5, 8, 9) for v in ("ring", "thread-per-column")] + [
+    ("thread-per-column-wide", 72)]
+# K below and past the persistent grid (three ring blocks on each of 132
+# SMs); I = 19, not a multiple of 16; C = 40, not a multiple of 16 either
+ORDER_K = [3, 500]
+
+
+def _slab_op(K, I, C, R, seed):
+    rng = np.random.default_rng(seed)
+    cm = (rng.random((K, C)) < 0.7).astype(float)
+    Wb = rng.standard_normal((K, R))
+    Wb[::4] = 0.0                        # masked subjects, folded in
+    return dict(vals=rng.standard_normal((K, I, C)), Q=rng.standard_normal((K, I, R)),
+                Vg=rng.standard_normal((K, C, R)), H=rng.standard_normal((R, R)), Wb=Wb, cm=cm)
+
+
+@pytest.mark.parametrize("K", ORDER_K)
+@pytest.mark.parametrize("variant,R", F4_ORDER_CASES)
+def test_fused_ykv_summation_order_matches_plain(K, variant, R):
+    """Each F4 variant's order (F1's ring rows and G's register owners, the
+    tensor cores' k-steps and row groups, the row-warp lanes), emulated in
+    f64, equals the plain version within 1e-12."""
+    op = _slab_op(K, 19, 40, R, seed=K + R)
+    want = fused.fused_ykv(*(torch.tensor(op[k]) for k in ("vals", "Q", "Vg")))
+    _close(torch.tensor(_emulate_ykv(op["vals"], op["Q"], op["Vg"], variant)), want,
+           FUSED_TOLS[torch.float64])
+
+
+@pytest.mark.parametrize("K", ORDER_K)
+@pytest.mark.parametrize("variant,R", F3_ORDER_CASES)
+def test_fused_mode2_compact_summation_order_matches_plain(K, variant, R):
+    """Each F3 variant's order (the ring's and the thread-per-column
+    kernel's: rows, then r, then w and the column mask; wide: per 64-wide
+    chunk of r), emulated in f64, equals the plain version within 1e-12,
+    zeros at masked subjects and columns included."""
+    op = _slab_op(K, 19, 40, R, seed=K + R + 1)
+    args = [torch.tensor(op[k]) for k in ("vals", "Q", "H", "Wb", "cm")]
+    want = fused.fused_mode2_compact(*args)
+    got = _emulate_mode2(op["vals"], op["Q"], op["H"], op["Wb"], op["cm"], variant)
+    _close(torch.tensor(got), want, FUSED_TOLS[torch.float64])
+    assert not want[::4].any() and not want[op["cm"] == 0].any()
+
+
+@pytest.mark.parametrize("shape", [(5, 19, 40, 5), (4, 7, 17, 9), (3, 33, 130, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fused_mode2_and_ykv_plain_match_interpret_kernels(shape, dtype):
+    """The plain versions that the CUDA F3 and F4 are held to equal the
+    reference's Pallas kernels in interpret mode on the same operands,
+    within FUSED_TOLS."""
+    K, I, C, R = shape
+    op = _slab_op(K, I, C, R, seed=sum(shape))
+    jd = JDT[dtype]
+    j = {k: jnp.asarray(v, jd) for k, v in op.items()}
+    t = {k: torch.tensor(v, dtype=dtype) for k, v in op.items()}
+    tol = FUSED_TOLS[dtype]
+    _close(fused.fused_mode2_compact(t["vals"], t["Q"], t["H"], t["Wb"], t["cm"]),
+           j_fused.fused_mode2_compact(j["vals"], j["Q"], j["H"], j["Wb"], j["cm"],
+                                       interpret=True), tol)
+    _close(fused.fused_ykv(t["vals"], t["Q"], t["Vg"]),
+           j_fused.fused_ykv(j["vals"], j["Q"], j["Vg"], interpret=True), tol)
+
+
+@pytest.mark.parametrize("query", ["ykv_fused_variant", "mode2_compact_fused_variant"])
+def test_f3_f4_variants_are_a_question_for_the_card(query):
+    """F3's and F4's variants are the CUDA launcher's choice: asking for a
+    CPU slab raises before any kernel library is built or loaded."""
+    with pytest.raises(ValueError, match="CUDA"):
+        getattr(fused, query)(torch.rand((3, 8, 12)), 5)
+    assert fused.LIB._lib is None
