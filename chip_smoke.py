@@ -57,11 +57,15 @@ Phases, any failure exits non-zero:
    Grams to exact zeros, and Q^T Q = I on full-rank B, with what an f32
    eigh departs by (the reason P1 solves in f64); P2, the smooth prox's
    tridiagonal solve (the port's own kernel), at N = 2, 3, 33, 64, 65,
-   1,025, 4,097, 116,225 and 464,900, R = 1, 5 and 40, lam = 0, 0.1 and 5
-   (f32 to 1e-6 times the condition bound 1 + 8 lam / rho), the same bits
-   twice, a captured call replayed after rho changed on the device, and
-   its device kernels a call at N = 116,225 and 464,900 counted in a
-   captured graph against the levels its C library reports; the
+   1,025, 4,097, 116,225 and 464,900, R = 1, 5 and 40, lam = 0, 0.1, 5
+   and 70 (rho / lam = 0.01, where the matrix is least dominant; f32 to
+   1e-6 times the condition bound 1 + 8 lam / rho), the same bits twice, a
+   captured call replayed after rho changed on the device, and its device
+   kernels a call at N = 116,225 and 464,900 counted in a captured graph
+   against the count its C library reports (one launch); F1's tensor-core
+   ring at bf16 and f16 at its edges (``F1_HALF_EDGES``: R 1-8, I 1 to 64,
+   C 1 to 130, an unaligned slab, K 1 to 58,112, masked subjects) against
+   its plain version, the same bits twice; the
    compression path's core shapes (``CORE_SPECS``): F1-F4 and rows 5, 7, 8
    and 10 on the rsvd cores [Kb, 18, 128] at R = 5 and [Kb, 16, 128] at R =
    4 of a small dataset, with the variant each takes, and P1 at R = S on the
@@ -276,6 +280,21 @@ PROJECT_EDGES = {
     (24, 32, 96, (96, 50, 0, 1), 72, False, 0): "ring",  # R = 72, in chunks of 32
     (8, 16, 24, tuple(range(24)) * 60, 5, False, 0): "ring",   # subjects past the persistent grid
 }
+# F1 at half width at the edges of its tensor-core ring: (K, I, C, R,
+# offset of the slab's start in elements) -> its variant with a bfloat16 or
+# float16 slab and Vg; R 1-8, I below, at and past an m-tile, C below and
+# past a k-step, I * R whole 16-byte packs of the outputs or not
+F1_HALF_EDGES = {
+    (7, 56, 128, 5, 0): "ring-mma",                   # the main path's
+    (58112, 56, 128, 5, 0): "ring-mma",               # its largest bucket, past the grid
+    (1, 1, 1, 1, 0): "ring-mma-element-copies",       # one subject of one row and column
+    (3, 15, 15, 2, 0): "ring-mma-element-copies",     # below an m-tile and a k-step
+    (4, 17, 128, 3, 0): "ring-mma",                   # one row past an m-tile
+    (6, 18, 128, 4, 0): "ring-mma",                   # the rsvd cores' rows
+    (5, 64, 130, 6, 0): "ring-mma-element-copies",    # whole m-tiles; C past a k-step
+    (5, 56, 128, 7, 3): "ring-mma-element-copies",    # the slab's start not 16-byte aligned
+    (2, 64, 128, 8, 0): "ring-mma",                   # R = 8, the whole n-tile
+}
 # F4 and F3 at the edges of their variants: (K, I, C, R, offset of the
 # slab's start in elements) -> the (F4, F3) variants taken with a float32,
 # a float64 and a half (bfloat16, float16) slab; every variant of each is
@@ -384,12 +403,14 @@ P1_PAPER_RANKS = (10, 20, 40)   # the paper's Figure 5 ranks past the main path'
 EIGH_BATCH = 16384      # the most 5x5 Grams one cuSOLVER eigh was seen to take on an H100
 # P2 (tridiag_solve) at its edges: N = 2 and 3; 33, one past a chunk of 32
 # rows and a warp; 64, the most the direct solve takes, and 65, one past it;
-# 1,025 and 4,097 (two and three levels); 116,225 and 464,900, W's rows at
-# choa 0.25 and at the full CHOA; R = 1, 5 and 40 (past a chunk's 32 column
-# threads); lam = 0, 0.1 and 5; rho a device scalar
+# 1,025 and 4,097 (3 and 9 units of 16 chunks); 116,225 and 464,900,
+# W's rows at choa 0.25 and at the full CHOA (level 2 past the direct solve;
+# more units than a grid's blocks); R = 1, 5 and 40 (past a chunk's 16
+# column threads); lam = 0, 0.1, 5 and 70 (rho / lam = 0.01); rho a device
+# scalar
 P2_N = (2, 3, 33, 64, 65, 1025, 4097, 116225, 464900)
 P2_R = (1, 5, 40)
-P2_LAM = (0.0, 0.1, 5.0)
+P2_LAM = (0.0, 0.1, 5.0, 70.0)
 P2_RHO = 0.7
 # the constrained fits of phase 3: ADMM nonnegativity on V and W, and sparse
 # phenotypes (nonneg + l1 on V) with temporally smooth subject weights (W),
@@ -457,7 +478,8 @@ REPLACES = {
 
 
 def free_cached(label: str) -> None:
-    """Collect garbage and release the caching allocator's free blocks
+    """Drop the scan engine's kept chunks (``engine.CHUNKS``), collect
+    garbage and release the caching allocator's free blocks
     (``torch.cuda.empty_cache``), then print what stays allocated: each
     CUDA graph captures into a private pool, which cannot take the free
     blocks of the others, and no memory can be freed while a capture
@@ -465,6 +487,9 @@ def free_cached(label: str) -> None:
     import gc
     import torch
 
+    from repro_torch.core import engine
+
+    engine.clear_chunk_cache()       # the graphs kept for the next fit on each data
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[memory] after {label}: {torch.cuda.memory_allocated() / 2**30:.3f} GiB "
@@ -949,6 +974,44 @@ def check_slab_edges(dev, errs: dict) -> None:
                 fail(f"{name} ({dtype}) did not reach {sorted(reach - seen[name])}")
 
 
+def check_f1_half_edges(dev, errs: dict) -> None:
+    """F1 at bfloat16 and float16 at the edges of its tensor-core ring
+    (``F1_HALF_EDGES``) against its plain version (XkV and B to the f32
+    bound), every third subject masked (its B zero), twice with the same
+    bits; each shape must take the variant stated, and both variants must
+    be reached at each dtype."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import fused
+
+    for dtype in (torch.bfloat16, torch.float16):
+        seen = set()
+        for (K, I, C, R, offset), want in F1_HALF_EDGES.items():
+            rng = np.random.default_rng(K + I + C + R + offset)
+            vals = offset_copy(rng.standard_normal((K, I, C)), dtype, dev, offset)
+            Vg = torch.tensor(rng.standard_normal((K, C, R)), device=dev).to(dtype)
+            Wb, H = (torch.tensor(rng.standard_normal(s), dtype=torch.float32, device=dev)
+                     for s in ((K, R), (R, R)))
+            Wb[::3] = 0
+            got = fused.procrustes_b_variant(vals, R)
+            if got != want:
+                fail(f"fused_procrustes_b ({dtype}) at K={K} I={I} C={C} R={R} offset "
+                     f"{offset} took {got}, want {want}")
+            seen.add(got)
+            args = (vals, Vg, Wb, H)
+            check_kernels({"fused_procrustes_b": args}, errs)
+            first = fused.fused_procrustes_b(*args)
+            again = fused.fused_procrustes_b(*args)
+            if not all(torch.equal(bits(x), bits(y)) for x, y in zip(first, again)):
+                fail(f"fused_procrustes_b ({dtype}) at K={K} I={I} C={C} R={R} gave other "
+                     f"bits on the same input")
+            if first[1][::3].any():
+                fail(f"fused_procrustes_b ({dtype}) at K={K} I={I} C={C} R={R}: a masked "
+                     f"subject's B is not zero")
+        if seen != {"ring-mma", "ring-mma-element-copies"}:
+            fail(f"fused_procrustes_b ({dtype}) reached only {sorted(seen)} at half width")
+
+
 def reduction_mask(K: int, kind, dtype, dev):
     """A subject mask of F2_EDGES / MODE1_REUSE_EDGES: None, "some" (the
     first and every third subject masked) or "all"."""
@@ -1228,7 +1291,8 @@ def check_tridiag(dtype, dev, errs: dict) -> None:
     print(f"[p2] {'f64' if f64 else 'f32'}: N in {P2_N}, R in {P2_R}, lam in {P2_LAM}, rho "
           f"{P2_RHO}: largest |kernel - plain| / max |plain| {worst:.3e}, each within "
           f"{'1e-12' if f64 else '1e-6 (1 + 8 lam / rho)'}; two calls the same bits; device "
-          f"kernels a call at N = 116,225 and 464,900, R 5, counted in a captured graph: "
+          f"kernels a call (one launch) at N = 116,225 and 464,900, R 5, counted in a "
+          f"captured graph: "
           f"{counted[116225]}, {counted[464900]}; a captured call follows rho changed on the "
           f"device ({err:.3e})", flush=True)
 
@@ -1300,6 +1364,7 @@ def phase2_kernels(dev) -> dict:
     errs: dict = {}
     variants = set()
     check_slab_edges(dev, errs)
+    check_f1_half_edges(dev, errs)
     for dtype in (torch.float32, torch.float64):
         check_sparse_kernels(dtype, dev, errs)
         variants |= check_variant_edges(dtype, dev, errs)
@@ -1340,7 +1405,8 @@ def phase2_kernels(dev) -> dict:
           f"C_pad up to 1024; SCOO {', '.join(SCOO_DATA)} at R 1/5/72 and explicit "
           f"zero-valued triplets; BCC {BCC_GEOMETRIES}; rows 5, 8, 11 and 12 at "
           f"{len(YKV_EDGES)}, {len(MODE2_EDGES)}, {len(XKV_EDGES)} and "
-          f"{len(PROJECT_EDGES)} edge shapes, F4 and F3 at {len(SLAB_EDGES)} in f32, f64, "
+          f"{len(PROJECT_EDGES)} edge shapes, F1's tensor-core ring at "
+          f"{len(F1_HALF_EDGES)} in bf16 and f16, F4 and F3 at {len(SLAB_EDGES)} in f32, f64, "
           f"bf16 and f16 (every variant reached at each, each twice with the same bits), "
           f"F2 and row 7 at {len(F2_EDGES)} and "
           f"{len(MODE1_REUSE_EDGES)}, rows 9 and 10 at {len(MODE3_EDGES)} with mode3 == "
@@ -1580,7 +1646,9 @@ def phase3_engines(bt, bt_sc, hist: dict, ms: dict, peaks: dict) -> dict:
     iterations under replay, the warm-up's kept apart), its history against
     the same route's host history (bit for bit, else within 1e-6) and the CC
     torch route's (1e-4), peak memory, and the steady ms/iter with the
-    set-up (warm-up and capture) outside the timing. Then no host sync in an
+    set-up (warm-up and capture) outside the timing; a second fit on the
+    same data, which replays the kept chunk (no new chunk made, the same
+    bits), with its ms/iter with set-up beside the host engine's. Then no host sync in an
     eager ``als_step`` or a replay (``set_sync_debug_mode("error")``), the
     while variant's stop and its masked iterations at a tol that the fit
     crosses, and a chunked run's overshoot. Returns the steady ms/iter."""
@@ -1624,6 +1692,23 @@ def phase3_engines(bt, bt_sc, hist: dict, ms: dict, peaks: dict) -> dict:
             if d_host > 1e-6 or d_torch > 1e-4:
                 fail(f"{name}: fit history differs from the host engine's by {d_host:.3e} "
                      f"(> 1e-6) or from the torch route's by {d_torch:.3e} (> 1e-4)")
+            # a second fit on the same data replays the kept chunk: no warm-up, no capture
+            made = engine.CHUNKS.made
+            state2, h2, secs2 = dec.decompose(data, backend=backend, tol=0.0, engine="scan",
+                                              check_every=ce, **kw)
+            check_launches(label, launches(), len(data.buckets) * ITERS)
+            same = h2 == h and all(torch.equal(getattr(state2, f), getattr(state, f))
+                                   for f in ("H", "V", "W", "fit"))
+            print(f"[scan] {name} second call on the same data: chunks made "
+                  f"{engine.CHUNKS.made - made} (the kept one replayed, no warm-up or capture); "
+                  f"the fit with set-up {secs2 / ITERS * 1e3:.2f} ms/iter against the first "
+                  f"call's {secs / ITERS * 1e3:.2f} and the host engine's {ms[label]:.2f}; "
+                  f"history and state bit for bit the first call's: {same}, history the host "
+                  f"engine's: {h2 == hist[label]}", flush=True)
+            if engine.CHUNKS.made != made or not same:
+                fail(f"{name}: a second fit on the same data made a new chunk or gave other "
+                     f"bits than the first")
+            del state2
 
     # no host sync: one eager als_step and one replay of a captured chunk
     for label in SCAN_ROUTES:
@@ -3124,7 +3209,7 @@ def phase4_times(bt, bt_sc, bcc_pair, state, per_kernel, errs, w_state):
         if name == "tridiag_solve":
             r["port_only"] = True          # the reference's lax tridiagonal_solve, no Pallas kernel
             r["graph_ms"] = graph_ms(lambda: wrapper(*a), torch.cuda.Stream())
-            # the levels' kernels from one C call, counted in a captured graph
+            # the kernels of one C call (one launch), counted in a captured graph
             n_k, n_alloc, n_seg = one_call(lambda: wrapper(*a))
             r["device_kernels_per_call"] = n_k
             r["allocations_per_call"] = {"caching_allocator": n_alloc, "device_segments": n_seg}
@@ -3134,7 +3219,7 @@ def phase4_times(bt, bt_sc, bcc_pair, state, per_kernel, errs, w_state):
             want_k = tridiag.device_kernels(a[0].shape[0])
             if n_k != want_k or n_alloc != 1 or n_seg != 0:
                 fail(f"tridiag_solve: {n_k} device kernels, {n_alloc} allocations and {n_seg} "
-                     f"new segments a call; want {want_k} (its levels), 1 (the result) and 0")
+                     f"new segments a call; want {want_k} (one launch), 1 (the result) and 0")
         if "variant" in r:
             extra = f", variant {r['variant']}"
         if name in same_input:
@@ -3252,10 +3337,9 @@ def phase5_profile(bt, bt_sc, iter_ms: dict, scan_ms: dict, con_ms: dict, cores,
             float(state.fit)
         kernels_ = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
         busy_ms = sum(dev_us(e) for e in kernels_) / 1e3
-        mark = "void (anonymous namespace)::"      # csrc/tridiag.cu's three kernels, not
-        p2 = [e for e in kernels_ if e.key.startswith(mark) and   # at::native's reduce_kernel
-              e.key[len(mark):].split("<")[0] in ("reduce_kernel", "expand_kernel",
-                                                  "base_kernel")]
+        mark = "void (anonymous namespace)::"      # csrc/tridiag.cu's one kernel
+        p2 = [e for e in kernels_ if e.key.startswith(mark) and
+              e.key[len(mark):].split("<")[0] == "tridiag_kernel"]
         p2_ms = sum(dev_us(e) for e in p2) / 1e3
         if busy_ms <= 0 or (specs["w"].startswith("smooth") and not p2):
             fail(f"the profiled CC auto {cname} iteration ran no P2 or nothing on the device")

@@ -26,6 +26,18 @@ PyTorch the counterpart of a compiled chunk is a captured CUDA graph:
     most one masked iteration runs past the stop. State and history equal
     the host loop's.
 
+A fit keeps its chunk (or while variant) for the next fit on the same
+data (:data:`CHUNKS`), as the reference's ``jax.jit`` keeps its compiled
+program across calls on the same shapes: a second ``fit(engine="scan")`` on
+the same ``Bucketed`` object with the same options, state layout, shapes,
+dtypes, device and chunk length (max_iters and tol for the while variant)
+replays the kept graph with no warm-up and no capture. One entry a data
+object, held by a weak reference to the data: the entry, its graph and the
+graph's memory go when the data goes, or at :func:`clear_chunk_cache`. A
+kept chunk refers to its data weakly too (a strong reference would keep the
+data alive through the cache), and ``fit_device`` returns a copy of the
+state, since the chunk's carry is overwritten by the next fit.
+
 On the CPU both run the same iteration eagerly (no graphs; the while
 variant reads its flag each iteration and runs no masked iteration). On a
 GPU ``engine="scan"`` always captures: a capture that fails raises, it never
@@ -62,6 +74,7 @@ duals were carried.
 """
 from __future__ import annotations
 
+import weakref
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -71,7 +84,8 @@ from repro_torch.core import constraints as cst
 from repro_torch.core import parafac2 as p2
 from repro_torch.kernels import _launch
 
-__all__ = ["ENGINES", "MESH_WAITS", "WARMUP_ITERS", "als_chunk_fn", "fit_device",
+__all__ = ["CHUNKS", "ENGINES", "MESH_WAITS", "WARMUP_ITERS", "als_chunk_fn",
+           "cached_chunk", "cached_while", "clear_chunk_cache", "clone_state", "fit_device",
            "make_als_chunk", "make_als_while", "make_subject_update"]
 
 ENGINES = ("host", "scan")
@@ -124,6 +138,13 @@ def _flatten(state: "p2.Parafac2State") -> List[Tuple[str, torch.Tensor]]:
     return _split(state)[1]
 
 
+def clone_state(state: "p2.Parafac2State") -> "p2.Parafac2State":
+    """The state with every tensor cloned (a chunk's returned state is its
+    carry, which its next call overwrites)."""
+    return p2.Parafac2State(**{f: cst.tree_map(torch.clone, getattr(state, f))
+                               for f in _FIELDS})
+
+
 def _state(skel: dict, c: Carry) -> "p2.Parafac2State":
     """The state held in the carry ``c`` (``skel``: the skeleton of each
     state field, by field name)."""
@@ -151,16 +172,16 @@ class _Iteration:
     on the capture stream, and replayed on the current stream."""
 
     def __init__(self, data, opts: "p2.Parafac2Options", hist_len: int, tol: float,
-                 state: "p2.Parafac2State"):
+                 state: "p2.Parafac2State", weak: bool = False):
         # the state's structure (W layout, duals) without its tensors; the
         # body must not reference self: a cycle would leave a dropped graph
         # to the garbage collector, which could then destroy it while a new
         # capture runs and so invalidate that capture
         skel, leaves = _split(state)
-        data = data.with_compute_values(opts.precision)   # before any warm-up
+        get_data = _data_getter(data, opts.precision, weak)   # before any warm-up
 
         def body(c: Carry) -> None:
-            s2 = p2.als_step(data, _state(skel, c), opts)
+            s2 = p2.als_step(get_data(), _state(skel, c), opts)
             f = s2.fit
             go = ~c["stop"]
             n = c["n"]
@@ -175,6 +196,7 @@ class _Iteration:
         dt, dev = opts.dtype, state.H.device
         _check_capturable(opts, dev)
         self.body = body
+        self._get_data = get_data
         self._skel, self._names = skel, [k for k, _ in leaves]
         self.carry: Carry = {k: t.to(dtype=dt).clone() for k, t in leaves}
         self.carry.update(hist=torch.full((hist_len,), -np.inf, dtype=dt, device=dev),
@@ -215,6 +237,9 @@ class _Iteration:
         """Load ``state``'s tensors (those that are not the carry's own) and
         reset the history, the counter and the stop."""
         c = self.carry
+        if self._get_data() is None:
+            raise RuntimeError("the data this chunk was made for is gone: its graph "
+                               "would read freed memory")
         leaves = _flatten(state)
         if [k for k, _ in leaves] != self._names:     # empty containers may differ
             raise ValueError("the state's W layout or constraint duals differ from "
@@ -235,6 +260,17 @@ class _Iteration:
         _launch.add_launches(self.launches)
 
 
+def _data_getter(data, precision: str, weak: bool) -> Callable:
+    """What the iteration's body calls for its data: the data at the compute
+    precision (its half values made here, once), held strongly; a kept
+    chunk's own data (f32) held weakly, so that the cache's entry, keyed
+    weakly by that data, does not keep it alive."""
+    data_c = data.with_compute_values(precision)
+    if weak and data_c is data:
+        return weakref.ref(data)
+    return lambda: data_c
+
+
 class AlsChunk:
     """``state -> (state, fits[length])``: ``length`` ALS iterations, as
     ``length`` replays of one captured iteration on a GPU. The state is
@@ -243,11 +279,11 @@ class AlsChunk:
     length`` (a fit's remainder)."""
 
     def __init__(self, data, opts: "p2.Parafac2Options", length: int,
-                 state: "p2.Parafac2State"):
+                 state: "p2.Parafac2State", weak: bool = False):
         if length < 1:
             raise ValueError(f"a chunk runs at least one iteration, got length={length}")
         self.length = length
-        self._it = _Iteration(data, opts, length, -np.inf, state)
+        self._it = _Iteration(data, opts, length, -np.inf, state, weak)
 
     @property
     def setup_launches(self) -> Dict[Tuple[str, str], int]:
@@ -285,10 +321,10 @@ class AlsWhile:
     LOOKAHEAD = 2       # replays in flight on a GPU
 
     def __init__(self, data, opts: "p2.Parafac2Options", max_iters: int, tol: float,
-                 state: "p2.Parafac2State"):
+                 state: "p2.Parafac2State", weak: bool = False):
         self.max_iters = max_iters
         self.replays = 0
-        self._it = _Iteration(data, opts, max_iters, tol, state)
+        self._it = _Iteration(data, opts, max_iters, tol, state, weak)
 
     @property
     def setup_launches(self) -> Dict[Tuple[str, str], int]:
@@ -328,6 +364,81 @@ def make_als_while(data, opts: "p2.Parafac2Options", max_iters: int, tol: float,
     if state is None:
         state = p2.init_state(data, opts)
     return AlsWhile(data, opts, max_iters, tol, state)
+
+
+class ChunkCache:
+    """The chunks and while variants kept across fits, at most one a data
+    object: ``id(data) -> (weak reference to data, key, run)``. The key is
+    what the capture depends on besides the data: the kind and its length
+    (or max_iters and tol), the options, and the name, shape and dtype of
+    every state tensor with their device. An entry goes when its data goes
+    (the weak reference's callback), when another key is asked for on the
+    same data (before the new one is made, so that its graph's memory is
+    free for the capture), or at :meth:`clear`. ``made`` and ``reused``
+    count the runs made and handed out again."""
+
+    def __init__(self):
+        self._entries: Dict[int, tuple] = {}
+        self.made = 0
+        self.reused = 0
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def clear(self) -> None:
+        """Drop every kept chunk (and its graph)."""
+        self._entries.clear()
+
+    def _drop(self, i: int, ref: weakref.ref) -> None:
+        entry = self._entries.get(i)
+        if entry is not None and entry[0] is ref:
+            del self._entries[i]
+
+    def get(self, data, key: tuple, make: Callable[[bool], Callable]) -> Callable:
+        """The run kept for ``data`` under ``key``, else ``make(weak=True)``,
+        kept in place of the data's old entry. Data that takes no weak
+        reference is not kept: ``make(weak=False)``."""
+        i = id(data)
+        entry = self._entries.get(i)
+        if entry is not None and entry[0]() is data and entry[1] == key:
+            self.reused += 1
+            return entry[2]
+        try:
+            ref = weakref.ref(data, lambda r, i=i: self._drop(i, r))
+        except TypeError:
+            self.made += 1
+            return make(False)
+        self._entries.pop(i, None)
+        del entry           # the old run and its graph go before the new capture
+        run = make(True)
+        self.made += 1
+        self._entries[i] = (ref, key, run)
+        return run
+
+
+CHUNKS = ChunkCache()
+clear_chunk_cache = CHUNKS.clear
+
+
+def _key(kind: str, opts: "p2.Parafac2Options", state: "p2.Parafac2State", *extra) -> tuple:
+    return (kind, *extra, opts, str(state.H.device),
+            tuple((k, tuple(t.shape), t.dtype) for k, t in _flatten(state)))
+
+
+def cached_chunk(data, opts: "p2.Parafac2Options", length: int, *,
+                 state: "p2.Parafac2State") -> AlsChunk:
+    """:func:`make_als_chunk`'s chunk, kept in :data:`CHUNKS` for the next
+    call on the same data, options, state layout and length."""
+    return CHUNKS.get(data, _key("chunk", opts, state, length),
+                      lambda weak: AlsChunk(data, opts, length, state, weak))
+
+
+def cached_while(data, opts: "p2.Parafac2Options", max_iters: int, tol: float, *,
+                 state: "p2.Parafac2State") -> AlsWhile:
+    """:func:`make_als_while`'s run, kept in :data:`CHUNKS` as
+    :func:`cached_chunk` keeps a chunk (keyed by max_iters and tol too)."""
+    return CHUNKS.get(data, _key("while", opts, state, max_iters, tol),
+                      lambda weak: AlsWhile(data, opts, max_iters, tol, state, weak))
 
 
 def make_subject_update(opts: "p2.Parafac2Options", *, smooth_lam: float = 0.0,
@@ -372,19 +483,21 @@ def fit_device(data, opts: "p2.Parafac2Options", *, max_iters: int = 100,
     if max_iters <= 0:          # nothing to capture: the host loop's answer
         return state, []
 
+    # the run is kept for the next fit on this data (CHUNKS), which
+    # overwrites its carry: the state returned is a copy
     if opts.check_every <= 0:
-        run = make_als_while(data, opts, max_iters, tol, state=state)
+        run = cached_while(data, opts, max_iters, tol, state=state)
         state, hist, n = run(state)
         n = int(n)
         history = hist[:n].tolist()
         if verbose:
             print(f"[engine:{opts.engine}/while] {n} iters, {run.replays - n} masked, "
                   f"fit={history[-1] if history else float('nan'):.6f}")
-        return state, history
+        return clone_state(state), history
 
     # chunks of check_every iterations (the last one shorter), one host read
     # of the fits a chunk
-    chunk = make_als_chunk(data, opts, min(opts.check_every, max_iters), state=state)
+    chunk = cached_chunk(data, opts, min(opts.check_every, max_iters), state=state)
     history: List[float] = []
     prev = -np.inf
     done = False
@@ -398,4 +511,4 @@ def fit_device(data, opts: "p2.Parafac2Options", *, max_iters: int = 100,
         if verbose:
             print(f"[engine:{opts.engine}] iter {len(history) - 1:3d}  "
                   f"fit={history[-1]:.6f}")
-    return state, history
+    return clone_state(state), history

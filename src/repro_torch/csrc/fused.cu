@@ -31,8 +31,8 @@
 // [K, I, R] operands and is bound by those bytes. So the design reads every
 // slab element once, coalesced along C, keeps the small operands (Vg_k, Q_k,
 // H, w_k) in shared memory, and does the R-wide arithmetic in FMA units; the
-// one exception is F4 on a half slab, whose X_k Vg_k runs on the tensor
-// cores (its note below). F1, F3 and F4 stream the slab through multi-stage
+// exception is F1 and F4 on a half slab, whose X_k Vg_k runs on the tensor
+// cores (F4's note below). F1, F3 and F4 stream the slab through multi-stage
 // cp.async rings in persistent blocks (F4's f32/f64 ring is F1's with
 // another epilogue), and F2 its [I, R] operands (their notes below); shapes
 // too large for a ring keep a block per subject.
@@ -123,7 +123,8 @@ __device__ inline T pick(const T (&acc)[RMAX], int idx) {
 // fused_procrustes_b (pallas_call at :153, body _procrustes_b_kernel at
 // :100): XkV_k = X_k Vg_k and B_k = (XkV_k * w_k) H^T in one pass over the
 // slab. Bound: the slab bytes (R = 5, f32: 10 operations per 4-byte load;
-// half: per 2-byte load). Two variants, picked by shape (f1_variant):
+// half: per 2-byte load). Three designs, picked by shape and type
+// (f1_variant):
 //
 // RING, the main path (R <= 64 and two subjects' operands fit in shared
 // memory). What held the row-warp design below at 46% of the bound: a serial
@@ -159,6 +160,26 @@ __device__ inline T pick(const T (&acc)[RMAX], int idx) {
 // and stores. (At bf16 at the main path's largest bucket on an H100, in a
 // graph: element copies of every Vg_k 0.907 ms, the raw run 0.748, and
 // with the register cap below 0.678, against 0.661 in f32.)
+//
+// RING-MMA (a half slab and Vg, R <= 8, two stages fit): the FMA ring above
+// gains nothing at half width (0.6745 ms at bf16, 46% of the half-width
+// byte bound): its time goes to widening each value and R FMAs a value,
+// not to bytes. This is F4's tensor-core ring (mma_ring_kernel, its note
+// under F4) with a B epilogue in place of G's: X_k Vg_k on
+// mma.sync.m16n8k16 with f32 accumulators, from the same stages (w_k in
+// place of Q_k). A lane holds XkV at rows (g, g + 8) of its m-tile and
+// columns (2q, 2q + 1); the four lanes of a quad gather a row's R <= 8
+// values (two shuffles a column pair), and each lane forms B[i, l] =
+// sum_r (XkV[i, r] w[r]) H[l, r] for its columns l, r in order (H in
+// shared memory), as the FMA ring does. XkV and B go into a tile in shared
+// memory (two, by the subject's parity) and, after the next subject's
+// barrier, leave as 16-byte runs of the subject's contiguous [I*R] blocks
+// (element stores where I*R is not whole packs): no barrier of their own.
+// XkV is never read back. Only the order of X_k Vg_k's sums differs from
+// the FMA ring's (products of half values are exact in f32). Paired on an
+// H100 in a graph at the main path's largest bucket: bf16 0.6786 -> 0.3875
+// ms (80% of the half-width byte bound), f16 0.6557 -> 0.3871; at the rsvd
+// cores' 18 rows, bf16 0.4538 -> 0.1877, so it takes subjects of any rows.
 //
 // ROW-WARP (R > 64, or a subject too large for two stages): one block per
 // subject: Vg_k (in CC-row chunks), H and w_k in shared memory, one warp per
@@ -1189,7 +1210,8 @@ mode2_ring_kernel(const S* __restrict__ vals, const T* __restrict__ q,
 // H100 in a graph at the main path's largest bucket, f32: parent 1.0474 ms,
 // this ring 0.6407 (88% of the byte bound).
 //
-// RING-MMA (a half slab and Vg, R <= 8, two stages fit): X_k Vg_k on the
+// RING-MMA (a half slab and Vg, R <= 8, two stages fit; mma_ring_kernel,
+// which F1's RING-MMA shares with another epilogue): X_k Vg_k on the
 // tensor cores, mma.sync.m16n8k16 (bf16 or f16 in, f32 accumulators). F1's
 // FMA ring gains nothing at half width (0.6745 ms at bf16 against 0.6610
 // in f32 at the main path's largest bucket, in a graph on an H100): its
@@ -1309,14 +1331,17 @@ constexpr int kMmaMinBlocks = 4;
 
 // RING-MMA's shared-memory layout, in bytes (every part a whole number of
 // 16-byte packs): per stage the slab [I16 rows][SPM packs] of S, Vg_k's
-// raw run [C * R] of S and Q_k [I, R] of float; after the stages the
-// warps' partials of G, [2][kMmaWarps][R*R] of float. I16 and C16: I and C
+// raw run [C * R] of S, and F4's Q_k [I, R] or F1's w_k [R] of float;
+// after the stages F4's partials of G, [2][kMmaWarps][R*R] of float, or
+// F1's H [R*R] (rounded to whole packs) and its output tiles, [2][2][I*R]
+// of float (XkV_k and B_k, by the subject's parity). I16 and C16: I and C
 // rounded up to 16 (an m-tile's rows, a k-step's columns).
 struct MmaLayout {
   int np, spm, i16, c16;
-  size_t slab, vg, stage, smem_bytes;
+  size_t slab, vg, stage, tiles, smem_bytes;
 };
 
+template <int EPI>
 __host__ __device__ inline MmaLayout mma_layout(int I, int C, int R) {
   MmaLayout s;
   s.np = (C + 7) / 8;                       // 16-byte packs of a row's data
@@ -1325,8 +1350,11 @@ __host__ __device__ inline MmaLayout mma_layout(int I, int C, int R) {
   s.spm = s.c16 / 8 + 1;                    // odd
   s.slab = (size_t)s.i16 * s.spm * 16;
   s.vg = s.slab + ((size_t)C * R * 2 + 15) / 16 * 16;
-  s.stage = s.vg + ((size_t)I * R * sizeof(float) + 15) / 16 * 16;
-  s.smem_bytes = kMmaStages * s.stage + (size_t)2 * kMmaWarps * R * R * sizeof(float);
+  s.stage = s.vg + ((size_t)(EPI == kEpiB ? R : I * R) * sizeof(float) + 15) / 16 * 16;
+  s.tiles = kMmaStages * s.stage + ((size_t)R * R * sizeof(float) + 15) / 16 * 16;
+  s.smem_bytes = EPI == kEpiB
+                     ? s.tiles + (size_t)4 * I * R * sizeof(float)
+                     : kMmaStages * s.stage + (size_t)2 * kMmaWarps * R * R * sizeof(float);
   return s;
 }
 
@@ -1359,22 +1387,30 @@ __device__ inline void ldmatrix_x4(unsigned (&a)[4], const void* p) {
                : "r"(s));
 }
 
-template <typename S, bool ALIGNED>
+// The tensor-core ring of F1 (EPI kEpiB) and F4 (kEpiG): wq is F1's Wb
+// [K, R] or F4's Q [K, I, R]; h (F1's H) and xkv (F1's XkV) are null for
+// F4; out is F1's B [K, I, R] or F4's G [K, R, R].
+template <typename S, bool ALIGNED, int EPI>
 __global__ void __launch_bounds__(kMmaThreads, kMmaMinBlocks)
-ykv_mma_ring_kernel(const S* __restrict__ vals, const float* __restrict__ q,
-                    const S* __restrict__ vg, float* __restrict__ out, int K, int I,
-                    int C, int R) {
+mma_ring_kernel(const S* __restrict__ vals, const S* __restrict__ vg,
+                const float* __restrict__ wq, const float* __restrict__ h,
+                float* __restrict__ xkv, float* __restrict__ out, int K, int I,
+                int C, int R) {
   constexpr int VEC = 8;                     // half values a pack
-  const MmaLayout lay = mma_layout(I, C, R);
-  const int NP = lay.np, SPV = lay.spm * VEC, RR = R * R;
+  const MmaLayout lay = mma_layout<EPI>(I, C, R);
+  const int NP = lay.np, SPV = lay.spm * VEC, RR = R * R, IR = I * R;
   const int MT = lay.i16 / 16, KS = lay.c16 / 16;
   unsigned char* ring = smem_base<unsigned char>();
-  float* part_s = reinterpret_cast<float*>(ring + kMmaStages * lay.stage);
+  float* part_s = reinterpret_cast<float*>(ring + kMmaStages * lay.stage);   // F4; F1's H
+  float* tile_s = reinterpret_cast<float*>(ring + lay.tiles);                // F1
   const int tid = threadIdx.x, nthr = blockDim.x, warp = tid / kWarp, lane = tid % kWarp;
   const int g = lane >> 2, qd = lane & 3;    // the fragments' row group and column pair
   const int n_mine = K > (int)blockIdx.x ? (K - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
   const bool vg16 = (C * R) % VEC == 0 && reinterpret_cast<uintptr_t>(vg) % 16 == 0;
-  const bool q16 = (I * R) % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  const bool q16 = EPI == kEpiG && IR % 4 == 0 && reinterpret_cast<uintptr_t>(wq) % 16 == 0;
+  // F1's tiles leave as 16-byte runs where a subject's [I*R] block is whole packs
+  const bool o16 = EPI == kEpiB && IR % 4 == 0 && reinterpret_cast<uintptr_t>(xkv) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
 
   // pads that no copy writes: columns C .. C16 - 1 of every row, rows I .. I16 - 1
   for (int s = 0; s < kMmaStages; ++s) {
@@ -1384,8 +1420,10 @@ ykv_mma_ring_kernel(const S* __restrict__ vals, const float* __restrict__ q,
       if (row >= I || col >= C) st[row * SPV + col] = S(0.0f);
     }
   }
+  if constexpr (EPI == kEpiB)
+    for (int t = tid; t < RR; t += nthr) part_s[t] = h[t];
 
-  // copy subject k's slab, Vg_k and Q_k into the stage at `stb`
+  // copy subject k's slab, Vg_k and Q_k (F4) or w_k (F1) into the stage at `stb`
   const Walk slab0(tid, nthr, ALIGNED ? NP : C);
   auto fetch = [&](unsigned char* stb, int64_t k) {
     S* st = reinterpret_cast<S*>(stb);
@@ -1406,22 +1444,44 @@ ykv_mma_ring_kernel(const S* __restrict__ vals, const float* __restrict__ q,
       for (int u = tid; u < C * R; u += nthr) copy_elem(vd + u, vsrc + u);
     }
     float* qdst = reinterpret_cast<float*>(stb + lay.vg);
-    const float* qsrc = q + k * I * R;
-    if (q16) {
-      for (int u = tid; u * 4 < I * R; u += nthr) cp_async<16>(qdst + u * 4, qsrc + u * 4);
+    if constexpr (EPI == kEpiB) {
+      for (int u = tid; u < R; u += nthr) cp_async<4>(qdst + u, wq + k * R + u);
     } else {
-      for (int u = tid; u < I * R; u += nthr) cp_async<4>(qdst + u, qsrc + u);
+      const float* qsrc = wq + k * IR;
+      if (q16) {
+        for (int u = tid; u * 4 < IR; u += nthr) cp_async<16>(qdst + u * 4, qsrc + u * 4);
+      } else {
+        for (int u = tid; u < IR; u += nthr) cp_async<4>(qdst + u, qsrc + u);
+      }
     }
   };
   auto subject = [&](int n) { return (int64_t)blockIdx.x + (int64_t)n * gridDim.x; };
-  // G of the block's n-th subject: the warps' partials (buffer n % 2) in
-  // warp order, one thread an entry
+  // F4: G of the block's n-th subject, the warps' partials (buffer n % 2)
+  // in warp order, one thread an entry
   auto sum_partials = [&](int n) {
     const float* part = part_s + (n % 2) * kMmaWarps * RR;
     for (int p = tid; p < RR; p += nthr) {
       float v = 0.0f;
       for (int w = 0; w < kMmaWarps; ++w) v += part[w * RR + p];
       out[subject(n) * RR + p] = v;
+    }
+  };
+  // F1: XkV_k and B_k of the block's n-th subject from tile n % 2 to their
+  // contiguous [I*R] blocks
+  auto drain_tiles = [&](int n) {
+    const float* t = tile_s + (n % 2) * 2 * IR;
+    const int64_t o = subject(n) * IR;
+    if (o16) {
+      for (int u = tid; u < IR / 2; u += nthr) {     // IR / 4 packs an array, two arrays
+        const int a = u / (IR / 4), p = u - a * (IR / 4);
+        const float4 v = reinterpret_cast<const float4*>(t + a * IR)[p];
+        reinterpret_cast<float4*>((a ? out : xkv) + o)[p] = v;
+      }
+    } else {
+      for (int u = tid; u < 2 * IR; u += nthr) {
+        const int a = u >= IR, p = u - a * IR;
+        ((a ? out : xkv) + o)[p] = t[u];
+      }
     }
   };
 
@@ -1433,20 +1493,23 @@ ykv_mma_ring_kernel(const S* __restrict__ vals, const float* __restrict__ q,
   for (int n = 0; n < n_mine; ++n) {         // block-uniform
     cp_async_wait<kMmaStages - 2>();        // subject n's copies are in
     __syncthreads();                         // everyone's; stage n-1 is read
-    if (n > 0) sum_partials(n - 1);
+    if constexpr (EPI == kEpiG)
+      if (n > 0) sum_partials(n - 1);
     const int nn = n + kMmaStages - 1;
     if (nn < n_mine) fetch(ring + (nn % kMmaStages) * lay.stage, subject(nn));
     cp_async_commit();
+    if constexpr (EPI == kEpiB)
+      if (n > 0) drain_tiles(n - 1);         // written before this barrier
 
     const unsigned char* stb = ring + (n % kMmaStages) * lay.stage;
     const S* x_s = reinterpret_cast<const S*>(stb);
     const unsigned short* vr = reinterpret_cast<const unsigned short*>(stb + lay.slab);
-    const float* q_s = reinterpret_cast<const float*>(stb + lay.vg);
+    const float* q_s = reinterpret_cast<const float*>(stb + lay.vg);   // F4's Q_k, F1's w_k
     // Vg_k[c, n] as 16 bits, zero past C and past R
     auto vbits = [&](int c, int col) -> unsigned {
       return c < C && col < R ? (unsigned)vr[c * R + col] : 0u;
     };
-    float gacc[kOwnerR][2];                  // G[r, 2 qd + e] over this lane's rows
+    float gacc[kOwnerR][2];                  // F4: G[r, 2 qd + e] over this lane's rows
 #pragma unroll
     for (int r = 0; r < kOwnerR; ++r) gacc[r][0] = gacc[r][1] = 0.0f;
     for (int mt = warp; mt < MT; mt += kMmaWarps) {
@@ -1461,43 +1524,84 @@ ykv_mma_ring_kernel(const S* __restrict__ vals, const float* __restrict__ q,
         mma_16816<S>(d, a, b);
       }
       const int ia = mt * 16 + g, ib = ia + 8;
+      if constexpr (EPI == kEpiB) {
+        // the quad's four lanes hold columns (0, 1), (2, 3), (4, 5), (6, 7)
+        // of rows ia and ib: each lane gathers the rows' R values (two
+        // shuffles a column pair and row pair), then forms B[i, l] = sum_r
+        // (XkV[i, r] w[r]) H[l, r], r in order, for its columns l
+        float xa[kOwnerR], xb[kOwnerR];
 #pragma unroll
-      for (int r = 0; r < kOwnerR; ++r) {
-        if (r < R) {
-          if (ia < I) {
-            const float qa = q_s[ia * R + r];
-            gacc[r][0] += qa * d[0];
-            gacc[r][1] += qa * d[1];
+        for (int j = 0; j < kOwnerR / 2; ++j) {
+          const int src = (lane & ~3) | j;
+          xa[2 * j] = xa[2 * j + 1] = xb[2 * j] = xb[2 * j + 1] = 0.0f;
+          if (2 * j < R) {                   // warp-uniform
+            xa[2 * j] = __shfl_sync(0xffffffffu, d[0], src);
+            xa[2 * j + 1] = __shfl_sync(0xffffffffu, d[1], src);
+            xb[2 * j] = __shfl_sync(0xffffffffu, d[2], src);
+            xb[2 * j + 1] = __shfl_sync(0xffffffffu, d[3], src);
           }
-          if (ib < I) {
-            const float qb = q_s[ib * R + r];
-            gacc[r][0] += qb * d[2];
-            gacc[r][1] += qb * d[3];
+        }
+        float* t = tile_s + (n % 2) * 2 * IR;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int l = 2 * qd + e;
+          if (l < R) {
+            float ba = 0.0f, bb = 0.0f;
+#pragma unroll
+            for (int r = 0; r < kOwnerR; ++r)
+              if (r < R) {
+                const float hw = part_s[l * R + r];
+                ba += (xa[r] * q_s[r]) * hw;
+                bb += (xb[r] * q_s[r]) * hw;
+              }
+            if (ia < I) { t[ia * R + l] = d[e]; t[IR + ia * R + l] = ba; }
+            if (ib < I) { t[ib * R + l] = d[2 + e]; t[IR + ib * R + l] = bb; }
+          }
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < kOwnerR; ++r) {
+          if (r < R) {
+            if (ia < I) {
+              const float qa = q_s[ia * R + r];
+              gacc[r][0] += qa * d[0];
+              gacc[r][1] += qa * d[1];
+            }
+            if (ib < I) {
+              const float qb = q_s[ib * R + r];
+              gacc[r][0] += qb * d[2];
+              gacc[r][1] += qb * d[3];
+            }
           }
         }
       }
     }
-    // the eight row groups of a warp in a fixed order, then the warp's
-    // partial into buffer n % 2, summed after the next barrier
-#pragma unroll
-    for (int r = 0; r < kOwnerR; ++r)
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-#pragma unroll
-        for (int off = 4; off < kWarp; off <<= 1)
-          gacc[r][e] += __shfl_xor_sync(0xffffffffu, gacc[r][e], off);
-    if (g == 0) {
-      float* part = part_s + (n % 2) * kMmaWarps * RR + warp * RR;
+    if constexpr (EPI == kEpiG) {
+      // the eight row groups of a warp in a fixed order, then the warp's
+      // partial into buffer n % 2, summed after the next barrier
 #pragma unroll
       for (int r = 0; r < kOwnerR; ++r)
 #pragma unroll
         for (int e = 0; e < 2; ++e)
-          if (r < R && 2 * qd + e < R) part[r * R + 2 * qd + e] = gacc[r][e];
+#pragma unroll
+          for (int off = 4; off < kWarp; off <<= 1)
+            gacc[r][e] += __shfl_xor_sync(0xffffffffu, gacc[r][e], off);
+      if (g == 0) {
+        float* part = part_s + (n % 2) * kMmaWarps * RR + warp * RR;
+#pragma unroll
+        for (int r = 0; r < kOwnerR; ++r)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (r < R && 2 * qd + e < R) part[r * R + 2 * qd + e] = gacc[r][e];
+      }
     }
   }
   cp_async_wait<0>();                        // leave no copy in flight
-  __syncthreads();                           // the last subject's partials
-  if (n_mine > 0) sum_partials(n_mine - 1);
+  __syncthreads();                           // the last subject's partials or tiles
+  if (n_mine > 0) {
+    if constexpr (EPI == kEpiG) sum_partials(n_mine - 1);
+    else drain_tiles(n_mine - 1);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1511,9 +1615,11 @@ int rows_that_fit(size_t fixed, size_t stride) {
   return fixed + stride <= cap ? (int)((cap - fixed) / stride) : 0;
 }
 
-// F1's variants, as spartan_fused_procrustes_b_variant reports them.
+// F1's variants, as spartan_fused_procrustes_b_variant reports them (F4's
+// too): the FMA ring, the row-warp designs, the tensor-core ring.
 enum F1Variant { kRing = 0, kRingElementCopies = 1, kRowWarp = 2, kRowWarpChunked = 3,
-                 kRowWarpWide = 4, kRowWarpWideChunked = 5 };
+                 kRowWarpWide = 4, kRowWarpWideChunked = 5, kRingMma = 6,
+                 kRingMmaElementCopies = 7 };
 
 // The Vg_k rows the row-warp variant stages at a time.
 template <typename T>
@@ -1522,13 +1628,18 @@ int f1_rows_per_chunk(int C, int R, bool wide, int rmax) {
   return std::min(C, rows_that_fit<T>(fixed, row_stride(wide ? rmax : R)));
 }
 
-// RING where its stages fit and R <= 64 (16-byte copies when every slab
-// row starts on a 16-byte boundary), else ROW-WARP.
+// RING-MMA for a half slab and Vg at R <= 8 where its stages fit; else RING
+// where its stages fit and R <= 64; else ROW-WARP. 16-byte copies when every
+// slab row starts on a 16-byte boundary, else element copies.
 template <typename T, typename S>
 int f1_variant(int I, int C, int R, bool aligned) {
+  const bool whole = aligned && C % (16 / (int)sizeof(S)) == 0;
+  if (sizeof(S) == 2 && R <= kOwnerR &&
+      mma_layout<kEpiB>(I, C, R).smem_bytes <= (size_t)kMaxDynamicSmem)
+    return whole ? kRingMma : kRingMmaElementCopies;
   if (R <= kTile &&
       ring_layout<T, S, kEpiB>(I, C, R, kStages).smem_bytes <= (size_t)kMaxDynamicSmem)
-    return aligned && C % (16 / (int)sizeof(S)) == 0 ? kRing : kRingElementCopies;
+    return whole ? kRing : kRingElementCopies;
   const bool wide = R > kTile;
   const bool chunked = f1_rows_per_chunk<T>(C, R, wide, kTile) < C;
   return wide ? (chunked ? kRowWarpWideChunked : kRowWarpWide)
@@ -1540,6 +1651,23 @@ cudaError_t launch_f1(const void* vals, const void* vg, const void* wb,
                       const void* h, void* xkv, void* b, int K, int I, int C,
                       int R, cudaStream_t stream) {
   const int variant = f1_variant<T, S>(I, C, R, reinterpret_cast<uintptr_t>(vals) % 16 == 0);
+  if (variant == kRingMma || variant == kRingMmaElementCopies) {
+    if constexpr (sizeof(S) == 2 && RMAX <= kOwnerR) {
+      const size_t smem = mma_layout<kEpiB>(I, C, R).smem_bytes;
+      auto kernel = variant == kRingMma ? mma_ring_kernel<S, true, kEpiB>
+                                        : mma_ring_kernel<S, false, kEpiB>;
+      cudaError_t e = allow_smem(kernel, smem);
+      int grid = 0;
+      if (e == cudaSuccess) e = persistent_grid(kernel, kMmaThreads, smem, K, &grid);
+      if (e != cudaSuccess) return e;
+      kernel<<<grid, kMmaThreads, smem, stream>>>(
+          static_cast<const S*>(vals), static_cast<const S*>(vg),
+          static_cast<const float*>(wb), static_cast<const float*>(h),
+          static_cast<float*>(xkv), static_cast<float*>(b), K, I, C, R);
+      return cudaGetLastError();
+    }
+    return cudaErrorInvalidValue;            // no such shape reaches here
+  }
   if (variant == kRing || variant == kRingElementCopies) {
     const size_t smem = ring_layout<T, S, kEpiB>(I, C, R, kStages).smem_bytes;
     auto kernel = variant == kRing ? slab_ring_kernel<T, S, RMAX, true, kEpiB>
@@ -1630,9 +1758,7 @@ cudaError_t launch_f3(const void* vals, const void* q, const void* h,
   return cudaGetLastError();
 }
 
-// F4's variants, as spartan_fused_ykv_variant reports them: F1's six, then
-// the tensor-core ring and its element copies.
-enum F4Variant { kRingMma = 6, kRingMmaElementCopies = 7 };
+// F4's variants, as spartan_fused_ykv_variant reports them: F1's.
 
 // The row-warp variant's chunks: Vg_k rows CC and rows IT (the whole of
 // each where the subject fits in kMaxDynamicSmem).
@@ -1670,7 +1796,7 @@ template <typename T, typename S>
 int f4_variant(int I, int C, int R, bool aligned) {
   const bool whole = aligned && C % (16 / (int)sizeof(S)) == 0;
   const bool half_narrow = sizeof(S) == 2 && R <= kOwnerR;
-  if (half_narrow && mma_layout(I, C, R).smem_bytes <= (size_t)kMaxDynamicSmem)
+  if (half_narrow && mma_layout<kEpiG>(I, C, R).smem_bytes <= (size_t)kMaxDynamicSmem)
     return whole ? kRingMma : kRingMmaElementCopies;
   if (!half_narrow && R <= kTile && I >= kRingMinRows &&
       ring_layout<T, S, kEpiG>(I, C, R, 2).smem_bytes <= (size_t)kMaxDynamicSmem)
@@ -1691,16 +1817,17 @@ cudaError_t launch_f4(const void* vals, const void* q, const void* vg,
   constexpr bool kHalfNarrow = sizeof(S) == 2 && RMAX <= kOwnerR;
   if (variant == kRingMma || variant == kRingMmaElementCopies) {
     if constexpr (kHalfNarrow) {
-      const size_t smem = mma_layout(I, C, R).smem_bytes;
-      auto kernel = variant == kRingMma ? ykv_mma_ring_kernel<S, true>
-                                        : ykv_mma_ring_kernel<S, false>;
+      const size_t smem = mma_layout<kEpiG>(I, C, R).smem_bytes;
+      auto kernel = variant == kRingMma ? mma_ring_kernel<S, true, kEpiG>
+                                        : mma_ring_kernel<S, false, kEpiG>;
       cudaError_t e = allow_smem(kernel, smem);
       int grid = 0;
       if (e == cudaSuccess) e = persistent_grid(kernel, kMmaThreads, smem, K, &grid);
       if (e != cudaSuccess) return e;
       kernel<<<grid, kMmaThreads, smem, stream>>>(
-          static_cast<const S*>(vals), static_cast<const float*>(q),
-          static_cast<const S*>(vg), static_cast<float*>(out), K, I, C, R);
+          static_cast<const S*>(vals), static_cast<const S*>(vg),
+          static_cast<const float*>(q), static_cast<const float*>(nullptr),
+          static_cast<float*>(nullptr), static_cast<float*>(out), K, I, C, R);
       return cudaGetLastError();
     }
     return cudaErrorInvalidValue;            // no such shape reaches here

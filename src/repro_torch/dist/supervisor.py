@@ -28,10 +28,13 @@ A :class:`~repro_torch.dist.fault.StepWatchdog` observes each committed
 chunk's wall time, except the first call of each chunk length (the
 reference's rule: there, its compile); straggler flags are reported, never
 retried. On a GPU the chunk is one captured iteration replayed (the capture
-happens when the chunk is made, before the timed call), and it donates its
-state: the state it returns is its own carry, which its next call
-overwrites. So the last good boundary is kept as a copy of the carry, and a
-checkpoint is read before the next replay.
+happens when the chunk is made, before the timed call); the chunk comes
+from the scan engine's cache (``engine.cached_chunk``), so a supervised fit
+on data that a fit with the same options already ran replays that fit's
+chunk. A chunk donates its state: the state it returns is its own carry,
+which its next call overwrites. So the last good boundary is kept as a copy
+of the carry, the fit returns that copy, and a checkpoint is read before
+the next replay.
 
 Resume: with ``ckpt_dir`` set, checkpoints carry the fit history in their
 ``extra`` (step = iterations completed); ``resume=True`` continues from the
@@ -44,10 +47,8 @@ import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
-import torch
 
 from repro_torch import checkpoint as ckpt
-from repro_torch.core import constraints as cst
 from repro_torch.core import engine as _engine
 from repro_torch.core import parafac2 as p2
 from repro_torch.dist.fault import (FaultInjector, StepWatchdog, TransientFault,
@@ -81,10 +82,12 @@ class SupervisorConfig:
     injector: Optional[FaultInjector] = None
     sleep: Callable = time.sleep            # injectable for backoff tests
     clock: Callable = time.perf_counter     # injectable for watchdog tests
-    # chunk cache shared across supervised_fit calls (a {length: chunk}
-    # dict the caller owns, one chunk under every length it has run).
-    # Lengths already present count as warm: repeated fits of one geometry
-    # skip making (on a GPU, capturing) the chunk again.
+    # the chunks a caller saw, shared across supervised_fit calls (a
+    # {length: chunk} dict the caller owns, one chunk under every length it
+    # has run). Lengths already present count as warm for the watchdog.
+    # The chunks themselves come from the scan engine's cache
+    # (repro_torch.core.engine.CHUNKS), which keeps a fit's chunk for the
+    # next fit on the same data and options, with or without this dict.
     chunk_cache: Optional[Dict[int, Callable]] = None
 
 
@@ -111,13 +114,6 @@ def _poison(state: "p2.Parafac2State") -> "p2.Parafac2State":
     """NaN the H factor: every later update and the fit inherit the NaN,
     which is what the health sentinel must catch."""
     return dataclasses.replace(state, H=state.H * float("nan"))
-
-
-def _copy(state: "p2.Parafac2State") -> "p2.Parafac2State":
-    """The state with every tensor cloned: a chunk's returned state is its
-    carry, which its next call overwrites."""
-    return p2.Parafac2State(**{f.name: cst.tree_map(torch.clone, getattr(state, f.name))
-                               for f in dataclasses.fields(state)})
 
 
 def _healthy(fits: np.ndarray, best: float, regress_tol: float) -> bool:
@@ -204,7 +200,7 @@ def supervised_fit(data, opts: "p2.Parafac2Options", *, max_iters: int = 100,
         iterations serves every length up to it, as in ``fit_device``."""
         if n not in chunks:
             base = next((c for c in chunks.values() if c.length >= n), None)
-            chunks[n] = base or _engine.make_als_chunk(
+            chunks[n] = base or _engine.cached_chunk(
                 data, run_opts, max(n, opts.check_every), state=st)
         return chunks[n]
 
@@ -306,7 +302,7 @@ def supervised_fit(data, opts: "p2.Parafac2Options", *, max_iters: int = 100,
             if len(history) > 1 and abs(f - prev) < tol:
                 done = True                # fit_device's rule: keep the
             prev = f                       # whole chunk
-        good_state, good_history = _copy(state), list(history)
+        good_state, good_history = _engine.clone_state(state), list(history)
         report.chunks += 1
         chunk_idx += 1
         if report.chunks % cfg.ckpt_every == 0:
@@ -317,4 +313,6 @@ def supervised_fit(data, opts: "p2.Parafac2Options", *, max_iters: int = 100,
 
     if cfg.ckpt_dir is not None and disk_step != len(history):
         save(state, history)               # final boundary, resume-exact
-    return state, history, report
+    # the last good boundary is this state's copy: the chunk is kept for
+    # the next fit on this data, which overwrites its carry
+    return good_state, history, report

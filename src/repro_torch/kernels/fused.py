@@ -27,8 +27,8 @@ other operand float32; they read the half values at 2 bytes, sum in
 float32 and return float32, as the reference's kernels do; F2 reads no
 slab and takes float32/float64. The plain versions widen the half
 operands with ``accum_dtype`` and compute in float32, the same function.
-F1, F3 and F4 stream the slab through cp.async rings; F4 on a half slab
-(R <= 8) forms X_k Vg_k on the tensor cores. Each launcher picks a variant
+F1, F3 and F4 stream the slab through cp.async rings; F1 and F4 on a half
+slab (R <= 8) form X_k Vg_k on the tensor cores. Each launcher picks a variant
 by shape and type; ``procrustes_b_variant``, ``mode1_xkv_variant``,
 ``mode2_compact_fused_variant`` and ``ykv_fused_variant`` report it for
 CUDA operands. The kernel library is built at first use.
@@ -84,11 +84,11 @@ LIB = KernelLib("fused", KERNELS, {
 # the codes of spartan_fused_procrustes_b_variant, ..._mode1_xkv_variant,
 # ..._mode2_compact_variant and ..._ykv_variant
 F1_VARIANTS = ("ring", "ring-element-copies", "row-warp", "row-warp-chunked",
-               "row-warp-wide", "row-warp-wide-chunked")
+               "row-warp-wide", "row-warp-wide-chunked", "ring-mma", "ring-mma-element-copies")
 F2_VARIANTS = ("ring", "ring-element-copies", "chunked")
 F3_VARIANTS = ("ring", "ring-element-copies", "thread-per-column", "thread-per-column-chunked",
                "thread-per-column-wide", "thread-per-column-wide-chunked")
-F4_VARIANTS = F1_VARIANTS + ("ring-mma", "ring-mma-element-copies")
+F4_VARIANTS = F1_VARIANTS
 # F2's workspace (partials and ticket counter), per device, stream, dtype and R
 WORKSPACES = Workspaces(LIB, "spartan_fused_mode1_workspace")
 # kernel launches per wrapper; plain-version calls on the CPU are not counted
@@ -164,10 +164,12 @@ def _slab_variant(fn: str, table: tuple, label: str, vals: torch.Tensor, R: int)
 
 def procrustes_b_variant(vals: torch.Tensor, R: int) -> str:
     """Which variant of F1's kernel :func:`fused_procrustes_b` launches for a
-    CUDA slab ``vals`` [K,I,C] (float32, float64 or half) at rank R:
-    ``ring`` (the main path's), or ``ring-element-copies`` for a slab whose
-    rows are not whole 16-byte runs, or ``row-warp*`` for R > 64 or a
-    subject too large for the ring."""
+    CUDA slab ``vals`` [K,I,C] (with Vg of its dtype) at rank R:
+    ``ring-mma`` (a half slab at R <= 8: X_k Vg_k on the tensor cores) or
+    ``ring`` (FMA: float32/float64, the main path's, and a half slab past
+    R = 8), each ``...-element-copies`` for a slab whose rows are not whole
+    16-byte runs, or ``row-warp*`` for R > 64 or a subject too large for
+    the rings."""
     return _slab_variant("spartan_fused_procrustes_b_variant", F1_VARIANTS, "F1", vals, R)
 
 

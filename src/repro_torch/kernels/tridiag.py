@@ -12,7 +12,8 @@ a CUDA graph can capture it. The arithmetic stays in Y's dtype, as the
 reference's does.
 
 On CUDA tensors :func:`tridiag_solve` launches the kernel (or raises): the
-partition method, applied level by level, one C call a solve
+partition method, every level inside one launch of a persistent grid, whose
+last block to finish the reduction solves the deepest levels
 (``csrc/tridiag.cu``). On the CPU it runs :func:`tridiag_solve_plain`,
 cyclic reduction in torch ops, about 2 log2(N) vectorised steps whatever N.
 """
@@ -111,6 +112,5 @@ def tridiag_solve(Y: torch.Tensor, rho: torch.Tensor, lam: float) -> torch.Tenso
 
 
 def device_kernels(N: int) -> int:
-    """The device kernels one call at N rows enqueues (2 L + 1, L the
-    partition method's reduced levels)."""
+    """The device kernels one call at N rows enqueues: 1."""
     return LIB.lib().spartan_tridiag_kernels(N)

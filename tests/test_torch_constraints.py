@@ -251,6 +251,104 @@ def test_tridiag_plain_is_the_cpu_path_and_checks_its_operands():
     assert tridiag.tridiag_solve_plain(Y.float(), rho, 0.4).dtype == torch.float32
 
 
+def _p2_reduce(a, b, c, d, bounds):
+    """Steps 1 and 2 of csrc/tridiag.cu's partition method on each chunk
+    (s, e) of ``bounds``: the chunks' reduced rows (a, b, c, d at 2j, 2j +
+    1) and f, 1 / g, h of their rows for step 3."""
+    n = len(bounds)
+    ra, rb, rc, rd = np.zeros(2 * n), np.zeros(2 * n), np.zeros(2 * n), np.zeros((2 * n, d.shape[1]))
+    f, gi, h = np.zeros(len(b)), np.zeros(len(b)), np.zeros(d.shape)
+    for j, (s, e) in enumerate(bounds):
+        fp, gp, hv = a[s + 1], b[s + 1], d[s + 1]
+        f[s + 1], gi[s + 1], h[s + 1] = fp, 1 / gp, hv
+        for i in range(s + 2, e + 1):
+            k = a[i] * gi[i - 1]
+            fp, gp, hv = -k * fp, b[i] - k * c[i - 1], d[i] - k * hv
+            f[i], gi[i], h[i] = fp, 1 / gp, hv
+        ra[2 * j + 1], rb[2 * j + 1], rc[2 * j + 1], rd[2 * j + 1] = fp, gp, c[e], hv
+        if e == s + 1:
+            beta, gamma, z = b[s], c[s], d[s]
+        else:
+            u, w, z = f[e - 1], c[e - 1], h[e - 1]
+            for i in range(e - 2, s, -1):
+                k = c[i] * gi[i + 1]
+                u, w, z = f[i] - k * u, -k * w, h[i] - k * z
+            k = c[s] * gi[s + 1]
+            beta, gamma, z = b[s] - k * u, -k * w, d[s] - k * z
+        ra[2 * j], rb[2 * j], rc[2 * j], rd[2 * j] = a[s], beta, gamma, z
+    return (ra, rb, rc, rd), (f, gi, h)
+
+
+def _p2_expand(c, f, gi, h, xr, bounds):
+    """Step 3: each chunk's rows from its x_s and x_e (rows 2j, 2j + 1 of xr)."""
+    x = np.zeros(h.shape)
+    for j, (s, e) in enumerate(bounds):
+        x[s], x[e] = xr[2 * j], xr[2 * j + 1]
+        for i in range(e - 1, s, -1):
+            x[i] = (h[i] - f[i] * x[s] - c[i] * x[i + 1]) * gi[i]
+    return x
+
+
+def _p2_one_launch(Y, rho, lam, ups):
+    """The levels of csrc/tridiag.cu's one launch, in f64: level 0 in chunks
+    of 32 rows (``chunk_rows``), level 1 in units of 16 chunks' rows, level
+    2 in a block's ``ups`` units' rows, then chunks of 32 until at most 64
+    rows remain, Thomas there."""
+    N = len(Y)
+    two_lam = 2 * lam
+    a = np.full(N, -two_lam)
+    a[0] = 0.0
+    c = np.full(N, -two_lam)
+    c[-1] = 0.0
+    b = rho + two_lam * np.r_[1.0, np.full(N - 2, 2.0), 1.0]
+    chunks = lambda n, P: [(j * n // P, (j + 1) * n // P - 1) for j in range(P)]  # noqa: E731
+    P0 = -(-N // 32)
+    levels = [(a, b, c, rho * Y, chunks(N, P0))]
+    U = -(-P0 // 16)
+    units = [(32 * u, 2 * min(16 * (u + 1), P0) - 1) for u in range(U)]
+    blocks = [(2 * b * ups, 2 * min((b + 1) * ups, U) - 1) for b in range(-(-U // ups))]
+    stash = []
+    while True:
+        a_, b_, c_, d_, bounds = levels[-1]
+        if bounds is None:
+            break
+        sys_, keep = _p2_reduce(a_, b_, c_, d_, bounds)
+        stash.append(keep)
+        n = len(sys_[1])
+        nxt = {1: units, 2: blocks}.get(len(levels), chunks(n, -(-n // 32)) if n > 64 else None)
+        levels.append((*sys_, nxt))
+    a_, b_, c_, d_, _ = levels[-1]
+    x = np.zeros(d_.shape)                 # Thomas with the pivots' reciprocals
+    cp, piv = np.zeros(len(b_)), np.zeros(len(b_))
+    piv[0] = 1 / b_[0]
+    cp[0] = c_[0] * piv[0]
+    x[0] = d_[0] * piv[0]
+    for i in range(1, len(b_)):
+        piv[i] = 1 / (b_[i] - a_[i] * cp[i - 1])
+        cp[i] = c_[i] * piv[i]
+        x[i] = (d_[i] - a_[i] * x[i - 1]) * piv[i]
+    for i in range(len(b_) - 2, -1, -1):
+        x[i] = x[i] - cp[i] * x[i + 1]
+    for (a_, b_, c_, d_, bounds), (f, gi, h) in zip(levels[-2::-1], stash[::-1]):
+        x = _p2_expand(c_, f, gi, h, x, bounds)
+    return x
+
+
+@pytest.mark.parametrize("N,ups", [(65, 1), (1025, 1), (1025, 2), (20000, 1), (20000, 3)])
+@pytest.mark.parametrize("lam", [0.1, 70.0])
+def test_tridiag_one_launch_order_matches_plain(N, ups, lam):
+    """P2's kernel order (csrc/tridiag.cu: level-0 chunks, level-1 units, a
+    block's units (one, or several where the units outnumber a grid's
+    blocks), level 3 in chunks of 32 past 64 rows (N = 20,000), Thomas,
+    every division a multiplication by a reciprocal), emulated in f64,
+    solves the system P2's plain version solves, within 1e-12 of max |Z|,
+    also at rho / lam = 0.01 (lam 70, rho 0.7)."""
+    Y = _rand((N, 3), N)
+    want = tridiag.tridiag_solve_plain(torch.tensor(Y), torch.tensor(0.7, dtype=F64), lam).numpy()
+    got = _p2_one_launch(Y, 0.7, lam, ups)
+    assert np.max(np.abs(got - want)) <= 1e-12 * np.max(np.abs(want))
+
+
 @pytest.mark.parametrize("spec", ["nonneg_admm", "l1:0.2", "nonneg+l1:0.1", "smooth:0.3",
                                   "smooth:0"])
 @pytest.mark.parametrize("iters", [1, 10])

@@ -182,6 +182,48 @@ def test_procrustes_b_edges(dev, shape, dtype):
     assert all(torch.equal(x, y) for x, y in zip(got, again))
 
 
+# (K, I, C, R, offset of the slab's start in elements) -> F1's variant with
+# a half slab and Vg: R 1-8, I below, at and past an m-tile, C below and
+# past a k-step, I * R whole 16-byte packs of the outputs or not
+F1_HALF_EDGES = {
+    (7, 56, 128, 5, 0): "ring-mma",                   # the main path's
+    (58112, 56, 128, 5, 0): "ring-mma",               # its largest bucket, past the grid
+    (1, 1, 1, 1, 0): "ring-mma-element-copies",       # one subject of one row and column
+    (3, 15, 15, 2, 0): "ring-mma-element-copies",     # below an m-tile and a k-step
+    (4, 17, 128, 3, 0): "ring-mma",                   # one row past an m-tile
+    (6, 18, 128, 4, 0): "ring-mma",                   # the rsvd cores' rows
+    (5, 64, 130, 6, 0): "ring-mma-element-copies",    # whole m-tiles; C past a k-step
+    (5, 56, 128, 7, 3): "ring-mma-element-copies",    # the slab's start not 16-byte aligned
+    (2, 64, 128, 8, 0): "ring-mma",                   # R = 8, the whole n-tile
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(F1_HALF_EDGES),
+                         ids=lambda s: "K{}-I{}-C{}-R{}-off{}".format(*s))
+@pytest.mark.parametrize("half", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+def test_procrustes_b_half_edges(dev, shape, half):
+    """F1 at half width at the edges of its tensor-core ring: the variant it
+    takes, the plain version's XkV and B within the f32 bound (every third
+    subject masked), and the same bits twice."""
+    K, I, C, R, offset = shape
+    rng = np.random.default_rng(K + I + C + R + offset)
+    vals = _offset_tensor((K, I, C), half, dev, rng, offset)
+    Vg = torch.tensor(rng.standard_normal((K, C, R)), device=dev).to(half)
+    Wb, H = (torch.tensor(rng.standard_normal(s), dtype=torch.float32, device=dev)
+             for s in ((K, R), (R, R)))
+    Wb[::3] = 0
+    assert fused.procrustes_b_variant(vals, R) == F1_HALF_EDGES[shape]
+    before = fused.LAUNCHES["fused_procrustes_b"]
+    got = fused.fused_procrustes_b(vals, Vg, Wb, H)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["fused_procrustes_b"] == before + 1
+    _assert_matches(got, fused.procrustes_b_plain(vals, Vg, Wb, H), torch.float32)
+    assert not got[1][::3].any()
+    again = fused.fused_procrustes_b(vals, Vg, Wb, H)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
 # (K, I, C, R, offset of the slab's start in elements) -> the (F4, F3)
 # variants with a float32, a float64 and a half (bfloat16, float16) slab
 _RING2 = ("ring", "ring")
@@ -1187,8 +1229,8 @@ P2_N = (2, 3, 33, 64, 65, 1025, 4097, 116225, 464900)
 @pytest.mark.parametrize("R", [1, 5, 40])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_tridiag_solve_matches_plain(dev, N, R, dtype):
-    """P2 against its plain version (cyclic reduction) at lam 0, 0.1 and 5,
-    rho 0.7 on the device, relative to max |Z|: f64 1e-12; f32 1e-6 times
+    """P2 against its plain version (cyclic reduction) at lam 0, 0.1, 5 and
+    70, rho 0.7 on the device, relative to max |Z|: f64 1e-12; f32 1e-6 times
     the condition bound 1 + 8 lam / rho (two backward-stable solves of one
     system part by about the condition number times the rounding). One
     launch a call, the same bits twice."""
@@ -1196,7 +1238,7 @@ def test_tridiag_solve_matches_plain(dev, N, R, dtype):
     Y = torch.tensor(np.random.default_rng(N + R).standard_normal((N, R)), dtype=dtype,
                      device=dev)
     rho = torch.full((), 0.7, dtype=dtype, device=dev)
-    for lam in (0.0, 0.1, 5.0):
+    for lam in (0.0, 0.1, 5.0, 70.0):          # 70: rho / lam = 0.01
         before = tridiag.LAUNCHES["tridiag_solve"]
         got = tridiag.tridiag_solve(Y, rho, lam)
         assert tridiag.LAUNCHES["tridiag_solve"] == before + 1
@@ -1236,7 +1278,7 @@ def test_tridiag_solve_reads_rho_on_the_device_and_checks(dev):
         tridiag.tridiag_solve(Y.half(), rho.half(), 0.1)
     with pytest.raises(ValueError, match="contiguous"):
         tridiag.tridiag_solve(Y.T.contiguous().T, rho, 0.1)
-    assert tridiag.device_kernels(116225) == 7 and tridiag.device_kernels(64) == 1
+    assert tridiag.device_kernels(116225) == 1 and tridiag.device_kernels(64) == 1
 
 
 CONSTRAINED = {"admm": ({"v": "nonneg_admm", "w": "nonneg_admm"}, {}),
@@ -1376,10 +1418,11 @@ def test_half_scoo_kernels_match_plain(dev, name, R, half):
 
 
 # (kernel, K, I, C, R) -> the variant at half width: C % 8 == 0 takes the
-# 16-byte ring, C % 8 == 4 (whole packs in f32) the element copies
+# 16-byte ring, C % 8 == 4 (whole packs in f32) the element copies; F1 at
+# R <= 8 takes its tensor-core ring
 HALF_EDGES = {
-    ("fused_procrustes_b", 9, 11, 16, 5): "ring",
-    ("fused_procrustes_b", 9, 11, 12, 5): "ring-element-copies",
+    ("fused_procrustes_b", 9, 11, 16, 5): "ring-mma",
+    ("fused_procrustes_b", 9, 11, 12, 5): "ring-mma-element-copies",
     ("fused_procrustes_b", 3, 9, 20, 72): "row-warp-wide",
     ("ykv", 9, 1, 16, 5): "ring",
     ("ykv", 9, 1, 12, 5): "ring-element-copies",

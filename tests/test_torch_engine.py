@@ -294,3 +294,98 @@ def test_decompose_scan_json_matches_reference(tmp_path):
     assert got["engine"] == "scan" and got["check_every"] == 4
     assert got["resolved_options"] == want["resolved_options"]
     assert len(got["fit_history"]) == 6
+
+
+# ---------------------------------------------------------------------------
+# the chunk kept across fits (engine.CHUNKS)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("check_every", [5, 0])
+def test_second_scan_fit_reuses_the_kept_chunk(choa, check_every):
+    """A second ``fit(engine="scan")`` on the same data and options makes no
+    new chunk (no warm-up, no capture on a GPU); both calls' histories and
+    states equal the host loop's bit for bit, and the first call's state
+    is a copy that the second call does not overwrite."""
+    host_state, host = _fit(choa)
+    engine.clear_chunk_cache()
+    made, reused = engine.CHUNKS.made, engine.CHUNKS.reused
+    s1, h1 = _fit(choa, engine_="scan", check_every=check_every)
+    kept = {f: getattr(s1, f).clone() for f in STATE}
+    s2, h2 = _fit(choa, engine_="scan", check_every=check_every)
+    assert (engine.CHUNKS.made, engine.CHUNKS.reused) == (made + 1, reused + 1)
+    assert len(engine.CHUNKS) == 1
+    assert h1 == h2 == host
+    for f in STATE:
+        assert torch.equal(getattr(s2, f), getattr(host_state, f)), f
+        assert torch.equal(getattr(s1, f), kept[f]), f
+        assert getattr(s1, f) is not getattr(s2, f)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_changed_options_rank_dtype_or_length_make_a_new_chunk(choa, dtype):
+    """Each change of what the capture depends on (the options, the rank,
+    the streamed operands' dtype, the chunk length, the while variant's
+    iterations) makes a new chunk in place of the data's one entry; going
+    back makes one again, and another start does not."""
+    bt = choa["bt"] if dtype == torch.float64 else bucketize(
+        choa_like(scale=0.002, seed=0), device="cpu", dtype=torch.float32)
+    engine.clear_chunk_cache()
+    base = dict(rank=5, dtype=dtype, backend="torch", engine="scan", check_every=3)
+    changes = [dict(), dict(nnls_sweeps=4), dict(rank=4), dict(check_every=2),
+               dict(check_every=0), dict()]
+    if dtype == torch.float32:
+        changes.insert(1, dict(precision="bf16"))
+    for change in changes:
+        opts = Parafac2Options(**{**base, **change})
+        made = engine.CHUNKS.made
+        state, hist = fit(bt, opts, max_iters=3, tol=0.0, seed=0)
+        assert engine.CHUNKS.made == made + 1, change
+        assert len(engine.CHUNKS) == 1 and len(hist) == 3
+    made = engine.CHUNKS.made
+    fit(bt, opts, max_iters=3, tol=0.0, seed=1)      # another start: the same chunk
+    fit(bt, opts, max_iters=4, tol=0.0, seed=0)      # the chunk serves any length
+    assert engine.CHUNKS.made == made
+    fit(bt, Parafac2Options(**{**base, "check_every": 0}), max_iters=4, tol=0.0)
+    assert engine.CHUNKS.made == made + 1            # the while variant's max_iters
+    s64 = engine.p2.init_state(choa["bt"], Parafac2Options(rank=5, dtype=torch.float64), 0)
+    s32 = engine.p2.init_state(bt, Parafac2Options(rank=5, dtype=torch.float32), 0)
+    assert engine._key("chunk", opts, s64, 3) != engine._key("chunk", opts, s32, 3)
+
+
+def test_kept_chunk_goes_with_its_data():
+    """The entry refers to its data weakly, and its chunk refers to the
+    data weakly: dropping the data frees both by reference counting,
+    without the garbage collector."""
+    import gc
+    import weakref
+    data = bucketize(random_irregular(n_subjects=6, n_cols=20, max_rows=5,
+                                      avg_nnz_per_subject=12, seed=1),
+                     device="cpu", dtype=torch.float64)
+    opts = Parafac2Options(rank=3, dtype=torch.float64, backend="torch", engine="scan",
+                           check_every=2)
+    engine.clear_chunk_cache()
+    fit(data, opts, max_iters=2, tol=0.0)
+    (entry,) = engine.CHUNKS._entries.values()
+    run = weakref.ref(entry[2])
+    del entry
+    gc.disable()
+    try:
+        del data
+        assert run() is None and len(engine.CHUNKS) == 0
+    finally:
+        gc.enable()
+
+
+def test_kept_chunk_refuses_once_its_data_is_gone():
+    """A chunk taken from the cache and held past its data raises rather
+    than replay a graph over freed memory."""
+    data = bucketize(random_irregular(n_subjects=6, n_cols=20, max_rows=5,
+                                      avg_nnz_per_subject=12, seed=2),
+                     device="cpu", dtype=torch.float64)
+    opts = Parafac2Options(rank=3, dtype=torch.float64, backend="torch")
+    state = engine.p2.init_state(data, opts, 0)
+    chunk = engine.cached_chunk(data, opts, 2, state=state)
+    assert engine.cached_chunk(data, opts, 2, state=state) is chunk
+    del data
+    with pytest.raises(RuntimeError, match="gone"):
+        chunk(state)

@@ -337,6 +337,17 @@ def _emulate_ykv(vals, Q, Vg, variant):
     return _sequential_g(Q, _row_warp_xkv(vals, Vg), range(I))
 
 
+def _emulate_procrustes_b(vals, Vg, Wb, H, variant):
+    """(XkV, B) in the order of F1's ``variant``: X_k Vg_k as F1's FMA ring
+    (``ring``) or the tensor cores' k-steps (``ring-mma``), then B[i, l] =
+    sum_r (XkV[i, r] w[r]) H[l, r], r in order, in both."""
+    X = _mma_xkv(vals, Vg) if variant == "ring-mma" else _ring_xkv(vals, Vg, vec=2)
+    B = np.zeros_like(X)
+    for r in range(X.shape[-1]):
+        B = B + (X[:, :, r, None] * Wb[:, None, r, None]) * H[None, None, :, r]
+    return X, B
+
+
 def _emulate_mode2(vals, Q, H, Wb, cm, variant):
     """A_k in the order of F3's ``variant``: y[c, r] over i in order, a over
     r in order, then (a * w) * col_mask; wide: per 64-wide chunk of r."""
@@ -373,6 +384,24 @@ def _slab_op(K, I, C, R, seed):
     Wb[::4] = 0.0                        # masked subjects, folded in
     return dict(vals=rng.standard_normal((K, I, C)), Q=rng.standard_normal((K, I, R)),
                 Vg=rng.standard_normal((K, C, R)), H=rng.standard_normal((R, R)), Wb=Wb, cm=cm)
+
+
+# (variant, R): F1's rings; the tensor-core ring takes R <= 8
+F1_ORDER_CASES = [(v, R) for R in (1, 5, 8) for v in ("ring", "ring-mma")] + [("ring", 9)]
+
+
+@pytest.mark.parametrize("K", ORDER_K)
+@pytest.mark.parametrize("variant,R", F1_ORDER_CASES)
+def test_fused_procrustes_b_summation_order_matches_plain(K, variant, R):
+    """Each F1 ring's order (the FMA ring's lane groups and butterfly, the
+    tensor cores' k-steps; B from the row's R sums in order), emulated in
+    f64, equals the plain version within 1e-12, masked subjects' B zero."""
+    op = _slab_op(K, 19, 40, R, seed=K + R + 2)
+    want = fused.fused_procrustes_b(*(torch.tensor(op[k]) for k in ("vals", "Vg", "Wb", "H")))
+    got = _emulate_procrustes_b(op["vals"], op["Vg"], op["Wb"], op["H"], variant)
+    for g, w in zip(got, want):
+        _close(torch.tensor(g), w, FUSED_TOLS[torch.float64])
+    assert not want[1][::4].any()
 
 
 @pytest.mark.parametrize("K", ORDER_K)
