@@ -149,7 +149,18 @@ Phases, any failure exits non-zero:
    CC auto, scan 10, 20 iterations): faultless, a blip, a restore from
    disk, a NaN rollback and a resume, each bit for bit the bare scan fit,
    ms/iter beside the bare fit's (with and without a shared chunk cache),
-   a checkpoint write's seconds and a ridge escalation's fit;
+   a checkpoint write's seconds and a ridge escalation's fit; before the
+   stream, the mesh engine (``phase3_mesh``): a world of one over NCCL on
+   CC auto and SCOO staged at check_every 10 and 0, bit for bit the scan
+   engine with the same launches, its 4 all-reduces an iteration issued
+   inside the capture, the captured graph's nodes by kind beside the scan
+   chunk's (NCCL kernels counted), the bytes all-reduced an iteration and
+   the second fit's ms/iter beside the scan engine's; then choa 0.25's CC
+   plan nnz-balanced and cut into 4 rank shards (``bucketize(shard=...)``),
+   every subject's F1 XkV and B, P1 Q, F4 G and F3 A rows bit for bit the
+   unsharded buckets', the shards' M1, M2, M3 and delta partials summed
+   within the f32 tolerance, each shard's bytes within a quarter of the
+   whole plus its padding;
 4. each kernel's time beside its bound, its plain version's time, one
    PyTorch call's time (CUDA events, median of 20) and the wrapper call's
    host time (what an event time of a short kernel includes before the
@@ -2386,6 +2397,254 @@ def same_state(a, b) -> bool:
         torch.equal(x, y) for (_, x), (_, y) in zip(la, lb))
 
 
+MESH_ROUTES = (("auto", "cc"), ("staged", "scoo"))   # phase3_mesh (a): backend, format
+MESH_SHARDS = 4         # phase3_mesh (b): the rank shards of the balanced plan
+CU_GRAPH_NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph",
+                       5: "empty", 6: "wait_event", 7: "event_record", 10: "mem_alloc",
+                       11: "mem_free", 12: "batch_mem_op", 13: "conditional"}
+
+
+def graph_nodes(graph) -> dict:
+    """The nodes of a kept CUDA graph (``keep_graph=True``) by kind, and its
+    kernel nodes whose function name starts with ``nccl`` (``nccl``), read
+    from the driver (``cuGraphGetNodes``, ``cuGraphNodeGetType``,
+    ``cuGraphKernelNodeGetParams``, ``cuFuncGetName``)."""
+    import collections
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(raw, None, ctypes.byref(n)) != 0:
+        fail("cuGraphGetNodes could not count the mesh chunk's nodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    if n.value and cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) != 0:
+        fail("cuGraphGetNodes could not list the mesh chunk's nodes")
+    kinds, nccl = collections.Counter(), 0
+    params = ctypes.create_string_buffer(256)      # CUDA_KERNEL_NODE_PARAMS: func first
+    name = ctypes.c_char_p()
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) != 0:
+            fail("cuGraphNodeGetType could not read a node's kind")
+        kinds[CU_GRAPH_NODE_KINDS.get(kind.value, str(kind.value))] += 1
+        if kind.value == 0 and cu.cuGraphKernelNodeGetParams(ctypes.c_void_p(node),
+                                                             params) == 0:
+            func = ctypes.c_void_p.from_buffer(params).value
+            if cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(func)) == 0:
+                nccl += (name.value or b"").lower().startswith(b"nccl")
+    return {"nodes": dict(kinds), "nccl": nccl}
+
+
+def stage_rows(b, be, H, V, W, J: int) -> tuple:
+    """One bucket's per-subject stage outputs through the route's kernels
+    (F1's XkV and B, the polar's Q on P1, F4's G, F3's A) and its partial
+    sums over subjects (M1 through F2, the mode-2 scatter's M2, the mode-3
+    rows as M3, the fit's delta), at fixed H, V and a global W."""
+    import torch
+    from repro_torch.core.procrustes import solve_q
+
+    Wb = W[b.subject_ids.long()] * b.subject_mask[:, None]
+    XkV, B = be.procrustes_b_bucket(b, H, Wb, V, b.gather_v(V))
+    Q = solve_q(B, "gram_eigh") * b.subject_mask[:, None, None]
+    proj = be.project_bucket(b, Q)
+    G = be.ykv_bucket(b, proj, V)
+    A = be.mode2_bucket(b, proj, H, Wb)
+    M3 = torch.zeros_like(W)
+    M3[b.subject_ids[: b.n_real].long()] = be.mode3_bucket(b, proj, H, YkV=G)[: b.n_real]
+    delta = (-2.0 * torch.einsum("rl,krl,kl,k->", H, G, Wb, b.subject_mask)
+             + torch.einsum("rl,rl,kr,kl,k->", H.T @ H, V.T @ V, Wb, Wb, b.subject_mask))
+    sums = {"M1": be.mode1_xkv_bucket(b, Q, XkV, Wb),
+            "M2": be.mode2_scatter(A, b.cols, J, order=(b.scatter_perm, b.scatter_ends)),
+            "M3": M3, "delta": delta}
+    return {"XkV": XkV, "B": B, "Q": Q, "G": G, "A": A}, sums
+
+
+def bucket_bytes(bt) -> dict:
+    """Device bytes of ``bt``'s buckets: in all, in the column sort of the
+    kept entries (``scatter_perm``) and its [J] column ends, and per bucket
+    one subject slot's share of the rest."""
+    def nb(t):
+        return t.numel() * t.element_size()
+
+    perm = [nb(b.scatter_perm) for b in bt.buckets]
+    ends = [nb(b.scatter_ends) for b in bt.buckets]
+    alls = [b.nbytes() for b in bt.buckets]
+    return dict(all=sum(alls), perm=sum(perm), ends=sum(ends),
+                slot=[(a - p - e) / b.kb for a, p, e, b in zip(alls, perm, ends, bt.buckets)])
+
+
+def phase3_mesh(bt, bt_sc, state, data) -> None:
+    """The mesh engine on the card, in two parts (one card: a world of more
+    than one rank runs only on the CPU, over gloo, in the CPU tests).
+
+    (a) A world of one over NCCL (an in-memory ``HashStore``): CC auto and
+    SCOO staged, rank 5, f32, 20 iterations, at check_every 10 and 0: the
+    history and every state tensor bit for bit the scan engine's on the same
+    data, the same kernel launches under replay, the subject all-reduces
+    issued inside the capture (4 an iteration with a global W: M1, M2, M3
+    and the fit's delta; a graph of the chunk's nodes by kind, NCCL's
+    kernels among them), the bytes all-reduced an iteration, and the second
+    fit's ms/iter with set-up (the kept chunk replayed) beside the scan
+    engine's. The group is destroyed at the end.
+
+    (b) The shard cut on the kernels, in one process: choa 0.25's CC plan
+    nnz-balanced for ``MESH_SHARDS`` ranks, each rank's shard bucketized on
+    its own (``bucketize(shard=...)``). Per bucket, each shard's per-subject
+    stage outputs through the hand kernels (F1's XkV and B, P1's Q, F4's G,
+    F3's A) at the main path's H, V and W must equal the unsharded buckets'
+    rows for the same subjects bit for bit; the shards' partial M1, M2, M3
+    and delta, summed, the unsharded ones within the f32 stage tolerance
+    (1e-6 of the output's largest magnitude); each shard's device bytes at
+    most a quarter of the unsharded buckets' plus one subject slot a bucket
+    (the padding), its [J] column ends and its kept entries' excess in the
+    column sort."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import bucketize, engine, fit
+    from repro_torch.core.backend import get_backend
+    from repro_torch.dist import sharding as dsh
+    from repro_torch.launch import decompose as dec
+    from repro_torch.launch import mesh as lm
+
+    # ---- (a) a world of one over NCCL ------------------------------------
+    dev = lm.init_distributed("cuda")
+    if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+        fail(f"the mesh phase's world is {dist.get_backend()} x {dist.get_world_size()}, "
+             f"not NCCL x 1")
+    lm.local_mesh(dev)
+    base_graph = torch.cuda.CUDAGraph
+    kept = []
+
+    def kept_graph(keep_graph: bool = True):
+        """A CUDA graph that keeps its cudaGraph_t, for its nodes (what the
+        engine makes while ``torch.cuda.CUDAGraph`` is this)."""
+        g = base_graph(keep_graph=True)
+        kept.append(g)
+        return g
+
+    kw = dict(max_iters=ITERS, tol=0.0, seed=0)
+
+    def timed_fit(b_, opts):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s, h = fit(b_, opts, **kw)
+        torch.cuda.synchronize()
+        return s, h, (time.perf_counter() - t0) / ITERS * 1e3
+
+    per_iter = 4 * (engine.WARMUP_ITERS + 1)      # all-reduces: warm-up and capture
+    for backend, fmt in MESH_ROUTES:
+        b_ = bt if fmt == "cc" else bt_sc
+        for ce in (10, 0):
+            label = f"{fmt.upper()} {backend}, check_every {ce}"
+            opts = scan_opts(backend, ce)
+            mesh_opts = dataclasses.replace(opts, engine="mesh")
+            engine.clear_chunk_cache()
+            torch.cuda.CUDAGraph = kept_graph
+            try:
+                kept.clear()
+                s_scan, h_scan, _ = timed_fit(b_, opts)
+                scan_graph = graph_nodes(kept[-1])
+                reset_launches()
+                _, _, scan_ms = timed_fit(b_, opts)     # the kept chunk replayed
+                scan_launches = launches()
+                kept.clear()
+                dsh.COLLECTIVES.reset()
+                s_mesh, h_mesh, first_ms = timed_fit(b_, mesh_opts)
+                calls, nbytes = dsh.COLLECTIVES.calls, dsh.COLLECTIVES.bytes
+                mesh_graph = graph_nodes(kept[-1])
+                reset_launches()
+                s_mesh2, h_mesh2, mesh_ms = timed_fit(b_, mesh_opts)
+                mesh_launches = launches()
+            finally:
+                torch.cuda.CUDAGraph = base_graph
+            if dsh.COLLECTIVES.calls != calls:
+                fail(f"mesh {label}: the kept chunk's second fit issued all-reduces from "
+                     f"Python (they belong to the graph)")
+            if not (h_mesh == h_scan and same_state(s_mesh, s_scan)
+                    and h_mesh2 == h_scan and same_state(s_mesh2, s_scan)):
+                fail(f"mesh {label}: not bit for bit the scan engine")
+            if mesh_launches != scan_launches:
+                fail(f"mesh {label}: replays launched {mesh_launches}, scan {scan_launches}")
+            if calls != per_iter:
+                fail(f"mesh {label}: {calls} all-reduces in the warm-up and capture, "
+                     f"not {per_iter}")
+            print(f"[mesh] world of one (NCCL), {label}: bit for bit the scan engine "
+                  f"(history and every state tensor, both fits), the same launches; "
+                  f"{calls // (engine.WARMUP_ITERS + 1)} all-reduces an iteration in the "
+                  f"capture, {nbytes // (engine.WARMUP_ITERS + 1)} bytes an iteration; "
+                  f"graph nodes {mesh_graph['nodes']} ({mesh_graph['nccl']} NCCL kernels) "
+                  f"against the scan chunk's {scan_graph['nodes']}; second fit "
+                  f"{mesh_ms:.3f} ms/iter with set-up (scan {scan_ms:.3f}; the mesh's first "
+                  f"fit, with its capture, {first_ms:.3f})", flush=True)
+    lm.shutdown()
+    free_cached("the world-of-one mesh fits")
+
+    # ---- (b) the shard cut on the kernels ----------------------------------
+    n = MESH_SHARDS
+    plan, balance = dec.plan_data(data, buckets=4, format="cc", n_shards=n)
+    fmts = ["cc"] * plan.n_buckets
+    t0 = time.perf_counter()
+    shards = [bucketize(data, dtype=torch.float32, device=dev, plan=plan, formats=fmts,
+                        subject_align=n, shard=(r, n)) for r in range(n)]
+    torch.cuda.synchronize()
+    print(f"[mesh] choa {MAIN_SCALE} CC cut into {n} rank shards in "
+          f"{time.perf_counter() - t0:.1f}s; nnz imbalance "
+          f"{balance['imbalance_unbalanced']:.4f} -> {balance['imbalance_max_over_mean']:.4f}"
+          f" (max/mean)", flush=True)
+    if [(b.i_pad, b.c_pad) for b in bt.buckets] != list(plan.shapes):
+        fail("the balanced plan's buckets are not the main path's")
+    whole = bucket_bytes(bt)
+    for r, sh in enumerate(shards):
+        got = bucket_bytes(sh)
+        bound = (whole["all"] / n + sum(whole["slot"]) + got["ends"]
+                 + max(0.0, got["perm"] - whole["perm"] / n))
+        print(f"[mesh] shard {r}: {got['all']} device bytes ({got['all'] / 2**30:.3f} GiB), "
+              f"a quarter of the whole {whole['all'] / n:.0f}, bound {bound:.0f}", flush=True)
+        if got["all"] > bound:
+            fail(f"shard {r} holds {got['all']} bytes, more than {bound:.0f}")
+    be = get_backend("auto", dev)
+    H, V, W = state.H.float(), state.V.float(), state.W.float()
+    J = bt.n_cols
+    reset_launches()
+    total = {}
+    sums_whole = {}
+    for i, b in enumerate(bt.buckets):
+        rows_w, sums = stage_rows(b, be, H, V, W, J)
+        for k, v in sums.items():
+            sums_whole[k] = sums_whole.get(k, 0) + v
+        slot = torch.full((bt.n_subjects,), -1, dtype=torch.long, device=dev)
+        slot[b.subject_ids[: b.n_real].long()] = torch.arange(b.n_real, device=dev)
+        for r, sh in enumerate(shards):
+            sb = sh.buckets[i]
+            rows_s, sums = stage_rows(sb, be, H, V, W, J)
+            for k, v in sums.items():
+                total[k] = total.get(k, 0) + v
+            at = slot[sb.subject_ids[: sb.n_real].long()]
+            for k, v in rows_s.items():
+                if not torch.equal(v[: sb.n_real], rows_w[k][at]):
+                    fail(f"shard {r} bucket {i}: {k} rows differ from the unsharded rows")
+        del rows_w
+    counts = launches()
+    for k in ("fused_procrustes_b", "fused_mode1_xkv", "fused_mode2_compact", "fused_ykv",
+              "gram_inv_sqrt"):
+        if not counts.get(k):
+            fail(f"the shard stages did not launch {k}")
+    errs = []
+    for k, v in total.items():
+        err, ok = within(v, sums_whole[k], False)
+        errs.append(f"{k} {err / max(1.0, float(sums_whole[k].abs().max())):.3e}")
+        if not ok:
+            fail(f"the shards' {k} partials summed differ from the unsharded {k} by {err:.3e}")
+    print(f"[mesh] {n} shards through the hand kernels: XkV, B, Q, G, A bit for bit the "
+          f"unsharded rows of every subject; partial sums against the unsharded, over "
+          f"the largest magnitude: {', '.join(errs)} (f32 tolerance 1e-6); launches "
+          f"{ {k: counts[k] for k in sorted(counts) if counts[k]} }", flush=True)
+    del shards
+
+
 def phase3_stream(bt, state, data) -> dict:
     """The serving layer at choa 0.25, rank 5, f32: the synthetic stream of
     ``data`` (warm fraction 0.6), a service per ``STREAM_RUNS`` entry warm
@@ -3471,6 +3730,8 @@ def main() -> int:
     cmp = phase3_compress(bt, bt_sc, hist)
     iter_ms["auto-cores"] = cmp["ms"]["auto"]
     free_cached("the compressed fits")
+    phase3_mesh(bt, bt_sc, state, data)
+    free_cached("the mesh phase")
     served = phase3_stream(bt, state, data)
     del data
     free_cached("the stream service")

@@ -21,6 +21,18 @@ Flat keys are the reference's pytree paths joined by ``::``: a
 constraint's ``()``) have no leaves. Leaves are torch tensors or numpy
 arrays; ``restore`` gives each the template leaf's dtype and, for a
 tensor, its device.
+
+Across the mesh engine's ranks (``shardings=``, a tree of
+``torch.distributed.tensor.placement_types`` placements shaped like the
+state, and ``mesh=``, a ``DeviceMesh``): ``save`` gathers every
+``Shard(0)`` leaf (a bucketed W and its duals) over the subject dimensions
+and rank 0 alone writes the globally unsharded arrays, the reference's
+layout, so that either package, and any number of ranks, can read them;
+the ranks wait for the write. ``restore`` gives each rank its contiguous
+chunk of a ``Shard(0)`` leaf and the whole of a ``Replicate()`` leaf, as the
+reference's ``jax.device_put(arr, sharding)`` does: a checkpoint written
+under n ranks restores under m ranks where m divides the leaf's rows (the
+plan's ``subject_align``).
 """
 from __future__ import annotations
 
@@ -33,6 +45,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 __all__ = ["save", "restore", "latest_step", "all_steps"]
 
@@ -83,17 +96,57 @@ def _to_numpy(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
+def _shard_of(mesh) -> Tuple[int, int, Any]:
+    """(this rank's chunk index, the chunk count, the subject group) on
+    ``mesh``: (0, 1, None) without one."""
+    from repro_torch.dist import sharding as dsh
+
+    if mesh is None:
+        return 0, 1, None
+    axes = dsh.subject_mesh_axes(mesh)
+    index, count = dsh.subject_shard(mesh, axes)
+    return index, count, dsh.subject_group(mesh, axes)
+
+
+def _sharded_keys(shardings) -> Dict[str, bool]:
+    """flat key -> whether the leaf is split by its first dimension."""
+    if shardings is None:
+        return {}
+    return {k: bool(p.is_shard(0)) for k, p in _flatten(shardings).items()}
+
+
+def _gathered(leaf: torch.Tensor, count: int, group) -> torch.Tensor:
+    parts = [torch.empty_like(leaf) for _ in range(count)]
+    dist.all_gather(parts, leaf.contiguous(), group=group)
+    return torch.cat(parts)
+
+
 def _fname(key: str) -> str:
     return f"{abs(hash(key)) % 10**12:012d}.npy"
 
 
 def save(directory: str, step: int, tree: Any, *, extra: Optional[Dict] = None,
-         keep: int = 3) -> str:
-    """Atomically write a checkpoint; prune to the newest ``keep``."""
-    os.makedirs(directory, exist_ok=True)
+         keep: int = 3, shardings: Any = None, mesh=None) -> str:
+    """Atomically write a checkpoint; prune to the newest ``keep``. With
+    ``shardings`` and ``mesh`` every rank calls it: the ``Shard(0)`` leaves
+    are gathered, rank 0 writes, and every rank returns after the write."""
     final = os.path.join(directory, f"step_{step:09d}")
-    staging = tempfile.mkdtemp(prefix=f"step_{step:09d}.tmp-", dir=directory)
     flat = _flatten(tree)
+    _, count, group = _shard_of(mesh)
+    if count > 1:
+        split = _sharded_keys(shardings)
+        flat = {k: _gathered(v, count, group) if split.get(k) else v for k, v in flat.items()}
+    if mesh is None or dist.get_rank() == 0:
+        _write(directory, step, final, flat, extra, keep)
+    if mesh is not None:
+        dist.barrier(group=group)
+    return final
+
+
+def _write(directory: str, step: int, final: str, flat: Dict[str, Any],
+           extra: Optional[Dict], keep: int) -> None:
+    os.makedirs(directory, exist_ok=True)
+    staging = tempfile.mkdtemp(prefix=f"step_{step:09d}.tmp-", dir=directory)
     dtypes = {}
     for key, leaf in flat.items():
         arr = _to_numpy(leaf)
@@ -109,7 +162,6 @@ def save(directory: str, step: int, tree: Any, *, extra: Optional[Dict] = None,
     os.rename(staging, final)
     for s in all_steps(directory)[:-keep]:
         shutil.rmtree(os.path.join(directory, f"step_{s:09d}"), ignore_errors=True)
-    return final
 
 
 def all_steps(directory: str):
@@ -131,11 +183,13 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def restore(directory: str, tree_like: Any, *,
-            step: Optional[int] = None) -> Tuple[Any, int, Dict]:
+def restore(directory: str, tree_like: Any, *, step: Optional[int] = None,
+            shardings: Any = None, mesh=None) -> Tuple[Any, int, Dict]:
     """Restore into the structure of ``tree_like`` (the newest step by
     default): each leaf takes the template leaf's dtype, and a tensor leaf
-    its device; a leaf the checkpoint lacks raises ``KeyError``."""
+    its device; a leaf the checkpoint lacks raises ``KeyError``. With
+    ``shardings`` and ``mesh`` a ``Shard(0)`` leaf is this rank's chunk of
+    the stored rows (the rows must divide by the chunk count)."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -149,6 +203,15 @@ def restore(directory: str, tree_like: Any, *,
         if fname is None:
             raise KeyError(f"checkpoint missing leaf {key!r}")
         arrays[key] = np.load(os.path.join(base, fname))
+    index, count, _ = _shard_of(mesh)
+    for key, split in _sharded_keys(shardings).items():
+        if split and count > 1 and key in arrays:
+            rows = arrays[key].shape[0]
+            if rows % count:
+                raise ValueError(f"checkpoint leaf {key!r} has {rows} rows, which do not "
+                                 f"divide into {count} subject shards")
+            n = rows // count
+            arrays[key] = arrays[key][index * n:(index + 1) * n]
 
     def leaf(key, like):
         arr = arrays[key]

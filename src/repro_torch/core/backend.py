@@ -134,6 +134,16 @@ class MttkrpBackend:
         "f32")."""
         return compute_cast(x, self.precision)
 
+    @staticmethod
+    def shard_subjects(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """The identity. The reference constrains every Kb-leading stage
+        input and output onto the "subjects" mesh axis here, so that XLA
+        splits it over the devices; in the port each mesh rank already holds
+        only its own subjects (``bucketize(shard=...)``), so there is
+        nothing to split, and the stages call it at the one site of
+        ``parafac2._procrustes_project`` only."""
+        return x
+
     def _vals(self, b) -> torch.Tensor:
         """The bucket's values at the compute precision: its ``vals_half``
         where a fit made them at this precision, else ``_pc(b.vals)``."""

@@ -47,10 +47,14 @@ eagerly by :func:`parse_preprocess_spec` (an unknown name raises
 ``--compress`` is the entry point's twin. The compression pass, the
 expansion and the exact fit run at f32 precision whatever
 ``opts.precision`` (the reference takes its backend without one there): the
-core fit makes the cores' half copy, never the originals'.
+core fit makes the cores' half copy, never the originals'. Under
+``engine="mesh"`` each rank compresses and fits its own subjects (the
+cores are sharded like any bucket); the pass's energies and the exact
+fit's residual are summed over the ranks (``psum_subjects``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -60,6 +64,7 @@ import torch
 from repro_torch.core.backend import get_backend
 from repro_torch.core.irregular import Bucketed, bucket_format, cc_bucket_like
 from repro_torch.core.procrustes import polar_gram_eigh
+from repro_torch.dist.sharding import psum_subjects
 from repro_torch.kernels import sketch as _sketch
 from repro_torch.sparse.bucketing import route_compress
 
@@ -283,7 +288,7 @@ def compress(data: Bucketed, opts, pp: Preprocess, *, seed: int = 0) -> Compress
     stats: List[dict] = []
     core_sq = 0.0
     for b, do_compress in zip(data.buckets, route):
-        b_sq = float(b.sq_norms().sum())
+        b_sq = float(psum_subjects(b.sq_norms().sum()))
         rec = {"format": bucket_format(b), "i_pad": b.i_pad, "compressed": bool(do_compress)}
         if not do_compress:
             cbuckets.append(CompressedBucket(basis=None, core=b))
@@ -298,13 +303,14 @@ def compress(data: Bucketed, opts, pp: Preprocess, *, seed: int = 0) -> Compress
             core = cc_bucket_like(b, G.to(opts.dtype),
                                   row_counts=torch.clamp(b.row_counts, max=S))
             cbuckets.append(CompressedBucket(basis=P, core=core))
-            g_sq = float(core.sq_norms().sum())
+            g_sq = float(psum_subjects(core.sq_norms().sum()))
             core_sq += g_sq
             rec.update(core_rows=S, energy=g_sq / max(b_sq, 1e-30))
         stats.append(rec)
     core_data = Bucketed(buckets=[cb.core for cb in cbuckets], n_subjects=data.n_subjects,
                          n_cols=data.n_cols,
-                         norm_sq=data.norm_sq)   # the ORIGINAL norm: the fit is full-space
+                         norm_sq=data.norm_sq,   # the ORIGINAL norm: the fit is full-space
+                         shard=data.shard)
     return CompressedData(spec=pp.spec, data=core_data, buckets=cbuckets, sketch_dim=S,
                           core_norm_sq=core_sq, stats=stats)
 
@@ -354,9 +360,7 @@ def exact_fit(data: Bucketed, state, opts, Qs: List[torch.Tensor]) -> torch.Tens
         model = torch.einsum("rl,rl,kr,kl,k->", Phi, VtV, Wb, Wb, b.subject_mask)
         delta = delta - 2.0 * cross + model
     norm_sq = data.norm_sq_tensor(dt)
-    # the reference sums delta over its subject shards here (psum_subjects);
-    # on one device that is delta itself (multi-GPU: ROADMAP A6)
-    resid = norm_sq + delta
+    resid = norm_sq + psum_subjects(delta)
     return 1.0 - torch.sqrt(torch.clamp(resid, min=0.0)) / torch.sqrt(norm_sq)
 
 
@@ -383,16 +387,21 @@ def fit_compressed(data: Bucketed, opts, *, max_iters: int = 100, tol: float = 1
     if pp.identity:
         return p2.fit(data, core_opts, max_iters=max_iters, tol=tol, seed=seed,
                       verbose=verbose, state=state)
-    comp = pp.apply(data, core_opts, seed=seed)
-    if verbose:
-        frac = comp.core_norm_sq / max(comp.data.norm_sq, 1e-30)
-        print(f"[compress] {pp.spec}: sketch_dim={comp.sketch_dim}, "
-              f"{sum(s['compressed'] for s in comp.stats)}/"
-              f"{len(comp.stats)} buckets compressed, "
-              f"captured energy {frac:.4f}")
-    state, history = p2.fit(comp.data, core_opts, max_iters=max_iters, tol=tol,
-                            seed=seed, verbose=verbose, state=state)
-    state = residual_correct(data, comp, state, core_opts)
+    collectives = contextlib.nullcontext()
+    if opts.engine == "mesh":       # each rank's energies and residual are partial sums
+        from repro_torch.core import engine as _engine
+        collectives = _engine.mesh_collectives(data.device)
+    with collectives:
+        comp = pp.apply(data, core_opts, seed=seed)
+        if verbose:
+            frac = comp.core_norm_sq / max(comp.data.norm_sq, 1e-30)
+            print(f"[compress] {pp.spec}: sketch_dim={comp.sketch_dim}, "
+                  f"{sum(s['compressed'] for s in comp.stats)}/"
+                  f"{len(comp.stats)} buckets compressed, "
+                  f"captured energy {frac:.4f}")
+        state, history = p2.fit(comp.data, core_opts, max_iters=max_iters, tol=tol,
+                                seed=seed, verbose=verbose, state=state)
+        state = residual_correct(data, comp, state, core_opts)
     if history:
         history[-1] = float(state.fit)
     return state, history

@@ -53,7 +53,28 @@ kept in ``setup_launches``; a replay adds the launches it replays to the
 libraries' counts (:func:`repro_torch.kernels._launch.add_launches`). The
 graph keeps every workspace it may name alive for as long as it lives.
 
-The reference's mesh engine waits for multi-GPU (ROADMAP A6).
+``engine="mesh"``
+    The scan engine's chunk and while variant on one rank's shard of the
+    subjects, a process a GPU (the reference's ``shard_map`` over the
+    subject axis). Each rank holds its own contiguous chunk of every bucket
+    (``bucketize(shard=...)``, made on the host before the upload) and a
+    bucketed W's rows for it; H, V, a global W, the fit and the counters
+    are the same on every rank. Each iteration runs inside
+    :func:`repro_torch.dist.sharding.subject_collectives`, so every sum
+    over subjects in ``als_step`` is an ``all_reduce(SUM)`` over the
+    subject dimensions of the mesh (:func:`mesh_wrap`); the all-reduce
+    gives every rank the same bits, so the replicas stay bit for bit
+    equal. On CUDA (NCCL) the iteration is captured as the scan engine's
+    is, with the all-reduces inside the graph (the capture in thread-local
+    mode, so that NCCL's watchdog thread may query its events meanwhile);
+    on the CPU (gloo) it runs eagerly. The mesh is the installed one
+    (``axis_rules``), else the world's ranks as a ``("data", "model")``
+    mesh (:func:`repro_torch.launch.mesh.local_mesh`, a world of one if no
+    process group is up). Each rank's data must be its own shard: whole
+    data in a world of more than one raises (the reference's
+    divisibility error first, where it applies), since no rank may hold
+    another's subjects.
+
 :func:`make_subject_update` is the serving dispatch
 (``repro_torch.launch.stream``): the request batch is an argument of each
 call, and the call runs eagerly (a CUDA graph a pinned batch geometry is
@@ -79,19 +100,125 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor.placement_types import Replicate, Shard
 
 from repro_torch.core import constraints as cst
 from repro_torch.core import parafac2 as p2
+from repro_torch.core.irregular import check_shardable
+from repro_torch.dist import sharding as dsh
 from repro_torch.kernels import _launch
 
-__all__ = ["CHUNKS", "ENGINES", "MESH_WAITS", "WARMUP_ITERS", "als_chunk_fn",
-           "cached_chunk", "cached_while", "clear_chunk_cache", "clone_state", "fit_device",
-           "make_als_chunk", "make_als_while", "make_subject_update"]
+__all__ = ["CHUNKS", "ENGINES", "WARMUP_ITERS", "als_chunk_fn", "cached_chunk",
+           "cached_while", "clear_chunk_cache", "clone_state", "fit_device",
+           "make_als_chunk", "make_als_while", "make_subject_update", "mesh_collectives",
+           "mesh_wrap", "resolve_mesh", "state_placements"]
 
-ENGINES = ("host", "scan")
-MESH_WAITS = "engine='mesh' waits for the multi-GPU port (ROADMAP A6); use 'scan'"
+ENGINES = ("host", "scan", "mesh")
 WARMUP_ITERS = 2        # eager iterations on a copy of the state before a capture
 Carry = Dict[str, torch.Tensor]
+Mesh = Tuple[object, Tuple[str, ...]]    # (DeviceMesh, its subject dimensions)
+
+
+# ---------------------------------------------------------------------------
+# mesh plumbing
+# ---------------------------------------------------------------------------
+
+def _check_divisible(data, state, n_shards: int) -> None:
+    """The reference's check on whole data: every bucket's Kb (and a
+    bucketed W's rows) must divide into ``n_shards`` chunks."""
+    for i, b in enumerate(data.buckets):
+        check_shardable(i, b.kb, n_shards)
+    if isinstance(state.W, tuple):
+        for i, wb in enumerate(state.W):
+            if wb.shape[0] % n_shards:
+                raise ValueError(
+                    f"bucketed W shard {i} has Kb={wb.shape[0]}, not divisible "
+                    f"by {n_shards} subject shards")
+
+
+def _check_shard(data, state, mesh, axes: Tuple[str, ...]) -> None:
+    """Raise unless ``data`` is this rank's shard of the subjects on
+    ``mesh`` and a bucketed W holds this rank's rows of every bucket."""
+    index, count = dsh.subject_shard(mesh, axes)
+    if tuple(data.shard) != (index, count):
+        if tuple(data.shard) == (0, 1):
+            _check_divisible(data, state, count)
+            raise ValueError(
+                f"engine='mesh' runs on each rank's own shard of the subjects, but "
+                f"rank {index} of {count} was given the whole data; bucketize it with "
+                f"subject_align={count}, shard=({index}, {count})")
+        raise ValueError(f"the data is subject shard {tuple(data.shard)}, but this rank "
+                         f"is shard ({index}, {count}) of the mesh")
+    if isinstance(state.W, tuple):
+        for i, (wb, b) in enumerate(zip(state.W, data.buckets)):
+            if wb.shape[0] != b.kb:
+                raise ValueError(
+                    f"bucketed W bucket {i} has {wb.shape[0]} rows, this rank's shard "
+                    f"of the bucket {b.kb}: give each rank its own rows "
+                    f"(repro_torch.convert.state_from_arrays(..., shard=...))")
+
+
+def state_placements(state: "p2.Parafac2State") -> "p2.Parafac2State":
+    """Each state tensor's placement across the mesh engine's ranks (the
+    state half of the reference's ``_mesh_specs``): a bucketed W, and the W
+    duals of a bucketed W, ``Shard(0)`` (each rank its subjects' rows);
+    H, V, a global W, the fit and every other dual ``Replicate()``."""
+    bucketed = isinstance(state.W, tuple)
+
+    def like(x, p):
+        return cst.tree_map(lambda _: p, x)
+
+    lead = Shard(0) if bucketed else Replicate()
+    aux = state.aux
+    if isinstance(aux, dict):
+        aux = {k: like(v, lead if k == "w" else Replicate()) for k, v in aux.items()}
+    else:
+        aux = like(aux, Replicate())
+    return p2.Parafac2State(H=Replicate(), V=Replicate(), W=like(state.W, lead),
+                            fit=Replicate(), aux=aux)
+
+
+def resolve_mesh(device) -> Mesh:
+    """The installed mesh, else the world's local mesh on ``device``'s kind
+    (NCCL for CUDA, gloo for the CPU), with its subject dimensions."""
+    mesh = dsh.current_mesh()
+    if mesh is None:
+        from repro_torch.launch.mesh import local_mesh
+        mesh = local_mesh(torch.device(device).type)
+    axes = dsh.subject_mesh_axes(mesh)
+    if not axes:
+        raise ValueError(
+            f"engine='mesh': no 'subjects' rule axis present on mesh "
+            f"{mesh.mesh_dim_names}; install axis_rules with a subjects entry")
+    return mesh, axes
+
+
+def mesh_collectives(device):
+    """``subject_collectives`` over the resolved mesh's subject dimensions
+    (for data on ``device``): what the mesh engine enters around an
+    iteration, for the sums over subjects that run outside it (the
+    compression pass, the exact fit, ``w_global``)."""
+    mesh, axes = resolve_mesh(device)
+    return dsh.subject_collectives(axes, mesh)
+
+
+def mesh_wrap(fn: Callable, data, state, mesh=None,
+              axes: Optional[Tuple[str, ...]] = None) -> Callable:
+    """Wrap a ``(data, state) -> outputs`` ALS body for the mesh engine:
+    ``data`` must be this rank's shard (:func:`_check_shard`), and the body
+    runs inside ``subject_collectives``, so that every ``psum_subjects`` in
+    it is an all-reduce over the subject dimensions of ``mesh``."""
+    if mesh is None or axes is None:
+        r_mesh, r_axes = resolve_mesh(data.device)
+        mesh = mesh if mesh is not None else r_mesh
+        axes = axes if axes is not None else dsh.subject_mesh_axes(mesh)
+    _check_shard(data, state, mesh, axes)
+
+    def body(d, s):
+        with dsh.subject_collectives(axes, mesh):
+            return fn(d, s)
+
+    return body
 
 
 def als_chunk_fn(opts: "p2.Parafac2Options", length: int) -> Callable:
@@ -169,10 +296,13 @@ class _Iteration:
     written to ``hist[n]`` and ``n`` counting the committed iterations
     (``tol = -inf``: never stopped). Run eagerly on the CPU; on CUDA
     captured once, after ``WARMUP_ITERS`` eager runs on a copy of the carry
-    on the capture stream, and replayed on the current stream."""
+    on the capture stream, and replayed on the current stream. With
+    ``mesh`` (the mesh engine's (DeviceMesh, subject dimensions)) the step
+    runs through :func:`mesh_wrap`, its all-reduces captured with it."""
 
     def __init__(self, data, opts: "p2.Parafac2Options", hist_len: int, tol: float,
-                 state: "p2.Parafac2State", weak: bool = False):
+                 state: "p2.Parafac2State", weak: bool = False,
+                 mesh: Optional[Mesh] = None):
         # the state's structure (W layout, duals) without its tensors; the
         # body must not reference self: a cycle would leave a dropped graph
         # to the garbage collector, which could then destroy it while a new
@@ -180,8 +310,16 @@ class _Iteration:
         skel, leaves = _split(state)
         get_data = _data_getter(data, opts.precision, weak)   # before any warm-up
 
+        def step(d, s):
+            return p2.als_step(d, s, opts)
+
+        if mesh is None and opts.engine == "mesh":
+            mesh = resolve_mesh(state.H.device)
+        if mesh is not None:
+            step = mesh_wrap(step, data, state, *mesh)
+
         def body(c: Carry) -> None:
-            s2 = p2.als_step(get_data(), _state(skel, c), opts)
+            s2 = step(get_data(), _state(skel, c))
             f = s2.fit
             go = ~c["stop"]
             n = c["n"]
@@ -203,6 +341,7 @@ class _Iteration:
                           n=torch.zeros((), dtype=torch.int64, device=dev),
                           prev=torch.full((), -np.inf, dtype=dt, device=dev),
                           stop=torch.zeros((), dtype=torch.bool, device=dev))
+        self.mesh = mesh        # kept alive with the graph that uses its groups
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.launches: Dict[Tuple[str, str], int] = {}        # what a replay launches
         self.setup_launches: Dict[Tuple[str, str], int] = {}  # the warm-up's
@@ -219,10 +358,16 @@ class _Iteration:
         torch.cuda.current_stream(dev).wait_stream(stream)
         # capture_begin/end rather than the torch.cuda.graph context, which
         # first synchronises the device and empties the allocator's cache (a
-        # set-up cost of every capture that the capture does not need)
+        # set-up cost of every capture that the capture does not need). The
+        # mesh engine's capture waits for the warm-up's collectives and runs
+        # in thread-local mode: NCCL's watchdog thread queries their events
+        mode = "global"
+        if mesh is not None:
+            torch.cuda.synchronize(dev)
+            mode = "thread_local"
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.stream(stream), _launch.held_launches() as self.launches:
-            self.graph.capture_begin()
+            self.graph.capture_begin(capture_error_mode=mode)
             try:
                 body(self.carry)
             finally:
@@ -279,11 +424,12 @@ class AlsChunk:
     length`` (a fit's remainder)."""
 
     def __init__(self, data, opts: "p2.Parafac2Options", length: int,
-                 state: "p2.Parafac2State", weak: bool = False):
+                 state: "p2.Parafac2State", weak: bool = False,
+                 mesh: Optional[Mesh] = None):
         if length < 1:
             raise ValueError(f"a chunk runs at least one iteration, got length={length}")
         self.length = length
-        self._it = _Iteration(data, opts, length, -np.inf, state, weak)
+        self._it = _Iteration(data, opts, length, -np.inf, state, weak, mesh)
 
     @property
     def setup_launches(self) -> Dict[Tuple[str, str], int]:
@@ -321,10 +467,11 @@ class AlsWhile:
     LOOKAHEAD = 2       # replays in flight on a GPU
 
     def __init__(self, data, opts: "p2.Parafac2Options", max_iters: int, tol: float,
-                 state: "p2.Parafac2State", weak: bool = False):
+                 state: "p2.Parafac2State", weak: bool = False,
+                 mesh: Optional[Mesh] = None):
         self.max_iters = max_iters
         self.replays = 0
-        self._it = _Iteration(data, opts, max_iters, tol, state, weak)
+        self._it = _Iteration(data, opts, max_iters, tol, state, weak, mesh)
 
     @property
     def setup_launches(self) -> Dict[Tuple[str, str], int]:
@@ -420,25 +567,34 @@ CHUNKS = ChunkCache()
 clear_chunk_cache = CHUNKS.clear
 
 
-def _key(kind: str, opts: "p2.Parafac2Options", state: "p2.Parafac2State", *extra) -> tuple:
-    return (kind, *extra, opts, str(state.H.device),
+def _mesh_of(opts: "p2.Parafac2Options", device) -> Optional[Mesh]:
+    return resolve_mesh(device) if opts.engine == "mesh" else None
+
+
+def _key(kind: str, opts: "p2.Parafac2Options", state: "p2.Parafac2State", *extra,
+         mesh: Optional[Mesh] = None) -> tuple:
+    # a kept run holds its mesh, so the mesh's id names it while the entry lives
+    mesh_key = None if mesh is None else (id(mesh[0]), mesh[1])
+    return (kind, *extra, opts, mesh_key, str(state.H.device),
             tuple((k, tuple(t.shape), t.dtype) for k, t in _flatten(state)))
 
 
 def cached_chunk(data, opts: "p2.Parafac2Options", length: int, *,
                  state: "p2.Parafac2State") -> AlsChunk:
     """:func:`make_als_chunk`'s chunk, kept in :data:`CHUNKS` for the next
-    call on the same data, options, state layout and length."""
-    return CHUNKS.get(data, _key("chunk", opts, state, length),
-                      lambda weak: AlsChunk(data, opts, length, state, weak))
+    call on the same data, options, state layout, mesh and length."""
+    mesh = _mesh_of(opts, state.H.device)
+    return CHUNKS.get(data, _key("chunk", opts, state, length, mesh=mesh),
+                      lambda weak: AlsChunk(data, opts, length, state, weak, mesh))
 
 
 def cached_while(data, opts: "p2.Parafac2Options", max_iters: int, tol: float, *,
                  state: "p2.Parafac2State") -> AlsWhile:
     """:func:`make_als_while`'s run, kept in :data:`CHUNKS` as
     :func:`cached_chunk` keeps a chunk (keyed by max_iters and tol too)."""
-    return CHUNKS.get(data, _key("while", opts, state, max_iters, tol),
-                      lambda weak: AlsWhile(data, opts, max_iters, tol, state, weak))
+    mesh = _mesh_of(opts, state.H.device)
+    return CHUNKS.get(data, _key("while", opts, state, max_iters, tol, mesh=mesh),
+                      lambda weak: AlsWhile(data, opts, max_iters, tol, state, weak, mesh))
 
 
 def make_subject_update(opts: "p2.Parafac2Options", *, smooth_lam: float = 0.0,
@@ -462,11 +618,9 @@ def fit_device(data, opts: "p2.Parafac2Options", *, max_iters: int = 100,
                tol: float = 1e-6, seed: int = 0, verbose: bool = False,
                state: Optional["p2.Parafac2State"] = None
                ) -> Tuple["p2.Parafac2State", List[float]]:
-    """The device-resident fitting loop (the ``engine="scan"`` half of
-    :func:`repro_torch.core.parafac2.fit`; same signature and return
-    contract)."""
-    if opts.engine == "mesh":
-        raise NotImplementedError(MESH_WAITS)
+    """The device-resident fitting loop (the ``engine="scan"|"mesh"`` halves
+    of :func:`repro_torch.core.parafac2.fit`; same signature and return
+    contract). Under ``"mesh"`` every rank calls it on its own shard."""
     if opts.engine not in ENGINES:
         raise ValueError(f"unknown engine {opts.engine!r}; choose from {ENGINES}")
     if opts.engine == "host":

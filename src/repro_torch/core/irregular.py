@@ -25,6 +25,13 @@ format, ``"auto"`` routes each bucket by its density through
 may mix :class:`Bucket` and :class:`SparseBucket`. Buckets are staged in
 numpy, byte for byte as the reference stages them, and uploaded once; the
 index arrays stay int32.
+
+``bucketize(shard=(index, count))`` builds one rank's shard for the mesh
+engine: every bucket's padded subject axis splits into ``count`` contiguous
+chunks, and only chunk ``index`` is staged and uploaded, so no rank holds
+another rank's subjects on its device. A shard keeps the global
+``n_subjects``, ``n_cols`` and ``norm_sq`` and the global ``subject_ids``;
+its real subjects fill the first ``n_real`` slots of each of its buckets.
 """
 from __future__ import annotations
 
@@ -43,8 +50,8 @@ from repro_torch.sparse.bucketing import (SCOO_DENSITY_THRESHOLD, BucketPlan,
 from repro_torch.sparse.coo import IrregularCOO
 
 __all__ = ["Bucket", "SparseBucket", "BlockBucket", "Bucketed", "bucketize",
-           "bucket_format", "cc_bucket_like", "scatter_order", "to_block_bucket",
-           "FORMATS", "LANE"]
+           "bucket_format", "cc_bucket_like", "check_shardable", "scatter_order",
+           "to_block_bucket", "FORMATS", "LANE"]
 
 LANE = 128  # BCC column-block width (the reference's TPU lane width)
 
@@ -311,6 +318,9 @@ class Bucketed:
     n_subjects: int          # K (true count, before subject padding)
     n_cols: int              # J
     norm_sq: float           # ||X||_F^2 over all subjects (for the fit)
+    # (index, count): this is chunk `index` of `count` of every bucket's
+    # subjects (the mesh engine's shard of one rank); (0, 1) for whole data
+    shard: Tuple[int, int] = (0, 1)
     # norm_sq as a device scalar per dtype, made at first use
     _norm_sq_t: Dict[torch.dtype, torch.Tensor] = dataclasses.field(
         default_factory=dict, init=False, repr=False, compare=False)
@@ -330,7 +340,7 @@ class Bucketed:
         half = [dataclasses.replace(b, vals_half=compute_cast(b.vals, precision))
                 for b in self.buckets]
         return Bucketed(buckets=half, n_subjects=self.n_subjects, n_cols=self.n_cols,
-                        norm_sq=self.norm_sq)
+                        norm_sq=self.norm_sq, shard=self.shard)
 
     def norm_sq_tensor(self, dtype: torch.dtype) -> torch.Tensor:
         """``norm_sq`` as a scalar of ``dtype`` on the data's device, copied
@@ -345,6 +355,16 @@ class Bucketed:
 
 def _pad_to(n: int, align: int) -> int:
     return max(align, ((n + align - 1) // align) * align)
+
+
+def check_shardable(i: int, kb: int, n_shards: int) -> None:
+    """Raise the reference's error unless bucket ``i``'s padded subject
+    count ``kb`` divides into ``n_shards`` contiguous chunks."""
+    if kb % n_shards:
+        raise ValueError(
+            f"engine='mesh' needs every bucket's subject count to divide "
+            f"the {n_shards} subject shards, but bucket {i} has Kb={kb}; "
+            f"re-bucketize with bucketize(subject_align={n_shards})")
 
 
 def _staging_dtype(dtype: torch.dtype) -> np.dtype:
@@ -434,6 +454,7 @@ def bucketize(
     format: str = "cc",
     formats: Optional[Sequence[str]] = None,
     density_threshold: float = SCOO_DENSITY_THRESHOLD,
+    shard: Tuple[int, int] = (0, 1),
 ) -> Bucketed:
     """Host conversion IrregularCOO -> Bucketed tensors on ``device`` (a GPU
     by default: raises without one unless ``device="cpu"``).
@@ -446,6 +467,13 @@ def bucketize(
     build the same buckets. ``subject_align`` pads each bucket's subject
     count to a multiple; padding subjects sit at the tail. ``nnz_align``
     rounds the SCOO buckets' N_pad.
+
+    ``shard=(index, count)`` stages and uploads only chunk ``index`` of
+    ``count`` contiguous chunks of every bucket's padded subjects (a mesh
+    rank's shard; each padded Kb must divide by ``count``, as
+    ``subject_align=count`` makes it). Each chunk is staged on its own, so
+    its bytes are those of a bucket of its subjects: the same rows, in
+    their own allocations.
     """
     if format not in FORMATS:
         raise ValueError(f"unknown format {format!r}; choose from {FORMATS}")
@@ -459,6 +487,9 @@ def bucketize(
                                 density_threshold=density_threshold)
     if len(formats) != plan.n_buckets:
         raise ValueError(f"formats has {len(formats)} entries for {plan.n_buckets} buckets")
+    index, count = shard
+    if not 0 <= index < count:
+        raise ValueError(f"shard index {index} is not in [0, {count})")
     device = resolve_device(device)
     stage = _staging_dtype(dtype)
     J = data.n_cols
@@ -469,6 +500,11 @@ def bucketize(
     buckets: List[AnyBucket] = []
     for bi, ((i_pad, c_pad), members) in enumerate(zip(plan.shapes, plan.members)):
         kb = _pad_to(len(members), subject_align)
+        whole = members                     # a shard takes its N_pad from the bucket
+        if count > 1:
+            check_shardable(bi, kb, count)
+            kb //= count
+            members = members[index * kb:(index + 1) * kb]
         sids = np.zeros((kb,), dtype=np.int32)
         smask = np.zeros((kb,), dtype=stage)
         rows_n = np.zeros((kb,), dtype=np.int32)
@@ -479,7 +515,7 @@ def bucketize(
             if plan.nnz_pads is not None:
                 n_pad = plan.nnz_pads[bi]
             else:
-                n_pad = _pad_to(int(max((nnzc[k] for k in members), default=1)), nnz_align)
+                n_pad = _pad_to(int(max((nnzc[k] for k in whole), default=1)), nnz_align)
             s = _stage_scoo(data, members, kb, i_pad, c_pad, n_pad, stage)
             cols_t, cmask_t = up(s["cols"]), up(s["cmask"], dtype)
             perm, ends = scatter_order(cols_t, J, cmask_t)
@@ -512,7 +548,7 @@ def bucketize(
             row_counts=up(rows_n), n_real=len(members),
             scatter_perm=perm, scatter_ends=ends))
     return Bucketed(buckets=buckets, n_subjects=data.n_subjects, n_cols=J,
-                    norm_sq=data.frobenius_sq())
+                    norm_sq=data.frobenius_sq(), shard=(index, count))
 
 
 # ---------------------------------------------------------------------------

@@ -22,7 +22,13 @@ on the host; "scan" runs chunks of ``opts.check_every`` iterations, or the
 whole fit with the stopping rule on the device (``check_every=0``), as CUDA
 graphs on a GPU (:mod:`repro_torch.core.engine`). W is one [K, R] tensor
 (``w_layout="global"``) or a tuple of per-bucket [Kb, R] tensors whose
-padded slots stay zero (``"bucketed"``). ``opts.precision`` ("f32", "bf16",
+padded slots stay zero (``"bucketed"``). ``engine="mesh"`` runs the scan
+engine's iteration on one rank's shard of the subjects, a process a GPU:
+every sum over subjects (M1, M2, M3, the bucketed W's Gram, the fit's
+residual) goes through :func:`repro_torch.dist.sharding.psum_subjects`, an
+all-reduce over the ranks there and the identity elsewhere; H, V, a
+global W and the fit are the same on every rank, a bucketed W is each
+rank's own rows. ``opts.precision`` ("f32", "bf16",
 "f16") is the compute precision of the streamed operands (see
 :mod:`repro_torch.core.backend`); below f32 ``fit`` makes each bucket's
 half values once, before the first iteration. ``opts.compress`` (a
@@ -44,6 +50,7 @@ from repro_torch.core.backend import MttkrpBackend, get_backend
 from repro_torch.core.cp import normalize_columns
 from repro_torch.core.irregular import Bucket, Bucketed
 from repro_torch.core.procrustes import solve_q
+from repro_torch.dist.sharding import psum_subjects
 from repro_torch.kernels.common import PRECISIONS
 
 __all__ = ["Parafac2State", "Parafac2Options", "constraints_for", "init_state",
@@ -215,19 +222,29 @@ def _w_rows(W, b: Bucket, i: int) -> torch.Tensor:
 
 def _w_gram(W) -> torch.Tensor:
     if isinstance(W, tuple):
-        return sum(wb.T @ wb for wb in W)
+        # a bucketed W lies with the data, split over the ranks under the
+        # mesh engine: its Gram is a sum over subjects (a global W is the
+        # same on every rank)
+        return psum_subjects(sum(wb.T @ wb for wb in W))
     return W.T @ W
 
 
 def w_global(data: Bucketed, W) -> torch.Tensor:
     """The global [K, R] W from either layout (interpretation): one row
     assignment per bucket, since each subject lies in one bucket and the
-    real subjects fill its first ``n_real`` slots."""
+    real subjects fill its first ``n_real`` slots. On a mesh rank's shard
+    (``data.shard``) each rank assigns its own rows and the ranks' rows are
+    summed (every rank then holds the whole W; it must be called on every
+    rank)."""
     if not isinstance(W, tuple):
         return W
     out = W[0].new_zeros((data.n_subjects, W[0].shape[1]))
     for b, wb in zip(data.buckets, W):
         out[b.subject_ids[: b.n_real].long()] = (wb * b.subject_mask[:, None])[: b.n_real]
+    if data.shard[1] > 1:
+        from repro_torch.core import engine as _engine
+        with _engine.mesh_collectives(data.device):
+            out = psum_subjects(out)
     return out
 
 
@@ -245,7 +262,7 @@ def _procrustes_project(b: Bucket, H, V, W, opts: Parafac2Options, i: int,
     fused route), handed back only to the same backend."""
     Vg = b.gather_v(V)                                   # [Kb, C, R]
     XkV, B = be.procrustes_b_bucket(b, H, _w_rows(W, b, i), V, Vg)
-    Q = solve_q(B, opts.procrustes) * b.subject_mask[:, None, None]
+    Q = be.shard_subjects(solve_q(B, opts.procrustes) * b.subject_mask[:, None, None])
     return be.project_bucket(b, Q), XkV, Q
 
 
@@ -280,6 +297,7 @@ def als_step(data: Bucketed, state: Parafac2State,
             M1 = M1 + be.mode1_xkv_bucket(b, Q, XkV, Wb)
         else:
             M1 = M1 + be.mode1_bucket(b, proj, Wb, V)
+    M1 = psum_subjects(M1)
     H_new, aux_h = cons["h"].update(M1, _ridged(_w_gram(W) * (V.T @ V), opts), H,
                                     aux["h"], **solve_kw)
     aux_w = aux["w"]
@@ -297,6 +315,7 @@ def als_step(data: Bucketed, state: Parafac2State,
         A = be.mode2_bucket(b, proj, H_new, _w_rows(W, b, i))
         M2 = M2 + be.mode2_scatter(A, b.cols, J,
                                    order=(b.scatter_perm, b.scatter_ends)).to(dt)
+    M2 = psum_subjects(M2)
     V_new, aux_v = cons["v"].update(M2, _ridged(_w_gram(W) * (H_new.T @ H_new), opts), V,
                                     aux["v"], **solve_kw)
     if not cons["v"].penalized:
@@ -327,6 +346,7 @@ def als_step(data: Bucketed, state: Parafac2State,
             # each subject lies in one bucket, and real subjects fill the
             # first n_real slots: a plain (deterministic) row assignment
             M3[b.subject_ids[: b.n_real].long()] = rows[: b.n_real].to(dt)
+        M3 = psum_subjects(M3)
         W_new, aux_w = cons["w"].update(M3, gram3, W, aux_w, **solve_kw)
 
     # ---- 4: fit ------------------------------------------------------------
@@ -339,7 +359,7 @@ def als_step(data: Bucketed, state: Parafac2State,
         model = torch.einsum("rl,rl,kr,kl,k->", Phi, VtV, Wb, Wb, b.subject_mask)
         delta = delta - 2.0 * cross + model
     norm_sq = data.norm_sq_tensor(dt)
-    resid = norm_sq + delta
+    resid = norm_sq + psum_subjects(delta)
     fit_val = 1.0 - torch.sqrt(torch.clamp(resid, min=0.0)) / torch.sqrt(norm_sq)
     return Parafac2State(H=H_new, V=V_new, W=W_new, fit=fit_val,
                          aux={"h": aux_h, "v": aux_v, "w": aux_w})

@@ -1,9 +1,21 @@
-"""Fault tolerance for the chunked ALS fit (``repro.dist``): fault injection,
-retries and a straggler watchdog (:mod:`repro_torch.dist.fault`), and the
-supervisor that wraps the scan engine's chunks in a recovery ladder
-(:mod:`repro_torch.dist.supervisor`). The reference's subject-axis sharding
-(``repro.dist.sharding``) waits for the multi-GPU port (ROADMAP A6).
+"""Distribution and fault tolerance for the ALS fit (``repro.dist``): the
+subject-axis rules and collectives of the mesh engine
+(:mod:`repro_torch.dist.sharding`), fault injection, retries and a
+straggler watchdog (:mod:`repro_torch.dist.fault`), and the supervisor that
+wraps the scan and mesh engines' chunks in a recovery ladder
+(:mod:`repro_torch.dist.supervisor`).
 """
+from repro_torch.dist.sharding import (
+    LM_RULES,
+    SP_RULES,
+    axis_rules,
+    current_mesh,
+    current_rules,
+    psum_subjects,
+    shard,
+    subject_collectives,
+    subject_mesh_axes,
+)
 from repro_torch.dist.fault import (
     FaultInjector,
     StepWatchdog,
@@ -13,6 +25,15 @@ from repro_torch.dist.fault import (
 from repro_torch.dist.supervisor import SupervisorConfig, SupervisorReport, supervised_fit
 
 __all__ = [
+    "LM_RULES",
+    "SP_RULES",
+    "axis_rules",
+    "current_mesh",
+    "current_rules",
+    "psum_subjects",
+    "shard",
+    "subject_collectives",
+    "subject_mesh_axes",
     "FaultInjector",
     "StepWatchdog",
     "TransientFault",

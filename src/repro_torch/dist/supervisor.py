@@ -39,6 +39,18 @@ the next replay.
 Resume: with ``ckpt_dir`` set, checkpoints carry the fit history in their
 ``extra`` (step = iterations completed); ``resume=True`` continues from the
 newest one, bit for bit the uninterrupted run.
+
+Under ``engine="mesh"`` every rank runs this same loop on its own shard.
+The reference has one controller; here a fault raised on one rank alone
+would leave the others in the chunk's first all-reduce. So each verdict is
+all-reduced (a max over the ranks) before any rank acts on it: whether an
+injected fault fired (then every rank retries, or restores, together),
+whether the chunk was unhealthy (then every rank rolls back), and the
+chunk's wall time (the slowest rank's, so every watchdog flags the same
+chunks): every rank's report is the same. Checkpoints are written
+globally unsharded by rank 0 (a bucketed W gathered first) and restored as
+each rank's rows (``repro_torch.checkpoint``), so a fit written under n
+ranks resumes under m where m divides the plan's ``subject_align``.
 """
 from __future__ import annotations
 
@@ -47,10 +59,13 @@ import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from repro_torch import checkpoint as ckpt
 from repro_torch.core import engine as _engine
 from repro_torch.core import parafac2 as p2
+from repro_torch.dist import sharding as dsh
 from repro_torch.dist.fault import (FaultInjector, StepWatchdog, TransientFault,
                                     run_with_retries)
 
@@ -124,6 +139,16 @@ def _healthy(fits: np.ndarray, best: float, regress_tol: float) -> bool:
     return not (np.isfinite(best) and float(fits.min()) < best - regress_tol)
 
 
+def _agree(mesh, device, *values: float) -> List[float]:
+    """Each value's maximum over the mesh's subject ranks (the values
+    themselves without a mesh)."""
+    if mesh is None:
+        return list(values)
+    t = torch.tensor(values, dtype=torch.float64, device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=dsh.subject_group(*mesh))
+    return t.tolist()
+
+
 def supervised_fit(data, opts: "p2.Parafac2Options", *, max_iters: int = 100,
                    tol: float = 1e-6, seed: int = 0, verbose: bool = False,
                    state: Optional["p2.Parafac2State"] = None,
@@ -135,9 +160,7 @@ def supervised_fit(data, opts: "p2.Parafac2Options", *, max_iters: int = 100,
     calls (one chunk of ``check_every`` iterations, the remainder as its
     first ``n``), the same tol rule."""
     cfg = config or SupervisorConfig()
-    if opts.engine == "mesh":
-        raise NotImplementedError(_engine.MESH_WAITS)
-    if opts.engine != "scan":
+    if opts.engine not in ("scan", "mesh"):
         raise ValueError(
             f"supervised_fit wraps the chunked device engines "
             f"(engine='scan'|'mesh'), got engine={opts.engine!r}")
@@ -154,13 +177,18 @@ def supervised_fit(data, opts: "p2.Parafac2Options", *, max_iters: int = 100,
     state = p2.init_state(data, opts, seed, state=state)
     history: List[float] = []
     report = SupervisorReport()
+    # the mesh engine's (DeviceMesh, subject dimensions), and how each state
+    # tensor lies across the ranks, for the checkpoints
+    mesh = _engine.resolve_mesh(data.device) if opts.engine == "mesh" else None
+    where = dict(shardings=_engine.state_placements(state),
+                 mesh=None if mesh is None else mesh[0])
 
     if cfg.resume:
         if cfg.ckpt_dir is None:
             raise ValueError("resume=True needs ckpt_dir")
         step = ckpt.latest_step(cfg.ckpt_dir)
         if step is not None:
-            state, step, extra = ckpt.restore(cfg.ckpt_dir, state, step=step)
+            state, step, extra = ckpt.restore(cfg.ckpt_dir, state, step=step, **where)
             history = [float(f) for f in extra.get("history", [])][:step]
             report.resumed_from_step = step
             if verbose:
@@ -183,7 +211,8 @@ def supervised_fit(data, opts: "p2.Parafac2Options", *, max_iters: int = 100,
         nonlocal disk_step
         if cfg.ckpt_dir is None:
             return
-        ckpt.save(cfg.ckpt_dir, len(hist), st, extra={"history": hist}, keep=cfg.keep)
+        ckpt.save(cfg.ckpt_dir, len(hist), st, extra={"history": hist}, keep=cfg.keep,
+                  **where)
         disk_step = len(hist)
         report.checkpoints_written += 1
 
@@ -221,8 +250,14 @@ def supervised_fit(data, opts: "p2.Parafac2Options", *, max_iters: int = 100,
         timing = {}
 
         def attempt_chunk(s):
+            fault = None
             if injector is not None:
-                injector.check(chunk_idx)
+                try:
+                    injector.check(chunk_idx)
+                except TransientFault as e:
+                    fault = e
+            if _agree(mesh, data.device, fault is not None)[0]:   # every rank retries
+                raise fault or TransientFault(f"a fault on another rank at chunk {chunk_idx}")
             t0 = cfg.clock()
             s2, fits = chunk(s, n)
             fits = np.asarray(fits.tolist())        # the chunk's one device sync
@@ -239,7 +274,8 @@ def supervised_fit(data, opts: "p2.Parafac2Options", *, max_iters: int = 100,
             # checkpoint, else from the in-memory boundary
             report.restores += 1
             if cfg.ckpt_dir is not None and disk_step is not None:
-                state, step, extra = ckpt.restore(cfg.ckpt_dir, good_state, step=disk_step)
+                state, step, extra = ckpt.restore(cfg.ckpt_dir, good_state, step=disk_step,
+                                                  **where)
                 history = [float(f) for f in extra.get("history", [])][:step]
             else:
                 state, history = good_state, list(good_history)
@@ -252,7 +288,10 @@ def supervised_fit(data, opts: "p2.Parafac2Options", *, max_iters: int = 100,
                       f"step {len(history)}, replaying")
             continue
 
-        if not _healthy(fits, best_fit(history), cfg.regress_tol):
+        bad, timing["dt"] = _agree(mesh, data.device,
+                                   not _healthy(fits, best_fit(history), cfg.regress_tol),
+                                   timing.get("dt", 0.0))
+        if bad:
             # roll back to the last good boundary; repeated failures of the
             # same replay escalate to a ridged retry
             report.rollbacks += 1

@@ -3,7 +3,7 @@ decompose``), on a GPU by default:
 
   PYTHONPATH=src python -m repro_torch.launch.decompose --dataset choa \
       --scale 0.002 --rank 5 --iters 20 [--format cc|scoo|auto] \
-      [--backend auto|staged|scoo|fused|torch] [--engine host|scan] \
+      [--backend auto|staged|scoo|fused|torch] [--engine host|scan|mesh] \
       [--check-every 10] [--constraint v=nonneg+l1:0.1,w=smooth:0.1] \
       [--precision f32|bf16|f16] [--compress rsvd[:r[:p[:q]]]] \
       [--device cpu] [--json out.json]
@@ -43,7 +43,19 @@ exhausts the in-place retries and forces the checkpoint-restore path);
 rolls back. A faulted run ends on the same factors as a faultless one, and
 the retry, restore and rollback counts land in the summary's
 ``supervisor`` block. ``--supervise`` engages the supervisor without
-faults. ``--engine mesh`` waits for the multi-GPU port and raises.
+faults.
+
+``--engine mesh`` runs one process a GPU, under ``torchrun``:
+
+  torchrun --nproc-per-node N -m repro_torch.launch.decompose --engine mesh ...
+
+(``--device cpu``: N processes over gloo; without ``torchrun``, a world of
+one). Every rank generates the data, plans the buckets nnz-balanced over
+the N subject shards (``subject_align`` N; a ``[shard-balance]`` line and
+the summary's ``shard_balance`` block, the reference's) and uploads only
+its own shard; the supervisor's flags work as under ``scan``. Rank 0 alone
+prints and writes ``--json``; ``device_bytes`` there is the sum over the
+ranks, ``shard_device_bytes`` each rank's.
 """
 from __future__ import annotations
 
@@ -54,6 +66,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import (Bucketed, Parafac2Options, Parafac2State,
                               bucketize, fit)
@@ -63,12 +76,15 @@ from repro_torch.core.constraints import (available as available_constraints,
 from repro_torch.data import choa_like, movielens_like
 from repro_torch.device import resolve_device
 from repro_torch.dist import FaultInjector, SupervisorConfig, supervised_fit
+from repro_torch.dist import sharding as dsh
 from repro_torch.kernels import fused, gather_matmul, polar, scoo, staged, tridiag
+from repro_torch.launch import mesh as _mesh
 from repro_torch.launch.summary import resolved_options, run_summary
-from repro_torch.sparse import IrregularCOO, plan_buckets, random_irregular, route_formats
+from repro_torch.sparse import (BucketPlan, IrregularCOO, plan_buckets, random_irregular,
+                                route_formats)
 
-__all__ = ["load_dataset", "parse_fail_spec", "prepare", "decompose", "kernel_launches",
-           "reset_launches", "main"]
+__all__ = ["load_dataset", "parse_fail_spec", "plan_data", "prepare", "decompose",
+           "kernel_launches", "reset_launches", "main"]
 
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -107,17 +123,39 @@ def load_dataset(name: str, scale: float, seed: int) -> IrregularCOO:
     raise ValueError(name)
 
 
-def prepare(data: IrregularCOO, *, buckets: int, device: torch.device,
-            dtype: torch.dtype, format: str = "cc") -> Tuple[Bucketed, List[dict]]:
-    """Plan and upload the buckets in ``format`` ("cc" | "scoo" | "auto";
-    the plan sorts subjects by nnz for "scoo" only, as the reference's);
-    returns them with the per-bucket records of the summary (shape,
-    members, nnz, density, format, device bytes)."""
+def plan_data(data: IrregularCOO, *, buckets: int, format: str = "cc",
+              n_shards: int = 1) -> Tuple[BucketPlan, Optional[dict]]:
+    """The bucket plan (subjects sorted by nnz for "scoo" only, as the
+    reference's) and, over ``n_shards > 1`` subject shards, the plan
+    nnz-balanced with the summary's ``shard_balance`` block (the
+    reference's: per bucket the shards' nnz, and the max/mean imbalance
+    after and before); None for one shard."""
     rc, ccnt, nnzc = data.row_counts(), data.col_counts(), data.nnz_counts()
     plan = plan_buckets(rc, ccnt, max_buckets=buckets, nnz_counts=nnzc,
                         sort_by="nnz" if format == "scoo" else "area")
+    if n_shards <= 1:
+        return plan, None
+    naive = plan.shard_imbalance(nnzc, n_shards)
+    plan = plan.balance_for_shards(nnzc, n_shards)
+    return plan, {"n_shards": n_shards, "shard_nnz": plan.shard_nnz(nnzc, n_shards),
+                  "imbalance_max_over_mean": plan.shard_imbalance(nnzc, n_shards),
+                  "imbalance_unbalanced": naive}
+
+
+def prepare(data: IrregularCOO, *, buckets: int, device: torch.device,
+            dtype: torch.dtype, format: str = "cc", plan: Optional[BucketPlan] = None,
+            shard: Tuple[int, int] = (0, 1)) -> Tuple[Bucketed, List[dict]]:
+    """Plan (``plan`` by default :func:`plan_data`'s) and upload the
+    buckets in ``format`` ("cc" | "scoo" | "auto"), or with ``shard=(index,
+    count)`` only that subject shard of them (``subject_align`` count);
+    returns them with the per-bucket records of the summary (shape,
+    members, nnz, density, format, device bytes of what was uploaded)."""
+    rc, ccnt, nnzc = data.row_counts(), data.col_counts(), data.nnz_counts()
+    if plan is None:
+        plan = plan_data(data, buckets=buckets, format=format, n_shards=shard[1])[0]
     fmts = route_formats(plan, nnzc, format=format)
-    bt = bucketize(data, dtype=dtype, device=device, plan=plan, formats=fmts)
+    bt = bucketize(data, dtype=dtype, device=device, plan=plan, formats=fmts,
+                   subject_align=shard[1], shard=shard)
     stats = plan.stats(rc, ccnt, nnzc, formats=fmts)
     for rec, b in zip(stats, bt.buckets):
         rec["device_bytes"] = b.nbytes()
@@ -193,8 +231,9 @@ def main(argv=None) -> dict:
                     help="ALS execution engine: host (one iteration at a time, "
                          "the fit read every iteration), scan (chunks of "
                          "--check-every iterations, CUDA graphs on a GPU; see "
-                         "repro_torch.core.engine); mesh waits for the "
-                         "multi-GPU port and raises")
+                         "repro_torch.core.engine), mesh (scan's chunks on "
+                         "each rank's subject shard, a process a GPU under "
+                         "torchrun, the sums all-reduced)")
     ap.add_argument("--check-every", type=int, default=10,
                     help="iterations per chunk for the scan engine (0 = the whole "
                          "fit, the stopping rule evaluated on the device)")
@@ -262,27 +301,65 @@ def main(argv=None) -> dict:
     # a bad spec raises ValueError listing the registered constraints here,
     # before any data is built
     specs = parse_constraint_arg(args.constraint) if args.constraint else PAPER_CONSTRAINTS
-    print(f"[constraints] {constraint_summary(specs)}")
-    device = resolve_device(args.device)
     dtype = DTYPES[args.dtype]
     # the options' errors (an f64 dtype below f32 precision; a bad compress
     # spec, with the registered preprocessors) before any data
     opts = Parafac2Options(rank=args.rank, constraints=specs, backend=args.backend,
                            dtype=dtype, engine=args.engine, check_every=args.check_every,
                            precision=args.precision, compress=args.compress)
+    owned = args.engine == "mesh" and not dist.is_initialized()
+    device = resolve_device(args.device)
+    shard = (0, 1)
+    if args.engine == "mesh":
+        # one process a GPU: this rank's device, its shard of the subjects
+        device = _mesh.init_distributed(device)
+        mesh = _mesh.local_mesh(device)
+        shard = dsh.subject_shard(mesh, dsh.subject_mesh_axes(mesh))
+    try:
+        return _run(args, opts, specs, device, dtype, shard, supervise, fail_spec, nan_spec)
+    finally:
+        if owned:
+            _mesh.shutdown()
+
+
+def _run(args, opts: Parafac2Options, specs: dict, device: torch.device,
+         dtype: torch.dtype, shard: Tuple[int, int], supervise: bool, fail_spec: dict,
+         nan_spec: dict) -> dict:
+    """``main`` after the arguments: the data, this rank's buckets, the fit
+    and the summary (printed and written by rank 0 alone)."""
+    lead = shard[0] == 0 and (not dist.is_initialized() or dist.get_rank() == 0)
+    say = print if lead else (lambda *a, **k: None)
+    say(f"[constraints] {constraint_summary(specs)}")
     t0 = time.perf_counter()
     data = load_dataset(args.dataset, args.scale, args.seed)
-    print(f"[data] K={data.n_subjects} J={data.n_cols} nnz={data.nnz} "
-          f"({time.perf_counter() - t0:.1f}s)")
+    say(f"[data] K={data.n_subjects} J={data.n_cols} nnz={data.nnz} "
+        f"({time.perf_counter() - t0:.1f}s)")
     t0 = time.perf_counter()
+    plan, shard_balance = plan_data(data, buckets=args.buckets, format=args.format,
+                                    n_shards=shard[1])
+    if shard_balance is not None:
+        say(f"[shard-balance] {shard[1]} shards: imbalance "
+            f"{shard_balance['imbalance_unbalanced']:.3f} -> "
+            f"{shard_balance['imbalance_max_over_mean']:.3f} (max/mean nnz)")
     bt, bucket_stats = prepare(data, buckets=args.buckets, device=device, dtype=dtype,
-                               format=args.format)
+                               format=args.format, plan=plan, shard=shard)
     device_bytes = sum(rec["device_bytes"] for rec in bucket_stats)
-    print(f"[bucketize] {len(bt.buckets)} buckets ({args.format}): "
-          + ", ".join(f"{r['format']}@{r['density'] * 100:.1f}% "
-                      f"{r['i_pad']}x{r['c_pad']}x{r['n_subjects']}" for r in bucket_stats)
-          + f"; device bytes {device_bytes / 2**20:.1f} MiB on {device} "
-          f"({time.perf_counter() - t0:.1f}s)")
+    shard_bytes = None
+    if shard[1] > 1:
+        # the summary's bytes are the whole data's, as the reference's (its
+        # arrays are global): the sum over the ranks, and each rank's
+        shard_bytes = [None] * dist.get_world_size()
+        dist.all_gather_object(shard_bytes, [rec["device_bytes"] for rec in bucket_stats])
+        for i, rec in enumerate(bucket_stats):
+            rec["device_bytes"] = sum(b[i] for b in shard_bytes)
+        shard_bytes = [sum(b) for b in shard_bytes]
+        device_bytes = sum(shard_bytes)
+    say(f"[bucketize] {len(bt.buckets)} buckets ({args.format}): "
+        + ", ".join(f"{r['format']}@{r['density'] * 100:.1f}% "
+                    f"{r['i_pad']}x{r['c_pad']}x{r['n_subjects']}" for r in bucket_stats)
+        + f"; device bytes {device_bytes / 2**20:.1f} MiB on {device}"
+        + (f" ({shard[1]} shards)" if shard[1] > 1 else "")
+        + f" ({time.perf_counter() - t0:.1f}s)")
 
     supervisor_report = None
     if supervise:
@@ -296,23 +373,23 @@ def main(argv=None) -> dict:
         reset_launches()
         t0 = time.perf_counter()
         state, hist, report = supervised_fit(bt, opts, max_iters=args.iters, tol=args.tol,
-                                             seed=args.seed, verbose=True, config=cfg)
+                                             seed=args.seed, verbose=lead, config=cfg)
         dt = time.perf_counter() - t0
         supervisor_report = report.as_dict()
-        print(f"[supervisor] retries={report.retries} "
-              f"restores={report.restores} rollbacks={report.rollbacks} "
-              f"stragglers={len(report.stragglers)} "
-              f"checkpoints={report.checkpoints_written}")
+        say(f"[supervisor] retries={report.retries} "
+            f"restores={report.restores} rollbacks={report.rollbacks} "
+            f"stragglers={len(report.stragglers)} "
+            f"checkpoints={report.checkpoints_written}")
     else:
         state, hist, dt = decompose(bt, rank=args.rank, iters=args.iters, tol=args.tol,
                                     seed=args.seed, backend=args.backend, dtype=dtype,
                                     engine=args.engine, check_every=args.check_every,
                                     constraints=specs, precision=args.precision,
-                                    compress=args.compress)
-    print(f"[fit] {len(hist)} iters in {dt:.2f}s "
-          f"({dt / max(len(hist), 1):.3f}s/iter), fit={hist[-1]:.4f}")
+                                    compress=args.compress, verbose=lead)
+    say(f"[fit] {len(hist)} iters in {dt:.2f}s "
+        f"({dt / max(len(hist), 1):.3f}s/iter), fit={hist[-1]:.4f}")
     launches = kernel_launches()
-    print(f"[kernels] launches {launches}")
+    say(f"[kernels] launches {launches}")
     V_np = state.V.cpu().numpy()
     summary = run_summary(
         "decompose",
@@ -328,13 +405,14 @@ def main(argv=None) -> dict:
         iters=len(hist), seconds_total=dt,
         seconds_per_iter=dt / max(len(hist), 1),
         platform="gpu" if device.type == "cuda" else "cpu",
-        supervisor=supervisor_report, shard_balance=None,
+        supervisor=supervisor_report, shard_balance=shard_balance,
+        shard_device_bytes=shard_bytes,
         device=str(device),
         device_name=(torch.cuda.get_device_name(device)
                      if device.type == "cuda" else "cpu"),
         kernel_launches=launches,
     )
-    if args.json:
+    if args.json and lead:
         with open(args.json, "w") as f:
             json.dump(summary, f, indent=1)
         print(f"[json] wrote {args.json}")

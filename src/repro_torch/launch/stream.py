@@ -167,6 +167,13 @@ class AppendResult:
 # the service
 # ---------------------------------------------------------------------------
 
+# a served model answers from one process; refits across ranks need a design
+# of their own
+MESH_WAITS = ("the stream service answers from one process: its refits under "
+              "engine='mesh' wait for their own design (ROADMAP A6, what is left); "
+              "use 'host' or 'scan'")
+
+
 class StreamService:
     """Batched incremental PARAFAC2 serving over a warm-started model.
 
@@ -197,6 +204,8 @@ class StreamService:
                  nnz_align: int = 32,
                  seed: int = 0,
                  device="cuda"):
+        if opts.engine == "mesh":
+            raise NotImplementedError(MESH_WAITS)
         if opts.w_layout != "global":
             raise ValueError("StreamService needs w_layout='global' (streamed "
                              "W rows are indexed by global subject id)")
@@ -637,8 +646,8 @@ def main(argv=None) -> dict:
                     choices=["torch", "scoo", "fused", "staged", "auto"])
     ap.add_argument("--format", default="auto", choices=["cc", "scoo", "auto"])
     ap.add_argument("--engine", default="host", choices=["host", "scan", "mesh"],
-                    help="engine for the warm fit and refits (mesh waits for "
-                         "the multi-GPU port and raises)")
+                    help="engine for the warm fit and refits (mesh raises: the "
+                         "service answers from one process)")
     ap.add_argument("--check-every", type=int, default=10)
     ap.add_argument("--ckpt-dir", default="",
                     help="save the final service state here (the checkpoint layout)")

@@ -18,6 +18,13 @@ to the bucket's ``N_pad`` (``nnz_pads``; plan with ``sort_by="nnz"``).
 densified CC cell count) into its "cc"/"scoo" decision, and
 :func:`route_compress` each bucket's padded rows into the rsvd stage's
 compress-or-pass-through decision (``repro_torch.core.compress``).
+
+For the mesh engine (``repro_torch.core.engine``, ``engine="mesh"``) every
+bucket's subject axis splits into contiguous chunks, one a rank;
+:meth:`BucketPlan.balance_for_shards` orders each bucket's members so that
+the chunks carry near-equal nonzero counts, and :meth:`BucketPlan.shard_nnz`
+and :meth:`BucketPlan.shard_imbalance` report the balance. They build the
+reference's plans exactly.
 """
 from __future__ import annotations
 
@@ -33,6 +40,16 @@ __all__ = ["BucketPlan", "fixed_plan", "plan_buckets", "route_compress", "route_
 # (the reference's threshold: one SCOO nonzero costs about three stored
 # entries and two gathers per contraction against one dense CC cell).
 SCOO_DENSITY_THRESHOLD = 0.25
+
+
+def _shard_capacities(n_members: int, n_shards: int) -> List[int]:
+    """Real-subject slots per shard under ``bucketize``'s layout: the bucket
+    pads Kb up to a multiple of ``n_shards`` with padding slots at the tail,
+    and shard s owns the contiguous slots [s*cs, (s+1)*cs). Every shard
+    before the padding holds ``cs`` real subjects; the shard where the
+    padding starts holds fewer, and any after it none."""
+    cs = -(-n_members // n_shards)            # ceil: padded Kb / n_shards
+    return [max(0, min(cs, n_members - s * cs)) for s in range(n_shards)]
 
 
 def _round_up(x: int, align: int) -> int:
@@ -86,6 +103,61 @@ class BucketPlan:
         used = sum(self.bucket_nnz(nnz_counts))
         total = sum(npad * len(mem) for npad, mem in zip(self.nnz_pads, self.members))
         return 1.0 - used / max(total, 1)
+
+    def balance_for_shards(self, nnz_counts: Sequence[int],
+                           n_shards: int) -> "BucketPlan":
+        """Reorder every bucket's members so that its ``n_shards`` contiguous
+        subject chunks carry near-equal nonzero counts, not equal subject
+        counts: the quantile planner sorts members by size, which would put
+        every heavy subject on the last shards.
+
+        Capacity-constrained greedy LPT: subjects by nnz descending (stable,
+        so equal counts keep member order), each to the least-loaded shard
+        with a free slot (ties to the lowest index); the capacities are
+        :func:`_shard_capacities`', so the shard holding the tail padding
+        gets the fewest slots. Shapes and pad targets are untouched: only the
+        order within each bucket moves."""
+        if n_shards < 1:
+            raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+        if n_shards == 1:
+            return self
+        nz = np.asarray(nnz_counts, dtype=np.int64)
+        new_members = []
+        for mem in self.members:
+            caps = _shard_capacities(len(mem), n_shards)
+            loads = [0] * n_shards
+            bins: List[list] = [[] for _ in range(n_shards)]
+            for k in mem[np.argsort(-nz[mem], kind="stable")]:
+                s = min((s for s in range(n_shards) if len(bins[s]) < caps[s]),
+                        key=lambda s: (loads[s], s))
+                bins[s].append(k)
+                loads[s] += int(nz[k])
+            new_members.append(
+                np.concatenate([np.asarray(b, dtype=np.int32) for b in bins if b])
+                if len(mem) else mem)
+        return dataclasses.replace(self, members=new_members)
+
+    def shard_nnz(self, nnz_counts: Sequence[int], n_shards: int) -> List[List[int]]:
+        """Per bucket, the true nonzero count of each shard's contiguous
+        chunk (tail padding): the balance :meth:`balance_for_shards`
+        optimizes."""
+        nz = np.asarray(nnz_counts, dtype=np.int64)
+        out = []
+        for mem in self.members:
+            loads, lo = [], 0
+            for c in _shard_capacities(len(mem), n_shards):
+                loads.append(int(nz[mem[lo:lo + c]].sum()))
+                lo += c
+            out.append(loads)
+        return out
+
+    def shard_imbalance(self, nnz_counts: Sequence[int], n_shards: int) -> float:
+        """max / mean of the shards' nonzero counts over all buckets together
+        (1.0 = balanced; the straggler factor an unbalanced plan pays)."""
+        per_bucket = self.shard_nnz(nnz_counts, n_shards)
+        totals = [sum(b[s] for b in per_bucket) for s in range(n_shards)]
+        mean = sum(totals) / max(len(totals), 1)
+        return max(totals) / mean if mean > 0 else 1.0
 
     def stats(self, row_counts: Sequence[int], col_counts: Sequence[int],
               nnz_counts: Sequence[int],

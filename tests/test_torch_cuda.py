@@ -1744,3 +1744,95 @@ def test_checkpoint_from_card_restores_on_card_and_cpu(dev, tmp_path):
             assert torch.equal(getattr(back, f).cpu(), getattr(state, f).cpu())
         for a, b in zip(back.aux["v"] + back.aux["w"], state.aux["v"] + state.aux["w"]):
             assert torch.equal(a.cpu(), b.cpu())
+
+
+# ---------------------------------------------------------------------------
+# the mesh engine on the card: a world of one over NCCL, and the shard cut
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,fmt,check_every", [("auto", "cc", 5), ("auto", "cc", 0),
+                                                      ("staged", "scoo", 5)])
+def test_mesh_world_of_one_is_scan_on_gpu(dev, backend, fmt, check_every):
+    """A world of one over NCCL: the mesh engine's fit (its all-reduces
+    captured in the graph, 4 an iteration with a global W) is bit for bit
+    the scan engine's, history and every state tensor."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from repro_torch.core import engine
+    from repro_torch.dist import sharding as dsh
+    from repro_torch.launch import mesh as lm
+
+    try:
+        lm.init_distributed("cuda")
+        assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        bt = bucketize(choa_like(scale=0.002, seed=0), device=dev, dtype=torch.float32,
+                       format=fmt)
+        opts = Parafac2Options(rank=5, backend=backend, engine="scan", check_every=check_every)
+        s_scan, h_scan = fit(bt, opts, max_iters=10, tol=0.0)
+        dsh.COLLECTIVES.reset()
+        s_mesh, h_mesh = fit(bt, dataclasses.replace(opts, engine="mesh"), max_iters=10,
+                             tol=0.0)
+        assert dsh.COLLECTIVES.calls == 4 * (engine.WARMUP_ITERS + 1)
+        assert h_mesh == h_scan
+        for (k, a), (_, b) in zip(engine._flatten(s_mesh), engine._flatten(s_scan)):
+            assert torch.equal(a, b), k
+    finally:
+        lm.shutdown()
+
+
+def _stage_rows(b, be, H, V, W, J):
+    """A bucket's per-subject stage outputs through the route's kernels and
+    its partial sums over subjects, at fixed H, V and a global W."""
+    from repro_torch.core.procrustes import solve_q
+
+    Wb = W[b.subject_ids.long()] * b.subject_mask[:, None]
+    XkV, B = be.procrustes_b_bucket(b, H, Wb, V, b.gather_v(V))
+    Q = solve_q(B, "gram_eigh") * b.subject_mask[:, None, None]
+    proj = be.project_bucket(b, Q)
+    G = be.ykv_bucket(b, proj, V)
+    A = be.mode2_bucket(b, proj, H, Wb)
+    M3 = torch.zeros_like(W)
+    M3[b.subject_ids[: b.n_real].long()] = be.mode3_bucket(b, proj, H, YkV=G)[: b.n_real]
+    sums = {"M1": be.mode1_xkv_bucket(b, Q, XkV, Wb), "M3": M3,
+            "M2": be.mode2_scatter(A, b.cols, J, order=(b.scatter_perm, b.scatter_ends))}
+    return {"XkV": XkV, "B": B, "Q": Q, "G": G, "A": A}, sums
+
+
+@pytest.mark.cuda
+def test_shard_stage_rows_bit_for_bit_on_gpu(dev):
+    """choa 0.002's CC plan nnz-balanced for 4 ranks, each shard bucketized
+    on its own: F1's XkV and B, P1's Q, F4's G and F3's A of each shard's
+    subjects bit for bit the unsharded buckets' rows; the shards' M1, M2
+    and M3 partials, summed, within 1e-6 of the largest magnitude."""
+    from repro_torch.core.backend import get_backend
+    from repro_torch.launch import decompose as dec
+
+    data = choa_like(scale=0.002, seed=0)
+    bt, _ = dec.prepare(data, buckets=4, device=dev, dtype=torch.float32)
+    plan, _ = dec.plan_data(data, buckets=4, format="cc", n_shards=4)
+    shards = [bucketize(data, device=dev, dtype=torch.float32, plan=plan, subject_align=4,
+                        shard=(r, 4)) for r in range(4)]
+    rng = np.random.default_rng(0)
+    H, V, W = (torch.tensor(rng.random(s), dtype=torch.float32, device=dev)
+               for s in ((5, 5), (bt.n_cols, 5), (bt.n_subjects, 5)))
+    be = get_backend("auto", dev)
+    whole, parts = {}, {}
+    for i, b in enumerate(bt.buckets):
+        rows, sums = _stage_rows(b, be, H, V, W, bt.n_cols)
+        for k, v in sums.items():
+            whole[k] = whole.get(k, 0) + v
+        slot = torch.full((bt.n_subjects,), -1, dtype=torch.long, device=dev)
+        slot[b.subject_ids[: b.n_real].long()] = torch.arange(b.n_real, device=dev)
+        for r, sh in enumerate(shards):
+            sb = sh.buckets[i]
+            got, sums = _stage_rows(sb, be, H, V, W, bt.n_cols)
+            for k, v in sums.items():
+                parts[k] = parts.get(k, 0) + v
+            at = slot[sb.subject_ids[: sb.n_real].long()]
+            for k, v in got.items():
+                assert torch.equal(v[: sb.n_real], rows[k][at]), (r, i, k)
+    for k, v in parts.items():
+        scale = max(1.0, float(whole[k].abs().max()))
+        assert float((v - whole[k]).abs().max()) <= 1e-6 * scale, k

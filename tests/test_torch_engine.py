@@ -231,9 +231,7 @@ def test_no_iterations_return_the_start(choa, check_every):
 def test_engine_names(choa):
     with pytest.raises(ValueError, match="unknown engine"):
         _fit(choa, engine_="warp")
-    with pytest.raises(NotImplementedError, match="A6"):
-        _fit(choa, engine_="mesh")
-    assert engine.ENGINES == ("host", "scan")
+    assert engine.ENGINES == ("host", "scan", "mesh")
 
 
 def test_held_launches_move_counts_out_and_back():

@@ -1,6 +1,7 @@
 """The port's measurement tools on the CPU: what ``kernel_ab`` holds a
-change's outputs to, and the phase stamps ``tridiag_trace`` puts into
-``csrc/tridiag.cu`` (both time kernels only on a GPU)."""
+change's outputs to, the phase stamps ``tridiag_trace`` puts into
+``csrc/tridiag.cu`` (both time kernels only on a GPU), and ``mesh_time``
+in a world of one."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -55,3 +56,23 @@ def test_kernel_ab_builds_only_what_the_named_kernels_need():
     assert kernel_ab.needed_sources({"scoo_project", "gather_matmul"}) == ("gather_matmul", "scoo")
     for name in kernel_ab.COMPARED:
         assert kernel_ab.source_of(name) in kernel_ab.SOURCES, name
+
+
+def test_mesh_time_world_of_one_on_the_cpu(capsys):
+    """``mesh_time --device cpu`` in a world of one: its line has the
+    keys, one rank's bytes, the all-reduced bytes an iteration (M1, M2, M3
+    and delta at f32) and the mesh fits' history bit for bit the scan
+    engine's; the group is gone afterwards."""
+    import json
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh_time
+
+    out = mesh_time.main(["--scale", "0.002", "--iters", "3", "--device", "cpu"])
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == out
+    assert out["world"] == 1 and len(out["shard_bytes"]) == 1 and out["imbalance"] is None
+    K, J, R = 929, 1328, 5
+    assert out["allreduce_bytes_per_iter"] == 4 * (R * R + J * R + K * R + 1)
+    assert out["mesh_history"] == out["scan_history"] and len(out["scan_history"]) == 3
+    assert not dist.is_initialized()

@@ -286,8 +286,8 @@ def test_supervised_refusals(choa):
         supervised_fit(bt, _opts(compress="rsvd"), max_iters=4)
     with pytest.raises(ValueError, match="ckpt_dir"):
         supervised_fit(bt, _opts(), max_iters=4, config=SupervisorConfig(resume=True))
-    with pytest.raises(NotImplementedError, match="A6"):
-        supervised_fit(bt, _opts(engine="mesh"), max_iters=4)
+    with pytest.raises(ValueError, match="chunk"):     # the mesh engine's too
+        supervised_fit(bt, _opts(engine="mesh", check_every=0), max_iters=4)
 
 
 @pytest.mark.parametrize("nan_steps", [[1], {1: 2}])
