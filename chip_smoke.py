@@ -209,6 +209,24 @@ Phases, any failure exits non-zero:
    ``$SMOKE_OUT/scan_chunk_trace_auto.json``); last, one 8-slot dispatch
    of the CC auto stream service (``stream_dispatch_trace_auto.json``).
 
+6. last, the LM testbed's serving path (``phase3_lm``, no hand kernel on
+   it: every kernel count reset before it must read 0 after):
+   ``repro_torch.launch.serve`` at the full width of qwen3-0.6b and
+   mamba2-780m (bf16, batch 4, prompt 16, gen 16, the port's random init)
+   with prefill ms, decode ms a step, tok/s and the peak GiB while serving;
+   then, in a child process (``chip_smoke.py --lm-full-width``, so that its
+   profiler session cannot touch this process's), each full-width model's
+   prompt through ``prefill_step`` against the same prompt teacher-forced
+   through ``decode_step`` (finite, within 0.1 of the largest logit at
+   bf16, greedy tokens equal on the positions a top-two margin decides, at
+   least one), a decode whose cache is zeroed before every step beyond that
+   bound, and one profiled eager decode step (device kernels, busy share,
+   the step against its byte bound); the ten archs at ``reduced`` width
+   (f32) on the card against the port's CPU run from the same parameters
+   (``serve.against_cpu``): logits and 8 decode steps within 1e-5 of the
+   largest magnitude, greedy tokens equal (traces in
+   ``$SMOKE_OUT/lm_decode_step_trace_<arch>.json``).
+
 Files go to ``$SMOKE_OUT`` (default ``smoke_out/``).
 
 The last two lines are a JSON object with the kernels' numbers (the bf16
@@ -2939,6 +2957,189 @@ def phase3_supervisor(bt) -> None:
         fail("the ridge escalation did not recover a finite fit near the bare one")
 
 
+LM_SERVE = ("qwen3-0.6b", "mamba2-780m")   # phase3_lm: served at full width
+LM_SERVE_ARGS = ["--batch", "4", "--prompt-len", "16", "--gen", "16"]
+LM_STEPS = 8            # decode steps of each reduced arch, card against CPU
+LM_TOL = 1e-5           # f32 logits, relative to their largest magnitude
+LM_SELF_TOL = 0.1       # bf16 full width: decode against prefill, same bound
+
+
+def lm_nbytes(tree) -> int:
+    from repro_torch.models.common import tree_map
+
+    total = []
+    tree_map(lambda t: total.append(t.numel() * t.element_size()), tree)
+    return sum(total)
+
+
+def lm_full_width_check(arch: str, dev) -> dict:
+    """At full width (bf16): the prompt prefilled in one ``prefill_step``
+    against the same prompt teacher-forced through ``decode_step`` (the
+    path ``serve`` takes): finite logits of the expected shape, the largest
+    gap relative to the prefill's largest magnitude, and the greedy tokens
+    where the prefill's top-two margin exceeds ``LM_SELF_TOL`` of that
+    row's largest magnitude (``decided``). Then the same decode with the
+    cache zeroed before every step, as a cache that is never written would
+    leave it (``blind_gap``: the bound must be tight enough to see it). Then
+    one eager decode step profiled: its device kernels, their device time
+    and the share of the step's unprofiled time they fill. Runs in its own
+    process (``--lm-full-width``), so that its profiler session cannot touch
+    another phase's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.models.common import tree_map
+
+    cfg = get_config(arch)
+    bundle = build(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = bundle.init_params(gen, device=dev)
+    B, P = 4, 16
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen, device=dev)
+    cache = bundle.init_cache(B, P + 4, device=dev)
+
+    def gap_to(full, dec):
+        return float((dec.float() - full.float()).abs().max() / full.float().abs().max())
+
+    with torch.inference_mode():
+        full = bundle.prefill_step(params, {"tokens": prompts})
+        steps, blind = [], []
+        for t in range(P):
+            logits, cache = bundle.decode_step(params, cache, prompts[:, t:t + 1], t)
+            steps.append(logits)
+        dec = torch.cat(steps, dim=1)
+        if full.shape != (B, P, cfg.vocab_size) or dec.shape != full.shape:
+            fail(f"{arch}: logits of shape {tuple(full.shape)} / {tuple(dec.shape)}")
+        if not (bool(torch.isfinite(full).all()) and bool(torch.isfinite(dec).all())):
+            fail(f"{arch}: non-finite logits at full width")
+        top2 = torch.sort(full.float(), dim=-1).values[..., -2:]
+        sure = (top2[..., 1] - top2[..., 0]) > LM_SELF_TOL * full.float().abs().amax(-1)
+        same = bool((dec.argmax(-1) == full.argmax(-1))[sure].all())
+        zeroed = bundle.init_cache(B, P + 4, device=dev)
+        for t in range(P):
+            tree_map(lambda c: c.zero_(), zeroed)
+            blind.append(bundle.decode_step(params, zeroed, prompts[:, t:t + 1], t)[0])
+        blind_gap = gap_to(full, torch.cat(blind, dim=1))
+
+        def step():
+            return bundle.decode_step(params, cache, prompts[:, :1], P)
+
+        step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            step()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / 5
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(str(OUT / f"lm_decode_step_trace_{arch}.json"))
+    kern = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
+    if not kern:
+        fail(f"{arch}: the profiled decode step ran nothing on the device")
+    busy_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    span_ms = (max(e.time_range.end for e in kern) - min(e.time_range.start for e in kern)) / 1e3
+    nbytes = lm_nbytes(params) + lm_nbytes(cache)
+    return {"gap": gap_to(full, dec), "blind_gap": blind_gap, "greedy_same": same,
+            "decided": int(sure.sum()), "positions": B * P, "step_ms": step_ms,
+            "kernels": len(kern), "busy_ms": busy_ms, "span_ms": span_ms,
+            "param_bytes": lm_nbytes(params), "bytes": nbytes,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+
+
+def lm_full_width_child() -> int:
+    """``chip_smoke.py --lm-full-width``: ``lm_full_width_check`` of every
+    ``LM_SERVE`` arch in this process, one JSON line each."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device: chip_smoke.py runs the port on a GPU")
+    sys.path.insert(0, str(SRC))
+    OUT.mkdir(parents=True, exist_ok=True)
+    for arch in LM_SERVE:
+        print(json.dumps({"arch": arch, **lm_full_width_check(arch, torch.device("cuda"))}),
+              flush=True)
+        torch.cuda.empty_cache()
+    return 0
+
+
+def phase3_lm(dev) -> None:
+    """The LM testbed's serving path (ROADMAP A8a), which runs no hand
+    kernel: every kernel count is reset before it and must read 0 after.
+    ``repro_torch.launch.serve`` at the full width of qwen3-0.6b and
+    mamba2-780m (batch 4, prompt 16, gen 16; bf16; the port's random init),
+    with prefill ms, decode ms a step, tok/s and peak GiB; the full-width
+    decode against the full-width prefill, against a decode that never
+    writes its cache, and a profiled decode step (``lm_full_width_check``,
+    in a child process); then all ten reduced archs on the card against the
+    port's CPU run (``serve.against_cpu``, f32, within ``LM_TOL``, greedy
+    tokens equal)."""
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.launch import serve
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "unknown"
+    t_phase = time.perf_counter()
+    reset_launches()
+    vocab = {arch: get_config(arch).vocab_size for arch in LM_SERVE}
+    for arch in LM_SERVE:
+        t0 = time.perf_counter()
+        out = serve.main(["--arch", arch, *LM_SERVE_ARGS])
+        gen = out["generated"]
+        if gen.shape != (4, 16) or int(gen.min()) < 0 or int(gen.max()) >= vocab[arch]:
+            fail(f"{arch}: generated tokens of shape {tuple(gen.shape)}, in "
+                 f"[{int(gen.min())}, {int(gen.max())}]")
+        print(f"[lm] {arch} full width ({card}): prefill {out['prefill_ms']:.3f} ms (16 "
+              f"teacher-forced steps), decode {out['decode_ms_per_step']:.3f} ms a step, "
+              f"{out['tokens_per_s']:.1f} tok/s, peak {out['peak_gib']:.3f} GiB while "
+              f"serving; the whole call {time.perf_counter() - t0:.1f} s", flush=True)
+        free_cached(f"serve {arch}")
+    t0 = time.perf_counter()
+    child = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--lm-full-width"],
+                           capture_output=True, text=True, timeout=600)
+    if child.returncode != 0:
+        print(child.stdout[-4000:] + child.stderr[-4000:], flush=True)
+        fail(f"the full-width LM check's process exited with {child.returncode}")
+    checks = [json.loads(line) for line in child.stdout.splitlines() if line.startswith('{"arch"')]
+    if [c["arch"] for c in checks] != list(LM_SERVE):
+        fail(f"the full-width LM check reported {[c['arch'] for c in checks]}")
+    for chk in checks:
+        arch = chk["arch"]
+        print(f"[lm] {arch} full width (own process): decode against prefill {chk['gap']:.3e} "
+              f"of the largest logit (bound {LM_SELF_TOL:g}, bf16), a decode whose cache is "
+              f"zeroed before every step {chk['blind_gap']:.3e}; greedy tokens equal on "
+              f"{chk['decided']} of {chk['positions']} positions decided by a top-two margin "
+              f"over {LM_SELF_TOL:g} of the row's largest logit: {chk['greedy_same']}; one "
+              f"eager decode step {chk['step_ms']:.3f} ms, {chk['kernels']} device kernels, "
+              f"busy {chk['busy_ms']:.3f} ms ({chk['busy_ms'] / chk['step_ms']:.1%} of the "
+              f"step; {chk['busy_ms'] / chk['span_ms']:.1%} of the first-to-last kernel span "
+              f"{chk['span_ms']:.3f} ms); bytes a step {chk['bytes']:,} (parameters "
+              f"{chk['param_bytes']:,}): byte bound {chk['bound_ms']:.4f} ms at 3.35 TB/s, "
+              f"the step {chk['step_ms'] / chk['bound_ms']:.1f}x it", flush=True)
+        if not (chk["gap"] <= LM_SELF_TOL < chk["blind_gap"]):
+            fail(f"{arch}: full-width decode parts from its prefill, or the bound does not "
+                 f"see a cache that is never written")
+        if not chk["decided"] or not chk["greedy_same"]:
+            fail(f"{arch}: greedy tokens differ, or no position was decided")
+    print(f"[lm] the full-width checks' process: {time.perf_counter() - t0:.1f} s", flush=True)
+    for arch in list_archs():
+        r = serve.against_cpu(arch, dev, steps=LM_STEPS, tol=LM_TOL)
+        print(f"[lm] {arch} reduced, card against CPU (f32): logits {r['forward']:.3e}, "
+              f"{LM_STEPS} decode steps {r['decode']:.3e} (bound {LM_TOL:g}); greedy "
+              f"{r['same']}/{r['decided']} decided tokens equal", flush=True)
+        if not (r["finite"] and r["forward"] <= LM_TOL and r["decode"] <= LM_TOL
+                and r["same"] == r["decided"] and r["decided"] >= 2 * LM_STEPS - 1):
+            fail(f"{arch}: reduced arch on the card parts from the CPU run: {r}")
+    got = {k: n for k, n in launches().items() if n}
+    if got:
+        fail(f"the LM path launched hand kernels: {got}")
+    print(f"[lm] no hand kernel launched on the LM path (counts reset before it, all 0 "
+          f"after); phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def bcc_cut(bt, V):
     """The largest CC bucket's first subjects, as many as keep the BCC
     values within ``BCC_CUT_BYTES`` (width unchanged, depth cut), converted
@@ -3741,6 +3942,8 @@ def main() -> int:
     rows += phase4_half(bt, bt_sc, state, half_launches, half_errs)
     rows += phase4_cores(bt, cmp["comp"], cmp["state"], cmp["launches"], cmp["range_launches"])
     phase5_profile(bt, bt_sc, iter_ms, scan_ms, con["ms"], cmp["comp"].data, served)
+    free_cached("the profiles")
+    phase3_lm(dev)
     print(f"[done] {time.perf_counter() - t0:.1f}s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
@@ -3750,4 +3953,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(lm_full_width_child() if sys.argv[1:] == ["--lm-full-width"] else main())

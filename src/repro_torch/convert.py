@@ -1,4 +1,5 @@
-"""Carry PARAFAC2 states between the JAX package and the port.
+"""Carry PARAFAC2 states and LM parameter trees between the JAX package and
+the port.
 
 The reference's ``Parafac2State`` leaves, as numpy arrays, become the port's
 state on a chosen device and dtype, and back. This is how a parity test
@@ -7,11 +8,13 @@ reproduce the reference's ``jax.random`` initialisation. A bucketed W is a
 list (or tuple) of per-bucket arrays; ``aux``, the constraint layer's duals,
 is the reference's nested dict of tuples and lists of arrays. Under the
 mesh engine each rank takes the whole of the replicated leaves and its own
-rows of a bucketed W and of that W's duals (``shard=``).
+rows of a bucketed W and of that W's duals (``shard=``). An LM's parameter
+tree (nested dicts and lists of arrays) crosses the same way, leaf for leaf
+(:func:`lm_params_from_arrays`, :func:`lm_params_to_arrays`).
 """
 from __future__ import annotations
 
-from typing import Mapping, Tuple
+from typing import Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -20,7 +23,8 @@ from repro_torch.core.constraints import tree_map
 from repro_torch.core.parafac2 import Parafac2State
 from repro_torch.device import resolve_device
 
-__all__ = ["state_from_arrays", "state_to_arrays"]
+__all__ = ["lm_params_from_arrays", "lm_params_to_arrays", "state_from_arrays",
+           "state_to_arrays"]
 
 
 def state_from_arrays(arrays: Mapping, device="cuda", dtype: torch.dtype = torch.float32,
@@ -69,3 +73,37 @@ def state_to_arrays(state: Parafac2State) -> dict:
     W = [a(w) for w in state.W] if isinstance(state.W, tuple) else a(state.W)
     return {"H": a(state.H), "V": a(state.V), "W": W, "fit": a(state.fit),
             "aux": tree_map(a, state.aux)}
+
+
+def _leaf_to_tensor(a, device, dtype):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":    # ml_dtypes' bfloat16: through its bits
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))
+    return t.to(device=device, dtype=dtype if dtype is not None else t.dtype)
+
+
+def _leaf_to_array(t: torch.Tensor):
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def lm_params_from_arrays(tree, device="cuda", dtype: Optional[torch.dtype] = None):
+    """The reference's LM parameter tree, as nested dicts and lists of
+    numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``), as the
+    port's tree on ``device`` (a GPU by default; raises without one unless
+    ``"cpu"``): each leaf keeps its dtype, or takes ``dtype``; bfloat16
+    leaves (``ml_dtypes``) cross through their bits."""
+    device = resolve_device(device)
+    return tree_map(lambda a: _leaf_to_tensor(a, device, dtype), tree)
+
+
+def lm_params_to_arrays(params):
+    """The inverse: the port's tree as numpy arrays on the host, bit for bit
+    (bfloat16 leaves as ``ml_dtypes.bfloat16``)."""
+    return tree_map(_leaf_to_array, params)

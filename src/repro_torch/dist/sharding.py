@@ -21,9 +21,17 @@ automatically: no DTensor, and :func:`shard` is the identity (the
 reference's ``shard`` is a no-op without a mesh and inside ``shard_map``,
 the only places this package runs it).
 
-The reference's parameter half (``logical_spec``, ``enforce_divisible``,
-``param_spec``, ``param_shardings``, ``barrier``, ``unroll_loops``) belongs
-to the LM testbed and waits for it (ROADMAP A8).
+The LM half serves the testbed's models (:mod:`repro_torch.models`):
+:func:`logical_spec` resolves logical names under the installed rules,
+:func:`enforce_divisible` replicates what a mesh dimension does not divide,
+and :func:`param_spec` gives a parameter's layout from its path, each as a
+plain tuple of mesh dimension names (or ``None``s) where the reference
+returns a ``PartitionSpec``. The reference's ``barrier`` (an
+``optimization_barrier`` pinning XLA's order) and ``unroll_loops`` (a flag
+for XLA's cost analysis) have no counterpart: eager torch runs ops in
+program order and the port's loops are Python loops. ``param_shardings``,
+which places an LM on a mesh of devices, and the manual expert-parallel
+MoE wait for the LM on a mesh (ROADMAP A8c).
 """
 from __future__ import annotations
 
@@ -34,8 +42,9 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 import torch
 import torch.distributed as dist
 
-__all__ = ["COLLECTIVES", "LM_RULES", "SP_RULES", "Rules", "axis_rules", "current_mesh",
-           "current_rules", "psum_subjects", "shard", "subject_collectives",
+__all__ = ["COLLECTIVES", "LM_RULES", "SP_RULES", "Rules", "axis_rules",
+           "current_mesh", "current_rules", "enforce_divisible", "logical_spec",
+           "param_spec", "psum_subjects", "shard", "subject_collectives",
            "subject_group", "subject_mesh_axes", "subject_shard"]
 
 # one rule table entry: logical axis name -> mesh dimension name(s) or None
@@ -187,3 +196,96 @@ def shard(x: torch.Tensor, axes: Sequence[Optional[str]]) -> torch.Tensor:
     """Annotate ``x``'s logical axes: the identity (each rank already holds
     its own subjects; nothing is resharded behind the caller's back)."""
     return x
+
+
+# ---------------------------------------------------------------------------
+# the LM half: logical -> mesh resolution and path-based parameter layouts
+# ---------------------------------------------------------------------------
+
+Spec = Tuple[Union[str, Tuple[str, ...], None], ...]
+
+
+def _dim_names(mesh) -> Tuple[str, ...]:
+    return tuple(mesh.mesh_dim_names or ())
+
+
+def _mesh_axis_size(mesh, names: Sequence[str]) -> int:
+    dims, n = _dim_names(mesh), 1
+    for nm in names:
+        if nm in dims:
+            n *= mesh.shape[dims.index(nm)]
+    return n
+
+
+def _resolve_entry(entry, mesh):
+    """Rule value -> spec entry: mesh dimensions ``mesh`` lacks dropped,
+    a 1-tuple collapsed to its name, nothing left to None."""
+    if entry is None:
+        return None
+    names = entry if isinstance(entry, tuple) else (entry,)
+    if mesh is not None:
+        names = tuple(n for n in names if n in _dim_names(mesh))
+    if not names:
+        return None
+    return names if len(names) > 1 else names[0]
+
+
+def logical_spec(axes: Sequence[Optional[str]], mesh=None) -> Spec:
+    """Logical axis names -> a spec under the installed rules: unknown
+    names and names with no dimension on ``mesh`` resolve to None; with no
+    rules installed the spec is empty (replicated)."""
+    rules = current_rules()
+    if rules is None:
+        return ()
+    mesh = mesh if mesh is not None else current_mesh()
+    return tuple(_resolve_entry(rules.get(ax), mesh) if ax is not None else None
+                 for ax in axes)
+
+
+def enforce_divisible(spec: Spec, shape: Sequence[int], mesh) -> Spec:
+    """Replicate each dimension whose mesh size does not divide it evenly
+    (the layouts are hints, never requirements)."""
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    out = []
+    for dim, entry in zip(shape, entries):
+        if entry is None:
+            out.append(None)
+            continue
+        names = entry if isinstance(entry, tuple) else (entry,)
+        size = _mesh_axis_size(mesh, names)
+        out.append(entry if size <= 1 or dim % size == 0 else None)
+    return tuple(out)
+
+
+# weights contracted on their LAST dim at apply time: output dim on "model"
+# (column-parallel), input dim on the fsdp axis.
+_COL_PARALLEL = frozenset({
+    "wq", "wk", "wv", "w_gate", "w_up",
+    "in_proj_z", "in_proj_x", "in_proj_B", "in_proj_C", "in_proj_dt",
+    "w_in", "w_gate_branch", "wa", "wx",
+    "lm_head", "patch_proj",
+})
+# weights whose FIRST dim is the model-sharded activation dim (row-parallel)
+_ROW_PARALLEL = frozenset({"wo", "w_down", "out_proj", "w_out"})
+
+
+def param_spec(path: str, ndim: int, stacked: bool = False) -> Spec:
+    """A parameter's (or optimizer moment's) layout from its "/"-joined
+    tree path, as the reference's ``param_spec``: ``stacked`` marks the
+    groups' leading layer axis (never sharded)."""
+    lead: Tuple[Optional[str], ...] = (None,) if stacked else ()
+    body = ndim - len(lead)
+    leaf = path.rsplit("/", 1)[-1]
+    if body <= 1:
+        return ()               # scalars, biases, norm scales: replicated
+    if "experts/" in path:      # [E, d, f]: experts on "model" (EP)
+        return (*lead, "model", *([None] * (body - 1)))
+    if "conv/" in path:         # depthwise [W, C]: channels as the activation
+        return (*lead, *([None] * (body - 1)), "model")
+    if "embed/tokens" in path:  # [V, d]: vocab on "model", d fsdp
+        return (*lead, "model", *([None] * (body - 2)), "data")
+    if leaf in _ROW_PARALLEL:
+        return (*lead, "model", *([None] * (body - 2)), "data")
+    if leaf in _COL_PARALLEL:
+        return (*lead, "data", *([None] * (body - 2)), "model")
+    return ()                   # unknown (router gates, ...): replicated

@@ -1836,3 +1836,57 @@ def test_shard_stage_rows_bit_for_bit_on_gpu(dev):
     for k, v in parts.items():
         scale = max(1.0, float(whole[k].abs().max()))
         assert float((v - whole[k]).abs().max()) <= 1e-6 * scale, k
+
+
+# ---------------------------------------------------------------------------
+# the LM testbed's serving path (no hand kernel lies on it): the card
+# against the port's own CPU run on the same parameters and inputs
+# ---------------------------------------------------------------------------
+
+LM_TOL = 1e-5     # f32 logits, relative to their largest magnitude
+
+
+def _rel(a, b):
+    return float((a.double() - b.double()).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama4-maverick-400b-a17b", "mamba2-780m", "minicpm-2b",
+                                  "phi3.5-moe-42b-a6.6b", "pixtral-12b", "qwen3-0.6b",
+                                  "qwen3-8b", "recurrentgemma-9b", "stablelm-3b",
+                                  "whisper-medium"])
+def test_lm_reduced_on_gpu_matches_cpu(dev, arch):
+    from repro_torch.launch.serve import against_cpu
+
+    r = against_cpu(arch, dev, steps=8, tol=LM_TOL)
+    assert r["finite"] and r["forward"] <= LM_TOL and r["decode"] <= LM_TOL, r
+    assert r["same"] == r["decided"] >= 15, r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,length", [("qwen3-0.6b", 8), ("mamba2-780m", 8),
+                                         ("recurrentgemma-9b", 24)])
+def test_lm_decode_matches_prefill_on_gpu(dev, arch, length):
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import build
+
+    cfg = reduced(get_config(arch))
+    bundle = build(cfg)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    params = bundle.init_params(gen)                   # the GPU by default
+    tokens = torch.randint(0, cfg.vocab_size, (2, length), generator=gen, device=dev)
+    cache = bundle.init_cache(2, length)
+    with torch.inference_mode():
+        full = bundle.prefill_step(params, {"tokens": tokens})
+        for t in range(length):
+            logits, cache = bundle.decode_step(params, cache, tokens[:, t:t + 1], t)
+            assert _rel(logits[:, 0], full[:, t]) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_lm_serve_on_gpu(dev):
+    from repro_torch.launch import serve
+
+    out = serve.main(["--reduce", "--batch", "2", "--prompt-len", "5", "--gen", "6"])
+    assert out["generated"].shape == (2, 6) and out["generated"].device.type == "cuda"
+    assert out["peak_gib"] > 0 and out["tokens_per_s"] > 0
