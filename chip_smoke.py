@@ -226,6 +226,20 @@ Phases, any failure exits non-zero:
    (``serve.against_cpu``): logits and 8 decode steps within 1e-5 of the
    largest magnitude, greedy tokens equal (traces in
    ``$SMOKE_OUT/lm_decode_step_trace_<arch>.json``).
+7. then the LM testbed's training path (``phase3_lm_train``), in a child
+   process (``chip_smoke.py --lm-train``): (a) the ten archs at ``reduced``
+   width (f32), train steps 0-2 on the card against the port's CPU run
+   from the same parameters (``train.against_cpu``: losses within 1e-5,
+   step 0's moments within 1e-5, parameters and moments within
+   ``train.step_gaps``'s bounds, step 0 moving nothing); (b)
+   ``repro_torch.launch.train`` at the full width of qwen3-0.6b (bf16,
+   remat, 8 steps of 8 x 256 tokens) with step ms, tokens/s and peak GiB,
+   the same model on one fixed batch (step 0's loss inside 0.5-3 ln V, the
+   loss falling) and one profiled step (device kernels, busy share, the
+   step against its floor); (c) a persistent fault at reduced width under
+   deterministic algorithms, bit for bit an uninterrupted run; (d) the
+   activation-signatures example, whose fit launches F1-F4 and P1, and the
+   same fit in f64 within 1e-8 of the CPU's torch route.
 
 Files go to ``$SMOKE_OUT`` (default ``smoke_out/``).
 
@@ -3140,6 +3154,289 @@ def phase3_lm(dev) -> None:
           f"after); phase {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+LM_TRAIN_ARGS = ["--arch", "qwen3-0.6b", "--steps", "8", "--batch", "8", "--seq", "256",
+                 "--log-every", "1"]        # phase3_lm_train (b): full width, on the card
+LM_FAULT_ARGS = ["--arch", "qwen3-0.6b", "--reduce", "--steps", "20", "--batch", "4",
+                 "--seq", "32", "--ckpt-every", "6", "--log-every", "100"]
+LM_FAULT_AT = "15"      # (c): a persistent fault past the checkpoint of step 12
+EXAMPLE_TOL = 1e-8      # (d): the example's f64 fit history, card against the CPU's torch route
+EXAMPLE_KERNELS = ("fused_procrustes_b", "fused_mode1_xkv", "fused_mode2_compact",
+                   "fused_ykv", "gram_inv_sqrt")       # F1-F4 and P1
+
+
+def lm_train_floor(params, B: int, S: int, cfg) -> dict:
+    """The least time of one full-width train step: the larger of its
+    operations over the bf16 peak (6 x parameters x tokens for the
+    products, forward and backward, the tied head once; attention's QK^T
+    and PV over whole blocks; remat's recompute not counted, it is a
+    choice) and its bytes over the memory rate (the parameters, m and v
+    each read once and written once)."""
+    n = lm_nbytes(params) // 2                      # bf16 parameters
+    ops = (6 * n * B * S + 12 * cfg.n_layers * B * S * S * cfg.n_heads
+           * cfg.resolved_head_dim)
+    nbytes = n * (2 + 4 + 4) * 2
+    t_ops, t_bytes = ops / HALF_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return {"params": n, "ops": ops, "bytes": nbytes, "ops_ms": t_ops, "bytes_ms": t_bytes,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def lm_train_full_width(dev) -> dict:
+    """(b): ``repro_torch.launch.train`` at the full width of qwen3-0.6b
+    (bf16, remat, batch 8 x 256, 8 steps: warm-up 1 step) with its step ms
+    and peak GiB; then the same model from the same seed on one fixed batch
+    for 8 steps (the loss must fall) and one more step profiled: its device
+    kernels, their device time and the share of the step's time they fill."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.launch import train
+    from repro_torch.models import build
+
+    out = train.main(LM_TRAIN_ARGS)
+    del out["params"], out["opt"]
+    torch.cuda.empty_cache()
+    cfg = get_config("qwen3-0.6b")
+    B, S = 8, 256
+    bundle = build(cfg, lr=1e-3, total_steps=8)
+    params = bundle.init_params(torch.Generator(device=dev).manual_seed(0), device=dev)
+    opt = bundle.init_opt(params)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             TokenStream(vocab_size=cfg.vocab_size, batch=B, seq_len=S).batch_at(0).items()}
+    fixed, fixed_ms = [], []
+    for i in range(8):
+        t0 = time.perf_counter()
+        params, opt, m = bundle.train_step(params, opt, batch, i)
+        fixed.append(float(m["loss"]))
+        fixed_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, opt, m = bundle.train_step(params, opt, batch, 8)
+    float(m["loss"])
+    step_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        params, opt, m = bundle.train_step(params, opt, batch, 8)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
+    if not kern:
+        fail("the profiled full-width train step ran nothing on the device")
+    by_name = {}
+    for e in kern:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    ops = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)[:10]
+    top_ops = [[e.key, e.self_device_time_total / 1e3, e.count] for e in ops]
+    return {"driver_losses": out["losses"], "driver_ms": out["step_ms"],
+            "peak_gib": out["peak_gib"], "fixed_losses": fixed, "fixed_ms": fixed_ms,
+            "step_ms": step_ms, "kernels": len(kern),
+            "busy_ms": sum(e.time_range.elapsed_us() for e in kern) / 1e3,
+            "top": [[name[:60], ms] for name, ms in top], "top_ops": top_ops,
+            "log_v": float(np.log(cfg.vocab_size)), **lm_train_floor(params, B, S, cfg)}
+
+
+def lm_train_fault() -> dict:
+    """(c): reduced qwen3 on the card, 20 steps, under
+    ``torch.use_deterministic_algorithms(True)``: an uninterrupted run and
+    one whose fault at step 15 persists past the retries (restored at the
+    checkpoint of step 12, then rewound). Whether the losses and the final
+    parameters and moments are the same bits."""
+    import tempfile
+
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.models.common import tree_leaves
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        plain = train.main(LM_FAULT_ARGS)
+        with tempfile.TemporaryDirectory(dir=OUT) as d:
+            faulted = train.main([*LM_FAULT_ARGS, "--ckpt-dir", d, "--fail-at", LM_FAULT_AT,
+                                  "--fail-persistent"])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    a = tree_leaves((plain["params"], plain["opt"]))
+    b = tree_leaves((faulted["params"], faulted["opt"]))
+    return {"losses": plain["losses"], "same_losses": plain["losses"] == faulted["losses"],
+            "same_state": len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b)),
+            "gap": max(float((x.float() - y.float()).abs().max()) for x, y in zip(a, b))}
+
+
+def lm_train_example() -> dict:
+    """(d): ``repro_torch.examples.lm_activation_signatures`` on the card,
+    its kernel launches counted from 0. Its activations' Grams have
+    condition numbers near 1e7, so an f32 fit of them is chaotic (the CPU's
+    own f32 fit moves by 1.6e-2 when its input moves by 1e-7): the card's
+    f32 history is printed beside the CPU's, and the check is the same fit
+    in f64, the card's ``auto`` route (its launches counted too) against
+    the CPU's torch route from the same initial state (``init_state`` draws
+    V on the CPU from the seed on either device)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core import bucketize, fit
+    from repro_torch.examples import lm_activation_signatures as example
+    from repro_torch.sparse import from_dense_slices
+
+    reset_launches()
+    out = example.main([])
+    got = launches()
+    data = from_dense_slices(out["slices"])
+    f64 = dataclasses.replace(example.OPTS, dtype=torch.float64)
+
+    def history(opts, device, dtype):
+        b = bucketize(data, max_buckets=2, device=device, dtype=dtype)
+        return fit(b, opts, max_iters=40, tol=1e-6)[1]
+
+    cpu32 = history(dataclasses.replace(example.OPTS, backend="torch"), "cpu", torch.float32)
+    reset_launches()
+    card64 = history(f64, "cuda", torch.float64)
+    got64 = launches()
+    cpu64 = history(dataclasses.replace(f64, backend="torch"), "cpu", torch.float64)
+
+    def gap(a, b):
+        return max(abs(x - y) for x, y in zip(a, b))
+
+    return {"launches": {k: got.get(k, 0) for k in EXAMPLE_KERNELS},
+            "launches64": {k: got64.get(k, 0) for k in EXAMPLE_KERNELS},
+            "all_launches": {k: v for k, v in got.items() if v}, "history": out["history"],
+            "cpu_history": cpu32, "history64": card64, "cpu_history64": cpu64,
+            "loss": out["loss"], "gap": gap(out["history"], cpu32), "gap64": gap(card64, cpu64)}
+
+
+def lm_train_child() -> int:
+    """``chip_smoke.py --lm-train``: ``phase3_lm_train``'s four parts in
+    this process, one JSON line each."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device: chip_smoke.py runs the port on a GPU")
+    sys.path.insert(0, str(SRC))
+    OUT.mkdir(parents=True, exist_ok=True)
+    from repro_torch.configs import list_archs
+    from repro_torch.launch import train
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    for arch in list_archs():
+        print(json.dumps({"part": "a", "arch": arch, **train.against_cpu(arch, dev)}),
+              flush=True)
+    print(json.dumps({"part": "a_s", "s": time.perf_counter() - t0}), flush=True)
+    for part, fn in (("b", lambda: lm_train_full_width(dev)), ("c", lm_train_fault),
+                     ("d", lm_train_example)):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.empty_cache()
+        print(json.dumps({"part": part, **out, "s": time.perf_counter() - t0}), flush=True)
+    return 0
+
+
+def phase3_lm_train() -> None:
+    """The LM testbed's training path (ROADMAP A8b), in a child process
+    (``chip_smoke.py --lm-train``, with cuBLAS's workspace fixed so that
+    (c) may ask for deterministic algorithms): (a) the ten reduced archs'
+    train steps 0-2 on the card against the port's CPU run
+    (``train.against_cpu``: losses within 1e-5, parameters and moments
+    within ``step_gaps``'s bounds); (b) qwen3-0.6b trained at full width
+    (``lm_train_full_width``); (c) a persistent fault at reduced width
+    (``lm_train_fault``): bit for bit an uninterrupted run; (d) the
+    activation-signatures example, whose fit runs F1-F4 and P1, and the
+    same fit in f64 within ``EXAMPLE_TOL`` of the CPU's torch route
+    (``lm_train_example``)."""
+    import numpy as np
+    from repro_torch.launch import train
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "unknown"
+    t_phase = time.perf_counter()
+    env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    child = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--lm-train"],
+                           capture_output=True, text=True, timeout=900, env=env)
+    (OUT / "lm_train_child.log").write_text(child.stdout + child.stderr)
+    if child.returncode != 0:
+        print(child.stdout[-6000:] + child.stderr[-6000:], flush=True)
+        fail(f"the LM training check's process exited with {child.returncode}")
+    parts, problems = {}, []
+    for line in child.stdout.splitlines():
+        if line.startswith('{"part"'):
+            rec = json.loads(line)
+            parts.setdefault(rec["part"], []).append(rec)
+    if sorted(parts) != ["a", "a_s", "b", "c", "d"] or len(parts["a"]) != 10:
+        print(child.stdout[-6000:] + child.stderr[-6000:], flush=True)
+        fail(f"the LM training check reported {sorted(parts)}")
+    for r in parts["a"]:
+        print(f"[lm-train] {r['arch']} reduced, train steps 0-2 card against CPU (f32, "
+              f"{card}): losses {r['loss']:.3e} (bound {train.LOSS_TOL:g}), step 0's first "
+              f"moments {r['grad']:.3e} (bound {train.GRAD_TOL:g}), parameters "
+              f"{r['param_lr']:.3e} lr at most and {r['param_frac']:.2e} of them past "
+              f"{train.PARAM_ABS:g} (bounds {train.PARAM_LR:g} lr, {train.PARAM_FRAC:g}), "
+              f"moments {r['moment']:.3e} (bound {train.MOMENT_TOL:g}); step 0 unmoved: "
+              f"{r['unmoved']}", flush=True)
+        if not (r["finite"] and r["unmoved"] and r["loss"] <= train.LOSS_TOL and r["within"]):
+            problems.append(f"{r['arch']}: train steps on the card part from the CPU run")
+    print(f"[lm-train] (a) {parts['a_s'][0]['s']:.1f} s ({card})", flush=True)
+
+    b = parts["b"][0]
+    drv = b["driver_ms"][1:]
+    med = float(np.median(drv))
+    print(f"[lm-train] qwen3-0.6b full width ({card}), bf16, remat, batch 8 x 256 = 2,048 "
+          f"tokens a step, {b['params']:,} parameters: `launch.train` losses "
+          f"{[round(x, 4) for x in b['driver_losses']]}, step ms {[round(x, 1) for x in b['driver_ms']]} "
+          f"(median of steps 1-7 {med:.1f} ms, {2048 / med * 1e3:.1f} tokens/s), peak "
+          f"{b['peak_gib']:.3f} GiB", flush=True)
+    print(f"[lm-train] qwen3-0.6b full width ({card}), one fixed batch: losses "
+          f"{[round(x, 4) for x in b['fixed_losses']]}, step ms "
+          f"{[round(x, 1) for x in b['fixed_ms']]}; one more step {b['step_ms']:.1f} ms, "
+          f"profiled: {b['kernels']:,} device kernels, busy {b['busy_ms']:.3f} ms "
+          f"({b['busy_ms'] / b['step_ms']:.1%} of the unprofiled step); floor "
+          f"{b['bound_ms']:.3f} ms by {b['bound_by']} ({b['ops']:.3e} operations at 989 "
+          f"TFLOP/s: {b['ops_ms']:.3f} ms; {b['bytes']:,} bytes at 3.35 TB/s: "
+          f"{b['bytes_ms']:.3f} ms), the step {b['step_ms'] / b['bound_ms']:.1f}x it, its "
+          f"device time {b['busy_ms'] / b['bound_ms']:.1f}x; (b) {b['s']:.1f} s", flush=True)
+    for name, ms in b["top"]:
+        print(f"[lm-train]   device {ms:9.3f} ms  {name} ({card})", flush=True)
+    for name, ms, count in b["top_ops"]:
+        print(f"[lm-train]   device {ms:9.3f} ms  x{count:<5d} {name} (its own kernels; "
+              f"{card})", flush=True)
+    lo, hi = 0.5 * b["log_v"], 3.0 * b["log_v"]
+    if not all(np.isfinite(b["driver_losses"] + b["fixed_losses"])):
+        problems.append("qwen3-0.6b at full width: a non-finite loss")
+    if not (lo < b["driver_losses"][0] < hi and lo < b["fixed_losses"][0] < hi):
+        problems.append(f"qwen3-0.6b at full width: step 0's loss outside ({lo:.3f}, {hi:.3f})")
+    if not b["fixed_losses"][-1] < b["fixed_losses"][0]:
+        problems.append("qwen3-0.6b at full width: the loss did not fall on a fixed batch")
+
+    c = parts["c"][0]
+    print(f"[lm-train] fault at reduced width ({card}), deterministic algorithms: a "
+          f"persistent fault at step {LM_FAULT_AT}, restored at step 12 and rewound: losses "
+          f"equal to the uninterrupted run's: {c['same_losses']}; parameters and moments bit "
+          f"for bit: {c['same_state']} (largest gap {c['gap']:.3e}); (c) {c['s']:.1f} s",
+          flush=True)
+    if not (c["same_losses"] and c["same_state"]):
+        problems.append("the rewound run parts from the uninterrupted run")
+
+    d = parts["d"][0]
+    print(f"[lm-train] activation-signatures example ({card}): LM loss {d['loss']:.3f}; f32 "
+          f"fit {d['history'][-1]:.6f} after {len(d['history'])} iterations, the CPU torch "
+          f"route's {d['cpu_history'][-1]:.6f} after {len(d['cpu_history'])}, largest gap "
+          f"{d['gap']:.3e} (not bounded: Grams of condition ~1e7 make an f32 fit chaotic); "
+          f"f64 fit {d['history64'][-1]:.9f} after {len(d['history64'])} iterations, the CPU "
+          f"torch route's after {len(d['cpu_history64'])}, largest gap {d['gap64']:.3e} "
+          f"(bound {EXAMPLE_TOL:g}); launches in the example {d['all_launches']}, in the f64 "
+          f"fit {d['launches64']}; (d) {d['s']:.1f} s", flush=True)
+    for key in ("launches", "launches64"):
+        if not all(d[key].values()):
+            problems.append(f"a fit of the example did not run "
+                            f"{[k for k, v in d[key].items() if not v]}")
+    if not (d["gap64"] <= EXAMPLE_TOL and len(d["history64"]) == len(d["cpu_history64"])):
+        problems.append("the example's f64 fit on the card parts from the CPU's torch route")
+    print(f"[lm-train] phase {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+    if problems:
+        fail("; ".join(problems))
+
+
 def bcc_cut(bt, V):
     """The largest CC bucket's first subjects, as many as keep the BCC
     values within ``BCC_CUT_BYTES`` (width unchanged, depth cut), converted
@@ -3944,6 +4241,7 @@ def main() -> int:
     phase5_profile(bt, bt_sc, iter_ms, scan_ms, con["ms"], cmp["comp"].data, served)
     free_cached("the profiles")
     phase3_lm(dev)
+    phase3_lm_train()
     print(f"[done] {time.perf_counter() - t0:.1f}s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
@@ -3953,4 +4251,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(lm_full_width_child() if sys.argv[1:] == ["--lm-full-width"] else main())
+    CHILDREN = {"--lm-full-width": lm_full_width_child, "--lm-train": lm_train_child}
+    sys.exit(CHILDREN[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in CHILDREN else main())

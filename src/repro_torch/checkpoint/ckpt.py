@@ -16,8 +16,10 @@ directories without a ``meta.json``, and ``save`` prunes to the newest
 Flat keys are the reference's pytree paths joined by ``::``: a
 :class:`~repro_torch.core.parafac2.Parafac2State` gives ``.H``, ``.V``,
 ``.W`` (``.W::0``, ``.W::1``, ... for the bucketed layout), ``.fit`` and
-``.aux::v::0``, ``.aux::w::0::1``, ...; a dict gives its keys (``H``,
-``sub_resid``); a list or tuple its indices. Empty containers (a direct
+``.aux::v::0``, ``.aux::w::0::1``, ...; a NamedTuple its fields (an
+``AdamWState`` in a ``(params, opt)`` tuple: ``1::.step``, ``1::.m::embed::
+tokens``, ...); a dict gives its keys (``H``, ``sub_resid``); a list or
+tuple its indices. Empty containers (a direct
 constraint's ``()``) have no leaves. Leaves are torch tensors or numpy
 arrays; ``restore`` gives each the template leaf's dtype and, for a
 tensor, its device.
@@ -56,6 +58,8 @@ def _children(node) -> Optional[list]:
     """``[(path entry, child), ...]`` of a container, None for a leaf."""
     if isinstance(node, dict):
         return [(str(k), node[k]) for k in sorted(node)]
+    if isinstance(node, tuple) and hasattr(node, "_fields"):     # a NamedTuple
+        return [(f".{f}", getattr(node, f)) for f in node._fields]
     if isinstance(node, (list, tuple)):
         return [(str(i), v) for i, v in enumerate(node)]
     if dataclasses.is_dataclass(node) and not isinstance(node, type):
@@ -81,6 +85,8 @@ def _rebuild(tree, leaf_fn, prefix: Tuple[str, ...] = ()):
     vals = [_rebuild(c, leaf_fn, prefix + (n,)) for n, c in kids]
     if isinstance(tree, dict):
         return dict(zip(sorted(tree), vals))
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*vals)
     if isinstance(tree, (list, tuple)):
         return type(tree)(vals)
     return dataclasses.replace(tree, **{f.name: v for f, v in

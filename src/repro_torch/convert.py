@@ -10,7 +10,8 @@ is the reference's nested dict of tuples and lists of arrays. Under the
 mesh engine each rank takes the whole of the replicated leaves and its own
 rows of a bucketed W and of that W's duals (``shard=``). An LM's parameter
 tree (nested dicts and lists of arrays) crosses the same way, leaf for leaf
-(:func:`lm_params_from_arrays`, :func:`lm_params_to_arrays`).
+(:func:`lm_params_from_arrays`, :func:`lm_params_to_arrays`), and so does
+its AdamW state (:func:`opt_state_from_arrays`, :func:`opt_state_to_arrays`).
 """
 from __future__ import annotations
 
@@ -23,8 +24,8 @@ from repro_torch.core.constraints import tree_map
 from repro_torch.core.parafac2 import Parafac2State
 from repro_torch.device import resolve_device
 
-__all__ = ["lm_params_from_arrays", "lm_params_to_arrays", "state_from_arrays",
-           "state_to_arrays"]
+__all__ = ["lm_params_from_arrays", "lm_params_to_arrays", "opt_state_from_arrays",
+           "opt_state_to_arrays", "state_from_arrays", "state_to_arrays"]
 
 
 def state_from_arrays(arrays: Mapping, device="cuda", dtype: torch.dtype = torch.float32,
@@ -107,3 +108,24 @@ def lm_params_to_arrays(params):
     """The inverse: the port's tree as numpy arrays on the host, bit for bit
     (bfloat16 leaves as ``ml_dtypes.bfloat16``)."""
     return tree_map(_leaf_to_array, params)
+
+
+def opt_state_from_arrays(state, device="cuda"):
+    """The reference's ``AdamWState`` with numpy leaves (``step``, ``m``,
+    ``v``: ``jax.tree_util.tree_map(np.asarray, opt)``), or any
+    ``(step, m, v)`` triple of arrays, as the port's
+    :class:`~repro_torch.optim.AdamWState` on ``device`` (a GPU by default;
+    raises without one unless ``"cpu"``), leaf for leaf and bit for bit:
+    ``step`` an int32 0-d tensor, the moments f32."""
+    from repro_torch.optim.adamw import AdamWState
+
+    step, m, v = state
+    return AdamWState(step=lm_params_from_arrays(np.asarray(step, np.int32), device),
+                      m=lm_params_from_arrays(m, device), v=lm_params_from_arrays(v, device))
+
+
+def opt_state_to_arrays(state):
+    """The inverse: the port's ``AdamWState`` with numpy leaves on the host
+    (``repro.optim.AdamWState(*opt_state_to_arrays(opt))`` is the
+    reference's)."""
+    return type(state)(*(lm_params_to_arrays(x) for x in state))

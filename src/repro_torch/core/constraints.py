@@ -55,7 +55,9 @@ __all__ = [
     "prox_smooth",
     "register_term",
     "scale_aux",
+    "tree_leaves",
     "tree_map",
+    "tree_unflatten",
 ]
 
 MODES = ("h", "v", "w")   # PARAFAC2 factor modes a spec dict may constrain
@@ -414,14 +416,48 @@ def admm_solve(M: torch.Tensor, A: torch.Tensor, aux, prox: Callable,
 
 def tree_map(fn: Callable, x):
     """``fn`` on every leaf of a nested dict/list/tuple, the nesting kept
-    (what the reference's ``jax.tree_util.tree_map`` does to ``aux``)."""
+    (what the reference's ``jax.tree_util.tree_map`` does to ``aux``); a
+    NamedTuple stays its own type."""
     if isinstance(x, dict):
         return {k: tree_map(fn, v) for k, v in x.items()}
     if isinstance(x, list):
         return [tree_map(fn, v) for v in x]
     if isinstance(x, tuple):
-        return tuple(tree_map(fn, v) for v in x)
+        vals = [tree_map(fn, v) for v in x]
+        return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
     return fn(x)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves in the reference's order (``jax.tree_util.tree_leaves``):
+    dict keys sorted, lists and tuples (NamedTuples too) in order."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def tree_unflatten(like, leaves):
+    """``like``'s structure holding ``leaves``, given in :func:`tree_leaves`'s
+    order (dicts keep ``like``'s key order)."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            vals = {k: build(node[k]) for k in sorted(node)}
+            return {k: vals[k] for k in node}
+        if isinstance(node, (list, tuple)):
+            vals = [build(v) for v in node]
+            if isinstance(node, list):
+                return vals
+            return type(node)(*vals) if hasattr(node, "_fields") else tuple(vals)
+        return next(it)
+
+    out = build(like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
+    return out
 
 
 def scale_aux(aux, col_scale: torch.Tensor):

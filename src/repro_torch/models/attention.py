@@ -19,7 +19,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.models.common import apply_rope, dense_init, rmsnorm
+from repro_torch.models.common import apply_rope, block_out, dense_init, rmsnorm
 
 __all__ = ["attend_train", "attend_decode", "init_attn", "attn_block"]
 
@@ -182,4 +182,6 @@ def attn_block(
         out = attend_train(q, k, v, causal=False)
     else:
         out = attend_train(q, k, v, causal=causal, window=window)
-    return out.reshape(B, S, H * hd) @ p["wo"], new_cache
+    out = out.reshape(B, S, H * hd)
+    with block_out():
+        return out @ p["wo"], new_cache

@@ -1,14 +1,16 @@
 """Shared model primitives: initializers, norms, RoPE, activations, and the
-tree helpers the model code walks its parameters with (``tree_map`` is the
-port's one, from ``repro_torch.core.constraints``)."""
+tree helpers the model code walks its parameters with (``tree_map``,
+``tree_leaves`` and ``tree_unflatten`` are the port's ones, from
+``repro_torch.core.constraints``)."""
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Optional, Sequence
 
 import torch
 
-from repro_torch.core.constraints import tree_map
+from repro_torch.core.constraints import tree_leaves, tree_map, tree_unflatten
 
 __all__ = [
     "dense_init",
@@ -17,12 +19,16 @@ __all__ = [
     "rope_freqs",
     "apply_rope",
     "act_fn",
+    "block_out",
+    "block_out_active",
     "gelu_tanh",
     "sigmoid",
     "silu",
     "cast",
+    "tree_leaves",
     "tree_map",
     "tree_stack",
+    "tree_unflatten",
 ]
 
 
@@ -107,6 +113,26 @@ def act_fn(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
     if name == "gelu":
         return gelu_tanh
     raise ValueError(f"unknown activation {name}")
+
+
+_BLOCK_OUT = [False]
+
+
+@contextlib.contextmanager
+def block_out():
+    """Marks the products computed inside it as a block's output, the
+    reference's ``checkpoint_name(y, "block_out")``: what
+    ``remat_policy="save_block_outputs"`` keeps. A flag, read only by that
+    policy; it changes no value."""
+    _BLOCK_OUT[0] = True
+    try:
+        yield
+    finally:
+        _BLOCK_OUT[0] = False
+
+
+def block_out_active() -> bool:
+    return _BLOCK_OUT[0]
 
 
 def tree_stack(trees: Sequence):

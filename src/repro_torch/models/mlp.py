@@ -5,7 +5,7 @@ import math
 
 import torch
 
-from repro_torch.models.common import act_fn, dense_init
+from repro_torch.models.common import act_fn, block_out, dense_init
 
 __all__ = ["init_mlp", "mlp_block"]
 
@@ -32,4 +32,5 @@ def mlp_block(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
         h = act(x @ p["w_gate"]) * (x @ p["w_up"])
     else:
         h = act(x @ p["w_up"])
-    return h @ p["w_down"]
+    with block_out():
+        return h @ p["w_down"]

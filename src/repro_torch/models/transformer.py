@@ -13,19 +13,23 @@ Every architecture is a repeating ``pattern`` of block kinds:
 The parameters of the ``n_layers // len(pattern)`` groups are stacked on a
 leading layer axis exactly as the reference stacks them (so a parameter
 tree carries across leaf for leaf); the remainder layers sit in ``rem``.
-Forward and decode are Python loops over the groups, then the remainder.
+Forward and decode are Python loops over the groups, then the remainder;
+under ``cfg.remat`` a training forward recomputes each group in the
+backward (:func:`remat`).
 Caches are stacked the same way, and a decode step writes each layer's new
 KV entries and recurrent states into its slice of the cache in place.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.attention import attn_block, init_attn
-from repro_torch.models.common import dense_init, rmsnorm, tree_map, tree_stack
+from repro_torch.models.common import (block_out_active, dense_init, rmsnorm, tree_leaves,
+                                       tree_map, tree_stack, tree_unflatten)
 from repro_torch.models.mlp import init_mlp, mlp_block
 from repro_torch.models.moe import init_moe, moe_block
 from repro_torch.models.rglru import init_rglru, init_rglru_cache, rglru_block
@@ -36,6 +40,7 @@ __all__ = [
     "init_block",
     "apply_block",
     "init_stack",
+    "remat",
     "stack_forward",
     "init_cache",
     "stack_decode",
@@ -168,18 +173,68 @@ def _slice(tree, i: int):
     return tree_map(lambda a: a[i], tree)
 
 
+def _save_block_outputs(ctx, op, *args, **kwargs):
+    """The selective-checkpoint policy of ``remat_policy="save_block_outputs"``:
+    keep the products that :func:`block_out` marks (the attention's and the
+    MLP's output projections, the reference's ``block_out`` names),
+    recompute everything else."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if block_out_active() and op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(fn, policy: str):
+    """``fn`` under ``torch.utils.checkpoint`` (non-reentrant), the
+    counterpart of the reference's ``jax.checkpoint`` of a group:
+    ``"nothing"`` saves nothing inside it, ``"save_block_outputs"`` keeps
+    the marked block outputs (a selective-checkpoint policy). The forward
+    draws no random numbers, so no RNG state is kept; the values are those
+    of ``fn`` unwrapped."""
+    from torch.utils.checkpoint import (checkpoint, create_selective_checkpoint_contexts,
+                                        noop_context_fn)
+
+    if policy == "save_block_outputs":
+        context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                       _save_block_outputs)
+    elif policy == "nothing":
+        context_fn = noop_context_fn
+    else:
+        raise ValueError(f"unknown remat_policy {policy!r}")
+
+    def run(*args):
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                          context_fn=context_fn)
+
+    return run
+
+
 def stack_forward(stack_params, x, cfg: ArchConfig, ctx, *,
                   n_layers: Optional[int] = None,
                   encoder: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Train/prefill forward through the whole stack. Returns (x, aux_sum)."""
+    """Train/prefill forward through the whole stack. Returns (x, aux_sum).
+    With ``cfg.remat`` and gradients enabled each group runs under
+    :func:`remat` (never under ``no_grad``, as serving runs); the remainder
+    layers never do, as in the reference."""
     pattern, g, rem = _stack_meta(cfg, n_layers, encoder)
-    aux_acc = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(g):
-        slices = _slice(stack_params["groups"], i)
+
+    def group_fn(x, slices):
         aux_g = torch.zeros((), dtype=torch.float32, device=x.device)
         for pos, kind in enumerate(pattern):
             x, _, aux = apply_block(kind, slices[f"p{pos}_{kind}"], x, cfg, ctx)
             aux_g = aux_g + aux
+        return x, aux_g
+
+    if cfg.remat and torch.is_grad_enabled():
+        group_fn = remat(group_fn, cfg.remat_policy)
+    # each stacked leaf unbound once: its gradient is one stack of the
+    # groups' gradients, not a sum of zero-padded slices
+    groups = stack_params["groups"]
+    parts = [a.unbind(0) for a in tree_leaves(groups)]
+    aux_acc = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(g):
+        x, aux_g = group_fn(x, tree_unflatten(groups, [p[i] for p in parts]))
         aux_acc = aux_acc + aux_g
     for i in range(rem):
         x, _, aux = apply_block(pattern[i], stack_params["rem"][i], x, cfg, ctx)

@@ -1890,3 +1890,31 @@ def test_lm_serve_on_gpu(dev):
     out = serve.main(["--reduce", "--batch", "2", "--prompt-len", "5", "--gen", "6"])
     assert out["generated"].shape == (2, 6) and out["generated"].device.type == "cuda"
     assert out["peak_gib"] > 0 and out["tokens_per_s"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama4-maverick-400b-a17b", "mamba2-780m", "minicpm-2b",
+                                  "phi3.5-moe-42b-a6.6b", "pixtral-12b", "qwen3-0.6b",
+                                  "qwen3-8b", "recurrentgemma-9b", "stablelm-3b",
+                                  "whisper-medium"])
+def test_lm_train_steps_on_gpu_match_cpu(dev, arch):
+    """Three train steps (0-2) of the reduced arch (f32) on the card and on
+    the CPU from the same parameters and batch (``launch.train.against_cpu``):
+    losses within 1e-5, parameters and moments within ``step_gaps``'s
+    bounds, step 0 leaving every parameter unchanged."""
+    from repro_torch.launch import train
+
+    r = train.against_cpu(arch, dev)
+    assert r["finite"] and r["unmoved"] and r["loss"] <= train.LOSS_TOL, r
+    assert r["within"], r
+
+
+@pytest.mark.cuda
+def test_lm_train_driver_on_gpu(dev, tmp_path):
+    from repro_torch.launch import train
+
+    out = train.main(["--reduce", "--steps", "12", "--batch", "2", "--seq", "16",
+                      "--ckpt-dir", str(tmp_path), "--ckpt-every", "4", "--lr", "3e-3",
+                      "--log-every", "100"])
+    assert out["last_loss"] < out["first_loss"] and out["peak_gib"] > 0
+    assert out["params"]["embed"]["tokens"].device.type == "cuda"

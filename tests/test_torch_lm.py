@@ -399,10 +399,13 @@ def test_input_specs_match_reference(arch):
 
 
 def test_build_has_no_training_fields():
+    """The bundle has the reference's ``ModelBundle`` fields, in its order:
+    the training fields (``init_opt``, ``train_step``) beside serving's."""
+    from repro.models.api import ModelBundle as RefModelBundle
+
     _, bundle = _port("qwen3-0.6b")
-    fields = {f.name for f in dataclasses.fields(bundle)}
-    assert fields == {"cfg", "init_params", "prefill_step", "decode_step", "input_specs",
-                      "init_cache"}
+    assert ([f.name for f in dataclasses.fields(bundle)]
+            == [f.name for f in dataclasses.fields(RefModelBundle)])
 
 
 # ---------------------------------------------------------------------------
