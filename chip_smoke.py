@@ -240,6 +240,22 @@ Phases, any failure exits non-zero:
    deterministic algorithms, bit for bit an uninterrupted run; (d) the
    activation-signatures example, whose fit launches F1-F4 and P1, and the
    same fit in f64 within 1e-8 of the CPU's torch route.
+8. then the LM on a mesh and the two remaining examples
+   (``phase3_lm_mesh``), in a child process (``chip_smoke.py --lm-mesh``,
+   a world of one whose CUDA tensors go through NCCL and CPU tensors
+   through gloo): (a) one phi3.5-moe MoE block at full width (bf16, 4 x 512
+   tokens) through ``_moe_block_manual`` on a (1, 1) mesh, against
+   ``_moe_block_auto`` at a no-drop capacity in bf16 (1e-3) and f32 (1e-5),
+   and at the config's capacity (drops) in f32 against the port's CPU run
+   on 512 tokens (1e-5),
+   with the block's forward and backward ms and peak GiB; (b)
+   ``compressed_psum`` on qwen3-0.6b's parameter shapes (f32) bit for bit
+   the CPU function, its errors local, its ms; (c) ``param_shardings`` of
+   qwen3-0.6b's and phi3.5-moe's full trees laid out leaf by leaf by
+   ``distribute_tensor``; (d) the quickstart and phenotyping examples, whose
+   f32 fits launch F1-F4 and P1 (beside the CC torch route's, unbounded:
+   ill-conditioned), their f64 fits within 1e-8 of the CPU's, quickstart's
+   asserts.
 
 Files go to ``$SMOKE_OUT`` (default ``smoke_out/``).
 
@@ -3437,6 +3453,403 @@ def phase3_lm_train() -> None:
         fail("; ".join(problems))
 
 
+LM_MESH_ARCH = "phi3.5-moe-42b-a6.6b"     # phase3_lm_mesh (a): one MoE block at full width
+LM_MESH_TOKENS = (4, 512)                  # (a)'s batch x sequence
+LM_MESH_CPU_TOKENS = (1, 512)              # (a)'s card-against-CPU call: a quarter
+LM_MESH_PSUM_ARCH = "qwen3-0.6b"           # (b): compressed_psum on its parameter shapes
+LM_MESH_LAYOUT_ARCHS = ("qwen3-0.6b", "phi3.5-moe-42b-a6.6b")   # (c)
+LM_BF16_TOL, LM_F32_TOL = 1e-3, 1e-5       # (a): the LM's bf16 bound, and f32's
+# (a), card against CPU in f32: sums of up to 6,400 products in another
+# order (cuBLAS against the CPU's BLAS), ~7x the reduced archs' 1e-5 at
+# widths of 64-128 (sqrt of the ratio of the sums' lengths)
+LM_F32_CPU_TOL = 1e-4
+
+
+def lm_mesh_gap(got, want) -> float:
+    """max |got - want| over the largest |want|, on ``got``'s device (the
+    expert gradients are GBs: copies to the host took most of (a)'s time)."""
+    got, want = got.double(), want.to(got.device).double()
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+
+
+def lm_mesh_grads(block, p, x, w):
+    """(output, aux, gradients of sum(y * w) + aux on every leaf of ``p``
+    and on ``x``) of ``block(p, x)``."""
+    import torch
+    from repro_torch.models.common import tree_leaves, tree_unflatten
+
+    leaves = [t.detach().requires_grad_() for t in tree_leaves(p) + [x]]
+    y, aux = block(tree_unflatten(p, leaves[:-1]), leaves[-1])
+    grads = torch.autograd.grad((y.float() * w).sum() + aux, leaves)
+    return y.detach(), aux.detach(), list(grads)
+
+
+def lm_mesh_compare(a, b) -> dict:
+    """The gaps of two ``lm_mesh_grads`` results: output, aux (relative),
+    the largest over the gradient leaves (each over its largest |g|)."""
+    return {"y": lm_mesh_gap(a[0], b[0]), "aux": lm_mesh_gap(a[1], b[1]),
+            "grad": max(lm_mesh_gap(g, h) for g, h in zip(a[2], b[2]))}
+
+
+def lm_mesh_moe(meshes, arch: str = LM_MESH_ARCH, tokens=LM_MESH_TOKENS) -> dict:
+    """(a): one MoE block of ``arch`` at full width (its random init, bf16
+    experts; the router drawn at std 1/sqrt(d), so that its logits are of
+    order one, as a trained router's are: ``init_moe``'s 0.02 routes all but
+    evenly) on B x S tokens with a common mean (so that the config's
+    capacity drops tokens),
+    through ``_moe_block_manual`` on the card's ("data", "model") mesh of
+    (1, 1), called directly (a model dimension of 1 routes ``moe_block`` to
+    auto, and one card has no second rank). At a no-drop capacity factor
+    (E / k: every expert may take every token) against ``_moe_block_auto``
+    on the card, in bf16 and in f32; at the config's capacity factor the f32
+    block on the card against the port's CPU run of the same call on
+    ``LM_MESH_CPU_TOKENS`` (a CPU mesh of (1, 1) over gloo; the full 2,048
+    tokens take the CPU ~40 s), with the share of assignments the per-rank
+    capacity drops; then the bf16 block's forward and backward ms at the
+    config's capacity, its peak GiB and its expert products' operations
+    bound."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.moe import _moe_block_auto, _moe_block_manual, init_moe, top_k
+
+    cfg = get_config(arch)
+    B, S = tokens
+    dev = torch.device("cuda")
+    no_drop = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.experts_per_token)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p16 = init_moe(gen, cfg, torch.bfloat16, dev)
+    p16["router"]["w"] = (torch.randn(cfg.d_model, cfg.n_experts, generator=gen, device=dev)
+                          / cfg.d_model ** 0.5)
+    # tokens with a common mean, as a residual stream's have: the router
+    # then favours some experts, and the config's capacity drops tokens
+    x32 = (torch.randn(B, S, cfg.d_model, generator=gen, device=dev)
+           + 0.3 * torch.randn(cfg.d_model, generator=gen, device=dev))
+    w = torch.randn(B, S, cfg.d_model, generator=gen, device=dev)
+    x16, p32 = x32.bfloat16(), tree_map(lambda t: t.float(), p16)
+    x32 = x16.float()
+    out = {"arch": arch, "tokens": [B, S], "d_model": cfg.d_model, "d_ff": cfg.d_ff,
+           "experts": cfg.n_experts, "k": cfg.experts_per_token,
+           "expert_bytes": sum(t.numel() * t.element_size() for t in p16["experts"].values())}
+
+    def manual(c, mesh):
+        return lambda p, x: _moe_block_manual(p, x, c, mesh)
+
+    t = {"init": time.perf_counter()}
+    for name, p, x in (("bf16", p16, x16), ("f32", p32, x32)):
+        m = lm_mesh_grads(manual(no_drop, meshes["cuda"]), p, x, w)
+        a = lm_mesh_grads(lambda p_, x_: _moe_block_auto(p_, x_, no_drop), p, x, w)
+        finite = all(bool(torch.isfinite(t).all()) for t in (m[0], m[1], *m[2]))
+        out[name] = {**lm_mesh_compare(m, a), "finite": finite,
+                     "shape": list(m[0].shape) == [B, S, cfg.d_model]}
+        del m, a
+        torch.cuda.synchronize()
+        t[name] = time.perf_counter()
+    T, k, E = B * S, cfg.experts_per_token, cfg.n_experts
+
+    def dropped(x, T):
+        """(slots an expert, the share of assignments past them) on x."""
+        cap = max(8, -(-T * k * int(round(cfg.capacity_factor * 4)) // (4 * E)))
+        probs = torch.softmax(x.reshape(T, -1).float() @ p16["router"]["w"], dim=-1)
+        load = torch.bincount(top_k(probs, k)[1].reshape(-1), minlength=E)
+        return cap, float((load - cap).clamp(min=0).sum()) / (T * k)
+
+    b, s = LM_MESH_CPU_TOKENS
+    xs, ws = x32[:b, :s].contiguous(), w[:b, :s].contiguous()
+    card = lm_mesh_grads(manual(cfg, meshes["cuda"]), p32, xs, ws)
+    p_cpu = tree_map(lambda t: t.cpu(), p32)
+    t["to_cpu"] = time.perf_counter()
+    cpu = lm_mesh_grads(manual(cfg, meshes["cpu"]), p_cpu, xs.cpu(), ws.cpu())
+    t["cpu"] = time.perf_counter()
+    out["cpu"] = {**lm_mesh_compare(card, cpu), "tokens": [b, s]}
+    out["cpu"]["capacity"], out["cpu"]["dropped"] = dropped(xs, b * s)
+    del card, cpu, p32, x32
+    out["capacity"], out["dropped"] = dropped(x16, T)
+
+    def step():
+        return lm_mesh_grads(manual(cfg, meshes["cuda"]), p16, x16, w)
+
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        step()
+    end.record()
+    torch.cuda.synchronize()
+    out["ms"] = start.elapsed_time(end) / 5
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["peak_added_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    t["timed"] = time.perf_counter()
+    keys = list(t)
+    out["steps_s"] = {k: round(t[k] - t[j], 2) for j, k in zip(keys, keys[1:])}
+    # the expert products: 3 forward and 6 backward [cap x d] x [d x f] a
+    # local expert, every expert's slots full
+    out["ops"] = 9 * 2 * E * out["capacity"] * cfg.d_model * cfg.d_ff
+    out["bound_ms"] = out["ops"] / HALF_FLOPS * 1e3
+    return out
+
+
+def lm_mesh_psum(meshes, arch: str = LM_MESH_PSUM_ARCH) -> dict:
+    """(b): ``compressed_psum`` over the card's mesh ("data", NCCL) on a
+    tree of ``arch``'s parameter shapes in f32 (gradients at scales 0.1, 1
+    and 10 by leaf, errors at 1e-3): its ms (5 calls after a warm-up), the
+    result and the new errors bit for bit the CPU function's on the same
+    tree (a CPU mesh over gloo), the new errors bit for bit each leaf's own
+    ``ef_compress_update`` (the error feedback stays local), and the byte
+    bound (the gradients and errors read, the result and errors written)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharding as dsh
+    from repro_torch.models.common import tree_leaves, tree_unflatten
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.optim import compressed_psum, ef_compress_update
+
+    dev = torch.device("cuda")
+    like = init_lm(torch.Generator(), get_config(arch), device=torch.device("meta"))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    shapes = [t.shape for t in tree_leaves(like)]
+    grads = tree_unflatten(like, [torch.randn(s, generator=gen, device=dev) * 10.0 ** (i % 3 - 1)
+                                  for i, s in enumerate(shapes)])
+    errors = tree_unflatten(like, [torch.randn(s, generator=gen, device=dev) * 1e-3
+                                   for s in shapes])
+    with dsh.axis_rules(dsh.LM_RULES, meshes["cuda"]):
+        red, new = compressed_psum(grads, errors, "data")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            compressed_psum(grads, errors, "data")
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / 5
+    local = all(torch.equal(n, ef_compress_update(g, e)[3])
+                for g, e, n in zip(tree_leaves(grads), tree_leaves(errors), tree_leaves(new)))
+    cpu = [tree_unflatten(like, [t.cpu() for t in tree_leaves(tree)]) for tree in (grads, errors)]
+    with dsh.axis_rules(dsh.LM_RULES, meshes["cpu"]):
+        c_red, c_new = compressed_psum(*cpu, "data")
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(tree_leaves((red, new)),
+                                                         tree_leaves((c_red, c_new))))
+    n = sum(s.numel() for s in shapes)
+    return {"arch": arch, "params": n, "leaves": len(shapes), "ms": ms, "same_as_cpu": same,
+            "local": local, "bound_ms": 16 * n / HBM_BYTES_PER_S * 1e3}
+
+
+def lm_mesh_layouts(mesh) -> dict:
+    """(c): ``param_shardings`` of each arch's full parameter tree on the
+    card's mesh: every leaf made on the card (bf16, one at a time: phi3.5-moe
+    holds 41.9 B parameters) and laid out with ``distribute_tensor`` and its
+    placements, whose local shard must have the shape its spec implies."""
+    import math
+
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import param_shardings
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.transformer import init_lm
+
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    out = {}
+    for arch in LM_MESH_LAYOUT_ARCHS:
+        like = init_lm(torch.Generator(), get_config(arch), device=torch.device("meta"))
+        leaves, specs = tree_leaves(like), tree_leaves(param_shardings(like, mesh))
+        ok = len(leaves) == len(specs)
+        for leaf, sh in zip(leaves, specs):
+            t = torch.empty(leaf.shape, dtype=leaf.dtype, device="cuda")
+            local = distribute_tensor(t, mesh, list(sh.placements)).to_local()
+            count = [math.prod(sizes[a] for a in ((e,) if isinstance(e, str) else e or ()))
+                     for e in sh.spec]
+            count += [1] * (len(leaf.shape) - len(count))
+            ok &= tuple(local.shape) == tuple(d // c for d, c in zip(leaf.shape, count))
+            del t, local
+        out[arch] = {"leaves": len(leaves), "ok": bool(ok),
+                     "params": sum(t.numel() for t in leaves),
+                     "sharded": sum(any(e is not None for e in sh.spec) for sh in specs)}
+    return out
+
+
+def lm_mesh_examples() -> dict:
+    """(d): ``repro_torch.examples.quickstart`` and ``phenotyping`` on the
+    card: the f32 fit (CC auto) with its kernel launches and ms an
+    iteration; the same fit on the CC torch route, whose history is printed
+    beside it, not bounded (both f32 fits are ill-conditioned: the CPU's own
+    f32 torch-route history moves by 4.2e-5 (quickstart) and 4.0e-3
+    (phenotyping) when the data move by 1e-7 relative, and quickstart's tol
+    of 1e-7 stops it at f32 noise); the check is the f64 fit on the card
+    (launches counted too) within ``EXAMPLE_TOL`` of the CPU's, each
+    iteration (``init_state`` draws V on the CPU from the seed on either
+    device); quickstart's own asserts."""
+    import torch
+    from repro_torch.examples import phenotyping, quickstart
+
+    out = {}
+    for name, example in (("quickstart", quickstart), ("phenotyping", phenotyping)):
+        reset_launches()
+        r32 = example.run("cuda")
+        got32 = launches()
+        torch_route = example.run("cuda", backend="torch")
+        reset_launches()
+        r64 = example.run("cuda", dtype=torch.float64)
+        got64 = launches()
+        cpu64 = example.run("cpu", dtype=torch.float64)
+
+        def gap(a, b):          # over the common iterations
+            return max(abs(x - y) for x, y in zip(a, b))
+
+        rec = {"launches": {k: got32.get(k, 0) for k in EXAMPLE_KERNELS},
+               "launches64": {k: got64.get(k, 0) for k in EXAMPLE_KERNELS},
+               "iters": len(r32["history"]), "torch_iters": len(torch_route["history"]),
+               "fit": r32["history"][-1],
+               "ms_iter": r32["fit_ms"] / len(r32["history"]),
+               "torch_ms_iter": torch_route["fit_ms"] / len(torch_route["history"]),
+               "gap32": gap(r32["history"], torch_route["history"]),
+               "gap64": gap(r64["history"], cpu64["history"]), "iters64": len(r64["history"])}
+        if name == "quickstart":
+            rec["asserts"] = bool(r32["history"][-1] > 0.5 and r32["readout"]["invariant"])
+        out[name] = rec
+    return out
+
+
+def lm_mesh_child() -> int:
+    """``chip_smoke.py --lm-mesh``: ``phase3_lm_mesh``'s four parts in this
+    process, one JSON line each, in a world of one (an in-memory
+    ``HashStore``) whose CUDA tensors go through NCCL and whose CPU tensors
+    (the CPU runs held against the card) through gloo."""
+    import datetime
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device: chip_smoke.py runs the port on a GPU")
+    sys.path.insert(0, str(SRC))
+    OUT.mkdir(parents=True, exist_ok=True)
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products, stated
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("cpu:gloo,cuda:nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        meshes = {d: init_device_mesh(d, (1, 1), mesh_dim_names=("data", "model"))
+                  for d in ("cuda", "cpu")}
+        for part, fn in (("a", lambda: lm_mesh_moe(meshes)), ("b", lambda: lm_mesh_psum(meshes)),
+                         ("c", lambda: lm_mesh_layouts(meshes["cuda"])), ("d", lm_mesh_examples)):
+            t0 = time.perf_counter()
+            out = fn()
+            gc.collect()
+            torch.cuda.empty_cache()
+            print(json.dumps({"part": part, **out, "s": time.perf_counter() - t0}), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase3_lm_mesh() -> None:
+    """The LM on a mesh (ROADMAP A8c) and the two remaining examples (A9),
+    in a child process (``chip_smoke.py --lm-mesh``) so that its process
+    group cannot touch the earlier phases: (a) one phi3.5-moe MoE block at
+    full width through ``_moe_block_manual`` (``lm_mesh_moe``); (b)
+    ``compressed_psum`` on qwen3-0.6b's parameter shapes (``lm_mesh_psum``);
+    (c) ``param_shardings`` of qwen3-0.6b's and phi3.5-moe's full trees
+    through ``distribute_tensor`` (``lm_mesh_layouts``); (d) the quickstart
+    and phenotyping examples, whose fits launch F1-F4 and P1
+    (``lm_mesh_examples``)."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "unknown"
+    t_phase = time.perf_counter()
+    child = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--lm-mesh"],
+                           capture_output=True, text=True, timeout=600)
+    (OUT / "lm_mesh_child.log").write_text(child.stdout + child.stderr)
+    if child.returncode != 0:
+        print(child.stdout[-6000:] + child.stderr[-6000:], flush=True)
+        fail(f"the LM mesh check's process exited with {child.returncode}")
+    parts = {}
+    for line in child.stdout.splitlines():
+        if line.startswith('{"part"'):
+            rec = json.loads(line)
+            parts[rec.pop("part")] = rec
+    if sorted(parts) != ["a", "b", "c", "d"]:
+        print(child.stdout[-6000:] + child.stderr[-6000:], flush=True)
+        fail(f"the LM mesh check reported {sorted(parts)}")
+    problems = []
+
+    a = parts["a"]
+    for name, tol in (("bf16", LM_BF16_TOL), ("f32", LM_F32_TOL)):
+        r = a[name]
+        print(f"[lm-mesh] {a['arch']} MoE block at full width (d {a['d_model']}, d_ff "
+              f"{a['d_ff']}, {a['experts']} experts, top-{a['k']}, {a['tokens'][0]} x "
+              f"{a['tokens'][1]} tokens; {card}), _moe_block_manual on a (1, 1) mesh against "
+              f"_moe_block_auto at a no-drop capacity, {name}: output {r['y']:.3e}, aux "
+              f"{r['aux']:.3e}, gradients {r['grad']:.3e} of each leaf's largest |g| (bound "
+              f"{tol:g})", flush=True)
+        if not (r["finite"] and r["shape"] and max(r["y"], r["aux"], r["grad"]) <= tol):
+            problems.append(f"the manual MoE block parts from the auto one in {name}")
+    c = a["cpu"]
+    print(f"[lm-mesh] the same block at the config's capacity on {c['tokens'][0]} x "
+          f"{c['tokens'][1]} tokens ({c['capacity']} slots an expert, {c['dropped']:.2%} of the "
+          f"assignments dropped), f32, card against the port's CPU run: output {c['y']:.3e}, "
+          f"aux {c['aux']:.3e}, gradients {c['grad']:.3e} (bound {LM_F32_CPU_TOL:g}; {card})",
+          flush=True)
+    if max(c["y"], c["aux"], c["grad"]) > LM_F32_CPU_TOL or not c["dropped"] > 0:
+        problems.append("the manual MoE block on the card parts from its CPU run, or "
+                        "dropped nothing")
+    print(f"[lm-mesh] the bf16 block's forward and backward at the config's capacity "
+          f"({a['capacity']} slots an expert, {a['dropped']:.2%} of the assignments dropped): "
+          f"{a['ms']:.3f} ms ({card}), peak {a['peak_gib']:.3f} GiB ({a['peak_added_gib']:.3f} "
+          f"GiB above its inputs; experts {a['expert_bytes'] / 2**30:.3f} GiB); the expert "
+          f"products' {a['ops']:.3e} operations at 989 TFLOP/s: {a['bound_ms']:.3f} ms, the "
+          f"block {a['ms'] / a['bound_ms']:.1f}x it; (a) {a['s']:.1f} s {a['steps_s']}",
+          flush=True)
+
+    b = parts["b"]
+    print(f"[lm-mesh] compressed_psum over NCCL on {b['arch']}'s {b['params']:,} parameters "
+          f"({b['leaves']} leaves, f32): {b['ms']:.3f} ms a call ({card}); byte bound "
+          f"{b['bound_ms']:.3f} ms at 3.35 TB/s; bit for bit the CPU function: "
+          f"{b['same_as_cpu']}; error feedback local: {b['local']}; (b) {b['s']:.1f} s",
+          flush=True)
+    if not (b["same_as_cpu"] and b["local"]):
+        problems.append("compressed_psum on the card parts from the CPU or its errors")
+
+    lay = {k: v for k, v in parts["c"].items() if k != "s"}
+    for arch, r in lay.items():
+        print(f"[lm-mesh] param_shardings of {arch}'s full tree ({r['params']:,} parameters, "
+              f"{r['leaves']} leaves, {r['sharded']} with a sharded dimension): every leaf "
+              f"laid out by distribute_tensor with the spec's local shape: {r['ok']}",
+              flush=True)
+        if not r["ok"]:
+            problems.append(f"param_shardings of {arch} does not lay out")
+    print(f"[lm-mesh] (c) {parts['c']['s']:.1f} s", flush=True)
+
+    d = parts["d"]
+    for name in ("quickstart", "phenotyping"):
+        r = d[name]
+        print(f"[lm-mesh] example {name} ({card}): f32 CC auto fit {r['fit']:.6f} after "
+              f"{r['iters']} iterations, {r['ms_iter']:.3f} ms an iteration (the CC torch "
+              f"route's {r['torch_ms_iter']:.3f}, {r['torch_iters']} iterations), history "
+              f"{r['gap32']:.3e} from the torch route's over their common iterations (not "
+              f"bounded: ill-conditioned f32 fits); f64 card against CPU {r['gap64']:.3e} "
+              f"over {r['iters64']} iterations (bound {EXAMPLE_TOL:g}); launches f32 "
+              f"{r['launches']}, f64 {r['launches64']}"
+              + (f"; the script's asserts hold: {r['asserts']}" if "asserts" in r else ""),
+              flush=True)
+        if not (all(r["launches"].values()) and all(r["launches64"].values())):
+            problems.append(f"a fit of {name} did not run "
+                            f"{[k for k, v in r['launches'].items() if not v]}")
+        if not (r["gap64"] <= EXAMPLE_TOL and r.get("asserts", True)):
+            problems.append(f"the {name} example parts from its references")
+    print(f"[lm-mesh] (d) {d['s']:.1f} s; phase {time.perf_counter() - t_phase:.1f} s ({card})",
+          flush=True)
+    if problems:
+        fail("; ".join(problems))
+
+
 def bcc_cut(bt, V):
     """The largest CC bucket's first subjects, as many as keep the BCC
     values within ``BCC_CUT_BYTES`` (width unchanged, depth cut), converted
@@ -4242,6 +4655,7 @@ def main() -> int:
     free_cached("the profiles")
     phase3_lm(dev)
     phase3_lm_train()
+    phase3_lm_mesh()
     print(f"[done] {time.perf_counter() - t0:.1f}s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
@@ -4251,5 +4665,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    CHILDREN = {"--lm-full-width": lm_full_width_child, "--lm-train": lm_train_child}
+    CHILDREN = {"--lm-full-width": lm_full_width_child, "--lm-train": lm_train_child,
+                "--lm-mesh": lm_mesh_child}
     sys.exit(CHILDREN[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in CHILDREN else main())

@@ -111,7 +111,7 @@ def _shard_of(mesh) -> Tuple[int, int, Any]:
         return 0, 1, None
     axes = dsh.subject_mesh_axes(mesh)
     index, count = dsh.subject_shard(mesh, axes)
-    return index, count, dsh.subject_group(mesh, axes)
+    return index, count, dsh.axis_group(mesh, axes)
 
 
 def _sharded_keys(shardings) -> Dict[str, bool]:

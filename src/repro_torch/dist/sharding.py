@@ -17,35 +17,41 @@ shard=...)``); inside a :func:`subject_collectives` block,
 :func:`psum_subjects` is an explicit ``all_reduce(SUM)`` over the subject
 dimensions' process group, and outside one it is the identity, as the
 reference's ``lax.psum`` inside ``shard_map`` is. Nothing is sharded
-automatically: no DTensor, and :func:`shard` is the identity (the
-reference's ``shard`` is a no-op without a mesh and inside ``shard_map``,
-the only places this package runs it).
+automatically, and :func:`shard` is the identity (the reference's
+``shard`` is a no-op without a mesh and inside ``shard_map``, the only
+places this package runs it).
 
 The LM half serves the testbed's models (:mod:`repro_torch.models`):
 :func:`logical_spec` resolves logical names under the installed rules,
 :func:`enforce_divisible` replicates what a mesh dimension does not divide,
 and :func:`param_spec` gives a parameter's layout from its path, each as a
 plain tuple of mesh dimension names (or ``None``s) where the reference
-returns a ``PartitionSpec``. The reference's ``barrier`` (an
-``optimization_barrier`` pinning XLA's order) and ``unroll_loops`` (a flag
-for XLA's cost analysis) have no counterpart: eager torch runs ops in
-program order and the port's loops are Python loops. ``param_shardings``,
-which places an LM on a mesh of devices, and the manual expert-parallel
-MoE wait for the LM on a mesh (ROADMAP A8c).
+returns a ``PartitionSpec``. :func:`param_shardings` maps a whole
+parameter (or optimizer-state) tree onto a ``DeviceMesh``: each leaf's
+spec and the ``torch.distributed.tensor`` placements with which
+``distribute_tensor`` lays it out. The port's LM itself runs replicated
+on every rank; the manual expert-parallel MoE
+(:mod:`repro_torch.models.moe`) cuts its tensors with the autograd
+collectives of :mod:`repro_torch.dist.collectives`. The reference's
+``barrier`` (an ``optimization_barrier`` pinning XLA's order) and
+``unroll_loops`` (a flag for XLA's cost analysis) have no counterpart:
+eager torch runs ops in program order and the port's loops are Python
+loops.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import threading
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
 
-__all__ = ["COLLECTIVES", "LM_RULES", "SP_RULES", "Rules", "axis_rules",
-           "current_mesh", "current_rules", "enforce_divisible", "logical_spec",
-           "param_spec", "psum_subjects", "shard", "subject_collectives",
-           "subject_group", "subject_mesh_axes", "subject_shard"]
+__all__ = ["COLLECTIVES", "LM_RULES", "SP_RULES", "ParamSharding", "Rules", "axis_group",
+           "axis_rules", "current_mesh", "current_rules", "enforce_divisible",
+           "logical_spec", "param_shardings", "param_spec", "psum_subjects", "shard",
+           "subject_collectives", "subject_mesh_axes", "subject_shard"]
 
 # one rule table entry: logical axis name -> mesh dimension name(s) or None
 Rules = Dict[str, Union[str, Tuple[str, ...], None]]
@@ -128,7 +134,7 @@ class CollectiveCounts:
 COLLECTIVES = CollectiveCounts()
 
 
-def subject_group(mesh, axis_names: Sequence[str]):
+def axis_group(mesh, axis_names: Sequence[str]):
     """The process group over ``mesh``'s ``axis_names`` dimensions: the one
     dimension's group, or the flattened group of several."""
     axis_names = tuple(axis_names)
@@ -187,7 +193,7 @@ def psum_subjects(x: torch.Tensor) -> torch.Tensor:
     if not axes:
         return x
     y = x.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(y, op=dist.ReduceOp.SUM, group=subject_group(mesh, axes))
+    dist.all_reduce(y, op=dist.ReduceOp.SUM, group=axis_group(mesh, axes))
     COLLECTIVES.add(y)
     return y
 
@@ -289,3 +295,60 @@ def param_spec(path: str, ndim: int, stacked: bool = False) -> Spec:
     if leaf in _COL_PARALLEL:
         return (*lead, "data", *([None] * (body - 2)), "model")
     return ()                   # unknown (router gates, ...): replicated
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSharding:
+    """One leaf's layout on a mesh: ``spec``, the reference's
+    ``PartitionSpec`` entries (trailing ``None``s trimmed), and
+    ``placements``, one ``Shard(dim)`` or ``Replicate()`` a mesh dimension,
+    for ``torch.distributed.tensor.distribute_tensor``."""
+    spec: Spec
+    placements: Tuple[Any, ...]
+
+
+def _placements(spec: Spec, mesh) -> Tuple[Any, ...]:
+    from torch.distributed.tensor import Replicate, Shard
+
+    out = []
+    for name in _dim_names(mesh):
+        dims = [i for i, e in enumerate(spec)
+                if e is not None and name in (e if isinstance(e, tuple) else (e,))]
+        out.append(Shard(dims[0]) if dims else Replicate())
+    return tuple(out)
+
+
+def _map_with_path(fn, tree, path=()):
+    """``fn(path, leaf)`` on every leaf of nested dicts, lists, tuples and
+    NamedTuples, the nesting kept; a path segment is a dict key, a field
+    name or an index (the reference's ``_key_str``)."""
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, path + (str(k),)) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*[_map_with_path(fn, v, path + (f,))
+                            for f, v in zip(tree._fields, tree)])
+    if isinstance(tree, (list, tuple)):
+        vals = [_map_with_path(fn, v, path + (str(i),)) for i, v in enumerate(tree)]
+        return vals if isinstance(tree, list) else tuple(vals)
+    return fn(path, tree)
+
+
+def param_shardings(tree, mesh):
+    """A :class:`ParamSharding` for every leaf of a parameter or
+    optimizer-state tree (tensors, meta tensors, anything with a
+    ``shape``), from :func:`param_spec` on the leaf's "/"-joined path
+    (``"groups/"`` in it marks a stacked leaf), resolved on ``mesh`` and
+    replicated where a mesh dimension does not divide, as the reference's
+    ``param_shardings``."""
+
+    def visit(path, leaf):
+        pathstr = "/".join(path)
+        shape = tuple(getattr(leaf, "shape", ()) or ())
+        spec = param_spec(pathstr, len(shape), stacked="groups/" in pathstr)
+        spec = tuple(_resolve_entry(e, mesh) for e in spec)
+        entries = list(enforce_divisible(spec, shape, mesh) if shape else spec)
+        while entries and entries[-1] is None:
+            entries.pop()
+        return ParamSharding(tuple(entries), _placements(entries, mesh))
+
+    return _map_with_path(visit, tree)

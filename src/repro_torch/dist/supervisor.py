@@ -145,7 +145,7 @@ def _agree(mesh, device, *values: float) -> List[float]:
     if mesh is None:
         return list(values)
     t = torch.tensor(values, dtype=torch.float64, device=device)
-    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=dsh.subject_group(*mesh))
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=dsh.axis_group(*mesh))
     return t.tolist()
 
 

@@ -66,7 +66,7 @@ def main(argv=None) -> dict:
         mesh = lm.local_mesh(device)
         axes = dsh.subject_mesh_axes(mesh)
         index, count = dsh.subject_shard(mesh, axes)
-        group = dsh.subject_group(mesh, axes)
+        group = dsh.axis_group(mesh, axes)
         data = dec.load_dataset("choa", args.scale, 0)
         plan, balance = dec.plan_data(data, buckets=4, format=args.format, n_shards=count)
         bt, _ = dec.prepare(data, buckets=4, device=device, dtype=torch.float32,

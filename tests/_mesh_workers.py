@@ -1,13 +1,18 @@
 """The ranks of the mesh tests' gloo worlds (``tests/test_torch_mesh.py``,
-``tests/test_torch_sharding.py``). Each world is N spawned processes, one
-thread each, joined over a ``FileStore`` under the test's ``tmp_path``,
-every collective timing out after 60 s and every join after
+``tests/test_torch_sharding.py``, ``tests/test_torch_lm_mesh.py``,
+``tests/test_torch_lm_mesh_four.py``). Each world is N spawned processes,
+one thread each, joined over a ``FileStore`` under the test's
+``tmp_path``, every collective timing out after 60 s and every join after
 ``JOIN_TIMEOUT``. A rank's function returns what the test compares; the
 parent reads it back from a file. Imports the port only: the reference's
-oracles run in the test process.
+oracles run in the test process, or (the LM on a mesh, :func:`lm_mesh_runs`)
+in a subprocess with forced host devices (``tests/_lm_mesh_oracle.py``).
 """
 import datetime
 import os
+import pickle
+import subprocess
+import sys
 import uuid
 from typing import Callable, List
 
@@ -248,3 +253,186 @@ def ckpt_resume(rank: int, n: int, directory: str, written_under: int) -> dict:
     return dict(tree=tree, step=step, hist=hist, W=w_global(bt, state.W), V=state.V,
                 resumed=rep.resumed_from_step, restored=ckpt_mod._flatten(restored),
                 split={k: p.is_shard(0) for k, p in ckpt_mod._flatten(where).items()})
+
+
+# ---------------------------------------------------------------------------
+# the LM on a mesh (tests/test_torch_lm_mesh.py)
+# ---------------------------------------------------------------------------
+
+def _cfg(arch: str, capacity_factor=None):
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+
+    cfg = reduced(get_config(arch))
+    if capacity_factor is not None:
+        cfg = dataclasses.replace(cfg, capacity_factor=capacity_factor)
+    return cfg
+
+
+def _grads(fn, tree, *extra):
+    """(fn's outputs, gradients of ``fn(tree, *extra)[0]`` on every leaf of
+    ``tree`` and on ``extra``, as numpy in tree_leaves order)."""
+    from repro_torch.models.common import tree_leaves, tree_unflatten
+
+    leaves = [t.detach().requires_grad_() for t in tree_leaves(tree) + list(extra)]
+    n = len(leaves) - len(extra)
+    out = fn(tree_unflatten(tree, leaves[:n]), *leaves[n:])
+    grads = torch.autograd.grad(out[0], leaves)
+    return [o.detach() for o in out], [g.numpy() for g in grads]
+
+
+def _moe(mesh, case):
+    from repro_torch.dist import sharding as dsh
+    from repro_torch.models.common import tree_unflatten
+    from repro_torch.models.moe import init_moe, moe_block
+
+    cfg = _cfg(case["arch"], case["capacity_factor"])
+    like = init_moe(torch.Generator().manual_seed(0), cfg, torch.float32, "cpu")
+    p = tree_unflatten(like, [torch.from_numpy(a) for a in case["params"]])
+    w = torch.from_numpy(case["w"])
+
+    def loss(p, x):
+        y, aux = moe_block(p, x, cfg)
+        return (y * w).sum() + aux, y, aux
+
+    with dsh.axis_rules(dsh.LM_RULES, mesh):
+        (_, y, aux), grads = _grads(loss, p, torch.from_numpy(case["x"]))
+    return dict(y=y.numpy(), aux=float(aux), grads=grads)
+
+
+def _lm(mesh, case):
+    from repro_torch.dist import sharding as dsh
+    from repro_torch.models import api, build
+    from repro_torch.models.common import tree_leaves, tree_unflatten
+
+    cfg = _cfg(case["arch"])
+    like = build(cfg).init_params(torch.Generator().manual_seed(0), device="cpu")
+    params = tree_unflatten(like, [torch.from_numpy(a) for a in case["params"]])
+    batch = {k: torch.from_numpy(v) for k, v in case["batch"].items()}
+    with dsh.axis_rules(dsh.LM_RULES, mesh):
+        total, ce, aux, grads = api.loss_and_grads(cfg, params, batch)
+    return dict(total=float(total), ce=float(ce), aux=float(aux),
+                grads=[g.numpy() for g in tree_leaves(grads)])
+
+
+def _psum(mesh, case, rank):
+    from repro_torch.dist import sharding as dsh
+    from repro_torch.optim import compressed_psum
+
+    steps = []
+    errors = {k: torch.from_numpy(v[rank]) for k, v in case["errors"].items()}
+    with dsh.axis_rules(dsh.LM_RULES, mesh):
+        for grads in case["grads"]:
+            g = {k: torch.from_numpy(v[rank]) for k, v in grads.items()}
+            red, errors = compressed_psum(g, errors, case["axis"])
+            steps.append(({k: v.numpy() for k, v in red.items()},
+                          {k: v.numpy() for k, v in errors.items()}))
+    return steps
+
+
+def _layout(mesh, case):
+    """Each leaf of the reduced arch's parameters laid out with its
+    ``param_shardings`` placements: (spec, local shape, whether the local
+    block is the one the spec names for this rank)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.dist.sharding import param_shardings
+    from repro_torch.models import build
+
+    params = build(_cfg(case["arch"])).init_params(torch.Generator().manual_seed(0),
+                                                   device="cpu")
+    out = {}
+
+    def visit(path, leaf, sh):
+        local = distribute_tensor(leaf, mesh, list(sh.placements)).to_local()
+        want = leaf
+        for dim, entry in enumerate(sh.spec):
+            names = () if entry is None else (entry if isinstance(entry, tuple) else (entry,))
+            index, count = 0, 1
+            for name in names:
+                index = index * mesh[name].size() + mesh.get_local_rank(name)
+                count *= mesh[name].size()
+            size = leaf.shape[dim] // count
+            want = want.narrow(dim, index * size, size)
+        out[path] = (sh.spec, tuple(local.shape), torch.equal(local, want))
+
+    def walk(tree, shard, path):
+        if isinstance(tree, dict):
+            for k in tree:
+                walk(tree[k], shard[k], f"{path}/{k}" if path else str(k))
+        elif isinstance(tree, (list, tuple)):
+            for i, (t, s) in enumerate(zip(tree, shard)):
+                walk(t, s, f"{path}/{i}" if path else str(i))
+        else:
+            visit(path, tree, shard)
+
+    walk(params, param_shardings(params, mesh), "")
+    return out
+
+
+def lm_mesh(rank: int, n: int, cases: dict) -> dict:
+    """Each case on its mesh (a ``DeviceMesh`` of this world's ranks):
+    ``moe`` (``moe_block`` under ``axis_rules``: output, aux and the
+    gradients of sum(y * w) + aux), ``lm`` (``loss_and_grads`` of the whole
+    LM), ``psum`` (``compressed_psum`` steps on this rank's shards) and
+    ``layout`` (``param_shardings`` through ``distribute_tensor``)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    meshes, out = {}, {}
+    for name, case in cases.items():
+        shape, names = case["mesh"]
+        if (shape, names) not in meshes:
+            meshes[shape, names] = init_device_mesh("cpu", shape, mesh_dim_names=names)
+        mesh = meshes[shape, names]
+        kind = case["kind"]
+        if kind == "psum":
+            out[name] = _psum(mesh, case, rank)
+        else:
+            out[name] = {"moe": _moe, "lm": _lm, "layout": _layout}[kind](mesh, case)
+    return out
+
+
+def draw_leaves(like, seed: int) -> list:
+    """numpy leaves for the port tree ``like`` (tree_leaves order): a
+    normal draw scaled as ``dense_init`` scales a weight (1/sqrt(fan in)),
+    1-D leaves at 0.1, so that router logits are of order one (no
+    near-ties in a top-k)."""
+    from repro_torch.models.common import tree_leaves
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for t in tree_leaves(like):
+        std = 0.1 if t.ndim < 2 else 1.0 / np.sqrt(t.shape[-2])
+        out.append((rng.standard_normal(tuple(t.shape)) * std).astype(np.float32))
+    return out
+
+
+def lm_mesh_runs(tmp_path, cases: dict, **given):
+    """Every case of :func:`lm_mesh` in gloo worlds (one a mesh size, side
+    by side) and in the reference's oracle subprocess (4 forced host
+    devices), all at once: (the port's results by case, a list a rank;
+    the reference's ``.npz`` as a dict). ``given`` goes to the oracle
+    beside the cases."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    inp, out = os.path.join(str(tmp_path), "oracle_in.pkl"), os.path.join(str(tmp_path),
+                                                                          "oracle_out.npz")
+    with open(inp, "wb") as f:
+        pickle.dump(dict(cases=cases, **given), f)
+    env = {**os.environ, "XLA_FLAGS": "--xla_force_host_platform_device_count=4",
+           "JAX_PLATFORMS": "cpu", "PYTHONPATH": os.path.join(repo, "src")}
+    oracle = subprocess.Popen([sys.executable, os.path.join(repo, "tests", "_lm_mesh_oracle.py"),
+                               inp, out], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+
+    def size(case):
+        return int(np.prod(case["mesh"][0]))
+
+    sizes = sorted({size(c) for c in cases.values()})
+    worlds = {n: World(n, lm_mesh, tmp_path, {k: c for k, c in cases.items() if size(c) == n})
+              for n in sizes}
+    ranks = {n: w.join() for n, w in worlds.items()}
+    log = oracle.communicate(timeout=300)[0]
+    assert oracle.returncode == 0, log[-4000:]
+    port = {name: [r[name] for r in ranks[size(c)]] for name, c in cases.items()}
+    return port, dict(np.load(out))

@@ -1918,3 +1918,111 @@ def test_lm_train_driver_on_gpu(dev, tmp_path):
                       "--log-every", "100"])
     assert out["last_loss"] < out["first_loss"] and out["peak_gib"] > 0
     assert out["params"]["embed"]["tokens"].device.type == "cuda"
+
+
+# ---------------------------------------------------------------------------
+# the LM on a mesh (ROADMAP A8c): a world of one
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def lm_world(dev):
+    """A world of one (a ``HashStore``) whose CUDA tensors go through NCCL
+    and CPU tensors through gloo, with a ("data", "model") mesh of (1, 1)
+    on each device."""
+    import datetime
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch import mesh as lm
+
+    if dist.is_initialized():
+        lm.shutdown()
+    dist.init_process_group("cpu:gloo,cuda:nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        yield {d: init_device_mesh(d, (1, 1), mesh_dim_names=("data", "model"))
+               for d in ("cuda", "cpu")}
+    finally:
+        dist.destroy_process_group()
+
+
+def _moe_grads(block, p, x, w):
+    from repro_torch.models.common import tree_leaves, tree_unflatten
+
+    leaves = [t.detach().requires_grad_() for t in tree_leaves(p) + [x]]
+    y, aux = block(tree_unflatten(p, leaves[:-1]), leaves[-1])
+    grads = torch.autograd.grad((y.float() * w).sum() + aux, leaves)
+    return [y.detach(), aux.detach(), *grads]
+
+
+def _moe_gap(a, b) -> float:
+    return max(float((s.double().cpu() - t.double().cpu()).abs().max()
+                     / t.double().abs().max().clamp(min=1e-30).cpu()) for s, t in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lm_mesh_manual_moe_on_gpu(lm_world, dev, dtype):
+    """The reduced phi3.5-moe block through ``_moe_block_manual`` on the
+    card's (1, 1) mesh: at a no-drop capacity against ``_moe_block_auto`` on
+    the card (output, aux and every gradient leaf within 1e-5 of its
+    largest magnitude in f32, 1e-3 in bf16); in f32 at the config's
+    capacity (drops: the router drawn at std 1/sqrt(d), logits of order
+    one, and tokens with a common mean) against the same call on the CPU,
+    within 1e-5."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.moe import _moe_block_auto, _moe_block_manual, init_moe
+
+    cfg = reduced(get_config("phi3.5-moe-42b-a6.6b"))
+    no_drop = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = tree_map(lambda t: t.to(dtype) if t.ndim == 3 else t,
+                 init_moe(gen, cfg, torch.float32, dev))
+    p["router"]["w"] = torch.randn(cfg.d_model, cfg.n_experts, generator=gen,
+                                   device=dev) / cfg.d_model ** 0.5
+    x = (torch.randn(4, 32, cfg.d_model, generator=gen, device=dev)
+         + torch.randn(cfg.d_model, generator=gen, device=dev)).to(dtype)
+    w = torch.randn(4, 32, cfg.d_model, generator=gen, device=dev)
+    tol = 1e-5 if dtype == torch.float32 else 1e-3
+    manual = _moe_grads(lambda p_, x_: _moe_block_manual(p_, x_, no_drop, lm_world["cuda"]),
+                        p, x, w)
+    auto = _moe_grads(lambda p_, x_: _moe_block_auto(p_, x_, no_drop), p, x, w)
+    assert _moe_gap(manual, auto) <= tol
+    if dtype == torch.float32:
+        card = _moe_grads(lambda p_, x_: _moe_block_manual(p_, x_, cfg, lm_world["cuda"]),
+                          p, x, w)
+        cpu = _moe_grads(lambda p_, x_: _moe_block_manual(p_, x_, cfg, lm_world["cpu"]),
+                         tree_map(lambda t: t.cpu(), p), x.cpu(), w.cpu())
+        assert _moe_gap(card, cpu) <= tol
+        assert _moe_gap(card, manual) > 1e-3        # the config's capacity drops
+
+
+@pytest.mark.cuda
+def test_lm_mesh_compressed_psum_on_gpu_matches_cpu(lm_world, dev):
+    """``compressed_psum`` over the card's mesh: the result and the new
+    errors bit for bit the CPU function's on the same tree (leaves at
+    scales 0.1 to 10, exact .5 ties among them), the errors each leaf's own
+    ``ef_compress_update`` residual."""
+    from repro_torch.dist import sharding as dsh
+    from repro_torch.optim import compressed_psum, ef_compress_update
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    shapes = {"a": (37, 129), "b": (1000,), "c": (3, 64, 65)}
+    grads = {k: torch.randn(s, generator=gen, device=dev) * 10.0 ** (i - 1)
+             for i, (k, s) in enumerate(shapes.items())}
+    grads["b"][:4] = torch.tensor([127.0, 0.5, 1.5, -2.5], device=dev)   # scale 1: ties
+    errors = {k: torch.randn(s, generator=gen, device=dev) * 1e-3 for k, s in shapes.items()}
+    errors["b"][:4] = 0.0
+    with dsh.axis_rules(dsh.LM_RULES, lm_world["cuda"]):
+        red, new = compressed_psum(grads, errors, "data")
+    with dsh.axis_rules(dsh.LM_RULES, lm_world["cpu"]):
+        c_red, c_new = compressed_psum({k: v.cpu() for k, v in grads.items()},
+                                       {k: v.cpu() for k, v in errors.items()}, "data")
+    for k in shapes:
+        assert red[k].device.type == "cuda"
+        assert torch.equal(red[k].cpu(), c_red[k]) and torch.equal(new[k].cpu(), c_new[k]), k
+        assert torch.equal(new[k], ef_compress_update(grads[k], errors[k])[3]), k

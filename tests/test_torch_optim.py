@@ -215,11 +215,6 @@ def test_quantize_and_error_feedback_bit_for_bit(case):
         err = _bits(out[3])
 
 
-def test_compressed_psum_waits_for_the_mesh():
-    with pytest.raises(NotImplementedError, match="A8c"):
-        optim.compressed_psum({"g": torch.zeros(2)}, {"g": torch.zeros(2)}, "data")
-
-
 def test_optim_exports_the_reference_names():
     import repro.optim as ref_optim
 
