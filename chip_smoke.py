@@ -256,6 +256,17 @@ Phases, any failure exits non-zero:
    f32 fits launch F1-F4 and P1 (beside the CC torch route's, unbounded:
    ill-conditioned), their f64 fits within 1e-8 of the CPU's, quickstart's
    asserts.
+9. last, the planner (``phase3_dryrun``): the whole sweep of
+   ``repro_torch.launch.dryrun --mesh both --parafac2`` (70 cells, no
+   failure) on the host, in a child process beside the card's part: rank
+   0's share of the pod16x16 cells ``parafac2-choa-r40`` (CC, 4 buckets of
+   455 subjects) and ``parafac2-synth500m-r40`` (SCOO, 977 subjects a
+   bucket) made on the card from a seed, the bytes the allocator was asked
+   for equal to the plan's ``port_argument_bytes`` (``memory_allocated``
+   within its rounding), 8 iterations at R = 40 on the scan engine (CC
+   auto: F1-F4 and P1; SCOO staged: rows 11-12, the staged path and P1),
+   the peak beside the plan's ``bytes_per_device``, the replayed ms/iter,
+   and a 2-iteration f64 fit within 1e-8 of the plain torch route.
 
 Files go to ``$SMOKE_OUT`` (default ``smoke_out/``).
 
@@ -2552,6 +2563,7 @@ def phase3_mesh(bt, bt_sc, state, data) -> None:
     import torch
     import torch.distributed as dist
     from repro_torch.core import bucketize, engine, fit
+    from repro_torch.analysis.comm import record_collectives
     from repro_torch.core.backend import get_backend
     from repro_torch.dist import sharding as dsh
     from repro_torch.launch import decompose as dec
@@ -2599,16 +2611,17 @@ def phase3_mesh(bt, bt_sc, state, data) -> None:
                 _, _, scan_ms = timed_fit(b_, opts)     # the kept chunk replayed
                 scan_launches = launches()
                 kept.clear()
-                dsh.COLLECTIVES.reset()
-                s_mesh, h_mesh, first_ms = timed_fit(b_, mesh_opts)
-                calls, nbytes = dsh.COLLECTIVES.calls, dsh.COLLECTIVES.bytes
+                with record_collectives() as first:
+                    s_mesh, h_mesh, first_ms = timed_fit(b_, mesh_opts)
+                calls, nbytes = first.calls["all-reduce"], first["all-reduce"]
                 mesh_graph = graph_nodes(kept[-1])
                 reset_launches()
-                s_mesh2, h_mesh2, mesh_ms = timed_fit(b_, mesh_opts)
+                with record_collectives() as second:
+                    s_mesh2, h_mesh2, mesh_ms = timed_fit(b_, mesh_opts)
                 mesh_launches = launches()
             finally:
                 torch.cuda.CUDAGraph = base_graph
-            if dsh.COLLECTIVES.calls != calls:
+            if second["total"]:
                 fail(f"mesh {label}: the kept chunk's second fit issued all-reduces from "
                      f"Python (they belong to the graph)")
             if not (h_mesh == h_scan and same_state(s_mesh, s_scan)
@@ -3850,6 +3863,148 @@ def phase3_lm_mesh() -> None:
         fail("; ".join(problems))
 
 
+DRYRUN_CELLS = 70       # phase3_dryrun (a): 64 LM cells and 6 PARAFAC2 cells, both meshes
+DRYRUN_LIMIT = 300      # seconds the sweep may take
+# (b): rank 0's share of a pod16x16 cell: (cell, format, backend, kernels on its path)
+SHARE_CELLS = (("parafac2-choa-r40", "cc", "auto", "auto"),
+               ("parafac2-synth500m-r40", "scoo", "staged", "staged-scoo"))
+SHARE_CHUNK, SHARE_ITERS = 4, 8         # the scan engine's chunk and the fit's iterations
+SHARE_F64_ITERS, SHARE_F64_TOL = 2, 1e-8
+
+
+def share_gap(a, b) -> float:
+    """The largest |a - b| of two states' tensors, each relative to the
+    largest magnitude of b's tensor."""
+    from repro_torch.core import engine
+
+    return max(float((x - y).abs().max()) / max(float(y.abs().max()), 1e-300)
+               for (_, x), (_, y) in zip(engine._flatten(a), engine._flatten(b)))
+
+
+def phase3_dryrun() -> None:
+    """The planner (ROADMAP A7): (a) the whole sweep,
+    ``python -m repro_torch.launch.dryrun --mesh both --parafac2`` on the
+    host (a child process, planning the cells over the cores) while
+    (b) runs: 70 cells, no failure, each family's seconds; (b) rank 0's
+    share of ``SHARE_CELLS`` on the card, made by ``dryrun.rank_share``
+    from a seed: the bytes the allocator was asked for equal to the plan's
+    ``port_argument_bytes`` and ``memory_allocated`` within its rounding,
+    a fit of ``SHARE_ITERS`` iterations at R = 40 on the scan engine
+    (every kernel of the route launched, no other), its peak against the
+    plan's ``bytes_per_device`` and its replayed ms/iter, and a
+    ``SHARE_F64_ITERS``-iteration f64 fit of the same share on the route
+    within ``SHARE_F64_TOL`` of the plain torch route on the card."""
+    import dataclasses
+    import math
+
+    import torch
+    from repro_torch.core import fit
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch.mesh import make_production_mesh
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "unknown"
+    jobs = max(1, min(8, (os.cpu_count() or 2) - 1))
+    out = OUT / "dryrun_torch.json"
+    out.unlink(missing_ok=True)
+    log = open(OUT / "dryrun.log", "w")
+    t_sweep = time.perf_counter()
+    sweep = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh", "both", "--parafac2",
+         "--out", str(out), "--quiet", "--jobs", str(jobs)],
+        stdout=log, stderr=subprocess.STDOUT, env={**os.environ, "PYTHONPATH": str(SRC)})
+    try:
+        mesh = make_production_mesh()
+        problems = []
+        for name, fmt, backend, route in SHARE_CELLS:
+            plan = dr.run_parafac2_cell(name, mesh, "pod16x16", backend=backend, engine="scan",
+                                        check_every=SHARE_CHUNK, format=fmt)
+            free_cached(f"before {name}'s share")
+            dev = torch.device("cuda")
+            alloc0 = torch.cuda.memory_allocated()
+            asked0 = torch.cuda.memory_stats()["requested_bytes.all.current"]
+            data, state, opts = dr.rank_share(name, mesh, format=fmt, backend=backend,
+                                              engine="scan", check_every=SHARE_CHUNK, device=dev)
+            torch.cuda.synchronize()
+            asked = torch.cuda.memory_stats()["requested_bytes.all.current"] - asked0
+            alloc = torch.cuda.memory_allocated() - alloc0
+            tensors = dr.share_tensors(data, state)
+            slack = sum(2 * 2**20 if t.numel() * t.element_size() > 2**20 else 512
+                        for t in tensors)
+            want = plan["port_argument_bytes"]
+            print(f"[dryrun] {name} rank 0 of pod16x16 ({fmt}, {len(data.buckets)} buckets of "
+                  f"{[b.kb for b in data.buckets]} subjects, R = {opts.rank}; {card}): planned "
+                  f"port_argument_bytes {want}, allocator asked {asked}, memory_allocated "
+                  f"{alloc} (rounding at most {slack}); the reference layout's "
+                  f"{plan['argument_size_in_bytes']}", flush=True)
+            if asked != want or not want <= alloc <= want + slack:
+                problems.append(f"{name}: the share's bytes on the card differ from the plan")
+            data = dataclasses.replace(data, shard=(0, 1))     # fitted on its own card
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s1, h1 = fit(data, opts, max_iters=SHARE_ITERS, tol=0.0, state=state)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            got = launches()
+            peak = torch.cuda.max_memory_allocated() - alloc0
+            missing = [k for k in ON_MAIN_PATH[route] if not got.get(k)]
+            stray = [k for k, n in got.items() if n and k not in ON_MAIN_PATH[route]]
+            t0 = time.perf_counter()
+            s2, h2 = fit(data, opts, max_iters=SHARE_ITERS, tol=0.0, state=state)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / SHARE_ITERS * 1e3
+            finite = all(map(math.isfinite, h1 + h2))
+            print(f"[dryrun] {name} share: {SHARE_ITERS} iterations of {backend} on the scan "
+                  f"engine (chunk {SHARE_CHUNK}): first fit {first_s:.3f} s with warm-up and "
+                  f"capture, replayed {ms:.3f} ms/iter; fit {h2[-1]:.6f}; peak "
+                  f"{peak / 2**20:.1f} MiB against the plan's bytes_per_device "
+                  f"{plan['bytes_per_device'] / 2**20:.1f} MiB (port_argument_bytes + temp "
+                  f"{(want + plan['temp_size_in_bytes']) / 2**20:.1f} MiB); launches "
+                  f"{ {k: n for k, n in got.items() if n} }; {card}", flush=True)
+            if missing or stray or not finite or h1 != h2:
+                problems.append(f"{name}: missing {missing}, stray {stray}, finite {finite}, "
+                                f"replay equal {h1 == h2}")
+            del s1, s2, data, state
+            free_cached(f"{name}'s f32 share")
+            plain = "torch" if fmt == "cc" else "scoo"
+            d64, st64, o64 = dr.rank_share(name, mesh, format=fmt, backend=backend,
+                                           dtype=torch.float64, device=dev)
+            d64 = dataclasses.replace(d64, shard=(0, 1))
+            a, ha = fit(d64, o64, max_iters=SHARE_F64_ITERS, tol=0.0, state=st64)
+            b, hb = fit(d64, dataclasses.replace(o64, backend=plain),
+                        max_iters=SHARE_F64_ITERS, tol=0.0, state=st64)
+            gap = max(share_gap(a, b), max(abs(x - y) for x, y in zip(ha, hb)))
+            print(f"[dryrun] {name} share in f64, {SHARE_F64_ITERS} iterations: {backend} "
+                  f"against the {plain} route on the card, fits {ha} and {hb}, largest gap "
+                  f"{gap:.3e} (bound {SHARE_F64_TOL:g})", flush=True)
+            if not gap <= SHARE_F64_TOL:
+                problems.append(f"{name}: the f64 fit parts from the {plain} route by {gap:.3e}")
+            del a, b, d64, st64
+            free_cached(f"{name}'s f64 share")
+        rc = sweep.wait(timeout=max(1.0, DRYRUN_LIMIT - (time.perf_counter() - t_sweep)))
+    finally:
+        if sweep.poll() is None:
+            sweep.kill()
+            sweep.wait()
+        log.close()
+    wall = time.perf_counter() - t_sweep
+    res = json.loads(out.read_text()) if out.exists() else {}
+    cells = {k: v for k, v in res.items() if not k.startswith("_")}
+    family = [line for line in (OUT / "dryrun.log").read_text().splitlines()
+              if line.startswith("[dryrun] seconds by family")]
+    print(f"[dryrun] the sweep (--mesh both --parafac2, cells planned over {jobs} "
+          f"processes): {len(cells)} cells, exit {rc}, {wall:.1f} s wall beside the "
+          f"shares; {family[-1][9:] if family else 'no family seconds'}", flush=True)
+    if rc != 0 or len(cells) != DRYRUN_CELLS:
+        print(Path(OUT / "dryrun.log").read_text()[-6000:], flush=True)
+        problems.append(f"the sweep exited {rc} with {len(cells)} of {DRYRUN_CELLS} cells")
+    if problems:
+        fail("phase3_dryrun: " + "; ".join(problems))
+
+
 def bcc_cut(bt, V):
     """The largest CC bucket's first subjects, as many as keep the BCC
     values within ``BCC_CUT_BYTES`` (width unchanged, depth cut), converted
@@ -4656,6 +4811,7 @@ def main() -> int:
     phase3_lm(dev)
     phase3_lm_train()
     phase3_lm_mesh()
+    phase3_dryrun()
     print(f"[done] {time.perf_counter() - t0:.1f}s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -25,7 +25,8 @@ replicated tensors back. These autograd functions carry the cuts across:
 A cut is ``(mesh dimension name, tensor dim)``; cuts of one tensor dim
 nest in the order given (outer first: ``("pod", 0), ("data", 0)`` is the
 reference's ``P(("pod", "data"))``). Dimensions of size 1 cut nothing.
-Every collective is issued even on a world of one.
+Every collective is issued even on a world of one, and reports its operand
+to :func:`repro_torch.analysis.comm.record_collectives`.
 """
 from __future__ import annotations
 
@@ -33,6 +34,8 @@ from typing import List, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.analysis.comm import note
 
 __all__ = ["all_to_all", "from_local", "pmean", "to_local"]
 
@@ -68,6 +71,7 @@ class _ToLocal(torch.autograd.Function):
     def backward(ctx, g):
         whole = g.new_zeros(ctx.shape)
         _narrow(whole, ctx.blocks).copy_(g)
+        note("all-reduce", whole)
         dist.all_reduce(whole, op=dist.ReduceOp.SUM, group=ctx.group)
         return whole, None, None
 
@@ -80,6 +84,7 @@ class _FromLocal(torch.autograd.Function):
             return x.view_as(x)
         for group, dim, _, count in reversed(blocks):     # the innermost cut first
             parts = [torch.empty_like(x) for _ in range(count)]
+            note("all-gather", x)
             dist.all_gather(parts, x.contiguous(), group=group)
             x = torch.cat(parts, dim)
         return x
@@ -94,12 +99,14 @@ class _AllToAll(torch.autograd.Function):
     def forward(ctx, x, group):
         ctx.group = group
         out = torch.empty_like(x, memory_format=torch.contiguous_format)
+        note("all-to-all", x)
         dist.all_to_all_single(out, x.contiguous(), group=group)
         return out
 
     @staticmethod
     def backward(ctx, g):
         out = torch.empty_like(g, memory_format=torch.contiguous_format)
+        note("all-to-all", g)
         dist.all_to_all_single(out, g.contiguous(), group=ctx.group)
         return out, None
 
@@ -109,6 +116,7 @@ class _PMean(torch.autograd.Function):
     def forward(ctx, x, group):
         ctx.n = dist.get_world_size(group)
         y = x.detach().reshape(1).clone()
+        note("all-reduce", y)
         dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
         return (y / ctx.n).reshape(x.shape)
 

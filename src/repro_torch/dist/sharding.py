@@ -48,7 +48,9 @@ from typing import Any, Dict, Optional, Sequence, Tuple, Union
 import torch
 import torch.distributed as dist
 
-__all__ = ["COLLECTIVES", "LM_RULES", "SP_RULES", "ParamSharding", "Rules", "axis_group",
+from repro_torch.analysis.comm import note
+
+__all__ = ["LM_RULES", "SP_RULES", "ParamSharding", "Rules", "axis_group",
            "axis_rules", "current_mesh", "current_rules", "enforce_divisible",
            "logical_spec", "param_shardings", "param_spec", "psum_subjects", "shard",
            "subject_collectives", "subject_mesh_axes", "subject_shard"]
@@ -114,26 +116,6 @@ def subject_mesh_axes(mesh, rules: Optional[Rules] = None) -> Tuple[str, ...]:
     return tuple(n for n in names if n in (mesh.mesh_dim_names or ()))
 
 
-class CollectiveCounts:
-    """The subject all-reduces issued (``calls``) and their bytes, since the
-    last :meth:`reset`: what a captured iteration moves across ranks."""
-
-    def __init__(self):
-        self.calls = 0
-        self.bytes = 0
-
-    def reset(self) -> None:
-        self.calls = 0
-        self.bytes = 0
-
-    def add(self, t: torch.Tensor) -> None:
-        self.calls += 1
-        self.bytes += t.numel() * t.element_size()
-
-
-COLLECTIVES = CollectiveCounts()
-
-
 def axis_group(mesh, axis_names: Sequence[str]):
     """The process group over ``mesh``'s ``axis_names`` dimensions: the one
     dimension's group, or the flattened group of several."""
@@ -186,15 +168,16 @@ def psum_subjects(x: torch.Tensor) -> torch.Tensor:
     ALS step calls it on every sum over subjects (MTTKRP partial sums, W
     Grams of the bucketed layout, the fit's residual terms). On CUDA the
     all-reduce is issued on the current stream, so a CUDA graph captures
-    it; even a world of one issues it."""
+    it; even a world of one issues it. It reports its operand to
+    :func:`repro_torch.analysis.comm.record_collectives`."""
     if not _CTX.collective:
         return x
     axes, mesh = _CTX.collective[-1]
     if not axes:
         return x
     y = x.clone(memory_format=torch.contiguous_format)
+    note("all-reduce", y)
     dist.all_reduce(y, op=dist.ReduceOp.SUM, group=axis_group(mesh, axes))
-    COLLECTIVES.add(y)
     return y
 
 

@@ -196,12 +196,14 @@ def check_index(**index_arrays) -> None:
 
 
 def on_cpu(*ts: torch.Tensor) -> bool:
-    """True when every operand lies on the CPU; raise if they lie on
-    several devices."""
+    """True when every operand lies on the CPU, or on the meta device (the
+    planner's shape-only run, :mod:`repro_torch.launch.dryrun`), where a
+    wrapper takes its plain version; raise if they lie on several
+    devices."""
     devs = {t.device for t in ts}
     if len(devs) != 1:
         raise ValueError(f"operands on several devices: {sorted(map(str, devs))}")
-    return next(iter(devs)).type == "cpu"
+    return next(iter(devs)).type in ("cpu", "meta")
 
 
 def _on_card(ts: Sequence[torch.Tensor]) -> None:

@@ -10,9 +10,16 @@ too). NCCL on CUDA, gloo on the CPU; every collective times out after
 
 :func:`make_local_mesh` is the world's ranks as a ``("data", "model")``
 ``DeviceMesh`` with ``model`` of size 1, the reference's local mesh, and
-:func:`local_mesh` the one the mesh engine takes when none is installed. The
-reference's ``make_production_mesh`` (the 256- and 512-chip pod meshes)
-waits for the planner of ROADMAP A7.
+:func:`local_mesh` the one the mesh engine takes when none is installed.
+Each of the three brings the process group up on a GPU unless it is asked
+for the CPU (``device="cpu"``): without a GPU the default raises.
+
+:func:`make_production_mesh` is the reference's pod mesh, 256 cards as
+``(16, 16)`` ``("data", "model")`` or 512 as ``(2, 16, 16)`` ``("pod",
+"data", "model")``. One machine cannot bring up a process group that size,
+so it is an :class:`AbstractMesh`: the shape and names that the planner
+(:mod:`repro_torch.launch.dryrun`) and ``dist.sharding.param_shardings``
+read, and no process group.
 
 Run the mesh engine on N GPUs with ``torchrun --nproc-per-node N -m
 repro_torch.launch.decompose --engine mesh ...``, or on the CPU over gloo
@@ -21,13 +28,17 @@ with ``--device cpu``.
 from __future__ import annotations
 
 import datetime
+import math
 import os
 
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
-__all__ = ["TIMEOUT", "init_distributed", "local_mesh", "make_local_mesh", "shutdown"]
+from repro_torch.device import resolve_device
+
+__all__ = ["TIMEOUT", "AbstractMesh", "init_distributed", "local_mesh", "make_local_mesh",
+           "make_production_mesh", "shutdown"]
 
 TIMEOUT = datetime.timedelta(seconds=60)   # a hung collective fails after this
 
@@ -44,14 +55,13 @@ class _LocalMesh:
 _LOCAL = _LocalMesh()
 
 
-def init_distributed(device=None, *, timeout: datetime.timedelta = TIMEOUT) -> torch.device:
+def init_distributed(device="cuda", *, timeout: datetime.timedelta = TIMEOUT) -> torch.device:
     """Bring up the default process group if it is not up, and return this
     rank's device: ``cuda:LOCAL_RANK`` (made current) for a CUDA
-    ``device``, the CPU otherwise. ``device`` defaults to CUDA when a GPU
-    is present."""
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    device = torch.device(device)
+    ``device``, the CPU for ``"cpu"``. ``device`` is resolved by
+    :func:`repro_torch.device.resolve_device`: the default, CUDA, raises
+    without a GPU."""
+    device = resolve_device(device)
     if device.type == "cuda":
         device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
         torch.cuda.set_device(device)
@@ -65,7 +75,7 @@ def init_distributed(device=None, *, timeout: datetime.timedelta = TIMEOUT) -> t
     return device
 
 
-def make_local_mesh(device=None) -> DeviceMesh:
+def make_local_mesh(device="cuda") -> DeviceMesh:
     """The world's ranks as a ``("data", "model")`` mesh with ``model`` 1
     (bringing the process group up first if it is not up)."""
     device = init_distributed(device)
@@ -73,7 +83,7 @@ def make_local_mesh(device=None) -> DeviceMesh:
                             mesh_dim_names=("data", "model"))
 
 
-def local_mesh(device=None) -> DeviceMesh:
+def local_mesh(device="cuda") -> DeviceMesh:
     """:func:`make_local_mesh`, made once while the default process group
     lives: the mesh engine's default mesh."""
     init_distributed(device)
@@ -81,6 +91,32 @@ def local_mesh(device=None) -> DeviceMesh:
         _LOCAL.mesh = make_local_mesh(device)
         _LOCAL.group = dist.group.WORLD
     return _LOCAL.mesh
+
+
+class AbstractMesh:
+    """A mesh's shape and dimension names with no process group behind it:
+    what ``DeviceMesh`` offers the planner (``shape``, ``mesh_dim_names``,
+    ``size()``)."""
+
+    def __init__(self, shape, mesh_dim_names):
+        if len(shape) != len(mesh_dim_names):
+            raise ValueError(f"shape {shape} and names {mesh_dim_names} differ in length")
+        self.shape = tuple(int(n) for n in shape)
+        self.mesh_dim_names = tuple(mesh_dim_names)
+
+    def size(self, mesh_dim=None) -> int:
+        if mesh_dim is None:
+            return math.prod(self.shape)
+        if isinstance(mesh_dim, str):
+            mesh_dim = self.mesh_dim_names.index(mesh_dim)
+        return self.shape[mesh_dim]
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """The 16x16 single pod (256 cards) or the 2x16x16 two-pod mesh (512)."""
+    if multi_pod:
+        return AbstractMesh((2, 16, 16), ("pod", "data", "model"))
+    return AbstractMesh((16, 16), ("data", "model"))
 
 
 def shutdown() -> None:

@@ -27,6 +27,7 @@ import time
 import torch
 import torch.distributed as dist
 
+from repro_torch.analysis.comm import record_collectives
 from repro_torch.core import Parafac2Options, engine, fit
 from repro_torch.device import resolve_device
 from repro_torch.dist import sharding as dsh
@@ -82,12 +83,12 @@ def main(argv=None) -> dict:
                "check_every": args.check_every, "iters": args.iters,
                "shard_bytes": [int(t) for t in every],
                "imbalance": None if balance is None else balance["imbalance_max_over_mean"]}
-        dsh.COLLECTIVES.reset()
-        out["mesh_first_ms"], _ = _timed(bt, opts, args.iters, group)
+        with record_collectives() as rec:
+            out["mesh_first_ms"], _ = _timed(bt, opts, args.iters, group)
         # Python issues the all-reduces of the warm-up and the capture on CUDA
         # (the replays hold them), of every iteration on the CPU
         issued = engine.WARMUP_ITERS + 1 if device.type == "cuda" else args.iters
-        out["allreduce_bytes_per_iter"] = dsh.COLLECTIVES.bytes // issued
+        out["allreduce_bytes_per_iter"] = rec["all-reduce"] // issued
         out["mesh_ms"], out["mesh_history"] = _timed(bt, opts, args.iters, group)
         if count == 1:
             scan = dataclasses.replace(opts, engine="scan")

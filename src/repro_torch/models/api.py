@@ -97,6 +97,12 @@ class ModelBundle:
     init_cache: Callable[..., Any]
 
 
+def _device(device) -> torch.device:
+    """``resolve_device``'s rule, and ``"meta"`` for trees of shapes only."""
+    dev = torch.device(device)
+    return dev if dev.type == "meta" else resolve_device(dev)
+
+
 def stub_shapes(cfg: ArchConfig, batch: int) -> Dict[str, Any]:
     """The shapes of the modality-stub inputs (whisper's precomputed encoder
     frames, pixtral's patch embeddings), by batch key."""
@@ -121,8 +127,10 @@ def build(cfg: ArchConfig, *, lr: float = 3e-4, wd: float = 0.1,
     def init_params(generator: torch.Generator, device="cuda"):
         """The parameter tree on ``device`` (a GPU by default; raises
         without one unless ``"cpu"``), drawn from ``generator``, a
-        ``torch.Generator`` on that device."""
-        return init_lm(generator, cfg, device=resolve_device(device))
+        ``torch.Generator`` on that device. On ``"meta"`` it is the tree's
+        shapes and dtypes only (``generator`` may be None): the planner's
+        stand-in for the reference's ``jax.eval_shape(init_params)``."""
+        return init_lm(generator, cfg, device=_device(device))
 
     def train_step(params, opt_state, batch, step):
         """(params, opt_state, {"loss", "aux", "total"}): one AdamW update at
@@ -141,9 +149,7 @@ def build(cfg: ArchConfig, *, lr: float = 3e-4, wd: float = 0.1,
         return lm_decode(params, cache, tokens, cfg, pos=pos)
 
     def _cache(batch: int, max_len: int, device="cuda"):
-        if torch.device(device).type != "meta":
-            device = resolve_device(device)
-        return init_cache(cfg, batch, max_len, dtype=cache_dtype, device=device)
+        return init_cache(cfg, batch, max_len, dtype=cache_dtype, device=_device(device))
 
     def input_specs(shape_name) -> Dict[str, Any]:
         """Meta-device stand-ins for every model input of this cell."""

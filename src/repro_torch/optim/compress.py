@@ -53,6 +53,7 @@ def compressed_psum(grads: Any, errors: Any, axis_name):
     over the group's n ranks. That is the mean of the ranks' dequantized
     gradients only where their scales agree: the reference's rule, kept.
     The error feedback stays on its rank."""
+    from repro_torch.analysis.comm import note
     from repro_torch.core.constraints import tree_leaves, tree_unflatten
     from repro_torch.dist.sharding import axis_group, current_mesh
 
@@ -69,7 +70,9 @@ def compressed_psum(grads: Any, errors: Any, axis_name):
         n = s.new_tensor(size)          # a tensor divisor, as in quantize
         acc = q.to(torch.int32)
         s_sum = s.reshape(1).clone()
+        note("all-reduce", acc)
         torch.distributed.all_reduce(acc, group=group)
+        note("all-reduce", s_sum)
         torch.distributed.all_reduce(s_sum, group=group)
         reduced.append(acc.float() * (s_sum[0] / n) / n)
         new_errors.append(new_e)

@@ -436,3 +436,54 @@ def lm_mesh_runs(tmp_path, cases: dict, **given):
     assert oracle.returncode == 0, log[-4000:]
     port = {name: [r[name] for r in ranks[size(c)]] for name, c in cases.items()}
     return port, dict(np.load(out))
+
+
+# ---------------------------------------------------------------------------
+# the collective byte count (tests/test_torch_comm.py)
+# ---------------------------------------------------------------------------
+
+def comm_counts(rank: int, n: int, iters: int) -> dict:
+    """What ``record_collectives`` records on this rank: over ``iters``
+    mesh-engine iterations of choa 0.002's shard at rank 4 with the
+    bucketed W (and the plan's collective bytes of one), over one forward
+    and one backward of the manual MoE (phi3.5 reduced on a (1, n) mesh,
+    and the plan's all-to-all bytes of one forward), and over
+    ``compressed_psum`` of two leaves over "data" on an (n, 1) mesh."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.analysis.comm import record_collectives
+    from repro_torch.core import Parafac2Options, fit
+    from repro_torch.dist import sharding as dsh
+    from repro_torch.launch import dryrun
+    from repro_torch.models.moe import init_moe, moe_block
+    from repro_torch.optim import compressed_psum
+
+    out = {}
+    bt = _shard(_data(), n, rank, "cc")
+    opts = Parafac2Options(rank=4, dtype=F64, engine="mesh", w_layout="bucketed",
+                           backend="torch")
+    with record_collectives() as rec:
+        fit(bt, opts, max_iters=iters, tol=0.0)
+    out["fit"] = (dict(rec), dict(rec.calls))
+    out["fit_plan"] = dryrun.parafac2_collective_bytes(opts, bt.n_cols, bt.n_subjects)
+
+    cfg = _cfg("phi3.5-moe-42b-a6.6b")
+    mesh = init_device_mesh("cpu", (1, n), mesh_dim_names=("data", "model"))
+    p = init_moe(torch.Generator().manual_seed(0), cfg, torch.float32, "cpu")
+    x = torch.randn((2, 8, cfg.d_model), generator=torch.Generator().manual_seed(1),
+                    requires_grad=True)
+    with dsh.axis_rules(dsh.LM_RULES, mesh):
+        with record_collectives() as fwd:
+            y, aux = moe_block(p, x, cfg)
+        with record_collectives() as bwd:
+            ((y * y).sum() + aux).backward()
+    out["moe"] = (dict(fwd), dict(bwd))
+    out["moe_plan"] = dryrun.moe_all_to_all_bytes(cfg, 2, 8, mesh, 4)
+
+    mesh = init_device_mesh("cpu", (n, 1), mesh_dim_names=("data", "model"))
+    g = {"a": torch.randn(3, 5) * (rank + 1), "b": torch.randn(7)}
+    errors = {k: torch.zeros_like(v) for k, v in g.items()}
+    with dsh.axis_rules(dsh.LM_RULES, mesh), record_collectives() as rec:
+        compressed_psum(g, errors, "data")
+    out["psum"] = (dict(rec), dict(rec.calls))
+    return out

@@ -1760,8 +1760,8 @@ def test_mesh_world_of_one_is_scan_on_gpu(dev, backend, fmt, check_every):
     import dataclasses
 
     import torch.distributed as dist
+    from repro_torch.analysis.comm import record_collectives
     from repro_torch.core import engine
-    from repro_torch.dist import sharding as dsh
     from repro_torch.launch import mesh as lm
 
     try:
@@ -1771,10 +1771,10 @@ def test_mesh_world_of_one_is_scan_on_gpu(dev, backend, fmt, check_every):
                        format=fmt)
         opts = Parafac2Options(rank=5, backend=backend, engine="scan", check_every=check_every)
         s_scan, h_scan = fit(bt, opts, max_iters=10, tol=0.0)
-        dsh.COLLECTIVES.reset()
-        s_mesh, h_mesh = fit(bt, dataclasses.replace(opts, engine="mesh"), max_iters=10,
-                             tol=0.0)
-        assert dsh.COLLECTIVES.calls == 4 * (engine.WARMUP_ITERS + 1)
+        with record_collectives() as rec:
+            s_mesh, h_mesh = fit(bt, dataclasses.replace(opts, engine="mesh"), max_iters=10,
+                                 tol=0.0)
+        assert rec.calls["all-reduce"] == 4 * (engine.WARMUP_ITERS + 1)
         assert h_mesh == h_scan
         for (k, a), (_, b) in zip(engine._flatten(s_mesh), engine._flatten(s_scan)):
             assert torch.equal(a, b), k
@@ -2026,3 +2026,29 @@ def test_lm_mesh_compressed_psum_on_gpu_matches_cpu(lm_world, dev):
         assert red[k].device.type == "cuda"
         assert torch.equal(red[k].cpu(), c_red[k]) and torch.equal(new[k].cpu(), c_new[k]), k
         assert torch.equal(new[k], ef_compress_update(grads[k], errors[k])[3]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["cc", "scoo"])
+def test_rank_share_on_gpu_holds_the_planned_bytes(dev, fmt):
+    """A small pod rank's share (choa r40 on a 64 x 64 mesh: 29 subjects a
+    bucket) made on the card: the bytes the caching allocator was asked
+    for are the planner's ``port_argument_bytes`` exactly, and
+    ``memory_allocated`` is that up to the allocator's rounding (a block of
+    512-byte units, whole 2 MiB units past 1 MiB)."""
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch.mesh import AbstractMesh
+
+    mesh = AbstractMesh((64, 64), ("data", "model"))
+    plan = dr.run_parafac2_cell("parafac2-choa-r40", mesh, "64x64", format=fmt)
+    torch.cuda.synchronize()
+    alloc0 = torch.cuda.memory_allocated(dev)
+    asked0 = torch.cuda.memory_stats(dev)["requested_bytes.all.current"]
+    data, state, _ = dr.rank_share("parafac2-choa-r40", mesh, format=fmt, device=dev)
+    torch.cuda.synchronize()
+    asked = torch.cuda.memory_stats(dev)["requested_bytes.all.current"] - asked0
+    alloc = torch.cuda.memory_allocated(dev) - alloc0
+    tensors = dr.share_tensors(data, state)
+    slack = sum(2 * 2**20 if t.numel() * t.element_size() > 2**20 else 512 for t in tensors)
+    assert asked == dr.port_bytes(data, state) == plan["port_argument_bytes"]
+    assert plan["port_argument_bytes"] <= alloc <= plan["port_argument_bytes"] + slack

@@ -26,6 +26,7 @@ import _mesh_workers as workers  # noqa: E402
 from _hypothesis_compat import given, settings, st  # noqa: E402
 from repro.sparse.bucketing import (fixed_plan as j_fixed_plan,  # noqa: E402
                                     plan_buckets as j_plan_buckets)
+from repro_torch.analysis.comm import record_collectives  # noqa: E402
 from repro_torch.dist import sharding as dsh  # noqa: E402
 from repro_torch.launch import decompose  # noqa: E402
 from repro_torch.launch import mesh as lm  # noqa: E402
@@ -146,12 +147,11 @@ def test_subject_collectives_sum_over_a_world_of_one():
         assert dsh.subject_mesh_axes(mesh, {"subjects": None}) == ()
         assert dsh.subject_shard(mesh, axes) == (0, 1)
         x = torch.arange(6.0)
-        dsh.COLLECTIVES.reset()
-        with dsh.subject_collectives(axes, mesh):
+        with record_collectives() as rec, dsh.subject_collectives(axes, mesh):
             y = dsh.psum_subjects(x)
             assert dsh.current_mesh() is None            # shard() off in the body
         assert y is not x and torch.equal(y, x)
-        assert (dsh.COLLECTIVES.calls, dsh.COLLECTIVES.bytes) == (1, 24)
+        assert (rec.calls["all-reduce"], rec["all-reduce"], rec["total"]) == (1, 24, 24)
         with pytest.raises(ValueError, match="DeviceMesh"):
             with dsh.subject_collectives(axes):
                 pass
